@@ -1,0 +1,94 @@
+// K1: one fused leapfrog tick per launch.
+//
+// Replaces the TPU kernel fdtd_tpu/solver/pallas_step.py::_kernel (built by
+// _build_call, driven by pallas_step_fn): H from the backward curl of E,
+// then E from the forward curl of the new H, in one pass over the lattice,
+// with Neumann(0) edges and uniform or uint8-matid coefficients.
+//
+// Bound on the H100: device memory. A tick must read six fields and write
+// six: 48 B/cell at f32 (24 at bf16), plus 1 B/cell of material index.
+// Against 3.35 TB/s that caps the kernel at ~70 Gcell/s f32 (~140 bf16);
+// the arithmetic (~40 flop/cell) is far below the card's rate.
+//
+// What the design does about it: a single pass (the two-sweep reference
+// moves ~96 B/cell), with the new H plane that E needs kept on chip: the
+// tile's new H sits in shared memory for the E update of the same plane,
+// and the plane above rides in registers (see yee.cuh). The +1 ring of new
+// H and the x-1 E plane are re-read from L1/L2, not from device memory.
+// x is cut into chunks when the (y, z) tiles alone cannot fill 132 SMs.
+//
+// Point sources ride the kernel: M is subtracted from the new H before E
+// reads it, J from the new E before it is stored, both in f32 (the TPU
+// kernel leaves M to the XLA step and adds J after the call in the storage
+// type).
+#include "yee.cuh"
+
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(yee::THREADS)
+step_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
+            yee::Material M, yee::Sources S, int with_m, yee::Work w) {
+  __shared__ yee::Shared sh;
+  yee::load_table(sh, M);
+  int y0, z0, x_lo, x_hi;
+  yee::decode(w, blockIdx.x, L, y0, z0, x_lo, x_hi);
+  // row layout: [x, y, z, J, M (with_m)]
+  yee::tile_pass<T, T>(in, out, L, M, S, 3, with_m ? 6 : -1, y0, z0, x_lo,
+                       x_hi, sh);
+}
+
+template <typename T>
+int launch(void** f, const float* table, int n_mat, const uint8_t* matid,
+           const float* rows, int n_src, int row_w, int with_m, int nx, int ny,
+           int nz, float inv_x, float inv_y, float inv_z, cudaStream_t stream) {
+  yee::Fields<const T> in{(const T*)f[0], (const T*)f[1], (const T*)f[2],
+                          (const T*)f[3], (const T*)f[4], (const T*)f[5]};
+  yee::Fields<T> out{(T*)f[6], (T*)f[7], (T*)f[8], (T*)f[9], (T*)f[10], (T*)f[11]};
+  yee::Lattice L{nx, ny, nz, inv_x, inv_y, inv_z};
+  yee::Material M{table, n_mat, matid};
+  yee::Sources S{rows, n_src, row_w};
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, step_kernel<T>,
+                                                        yee::THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  const yee::Work w = yee::plan_work(L, sms * (per_sm > 0 ? per_sm : 1));
+  step_kernel<T><<<w.n_items, dim3(yee::TZ, yee::TY), 0, stream>>>(
+      in, out, L, M, S, with_m, w);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// fields: 12 device pointers, the six inputs then the six outputs
+// (ex, ey, ez, hx, hy, hz), all (nx, ny, nz) C-contiguous. dtype 0 = f32,
+// 1 = bf16. matid may be null (uniform: table row 0). rows: n_src source
+// rows [x, y, z, J, M (only when with_m)], f32; null when n_src == 0.
+// Returns a cudaError_t.
+int fdtd_step(int dtype, void** fields, const float* table, int n_mat,
+              const uint8_t* matid, const float* rows, int n_src, int row_w,
+              int with_m, int nx, int ny, int nz, float inv_x, float inv_y,
+              float inv_z, void* stream) {
+  if (n_mat < 1 || n_mat > yee::MAX_MATERIALS) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch<float>(fields, table, n_mat, matid, rows, n_src, row_w,
+                         with_m, nx, ny, nz, inv_x, inv_y, inv_z, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(fields, table, n_mat, matid, rows, n_src,
+                                 row_w, with_m, nx, ny, nz, inv_x, inv_y,
+                                 inv_z, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* fdtd_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

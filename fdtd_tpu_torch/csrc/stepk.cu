@@ -1,0 +1,132 @@
+// K2: K leapfrog ticks (K >= 2) in one cooperative launch.
+//
+// Replaces the TPU kernel fdtd_tpu/solver/pallas_stepk.py::_kernel (built by
+// _build_call, driven by pallas_stepk_fn): K ticks per call with J and M
+// for every level injected in-kernel from the source rows, intermediate
+// levels kept in f32 whatever the storage type. (The TPU kernel adds level
+// K's J after the call, in the storage type; here it rides the kernel like
+// the other levels.)
+//
+// Bound on the H100: device memory. This first version runs each tick as
+// one fused pass (yee.cuh's tile pass, the K1 schedule): 48 B/cell/tick at
+// f32 storage, so the same ~70 Gcell/s ceiling against 3.35 TB/s as K1. It
+// does not yet block in time; the TPU kernel's wavefront, which carries K
+// levels of planes on chip and moves ~(48 + 8)/K B/cell/tick, is later
+// work.
+//
+// What the design does about the bound: ticks ping-pong between two f32
+// work sets (the output buffer doubles as one when storage is f32), a
+// grid-wide barrier (grid.sync) separates the ticks, and the blocks stay
+// resident across all K ticks, so a call costs one launch and one source
+// upload for K ticks instead of K. The barrier also orders the writes of
+// one tick before the reads of the next across blocks.
+#include <cooperative_groups.h>
+
+#include "yee.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(yee::THREADS)
+stepk_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
+             yee::Fields<float> w2, yee::Fields<T> out, yee::Lattice L,
+             yee::Material M, yee::Sources S, int k, int with_m, yee::Work w) {
+  __shared__ yee::Shared sh;
+  yee::load_table(sh, M);
+  cg::grid_group grid = cg::this_grid();
+  for (int lvl = 1; lvl <= k; ++lvl) {
+    // row layout: [x, y, z, J levels 1..K, M levels 1..K (with_m)]
+    const int j_col = 3 + 3 * (lvl - 1);
+    const int m_col = with_m ? 3 + 3 * k + 3 * (lvl - 1) : -1;
+    // level l writes w1 when K-l is odd, w2 when even (w2 may alias out)
+    const yee::Fields<float> dst = ((k - lvl) & 1) ? w1 : w2;
+    const yee::Fields<float> src = ((k - lvl + 1) & 1) ? w1 : w2;
+    for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
+      int y0, z0, x_lo, x_hi;
+      yee::decode(w, item, L, y0, z0, x_lo, x_hi);
+      if (lvl == 1)
+        yee::tile_pass<T, float>(in, dst, L, M, S, j_col, m_col, y0, z0, x_lo,
+                                 x_hi, sh);
+      else if (lvl == k)
+        yee::tile_pass<float, T>(yee::as_const(src), out, L, M, S, j_col,
+                                 m_col, y0, z0, x_lo, x_hi, sh);
+      else
+        yee::tile_pass<float, float>(yee::as_const(src), dst, L, M, S, j_col,
+                                     m_col, y0, z0, x_lo, x_hi, sh);
+    }
+    if (lvl < k) grid.sync();
+  }
+}
+
+template <typename T>
+int launch(void** f, const float* table, int n_mat, const uint8_t* matid,
+           const float* rows, int n_src, int row_w, int with_m, int k, int nx,
+           int ny, int nz, float inv_x, float inv_y, float inv_z,
+           cudaStream_t stream) {
+  yee::Fields<const T> in{(const T*)f[0], (const T*)f[1], (const T*)f[2],
+                          (const T*)f[3], (const T*)f[4], (const T*)f[5]};
+  yee::Fields<T> out{(T*)f[6], (T*)f[7], (T*)f[8], (T*)f[9], (T*)f[10], (T*)f[11]};
+  yee::Fields<float> w1{(float*)f[12], (float*)f[13], (float*)f[14],
+                        (float*)f[15], (float*)f[16], (float*)f[17]};
+  yee::Fields<float> w2{(float*)f[18], (float*)f[19], (float*)f[20],
+                        (float*)f[21], (float*)f[22], (float*)f[23]};
+  yee::Lattice L{nx, ny, nz, inv_x, inv_y, inv_z};
+  yee::Material M{table, n_mat, matid};
+  yee::Sources S{rows, n_src, row_w};
+
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, stepk_kernel<T>, yee::THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (!coop || per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  // every block of a cooperative grid must be resident at once
+  const int resident = sms * per_sm;
+  yee::Work w = yee::plan_work(L, resident);
+  const int blocks = w.n_items < resident ? w.n_items : resident;
+  void* args[] = {&in, &w1, &w2, &out, &L, &M, &S, &k, &with_m, &w};
+  err = cudaLaunchCooperativeKernel((const void*)stepk_kernel<T>, dim3(blocks),
+                                    dim3(yee::TZ, yee::TY), args, 0, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// fields: 24 device pointers (ex, ey, ez, hx, hy, hz each), in this order:
+// the inputs (storage type), the outputs (storage type), work set 1 (f32)
+// and work set 2 (f32; for f32 storage pass the outputs again). All are
+// (nx, ny, nz) C-contiguous. dtype 0 = f32, 1 = bf16. k >= 2. rows: n_src
+// source rows [x, y, z, J levels 1..K, M levels 1..K (only when with_m)],
+// f32; null when n_src == 0. Returns a cudaError_t.
+int fdtd_stepk(int dtype, void** fields, const float* table, int n_mat,
+               const uint8_t* matid, const float* rows, int n_src, int row_w,
+               int with_m, int k, int nx, int ny, int nz, float inv_x,
+               float inv_y, float inv_z, void* stream) {
+  if (n_mat < 1 || n_mat > yee::MAX_MATERIALS || k < 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch<float>(fields, table, n_mat, matid, rows, n_src, row_w,
+                         with_m, k, nx, ny, nz, inv_x, inv_y, inv_z, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(fields, table, n_mat, matid, rows, n_src,
+                                 row_w, with_m, k, nx, ny, nz, inv_x, inv_y,
+                                 inv_z, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* fdtd_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -1,0 +1,234 @@
+// Shared device code of the Yee kernels (step.cu, stepk.cu).
+//
+// One "tile pass" advances the fields by one leapfrog tick over a (y, z)
+// tile of TY x TZ cells and a range of x planes, marching x in DESCENDING
+// order inside the block: the loop takes the place of the TPU kernel's
+// sequential Pallas grid (fdtd_tpu/solver/pallas_step.py). At plane p the
+// block
+//
+//   1. computes the new H at plane p over the tile plus its +1 ring in y
+//      and z into shared memory (the E update's forward differences read
+//      new H at y+1 and z+1, which belong to the neighbouring tiles; the
+//      ring is recomputed here instead of exchanged),
+//   2. computes the new E at plane p over the tile from that shared plane
+//      and the new H of plane p+1, which each thread carries in registers
+//      from the previous (higher-x) plane.
+//
+// A block that starts below the top of the lattice (an x chunk) first
+// recomputes the new H of the plane just above its chunk to seed that
+// carry, so chunks are independent and the lattice splits into enough
+// blocks to fill the card. Inputs are read and outputs written through
+// different buffers, so no block ever sees another's new values.
+//
+// Compute is f32 for every storage type (f32 or bf16), as on the TPU.
+// Edges are the reference's Neumann(0) closure: a difference that would
+// cross the lattice edge is zero. Offsets are 64-bit (1024^3 lattices).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace yee {
+
+constexpr int TY = 8;                   // tile rows (y) per block
+constexpr int TZ = 32;                  // tile columns (z), one warp wide
+constexpr int RY = TY + 1;              // tile + the +1 ring of new H
+constexpr int RZ = TZ + 1;
+constexpr int THREADS = TY * TZ;
+constexpr int MAX_MATERIALS = 256;      // uint8 material index
+
+__device__ __forceinline__ float load(const float* p, long long i) { return p[i]; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p, long long i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void store(float* p, long long i, float v) { p[i] = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, long long i, float v) {
+  p[i] = __float2bfloat16(v);  // round to nearest even, as torch and XLA do
+}
+
+template <typename T>
+struct Fields {
+  T* ex; T* ey; T* ez; T* hx; T* hy; T* hz;
+};
+
+template <typename T>
+__host__ __device__ inline Fields<const T> as_const(Fields<T> f) {
+  return Fields<const T>{f.ex, f.ey, f.ez, f.hx, f.hy, f.hz};
+}
+
+struct Lattice {
+  int nx, ny, nz;
+  float inv_x, inv_y, inv_z;
+};
+
+// Coefficients: a (n_mat, 4) f32 table [c_a, c_b, d_a, d_b] and a uint8
+// index per cell, or no index (uniform medium: row 0 everywhere).
+struct Material {
+  const float* table;
+  int n_mat;
+  const uint8_t* matid;
+};
+
+// Point sources: rows of [x, y, z, values...] (f32, positions exact up to
+// 2^24); a level's J or M triple starts at a column given per pass.
+struct Sources {
+  const float* rows;
+  int n;
+  int width;
+};
+
+struct Shared {
+  float table[MAX_MATERIALS][4];  // ids >= n_mat read zeros, as the TPU's one-hot select gives
+  float hx[RY][RZ];
+  float hy[RY][RZ];
+  float hz[RY][RZ];
+};
+
+__device__ inline void load_table(Shared& sh, const Material& m) {
+  const int tid = threadIdx.y * TZ + threadIdx.x;
+  float* flat = &sh.table[0][0];
+  for (int r = tid; r < MAX_MATERIALS * 4; r += THREADS)
+    flat[r] = r < m.n_mat * 4 ? m.table[r] : 0.f;
+  __syncthreads();
+}
+
+__device__ __forceinline__ int material_at(const Material& m, long long i) {
+  return m.matid ? (int)m.matid[i] : 0;
+}
+
+// Subtract coef * rows[s][col..col+2] from (a, b, c) for every source at
+// (p, y, z). The plane test is uniform across the block.
+__device__ __forceinline__ void inject(const Sources& s, int col, int p, int y,
+                                       int z, float coef, float& a, float& b,
+                                       float& c) {
+  for (int k = 0; k < s.n; ++k) {
+    const float* row = s.rows + (long long)k * s.width;
+    if ((int)row[0] != p) continue;
+    if ((int)row[1] == y && (int)row[2] == z) {
+      a -= coef * row[col];
+      b -= coef * row[col + 1];
+      c -= coef * row[col + 2];
+    }
+  }
+}
+
+// One tick over tile (y0, z0) and planes [x_lo, x_hi). j_col / m_col: the
+// source-row column of this tick's J / M, or -1 for none.
+template <typename TI, typename TO>
+__device__ void tile_pass(Fields<const TI> in, Fields<TO> out, const Lattice& L,
+                          const Material& M, const Sources& S, int j_col,
+                          int m_col, int y0, int z0, int x_lo, int x_hi,
+                          Shared& sh) {
+  const int tz = threadIdx.x, ty = threadIdx.y, tid = ty * TZ + tz;
+  const int y = y0 + ty, z = z0 + tz;
+  const bool own = y < L.ny && z < L.nz;
+  const long long plane = (long long)L.ny * L.nz;
+  float top_hy = 0.f, top_hz = 0.f;  // new H at plane p+1 (this thread's cell)
+
+  // x_hi < nx: start one plane above the chunk to seed the carry
+  const int p_start = x_hi < L.nx ? x_hi : x_hi - 1;
+  for (int p = p_start; p >= x_lo; --p) {
+    const bool seed = p == x_hi;
+    const long long base = (long long)p * plane;
+
+    // ---- H over the tile + ring: h = d_a*h - d_b*curl_b(E) [- d_b*M] ----
+    for (int r = tid; r < RY * RZ; r += THREADS) {
+      const int ly = r / RZ, lz = r - ly * RZ;
+      const int yy = y0 + ly, zz = z0 + lz;
+      if (yy >= L.ny || zz >= L.nz) continue;
+      const long long i = base + (long long)yy * L.nz + zz;
+      const float ex = load(in.ex, i), ey = load(in.ey, i), ez = load(in.ez, i);
+      const float dey_x = p > 0 ? ey - load(in.ey, i - plane) : 0.f;
+      const float dez_x = p > 0 ? ez - load(in.ez, i - plane) : 0.f;
+      const float dez_y = yy > 0 ? ez - load(in.ez, i - L.nz) : 0.f;
+      const float dex_y = yy > 0 ? ex - load(in.ex, i - L.nz) : 0.f;
+      const float dey_z = zz > 0 ? ey - load(in.ey, i - 1) : 0.f;
+      const float dex_z = zz > 0 ? ex - load(in.ex, i - 1) : 0.f;
+      const float ce_x = dez_y * L.inv_y - dey_z * L.inv_z;
+      const float ce_y = dex_z * L.inv_z - dez_x * L.inv_x;
+      const float ce_z = dey_x * L.inv_x - dex_y * L.inv_y;
+      const int mat = material_at(M, i);
+      const float d_a = sh.table[mat][2], d_b = sh.table[mat][3];
+      float hx = d_a * load(in.hx, i) - d_b * ce_x;
+      float hy = d_a * load(in.hy, i) - d_b * ce_y;
+      float hz = d_a * load(in.hz, i) - d_b * ce_z;
+      if (m_col >= 0) inject(S, m_col, p, yy, zz, d_b, hx, hy, hz);
+      sh.hx[ly][lz] = hx;
+      sh.hy[ly][lz] = hy;
+      sh.hz[ly][lz] = hz;
+      if (!seed && ly < TY && lz < TZ) {
+        store(out.hx, i, hx);
+        store(out.hy, i, hy);
+        store(out.hz, i, hz);
+      }
+    }
+    __syncthreads();
+
+    // ---- E over the tile: e = c_a*e + c_b*curl_f(H_new) [- c_b*J] ----
+    if (own) {
+      const float hx = sh.hx[ty][tz], hy = sh.hy[ty][tz], hz = sh.hz[ty][tz];
+      if (!seed) {
+        const long long i = base + (long long)y * L.nz + z;
+        const bool y_in = y < L.ny - 1, z_in = z < L.nz - 1;
+        const float dhy_x = p < L.nx - 1 ? top_hy - hy : 0.f;
+        const float dhz_x = p < L.nx - 1 ? top_hz - hz : 0.f;
+        const float dhz_y = y_in ? sh.hz[ty + 1][tz] - hz : 0.f;
+        const float dhx_y = y_in ? sh.hx[ty + 1][tz] - hx : 0.f;
+        const float dhy_z = z_in ? sh.hy[ty][tz + 1] - hy : 0.f;
+        const float dhx_z = z_in ? sh.hx[ty][tz + 1] - hx : 0.f;
+        const float ch_x = dhz_y * L.inv_y - dhy_z * L.inv_z;
+        const float ch_y = dhx_z * L.inv_z - dhz_x * L.inv_x;
+        const float ch_z = dhy_x * L.inv_x - dhx_y * L.inv_y;
+        const int mat = material_at(M, i);
+        const float c_a = sh.table[mat][0], c_b = sh.table[mat][1];
+        float ex = c_a * load(in.ex, i) + c_b * ch_x;
+        float ey = c_a * load(in.ey, i) + c_b * ch_y;
+        float ez = c_a * load(in.ez, i) + c_b * ch_z;
+        if (j_col >= 0) inject(S, j_col, p, y, z, c_b, ex, ey, ez);
+        store(out.ex, i, ex);
+        store(out.ey, i, ey);
+        store(out.ez, i, ez);
+      }
+      top_hy = hy;
+      top_hz = hz;
+    }
+    __syncthreads();
+  }
+}
+
+// Work items: (x chunk, y tile, z tile), z tiles fastest so that blocks in
+// flight together share their ring planes in L2.
+struct Work {
+  int n_ty, n_tz, chunk, n_items;
+};
+
+__device__ __forceinline__ void decode(const Work& w, int item, const Lattice& L,
+                                       int& y0, int& z0, int& x_lo, int& x_hi) {
+  const int tz = item % w.n_tz;
+  const int rest = item / w.n_tz;
+  const int ty = rest % w.n_ty;
+  const int c = rest / w.n_ty;
+  y0 = ty * TY;
+  z0 = tz * TZ;
+  x_lo = c * w.chunk;
+  x_hi = min(x_lo + w.chunk, L.nx);
+}
+
+// Split x into as many chunks as fit the `target` resident blocks in one
+// wave (a partial second wave would idle most of the card).
+inline Work plan_work(const Lattice& L, int target) {
+  Work w;
+  w.n_ty = (L.ny + TY - 1) / TY;
+  w.n_tz = (L.nz + TZ - 1) / TZ;
+  const long long tiles = (long long)w.n_ty * w.n_tz;
+  long long n_chunks = target / tiles;
+  if (n_chunks < 1) n_chunks = 1;
+  if (n_chunks > L.nx) n_chunks = L.nx;
+  w.chunk = (int)((L.nx + n_chunks - 1) / n_chunks);
+  n_chunks = (L.nx + w.chunk - 1) / w.chunk;
+  w.n_items = (int)(tiles * n_chunks);
+  return w;
+}
+
+}  // namespace yee

@@ -1,0 +1,142 @@
+"""Build and load the CUDA kernels of ``fdtd_tpu_torch/csrc``.
+
+Each kernel source compiles with ``nvcc`` into its own shared library with
+a plain C interface, loaded with ctypes. The build runs on first use, from
+the sources in the checkout alone, into ``build/fdtd_tpu_torch/`` next to
+the package; the library's name carries a hash of its sources, so an edited
+source never loads a stale build. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+__all__ = ["Kernel", "STEP", "STEPK", "BUILD_DIR"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fdtd_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_PP = ctypes.POINTER(ctypes.c_void_p)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+class Kernel:
+    """One kernel source: its library, its C entry point and its launch count.
+
+    ``launches`` counts the kernel's launches; the wrapper that launches it
+    adds one per launch and nothing else touches it except a caller that
+    resets it to 0.
+    """
+
+    def __init__(self, name: str, source: str, entry: str, argtypes):
+        self.name = name
+        self.source = source
+        self.entry = entry
+        self.argtypes = argtypes
+        self.launches = 0
+        self.build_seconds = None
+        self.build_log = ""
+        self._fn = None
+        self._error_string = None
+        self._lock = threading.Lock()
+
+    def _sources(self):
+        return [CSRC / self.source, *sorted(CSRC.glob("*.cuh"))]
+
+    def library_path(self) -> Path:
+        digest = hashlib.sha256()
+        for path in self._sources():
+            digest.update(path.name.encode())
+            digest.update(path.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"lib{Path(self.source).stem}_{digest.hexdigest()[:16]}.so"
+
+    def build(self) -> Path:
+        """Compile the library unless this exact source was built before."""
+        lib = self.library_path()
+        if lib.exists():
+            return lib
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        start = time.perf_counter()
+        # build under a temporary name and rename: concurrent builds never
+        # load a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / self.source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        self.build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed for {self.source} ({proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{self.build_log}")
+        os.replace(tmp, lib)
+        self.build_seconds = time.perf_counter() - start
+        return lib
+
+    def function(self):
+        """The C entry point, building and loading the library on first use."""
+        with self._lock:
+            if self._fn is None:
+                lib = ctypes.CDLL(str(self.build()))
+                fn = getattr(lib, self.entry)
+                fn.argtypes = list(self.argtypes)
+                fn.restype = _I
+                err = lib.fdtd_error_string
+                err.argtypes = [_I]
+                err.restype = ctypes.c_char_p
+                self._fn, self._error_string = fn, err
+        return self._fn
+
+    def launch(self, *args) -> None:
+        """Call the entry point; raise on any CUDA error it returns."""
+        fn = self.function()
+        rc = fn(*args)
+        if rc != 0:
+            msg = self._error_string(rc).decode()
+            raise RuntimeError(f"{self.name} kernel failed: CUDA error {rc} ({msg})")
+        self.launches += 1
+
+
+def pointers(tensors) -> ctypes.Array:
+    """A C array of the tensors' device pointers (a ``void**`` argument)."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# fdtd_step(dtype, fields, table, n_mat, matid, rows, n_src, row_w, m_col,
+#           nx, ny, nz, inv_x, inv_y, inv_z, stream)
+STEP = Kernel("K1 step", "step.cu", "fdtd_step",
+              [_I, _PP, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P])
+# fdtd_stepk(dtype, fields, table, n_mat, matid, rows, n_src, row_w, with_m,
+#            k, nx, ny, nz, inv_x, inv_y, inv_z, stream)
+STEPK = Kernel("K2 stepk", "stepk.cu", "fdtd_stepk",
+               [_I, _PP, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                _F, _P])

@@ -1,0 +1,302 @@
+"""The port's NumPy modules, sources and plain step against the JAX package.
+
+Inputs are made with numpy from a seed and handed to both packages; JAX
+runs at x64 (tests/conftest.py), so every JAX call names its dtype. The
+plain step is held to ``fdtd_tpu.solver.step.step_fn`` and to the f64
+oracle at 1e-12, as tests/test_core_step.py holds the JAX step.
+"""
+
+import ast
+import dataclasses
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import fdtd_tpu as jt
+import fdtd_tpu_torch as pt
+from fdtd_tpu.oracle import OracleSim
+from fdtd_tpu_torch import convert
+
+SHAPE = (9, 8, 7)
+SPATIAL = (0.5, 0.7, 1.1)
+DT = 0.2
+INV_DX = tuple(1.0 / s for s in SPATIAL)
+TOL = dict(rtol=1e-12, atol=1e-12)
+PKG = pathlib.Path(pt.__file__).resolve().parent
+
+
+# -- a package without JAX ----------------------------------------------------
+
+
+def test_port_imports_no_jax():
+    """AST scan of every module of the port: no import of jax or of the JAX
+    package. (sys.modules cannot show it: the environment may import jax at
+    interpreter start.)"""
+    offenders = []
+    for path in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                root = name.split(".")[0]
+                if root in ("jax", "jaxlib", "fdtd_tpu"):
+                    offenders.append(f"{path.relative_to(PKG)}: {name}")
+    assert not offenders, offenders
+    assert len(list(PKG.rglob("*.py"))) >= 15
+
+
+# -- NumPy modules: equal numbers -------------------------------------------------
+
+
+@pytest.mark.parametrize("units", ["SI", "REDUCED"])
+def test_grid_resolution_constants_equal(units):
+    jc, pc = getattr(jt, units), getattr(pt, units)
+    assert dataclasses.asdict(jc) == dataclasses.asdict(pc)
+    assert jc.speed_of_light == pc.speed_of_light
+    for make in ("from_min_wavelength", "from_max_frequency"):
+        jr = getattr(jt.Resolution, make)(0.37, jc)
+        pr = getattr(pt.Resolution, make)(0.37, pc)
+        assert (jr.spatial, jr.temporal) == (pr.spatial, pr.temporal)
+    jr = jt.Resolution.courant(0.5, jc, safety=0.9)
+    pr = pt.Resolution.courant(0.5, pc, safety=0.9)
+    assert (jr.spatial, jr.temporal) == (pr.spatial, pr.temporal)
+    jg = jt.Grid.from_domain_size((3.3, 2.0, 1.25), jr, jc)
+    pg = pt.Grid.from_domain_size((3.3, 2.0, 1.25), pr, pc)
+    assert jg.shape == pg.shape and jg.num_cells == pg.num_cells
+    assert jg.courant_number() == pg.courant_number()
+    assert jg.memory_required() == pg.memory_required()
+    np.testing.assert_array_equal(jg.cell_centers(), pg.cell_centers())
+    for order in ("C", "F"):
+        js, ps = jt.Strider(jg.shape, order), pt.Strider(pg.shape, order)
+        assert js.strides == ps.strides
+        assert js.point(17) == ps.point(17)
+        assert js.contiguous_index_range((0, 0, 0), jg.shape) == \
+            ps.contiguous_index_range((0, 0, 0), pg.shape)
+
+
+def test_coefficient_table_equal():
+    res = pt.Resolution.courant(1.0, pt.REDUCED, safety=0.99)
+    mats = [(), (1.0, 0.0, 3.9, 0.0), (1.0, 0.0, 2.2, 1e-3),
+            (2.0, 0.1, 1.0, 0.0), (1.0, 0.0, 1.0, float("inf"))]
+    jm = [jt.Material(*m) for m in mats]
+    pm = [pt.Material(*m) for m in mats]
+    for dtype in (np.float32, np.float64):
+        a = jt.coefficient_table(jm, jt.Resolution(res.spatial, res.temporal),
+                                 jt.REDUCED, dtype=dtype)
+        b = pt.coefficient_table(pm, res, pt.REDUCED, dtype=dtype)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    jtab, ptab = jt.MaterialTable(), pt.MaterialTable()
+    assert [jtab.register(m) for m in jm] == [ptab.register(m) for m in pm]
+    assert jtab.index_dtype() == ptab.index_dtype() and len(jtab) == len(ptab)
+
+
+# -- sources ----------------------------------------------------------------------
+
+
+def _waveforms(mod):
+    return [mod.GaussianPulse(1.0, 0.5), mod.ContinuousWave(0.8, 0.3),
+            mod.Ricker(0.6, 1.2), mod.GaussianDerivative(0.9, 0.4)]
+
+
+def test_source_values_and_last_wins():
+    pts = [(2, 3, 4), (5, 1, 2), (1, 1, 1), (2, 3, 4), (0, 7, 6)]
+    j = [(0, 0, 50.0), (1.0, 2.0, 0.0), (0.5, 0, 0), (0, 3.0, 0), (1, 1, 1)]
+    m = [(0, 0, 0), (0, 0.5, 0), (0, 0, 0.25), (0.1, 0, 0), (0, 0, 0)]
+
+    def build(mod, dtype):
+        w = _waveforms(mod)
+        return mod.SourceSet.build(
+            [mod.PointSource(p, w[i % 4], j=jj, m=mm)
+             for i, (p, jj, mm) in enumerate(zip(pts, j, m))], dtype=dtype)
+
+    js = build(jt, jnp.float64)
+    ps = build(pt, torch.float64)
+    assert ps.num_sources == js.num_sources == 4  # (2,3,4) twice: last wins
+    for name, arr in convert.sources_to_numpy(ps).items():
+        np.testing.assert_array_equal(arr, np.asarray(getattr(js, name)), err_msg=name)
+    for t in (0.0, 0.35, 1.7):
+        jj, jm = js.values(jnp.float64(t))
+        pj, pm = ps.values(t)
+        np.testing.assert_allclose(pj.numpy(), np.asarray(jj), **TOL)
+        np.testing.assert_allclose(pm.numpy(), np.asarray(jm), **TOL)
+    # a tensor of times evaluates like one call per time
+    ts = torch.tensor([0.0, 0.35, 1.7], dtype=torch.float64)
+    bj, _ = ps.values(ts)
+    for i, t in enumerate(ts.tolist()):
+        np.testing.assert_array_equal(bj[i].numpy(), ps.values(t)[0].numpy())
+    for jw, pw in zip(_waveforms(jt), _waveforms(pt)):
+        assert jw.params() == pw.params()
+        np.testing.assert_allclose(float(pw(0.7)), float(jw(jnp.float64(0.7))), **TOL)
+
+
+# -- the plain step against the JAX step and the oracle ------------------------------
+
+
+def _random_state(rng, shape=SHAPE):
+    return rng.standard_normal((3, *shape)), rng.standard_normal((3, *shape))
+
+
+def _run_pair(e0, h0, jcoeffs, pcoeffs, jsrc, psrc, n, bc_j=None, bc_p=None):
+    bc_j = bc_j or jt.BoundaryConditions()
+    bc_p = bc_p or pt.BoundaryConditions()
+    jstate = jt.state_from_stacked(e0, h0, dtype=jnp.float64)
+    pstate = pt.state_from_stacked(e0, h0, dtype=torch.float64)
+    jf = jt.step_fn(inv_dx=INV_DX, dt=DT, bc=bc_j)
+    pf = pt.step_fn(inv_dx=INV_DX, dt=DT, bc=bc_p)
+    for _ in range(n):
+        jstate = jf(jstate, jcoeffs, jsrc)
+        pstate = pf(pstate, pcoeffs, psrc)
+    assert pstate.tick == int(jstate.tick) == n
+    return jstate, pstate
+
+
+def _coeff_cases(rng):
+    ca, cb = rng.uniform(0.9, 1.0, SHAPE), rng.uniform(0.05, 0.2, SHAPE)
+    da, db = rng.uniform(0.9, 1.0, SHAPE), rng.uniform(0.05, 0.2, SHAPE)
+    table = np.array([[1.0, 1.0, 1.0, 1.0], [0.9, 0.1, 0.95, 0.12],
+                      [0.5, 0.4, 0.7, 0.3]])
+    matid = rng.integers(0, 3, SHAPE).astype(np.uint8)
+    dense = table[matid]
+    return {
+        "uniform": ((1, 1, 1, 1), None),
+        "lossy": ((0.93, 0.11, 0.98, 0.07), None),
+        "dense": ((ca, cb, da, db), None),
+        "matid": ((dense[..., 0], dense[..., 1], dense[..., 2], dense[..., 3]),
+                  (matid, table)),
+    }
+
+
+@pytest.mark.parametrize("case", ["uniform", "lossy", "dense", "matid"])
+def test_plain_step_matches_jax_and_oracle(rng, case):
+    e0, h0 = _random_state(rng)
+    row, material = _coeff_cases(rng)[case]
+    oracle = OracleSim(SHAPE, SPATIAL, DT, *row)
+    oracle.e[:], oracle.h[:] = e0, h0
+    if material is None:
+        jc = jt.CellCoefficients(*(jnp.asarray(v, jnp.float64) for v in row))
+        pc = convert.coeffs_from_numpy(jc)
+    else:
+        matid, table = material
+        jc = jt.CellCoefficients.from_table(jnp.asarray(table, jnp.float64),
+                                            jnp.asarray(matid))
+        mid, tab = convert.material_from_numpy(matid, table)
+        pc = pt.CellCoefficients.from_table(tab, mid)
+    jstate, pstate = _run_pair(e0, h0, jc, pc, None, None, 4)
+    oracle.step(4)
+    for get in ("e_stacked", "h_stacked"):
+        np.testing.assert_allclose(getattr(pstate, get)(), getattr(jstate, get)(), **TOL)
+    np.testing.assert_allclose(pstate.e_stacked(), oracle.e, **TOL)
+    np.testing.assert_allclose(pstate.h_stacked(), oracle.h, **TOL)
+
+
+@pytest.mark.parametrize("dedup", [False, True])
+def test_plain_step_sources_match_jax_and_oracle(rng, dedup):
+    """J and M point sources; with ``dedup`` three sources share a cell and
+    the last one wins; one source outside the lattice is dropped."""
+    e0, h0 = _random_state(rng)
+    oracle = OracleSim(SHAPE, SPATIAL, DT)
+    oracle.e[:], oracle.h[:] = e0, h0
+    specs = [((2, 3, 4), ("gaussian", 1.0, 0.5), (0, 0, 50.0), (0, 0, 0)),
+             ((5, 1, 2), ("cw", 0.8, 0.3), (1.0, 2.0, 0.0), (0.0, 0.5, 0.0))]
+    if dedup:
+        specs += [((3, 4, 5), ("gaussian", 6 * DT, 2 * DT), (0, 0, 1.0), (0, 0, 0)),
+                  ((3, 4, 5), ("gaussian", 6 * DT, 2 * DT), (0, 0, 0.5), (0.25, 0, 0)),
+                  ((3, 4, 5), ("cw", 0.5, 0.0), (0, 0, 0), (0.5, 0, 0))]
+    for p, (kind, a, b), j, m in specs:
+        oracle.add_point_source(p, getattr(OracleSim, kind)(a, b), j=j, m=m)
+    outside = [((SHAPE[0] + 2, 1, 1), ("gaussian", 1.0, 0.5), (5.0, 5, 5), (1.0, 1, 1))]
+
+    def build(mod, dtype):
+        wave = {"gaussian": mod.GaussianPulse, "cw": mod.ContinuousWave}
+        return mod.SourceSet.build(
+            [mod.PointSource(p, wave[kind](a, b), j=j, m=m)
+             for p, (kind, a, b), j, m in specs + outside], dtype=dtype)
+
+    jc = jt.CellCoefficients.uniform((1, 1, 1, 1), jnp.float64)
+    pc = pt.CellCoefficients.uniform((1, 1, 1, 1), torch.float64)
+    jstate, pstate = _run_pair(e0, h0, jc, pc, build(jt, jnp.float64),
+                               build(pt, torch.float64), 9)
+    oracle.step(9)
+    np.testing.assert_allclose(pstate.e_stacked(), jstate.e_stacked(), **TOL)
+    np.testing.assert_allclose(pstate.h_stacked(), jstate.h_stacked(), **TOL)
+    np.testing.assert_allclose(pstate.e_stacked(), oracle.e, **TOL)
+    np.testing.assert_allclose(pstate.h_stacked(), oracle.h, **TOL)
+
+
+def test_plain_step_boundaries_match_jax_and_oracle(rng):
+    """Neumann with nonzero alpha/beta on x, Dirichlet on y and z."""
+    e0, h0 = _random_state(rng)
+    conds = [("neumann", (0.1, -0.2, 0.3), (0.5, 0.0, -0.1)),
+             ("dirichlet", (1.0, 0.0, 0.0), (0.0, -1.0, 0.5)),
+             ("dirichlet", (0.0, 0.0, 0.0), (0.0, 0.0, 0.0))]
+
+    def bcs(mod):
+        kinds = {"neumann": mod.Neumann, "dirichlet": mod.Dirichlet}
+        return mod.BoundaryConditions(*(kinds[k](alpha=a, beta=b) for k, a, b in conds))
+
+    oracle = OracleSim(SHAPE, SPATIAL, DT, boundaries=[
+        (k, np.asarray(a), np.asarray(b)) for k, a, b in conds])
+    oracle.e[:], oracle.h[:] = e0, h0
+    jc = jt.CellCoefficients.uniform((1, 1, 1, 1), jnp.float64)
+    pc = pt.CellCoefficients.uniform((1, 1, 1, 1), torch.float64)
+    jstate, pstate = _run_pair(e0, h0, jc, pc, None, None, 5, bcs(jt), bcs(pt))
+    oracle.step(5)
+    np.testing.assert_allclose(pstate.e_stacked(), jstate.e_stacked(), **TOL)
+    np.testing.assert_allclose(pstate.e_stacked(), oracle.e, **TOL)
+    np.testing.assert_allclose(pstate.h_stacked(), oracle.h, **TOL)
+    for fwd in (True, False):
+        jd = jt.solver.divergence(jstate.e, INV_DX, bcs(jt), forward=fwd)
+        pd = pt.solver.divergence(pstate.e, INV_DX, bcs(pt), forward=fwd)
+        np.testing.assert_allclose(pd.numpy(), np.asarray(jd), **TOL)
+    je = jt.solver.field_energy(jstate, 1.5, 0.5, 0.3)
+    pe = pt.solver.field_energy(pstate, 1.5, 0.5, 0.3)
+    np.testing.assert_allclose(float(pe), float(je), **TOL)
+
+
+def test_f32_fidelity_1000_steps():
+    """The BASELINE gate for the port: the f32 plain step at step 1000 is
+    within 1e-5 relative (L2) of the f64 oracle on a small dipole scene."""
+    shape, dx = (24, 24, 24), 1.0
+    dt = 0.5 / np.sqrt(3.0)
+    oracle = OracleSim(shape, (dx,) * 3, dt, 1.0, dt, 1.0, dt)
+    oracle.add_point_source((12, 12, 12), OracleSim.gaussian(20 * dt, 6 * dt), j=(0, 0, 1.0))
+    srcs = pt.SourceSet.build(
+        [pt.PointSource((12, 12, 12), pt.GaussianPulse(20 * dt, 6 * dt), j=(0, 0, 1.0))])
+    state = pt.zero_state(shape, torch.float32)
+    coeffs = pt.CellCoefficients.uniform((1.0, dt, 1.0, dt), torch.float32)
+    f = pt.step_fn(inv_dx=(1.0 / dx,) * 3, dt=dt)
+    for _ in range(1000):
+        state = f(state, coeffs, srcs)
+    oracle.step(1000)
+    for got, want in ((state.e_stacked(), oracle.e), (state.h_stacked(), oracle.h)):
+        rel = np.linalg.norm(got.astype(np.float64) - want) / np.linalg.norm(want)
+        assert rel <= 1e-5, f"relative error {rel:.3e} exceeds 1e-5"
+
+
+def test_convert_round_trip(rng):
+    e0, h0 = _random_state(rng)
+    js = jt.state_from_stacked(e0, h0, tick=7, dtype=jnp.bfloat16)
+    ps = convert.state_from_numpy(js)
+    assert ps.dtype == torch.bfloat16 and ps.tick == 7
+    back = convert.state_to_numpy(ps)
+    for f in ("ex", "ey", "ez", "hx", "hy", "hz"):
+        np.testing.assert_array_equal(back[f], np.asarray(getattr(js, f), np.float32))
+    matid = rng.integers(0, 3, SHAPE).astype(np.uint8)
+    table = rng.uniform(size=(3, 4)).astype(np.float32)
+    mid, tab = convert.material_from_numpy(matid, table)
+    assert mid.dtype == torch.uint8 and tab.dtype == torch.float32
+    m2, t2 = convert.material_to_numpy(mid, tab)
+    np.testing.assert_array_equal(m2, matid)
+    np.testing.assert_array_equal(t2, table)
+    jc = jt.CellCoefficients.uniform((0.9, 0.1, 0.8, 0.2), jnp.float32)
+    np.testing.assert_array_equal(
+        list(convert.coeffs_to_numpy(convert.coeffs_from_numpy(jc)).values()),
+        [np.asarray(c) for c in jc])

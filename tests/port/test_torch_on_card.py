@@ -1,0 +1,99 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need a CUDA device and nvcc; they skip without them (the
+``cuda_device`` fixture decides, never module import). The file imports no
+JAX, so it runs on a machine without it, from the repository root:
+
+    python -m pytest --noconftest -m cuda tests/port/test_torch_on_card.py
+
+Tolerances: f32 within 2e-6 per tick (FMA contraction and operation order
+differ from the plain version), bf16 compared in bf16 within 1e-2.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import fdtd_tpu_torch as pt
+from fdtd_tpu_torch.solver import cuda_step, cuda_stepk
+from fdtd_tpu_torch.solver.cuda_step import cuda_step_fn
+from fdtd_tpu_torch.solver.cuda_stepk import cuda_stepk_fn
+
+SHAPE = (37, 29, 53)  # ragged against the kernels' 8 x 32 tiles
+INV_DX = (1.0, 1.0 / 0.7, 1.0 / 1.3)
+DT = 0.2
+TABLE = [[1.0, DT, 1.0, DT], [0.9, 0.1, 0.95, 0.12], [0.5, 0.4, 0.7, 0.3]]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the hand-written kernels run only there)")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _inputs(dtype, device, material):
+    rng = np.random.default_rng(7)
+    e = rng.standard_normal((3, *SHAPE))
+    h = rng.standard_normal((3, *SHAPE))
+    src = pt.SourceSet.build([
+        pt.PointSource((20, 14, 26), pt.GaussianPulse(2 * DT, DT), j=(0.5, 0, 2.0),
+                       m=(0.1, 0.2, 0.3)),
+        pt.PointSource((36, 0, 52), pt.ContinuousWave(0.3), j=(0, 1.0, 0)),
+        pt.PointSource((0, 28, 0), pt.Ricker(0.3, 2 * DT), m=(0.5, 0, 0))])
+    if material:
+        mid = torch.from_numpy(rng.integers(0, 3, SHAPE).astype(np.uint8))
+        coeffs, kw = torch.tensor(TABLE), dict(matid=mid, n_materials=3)
+    else:
+        coeffs, kw = pt.CellCoefficients.uniform((0.97, 0.21, 0.99, 0.18)), {}
+    host = (pt.state_from_stacked(e, h, tick=2, dtype=dtype), coeffs, src, kw)
+    dev = (pt.state_from_stacked(e, h, tick=2, dtype=dtype, device=device),
+           coeffs.to(device), src.to(device),
+           {k: v.to(device) if torch.is_tensor(v) else v for k, v in kw.items()})
+    return host, dev
+
+
+def _check(got, want, dtype, ticks):
+    torch.cuda.synchronize()
+    assert got.tick == want.tick
+    tol = 2e-6 * ticks if dtype == torch.float32 else 1e-2
+    np.testing.assert_allclose(got.e_stacked(), want.e_stacked(), rtol=tol, atol=tol)
+    np.testing.assert_allclose(got.h_stacked(), want.h_stacked(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("material", [False, True])
+def test_k1_matches_plain(cuda_device, dtype, material):
+    (hs, hc, hsrc, hkw), (ds, dc, dsrc, dkw) = _inputs(dtype, cuda_device, material)
+    want = cuda_step_fn(SHAPE, inv_dx=INV_DX, dt=DT, dtype=dtype, with_m=True,
+                        **hkw)(hs, hc, hsrc)
+    before = cuda_step.launches()
+    got = cuda_step_fn(SHAPE, inv_dx=INV_DX, dt=DT, dtype=dtype, with_m=True,
+                       **dkw)(ds, dc, dsrc)
+    assert cuda_step.launches() == before + 1
+    _check(got, want, dtype, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [2, 3, 8])
+def test_k2_matches_plain(cuda_device, dtype, k):
+    (hs, hc, hsrc, hkw), (ds, dc, dsrc, dkw) = _inputs(dtype, cuda_device, True)
+    want = cuda_stepk_fn(SHAPE, k, inv_dx=INV_DX, dt=DT, dtype=dtype, with_m=True,
+                         **hkw)(hs, hc, hsrc)
+    before = cuda_stepk.launches()
+    got = cuda_stepk_fn(SHAPE, k, inv_dx=INV_DX, dt=DT, dtype=dtype, with_m=True,
+                        **dkw)(ds, dc, dsrc)
+    assert cuda_stepk.launches() == before + 1
+    _check(got, want, dtype, k)
+
+
+@pytest.mark.cuda
+def test_kernels_reject_what_they_do_not_take(cuda_device):
+    (_, _, _, _), (ds, dc, dsrc, _) = _inputs(torch.float32, cuda_device, False)
+    step = cuda_step_fn(SHAPE, inv_dx=INV_DX, dt=DT)
+    with pytest.raises(ValueError):  # a non-contiguous field
+        step(ds.replace(ex=ds.ex.transpose(0, 1).contiguous().transpose(0, 1)), dc, dsrc)
+    with pytest.raises(ValueError):  # bf16 state into an f32 kernel
+        step(pt.zero_state(SHAPE, torch.bfloat16, cuda_device), dc, dsrc)

@@ -2,10 +2,12 @@
 
 The same Yee-lattice FDTD as the JAX package, with the same module paths
 and public names: grids, materials, coefficient tables, point sources, the
-leapfrog step, probes and the ``Simulation`` time loop. Its plain path is
-PyTorch on any device; on a CUDA device the time loop runs hand-written
-kernels (``solver/cuda_step.py``, ``solver/cuda_stepk.py``, sources in
-``csrc/``), built with nvcc on first use. It imports no JAX: the JAX
+leapfrog step, CPML absorbers and TF/SF plane waves (the absorbing engine),
+probes and the ``Simulation`` time loop. Its plain path is PyTorch on any
+device; on a CUDA device the time loop runs hand-written kernels
+(``solver/cuda_step.py``, ``solver/cuda_stepk.py``, ``solver/cuda_cpml.py``,
+``solver/cuda_cpml_k.py``, sources in ``csrc/``), built with nvcc on first
+use. Entry points run on the CUDA card unless given ``device="cpu"``. It imports no JAX: the JAX
 package stays the reference the tests hold this one to.
 """
 
@@ -17,7 +19,9 @@ from .solver import (
     BoundaryConditions,
     CellCoefficients,
     ContinuousWave,
+    Cpml,
     Dirichlet,
+    EngineState,
     GaussianDerivative,
     GaussianPulse,
     Neumann,
@@ -26,6 +30,9 @@ from .solver import (
     SimState,
     Simulation,
     SourceSet,
+    Tfsf,
+    build_step,
+    init_engine_state,
     state_from_stacked,
     step,
     step_fn,

@@ -16,9 +16,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .solver.sources import SourceSet
-from .solver.state import FIELDS, SimState
+from .solver.cpml import Cpml
+from .solver.engine import EngineState, carry_dtype
+from .solver.pml import GradedPmlSpec
+from .solver.sources import (
+    ContinuousWave,
+    GaussianDerivative,
+    GaussianPulse,
+    Ricker,
+    SourceSet,
+)
+from .solver.state import DEFAULT_DEVICE, FIELDS, SimState, resolve_device
 from .solver.step import CellCoefficients
+from .solver.tfsf import Tfsf
 
 __all__ = [
     "tensor_from_numpy",
@@ -30,15 +40,20 @@ __all__ = [
     "sources_to_numpy",
     "material_from_numpy",
     "material_to_numpy",
+    "engine_state_from_numpy",
+    "engine_state_to_numpy",
+    "cpml_from_numpy",
+    "tfsf_from_numpy",
 ]
 
 _COEFFS = ("c_a", "c_b", "d_a", "d_b")
 _SOURCES = ("points", "j_amp", "m_amp", "kind", "p0", "p1")
 
 
-def tensor_from_numpy(a, device="cpu", dtype: Optional[torch.dtype] = None):
+def tensor_from_numpy(a, device=DEFAULT_DEVICE, dtype: Optional[torch.dtype] = None):
     """A numpy-readable array as a tensor on ``device``. bfloat16 arrays
     (numpy's ml_dtypes extension) pass through float32, which is exact."""
+    device = resolve_device(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
@@ -52,7 +67,7 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def state_from_numpy(obj, device="cpu", dtype=None) -> SimState:
+def state_from_numpy(obj, device=DEFAULT_DEVICE, dtype=None) -> SimState:
     """SimState from an object with ex..hz and tick (e.g. the JAX one)."""
     fields = {f: tensor_from_numpy(getattr(obj, f), device, dtype) for f in FIELDS}
     return SimState(**fields, tick=int(np.asarray(obj.tick)))
@@ -64,7 +79,7 @@ def state_to_numpy(state: SimState) -> dict:
     return out
 
 
-def coeffs_from_numpy(obj, device="cpu", dtype=None) -> CellCoefficients:
+def coeffs_from_numpy(obj, device=DEFAULT_DEVICE, dtype=None) -> CellCoefficients:
     """CellCoefficients from an object with c_a, c_b, d_a, d_b (scalars or
     dense arrays)."""
     return CellCoefficients(*(tensor_from_numpy(getattr(obj, f), device, dtype)
@@ -75,7 +90,7 @@ def coeffs_to_numpy(coeffs: CellCoefficients) -> dict:
     return {f: _numpy(getattr(coeffs, f)) for f in _COEFFS}
 
 
-def sources_from_numpy(obj, device="cpu", dtype=None) -> SourceSet:
+def sources_from_numpy(obj, device=DEFAULT_DEVICE, dtype=None) -> SourceSet:
     """SourceSet from an object with points, j_amp, m_amp, kind, p0, p1.
     Points and kinds become int64 (torch's index type)."""
     vals = {f: tensor_from_numpy(getattr(obj, f), device) for f in _SOURCES}
@@ -94,7 +109,7 @@ def sources_to_numpy(sources: SourceSet) -> dict:
     return out
 
 
-def material_from_numpy(matid, table, device="cpu"):
+def material_from_numpy(matid, table, device=DEFAULT_DEVICE):
     """The compressed-material pair: (uint8/int index tensor, (K, 4) table)."""
     mid = np.asarray(matid)
     if mid.dtype == np.uint16:  # torch's uint16 lacks most kernels
@@ -104,3 +119,65 @@ def material_from_numpy(matid, table, device="cpu"):
 
 def material_to_numpy(matid: torch.Tensor, table: torch.Tensor):
     return _numpy(matid), _numpy(table)
+
+
+# -- absorbing runs ------------------------------------------------------------
+
+
+def engine_state_from_numpy(obj, device=DEFAULT_DEVICE, dtype=None) -> EngineState:
+    """EngineState from an object with the JAX EngineState's fields (ex..hz,
+    tick, psi_h, psi_e, aux_e, aux_h). Fields take ``dtype`` (default:
+    their own); psi and the aux line take its carry dtype (f32 for bf16
+    fields)."""
+    state = state_from_numpy(obj, device, dtype)
+    cdt = carry_dtype(state.dtype)
+
+    def pairs(half):
+        return tuple(tuple(tensor_from_numpy(p, device, cdt) for p in pair)
+                     for pair in half)
+
+    return EngineState(*(getattr(state, f) for f in FIELDS), tick=state.tick,
+                       psi_h=pairs(obj.psi_h), psi_e=pairs(obj.psi_e),
+                       aux_e=tensor_from_numpy(obj.aux_e, device, cdt),
+                       aux_h=tensor_from_numpy(obj.aux_h, device, cdt))
+
+
+def engine_state_to_numpy(state: EngineState) -> dict:
+    """The EngineState as a dict of numpy arrays under the JAX field names
+    (psi_h/psi_e as tuples of (lo, hi) pairs)."""
+    out = state_to_numpy(state)
+    for half in ("psi_h", "psi_e"):
+        out[half] = tuple(tuple(_numpy(p) for p in pair) for pair in getattr(state, half))
+    out["aux_e"], out["aux_h"] = _numpy(state.aux_e), _numpy(state.aux_h)
+    return out
+
+
+_WAVEFORMS = {
+    0: lambda p0, p1: GaussianPulse(time=p0, duration=p1),
+    1: lambda p0, p1: ContinuousWave(frequency=p1, phase=p0),
+    2: lambda p0, p1: Ricker(frequency=p1, delay=p0),
+    3: lambda p0, p1: GaussianDerivative(time=p0, duration=p1),
+}
+
+
+def cpml_from_numpy(obj) -> Cpml:
+    """The port's Cpml from an object with ``thickness`` and ``spec`` (the
+    grading's m, m_a, sigma_max, kappa_max, a_max), e.g. the JAX Cpml."""
+    spec = GradedPmlSpec(*(float(getattr(obj.spec, f))
+                           for f in ("m", "m_a", "sigma_max", "kappa_max", "a_max")))
+    thickness = tuple(tuple(int(v) for v in pair) for pair in obj.thickness)
+    return Cpml(thickness=thickness, spec=spec)
+
+
+def tfsf_from_numpy(obj) -> Tfsf:
+    """The port's Tfsf from an object with the JAX Tfsf's fields; the
+    waveform is rebuilt from its ``params()`` (kind, p0, p1)."""
+    kind, p0, p1 = obj.waveform.params()
+
+    def span(v):
+        return None if v is None else tuple(int(a) for a in v)
+
+    return Tfsf(span=span(obj.span), waveform=_WAVEFORMS[int(kind)](float(p0), float(p1)),
+                amplitude=float(obj.amplitude), aux_margin=int(obj.aux_margin),
+                absorber_cells=int(obj.absorber_cells), span_y=span(obj.span_y),
+                span_z=span(obj.span_z))

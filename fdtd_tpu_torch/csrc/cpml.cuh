@@ -1,0 +1,245 @@
+// Shared device code of the CPML kernels (cpml.cu, cpmlk.cu).
+//
+// The tile pass of yee.cuh (a (y, z) tile of TY x TZ cells marching its x
+// chunk downward, new H of the tile plus its +1 ring in shared memory, the
+// plane above carried in registers, a seed plane above each chunk) with the
+// absorbing terms of solver/engine.py added per cell:
+//
+//   CPML: each derivative along an axis with a slab is stretched,
+//           psi_new = b * psi_old + c * dF,   dF~ = ik * dF + psi_new,
+//         with (ik, b, c) the axis's 1-D profiles at the cell's coordinate.
+//         psi lives in the engine's slab tensors, one (lo, hi) pair per
+//         (half, term); a cell outside both slabs passes dF through.
+//   TF/SF: x-face corrections on Hy and Ez (restricted to the lateral box
+//         in box mode) and, in box mode, y-face corrections on Hx and
+//         z-face corrections on Ex, from one level's pair of aux rows:
+//         OLD aux_e for the H pass, NEW aux_h for the E pass.
+//
+// Neighbouring tiles share psi: the +1 ring of new H and the seed plane need
+// the stretched derivatives at cells that another block owns and updates.
+// So every psi is read from one buffer set and written to another (never in
+// place), and only the owner of a cell writes its new psi; the ring and the
+// seed recompute it without storing it. Everything that changes new H (the
+// CPML terms, the TF/SF H corrections, M sources) runs in the same code for
+// the tile, the ring and the seed, so E on a tile's edge reads the H its
+// neighbour stores.
+#pragma once
+
+#include "yee.cuh"
+
+namespace cpml {
+
+using yee::RY;
+using yee::RZ;
+using yee::THREADS;
+using yee::TY;
+using yee::TZ;
+
+// the stretched-derivative terms, in solver/engine.py's _TERMS order:
+// (component, axis) = (2,1) (1,2) (0,2) (2,0) (1,0) (0,1)
+constexpr int N_TERMS = 6;
+constexpr int MAX_SETS = 3;  // psi buffer sets: the input, the output, one work set
+
+// 1-D profiles per (half 0 = H / 1 = E, axis): ik[n], b[n], c[n] back to
+// back, or null when the axis has no CPML; slab extents lo [0, l1) and
+// hi [h0, n) along that axis.
+struct Profiles {
+  const float* p[2][3];
+  int l1[2][3];
+  int h0[2][3];
+};
+
+// psi slab tensors [set][half][term][end 0 = lo / 1 = hi], f32,
+// C-contiguous in the engine's layout (the lattice shape with the term's
+// axis cut to the slab); null for an absent slab.
+struct Psi {
+  float* p[MAX_SETS][2][N_TERMS][2];
+};
+
+// TF/SF: aux holds two rows of len floats per tick level (row 2l: OLD aux_e
+// for the H pass, row 2l+1: NEW aux_h for the E pass); null without TF/SF.
+// Spans are inclusive; box = 0 is the slab (x faces over the full y/z).
+struct Tfsf {
+  const float* aux;
+  int len;
+  int lo, hi, box, y0, y1, z0, z1;
+};
+
+// The stretched derivative of term TERM (along AXIS) of half HALF at
+// (p, y, z), from the raw derivative (already times 1/dx). Reads psi from
+// set QS; writes the new psi to set QD when `store`. The set indices are
+// template parameters, so each psi pointer is read from the kernel's
+// parameters where it is used: with the indices known only at run time,
+// ptxas gave K4 127 registers, with them fixed 99 (K3: 40).
+template <int HALF, int TERM, int AXIS, int QS, int QD>
+__device__ __forceinline__ float stretch(const Profiles& P, const Psi& Q, bool store,
+                                         const yee::Lattice& L, int p, int y,
+                                         int z, float raw) {
+  const float* prof = P.p[HALF][AXIS];
+  if (prof == nullptr) return raw;
+  const int n = AXIS == 0 ? L.nx : (AXIS == 1 ? L.ny : L.nz);
+  const int c = AXIS == 0 ? p : (AXIS == 1 ? y : z);
+  const int l1 = P.l1[HALF][AXIS], h0 = P.h0[HALF][AXIS];
+  int end, j, t;
+  if (c < l1) {
+    end = 0; j = c; t = l1;
+  } else if (c >= h0) {
+    end = 1; j = c - h0; t = n - h0;
+  } else {
+    return raw;  // interior: kappa 1, psi identically 0
+  }
+  long long i;
+  if (AXIS == 0) i = ((long long)j * L.ny + y) * L.nz + z;
+  else if (AXIS == 1) i = ((long long)p * t + j) * L.nz + z;
+  else i = ((long long)p * L.ny + y) * t + j;
+  const float psi = prof[n + c] * Q.p[QS][HALF][TERM][end][i] + prof[2 * n + c] * raw;
+  if (store) Q.p[QD][HALF][TERM][end][i] = psi;
+  return prof[c] * raw + psi;
+}
+
+// One absorbing tick over tile (y0, z0) and planes [x_lo, x_hi): fields
+// from `in` to `out`, psi from set QS to set QD, TF/SF from the rows
+// aux_e / aux_h (null without TF/SF). j_col / m_col: the source-row column
+// of this tick's J / M, or -1 for none.
+template <typename TI, typename TO, int QS, int QD>
+__device__ void tile_pass(yee::Fields<const TI> in, yee::Fields<TO> out,
+                          const yee::Lattice& L, const yee::Material& M,
+                          const yee::Sources& S, int j_col, int m_col,
+                          const Profiles& P, const Psi& Q,
+                          const Tfsf T, const float* aux_e, const float* aux_h,
+                          int y0, int z0, int x_lo, int x_hi, yee::Shared& sh) {
+  const int tz = threadIdx.x, ty = threadIdx.y, tid = ty * TZ + tz;
+  const int y = y0 + ty, z = z0 + tz;
+  const bool own = y < L.ny && z < L.nz;
+  const long long plane = (long long)L.ny * L.nz;
+  float top_hy = 0.f, top_hz = 0.f;  // new H at plane p+1 (this thread's cell)
+
+  // x_hi < nx: start one plane above the chunk to seed the carry
+  const int p_start = x_hi < L.nx ? x_hi : x_hi - 1;
+  for (int p = p_start; p >= x_lo; --p) {
+    const bool seed = p == x_hi;
+    const long long base = (long long)p * plane;
+
+    // ---- H over the tile + ring: h = d_a*h - d_b*curl~_b(E) (+TF/SF) [- d_b*M] ----
+    for (int r = tid; r < RY * RZ; r += THREADS) {
+      const int ly = r / RZ, lz = r - ly * RZ;
+      const int yy = y0 + ly, zz = z0 + lz;
+      if (yy >= L.ny || zz >= L.nz) continue;
+      const bool keep = !seed && ly < TY && lz < TZ;  // this block owns the cell
+      const long long i = base + (long long)yy * L.nz + zz;
+      const float ex = yee::load(in.ex, i), ey = yee::load(in.ey, i),
+                  ez = yee::load(in.ez, i);
+      float dez_y = (yy > 0 ? ez - yee::load(in.ez, i - L.nz) : 0.f) * L.inv_y;
+      float dey_z = (zz > 0 ? ey - yee::load(in.ey, i - 1) : 0.f) * L.inv_z;
+      float dex_z = (zz > 0 ? ex - yee::load(in.ex, i - 1) : 0.f) * L.inv_z;
+      float dez_x = (p > 0 ? ez - yee::load(in.ez, i - plane) : 0.f) * L.inv_x;
+      float dey_x = (p > 0 ? ey - yee::load(in.ey, i - plane) : 0.f) * L.inv_x;
+      float dex_y = (yy > 0 ? ex - yee::load(in.ex, i - L.nz) : 0.f) * L.inv_y;
+      dez_y = stretch<0, 0, 1, QS, QD>(P, Q, keep, L, p, yy, zz, dez_y);
+      dey_z = stretch<0, 1, 2, QS, QD>(P, Q, keep, L, p, yy, zz, dey_z);
+      dex_z = stretch<0, 2, 2, QS, QD>(P, Q, keep, L, p, yy, zz, dex_z);
+      dez_x = stretch<0, 3, 0, QS, QD>(P, Q, keep, L, p, yy, zz, dez_x);
+      dey_x = stretch<0, 4, 0, QS, QD>(P, Q, keep, L, p, yy, zz, dey_x);
+      dex_y = stretch<0, 5, 1, QS, QD>(P, Q, keep, L, p, yy, zz, dex_y);
+      const int mat = yee::material_at(M, i);
+      const float d_a = sh.table[mat][2], d_b = sh.table[mat][3];
+      float hx = d_a * yee::load(in.hx, i) - d_b * (dez_y - dey_z);
+      float hy = d_a * yee::load(in.hy, i) - d_b * (dex_z - dez_x);
+      float hz = d_a * yee::load(in.hz, i) - d_b * (dey_x - dex_y);
+      if (aux_e != nullptr) {
+        const bool lat = !T.box || (yy >= T.y0 && yy <= T.y1 && zz >= T.z0 && zz <= T.z1);
+        if (lat && p == T.lo) hy -= d_b * aux_e[T.lo - 1] * L.inv_x;
+        else if (lat && p == T.hi + 1) hy += d_b * aux_e[T.hi] * L.inv_x;
+        if (T.box && p >= T.lo && p <= T.hi && zz >= T.z0 && zz <= T.z1) {
+          if (yy == T.y0) hx += d_b * (aux_e[p] * L.inv_y);
+          else if (yy == T.y1 + 1) hx -= d_b * (aux_e[p] * L.inv_y);
+        }
+      }
+      if (m_col >= 0) yee::inject(S, m_col, p, yy, zz, d_b, hx, hy, hz);
+      sh.hx[ly][lz] = hx;
+      sh.hy[ly][lz] = hy;
+      sh.hz[ly][lz] = hz;
+      if (keep) {
+        yee::store(out.hx, i, hx);
+        yee::store(out.hy, i, hy);
+        yee::store(out.hz, i, hz);
+      }
+    }
+    __syncthreads();
+
+    // ---- E over the tile: e = c_a*e + c_b*curl~_f(H_new) (+TF/SF) [- c_b*J] ----
+    if (own) {
+      const float hx = sh.hx[ty][tz], hy = sh.hy[ty][tz], hz = sh.hz[ty][tz];
+      if (!seed) {
+        const long long i = base + (long long)y * L.nz + z;
+        const bool y_in = y < L.ny - 1, z_in = z < L.nz - 1, x_in = p < L.nx - 1;
+        float dhz_y = (y_in ? sh.hz[ty + 1][tz] - hz : 0.f) * L.inv_y;
+        float dhy_z = (z_in ? sh.hy[ty][tz + 1] - hy : 0.f) * L.inv_z;
+        float dhx_z = (z_in ? sh.hx[ty][tz + 1] - hx : 0.f) * L.inv_z;
+        float dhz_x = (x_in ? top_hz - hz : 0.f) * L.inv_x;
+        float dhy_x = (x_in ? top_hy - hy : 0.f) * L.inv_x;
+        float dhx_y = (y_in ? sh.hx[ty + 1][tz] - hx : 0.f) * L.inv_y;
+        dhz_y = stretch<1, 0, 1, QS, QD>(P, Q, true, L, p, y, z, dhz_y);
+        dhy_z = stretch<1, 1, 2, QS, QD>(P, Q, true, L, p, y, z, dhy_z);
+        dhx_z = stretch<1, 2, 2, QS, QD>(P, Q, true, L, p, y, z, dhx_z);
+        dhz_x = stretch<1, 3, 0, QS, QD>(P, Q, true, L, p, y, z, dhz_x);
+        dhy_x = stretch<1, 4, 0, QS, QD>(P, Q, true, L, p, y, z, dhy_x);
+        dhx_y = stretch<1, 5, 1, QS, QD>(P, Q, true, L, p, y, z, dhx_y);
+        const int mat = yee::material_at(M, i);
+        const float c_a = sh.table[mat][0], c_b = sh.table[mat][1];
+        float ex = c_a * yee::load(in.ex, i) + c_b * (dhz_y - dhy_z);
+        float ey = c_a * yee::load(in.ey, i) + c_b * (dhx_z - dhz_x);
+        float ez = c_a * yee::load(in.ez, i) + c_b * (dhy_x - dhx_y);
+        if (aux_h != nullptr) {
+          const bool lat = !T.box || (y >= T.y0 && y <= T.y1 && z >= T.z0 && z <= T.z1);
+          if (lat && p == T.lo - 1) ez -= c_b * aux_h[T.lo] * L.inv_x;
+          else if (lat && p == T.hi) ez += c_b * aux_h[T.hi + 1] * L.inv_x;
+          if (T.box && p >= T.lo && p <= T.hi && y >= T.y0 && y <= T.y1) {
+            if (z == T.z0 - 1) ex += c_b * (aux_h[p] * L.inv_z);
+            else if (z == T.z1) ex -= c_b * (aux_h[p] * L.inv_z);
+          }
+        }
+        if (j_col >= 0) yee::inject(S, j_col, p, y, z, c_b, ex, ey, ez);
+        yee::store(out.ex, i, ex);
+        yee::store(out.ey, i, ey);
+        yee::store(out.ez, i, ez);
+      }
+      top_hy = hy;
+      top_hz = hz;
+    }
+    __syncthreads();
+  }
+}
+
+// ---- host side: the C arguments into the kernel structs ----
+
+// prof: 6 pointers (half, axis); ext: (half, axis) pairs (l1, h0).
+inline Profiles make_profiles(void* const* prof, const int* ext) {
+  Profiles P;
+  for (int h = 0; h < 2; ++h)
+    for (int a = 0; a < 3; ++a) {
+      P.p[h][a] = (const float*)prof[h * 3 + a];
+      P.l1[h][a] = ext[(h * 3 + a) * 2];
+      P.h0[h][a] = ext[(h * 3 + a) * 2 + 1];
+    }
+  return P;
+}
+
+// ptrs: n_sets x (half, term, end) pointers.
+inline Psi make_psi(void* const* ptrs, int n_sets) {
+  Psi Q;
+  for (int s = 0; s < MAX_SETS; ++s)
+    for (int h = 0; h < 2; ++h)
+      for (int t = 0; t < N_TERMS; ++t)
+        for (int e = 0; e < 2; ++e)
+          Q.p[s][h][t][e] =
+              s < n_sets ? (float*)ptrs[((s * 2 + h) * N_TERMS + t) * 2 + e] : nullptr;
+  return Q;
+}
+
+// tf: lo, hi, box, y0, y1, z0, z1.
+inline Tfsf make_tfsf(const float* aux, int len, const int* tf) {
+  return Tfsf{aux, len, tf[0], tf[1], tf[2], tf[3], tf[4], tf[5], tf[6]};
+}
+
+}  // namespace cpml

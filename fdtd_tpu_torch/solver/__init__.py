@@ -1,4 +1,7 @@
 from .boundary import BoundaryConditions, Dirichlet, Neumann, default_boundaries
+from .cpml import Cpml
+from .engine import EngineState, build_step, init_engine_state
+from .pml import GradedPmlSpec
 from .sources import (
     ContinuousWave,
     GaussianDerivative,
@@ -9,6 +12,7 @@ from .sources import (
 )
 from .simulation import Simulation
 from .state import SimState, state_from_stacked, zero_state
+from .tfsf import Tfsf
 from .step import (
     CellCoefficients,
     curl_backward,
@@ -24,6 +28,12 @@ __all__ = [
     "Dirichlet",
     "Neumann",
     "default_boundaries",
+    "Cpml",
+    "EngineState",
+    "build_step",
+    "init_engine_state",
+    "GradedPmlSpec",
+    "Tfsf",
     "ContinuousWave",
     "GaussianDerivative",
     "GaussianPulse",

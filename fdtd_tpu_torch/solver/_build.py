@@ -21,7 +21,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "STEP", "STEPK", "BUILD_DIR"]
+__all__ = ["Kernel", "STEP", "STEPK", "CPML", "CPMLK", "KERNELS", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fdtd_tpu_torch"
@@ -32,6 +32,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _PP = ctypes.POINTER(ctypes.c_void_p)
+_PI = ctypes.POINTER(ctypes.c_int)
 
 
 def _nvcc() -> str:
@@ -140,3 +141,17 @@ STEP = Kernel("K1 step", "step.cu", "fdtd_step",
 STEPK = Kernel("K2 stepk", "stepk.cu", "fdtd_stepk",
                [_I, _PP, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                 _F, _P])
+# fdtd_cpml(dtype, fields, psi, prof, ext, table, n_mat, matid, rows, n_src,
+#           row_w, with_m, aux, aux_len, tf, nx, ny, nz, inv_x, inv_y, inv_z,
+#           stream)
+CPML = Kernel("K3 cpml", "cpml.cu", "fdtd_cpml",
+              [_I, _PP, _PP, _PP, _PI, _P, _I, _P, _P, _I, _I, _I, _P, _I, _PI,
+               _I, _I, _I, _F, _F, _F, _P])
+# fdtd_cpmlk(dtype, fields, psi, prof, ext, table, n_mat, matid, rows, n_src,
+#            row_w, with_m, aux, aux_len, tf, k, nx, ny, nz, inv_x, inv_y,
+#            inv_z, stream)
+CPMLK = Kernel("K4 cpmlk", "cpmlk.cu", "fdtd_cpmlk",
+               [_I, _PP, _PP, _PP, _PI, _P, _I, _P, _P, _I, _I, _I, _P, _I, _PI,
+                _I, _I, _I, _I, _F, _F, _F, _P])
+
+KERNELS = (STEP, STEPK, CPML, CPMLK)

@@ -1,0 +1,313 @@
+"""K3: the one-tick CPML kernel (csrc/cpml.cu) and its wrapper.
+
+Counterpart of ``fdtd_tpu.solver.pallas_cpml``: one absorbing tick (the
+CPML recurrence inside the fused sweep, slab or closed-box TF/SF face
+corrections, uniform or uint8-matid coefficients, Neumann(0) edges, f32 or
+bf16 field storage with f32 compute). The state is the engine's
+``EngineState``: the kernel reads and writes its slab psi pairs (f32) in
+place of the TPU kernel's padded strips, so one state serves the plain
+engine and both CPML kernels. The 1-D TF/SF aux grid ticks outside the
+kernel in torch (f32), which hands the kernel the OLD aux_e row for the H
+pass and the NEW aux_h row for the E pass.
+
+Sources ride the kernel in f32: J always, M when built ``with_m`` (the TPU
+kernel adds J in-kernel in f32 when built with ``max_sources > 0`` and M
+when ``with_m``). Source and TF/SF times are f32 ``tick * dt``.
+
+The wrapper launches the kernel for CUDA tensors and takes the kernel's
+plain PyTorch version (``plain_cpml_step``: the engine step in f32, one
+rounding to the storage dtype) only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..constants import SI, PhysicalConstants
+from . import _build
+from .boundary import BoundaryConditions
+from .cuda_step import (
+    _DTYPE_CODE,
+    build_src_rows,
+    check_launch_inputs,
+    kernel_table,
+    supports,
+)
+from .engine import _TERMS, EngineState, _slab_extents, aux_coefficients, build_step
+from .sources import SourceSet
+from .state import FIELDS
+from .step import CellCoefficients, field_dtype_time
+
+__all__ = ["cuda_cpml_step_fn", "supports_cpml", "plain_cpml_step",
+           "launches", "reset_launches"]
+
+
+def supports_cpml(shape, bc: BoundaryConditions, cpml,
+                  dtype=torch.float32) -> bool:
+    """Whether K3 covers this configuration: what K1 covers (f32/bf16
+    storage, Neumann(0) edges, any lattice shape: the kernel masks its own
+    ragged tiles) with CPML slabs that do not meet on any axis (lo + hi + 1
+    planes, the E half's hi slab being one plane deeper)."""
+    if not supports(shape, bc, dtype=dtype):
+        return False
+    return all(cpml.thickness[a][0] + cpml.thickness[a][1] + 1 <= shape[a]
+               for a in cpml.active_axes())
+
+
+def launches() -> int:
+    """How many times the K3 kernel has launched since the last reset."""
+    return _build.CPML.launches
+
+
+def reset_launches() -> None:
+    _build.CPML.launches = 0
+
+
+# -- the set-up both CPML kernels share -------------------------------------------
+
+
+class CpmlSetup:
+    """What the CPML kernels take besides the state: the 1-D profiles per
+    (half, axis) as (3, n) f32 [ik, b, c] tensors, the slab extents, the
+    TF/SF spans and the aux grid's coefficients, made once per device."""
+
+    def __init__(self, shape, inv_dx, dt, constants, cpml, tfsf):
+        from .cpml import _profiles_1d
+
+        self.shape = tuple(shape)
+        self.inv_dx = inv_dx
+        self.dt = dt
+        self.cpml = cpml
+        self.tfsf = tfsf
+        self.profiles = {}
+        ext = []
+        active = set(cpml.active_axes())
+        for half in (False, True):
+            for axis in range(3):
+                n = shape[axis]
+                if axis not in active:
+                    ext += [0, n]
+                    continue
+                lo, hi = cpml.thickness[axis]
+                ik, b, c = _profiles_1d(n, lo, hi, cpml.spec, 1.0 / inv_dx[axis],
+                                        dt, constants, half)
+                self.profiles[(half, axis)] = np.stack([ik, b, c]).astype(np.float32)
+                (_, l1), (h0, _) = _slab_extents(n, lo, hi, half)
+                ext += [l1, h0]
+        self.ext = (ctypes.c_int * 12)(*ext)
+        if tfsf is not None:
+            lo, hi = tfsf.span
+            (y0, y1), (z0, z1) = (tfsf.span_y, tfsf.span_z) if tfsf.is_box \
+                else ((0, 0), (0, 0))
+            self.tf = (ctypes.c_int * 7)(lo, hi, int(tfsf.is_box), y0, y1, z0, z1)
+            self.aux_np = aux_coefficients(tfsf, shape[0], inv_dx[0], dt, constants)
+        else:
+            self.tf = (ctypes.c_int * 7)(*[0] * 7)
+            self.aux_np = None
+        self._device = {}
+
+    def on(self, device):
+        """(profile tensors [half][axis] or None, aux coefficients or None)
+        on ``device``."""
+        if device not in self._device:
+            prof = [
+                None if (half, axis) not in self.profiles else
+                torch.from_numpy(self.profiles[(half, axis)]).to(device).contiguous()
+                for half in (False, True) for axis in range(3)
+            ]
+            aux = None if self.aux_np is None else tuple(
+                torch.from_numpy(v).to(device=device, dtype=torch.float32)
+                for v in self.aux_np)
+            self._device[device] = (prof, aux)
+        return self._device[device]
+
+    def aux_levels(self, state: EngineState, aux, k_steps: int):
+        """Tick the aux grid ``k_steps`` times from the state's line at f32
+        times; returns the (2K, aux_len) rows (OLD aux_e, NEW aux_h per
+        level) and the final (aux_e, aux_h)."""
+        aux_e, aux_h = state.aux_e, state.aux_h
+        rows = []
+        for lvl in range(k_steps):
+            t = field_dtype_time(state.tick + lvl, self.dt, torch.float32)
+            new_e, new_h = self.tfsf.aux_step(aux_e, aux_h, aux, t, self.inv_dx[0])
+            rows += [aux_e, new_h]
+            aux_e, aux_h = new_e, new_h
+        return torch.stack(rows), aux_e, aux_h
+
+
+def psi_tensors(state: EngineState):
+    """The state's psi slabs in the kernels' order [half][term][end]."""
+    return [p for half in (state.psi_h, state.psi_e) for pair in half for p in pair]
+
+
+def check_cpml_inputs(state: EngineState, setup: CpmlSetup, shape, dtype,
+                      table, matid) -> None:
+    """Raise on what the CPML kernels do not take (the plain versions are
+    held to the same): K1's checks plus f32 contiguous psi slabs and aux
+    line of the set-up's shapes on the state's device."""
+    check_launch_inputs(state, shape, dtype, table, matid)
+    if not isinstance(state, EngineState):
+        raise ValueError("the CPML kernels step an EngineState (init_engine_state)")
+    active = set(setup.cpml.active_axes())
+    for half, pairs in ((False, state.psi_h), (True, state.psi_e)):
+        for (_, axis), pair in zip(_TERMS, pairs):
+            if axis in active:
+                lo, hi = setup.cpml.thickness[axis]
+                (l0, l1), (h0, h1) = _slab_extents(shape[axis], lo, hi, half)
+                want = [l1 - l0, h1 - h0]
+            else:
+                want = [None, None]
+            for p, t in zip(pair, want):
+                s = list(shape)
+                if t is not None:
+                    s[axis] = t
+                ok = (p.dtype == torch.float32 and p.device == state.device
+                      and p.is_contiguous()
+                      and (tuple(p.shape) == tuple(s) if t is not None else p.dim() == 0))
+                if not ok:
+                    raise ValueError(
+                        f"psi slab of axis {axis}: need a contiguous float32 "
+                        f"{tuple(s) if t is not None else '0-d'} tensor on "
+                        f"{state.device}, got {p.dtype} {tuple(p.shape)} on {p.device}")
+    if setup.tfsf is not None:
+        n = setup.tfsf.aux_length(shape[0])
+        for a in (state.aux_e, state.aux_h):
+            if a is None or a.dtype != torch.float32 or tuple(a.shape) != (n,) \
+                    or a.device != state.device:
+                raise ValueError(f"TF/SF aux line: need float32 ({n},) on {state.device}")
+
+
+# -- the plain version -----------------------------------------------------------
+
+
+def plain_cpml_ticks(state: EngineState, step32, table: torch.Tensor,
+                     matid: Optional[torch.Tensor], sources: Optional[SourceSet],
+                     k_steps: int, with_m: bool) -> EngineState:
+    """What the CPML kernels compute, in plain PyTorch: ``k_steps``
+    applications of the engine step in f32 (``step32``; f32 carries, f32
+    source and TF/SF times), J and, when ``with_m``, M in f32, and one
+    rounding of the fields to the storage dtype at the end."""
+    dtype = state.dtype
+    coeffs = (CellCoefficients(*table[0]) if matid is None
+              else CellCoefficients.from_table(table, matid))
+    if sources is not None and not with_m:
+        sources = dataclasses.replace(sources, m_amp=torch.zeros_like(sources.m_amp))
+    s = state.replace(**{f: getattr(state, f).to(torch.float32) for f in FIELDS})
+    for _ in range(k_steps):
+        s = step32(s, coeffs, sources)
+    return s.replace(**{f: getattr(s, f).to(dtype) for f in FIELDS})
+
+
+def plain_cpml_step(state: EngineState, table: torch.Tensor,
+                    matid: Optional[torch.Tensor], sources: Optional[SourceSet],
+                    *, inv_dx, dt, cpml, tfsf=None, bc=BoundaryConditions(),
+                    constants: PhysicalConstants = SI,
+                    with_m: bool = False) -> EngineState:
+    """K3's plain version: one tick, as the kernel computes it."""
+    step32 = build_step(state.shape, inv_dx=inv_dx, dt=dt, bc=bc,
+                        constants=constants, dtype=torch.float32, cpml=cpml,
+                        tfsf=tfsf)
+    return plain_cpml_ticks(state, step32, table, matid, sources, 1, with_m)
+
+
+# -- the kernel ---------------------------------------------------------------
+
+
+def launch_cpml(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup,
+                k_steps: int, dtype, table, matid, sources, with_m) -> EngineState:
+    """Launch K3 (``k_steps`` == 1) or K4 on a CUDA state."""
+    nx, ny, nz = setup.shape
+    prof, aux = setup.on(state.device)
+    aux_e, aux_h = state.aux_e, state.aux_h
+    pack, aux_len = None, 0
+    if setup.tfsf is not None:
+        pack, aux_e, aux_h = setup.aux_levels(state, aux, k_steps)
+        aux_len = pack.shape[1]
+    rows = build_src_rows(sources, state.tick, k_steps, with_m, setup.dt)
+    fields = (*state.e, *state.h)
+    outs = [torch.empty_like(f) for f in fields]
+    psi_in = psi_tensors(state)
+    live = [p.dim() > 0 and p.numel() > 0 for p in psi_in]
+    psi_out = [torch.empty_like(p) if ok else p for p, ok in zip(psi_in, live)]
+    field_sets = [*fields, *outs]
+    psi_sets = [psi_in, psi_out]
+    if k_steps > 1:
+        w1 = [torch.empty(f.shape, dtype=torch.float32, device=f.device) for f in fields]
+        if dtype == torch.float32:
+            w2 = outs  # ping-pong partner of w1 (see csrc/cpmlk.cu)
+        elif k_steps >= 3:
+            w2 = [torch.empty_like(w) for w in w1]
+        else:
+            w2 = w1  # K = 2 never writes the second work set
+        field_sets += [*w1, *w2]
+        psi_sets.append([torch.empty_like(p) if ok else p
+                         for p, ok in zip(psi_in, live)])
+    psi_ptrs = [p.data_ptr() if ok else None
+                for ps in psi_sets for p, ok in zip(ps, live)]
+    args = [
+        _DTYPE_CODE[dtype], _build.pointers(field_sets),
+        (ctypes.c_void_p * len(psi_ptrs))(*psi_ptrs),
+        (ctypes.c_void_p * 6)(*[None if p is None else p.data_ptr() for p in prof]),
+        setup.ext, table.data_ptr(), table.shape[0],
+        None if matid is None else matid.data_ptr(),
+        rows.data_ptr() if len(rows) else None, len(rows), rows.shape[1],
+        int(with_m), None if pack is None else pack.data_ptr(), aux_len, setup.tf,
+    ]
+    if k_steps > 1:
+        args.append(k_steps)
+    args += [nx, ny, nz, *setup.inv_dx, _build.stream_handle(state.device)]
+    kernel.launch(*args)
+    pairs = list(zip(psi_out[0::2], psi_out[1::2]))
+    return EngineState(*outs, tick=state.tick + k_steps, psi_h=tuple(pairs[:6]),
+                       psi_e=tuple(pairs[6:]), aux_e=aux_e, aux_h=aux_h,
+                       psi_d=state.psi_d)
+
+
+def cuda_cpml_step_fn(
+    shape: Tuple[int, int, int],
+    *,
+    inv_dx: Tuple[float, float, float],
+    dt: float,
+    bc: BoundaryConditions = BoundaryConditions(),
+    constants: PhysicalConstants = SI,
+    cpml,
+    tfsf=None,
+    matid: Optional[torch.Tensor] = None,
+    n_materials: int = 1,
+    with_m: bool = False,
+    dtype=torch.float32,
+):
+    """Build step(state: EngineState, coeffs, sources) -> EngineState
+    backed by K3.
+
+    ``coeffs`` is CellCoefficients of scalars, or the (K, 4) table when
+    ``matid`` (uint8, on the state's device) is given. CPU states take the
+    plain version; CUDA states launch the kernel or raise.
+    """
+    if not supports_cpml(shape, bc, cpml, dtype=dtype):
+        raise ValueError(f"K3 does not support {shape=} {bc=} {cpml=} {dtype=}")
+    if matid is not None and not 1 <= n_materials <= 256:
+        raise ValueError(f"K3 takes 1..256 materials, got {n_materials}")
+    if tfsf is not None:
+        tfsf.validate(shape)
+    inv_dx = tuple(float(v) for v in inv_dx)
+    setup = CpmlSetup(shape, inv_dx, dt, constants, cpml, tfsf)
+    step32 = build_step(shape, inv_dx=inv_dx, dt=dt, bc=bc, constants=constants,
+                        dtype=torch.float32, cpml=cpml, tfsf=tfsf)
+
+    def step(state: EngineState, coeffs, sources: Optional[SourceSet]) -> EngineState:
+        table = kernel_table(coeffs, matid, state.device)
+        check_cpml_inputs(state, setup, shape, dtype, table, matid)
+        if state.device.type == "cpu":
+            return plain_cpml_ticks(state, step32, table, matid, sources, 1, with_m)
+        if state.device.type != "cuda":
+            raise ValueError(f"K3 runs on CUDA or CPU tensors, not {state.device}")
+        return launch_cpml(_build.CPML, state, setup, 1, dtype, table, matid,
+                           sources, with_m)
+
+    return step

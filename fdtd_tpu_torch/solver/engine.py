@@ -1,0 +1,343 @@
+"""The absorbing step in plain PyTorch: boundaries + CPML + TF/SF + sources.
+
+Counterpart of ``fdtd_tpu.solver.engine``, in its order:
+
+  1. point-source waveform evaluation at the pre-step time
+  2. H half-update (backward-diff curl of E), CPML-stretched derivatives
+  3. TF/SF H-face corrections (incident E at the old time level)
+  4. 1D auxiliary-grid tick for the incident wave
+  5. M point-source scatter
+  6. E half-update (forward-diff curl of the NEW H), CPML-stretched
+  7. TF/SF E-face corrections (incident H at the new time level)
+  8. J point-source scatter
+
+It runs on any device and float dtype and is the CPU twin that the CUDA
+CPML kernels (solver/cuda_cpml.py, solver/cuda_cpml_k.py) are held to;
+their plain versions run this step in f32. The state layout is the JAX
+package's: psi lives in slabs, one (lo, hi) pair per ``_TERMS`` entry, and
+the kernels read and write the same tensors. psi and the TF/SF aux line are
+kept in at least f32 (bf16 storage keeps them f32, as the TPU kernels do:
+a bf16-rounded recurrence measurably degrades the absorber).
+
+Not ported yet: the volumetric DensePml region and oblique TF/SF
+(ROADMAP.md, queue 1 item 7); asking for either raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from ..constants import SI, PhysicalConstants
+from .boundary import BoundaryConditions
+from .sources import SourceSet
+from .state import DEFAULT_DEVICE, SimState, resolve_device
+from .step import (
+    CellCoefficients,
+    _cells,
+    _diff_backward,
+    _diff_forward,
+    add_at,
+    clip_points,
+    field_dtype_time,
+)
+
+__all__ = ["EngineState", "build_step", "init_engine_state", "carry_dtype",
+           "check_absorbers"]
+
+# the 6 (component, axis) derivative terms entering a curl
+_TERMS = ((2, 1), (1, 2), (0, 2), (2, 0), (1, 0), (0, 1))
+
+DENSE_NOT_PORTED = ("DensePml regions are not ported to PyTorch yet "
+                    "(ROADMAP.md, queue 1 item 7)")
+OBLIQUE_NOT_PORTED = ("oblique TF/SF (ObliqueTfsf) is not ported to PyTorch "
+                      "yet (ROADMAP.md, queue 1 item 7)")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class EngineState(SimState):
+    """SimState + CPML psi + TF/SF auxiliary grid.
+
+    psi entries are SLAB-resident: per _TERMS entry, a (lo_slab, hi_slab)
+    pair of tensors covering only the absorber thickness along the term's
+    axis (0-d zeros when that axis has no CPML). ``aux_e``/``aux_h`` are the
+    1D incident-wave line (0-d zeros without TF/SF). ``psi_d`` stays empty
+    (DensePml is not ported)."""
+
+    psi_h: Tuple[Tuple[torch.Tensor, torch.Tensor], ...] = ()
+    psi_e: Tuple[Tuple[torch.Tensor, torch.Tensor], ...] = ()
+    aux_e: Optional[torch.Tensor] = None
+    aux_h: Optional[torch.Tensor] = None
+    psi_d: Tuple[torch.Tensor, ...] = ()
+
+
+def carry_dtype(dtype: torch.dtype) -> torch.dtype:
+    """dtype of psi and the aux line for fields stored in ``dtype``."""
+    return torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
+
+
+def _slab_extents(n, lo, hi, half):
+    """In-slab index ranges along an axis of length n.
+
+    Integer-sampled profiles (H update) are nonzero on [0, lo) and
+    [n-hi, n); half-sampled ones (E update, positions i+0.5) reach one
+    plane further inward on the HIGH side: depth(i+0.5) > 0 already at
+    i = n-hi-1."""
+    lo_range = (0, lo)
+    if half and hi > 0:
+        hi_range = (n - hi - 1, n)
+    else:
+        hi_range = (n - hi, n)
+    return lo_range, hi_range
+
+
+def check_absorbers(shape, cpml=None, tfsf=None, dense=None) -> None:
+    """Raise on what the port does not run: DensePml, oblique TF/SF, or
+    CPML slabs that meet (the E half's hi slab is one plane deeper, so
+    lo + hi + 1 planes must fit each active axis)."""
+    if dense is not None:
+        raise NotImplementedError(DENSE_NOT_PORTED)
+    if tfsf is not None:
+        from .tfsf import Tfsf
+
+        if not hasattr(tfsf, "span"):
+            raise NotImplementedError(OBLIQUE_NOT_PORTED)
+        if not isinstance(tfsf, Tfsf):
+            raise TypeError("tfsf must be fdtd_tpu_torch's Tfsf "
+                            "(convert.tfsf_from_numpy builds one)")
+        tfsf.validate(shape)
+    if cpml is not None:
+        for axis in cpml.active_axes():
+            lo, hi = cpml.thickness[axis]
+            if lo + hi + 1 > shape[axis]:
+                raise ValueError(
+                    f"CPML slabs ({lo}, {hi}) on axis {axis} need more than "
+                    f"{shape[axis]} planes")
+
+
+def init_engine_state(shape, dtype=torch.float32, cpml=None, tfsf=None,
+                      dense=None, device=DEFAULT_DEVICE) -> EngineState:
+    check_absorbers(shape, cpml, tfsf, dense)
+    device = resolve_device(device)
+    cdt = carry_dtype(dtype)
+
+    def zeros(*s, dt=cdt):
+        return torch.zeros(s, dtype=dt, device=device)
+
+    active = set(cpml.active_axes()) if cpml is not None else set()
+
+    def slab_pair(axis, half):
+        lo, hi = cpml.thickness[axis]
+        (l0, l1), (h0, h1) = _slab_extents(shape[axis], lo, hi, half)
+        shp_lo = list(shape)
+        shp_lo[axis] = l1 - l0
+        shp_hi = list(shape)
+        shp_hi[axis] = h1 - h0
+        return (zeros(*shp_lo), zeros(*shp_hi))
+
+    psi_h = tuple(
+        slab_pair(axis, False) if axis in active else (zeros(), zeros())
+        for _, axis in _TERMS
+    )
+    psi_e = tuple(
+        slab_pair(axis, True) if axis in active else (zeros(), zeros())
+        for _, axis in _TERMS
+    )
+    if tfsf is not None:
+        aux_e, aux_h = tfsf.init_aux(shape[0], cdt, device)
+    else:
+        aux_e, aux_h = zeros(), zeros()
+    f = [zeros(*shape, dt=dtype) for _ in range(6)]
+    return EngineState(*f, tick=0, psi_h=psi_h, psi_e=psi_e, aux_e=aux_e,
+                       aux_h=aux_h)
+
+
+def aux_coefficients(tfsf, nx, inv_dx0, dt, constants):
+    """The aux grid's (ca, cb, da, db), NumPy f64, from the main lattice's
+    vacuum row at the x spacing."""
+    from ..coefficients import update_coefficients
+    from ..grid import Resolution
+    from ..material import VACUUM
+
+    dx0 = 1.0 / inv_dx0
+    vacuum_row = update_coefficients(
+        VACUUM, Resolution(spatial=(dx0,) * 3, temporal=dt), constants
+    )
+    return tfsf.build_aux(nx, vacuum_row, dt, dx0, constants)
+
+
+def build_step(
+    shape: Tuple[int, int, int],
+    *,
+    inv_dx: Tuple[float, float, float],
+    dt: float,
+    bc: BoundaryConditions = BoundaryConditions(),
+    constants: PhysicalConstants = SI,
+    dtype=torch.float32,
+    cpml=None,
+    tfsf=None,
+    dense=None,
+):
+    """Build step(state: EngineState, coeffs, sources) -> EngineState.
+
+    Profiles and aux coefficients move to the state's device on its first
+    step there, in the carry dtype of ``dtype``."""
+    check_absorbers(shape, cpml, tfsf, dense)
+    inv_dx = tuple(float(v) for v in inv_dx)
+    cdt = carry_dtype(dtype)
+    active = set(cpml.active_axes()) if cpml is not None else set()
+    profs_np = {}
+    if cpml is not None:
+        from .cpml import _profiles_1d
+
+        for axis in active:
+            lo, hi = cpml.thickness[axis]
+            n = shape[axis]
+            dx = 1.0 / inv_dx[axis]
+            for half, key in ((False, "h"), (True, "e")):
+                ik, b, c = _profiles_1d(n, lo, hi, cpml.spec, dx, dt, constants, half)
+                profs_np[(key, axis)] = ((ik, b, c), _slab_extents(n, lo, hi, half))
+    aux_np = None
+    if tfsf is not None:
+        aux_np = aux_coefficients(tfsf, shape[0], inv_dx[0], dt, constants)
+        lo, hi = tfsf.span
+        if tfsf.is_box:
+            (ylo, yhi), (zlo, zhi) = tfsf.span_y, tfsf.span_z
+            xs, ys, zs = slice(lo, hi + 1), slice(ylo, yhi + 1), slice(zlo, zhi + 1)
+        else:
+            xs, ys, zs = slice(lo, hi + 1), slice(None), slice(None)
+
+    per_device = {}
+
+    def consts(device):
+        """(slab profiles, aux coefficients) on ``device``."""
+        if device not in per_device:
+            profs = {}
+            for (key, axis), ((ik, b, c), ((l0, l1), (h0, h1))) in profs_np.items():
+
+                def slab(arr1d, a, bnd):
+                    bshape = [1, 1, 1]
+                    bshape[axis] = bnd - a
+                    return torch.as_tensor(arr1d[a:bnd]).to(
+                        device=device, dtype=cdt).reshape(bshape)
+
+                # slab-local profile slices (lo and hi ends) + the inverse
+                # kappa stretch for the slabs (interior kappa == 1)
+                profs[(key, axis)] = (
+                    (slab(ik, l0, l1), slab(b, l0, l1), slab(c, l0, l1)),
+                    (slab(ik, h0, h1), slab(b, h0, h1), slab(c, h0, h1)),
+                    ((l0, l1), (h0, h1)),
+                )
+            aux = None if aux_np is None else tuple(
+                torch.as_tensor(v).to(device=device, dtype=cdt) for v in aux_np)
+            per_device[device] = (profs, aux)
+        return per_device[device]
+
+    def curl_with_psi(f3, psi, diff, key, profs):
+        """CPML-stretched curl with SLAB-resident psi: the recurrence and
+        stretch touch only the absorber thickness along each term's axis
+        (the interior passes through untouched: kappa there is 1 and psi
+        is identically 0)."""
+        d = {}
+        new_psi = list(psi)
+        for idx, (comp, axis) in enumerate(_TERMS):
+            raw = diff(f3[comp], axis, bc.axis(axis), comp) * inv_dx[axis]
+            if axis in active:
+                (lo_prof, hi_prof, ((l0, l1), (h0, h1))) = profs[(key, axis)]
+                psi_lo, psi_hi = psi[idx]
+                pieces = []
+                if l1 > l0:
+                    ik, b, c = lo_prof
+                    raw_lo = raw.narrow(axis, l0, l1 - l0)
+                    p_lo = b * psi_lo + c * raw_lo
+                    psi_lo = p_lo
+                    pieces.append((ik * raw_lo + p_lo).to(raw.dtype))
+                pieces.append(raw.narrow(axis, l1, h0 - l1))
+                if h1 > h0:
+                    ik, b, c = hi_prof
+                    raw_hi = raw.narrow(axis, h0, h1 - h0)
+                    p_hi = b * psi_hi + c * raw_hi
+                    psi_hi = p_hi
+                    pieces.append((ik * raw_hi + p_hi).to(raw.dtype))
+                new_psi[idx] = (psi_lo, psi_hi)
+                raw = torch.cat(pieces, dim=axis) if len(pieces) > 1 else pieces[0]
+            d[(comp, axis)] = raw
+        cx = d[(2, 1)] - d[(1, 2)]
+        cy = d[(0, 2)] - d[(2, 0)]
+        cz = d[(1, 0)] - d[(0, 1)]
+        return (cx, cy, cz), tuple(new_psi)
+
+    def _coef_block(coef, *idx):
+        return coef if coef.dim() == 0 else coef[idx]
+
+    def step(state: EngineState, coeffs: CellCoefficients,
+             sources: Optional[SourceSet]) -> EngineState:
+        profs, aux_coeffs = consts(state.device)
+        fdt = state.dtype
+        t = field_dtype_time(state.tick, dt, fdt)
+        pts = j_vals = m_vals = None
+        if sources is not None and sources.num_sources > 0:
+            j_vals, m_vals = sources.values(t)
+            pts, j_vals, m_vals = clip_points(sources.points, state.shape,
+                                              j_vals, m_vals)
+
+        # --- H half-update -------------------------------------------------
+        ce, psi_h = curl_with_psi(state.e, state.psi_h, _diff_backward, "h", profs)
+        h = [coeffs.d_a * state.h[c] - coeffs.d_b * ce[c] for c in range(3)]
+
+        aux_e, aux_h = state.aux_e, state.aux_h
+        if tfsf is not None:
+            # incident E at the old time level (aux not yet stepped).
+            # x faces: the Hy update's +d_b*dEz/dx reads the cross-boundary
+            # incident Ez (restricted to the box's lateral extent).
+            hy = h[1]
+            hy[lo, ys, zs] += -_coef_block(coeffs.d_b, lo, ys, zs) \
+                * aux_e[lo - 1] * inv_dx[0]
+            hy[hi + 1, ys, zs] += _coef_block(coeffs.d_b, hi + 1, ys, zs) \
+                * aux_e[hi] * inv_dx[0]
+            if tfsf.is_box:
+                # y faces: the Hx update's -d_b*dEz/dy reads incident
+                # Ez = aux_e[x] across the boundary (varies along x only)
+                ez_inc = aux_e[xs][:, None] * inv_dx[1]
+                hx = h[0]
+                hx[xs, ylo, zs] += _coef_block(coeffs.d_b, xs, ylo, zs) * ez_inc
+                hx[xs, yhi + 1, zs] += -_coef_block(coeffs.d_b, xs, yhi + 1, zs) \
+                    * ez_inc
+            aux_e, aux_h = tfsf.aux_step(aux_e, aux_h, aux_coeffs, t, inv_dx[0])
+
+        if m_vals is not None:
+            h = add_at(h, pts, _cells(coeffs.d_b, pts, len(pts), fdt), m_vals, fdt)
+
+        # --- E half-update (uses the new H) ---------------------------------
+        ch, psi_e = curl_with_psi(tuple(h), state.psi_e, _diff_forward, "e", profs)
+        e = [coeffs.c_a * state.e[c] + coeffs.c_b * ch[c] for c in range(3)]
+
+        if tfsf is not None:
+            # incident H at the new time level (aux just stepped).
+            # x faces: the Ez update's +c_b*dHy/dx reads incident Hy.
+            ez = e[2]
+            ez[lo - 1, ys, zs] += -_coef_block(coeffs.c_b, lo - 1, ys, zs) \
+                * aux_h[lo] * inv_dx[0]
+            ez[hi, ys, zs] += _coef_block(coeffs.c_b, hi, ys, zs) \
+                * aux_h[hi + 1] * inv_dx[0]
+            if tfsf.is_box:
+                # z faces: the Ex update's -c_b*dHy/dz reads incident
+                # Hy = aux_h[x] across the boundary
+                hy_inc = aux_h[xs][:, None] * inv_dx[2]
+                ex = e[0]
+                ex[xs, ys, zlo - 1] += _coef_block(coeffs.c_b, xs, ys, zlo - 1) \
+                    * hy_inc
+                ex[xs, ys, zhi] += -_coef_block(coeffs.c_b, xs, ys, zhi) * hy_inc
+
+        if j_vals is not None:
+            e = add_at(e, pts, _cells(coeffs.c_b, pts, len(pts), fdt), j_vals, fdt)
+
+        return EngineState(
+            *e, *h, tick=state.tick + 1, psi_h=psi_h, psi_e=psi_e,
+            aux_e=aux_e, aux_h=aux_h, psi_d=state.psi_d,
+        )
+
+    return step

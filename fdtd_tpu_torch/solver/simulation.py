@@ -12,8 +12,16 @@ when no accumulator rides the run and the cadence allows K > 1 ticks per
 call, else K1 (``cuda_step``). Elsewhere, or with ``backend="torch"``, it
 runs the plain step. ``plan()`` says which.
 
-Absorbing runs (CPML, TF/SF, DensePml) are not ported yet (ROADMAP.md,
-queue 1 items 4-5): asking for one raises ``NotImplementedError``.
+Absorbing runs (``cpml`` and/or a slab or box ``tfsf``) step an
+``EngineState`` (solver/engine.py): on a CUDA device through K4
+(``cuda_cpml_k``) or K3 (``cuda_cpml``) on the same rule, elsewhere through
+the plain engine. TF/SF-only runs ride the CPML kernels with an empty
+absorber. DensePml regions and oblique TF/SF are not ported yet
+(ROADMAP.md, queue 1 item 7): asking for either raises
+``NotImplementedError``.
+
+The device defaults to the current CUDA card; without one, construction
+raises unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -28,17 +36,19 @@ import torch
 from ..grid import Grid
 from .best import K_LADDER
 from .boundary import BoundaryConditions
+from .cpml import Cpml
+from .cuda_cpml import cuda_cpml_step_fn, supports_cpml
+from .cuda_cpml_k import cuda_cpml_stepk_fn, supports_cpml_k
 from .cuda_step import cuda_step_fn, supports
 from .cuda_stepk import cuda_stepk_fn, supports_k
+from .engine import build_step, check_absorbers, init_engine_state
 from .sources import SourceSet
-from .state import SimState, zero_state
+from .state import DEFAULT_DEVICE, SimState, resolve_device, zero_state
 from .step import CellCoefficients, step_fn
 
 __all__ = ["Simulation"]
 
 _BACKENDS = ("auto", "torch", "cuda")
-_NOT_PORTED = ("absorbing runs (CPML, TF/SF, DensePml) are not ported to "
-               "PyTorch yet: ROADMAP.md queue 1, items 4-5")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -47,9 +57,10 @@ class Simulation:
 
     ``backend``: "auto" runs the CUDA kernels when the configuration allows
     it (CUDA device, f32/bf16, Neumann(0) edges, scalar coefficients or a
-    uint8 material index with at most 256 materials) and the plain step
-    otherwise; "torch" forces the plain step; "cuda" requires the kernels
-    and raises at construction when the configuration is not eligible.
+    uint8 material index with at most 256 materials; CPML slabs that do not
+    meet) and the plain step or engine otherwise; "torch" forces the plain
+    path; "cuda" requires the kernels and raises at construction when the
+    configuration is not eligible.
 
     ``matid``/``table``: the compressed-material mode, a per-cell index and
     a (K, 4) coefficient table; ``coeffs`` may then be None.
@@ -66,17 +77,13 @@ class Simulation:
     dense_pml: Any = None
     matid: Any = None
     table: Any = None
-    device: Any = "cpu"
+    device: Any = DEFAULT_DEVICE
 
     def __post_init__(self):
-        if (self.cpml is not None or self.tfsf is not None
-                or self.dense_pml is not None):
-            raise NotImplementedError(_NOT_PORTED)
+        check_absorbers(self.grid.shape, self.cpml, self.tfsf, self.dense_pml)
         if self.backend not in _BACKENDS:
             raise ValueError(f"backend must be one of {_BACKENDS}, got {self.backend!r}")
-        device = torch.device(self.device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
+        device = resolve_device(self.device)
         set_ = object.__setattr__
         set_(self, "device", device)
         if self.coeffs is not None:
@@ -106,11 +113,20 @@ class Simulation:
                 "backend='cuda' requested but the configuration is not "
                 "eligible for the CUDA kernels (needs a CUDA device, f32/bf16, "
                 "Neumann(0) edges, scalar coefficients or a uint8 matid with "
-                "at most 256 materials)")
+                "at most 256 materials, CPML slabs that do not meet)")
 
     # -- construction -------------------------------------------------------
 
+    @property
+    def _absorbing(self) -> bool:
+        return self.cpml is not None or self.tfsf is not None
+
     def init(self) -> SimState:
+        """The zero state: an ``EngineState`` (psi slabs, aux line) for
+        absorbing runs, else a ``SimState``."""
+        if self._absorbing:
+            return init_engine_state(self.grid.shape, self.dtype, cpml=self.cpml,
+                                     tfsf=self.tfsf, device=self.device)
         return zero_state(self.grid.shape, self.dtype, self.device)
 
     @property
@@ -119,14 +135,39 @@ class Simulation:
 
     def _cuda_eligible(self) -> bool:
         """Whether the CUDA kernels cover this configuration (the
-        counterpart of the JAX package's ``_pallas_eligible``)."""
+        counterpart of the JAX package's ``_pallas_eligible``; absorbing
+        runs: ``_cuda_cpml_eligible``)."""
+        if self._absorbing:
+            return self._cuda_cpml_eligible()
         if self.device.type != "cuda":
             return False
         if not supports(self.grid.shape, self.bc, dtype=self.dtype):
             return False
+        return self._kernel_coefficients()
+
+    def _kernel_coefficients(self) -> bool:
         if self.matid is not None:
             return self.matid.dtype == torch.uint8 and self._n_materials <= 256
         return self.coeffs.is_uniform()
+
+    def _cuda_cpml_eligible(self) -> bool:
+        """Whether the CPML kernels cover this absorbing run (the
+        counterpart of ``_cpml_kernel_eligible``): a CUDA device, f32/bf16,
+        Neumann(0) edges, scalar coefficients or a uint8 matid with at most
+        256 materials, and CPML slabs that do not meet."""
+        if self.device.type != "cuda":
+            return False
+        if not supports_cpml(self.grid.shape, self.bc, self._cpml_or_empty,
+                             dtype=self.dtype):
+            return False
+        return self._kernel_coefficients()
+
+    @property
+    def _cpml_or_empty(self) -> Cpml:
+        """TF/SF-only runs ride the CPML kernels with an empty absorber."""
+        if self.cpml is not None:
+            return self.cpml
+        return Cpml(thickness=((0, 0), (0, 0), (0, 0)))
 
     @cached_property
     def _kernels(self) -> bool:
@@ -154,6 +195,9 @@ class Simulation:
                   bc=self.bc, dtype=self.dtype, with_m=self._has_m_sources)
         if self.matid is not None:
             kw.update(matid=self.matid, n_materials=self._n_materials)
+        if self._absorbing:
+            kw.update(constants=self.grid.constants, cpml=self._cpml_or_empty,
+                      tfsf=self.tfsf)
         return kw
 
     def _bind(self, kernel):
@@ -169,9 +213,15 @@ class Simulation:
     @cached_property
     def _step(self):
         if self._kernels:
-            return self._bind(cuda_step_fn(self.grid.shape, **self._kernel_kwargs()))
-        plain = step_fn(inv_dx=tuple(1.0 / d for d in self.grid.dx),
-                        dt=self.grid.dt, bc=self.bc)
+            one = cuda_cpml_step_fn if self._absorbing else cuda_step_fn
+            return self._bind(one(self.grid.shape, **self._kernel_kwargs()))
+        inv_dx = tuple(1.0 / d for d in self.grid.dx)
+        if self._absorbing:
+            plain = build_step(self.grid.shape, inv_dx=inv_dx, dt=self.grid.dt,
+                               bc=self.bc, constants=self.grid.constants,
+                               dtype=self.dtype, cpml=self.cpml, tfsf=self.tfsf)
+        else:
+            plain = step_fn(inv_dx=inv_dx, dt=self.grid.dt, bc=self.bc)
         coeffs = self._dense_coeffs
 
         def step(state, _coeffs, sources):
@@ -185,8 +235,9 @@ class Simulation:
 
     def _multi_step(self, k: int):
         if k not in self._multi_step_cache:
+            multi = cuda_cpml_stepk_fn if self._absorbing else cuda_stepk_fn
             self._multi_step_cache[k] = self._bind(
-                cuda_stepk_fn(self.grid.shape, k, **self._kernel_kwargs()))
+                multi(self.grid.shape, k, **self._kernel_kwargs()))
         return self._multi_step_cache[k]
 
     # -- stepping ------------------------------------------------------------
@@ -199,23 +250,34 @@ class Simulation:
              accumulators: Sequence[Any] = (),
              probe_every: int = 1) -> Tuple[int, str]:
         """(k, kind): ticks per step call and the path ``run`` takes for
-        these arguments. kind is "cuda_stepk" (K2), "cuda_step" (K1) or
-        "torch" (the plain step).
+        these arguments. kind is "cuda_stepk" (K2), "cuda_step" (K1),
+        "cuda_cpml_k" (K4), "cuda_cpml" (K3) or "torch" (the plain step or
+        engine).
 
-        K2 needs every intermediate state to be unobserved: it runs only
-        when no accumulator rides the run and K divides both ``n_steps`` and
-        the probe cadence."""
+        The K-tick kernels need every intermediate state to be unobserved:
+        they run only when no accumulator rides the run and K divides both
+        ``n_steps`` and the probe cadence. K comes from ``K_LADDER`` for
+        both (the TPU's CPML ladder is a Mosaic calibration)."""
         if not self._kernels:
             return 1, "torch"
+        one, multi = (("cuda_cpml", "cuda_cpml_k") if self._absorbing
+                      else ("cuda_step", "cuda_stepk"))
         if not accumulators:
             cadence = probe_every if probes else n_steps
             n_mat = self._n_materials if self.matid is not None else 1
             for k in K_LADDER:
-                if n_steps % k == 0 and cadence % k == 0 and supports_k(
-                        self.grid.shape, self.bc, k, dtype=self.dtype,
-                        n_materials=n_mat):
-                    return k, "cuda_stepk"
-        return 1, "cuda_step"
+                if n_steps % k != 0 or cadence % k != 0:
+                    continue
+                if self._absorbing:
+                    fits = supports_cpml_k(self.grid.shape, self.bc,
+                                           self._cpml_or_empty, k,
+                                           dtype=self.dtype, n_materials=n_mat)
+                else:
+                    fits = supports_k(self.grid.shape, self.bc, k,
+                                      dtype=self.dtype, n_materials=n_mat)
+                if fits:
+                    return k, multi
+        return 1, one
 
     def run(
         self,
@@ -258,9 +320,10 @@ class Simulation:
     # -- reporting -----------------------------------------------------------
 
     def memory_required(self) -> int:
-        """Device-memory estimate of the state and material index
+        """Device-memory estimate of the fields and material index
         (counterpart of SolverBackend::memory_required,
-        cem-solver/src/lib.rs:40-45)."""
+        cem-solver/src/lib.rs:40-45; psi slabs and the aux line are not
+        counted)."""
         itemsize = torch.empty((), dtype=self.dtype).element_size()
         return self.grid.memory_required(dtype_bytes=itemsize)
 

@@ -20,6 +20,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .state import DEFAULT_DEVICE, resolve_device
+
 __all__ = [
     "GaussianPulse",
     "ContinuousWave",
@@ -127,7 +129,8 @@ class SourceSet:
 
     @classmethod
     def build(cls, sources: Sequence[PointSource], dtype=torch.float32,
-              device="cpu") -> "SourceSet":
+              device=DEFAULT_DEVICE) -> "SourceSet":
+        device = resolve_device(device)
         # Last source wins per cell, matching set_forcing's overwrite
         # semantics (cem-solver/src/fdtd/cpu/mod.rs:404-408).
         by_cell: dict = {}
@@ -151,7 +154,9 @@ class SourceSet:
         )
 
     @classmethod
-    def empty(cls, dtype=torch.float32, device="cpu") -> "SourceSet":
+    def empty(cls, dtype=torch.float32, device=DEFAULT_DEVICE) -> "SourceSet":
+        device = resolve_device(device)
+
         def z(*shape, dt=dtype):
             return torch.zeros(shape, dtype=dt, device=device)
 

@@ -7,6 +7,11 @@ the JAX package's so the tests compare like with like.
 
 The state is a value: every step returns a new ``SimState`` and leaves the
 one it was given untouched.
+
+Every entry point of the port puts its tensors on the CUDA card unless the
+caller names another device (``device="cpu"`` for the plain path on the
+CPU); ``resolve_device`` raises when the card is asked for and absent, so
+nothing runs elsewhere unasked.
 """
 
 from __future__ import annotations
@@ -17,8 +22,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["SimState", "zero_state", "state_from_stacked"]
+__all__ = ["SimState", "zero_state", "state_from_stacked", "resolve_device"]
 
+DEFAULT_DEVICE = "cuda"
 FIELDS = ("ex", "ey", "ez", "hx", "hy", "hz")
 
 
@@ -74,6 +80,21 @@ class SimState:
         return _stack_host(self.h)
 
 
+def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
+    """``device`` as a torch device, with a CUDA device's index filled in.
+    Asking for CUDA on a machine without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r}: no CUDA device is available. The port runs "
+                "on the card unless told otherwise: pass device='cpu' for the "
+                "plain PyTorch path on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _stack_host(fields) -> np.ndarray:
     # numpy has no bfloat16: widen (exactly) to float32 on the way out
     return np.stack([
@@ -82,7 +103,9 @@ def _stack_host(fields) -> np.ndarray:
     ])
 
 
-def zero_state(shape, dtype=torch.float32, device="cpu") -> SimState:
+def zero_state(shape, dtype=torch.float32, device=DEFAULT_DEVICE) -> SimState:
+    device = resolve_device(device)
+
     def z():
         return torch.zeros(tuple(shape), dtype=dtype, device=device)
 
@@ -90,8 +113,9 @@ def zero_state(shape, dtype=torch.float32, device="cpu") -> SimState:
 
 
 def state_from_stacked(e, h, tick: int = 0, dtype=None,
-                       device="cpu") -> SimState:
+                       device=DEFAULT_DEVICE) -> SimState:
     """Build a SimState from (3, nx, ny, nz) stacked arrays or tensors."""
+    device = resolve_device(device)
     e = torch.as_tensor(np.asarray(e) if not torch.is_tensor(e) else e)
     h = torch.as_tensor(np.asarray(h) if not torch.is_tensor(h) else h)
     e = e.to(device=device, dtype=dtype or e.dtype)

@@ -25,7 +25,7 @@ import torch
 
 from .boundary import BoundaryConditions, Dirichlet, Neumann
 from .sources import SourceSet
-from .state import SimState
+from .state import DEFAULT_DEVICE, SimState, resolve_device
 
 __all__ = [
     "CellCoefficients",
@@ -50,7 +50,9 @@ class CellCoefficients:
     d_b: torch.Tensor
 
     @classmethod
-    def uniform(cls, row, dtype=torch.float32, device="cpu") -> "CellCoefficients":
+    def uniform(cls, row, dtype=torch.float32,
+                device=DEFAULT_DEVICE) -> "CellCoefficients":
+        device = resolve_device(device)
         c_a, c_b, d_a, d_b = (
             torch.as_tensor(float(v), dtype=torch.float64).to(device=device,
                                                                dtype=dtype)

@@ -52,6 +52,20 @@ def test_port_imports_no_jax():
     assert len(list(PKG.rglob("*.py"))) >= 15
 
 
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py runs on a machine without JAX: it imports neither jax
+    nor the JAX package, at its top or inside a function."""
+    path = PKG.parent / "chip_smoke.py"
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add((node.module or "").split(".")[0])
+    assert "fdtd_tpu_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "jaxlib", "fdtd_tpu"}, sorted(roots)
+
+
 # -- NumPy modules: equal numbers -------------------------------------------------
 
 
@@ -98,7 +112,67 @@ def test_coefficient_table_equal():
     assert jtab.index_dtype() == ptab.index_dtype() and len(jtab) == len(ptab)
 
 
+@pytest.mark.parametrize("units", ["SI", "REDUCED"])
+def test_pml_and_cpml_profiles_equal(units):
+    """solver/pml.py and the NumPy half of solver/cpml.py: the grading, the
+    (b, c) recurrence coefficients and the 1-D profiles of both halves,
+    with asymmetric and one-sided slabs."""
+    from fdtd_tpu.solver import pml as jpml
+    from fdtd_tpu.solver.cpml import _profiles_1d as jprofiles
+    from fdtd_tpu_torch.solver import pml as ppml
+    from fdtd_tpu_torch.solver.cpml import _profiles_1d as pprofiles
+
+    jc, pc = getattr(jt, units), getattr(pt, units)
+    dx = 0.7 if units == "REDUCED" else 1e-3
+    dt = 0.4 * dx / jc.speed_of_light
+    specs = [((), ()), ((4.0, 2.0, 3.0, 2.5, 0.1), (4.0, 2.0, 3.0, 2.5, 0.1))]
+    depth = np.linspace(-0.2, 1.2, 15)
+    for jargs, pargs in specs:
+        js, ps = jpml.GradedPmlSpec(*jargs), ppml.GradedPmlSpec(*pargs)
+        assert dataclasses.asdict(js) == dataclasses.asdict(ps)
+        jg = jpml.graded_profiles(depth, js, dx, jc)
+        pg = ppml.graded_profiles(depth, ps, dx, pc)
+        for a, b in zip(pg, jg):
+            np.testing.assert_allclose(a, b, **TOL)
+        for a, b in zip(ppml.pml_bc(*pg, dt, pc), jpml.pml_bc(*jg, dt, jc)):
+            np.testing.assert_allclose(a, b, **TOL)
+        for n, lo, hi in ((19, 3, 5), (12, 0, 4), (12, 4, 0)):
+            for half in (False, True):
+                want = jprofiles(n, lo, hi, js, dx, dt, jc, half)
+                got = pprofiles(n, lo, hi, ps, dx, dt, pc, half)
+                for a, b in zip(got, want):
+                    np.testing.assert_allclose(a, b, **TOL)
+    assert ppml.sigma_max_optimal(3.0, dx, pc) == jpml.sigma_max_optimal(3.0, dx, jc)
+
+
+@pytest.mark.parametrize("box", [False, True])
+def test_tfsf_build_aux_equal(box):
+    """The TF/SF aux grid's coefficients (vacuum, then the lossy ramp)."""
+    from fdtd_tpu.solver.tfsf import Tfsf as JTfsf
+
+    res = pt.Resolution.courant(0.5, pt.REDUCED, safety=0.9)
+    row = pt.coefficient_table([pt.VACUUM], res, pt.REDUCED)[0]
+    lateral = dict(span_y=(2, 5), span_z=(3, 6)) if box else {}
+    jtf = JTfsf(span=(4, 9), waveform=jt.GaussianPulse(1.0, 0.5), aux_margin=7,
+                absorber_cells=11, **lateral)
+    ptf = pt.Tfsf(span=(4, 9), waveform=pt.GaussianPulse(1.0, 0.5), aux_margin=7,
+                  absorber_cells=11, **lateral)
+    assert ptf.is_box == jtf.is_box == box
+    assert ptf.aux_length(14) == jtf.aux_length(14) == 32
+    want = jtf.build_aux(14, row, res.temporal, res.spatial[0], jt.REDUCED, jnp.float64)
+    got = ptf.build_aux(14, row, res.temporal, res.spatial[0], pt.REDUCED)
+    for a, b in zip(got, want):
+        assert a.dtype == np.float64
+        np.testing.assert_allclose(a, np.asarray(b), **TOL)
+    assert np.asarray(want[0])[-1] < np.asarray(want[0])[0]  # the ramp is lossy
+
+
 # -- sources ----------------------------------------------------------------------
+
+
+def _on_cpu(mod):
+    """The port's entry points default to the card: name the CPU."""
+    return {"device": "cpu"} if mod is pt else {}
 
 
 def _waveforms(mod):
@@ -115,7 +189,8 @@ def test_source_values_and_last_wins():
         w = _waveforms(mod)
         return mod.SourceSet.build(
             [mod.PointSource(p, w[i % 4], j=jj, m=mm)
-             for i, (p, jj, mm) in enumerate(zip(pts, j, m))], dtype=dtype)
+             for i, (p, jj, mm) in enumerate(zip(pts, j, m))], dtype=dtype,
+            **_on_cpu(mod))
 
     js = build(jt, jnp.float64)
     ps = build(pt, torch.float64)
@@ -148,7 +223,7 @@ def _run_pair(e0, h0, jcoeffs, pcoeffs, jsrc, psrc, n, bc_j=None, bc_p=None):
     bc_j = bc_j or jt.BoundaryConditions()
     bc_p = bc_p or pt.BoundaryConditions()
     jstate = jt.state_from_stacked(e0, h0, dtype=jnp.float64)
-    pstate = pt.state_from_stacked(e0, h0, dtype=torch.float64)
+    pstate = pt.state_from_stacked(e0, h0, dtype=torch.float64, device="cpu")
     jf = jt.step_fn(inv_dx=INV_DX, dt=DT, bc=bc_j)
     pf = pt.step_fn(inv_dx=INV_DX, dt=DT, bc=bc_p)
     for _ in range(n):
@@ -182,12 +257,12 @@ def test_plain_step_matches_jax_and_oracle(rng, case):
     oracle.e[:], oracle.h[:] = e0, h0
     if material is None:
         jc = jt.CellCoefficients(*(jnp.asarray(v, jnp.float64) for v in row))
-        pc = convert.coeffs_from_numpy(jc)
+        pc = convert.coeffs_from_numpy(jc, device="cpu")
     else:
         matid, table = material
         jc = jt.CellCoefficients.from_table(jnp.asarray(table, jnp.float64),
                                             jnp.asarray(matid))
-        mid, tab = convert.material_from_numpy(matid, table)
+        mid, tab = convert.material_from_numpy(matid, table, device="cpu")
         pc = pt.CellCoefficients.from_table(tab, mid)
     jstate, pstate = _run_pair(e0, h0, jc, pc, None, None, 4)
     oracle.step(4)
@@ -218,10 +293,11 @@ def test_plain_step_sources_match_jax_and_oracle(rng, dedup):
         wave = {"gaussian": mod.GaussianPulse, "cw": mod.ContinuousWave}
         return mod.SourceSet.build(
             [mod.PointSource(p, wave[kind](a, b), j=j, m=m)
-             for p, (kind, a, b), j, m in specs + outside], dtype=dtype)
+             for p, (kind, a, b), j, m in specs + outside], dtype=dtype,
+            **_on_cpu(mod))
 
     jc = jt.CellCoefficients.uniform((1, 1, 1, 1), jnp.float64)
-    pc = pt.CellCoefficients.uniform((1, 1, 1, 1), torch.float64)
+    pc = pt.CellCoefficients.uniform((1, 1, 1, 1), torch.float64, device="cpu")
     jstate, pstate = _run_pair(e0, h0, jc, pc, build(jt, jnp.float64),
                                build(pt, torch.float64), 9)
     oracle.step(9)
@@ -246,7 +322,7 @@ def test_plain_step_boundaries_match_jax_and_oracle(rng):
         (k, np.asarray(a), np.asarray(b)) for k, a, b in conds])
     oracle.e[:], oracle.h[:] = e0, h0
     jc = jt.CellCoefficients.uniform((1, 1, 1, 1), jnp.float64)
-    pc = pt.CellCoefficients.uniform((1, 1, 1, 1), torch.float64)
+    pc = pt.CellCoefficients.uniform((1, 1, 1, 1), torch.float64, device="cpu")
     jstate, pstate = _run_pair(e0, h0, jc, pc, None, None, 5, bcs(jt), bcs(pt))
     oracle.step(5)
     np.testing.assert_allclose(pstate.e_stacked(), jstate.e_stacked(), **TOL)
@@ -269,9 +345,10 @@ def test_f32_fidelity_1000_steps():
     oracle = OracleSim(shape, (dx,) * 3, dt, 1.0, dt, 1.0, dt)
     oracle.add_point_source((12, 12, 12), OracleSim.gaussian(20 * dt, 6 * dt), j=(0, 0, 1.0))
     srcs = pt.SourceSet.build(
-        [pt.PointSource((12, 12, 12), pt.GaussianPulse(20 * dt, 6 * dt), j=(0, 0, 1.0))])
-    state = pt.zero_state(shape, torch.float32)
-    coeffs = pt.CellCoefficients.uniform((1.0, dt, 1.0, dt), torch.float32)
+        [pt.PointSource((12, 12, 12), pt.GaussianPulse(20 * dt, 6 * dt), j=(0, 0, 1.0))],
+        device="cpu")
+    state = pt.zero_state(shape, torch.float32, device="cpu")
+    coeffs = pt.CellCoefficients.uniform((1.0, dt, 1.0, dt), torch.float32, device="cpu")
     f = pt.step_fn(inv_dx=(1.0 / dx,) * 3, dt=dt)
     for _ in range(1000):
         state = f(state, coeffs, srcs)
@@ -284,19 +361,19 @@ def test_f32_fidelity_1000_steps():
 def test_convert_round_trip(rng):
     e0, h0 = _random_state(rng)
     js = jt.state_from_stacked(e0, h0, tick=7, dtype=jnp.bfloat16)
-    ps = convert.state_from_numpy(js)
+    ps = convert.state_from_numpy(js, device="cpu")
     assert ps.dtype == torch.bfloat16 and ps.tick == 7
     back = convert.state_to_numpy(ps)
     for f in ("ex", "ey", "ez", "hx", "hy", "hz"):
         np.testing.assert_array_equal(back[f], np.asarray(getattr(js, f), np.float32))
     matid = rng.integers(0, 3, SHAPE).astype(np.uint8)
     table = rng.uniform(size=(3, 4)).astype(np.float32)
-    mid, tab = convert.material_from_numpy(matid, table)
+    mid, tab = convert.material_from_numpy(matid, table, device="cpu")
     assert mid.dtype == torch.uint8 and tab.dtype == torch.float32
     m2, t2 = convert.material_to_numpy(mid, tab)
     np.testing.assert_array_equal(m2, matid)
     np.testing.assert_array_equal(t2, table)
     jc = jt.CellCoefficients.uniform((0.9, 0.1, 0.8, 0.2), jnp.float32)
     np.testing.assert_array_equal(
-        list(convert.coeffs_to_numpy(convert.coeffs_from_numpy(jc)).values()),
+        list(convert.coeffs_to_numpy(convert.coeffs_from_numpy(jc, device="cpu")).values()),
         [np.asarray(c) for c in jc])

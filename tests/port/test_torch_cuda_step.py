@@ -24,19 +24,24 @@ DT = 0.2
 TABLE = [[1.0, DT, 1.0, DT], [0.9, 0.1, 0.95, 0.12], [0.5, 0.4, 0.7, 0.3]]
 
 
+def _on_cpu(mod):
+    """The port's entry points default to the card: name the CPU."""
+    return {"device": "cpu"} if mod is pt else {}
+
+
 def _sources(mod, shape, dtype):
     return mod.SourceSet.build(
         [mod.PointSource((2, 3, 4), mod.GaussianPulse(2 * DT, DT), j=(0, 0, 2.0)),
          mod.PointSource((shape[0] - 1, shape[1] - 2, shape[2] - 3),
                          mod.GaussianPulse(DT, DT), j=(1.0, 0.5, 0))],
-        dtype=dtype)
+        dtype=dtype, **_on_cpu(mod))
 
 
 def _state_pair(rng, shape, jdtype=jnp.float32, pdtype=torch.float32):
     e = rng.standard_normal((3, *shape))
     h = rng.standard_normal((3, *shape))
     return (jt.state_from_stacked(e, h, dtype=jdtype),
-            pt.state_from_stacked(e, h, dtype=pdtype))
+            pt.state_from_stacked(e, h, dtype=pdtype, device="cpu"))
 
 
 def _assert_close(pstate, jstate, tol):
@@ -61,7 +66,7 @@ def test_uniform_j_matches_pallas(rng):
     shape = (10, 16, 128)
     jstate, pstate = _state_pair(rng, shape)
     jc = jt.CellCoefficients.uniform((1.0, DT, 1.0, DT), jnp.float32)
-    pc = convert.coeffs_from_numpy(jc)
+    pc = convert.coeffs_from_numpy(jc, device="cpu")
     jsrc, psrc = _sources(jt, shape, jnp.float32), _sources(pt, shape, torch.float32)
     jf = pallas_step_fn(shape, inv_dx=INV_DX, dt=DT, interpret=True)
     pf = cuda_step_fn(shape, inv_dx=INV_DX, dt=DT)
@@ -76,7 +81,7 @@ def test_matid_matches_pallas(rng):
     jstate, pstate = _state_pair(rng, shape)
     matid = rng.integers(0, 3, shape).astype(np.uint8)
     table = np.asarray(TABLE, np.float32)
-    mid, tab = convert.material_from_numpy(matid, table)
+    mid, tab = convert.material_from_numpy(matid, table, device="cpu")
     jsrc, psrc = _sources(jt, shape, jnp.float32), _sources(pt, shape, torch.float32)
     jf = pallas_step_fn(shape, inv_dx=INV_DX, dt=DT, matid=jnp.asarray(matid),
                         n_materials=3, interpret=True)
@@ -92,11 +97,13 @@ def test_m_sources_match_plain_step(rng):
     the XLA step): the plain version equals the f32 plain step."""
     shape = (7, 9, 11)
     _, pstate = _state_pair(rng, shape)
-    pc = pt.CellCoefficients.uniform((0.97, 0.21, 0.99, 0.18), torch.float32)
+    pc = pt.CellCoefficients.uniform((0.97, 0.21, 0.99, 0.18), torch.float32,
+                                     device="cpu")
     src = pt.SourceSet.build([
         pt.PointSource((3, 5, 7), pt.GaussianPulse(2 * DT, DT), j=(0.5, 0, 2.0),
                        m=(0.0, 1.5, 0.25)),
-        pt.PointSource((6, 8, 10), pt.ContinuousWave(0.3), m=(1.0, 0, 0))])
+        pt.PointSource((6, 8, 10), pt.ContinuousWave(0.3), m=(1.0, 0, 0))],
+        device="cpu")
     ref, out = pstate, pstate
     f_ref = pt.step_fn(inv_dx=INV_DX, dt=DT)
     f_k1 = cuda_step_fn(shape, inv_dx=INV_DX, dt=DT, with_m=True)
@@ -116,9 +123,10 @@ def test_bf16_storage_matches_pallas(rng):
 
     def run(mod, f, dtype):
         s = mod.SourceSet.build([mod.PointSource(p, mod.GaussianPulse(*w), j=j)
-                                 for p, w, j in src])
-        c = mod.CellCoefficients.uniform(coeffs, jnp.float32 if mod is jt else torch.float32)
-        state = mod.zero_state(shape, dtype)
+                                 for p, w, j in src], **_on_cpu(mod))
+        c = mod.CellCoefficients.uniform(coeffs, jnp.float32 if mod is jt else torch.float32,
+                                         **_on_cpu(mod))
+        state = mod.zero_state(shape, dtype, **_on_cpu(mod))
         for _ in range(20):
             state = f(state, c, s)
         return state.e_stacked().astype(np.float32)
@@ -136,7 +144,7 @@ def test_bf16_storage_matches_pallas(rng):
 def test_cpu_takes_plain_version_without_launching(rng):
     shape = (5, 6, 7)
     _, pstate = _state_pair(rng, shape)
-    pc = pt.CellCoefficients.uniform((1.0, DT, 1.0, DT), torch.float32)
+    pc = pt.CellCoefficients.uniform((1.0, DT, 1.0, DT), torch.float32, device="cpu")
     before = cuda_step.launches()
     out = cuda_step_fn(shape, inv_dx=INV_DX, dt=DT)(pstate, pc, None)
     assert cuda_step.launches() == before and out.tick == 1

@@ -28,20 +28,25 @@ TOL = dict(rtol=5e-6, atol=5e-6)
 TABLE = [[1.0, DT, 1.0, DT], [0.9, 0.1, 0.95, 0.12], [0.5, 0.4, 0.7, 0.3]]
 
 
+def _on_cpu(mod):
+    """The port's entry points default to the card: name the CPU."""
+    return {"device": "cpu"} if mod is pt else {}
+
+
 def _sources(mod, dtype):
     return mod.SourceSet.build([
         mod.PointSource((3, 5, 7), mod.GaussianPulse(2 * DT, DT),
                         j=(0.5, 0, 2.0), m=(0.0, 1.5, 0.25)),
         mod.PointSource((9, 15, 127), mod.ContinuousWave(0.3), m=(1.0, 0, 0)),
         mod.PointSource((0, 0, 0), mod.GaussianPulse(DT, DT), j=(1.0, 0.5, 0)),
-    ], dtype=dtype)
+    ], dtype=dtype, **_on_cpu(mod))
 
 
 def _states(rng, shape):
     e = rng.standard_normal((3, *shape))
     h = rng.standard_normal((3, *shape))
     return (jt.state_from_stacked(e, h, dtype=jnp.float32),
-            pt.state_from_stacked(e, h, dtype=torch.float32))
+            pt.state_from_stacked(e, h, dtype=torch.float32, device="cpu"))
 
 
 def _assert_close(pstate, jstate, tol=TOL):
@@ -81,7 +86,7 @@ def test_j_and_m_sources_match_pallas(rng, k):
     shape = (10, 16, 128)
     jstate, pstate = _states(rng, shape)
     jc = jt.CellCoefficients.uniform((0.97, 0.21, 0.99, 0.18), jnp.float32)
-    pc = convert.coeffs_from_numpy(jc)
+    pc = convert.coeffs_from_numpy(jc, device="cpu")
     jsrc, psrc = _sources(jt, jnp.float32), _sources(pt, torch.float32)
     jf = pallas_stepk_fn(shape, k, inv_dx=INV_DX, dt=DT, interpret=True,
                          with_m=True, max_sources=3)
@@ -97,10 +102,10 @@ def test_matid_matches_pallas(rng):
     jstate, pstate = _states(rng, shape)
     matid = rng.integers(0, 3, shape).astype(np.uint8)
     table = np.asarray(TABLE, np.float32)
-    mid, tab = convert.material_from_numpy(matid, table)
+    mid, tab = convert.material_from_numpy(matid, table, device="cpu")
     jsrc = jt.SourceSet.build(
         [jt.PointSource((5, 10, 60), jt.GaussianPulse(2 * DT, DT), j=(0, 0, 1.0))])
-    psrc = convert.sources_from_numpy(jsrc)
+    psrc = convert.sources_from_numpy(jsrc, device="cpu")
     jf = pallas_stepk_fn(shape, 3, inv_dx=INV_DX, dt=DT, matid=jnp.asarray(matid),
                          n_materials=3, interpret=True)
     pf = cuda_stepk_fn(shape, 3, inv_dx=INV_DX, dt=DT, matid=mid, n_materials=3)
@@ -111,7 +116,7 @@ def test_k_ticks_equal_k1_ticks(rng):
     """The plain K2 equals K applications of K1's plain version at f32."""
     shape = (6, 7, 9)
     _, pstate = _states(rng, shape)
-    pc = pt.CellCoefficients.uniform((0.97, 0.21, 0.99, 0.18))
+    pc = pt.CellCoefficients.uniform((0.97, 0.21, 0.99, 0.18), device="cpu")
     src = _sources(pt, torch.float32)
     f1 = cuda_step_fn(shape, inv_dx=INV_DX, dt=DT, with_m=True)
     ref = pstate
@@ -125,7 +130,7 @@ def test_k_ticks_equal_k1_ticks(rng):
 
 def test_cpu_takes_plain_version_without_launching(rng):
     _, pstate = _states(rng, (4, 5, 6))
-    pc = pt.CellCoefficients.uniform((1.0, DT, 1.0, DT))
+    pc = pt.CellCoefficients.uniform((1.0, DT, 1.0, DT), device="cpu")
     before = cuda_stepk.launches()
     out = cuda_stepk_fn((4, 5, 6), 2, inv_dx=INV_DX, dt=DT)(pstate, pc, None)
     assert cuda_stepk.launches() == before and out.tick == 2
@@ -150,7 +155,7 @@ def test_best_dispatch(rng):
     assert best_step_fn(shape, device="cuda", **kw).__qualname__.startswith("cuda_step_fn")
 
     _, pstate = _states(rng, shape)
-    pc = pt.CellCoefficients.uniform((0.97, 0.21, 0.99, 0.18))
+    pc = pt.CellCoefficients.uniform((0.97, 0.21, 0.99, 0.18), device="cpu")
     src = _sources(pt, torch.float32)
     plain = pt.step_fn(inv_dx=INV_DX, dt=DT)
     ref = pstate

@@ -7,7 +7,10 @@ JAX, so it runs on a machine without it, from the repository root:
     python -m pytest --noconftest -m cuda tests/port/test_torch_on_card.py
 
 Tolerances: f32 within 2e-6 per tick (FMA contraction and operation order
-differ from the plain version), bf16 compared in bf16 within 1e-2.
+differ from the plain version), bf16 compared in bf16 within 1e-2. The
+CPML kernels (K3, K4) are held to 2e-6 x ticks x max|field| at f32 and
+2^-7 x max|field| in bf16; their psi slabs (f32 at every storage type) to
+2e-6 x ticks x max|psi|.
 """
 
 import numpy as np
@@ -15,7 +18,9 @@ import pytest
 import torch
 
 import fdtd_tpu_torch as pt
-from fdtd_tpu_torch.solver import cuda_step, cuda_stepk
+from fdtd_tpu_torch.solver import cuda_cpml, cuda_cpml_k, cuda_step, cuda_stepk
+from fdtd_tpu_torch.solver.cuda_cpml import cuda_cpml_step_fn, psi_tensors
+from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn
 from fdtd_tpu_torch.solver.cuda_step import cuda_step_fn
 from fdtd_tpu_torch.solver.cuda_stepk import cuda_stepk_fn
 
@@ -40,13 +45,16 @@ def _inputs(dtype, device, material):
         pt.PointSource((20, 14, 26), pt.GaussianPulse(2 * DT, DT), j=(0.5, 0, 2.0),
                        m=(0.1, 0.2, 0.3)),
         pt.PointSource((36, 0, 52), pt.ContinuousWave(0.3), j=(0, 1.0, 0)),
-        pt.PointSource((0, 28, 0), pt.Ricker(0.3, 2 * DT), m=(0.5, 0, 0))])
+        pt.PointSource((0, 28, 0), pt.Ricker(0.3, 2 * DT), m=(0.5, 0, 0))],
+        device="cpu")
     if material:
         mid = torch.from_numpy(rng.integers(0, 3, SHAPE).astype(np.uint8))
         coeffs, kw = torch.tensor(TABLE), dict(matid=mid, n_materials=3)
     else:
-        coeffs, kw = pt.CellCoefficients.uniform((0.97, 0.21, 0.99, 0.18)), {}
-    host = (pt.state_from_stacked(e, h, tick=2, dtype=dtype), coeffs, src, kw)
+        coeffs, kw = pt.CellCoefficients.uniform((0.97, 0.21, 0.99, 0.18),
+                                                 device="cpu"), {}
+    host = (pt.state_from_stacked(e, h, tick=2, dtype=dtype, device="cpu"), coeffs,
+            src, kw)
     dev = (pt.state_from_stacked(e, h, tick=2, dtype=dtype, device=device),
            coeffs.to(device), src.to(device),
            {k: v.to(device) if torch.is_tensor(v) else v for k, v in kw.items()})
@@ -97,3 +105,75 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
         step(ds.replace(ex=ds.ex.transpose(0, 1).contiguous().transpose(0, 1)), dc, dsrc)
     with pytest.raises(ValueError):  # bf16 state into an f32 kernel
         step(pt.zero_state(SHAPE, torch.bfloat16, cuda_device), dc, dsrc)
+
+
+# -- the CPML kernels: CPML of unequal thickness on every axis, a TF/SF box
+# whose y faces sit on tile rows 8 and 24 and whose z span crosses the tile
+# edge at 32, matid and J+M sources
+
+CPML = pt.Cpml(thickness=((4, 3), (3, 5), (5, 4)))
+TFSF = pt.Tfsf(span=(8, 27), waveform=pt.GaussianDerivative(6 * DT, 2 * DT),
+               span_y=(8, 23), span_z=(3, 40))
+
+
+def _engine_inputs(dtype, device):
+    (hs, hc, hsrc, hkw), _ = _inputs(dtype, device, True)
+    rng = np.random.default_rng(11)
+    s = pt.init_engine_state(SHAPE, dtype, cpml=CPML, tfsf=TFSF, device="cpu")
+
+    def rand(t):
+        return torch.from_numpy(rng.standard_normal(t.shape)).to(t.dtype)
+
+    s = s.replace(ex=hs.ex, ey=hs.ey, ez=hs.ez, hx=hs.hx, hy=hs.hy, hz=hs.hz, tick=2,
+                  psi_h=tuple((rand(a), rand(b)) for a, b in s.psi_h),
+                  psi_e=tuple((rand(a), rand(b)) for a, b in s.psi_e),
+                  aux_e=rand(s.aux_e), aux_h=rand(s.aux_h))
+    dev = s.replace(**{f: getattr(s, f).to(device) for f in
+                       ("ex", "ey", "ez", "hx", "hy", "hz", "aux_e", "aux_h")},
+                    psi_h=tuple((a.to(device), b.to(device)) for a, b in s.psi_h),
+                    psi_e=tuple((a.to(device), b.to(device)) for a, b in s.psi_e))
+    kw = dict(inv_dx=INV_DX, dt=DT, constants=pt.REDUCED, cpml=CPML, tfsf=TFSF,
+              dtype=dtype, with_m=True, n_materials=3)
+    return ((s, hc, hsrc, dict(kw, matid=hkw["matid"])),
+            (dev, hc.to(device), hsrc.to(device), dict(kw, matid=hkw["matid"].to(device))))
+
+
+def _check_engine(got, want, dtype, ticks):
+    torch.cuda.synchronize()
+    assert got.tick == want.tick
+    tol = 2e-6 * ticks if dtype == torch.float32 else 2.0 ** -7
+    for f in ("ex", "ey", "ez", "hx", "hy", "hz"):
+        a, b = getattr(got, f).cpu(), getattr(want, f)
+        scale = float(b.float().abs().max())
+        np.testing.assert_allclose(a.float().numpy(), b.float().numpy(), rtol=0,
+                                   atol=tol * scale, err_msg=f)
+    for a, b in zip(psi_tensors(got), psi_tensors(want)):
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                   atol=2e-6 * ticks * scale)
+    aux = want.aux_e.numpy()
+    np.testing.assert_allclose(got.aux_e.cpu().numpy(), aux, rtol=0,
+                               atol=1e-6 * np.abs(aux).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_matches_plain(cuda_device, dtype):
+    (hs, hc, hsrc, hkw), (ds, dc, dsrc, dkw) = _engine_inputs(dtype, cuda_device)
+    want = cuda_cpml_step_fn(SHAPE, **hkw)(hs, hc, hsrc)
+    before = cuda_cpml.launches()
+    got = cuda_cpml_step_fn(SHAPE, **dkw)(ds, dc, dsrc)
+    assert cuda_cpml.launches() == before + 1
+    _check_engine(got, want, dtype, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_k4_matches_plain(cuda_device, dtype, k):
+    (hs, hc, hsrc, hkw), (ds, dc, dsrc, dkw) = _engine_inputs(dtype, cuda_device)
+    want = cuda_cpml_stepk_fn(SHAPE, k, **hkw)(hs, hc, hsrc)
+    before = cuda_cpml_k.launches()
+    got = cuda_cpml_stepk_fn(SHAPE, k, **dkw)(ds, dc, dsrc)
+    assert cuda_cpml_k.launches() == before + 1
+    _check_engine(got, want, dtype, k)

@@ -22,6 +22,7 @@ from fdtd_tpu.probes import DftProbe as JDft
 from fdtd_tpu.probes import EnergyProbe as JEnergy
 from fdtd_tpu.probes import LineProbe as JLine
 from fdtd_tpu.probes import PointProbe as JPoint
+from fdtd_tpu.solver.tfsf_oblique import ObliqueTfsf
 from fdtd_tpu_torch.probes import (
     DftProbe,
     EnergyProbe,
@@ -85,9 +86,9 @@ def _port_sim(dtype, backend="auto"):
     grid = pt.Grid(shape=SHAPE, resolution=res, constants=pt.REDUCED)
     src = pt.SourceSet.build([pt.PointSource(
         src_at, pt.GaussianPulse(20 * grid.dt, 6 * grid.dt), j=(0.0, 0.0, 1.0))],
-        dtype=dtype)
+        dtype=dtype, device="cpu")
     return pt.Simulation(grid=grid, sources=src, dtype=dtype, matid=matid,
-                         table=ctable, backend=backend)
+                         table=ctable, backend=backend, device="cpu")
 
 
 def _compare(port, jax_out, field_tol):
@@ -155,8 +156,9 @@ def test_step_and_reporting():
     big_dt = pt.Grid(shape=SHAPE, resolution=pt.Resolution.uniform(1.0, 1.0),
                      constants=pt.REDUCED)
     with pytest.raises(ValueError, match="Courant"):
-        pt.Simulation(grid=big_dt, coeffs=pt.CellCoefficients.uniform((1, 1, 1, 1))
-                      ).courant_check()
+        pt.Simulation(grid=big_dt, coeffs=pt.CellCoefficients.uniform((1, 1, 1, 1),
+                                                                      device="cpu"),
+                      device="cpu").courant_check()
     # no samples: empty stacks of the probe's sample shape
     _, (stack,), () = sim.run(s, 0, probes=(EnergyProbe(),))
     assert tuple(stack.shape) == (0,)
@@ -165,23 +167,26 @@ def test_step_and_reporting():
 def test_unported_and_ineligible_configurations_raise():
     grid = pt.Grid(shape=(8, 8, 8), resolution=pt.Resolution.courant(1.0, pt.REDUCED),
                    constants=pt.REDUCED)
-    coeffs = pt.CellCoefficients.uniform((1, 0.5, 1, 0.5))
-    for kw in (dict(cpml=object()), dict(tfsf=object()), dict(dense_pml=object())):
+    coeffs = pt.CellCoefficients.uniform((1, 0.5, 1, 0.5), device="cpu")
+    oblique = ObliqueTfsf(box=((2, 5), (2, 5), (2, 5)), direction=(1.0, 1.0, 0.0),
+                          polarization=(0.0, 0.0, 1.0),
+                          waveform=jt.GaussianPulse(1.0, 0.5))
+    for kw in (dict(tfsf=oblique), dict(dense_pml=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt.Simulation(grid=grid, coeffs=coeffs, **kw)
+            pt.Simulation(grid=grid, coeffs=coeffs, device="cpu", **kw)
     with pytest.raises(ValueError, match="not eligible"):
-        pt.Simulation(grid=grid, coeffs=coeffs, backend="cuda")  # a CPU device
+        pt.Simulation(grid=grid, coeffs=coeffs, backend="cuda", device="cpu")
     with pytest.raises(ValueError, match="outside the table"):
         pt.Simulation(grid=grid, matid=np.full((8, 8, 8), 3, np.uint8),
-                      table=np.ones((3, 4)))
+                      table=np.ones((3, 4)), device="cpu")
     with pytest.raises(ValueError):
-        pt.Simulation(grid=grid)
+        pt.Simulation(grid=grid, device="cpu")
 
 
 def test_slice_and_flux_probes():
     rng = np.random.default_rng(3)
     e, h = rng.standard_normal((2, 3, 5, 6, 7))
-    state = pt.state_from_stacked(e, h, dtype=torch.float64)
+    state = pt.state_from_stacked(e, h, dtype=torch.float64, device="cpu")
     sl = SliceProbe(axis=1, index=2, component=FieldComponent.H).sample(state, 0.1)
     np.testing.assert_array_equal(sl.numpy(), h[:, :, 2, :])
     flux = PoyntingFluxProbe(axis=2, index=3, cell_area=0.5).sample(state, 0.1)
@@ -193,7 +198,7 @@ def test_slice_and_flux_probes():
     states, caps = [], []
     for t in range(3):
         s = pt.state_from_stacked(*rng.standard_normal((2, 3, 5, 6, 7)), tick=t + 1,
-                                  dtype=torch.float32)
+                                  dtype=torch.float32, device="cpu")
         acc = probe.update(acc, s, 0.1)
         caps.append(torch.stack([c[:, 2, :] for c in (*s.e, *s.h)], dim=1))
     folded = probe.update_from_dft_rows(probe.init_rows_acc(state, 0.1),

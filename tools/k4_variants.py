@@ -1,0 +1,167 @@
+#!/usr/bin/env python3
+"""Time register-cap variants of the K4 CPML kernel on one CUDA card.
+
+    python3 tools/k4_variants.py [--baseline DIR ...]
+
+Run from the root of a checkout on a machine with a CUDA card and nvcc. It
+writes copies of ``fdtd_tpu_torch/csrc/cpmlk.cu`` (and its ``cpml.cuh``)
+under ``build/k4_variants/`` that differ only in the kernel's
+``__launch_bounds__`` (no cap, or room for 3, 4, 5 or 6 resident blocks per
+SM: at most 80, 64, 48 or 40 registers) or in ``tile_pass`` kept out of
+line, adds each ``--baseline`` directory's own ``cpmlk.cu`` and
+``cpml.cuh`` (another version of the kernel with the same C interface, as
+it stands), builds them with one nvcc each, checks each against K4's plain
+version on a ragged lattice (37x29x53, CPML on every axis, a TF/SF box,
+K = 4), and times each with K3 beside it at config 3's 256^3 and at 512^3
+with ``Cpml.uniform(10)`` (f32), with CUDA events, in turns.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import re
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+import fdtd_tpu_torch as ft  # noqa: E402
+from fdtd_tpu_torch.solver import _build  # noqa: E402
+from fdtd_tpu_torch.solver.cuda_cpml import cuda_cpml_step_fn  # noqa: E402
+from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn, plain_cpml_stepk  # noqa: E402
+
+CSRC = ROOT / "fdtd_tpu_torch" / "csrc"
+OUT = ROOT / "build" / "k4_variants"
+BOUNDS = re.compile(r"__launch_bounds__\(yee::THREADS(, \d+)?\)\ncpmlk_kernel")
+
+
+def sources(d: Path):
+    """(cpmlk.cu, cpml.cuh) of directory ``d``, including the package's
+    yee.cuh."""
+    return ((d / "cpmlk.cu").read_text(), (d / "cpml.cuh").read_text().replace(
+        '#include "yee.cuh"', f'#include "{CSRC / "yee.cuh"}"'))
+
+
+def variants(baselines):
+    """name -> (cpmlk.cu, cpml.cuh) source texts."""
+    cu, cuh = sources(CSRC)
+    assert BOUNDS.search(cu), "cpmlk_kernel's launch bounds not found"
+
+    def cap(blocks):
+        arg = "" if blocks is None else f", {blocks}"
+        return BOUNDS.sub(f"__launch_bounds__(yee::THREADS{arg})\ncpmlk_kernel", cu)
+
+    out = {"no cap": (cap(None), cuh)}
+    for blocks in (3, 4, 5, 6):
+        out[f"{blocks} blocks/SM"] = (cap(blocks), cuh)
+    out_of_line = cuh.replace("__device__ void tile_pass",
+                              "__device__ __noinline__ void tile_pass")
+    for blocks in (None, 4):
+        name = "no cap" if blocks is None else f"{blocks} blocks/SM"
+        out[f"{name}, tile_pass out of line"] = (cap(blocks), out_of_line)
+    for d in baselines:
+        out[f"baseline {d}"] = sources(Path(d))
+    return out
+
+
+def build(baselines):
+    kernels = {}
+    for i, (name, (cu, cuh)) in enumerate(variants(baselines).items()):
+        d = OUT / f"v{i}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "cpml.cuh").write_text(cuh)
+        # the library's name hashes cpmlk.cu but not this cpml.cuh: name
+        # the variant in cpmlk.cu so that no two variants share a library
+        (d / "cpmlk.cu").write_text(f"// variant: {name}\n{cu}")
+        kernels[name] = _build.Kernel(f"K4 {name}", str(Path("..", "..", "build",
+                                                               "k4_variants", f"v{i}",
+                                                               "cpmlk.cu")),
+                                      "fdtd_cpmlk", _build.CPMLK.argtypes)
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        list(pool.map(lambda k: k.build(), kernels.values()))
+    for name, k in kernels.items():
+        k.function()
+        regs = [ln.strip() for ln in k.build_log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(f"{name}: {' | '.join(regs[:2])}", flush=True)
+    return kernels
+
+
+def check(kernels, dev):
+    sim = cs.flagship(ft, cs.LADDER_CHECK_SHAPE, torch.float32, dev)
+    dt = sim.grid.dt
+    cpml = ft.Cpml(thickness=((4, 3), (3, 5), (5, 4)))
+    tfsf = ft.Tfsf(span=(8, 27), waveform=ft.GaussianDerivative(6 * dt, 2 * dt),
+                   span_y=(8, 23), span_z=(3, 40))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = cs.random_engine_state(torch, ft, sim, torch.float32, cpml, tfsf, gen)
+    kw = dict(inv_dx=tuple(1.0 / d for d in sim.grid.dx), dt=dt, constants=ft.REDUCED,
+              cpml=cpml, tfsf=tfsf)
+    want = plain_cpml_stepk(state, sim._table_f32, sim.matid, None, 4, **kw)
+    step = cuda_cpml_stepk_fn(cs.LADDER_CHECK_SHAPE, 4, matid=sim.matid, n_materials=3, **kw)
+    for name, k in kernels.items():
+        _build.CPMLK = k
+        got = step(state, sim._table_f32, None)
+        torch.cuda.synchronize()
+        err = cs.max_abs_err(got, want)
+        print(f"check {name}: max_abs_err {err:.3e}", flush=True)
+        cs.require(err <= 2e-6 * 4 * cs.field_scale(want), f"{name} disagrees")
+
+
+def time_variants(kernels, shape, sim, dev):
+    if sim is not None:
+        kw = dict(inv_dx=tuple(1.0 / d for d in sim.grid.dx), dt=sim.grid.dt,
+                  constants=ft.REDUCED, cpml=sim.cpml, tfsf=sim.tfsf,
+                  matid=sim.matid, n_materials=sim._table_f32.shape[0])
+        coeffs, state = sim._table_f32, sim.init()
+    else:
+        cpml = ft.Cpml.uniform(10)
+        kw = dict(inv_dx=(1.0,) * 3, dt=0.5, constants=ft.REDUCED, cpml=cpml)
+        coeffs = ft.CellCoefficients.uniform((1.0, 0.5, 1.0, 0.5), device=dev)
+        state = ft.init_engine_state(shape, torch.float32, cpml=cpml, device=dev)
+    k3 = cuda_cpml_step_fn(shape, **kw)
+    k4 = cuda_cpml_stepk_fn(shape, 8, **kw)
+
+    def with_kernel(k):
+        def call(s):
+            _build.CPMLK = k
+            return k4(s, coeffs, None)
+        return call
+
+    named = [("K3", lambda s: k3(s, coeffs, None), 1)]
+    named += [(f"K4 K=8, {name}", with_kernel(k), 8) for name, k in kernels.items()]
+    ms = cs.in_turns(torch, named, state, 6)
+    cells = math.prod(shape)
+    for name, _, ticks in named:
+        mean = sum(ms[name]) / 2
+        print(f"{shape} {name}: {ms[name][0]:.3f} / {ms[name][1]:.3f} ms per call, "
+              f"{mean / ticks:.3f} ms per tick, {cells * ticks / mean / 1e6:.2f} Gcell/s",
+              flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", action="append", default=[],
+                    help="a directory with another cpmlk.cu and cpml.cuh to time")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    kernels = build(args.baseline)
+    check(kernels, dev)
+    time_variants(kernels, cs.ABSORB_SHAPE, cs.config3(ft, cs.ABSORB_SHAPE, torch.float32,
+                                                       dev), dev)
+    time_variants(kernels, cs.SCALE_SHAPE, None, dev)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,7 +15,9 @@ Run from the root of a checkout. In order it
    128^3; K3 and K4 (K = 8, 4, 2) on 37x29x53 with CPML of unequal
    thickness on every axis, a TF/SF box whose faces cross tile edges, the
    config-2 material index and J+M sources, in f32 and bf16, psi included,
-   and at config 3's 256^3;
+   and at config 3's 256^3; K4's accumulator options (K4a, K4b) on the
+   same 37x29x53 case and at 256^3 with config 3's accumulators, in f32
+   and bf16;
 4. runs the free-space main path: BASELINE config 2 at 128^3 (a dielectric
    sphere and a lossy slab in a uint8 material index, a Gaussian J dipole),
    built as __graft_entry__._flagship builds it, for 1000 ticks with a
@@ -25,18 +27,28 @@ Run from the root of a checkout. In order it
    on every face, a closed TF/SF box with a Gaussian-derivative plane wave,
    a dielectric sphere of radius 32 in a uint8 material index, as
    fdtd_tpu/models/scattering.py builds it), for 1000 ticks with a 3-point
-   probe every 8 ticks through K4 (K = 8) and for 1000 ticks with a DFT
-   plane in the scattered field through K3, held to the plain engine run on
-   the card. Each path's launch counts are set to 0 just before it and read
-   just after; each of its kernels must have launched;
-6. times, with CUDA events and in turns, config 2 at 128^3 (K1, K2, the
+   probe every 8 ticks and for 1000 ticks with a DFT plane in the scattered
+   field, both through K4 (K = 8; the DFT on its dft option), held to the
+   plain engine run on the card;
+6. runs config 3's accumulators (the x = 13 DFT plane, a lateral DFT
+   plane, a BoxDft around the sphere and the scattering box flux) for 1000
+   ticks three ways: on K4's options (K4a flux faces, K4b DFT planes and
+   row captures), through K3 with a per-tick update (each accumulator
+   wrapped so that it fits no option), and through the plain engine, and
+   holds both kernel routes to the plain one;
+7. runs the slice's entry point, fdtd_tpu_torch.models.
+   scattering_cross_section, on a Ball(32) scene at 256^3 for 1000 ticks
+   (K4 with the flux faces) and holds sigma to the plain engine's;
+   each of phases 4-7 sets the launch counts to 0 just before it and reads
+   them just after, and each of its kernels must have launched;
+8. times, with CUDA events and in turns, config 2 at 128^3 (K1, K2, the
    plain step), 512^3 free space (f32 and bf16), config 3 at 256^3 (K3, K4
-   at K = 8, 4, 2, the plain engine) and 512^3 with Cpml.uniform(10) (f32
-   and bf16), and prints Gcell/s and the byte model's share of the H100's
-   3.35 TB/s;
-7. profiles 64 ticks of each absorbing run and of the plain engine at
-   256^3 (torch.profiler) and prints each one's device busy time, idle
-   share and top kernel.
+   at K = 8, 4, 2, K4 at K = 8 with each of its options, the plain engine)
+   and 512^3 with Cpml.uniform(10) (f32 and bf16), and prints Gcell/s and
+   the byte model's share of the H100's 3.35 TB/s;
+9. profiles 64 ticks of each absorbing run, of each accumulator route and
+   of the plain engine at 256^3 (torch.profiler) and prints each one's
+   device busy time, idle share and top kernel.
 
 The last three lines of its output are the card's name and power limit,
 one JSON object describing each kernel, and {"ok": true, "device": ...}.
@@ -140,6 +152,60 @@ def config3_absorbers(ft, shape, dt):
     return ft.Cpml.uniform(cells), tfsf
 
 
+CONFIG3_FREQS = (0.02, 0.03, 0.05)
+
+
+def config3_accumulators(ft, shape, dt):
+    """Config 3's accumulators on ``shape``: the DftProbe of the
+    scattered-field plane x = 13, a lateral DftProbe of H (y = ny/4), a
+    BoxDft around the sphere (8 cells clear of it), all at 3 frequencies,
+    and the box flux of fdtd_tpu_torch/models/scattering.py (its box one
+    cell outside the TF/SF box, unit cell areas)."""
+    from fdtd_tpu_torch.models.scattering import _BoxFluxAccumulator
+    from fdtd_tpu_torch.probes import BoxDft, DftProbe, FieldComponent
+
+    nx, ny, nz = shape
+    pad, lat = 16, 12  # config3_absorbers' TF/SF offsets
+    c, r = nx // 2, min(shape) // 8 + 8
+    flux_box = ((pad - 3, nx - 1 - pad + 3), (lat - 1, ny - lat), (lat - 1, nz - lat))
+    return (DftProbe(frequencies=CONFIG3_FREQS, axis=0, index=13),
+            DftProbe(frequencies=CONFIG3_FREQS, axis=1, index=ny // 4,
+                     component=FieldComponent.H),
+            BoxDft(frequencies=CONFIG3_FREQS, box=((c - r, c + r),) * 3),
+            _BoxFluxAccumulator(flux_box, (1.0, 1.0, 1.0), dt))
+
+
+class PerTick:
+    """An accumulator seen through init/update alone: it fits none of K4's
+    options, so a run that carries it steps through K3 with a per-tick
+    update (the accumulator route before K4's options)."""
+
+    def __init__(self, acc):
+        self.acc = acc
+
+    def init(self, state, dt):
+        return self.acc.init(state, dt)
+
+    def update(self, acc, state, dt):
+        return self.acc.update(acc, state, dt)
+
+
+def acc_rel_err(got, want, box=None):
+    """max |got - want| / max |want| over an accumulator's tensors; a
+    BoxDft (``box``) compares each face's tangential components (its x
+    faces' normal E stays zero on K4's route, as in the JAX package)."""
+    if box is not None:
+        got = [p[:, [c for c in range(3) if c != axis]]
+               for parts, (axis, _, _) in zip(got, box._faces()) for p in parts]
+        want = [p[:, [c for c in range(3) if c != axis]]
+                for parts, (axis, _, _) in zip(want, box._faces()) for p in parts]
+    elif not isinstance(got, (tuple, list)):
+        got, want = [got], [want]
+    num = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, want))
+    den = max(float(b.double().abs().max()) for b in want)
+    return num / den
+
+
 # -- bounds ------------------------------------------------------------------
 
 
@@ -155,12 +221,12 @@ def psi_cells(shape, cpml) -> int:
     return total
 
 
-def bound(cells, ticks, nbytes, psi=0):
+def bound(cells, ticks, nbytes, psi=0, extra_flop=0):
     """(bound_ms, bound_by) of one call: the bytes it must move (each input
     read once, each output written once) over 3.35 TB/s against its f32
     operations over 67 TFLOP/s."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ticks * (YEE_FLOP * cells + PSI_FLOP * psi) / F32_FLOP_PER_S
+    t_ops = (ticks * (YEE_FLOP * cells + PSI_FLOP * psi) + extra_flop) / F32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -176,6 +242,34 @@ def cpml_bytes(shape, itemsize, matid, cpml, aux_len=0, ticks=1):
     and written once (f32), and the TF/SF rows of every tick."""
     return (yee_bytes(shape, itemsize, matid) + 2 * 4 * psi_cells(shape, cpml)
             + 2 * 4 * aux_len * ticks)
+
+
+def option_bytes(shape, k, flux_faces=(), dft=None, dft_rows=()):
+    """The bytes K4's options add to a call: the (K, nx, n_q) flux rows
+    written, each DFT plane's (6F, ny, nz) accumulator read and written,
+    each (K, nx, 6, lat) capture written (f32)."""
+    nx, ny, nz = shape
+    total = k * nx * len(flux_faces) * 4
+    if dft is not None:
+        planes, freqs = dft
+        total += len(planes) * 2 * 6 * len(freqs) * ny * nz * 4
+    total += sum(k * nx * 6 * (nz if a == "y" else ny) * 4 for a, _ in dft_rows)
+    return total
+
+
+def option_flop(shape, k, flux_faces=(), dft=None, dft_rows=()):
+    """The f32 operations K4's options add to a call: per level, a
+    full-plane descriptor's 3 per cell (2 products and a difference) plus
+    the sum's add, a row descriptor's the same along its row, and each DFT
+    plane's multiply-add per slot and cell; captures are copies."""
+    nx, ny, nz = shape
+    per_level = 0
+    for fd in flux_faces:
+        per_level += 4 * nx * (ny * nz if fd[0] == "x" else (nz if fd[0] == "y" else ny))
+    if dft is not None:
+        planes, freqs = dft
+        per_level += len(planes) * 2 * 6 * len(freqs) * ny * nz
+    return k * per_level
 
 
 # -- timing ------------------------------------------------------------------
@@ -379,6 +473,105 @@ def cpml_self_checks(torch, ft, seed):
     return {name: max(v) for name, v in errs.items()}
 
 
+RAGGED_OPTIONS = dict(flux_faces=(("x",), ("y", 8), ("y", 23), ("z", 31), ("z", 32)),
+                      dft=(((5, 0), (20, 1), (36, 0)), (0.02, 0.05, 0.11)),
+                      dft_rows=(("y", 7), ("z", 32), ("y", 28), ("z", 0)))
+
+
+def config3_options(ft, shape, dt):
+    """K4's options for config 3's accumulators (kernel_accumulator_spec)."""
+    from fdtd_tpu_torch.solver.simulation import kernel_accumulator_spec
+
+    faces, _, _, dft_arg, _, rows = kernel_accumulator_spec(
+        config3_accumulators(ft, shape, dt))
+    return dict(flux_faces=faces, dft=dft_arg, dft_rows=rows)
+
+
+def with_dft(torch, state, options, gen):
+    """``state`` carrying random DFT accumulators for ``options``' planes."""
+    planes, freqs = options["dft"]
+    n = 6 * len(freqs)
+    return state.replace(dft=tuple(
+        torch.randn((n, *state.shape[1:]), generator=gen, device=state.device)
+        for _ in planes))
+
+
+def option_self_checks(torch, ft, seed):
+    """K4's accumulator options against the plain version on the card, on
+    the ragged 37x29x53 case (descriptors on tile edges) and at 256^3 with
+    config 3's accumulators, K = 8 (and 2 on the ragged case), f32 and
+    bf16. Bars (tests/test_pallas_cpml.py:467-748, the TPU kernel's): flux
+    rows within 2e-5 of max|row| per descriptor, DFT planes 3e-6 of
+    max|acc|, captures 5e-6 of max|capture|; the options sample f32 fields
+    at every storage type, so bf16 is held to the same bars. Returns the
+    max abs errors at 256^3 f32: {"K4a": flux rows, "K4b": DFT planes and
+    captures}."""
+    from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn, plain_cpml_stepk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    ragged_sim = flagship(ft, LADDER_CHECK_SHAPE, torch.float32, dev)
+    dt = ragged_sim.grid.dt
+    ragged = (ragged_sim, ft.Cpml(thickness=((4, 3), (3, 5), (5, 4))),
+              ft.Tfsf(span=(8, 27), waveform=ft.GaussianDerivative(6 * dt, 2 * dt),
+                      span_y=(8, 23), span_z=(3, 40)), RAGGED_OPTIONS, (8, 2))
+    main = config3(ft, ABSORB_SHAPE, torch.float32, dev)
+    cases = (ragged, (main, main.cpml, main.tfsf,
+                      config3_options(ft, ABSORB_SHAPE, main.grid.dt), (8,)))
+    errs = {"K4a": 0.0, "K4b": 0.0}
+    for sim, cpml, tfsf, options, ks in cases:
+        shape = sim.grid.shape
+        matid, table = sim.matid, sim._table_f32
+        common = dict(inv_dx=tuple(1.0 / d for d in sim.grid.dx), dt=sim.grid.dt,
+                      constants=ft.REDUCED, cpml=cpml, tfsf=tfsf)
+        for dtype in (torch.float32, torch.bfloat16):
+            state = with_dft(torch, random_engine_state(torch, ft, sim, dtype, cpml, tfsf, gen),
+                             options, gen)
+            for k in ks:
+                kernel = cuda_cpml_stepk_fn(shape, k, dtype=dtype, matid=matid,
+                                            n_materials=table.shape[0], **common, **options)
+                got, flux, caps = kernel(state, table, None)
+                want, w_flux, w_caps = plain_cpml_stepk(state, table, matid, None, k,
+                                                        **common, **options)
+                torch.cuda.synchronize()
+                f_scaled = max(acc_rel_err(flux[:, :, q], w_flux[:, :, q])
+                               for q in range(flux.shape[2]))
+                d_scaled = max(acc_rel_err(a, b) for a, b in zip(got.dft, want.dft))
+                c_scaled = max(acc_rel_err(a, b) for a, b in zip(caps, w_caps))
+                f_abs = float((flux - w_flux).abs().max())
+                b_abs = max(float((a - b).abs().max())
+                            for a, b in zip((*got.dft, *caps), (*want.dft, *w_caps)))
+                err, scale = max_abs_err(got, want), field_scale(want)
+                tol = (2e-6 * k if dtype == torch.float32 else 2.0 ** -7) * scale
+                ok = (f_scaled <= 2e-5 and d_scaled <= 3e-6 and c_scaled <= 5e-6
+                      and err <= tol)
+                log(f"selfcheck K4 options K={k} {tuple(shape)} {str(dtype)[6:]}: flux rows "
+                    f"{f_scaled:.3e} of max|row| (abs {f_abs:.3e}; tol 2e-5), DFT "
+                    f"{d_scaled:.3e} (tol 3e-6), captures {c_scaled:.3e} (tol 5e-6), fields "
+                    f"{err:.3e} (tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
+                require(ok, f"K4 options K={k} {shape} {dtype} disagree with the plain version")
+                if shape == ABSORB_SHAPE and dtype == torch.float32:
+                    errs = {"K4a": max(errs["K4a"], f_abs), "K4b": max(errs["K4b"], b_abs)}
+            del state
+    # the plane sums are deterministic: two launches, bit-identical rows
+    state = with_dft(torch, random_engine_state(torch, ft, main, torch.float32, main.cpml,
+                                                main.tfsf, gen),
+                     config3_options(ft, ABSORB_SHAPE, main.grid.dt), gen)
+    kernel = cuda_cpml_stepk_fn(ABSORB_SHAPE, 8, matid=main.matid,
+                                n_materials=main._table_f32.shape[0],
+                                inv_dx=(1.0, 1.0, 1.0), dt=main.grid.dt, constants=ft.REDUCED,
+                                cpml=main.cpml, tfsf=main.tfsf,
+                                **config3_options(ft, ABSORB_SHAPE, main.grid.dt))
+    rows_a = kernel(state, main._table_f32, None)[1]
+    rows_b = kernel(state, main._table_f32, None)[1]
+    torch.cuda.synchronize()
+    same = bool(torch.equal(rows_a, rows_b))
+    log(f"selfcheck K4a determinism (256^3, two launches): flux rows bit-identical {same}")
+    require(same, "K4a's flux rows differ between two launches on the same input")
+    return errs
+
+
 def main_path(torch, ft):
     """Config 2 at 128^3 through Simulation: 1000 ticks through K2 with a
     point probe every K, 1000 through K1 with a DFT accumulator, each held
@@ -435,10 +628,11 @@ def main_path(torch, ft):
 
 
 def reset_counts():
-    from fdtd_tpu_torch.solver import _build
+    from fdtd_tpu_torch.solver import _build, cuda_cpml_k
 
     for kernel in _build.KERNELS:
         kernel.launches = 0
+    cuda_cpml_k.reset_launches()
 
 
 def absorbing_probes(shape):
@@ -456,10 +650,10 @@ def absorbing_probes(shape):
 
 def absorbing_path(torch, ft):
     """Config 3 at 256^3 through Simulation: 1000 ticks through K4 (K = 8)
-    with a 3-point probe every 8 ticks, 1000 through K3 with a DFT plane in
-    the scattered field, each held to one plain-engine run on the card that
-    carries both the probe and the DFT."""
-    from fdtd_tpu_torch.solver import cuda_cpml, cuda_cpml_k
+    with a 3-point probe every 8 ticks, 1000 through K4 with a DFT plane in
+    the scattered field on its dft option, each held to one plain-engine
+    run on the card that carries both the probe and the DFT."""
+    from fdtd_tpu_torch.solver import cuda_cpml_k
 
     dev = torch.device("cuda")
     sim = config3(ft, ABSORB_SHAPE, torch.float32, dev)
@@ -468,9 +662,9 @@ def absorbing_path(torch, ft):
     k, kind = sim.plan(MAIN_STEPS, probes, (), 8)
     require((k, kind) == (8, "cuda_cpml_k"), f"probe run plans {kind} K={k}")
     k1, kind1 = sim.plan(MAIN_STEPS, (), dft, 1)
-    require((k1, kind1) == (1, "cuda_cpml"), f"DFT run plans {kind1} K={k1}")
+    require((k1, kind1) == (8, "cuda_cpml_k"), f"DFT run plans {kind1} K={k1}")
     log(f"absorbing path: config 3 {ABSORB_SHAPE}, {MAIN_STEPS} ticks; probe run "
-        f"{kind} K={k}, DFT run {kind1}")
+        f"{kind} K={k}, DFT run {kind1} K={k1}")
 
     reset_counts()
     t0 = time.perf_counter()
@@ -478,17 +672,17 @@ def absorbing_path(torch, ft):
     s_k3, _, (spec,) = sim.run(sim.init(), MAIN_STEPS, accumulators=dft)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K3": cuda_cpml.launches(), "K4": cuda_cpml_k.launches()}
+    launches = {"K4": cuda_cpml_k.launches(), **cuda_cpml_k.option_launches()}
     log(f"absorbing path: {wall:.2f} s for both runs; launches {launches}")
-    require(launches["K4"] == MAIN_STEPS // k, "K4 did not run the probe run")
-    require(launches["K3"] == MAIN_STEPS, "K3 did not run the DFT run")
+    require(launches["K4"] == 2 * MAIN_STEPS // k, "K4 did not run both runs")
+    require(launches["dft"] == MAIN_STEPS // k1, "the DFT run did not ride K4's dft option")
 
     t0 = time.perf_counter()
     p_state, (p_trace,), (p_spec,) = plain.run(plain.init(), MAIN_STEPS, probes=probes,
                                                accumulators=dft, probe_every=k)
     torch.cuda.synchronize()
     log(f"absorbing path: plain engine {time.perf_counter() - t0:.2f} s")
-    for name, got in (("K4 run", s_k4), ("K3 run", s_k3)):
+    for name, got in (("K4 probe run", s_k4), ("K4 DFT run", s_k3)):
         finite = all(bool(torch.isfinite(f).all()) for f in (*got.e, *got.h))
         err = rel_l2(got, p_state)
         log(f"absorbing path {name}: tick {got.tick}, rel-L2 vs plain {err:.3e}, "
@@ -505,16 +699,111 @@ def absorbing_path(torch, ft):
         f"(max |DFT re| {scattered:.4e})")
     require(scattered > 0, "no scattered field reached the DFT plane")
     require(t_err <= 1e-5 and s_err <= 1e-5, "probe/DFT disagree with the plain run")
-    return launches
+    return {"K4": launches["K4"]}
+
+
+def accumulator_path(torch, ft):
+    """Config 3's accumulators at 256^3 for 1000 ticks, three ways: on K4's
+    options (plan: K = 8, cuda_cpml_k), through K3 with a per-tick update
+    (PerTick), and through the plain engine. Both kernel routes are held
+    to the plain one: final fields at rel-L2 <= 1e-5, every accumulator
+    within 1e-5 of its largest value (BoxDft: tangential components).
+    Returns (launches, wall seconds per route)."""
+    from fdtd_tpu_torch.solver import cuda_cpml, cuda_cpml_k
+
+    dev = torch.device("cuda")
+    sim = config3(ft, ABSORB_SHAPE, torch.float32, dev)
+    plain = config3(ft, ABSORB_SHAPE, torch.float32, dev, backend="torch")
+    accs = config3_accumulators(ft, ABSORB_SHAPE, sim.grid.dt)
+    per_tick = tuple(PerTick(a) for a in accs)
+    k, kind = sim.plan(MAIN_STEPS, (), accs, 1)
+    require((k, kind) == (8, "cuda_cpml_k"), f"accumulator run plans {kind} K={k}")
+    require(sim.plan(MAIN_STEPS, (), per_tick, 1) == (1, "cuda_cpml"), "per-tick plan")
+    log(f"accumulator path: config 3 {ABSORB_SHAPE}, {MAIN_STEPS} ticks, "
+        f"{[type(a).__name__ for a in accs]}; {kind} K={k}")
+
+    walls = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    s_k4, _, f_k4 = sim.run(sim.init(), MAIN_STEPS, accumulators=accs)
+    torch.cuda.synchronize()
+    walls["K4 + options"] = time.perf_counter() - t0
+    k4_launches = {"K4": cuda_cpml_k.launches(), **cuda_cpml_k.option_launches()}
+    t0 = time.perf_counter()
+    s_k3, _, f_k3 = sim.run(sim.init(), MAIN_STEPS, accumulators=per_tick)
+    torch.cuda.synchronize()
+    walls["K3 + per-tick update"] = time.perf_counter() - t0
+    launches = {**k4_launches, "K3": cuda_cpml.launches()}
+    t0 = time.perf_counter()
+    s_p, _, f_p = plain.run(plain.init(), MAIN_STEPS, accumulators=accs)
+    torch.cuda.synchronize()
+    walls["plain engine"] = time.perf_counter() - t0
+    log(f"accumulator path: wall {', '.join(f'{n} {w:.3f} s' for n, w in walls.items())}; "
+        f"launches {launches}")
+    require(launches["K4"] == MAIN_STEPS // k, "K4 did not run the accumulator run")
+    require(all(launches[o] == MAIN_STEPS // k for o in ("flux_faces", "dft", "dft_rows")),
+            "an option did not ride every K4 launch")
+    require(launches["K3"] == MAIN_STEPS, "K3 did not run the per-tick route")
+    names = ("DftProbe x=13", "DftProbe y (H)", "BoxDft", "box flux")
+    for route, got, fin in (("K4 + options", s_k4, f_k4), ("K3 + per-tick update", s_k3, f_k3)):
+        finite = all(bool(torch.isfinite(f).all()) for f in (*got.e, *got.h))
+        err = rel_l2(got, s_p)
+        errs = [acc_rel_err(a, b, box=acc if name == "BoxDft" else None)
+                for name, acc, a, b in zip(names, accs, fin, f_p)]
+        log(f"accumulator path {route}: rel-L2 vs plain {err:.3e}; accumulators vs plain "
+            + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs)))
+        require(finite and got.tick == MAIN_STEPS and got.dft == (), f"{route}: final state")
+        require(err <= 1e-5, f"{route}: rel-L2 {err:.3e} > 1e-5 against the plain engine")
+        require(all(e <= 1e-5 for e in errs), f"{route}: an accumulator disagrees")
+    flux = float(f_p[3])
+    log(f"accumulator path: plain box flux {flux:.6e}, max |DFT x=13| "
+        f"{float(f_p[0][0].abs().max()):.4e}")
+    require(flux != 0.0 and float(f_p[0][0].abs().max()) > 0, "no scattered field")
+    return {"K3": launches["K3"], "K4a": launches["flux_faces"],
+            "K4b": min(launches["dft"], launches["dft_rows"])}, walls
+
+
+def scattering_path(torch, ft):
+    """The slice's entry point: scattering_cross_section on a Ball(32)
+    (eps_r 3.9) scene at 256^3 (half extents 128, dx 1), cpml_cells 10,
+    pulse_duration_steps 10, 1000 ticks, through K4 with its flux faces,
+    and through the plain engine; sigma within 1e-4 relative."""
+    from fdtd_tpu_torch.models import scattering_cross_section
+    from fdtd_tpu_torch.scene import Ball, Isometry, Scene
+    from fdtd_tpu_torch.solver import cuda_cpml_k
+
+    dev = torch.device("cuda")
+    n = ABSORB_SHAPE[0]
+    scene = Scene()
+    scene.spawn(shape=Ball(n / 8), pose=Isometry.from_translation((0.0, 0.0, 0.0)),
+                material=ft.Material(relative_permittivity=3.9))
+    kw = dict(domain_half_extents=(n / 2,) * 3, dx=1.0, pulse_duration_steps=10,
+              n_steps=MAIN_STEPS, cpml_cells=10)
+    reset_counts()
+    res = scattering_cross_section(scene, device=dev, **kw)
+    launches = {"K4": cuda_cpml_k.launches(), **cuda_cpml_k.option_launches()}
+    ref = scattering_cross_section(scene, device=dev, backend="torch", **kw)
+    rel = abs(res.sigma_scat - ref.sigma_scat) / abs(ref.sigma_scat)
+    log(f"scattering path: grid {res.grid.shape}, sigma_scat {res.sigma_scat:.8e} (plain "
+        f"engine {ref.sigma_scat:.8e}, rel diff {rel:.3e}), gcell_per_s {res.gcell_per_s:.3f} "
+        f"(plain engine {ref.gcell_per_s:.3f}); launches {launches}")
+    require(res.grid.shape == ABSORB_SHAPE, f"scene compiled to {res.grid.shape}")
+    require(launches["K4"] == MAIN_STEPS // 8 == launches["flux_faces"],
+            "the flux accumulator did not ride K4")
+    require(math.isfinite(res.sigma_scat) and res.sigma_scat > 0, "sigma")
+    require(rel <= 1e-4, f"sigma differs from the plain engine's by {rel:.3e}")
+    return res.gcell_per_s, ref.gcell_per_s
 
 
 def profile_absorbing(torch, ft, ticks=64):
     """Config 3 at 256^3 under torch.profiler (CPU and CUDA activities): for
-    the K4 probe run, the K3 DFT run and the plain engine, a window of
-    ``ticks`` after a warm-up of the same length; prints the wall time, the
-    device's busy time (the union of its events' intervals), the idle share
-    of the wall time and the top device entry. The profiler adds host time
-    to every torch op, so idle shares are upper bounds."""
+    the K4 probe run, the K4 DFT run, the plain engine with the DFT plane,
+    and config 3's accumulators on K4's options, through K3 with a per-tick
+    update and through the plain engine, a window of ``ticks`` after a
+    warm-up of the same length; prints the wall time, the device's busy
+    time (the union of its events' intervals), the idle share of the wall
+    time and the top device entry. The profiler adds host time to every
+    torch op, so idle shares are upper bounds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -522,9 +811,16 @@ def profile_absorbing(torch, ft, ticks=64):
     sim = config3(ft, ABSORB_SHAPE, torch.float32, dev)
     plain = config3(ft, ABSORB_SHAPE, torch.float32, dev, backend="torch")
     probes, dft = absorbing_probes(ABSORB_SHAPE)
+    accs = config3_accumulators(ft, ABSORB_SHAPE, sim.grid.dt)
+    per_tick = tuple(PerTick(a) for a in accs)
     runs = (("K4 K=8, 3-point probe every 8", sim, dict(probes=probes, probe_every=8)),
-            ("K3, DFT plane", sim, dict(accumulators=dft)),
-            ("plain engine, DFT plane", plain, dict(accumulators=dft)))
+            ("K4 K=8, DFT plane", sim, dict(accumulators=dft)),
+            ("plain engine, DFT plane", plain, dict(accumulators=dft)),
+            ("K4 K=8 + options, config 3 accumulators", sim, dict(accumulators=accs)),
+            ("K3 + per-tick update, config 3 accumulators", sim,
+             dict(accumulators=per_tick)),
+            ("plain engine, config 3 accumulators", plain, dict(accumulators=accs)))
+    out = {}
     for name, s, kw in runs:
         state = s.run(s.init(), ticks, **kw)[0]
         torch.cuda.synchronize()
@@ -547,12 +843,17 @@ def profile_absorbing(torch, ft, ticks=64):
             f"{busy / 1e3:.3f} ms, idle {1 - busy / 1e3 / wall:.1%} of wall, "
             f"{len(device)} device events; top {top[:60]} {t_top / 1e3:.3f} ms / "
             f"{n_top} launches")
+        out[name] = {"wall_ms": wall, "busy_ms": busy / 1e3,
+                     "idle_share": 1 - busy / 1e3 / wall, "top": top,
+                     "top_ms": t_top / 1e3, "top_launches": n_top}
+    return out
 
 
 def cpml_timings(torch, ft):
-    """ms per call at config 3's 256^3 (K3, K4 at every K of the ladder, the
-    plain engine and each kernel's plain version) and at 512^3 with
-    Cpml.uniform(10), no TF/SF, uniform coefficients (f32 and bf16)."""
+    """ms per call at config 3's 256^3 (K3, K4 at every K of the ladder, K4
+    at K = 8 with config 3's accumulator options, the plain engine and each
+    kernel's plain version) and at 512^3 with Cpml.uniform(10), no TF/SF,
+    uniform coefficients (f32 and bf16)."""
     from fdtd_tpu_torch.solver.best import K_LADDER
     from fdtd_tpu_torch.solver.cuda_cpml import cuda_cpml_step_fn, plain_cpml_step
     from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn, plain_cpml_stepk
@@ -600,8 +901,28 @@ def cpml_timings(torch, ft):
         f = cuda_cpml_stepk_fn(ABSORB_SHAPE, k, matid=mid, n_materials=tab.shape[0], **kw)
         named.append((f"K4 K={k}", lambda s, f=f: f(s, tab, None), k))
         models[f"K4 K={k}"] = cpml_bytes(ABSORB_SHAPE, 4, True, sim.cpml, aux_len, k) / k
-    report("config3_256", named, in_turns(torch, named, sim.init(), 8), ABSORB_SHAPE,
-           models)
+    # K4 at K = 8 with config 3's accumulator options, each alone and all
+    # together, and their plain versions (the state carries the DFT planes;
+    # the steps without the dft option pass them through)
+    options = config3_options(ft, ABSORB_SHAPE, sim.grid.dt)
+    for name, opts in (("flux faces", dict(flux_faces=options["flux_faces"])),
+                       ("DFT planes + row captures",
+                        dict(dft=options["dft"], dft_rows=options["dft_rows"])),
+                       ("all options", options)):
+        f = cuda_cpml_stepk_fn(ABSORB_SHAPE, top, matid=mid, n_materials=tab.shape[0],
+                               **kw, **opts)
+        named.append((f"K4 K={top} + {name}", lambda s, f=f: f(s, tab, None)[0], top))
+        models[f"K4 K={top} + {name}"] = (
+            cpml_bytes(ABSORB_SHAPE, 4, True, sim.cpml, aux_len, top)
+            + option_bytes(ABSORB_SHAPE, top, **opts)) / top
+        named.append((f"K4 K={top} + {name} plain version",
+                      lambda s, o=opts: plain_cpml_stepk(s, tab, mid, None, top, **kw, **o)[0],
+                      top))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    state = with_dft(torch, sim.init(), options, gen)
+    report("config3_256", named, in_turns(torch, named, state, 8), ABSORB_SHAPE, models)
+    del state
 
     # 512^3 with Cpml.uniform(10), no TF/SF, uniform coefficients
     cpml = ft.Cpml.uniform(10)
@@ -735,8 +1056,9 @@ def main(argv=None) -> int:
     card = smi.splitlines()[0]
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    # neither flag reaches these kernels (no matmul, no convolution); both
-    # are pinned so the plain versions are full f32 too
+    # no kernel and no plain version takes a matmul or a convolution (the
+    # lateral DFT fold sums its levels in f32 whatever these say); both are
+    # pinned off so that nothing else does
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
@@ -754,7 +1076,7 @@ def main(argv=None) -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
     kernels, times = measure(torch, ft, args.seed)
-    profile_absorbing(torch, ft)
+    times["profile_256"] = profile_absorbing(torch, ft)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "kernels": kernels,
@@ -774,10 +1096,16 @@ def measure(torch, ft, seed):
 
     errs = self_checks(torch, ft, seed)
     errs.update(cpml_self_checks(torch, ft, seed))
+    errs.update(option_self_checks(torch, ft, seed))
     launches = main_path(torch, ft)
     launches.update(absorbing_path(torch, ft))
+    acc_launches, walls = accumulator_path(torch, ft)
+    launches.update(acc_launches)
+    gcell, plain_gcell = scattering_path(torch, ft)
     times = timings(torch, ft)
     times.update(cpml_timings(torch, ft))
+    times["accumulators_256_wall_s"] = walls
+    times["scattering_256_gcell_per_s"] = {"K4 + flux faces": gcell, "plain engine": plain_gcell}
 
     top = K_LADDER[0]
     c2, c3 = times["config2_128"], times["config3_256"]
@@ -785,6 +1113,7 @@ def measure(torch, ft, seed):
     cpml3, tfsf3 = config3_absorbers(ft, ABSORB_SHAPE, 1.0)
     aux_len = tfsf3.aux_length(ABSORB_SHAPE[0])
     psi3 = psi_cells(ABSORB_SHAPE, cpml3)
+    opts3 = config3_options(ft, ABSORB_SHAPE, 1.0)
     rows = [
         ("K1 fused one-tick step", "step.cu", "fdtd_tpu/solver/pallas_step.py:77",
          "K1", c2, "K1", "K1 plain version",
@@ -800,8 +1129,23 @@ def measure(torch, ft, seed):
          f"K4 K={top} plain version",
          bound(cells3, top, cpml_bytes(ABSORB_SHAPE, 4, True, cpml3, aux_len, top),
                psi3)),
+        ("K4a in-kernel flux faces (K4 option)", "cpmlk.cu",
+         "fdtd_tpu/solver/pallas_cpml_k.py:963", "K4a", c3, f"K4 K={top} + flux faces",
+         f"K4 K={top} + flux faces plain version",
+         bound(cells3, top, cpml_bytes(ABSORB_SHAPE, 4, True, cpml3, aux_len, top)
+               + option_bytes(ABSORB_SHAPE, top, flux_faces=opts3["flux_faces"]), psi3,
+               option_flop(ABSORB_SHAPE, top, flux_faces=opts3["flux_faces"]))),
+        ("K4b in-kernel DFT planes and row captures (K4 options)", "cpmlk.cu",
+         "fdtd_tpu/solver/pallas_cpml_k.py:941", "K4b", c3,
+         f"K4 K={top} + DFT planes + row captures",
+         f"K4 K={top} + DFT planes + row captures plain version",
+         bound(cells3, top, cpml_bytes(ABSORB_SHAPE, 4, True, cpml3, aux_len, top)
+               + option_bytes(ABSORB_SHAPE, top, dft=opts3["dft"], dft_rows=opts3["dft_rows"]),
+               psi3, option_flop(ABSORB_SHAPE, top, dft=opts3["dft"],
+                                 dft_rows=opts3["dft_rows"]))),
     ]
-    # no single PyTorch call computes a Yee or CPML tick: library_ms is null
+    # no single PyTorch call computes a Yee or CPML tick, or K4's in-kernel
+    # reductions and captures beside one: library_ms is null
     kernels = [
         {"name": name, "route": "cuda", "source": f"fdtd_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": launches[key], "max_abs_err": errs[key],

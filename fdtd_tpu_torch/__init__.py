@@ -3,7 +3,9 @@
 The same Yee-lattice FDTD as the JAX package, with the same module paths
 and public names: grids, materials, coefficient tables, point sources, the
 leapfrog step, CPML absorbers and TF/SF plane waves (the absorbing engine),
-probes and the ``Simulation`` time loop. Its plain path is PyTorch on any
+probes and accumulators (DFT planes, the BoxDft near-to-far-field box),
+the ``Simulation`` time loop, scene compilation (``scene``) and the
+scattering workflow (``models.scattering_cross_section``). Its plain path is PyTorch on any
 device; on a CUDA device the time loop runs hand-written kernels
 (``solver/cuda_step.py``, ``solver/cuda_stepk.py``, ``solver/cuda_cpml.py``,
 ``solver/cuda_cpml_k.py``, sources in ``csrc/``), built with nvcc on first

@@ -1,3 +1,4 @@
+from .farfield import BoxDft, radiation_pattern
 from .probes import (
     DftProbe,
     EnergyProbe,
@@ -9,6 +10,8 @@ from .probes import (
 )
 
 __all__ = [
+    "BoxDft",
+    "radiation_pattern",
     "DftProbe",
     "LineProbe",
     "EnergyProbe",

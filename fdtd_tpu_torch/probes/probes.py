@@ -184,16 +184,33 @@ class DftProbe:
         (rows,) = caps
         c0 = 0 if self.component is FieldComponent.E else 3
         rows = rows[:, :, c0: c0 + 3].to(torch.float32)  # (K, nx, 3, lat)
-        kk = rows.shape[0]
-        t = (np.float32(tick0) + np.float32(1.0)
-             + np.arange(kk, dtype=np.float32)) * np.float32(dt)
-        t = torch.from_numpy(t).to(rows.device)
-        phase = (-2.0 * math.pi) * self._freqs(rows.device)[:, None] * t[None, :]
-        fold_re = torch.tensordot(torch.cos(phase), rows, dims=([1], [0]))
-        fold_im = torch.tensordot(torch.sin(phase), rows, dims=([1], [0]))
-        # (F, nx, 3, lat) -> DftProbe layout (F, 3, nx, lat)
-        return (re + fold_re.permute(0, 2, 1, 3),
-                im + fold_im.permute(0, 2, 1, 3))
+        n_f = len(self.frequencies)
+        folded = fold_levels(fold_phases(self._freqs(rows.device), tick0, rows.shape[0],
+                                         dt), rows)
+        # (2F, nx, 3, lat) -> DftProbe layout (F, 3, nx, lat), re then im
+        return (re + folded[:n_f].permute(0, 2, 1, 3),
+                im + folded[n_f:].permute(0, 2, 1, 3))
+
+
+def fold_phases(freqs: torch.Tensor, tick0: int, k: int, dt) -> torch.Tensor:
+    """(2F, K): the cos rows then the sin rows of -2 pi f t at the times
+    t = (tick0 + 1 + level) dt of one K-tick pass, in f32 as DftProbe.update
+    computes them. Made on the frequencies' device: an upload from host
+    memory would wait for the stream."""
+    t = torch.arange(tick0 + 1, tick0 + 1 + k, dtype=torch.float32,
+                     device=freqs.device) * torch.tensor(dt, dtype=torch.float32)
+    phase = (-2.0 * math.pi) * freqs[:, None] * t[None, :]
+    return torch.cat([torch.cos(phase), torch.sin(phase)])
+
+
+def fold_levels(weights: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """sum_k weights[:, k] * rows[k] -> (W, *rows.shape[1:]): one f32
+    product and one f32 sum over the K <= 16 levels. Not a matmul, which
+    would run at TF32 on the card whenever the process allows it (the JAX
+    package pins HIGHEST precision for the same fold,
+    fdtd_tpu/probes/farfield.py:203)."""
+    b = tuple(weights.shape) + (1,) * (rows.dim() - 1)
+    return (weights.reshape(b) * rows[None]).sum(dim=1)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -187,19 +187,22 @@ def check_cpml_inputs(state: EngineState, setup: CpmlSetup, shape, dtype,
 
 def plain_cpml_ticks(state: EngineState, step32, table: torch.Tensor,
                      matid: Optional[torch.Tensor], sources: Optional[SourceSet],
-                     k_steps: int, with_m: bool) -> EngineState:
+                     k_steps: int, with_m: bool, on_level=None) -> EngineState:
     """What the CPML kernels compute, in plain PyTorch: ``k_steps``
     applications of the engine step in f32 (``step32``; f32 carries, f32
     source and TF/SF times), J and, when ``with_m``, M in f32, and one
-    rounding of the fields to the storage dtype at the end."""
+    rounding of the fields to the storage dtype at the end.
+    ``on_level(level, state)`` sees each level's f32 state (K4's options)."""
     dtype = state.dtype
     coeffs = (CellCoefficients(*table[0]) if matid is None
               else CellCoefficients.from_table(table, matid))
     if sources is not None and not with_m:
         sources = dataclasses.replace(sources, m_amp=torch.zeros_like(sources.m_amp))
     s = state.replace(**{f: getattr(state, f).to(torch.float32) for f in FIELDS})
-    for _ in range(k_steps):
+    for lvl in range(k_steps):
         s = step32(s, coeffs, sources)
+        if on_level is not None:
+            on_level(lvl, s)
     return s.replace(**{f: getattr(s, f).to(dtype) for f in FIELDS})
 
 
@@ -219,8 +222,11 @@ def plain_cpml_step(state: EngineState, table: torch.Tensor,
 
 
 def launch_cpml(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup,
-                k_steps: int, dtype, table, matid, sources, with_m) -> EngineState:
-    """Launch K3 (``k_steps`` == 1) or K4 on a CUDA state."""
+                k_steps: int, dtype, table, matid, sources, with_m,
+                options=None) -> EngineState:
+    """Launch K3 (``k_steps`` == 1) or K4 on a CUDA state. ``options``:
+    K4's accumulator options as (meta, pointers) C arrays
+    (csrc/cpmlk.cu::make_options), or None."""
     nx, ny, nz = setup.shape
     prof, aux = setup.on(state.device)
     aux_e, aux_h = state.aux_e, state.aux_h
@@ -240,10 +246,10 @@ def launch_cpml(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup,
         w1 = [torch.empty(f.shape, dtype=torch.float32, device=f.device) for f in fields]
         if dtype == torch.float32:
             w2 = outs  # ping-pong partner of w1 (see csrc/cpmlk.cu)
-        elif k_steps >= 3:
+        elif k_steps >= 3 or options is not None:
             w2 = [torch.empty_like(w) for w in w1]
         else:
-            w2 = w1  # K = 2 never writes the second work set
+            w2 = w1  # K = 2 without options never writes the second work set
         field_sets += [*w1, *w2]
         psi_sets.append([torch.empty_like(p) if ok else p
                          for p, ok in zip(psi_in, live)])
@@ -260,12 +266,15 @@ def launch_cpml(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup,
     ]
     if k_steps > 1:
         args.append(k_steps)
-    args += [nx, ny, nz, *setup.inv_dx, _build.stream_handle(state.device)]
+    args += [nx, ny, nz, *setup.inv_dx]
+    if k_steps > 1:
+        args += [None, None] if options is None else list(options)
+    args.append(_build.stream_handle(state.device))
     kernel.launch(*args)
     pairs = list(zip(psi_out[0::2], psi_out[1::2]))
     return EngineState(*outs, tick=state.tick + k_steps, psi_h=tuple(pairs[:6]),
                        psi_e=tuple(pairs[6:]), aux_e=aux_e, aux_h=aux_h,
-                       psi_d=state.psi_d)
+                       psi_d=state.psi_d, dft=state.dft)
 
 
 def cuda_cpml_step_fn(

@@ -1,30 +1,51 @@
-"""K4 (core): the K-tick CPML kernel (csrc/cpmlk.cu) and its wrapper.
+"""K4: the K-tick CPML kernel (csrc/cpmlk.cu) and its wrapper.
 
-Counterpart of the core of ``fdtd_tpu.solver.pallas_cpml_k``
-(``pallas_cpml_stepk_fn``): K absorbing ticks per call (K >= 2) with psi
-carried level to level, per-level TF/SF and per-level J (and, ``with_m``,
-M) sources, f32 intermediate levels whatever the storage dtype. The 1-D
-aux grid ticks K times outside the kernel in torch and records a
-(2K, aux_len) pack: the OLD aux_e row for each level's H pass and the NEW
-aux_h row for its E pass, at each level's f32 time. Source rows are K2's
-(``build_src_rows``). The kernel is one cooperative launch that runs the
-ticks back to back with a grid-wide barrier between them.
+Counterpart of ``fdtd_tpu.solver.pallas_cpml_k`` (``pallas_cpml_stepk_fn``):
+K absorbing ticks per call (K >= 2) with psi carried level to level,
+per-level TF/SF and per-level J (and, ``with_m``, M) sources, f32
+intermediate levels whatever the storage dtype. The 1-D aux grid ticks K
+times outside the kernel in torch and records a (2K, aux_len) pack: the OLD
+aux_e row for each level's H pass and the NEW aux_h row for its E pass, at
+each level's f32 time. Source rows are K2's (``build_src_rows``). The
+kernel is one cooperative launch that runs the ticks back to back with a
+grid-wide barrier between them.
 
-Not part of this kernel: the TPU kernel's options (flux faces, in-kernel
-DFT and row captures, DensePml, oblique TF/SF, runtime coordinates).
+The accumulator options, with the JAX wrapper's semantics and return order
+(``state[, flux_rows][, caps]``):
+
+* K4a ``flux_faces``: ("x",) / ("y", y0) / ("z", z0) descriptors; per level
+  and x plane the full-plane x-normal Poynting sum, or the z-row sum of the
+  y-normal flux at y0, or the y-row sum of the z-normal flux at z0 ->
+  ``flux_rows`` (K, nx, n_q) f32;
+* K4b ``dft`` = (planes, frequencies), each plane ``x0`` (E) or
+  ``(x0, which)`` (0 = E, 1 = H): a running DFT at those x planes, phase
+  exp(-2j pi f t) with t = (tick + 1 + level) dt in f32, accumulated in
+  ``state.dft`` (one (6F, ny, nz) f32 tensor per plane, slot (f, re/im,
+  component));
+* K4b ``dft_rows``: ("y", y0) / ("z", z0) descriptors; the raw E and H of
+  that lateral line of every x plane per level -> ``caps``, one (K, nx, 6,
+  lat) f32 block per descriptor (lat = nz for "y", ny for "z"), folded
+  outside the kernel.
+
+Every value is sampled after the level's source injection, from the
+level's f32 fields. Not part of this kernel: the TPU kernel's DensePml,
+oblique TF/SF, ``dft_runtime`` and runtime coordinates.
 
 The plain version (``plain_cpml_stepk``) is K applications of K3's plain
-version with one rounding at the end; CPU states take it, CUDA states
-launch the kernel or raise.
+version with one rounding at the end, and computes the options from each
+level's f32 state; CPU states take it, CUDA states launch the kernel or
+raise.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
 from ..constants import SI, PhysicalConstants
+from ..probes.probes import _frequency_tensor, fold_phases
 from . import _build
 from .boundary import BoundaryConditions
 from .cuda_cpml import (
@@ -40,15 +61,64 @@ from .engine import EngineState, build_step
 from .sources import SourceSet
 
 __all__ = ["cuda_cpml_stepk_fn", "supports_cpml_k", "plain_cpml_stepk",
-           "launches", "reset_launches"]
+           "dft_phases", "launches", "option_launches", "reset_launches"]
+
+# csrc/cpmlk.cu's limits on the options and its tile (yee.cuh TY x TZ)
+MAX_FLUX_FACES = 16
+MAX_DFT_PLANES = 16
+MAX_DFT_FREQS = 16
+MAX_DFT_ROWS = 16
+_TILE_Y, _TILE_Z = 8, 32
+_KIND = {"x": 0, "y": 1, "z": 2}
+
+
+def _planes(planes):
+    """DFT plane specs as (x0, which) pairs: a bare int is an E plane."""
+    return tuple((int(p), 0) if not isinstance(p, tuple) else (int(p[0]), int(p[1]))
+                 for p in planes)
+
+
+def _options_fit(shape, flux_faces, dft, dft_rows) -> bool:
+    """Whether csrc/cpmlk.cu takes these options on ``shape``. ``dft`` is
+    (planes, n_frequencies) or None."""
+    nx, ny, nz = shape
+    lateral = {"y": ny, "z": nz}
+    if len(flux_faces) > MAX_FLUX_FACES or len(dft_rows) > MAX_DFT_ROWS:
+        return False
+    for fd in flux_faces:
+        if fd[0] == "x":
+            if len(fd) != 1:
+                return False
+        elif fd[0] not in lateral or len(fd) != 2 or not 0 <= fd[1] < lateral[fd[0]]:
+            return False
+    for a, v in dft_rows:
+        if a not in lateral or not 0 <= v < lateral[a]:
+            return False
+    if dft is not None:
+        planes, n_freq = dft
+        if not 1 <= len(planes) <= MAX_DFT_PLANES or not 1 <= n_freq <= MAX_DFT_FREQS:
+            return False
+        if any(not 0 <= x0 < nx or which not in (0, 1) for x0, which in _planes(planes)):
+            return False
+    return True
 
 
 def supports_cpml_k(shape, bc, cpml, k: int, dtype=torch.float32,
-                    n_materials: int = 1) -> bool:
+                    n_materials: int = 1, flux_faces=(), dft=None,
+                    dft_rows=()) -> bool:
     """Whether K4 covers this configuration at ``k`` ticks per call: what
-    K3 covers, 2 <= k <= 16 and at most 256 materials."""
+    K3 covers, 2 <= k <= 16, at most 256 materials, and options inside the
+    kernel's limits (16 flux descriptors, 16 DFT planes of at most 16
+    frequencies, 16 row descriptors, every index on the lattice). ``dft``
+    is (planes, number of frequencies), as in the JAX package."""
     return supports_cpml(shape, bc, cpml, dtype=dtype) and 2 <= k <= MAX_K \
-        and 1 <= n_materials <= 256
+        and 1 <= n_materials <= 256 \
+        and _options_fit(shape, tuple(flux_faces), dft, tuple(dft_rows))
+
+
+#: K4 launches that carried each option (K4a "flux_faces", K4b "dft" and
+#: "dft_rows") since the last reset; the wrapper adds one per launch.
+OPTION_LAUNCHES = {"flux_faces": 0, "dft": 0, "dft_rows": 0}
 
 
 def launches() -> int:
@@ -56,21 +126,167 @@ def launches() -> int:
     return _build.CPMLK.launches
 
 
+def option_launches() -> dict:
+    """How many K4 launches carried each accumulator option since the last
+    reset."""
+    return dict(OPTION_LAUNCHES)
+
+
 def reset_launches() -> None:
     _build.CPMLK.launches = 0
+    for name in OPTION_LAUNCHES:
+        OPTION_LAUNCHES[name] = 0
+
+
+def dft_phases(frequencies, tick: int, k_steps: int, dt: float, device) -> torch.Tensor:
+    """(K, 2F) f32 [cos, sin] of -2 pi f t per frequency at the levels'
+    times t = (tick + 1 + level) dt, all in f32 (pallas_cpml_k.py:1948-1958):
+    the lateral fold's weights with the levels first."""
+    freqs = _frequency_tensor(tuple(frequencies), torch.device(device))
+    w = fold_phases(freqs, tick, k_steps, dt)  # (2F, K): cos rows, sin rows
+    return w.reshape(2, len(frequencies), k_steps).permute(2, 1, 0).reshape(k_steps, -1)
+
+
+# -- the options on f32 fields (the plain version's arithmetic) ------------------
+
+
+def flux_row(e, h, flux_faces) -> torch.Tensor:
+    """(nx, n_q) per-plane Poynting sums of one level's f32 fields."""
+    cols = []
+    for fd in flux_faces:
+        if fd[0] == "x":
+            s = e[1] * h[2] - e[2] * h[1]
+            cols.append(s.sum(dim=(1, 2)))
+        elif fd[0] == "y":
+            v = fd[1]
+            cols.append((e[2][:, v] * h[0][:, v] - e[0][:, v] * h[2][:, v]).sum(-1))
+        else:
+            v = fd[1]
+            cols.append((e[0][:, :, v] * h[1][:, :, v]
+                         - e[1][:, :, v] * h[0][:, :, v]).sum(-1))
+    return torch.stack(cols, dim=1)
+
+
+def row_capture(e, h, desc) -> torch.Tensor:
+    """(nx, 6, lat) raw E and H along one lateral line of every x plane."""
+    a, v = desc
+    return torch.stack([f[:, v, :] if a == "y" else f[:, :, v] for f in (*e, *h)], dim=1)
+
+
+def dft_update(acc: torch.Tensor, phase_row: torch.Tensor, fld) -> torch.Tensor:
+    """One level of a DFT plane: acc (6F, ny, nz) + phase x field, slot
+    (f, re/im, component)."""
+    v = torch.stack(fld)  # (3, ny, nz)
+    ph = phase_row.reshape(-1, 1, 1, 1)  # (2F, 1, 1, 1)
+    return acc + (ph * v[None]).reshape(acc.shape)
+
+
+def plain_with_options(state: EngineState, step32, table, matid, sources,
+                       k_steps: int, with_m: bool, flux_faces=(), planes=(), freqs=(),
+                       dft_rows=(), dt: float = 0.0):
+    """K4's plain version: ``k_steps`` f32 engine ticks (K3's plain
+    version), the options computed from each level's f32 state, one
+    rounding of the fields at the end. Returns what the kernel wrapper
+    returns."""
+    accs = list(state.dft)
+    phases = dft_phases(freqs, state.tick, k_steps, dt, state.device) if planes else None
+    flux, caps = [], [[] for _ in dft_rows]
+
+    def on_level(lvl, s):
+        if flux_faces:
+            flux.append(flux_row(s.e, s.h, flux_faces))
+        for out, desc in zip(caps, dft_rows):
+            out.append(row_capture(s.e, s.h, desc))
+        for i, (x0, which) in enumerate(planes):
+            fld = s.e if which == 0 else s.h
+            accs[i] = dft_update(accs[i], phases[lvl], tuple(c[x0] for c in fld))
+
+    s = plain_cpml_ticks(state, step32, table, matid, sources, k_steps, with_m, on_level)
+    if planes:
+        s = s.replace(dft=tuple(accs))
+    return _result(s, torch.stack(flux) if flux_faces else None,
+                   tuple(torch.stack(c) for c in caps) if dft_rows else None)
+
+
+def _result(state, flux, caps):
+    res = [state]
+    if flux is not None:
+        res.append(flux)
+    if caps is not None:
+        res.append(caps)
+    return res[0] if len(res) == 1 else tuple(res)
 
 
 def plain_cpml_stepk(state: EngineState, table: torch.Tensor,
                      matid: Optional[torch.Tensor], sources: Optional[SourceSet],
                      k_steps: int, *, inv_dx, dt, cpml, tfsf=None,
                      bc=BoundaryConditions(), constants: PhysicalConstants = SI,
-                     with_m: bool = False) -> EngineState:
+                     with_m: bool = False, flux_faces=(), dft=None, dft_rows=()):
     """K4's plain version: K applications of K3's plain version (f32
-    carries, one rounding to the storage dtype at the end)."""
+    carries, one rounding to the storage dtype at the end), with the
+    options computed from each level's f32 state; returns what the kernel
+    wrapper returns."""
     step32 = build_step(state.shape, inv_dx=inv_dx, dt=dt, bc=bc,
                         constants=constants, dtype=torch.float32, cpml=cpml,
                         tfsf=tfsf)
-    return plain_cpml_ticks(state, step32, table, matid, sources, k_steps, with_m)
+    planes, freqs = (_planes(dft[0]), tuple(dft[1])) if dft is not None else ((), ())
+    return plain_with_options(state, step32, table, matid, sources, k_steps, with_m,
+                              tuple(flux_faces), planes, freqs, tuple(dft_rows), dt)
+
+
+# -- the kernel -----------------------------------------------------------------
+
+
+class _Options:
+    """The options' C layout (csrc/cpmlk.cu::make_options) for one lattice:
+    the metadata once, the buffers per call."""
+
+    def __init__(self, shape, k_steps, flux_faces, planes, freqs, dft_rows):
+        nx, ny, nz = shape
+        self.shape, self.k = shape, k_steps
+        self.faces, self.planes, self.freqs, self.rows = flux_faces, planes, freqs, dft_rows
+        self.n_tiles = -(-ny // _TILE_Y) * -(-nz // _TILE_Z)
+        meta = [len(flux_faces), self.n_tiles, len(planes), len(freqs), len(dft_rows)]
+        meta += [_KIND[fd[0]] for fd in flux_faces]
+        meta += [fd[1] if fd[0] != "x" else 0 for fd in flux_faces]
+        meta += [x0 for x0, _ in planes] + [w for _, w in planes]
+        meta += [_KIND[a] for a, _ in dft_rows] + [v for _, v in dft_rows]
+        self.meta = (ctypes.c_int * len(meta))(*meta)
+
+    def buffers(self, state: EngineState, dt: float):
+        """(flux rows, partials, captures, DFT outputs, phase pack, C pointer
+        array) for one call on ``state``."""
+        nx, ny, nz = self.shape
+        dev = state.device
+
+        def empty(*s):
+            return torch.empty(s, dtype=torch.float32, device=dev)
+
+        n_q = len(self.faces)
+        flux = empty(self.k, nx, n_q) if n_q else None
+        partial = empty(self.k, nx, n_q, self.n_tiles) if n_q else None
+        caps = tuple(empty(self.k, nx, 6, nz if a == "y" else ny) for a, _ in self.rows)
+        acc_in = state.dft if self.planes else ()
+        acc_out = tuple(torch.empty_like(a) for a in acc_in)
+        phase = dft_phases(self.freqs, state.tick, self.k, dt, dev) if self.planes else None
+        ptrs = [partial, flux, phase, *acc_in, *acc_out, *caps]
+        c_ptrs = (ctypes.c_void_p * len(ptrs))(
+            *[None if t is None else t.data_ptr() for t in ptrs])
+        return flux, caps, acc_out, (phase, partial), c_ptrs
+
+    def check_dft(self, state: EngineState) -> None:
+        """With the dft option, ``state.dft`` must hold one accumulator per
+        plane (without it, the step carries ``state.dft`` through)."""
+        if not self.planes:
+            return
+        want = (6 * len(self.freqs), *self.shape[1:])
+        if len(state.dft) != len(self.planes) or any(
+                a.dtype != torch.float32 or tuple(a.shape) != want or a.device != state.device
+                or not a.is_contiguous() for a in state.dft):
+            raise ValueError(
+                f"state.dft: need {len(self.planes)} contiguous float32 {want} "
+                f"tensors on {state.device} (one per DFT plane), got "
+                f"{[(a.dtype, tuple(a.shape)) for a in state.dft]}")
 
 
 def cuda_cpml_stepk_fn(
@@ -87,34 +303,64 @@ def cuda_cpml_stepk_fn(
     n_materials: int = 1,
     with_m: bool = False,
     dtype=torch.float32,
+    flux_faces=(),
+    dft=None,
+    dft_rows=(),
 ):
     """Build stepk(state: EngineState, coeffs, sources) advancing
     ``k_steps`` absorbing ticks.
 
     ``coeffs`` is CellCoefficients of scalars, or the (K_mat, 4) table when
     ``matid`` (uint8, on the state's device) is given. M sources are
-    injected only when ``with_m``.
+    injected only when ``with_m``. ``flux_faces``, ``dft`` = (planes,
+    frequencies) and ``dft_rows`` switch on the accumulator options (module
+    docstring); the step then returns ``state[, flux_rows][, caps]``, and
+    with ``dft`` it reads and writes ``state.dft``.
     """
+    flux_faces = tuple(tuple(fd) for fd in flux_faces)
+    dft_rows = tuple((str(a), int(v)) for a, v in dft_rows)
+    planes, freqs = (_planes(dft[0]), tuple(float(f) for f in dft[1])) \
+        if dft is not None else ((), ())
     n_mat = n_materials if matid is not None else 1
-    if not supports_cpml_k(shape, bc, cpml, k_steps, dtype=dtype, n_materials=n_mat):
+    if not supports_cpml_k(shape, bc, cpml, k_steps, dtype=dtype, n_materials=n_mat,
+                           flux_faces=flux_faces,
+                           dft=(planes, len(freqs)) if dft is not None else None,
+                           dft_rows=dft_rows):
         raise ValueError(
-            f"K4 does not support {k_steps=} {shape=} {bc=} {cpml=} {dtype=}")
+            f"K4 does not support {k_steps=} {shape=} {bc=} {cpml=} {dtype=} "
+            f"{flux_faces=} {dft=} {dft_rows=}")
     if tfsf is not None:
         tfsf.validate(shape)
     inv_dx = tuple(float(v) for v in inv_dx)
     setup = CpmlSetup(shape, inv_dx, dt, constants, cpml, tfsf)
     step32 = build_step(shape, inv_dx=inv_dx, dt=dt, bc=bc, constants=constants,
                         dtype=torch.float32, cpml=cpml, tfsf=tfsf)
+    options = (_Options(tuple(shape), k_steps, flux_faces, planes, freqs, dft_rows)
+               if flux_faces or planes or dft_rows else None)
 
-    def stepk(state: EngineState, coeffs, sources: Optional[SourceSet]) -> EngineState:
+    def stepk(state: EngineState, coeffs, sources: Optional[SourceSet]):
         table = kernel_table(coeffs, matid, state.device)
         check_cpml_inputs(state, setup, shape, dtype, table, matid)
+        if options is not None:
+            options.check_dft(state)
         if state.device.type == "cpu":
-            return plain_cpml_ticks(state, step32, table, matid, sources, k_steps,
-                                    with_m)
+            return plain_with_options(state, step32, table, matid, sources, k_steps,
+                                      with_m, flux_faces, planes, freqs, dft_rows, dt)
         if state.device.type != "cuda":
             raise ValueError(f"K4 runs on CUDA or CPU tensors, not {state.device}")
-        return launch_cpml(_build.CPMLK, state, setup, k_steps, dtype, table,
-                           matid, sources, with_m)
+        if options is None:
+            return launch_cpml(_build.CPMLK, state, setup, k_steps, dtype, table,
+                               matid, sources, with_m)
+        # scratch holds the phase pack and the partials until the launch is
+        # queued (freed after it, they stay the stream's until it has run)
+        flux, caps, acc_out, scratch, c_ptrs = options.buffers(state, dt)
+        new = launch_cpml(_build.CPMLK, state, setup, k_steps, dtype, table, matid,
+                          sources, with_m, options=(options.meta, c_ptrs))
+        for name, on in (("flux_faces", flux_faces), ("dft", planes), ("dft_rows", dft_rows)):
+            OPTION_LAUNCHES[name] += bool(on)
+        del scratch
+        if planes:
+            new = new.replace(dft=acc_out)
+        return _result(new, flux, caps if dft_rows else None)
 
     return stepk

@@ -65,13 +65,18 @@ class EngineState(SimState):
     pair of tensors covering only the absorber thickness along the term's
     axis (0-d zeros when that axis has no CPML). ``aux_e``/``aux_h`` are the
     1D incident-wave line (0-d zeros without TF/SF). ``psi_d`` stays empty
-    (DensePml is not ported)."""
+    (DensePml is not ported). ``dft`` holds the running x-plane spectra of
+    K4's ``dft`` option, one (6F, ny, nz) f32 tensor per plane (slot
+    (f, re/im, component)); the steps that do not write them carry them
+    through, and ``Simulation.run`` adds and strips them around a run (the
+    JAX package keeps them on the psi tail)."""
 
     psi_h: Tuple[Tuple[torch.Tensor, torch.Tensor], ...] = ()
     psi_e: Tuple[Tuple[torch.Tensor, torch.Tensor], ...] = ()
     aux_e: Optional[torch.Tensor] = None
     aux_h: Optional[torch.Tensor] = None
     psi_d: Tuple[torch.Tensor, ...] = ()
+    dft: Tuple[torch.Tensor, ...] = ()
 
 
 def carry_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -337,7 +342,7 @@ def build_step(
 
         return EngineState(
             *e, *h, tick=state.tick + 1, psi_h=psi_h, psi_e=psi_e,
-            aux_e=aux_e, aux_h=aux_h, psi_d=state.psi_d,
+            aux_e=aux_e, aux_h=aux_h, psi_d=state.psi_d, dft=state.dft,
         )
 
     return step

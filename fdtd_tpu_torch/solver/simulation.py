@@ -14,10 +14,13 @@ runs the plain step. ``plan()`` says which.
 
 Absorbing runs (``cpml`` and/or a slab or box ``tfsf``) step an
 ``EngineState`` (solver/engine.py): on a CUDA device through K4
-(``cuda_cpml_k``) or K3 (``cuda_cpml``) on the same rule, elsewhere through
-the plain engine. TF/SF-only runs ride the CPML kernels with an empty
-absorber. DensePml regions and oblique TF/SF are not ported yet
-(ROADMAP.md, queue 1 item 7): asking for either raises
+(``cuda_cpml_k``) or K3 (``cuda_cpml``), elsewhere through the plain
+engine. Accumulators ride K4 when ``kernel_accumulator_spec`` places every
+one of them on the kernel's options (flux faces, DFT planes, row
+captures), as in the JAX package; an accumulator that fits none drops the
+run to K3 with a per-tick ``update()``. TF/SF-only runs ride the CPML
+kernels with an empty absorber. DensePml regions and oblique TF/SF are not
+ported yet (ROADMAP.md, queue 1 item 7): asking for either raises
 ``NotImplementedError``.
 
 The device defaults to the current CUDA card; without one, construction
@@ -46,7 +49,8 @@ from .sources import SourceSet
 from .state import DEFAULT_DEVICE, SimState, resolve_device, zero_state
 from .step import CellCoefficients, step_fn
 
-__all__ = ["Simulation"]
+__all__ = ["Simulation", "kernel_flux_spec", "kernel_accumulator_spec",
+           "extract_dft_acc", "run_scan_flux"]
 
 _BACKENDS = ("auto", "torch", "cuda")
 
@@ -233,12 +237,18 @@ class Simulation:
     def _multi_step_cache(self) -> dict:
         return {}
 
-    def _multi_step(self, k: int):
-        if k not in self._multi_step_cache:
-            multi = cuda_cpml_stepk_fn if self._absorbing else cuda_stepk_fn
-            self._multi_step_cache[k] = self._bind(
-                multi(self.grid.shape, k, **self._kernel_kwargs()))
-        return self._multi_step_cache[k]
+    def _multi_step(self, k: int, faces=(), dft=None, rows=()):
+        """The K-tick kernel's step at ``k``, with K4's accumulator options
+        (flux faces, DFT (planes, frequencies), row descriptors) when given."""
+        key = (k, faces, dft, rows)
+        if key not in self._multi_step_cache:
+            if self._absorbing:
+                step = cuda_cpml_stepk_fn(self.grid.shape, k, flux_faces=faces, dft=dft,
+                                          dft_rows=rows, **self._kernel_kwargs())
+            else:
+                step = cuda_stepk_fn(self.grid.shape, k, **self._kernel_kwargs())
+            self._multi_step_cache[key] = self._bind(step)
+        return self._multi_step_cache[key]
 
     # -- stepping ------------------------------------------------------------
 
@@ -254,29 +264,38 @@ class Simulation:
         "cuda_cpml_k" (K4), "cuda_cpml" (K3) or "torch" (the plain step or
         engine).
 
-        The K-tick kernels need every intermediate state to be unobserved:
-        they run only when no accumulator rides the run and K divides both
-        ``n_steps`` and the probe cadence. K comes from ``K_LADDER`` for
-        both (the TPU's CPML ladder is a Mosaic calibration)."""
+        The K-tick kernels run when K divides both ``n_steps`` and the
+        probe cadence, and every intermediate state that an accumulator
+        reads reaches it through K4's options: K2 runs only without
+        accumulators, K4 also when ``kernel_accumulator_spec`` places
+        every accumulator (the JAX package's rule). K comes from
+        ``K_LADDER`` for both (the TPU's CPML ladder is a Mosaic
+        calibration)."""
         if not self._kernels:
             return 1, "torch"
         one, multi = (("cuda_cpml", "cuda_cpml_k") if self._absorbing
                       else ("cuda_step", "cuda_stepk"))
-        if not accumulators:
-            cadence = probe_every if probes else n_steps
-            n_mat = self._n_materials if self.matid is not None else 1
-            for k in K_LADDER:
-                if n_steps % k != 0 or cadence % k != 0:
-                    continue
-                if self._absorbing:
-                    fits = supports_cpml_k(self.grid.shape, self.bc,
-                                           self._cpml_or_empty, k,
-                                           dtype=self.dtype, n_materials=n_mat)
-                else:
-                    fits = supports_k(self.grid.shape, self.bc, k,
-                                      dtype=self.dtype, n_materials=n_mat)
-                if fits:
-                    return k, multi
+        options = {}
+        if accumulators:
+            faces, _, _, dft_arg, _, rows = kernel_accumulator_spec(tuple(accumulators))
+            if faces is None or not self._absorbing:
+                return 1, one
+            options = dict(flux_faces=faces, dft_rows=rows,
+                           dft=(dft_arg[0], len(dft_arg[1])) if dft_arg else None)
+        cadence = probe_every if probes else n_steps
+        n_mat = self._n_materials if self.matid is not None else 1
+        for k in K_LADDER:
+            if n_steps % k != 0 or cadence % k != 0:
+                continue
+            if self._absorbing:
+                fits = supports_cpml_k(self.grid.shape, self.bc, self._cpml_or_empty,
+                                       k, dtype=self.dtype, n_materials=n_mat,
+                                       **options)
+            else:
+                fits = supports_k(self.grid.shape, self.bc, k,
+                                  dtype=self.dtype, n_materials=n_mat)
+            if fits:
+                return k, multi
         return 1, one
 
     def run(
@@ -293,15 +312,18 @@ class Simulation:
         probe_stacks is a tuple of (n_steps // probe_every, ...) tensors,
         each sample taken after the step that completes its cadence.
         Accumulators (``init(state, dt)`` / ``update(acc, state, dt)``) see
-        every tick.
+        every tick: per tick, or through K4's options (``plan()``).
         """
-        k, _ = self.plan(n_steps, probes, accumulators, probe_every)
-        step = self._step if k == 1 else self._multi_step(k)
+        k, kind = self.plan(n_steps, probes, accumulators, probe_every)
         dt = self.grid.dt
         stride = max(probe_every // k, 1) if probes else 1
         n_calls = n_steps // k
         if n_calls % stride != 0:
             raise ValueError(f"{n_steps=} not divisible by {probe_every=}")
+        if accumulators and kind == "cuda_cpml_k":
+            return self._run_on_kernel(state, k, n_calls, stride, probes,
+                                       tuple(accumulators))
+        step = self._step if k == 1 else self._multi_step(k)
 
         accs = [a.init(state, dt) for a in accumulators]
         samples = [[] for _ in probes]
@@ -316,6 +338,38 @@ class Simulation:
             for p, out in zip(probes, samples)
         )
         return state, stacks, tuple(accs)
+
+    def _run_on_kernel(self, state, k, n_calls, stride, probes, accumulators):
+        """``run`` with every accumulator on K4's options
+        (fdtd_tpu/solver/simulation.py:740-812): the DFT planes' spectra
+        ride ``state.dft`` for the run and are stripped before returning."""
+        faces, flux_items, dft_items, dft_arg, row_items, rows = \
+            kernel_accumulator_spec(accumulators)
+        step = self._multi_step(k, faces, dft_arg, rows)
+        if dft_arg is not None:
+            planes, freqs = dft_arg
+            ny, nz = self.grid.shape[1:]
+            state = state.replace(dft=tuple(
+                torch.zeros((6 * len(freqs), ny, nz), dtype=torch.float32,
+                            device=state.device) for _ in planes))
+        owners = tuple((a, cr) for _, a, cr in flux_items)
+        row_owners = tuple((it[1], it[2]) for it in row_items)
+        state, stacks, flux_accs, row_accs = run_scan_flux(
+            step, probes, owners, row_owners, stride, n_calls, self.grid.dt, state,
+            self.coeffs, self.sources)
+        finals = [None] * len(accumulators)
+        for (pos, _a, _cr), acc in zip(flux_items, flux_accs):
+            finals[pos] = acc
+        for it, acc in zip(row_items, row_accs):
+            if len(it) == 4:  # BoxDft: reassemble the faces from both mechanisms
+                pos, a, _dr, (p0, p1) = it
+                finals[pos] = a.finalize_from_kernel(
+                    [extract_dft_acc(state, dft_arg, s) for s in range(p0, p1)], acc)
+            else:
+                finals[it[0]] = acc
+        for pos, _p, slot in dft_items:
+            finals[pos] = extract_dft_acc(state, dft_arg, slot)
+        return state.replace(dft=()), stacks, tuple(finals)
 
     # -- reporting -----------------------------------------------------------
 
@@ -336,3 +390,143 @@ class Simulation:
                 f"Courant number {s:.4f} > 1: dt={self.grid.dt} too large for "
                 f"dx={self.grid.dx} (reduce dt or coarsen the lattice)"
             )
+
+
+# -- accumulators on the K-tick CPML kernel ------------------------------------
+
+
+def kernel_flux_spec(accumulators):
+    """(faces, owners) when EVERY accumulator supports K4's in-kernel
+    per-plane Poynting reductions (``kernel_flux_faces`` /
+    ``update_from_flux_rows``); (None, None) otherwise. ``owners`` maps
+    each accumulator to its (start, stop) column range of the concatenated
+    reduction rows."""
+    faces, owners = [], []
+    for a in accumulators:
+        if not (hasattr(a, "kernel_flux_faces")
+                and hasattr(a, "update_from_flux_rows")):
+            return None, None
+        f = tuple(a.kernel_flux_faces())
+        owners.append((a, (len(faces), len(faces) + len(f))))
+        faces.extend(f)
+    return tuple(faces), tuple(owners)
+
+
+def kernel_accumulator_spec(accumulators):
+    """Partition accumulators for K4's options, as
+    ``fdtd_tpu.solver.simulation.kernel_accumulator_spec`` does.
+    Flux-capable ones (kernel_flux_faces/update_from_flux_rows) map to
+    flux_faces columns; DftProbe(axis=0) accumulators (E or H) map to DFT
+    planes (all must share ONE frequency tuple); row-capture-capable ones
+    (kernel_dft_rows/update_from_dft_rows: lateral DftProbes) map to
+    dft_rows descriptors. Returns (faces, flux_items, dft_items, dft_arg,
+    row_items, rows_arg); all None when any accumulator fits none (the run
+    then steps per tick). flux_items = ((pos, acc, (c0, c1)), ...);
+    dft_items = ((pos, probe, plane_slot), ...); dft_arg = (planes, freqs)
+    or None, planes entries (index, which) with which 0=E / 1=H; row_items
+    = ((pos, acc, (d0, d1)), ...) with (d0, d1) the accumulator's slice of
+    rows_arg, the concatenated ("y"/"z", index) descriptors.
+
+    BoxDft accumulators decompose onto BOTH mechanisms (kernel_parts):
+    their x-face raw plane spectra join ``planes`` and their y/z-face
+    captures join the descriptors; run() reassembles the faces with
+    finalize_from_kernel. They appear in row_items with a (p0, p1)
+    plane-slot range appended: (pos, acc, (d0, d1), (p0, p1))."""
+    from ..probes import BoxDft, DftProbe, FieldComponent
+
+    faces, flux_items, dft_items, row_items = [], [], [], []
+    planes, freqs, row_descs = [], None, []
+    _none = (None,) * 6
+
+    def share_freqs(f):
+        nonlocal freqs
+        if freqs is None:
+            freqs = f
+            return True
+        return f == freqs
+
+    for pos, a in enumerate(accumulators):
+        if isinstance(a, DftProbe) and a.axis == 0:
+            if not share_freqs(tuple(a.frequencies)):
+                return _none
+            dft_items.append((pos, a, len(planes)))
+            which = 0 if a.component == FieldComponent.E else 1
+            planes.append((int(a.index), which))
+            continue
+        if isinstance(a, BoxDft):
+            if not share_freqs(tuple(a.frequencies)):
+                return _none
+            xp, dd = a.kernel_parts()
+            row_items.append((
+                pos, a, (len(row_descs), len(row_descs) + len(dd)),
+                (len(planes), len(planes) + len(xp)),
+            ))
+            planes.extend(xp)
+            row_descs.extend(dd)
+            continue
+        if (hasattr(a, "kernel_dft_rows")
+                and hasattr(a, "update_from_dft_rows")):
+            dd = tuple(a.kernel_dft_rows())
+            row_items.append(
+                (pos, a, (len(row_descs), len(row_descs) + len(dd)))
+            )
+            row_descs.extend(dd)
+            continue
+        if (hasattr(a, "kernel_flux_faces")
+                and hasattr(a, "update_from_flux_rows")):
+            ff = tuple(a.kernel_flux_faces())
+            flux_items.append((pos, a, (len(faces), len(faces) + len(ff))))
+            faces.extend(ff)
+            continue
+        return _none
+    dft_arg = (tuple(planes), freqs) if planes else None
+    return (tuple(faces), tuple(flux_items), tuple(dft_items), dft_arg,
+            tuple(row_items), tuple(row_descs))
+
+
+def extract_dft_acc(state, dft_arg, plane_slot):
+    """(re, im) DftProbe-layout accumulators, each (F, 3, ny, nz), of DFT
+    plane ``plane_slot`` of K4's ``dft`` option (``state.dft``, slot order
+    (f, re/im, component))."""
+    _planes, freqs = dft_arg
+    vol = state.dft[plane_slot]
+    live = vol.reshape(len(freqs), 2, 3, *vol.shape[1:])
+    return live[:, 0], live[:, 1]
+
+
+def run_scan_flux(step, probes, owners, row_owners, probe_every, n_steps, dt,
+                  state, coeffs, sources):
+    """The accumulator loop for K4 with options
+    (``fdtd_tpu.solver.simulation._run_scan_flux``): ``step`` returns
+    (state[, (K, nx, n_q) flux rows][, row captures]) and each accumulator
+    folds its column or descriptor range, K ticks per call. ``probe_every``
+    and ``n_steps`` count step calls. Returns (state, probe stacks, flux
+    accumulators, row accumulators)."""
+    stride = max(probe_every, 1)
+    if n_steps % stride != 0:
+        raise ValueError(f"{n_steps=} not divisible by {probe_every=}")
+    accs = tuple(a.init(state, dt) for a, _ in owners)
+    raccs = tuple(a.init_rows_acc(state, dt) for a, _ in row_owners)
+    samples = [[] for _ in probes]
+    for i in range(n_steps):
+        tick0 = state.tick
+        out = step(state, coeffs, sources)
+        if not (owners or row_owners):
+            state = out
+        else:
+            state, idx = out[0], 1
+            if owners:
+                rows = out[idx]
+                idx += 1
+                accs = tuple(a.update_from_flux_rows(acc, rows[:, :, s0:s1], dt)
+                             for (a, (s0, s1)), acc in zip(owners, accs))
+            if row_owners:
+                caps = out[idx]
+                raccs = tuple(a.update_from_dft_rows(racc, caps[d0:d1], tick0, dt)
+                              for (a, (d0, d1)), racc in zip(row_owners, raccs))
+        if (i + 1) % stride == 0:
+            for p, o in zip(probes, samples):
+                o.append(p.sample(state, dt))
+    stacks = tuple(torch.stack(o) if o else p.sample(state, dt)[None][:0]
+                   for p, o in zip(probes, samples))
+    return state, stacks, accs, raccs

@@ -377,3 +377,138 @@ def test_convert_round_trip(rng):
     np.testing.assert_array_equal(
         list(convert.coeffs_to_numpy(convert.coeffs_from_numpy(jc, device="cpu")).values()),
         [np.asarray(c) for c in jc])
+
+
+# -- scene/: the NumPy copies and the compiler ------------------------------------
+
+
+def _shapes(mod):
+    s = mod.scene
+    return [s.Ball(1.3), s.Cuboid((1.0, 0.5, 0.7)), s.Cylinder(0.8, 0.6),
+            s.HalfSpace((0.3, 1.0, -0.2)), s.Quad((1.1, 0.4), 0.2)]
+
+
+def test_scene_shapes_and_transforms_equal(rng):
+    """scene/shapes.py and scene/transform.py: containment, signed
+    distance, AABBs and ray exits of every shape; poses, their composition
+    and the world <-> lattice maps."""
+    import fdtd_tpu.scene as js  # noqa: F401  (fdtd_tpu.scene is a subpackage)
+    import fdtd_tpu_torch.scene as ps  # noqa: F401
+
+    pts = rng.uniform(-2.0, 2.0, (3, 200))
+    for a, b in zip(_shapes(jt), _shapes(pt)):
+        np.testing.assert_array_equal(b.contains(pts), a.contains(pts))
+        np.testing.assert_array_equal(b.sdf(pts), a.sdf(pts))
+        for u, v in zip(b.local_aabb(), a.local_aabb()):
+            np.testing.assert_array_equal(u, v)
+        d = np.array([0.6, 0.0, 0.8])
+        assert b.ray_exit_distance(np.zeros(3), d, 5.0) == a.ray_exit_distance(np.zeros(3), d, 5.0)
+    jp = jt.scene.Isometry.from_axis_angle((0.2, 1.0, 0.3), 0.7, (1.0, -2.0, 0.5))
+    pp = pt.scene.Isometry.from_axis_angle((0.2, 1.0, 0.3), 0.7, (1.0, -2.0, 0.5))
+    assert (pp.translation, pp.rotation) == (jp.translation, jp.rotation)
+    jc = jp.compose(jt.scene.Isometry.from_translation((0.3, 0.1, -1.0)))
+    pc = pp.compose(pt.scene.Isometry.from_translation((0.3, 0.1, -1.0)))
+    np.testing.assert_array_equal(pc.apply(pts), jc.apply(pts))
+    np.testing.assert_array_equal(pc.inverse_apply(pts), jc.inverse_apply(pts))
+    kw = dict(spatial=(0.5, 0.7, 0.9), origin=(-3.0, -2.0, -1.0), rotation=jp.rotation,
+              lattice_size=(9, 8, 7))
+    jt_map, pt_map = jt.scene.CoordinateTransforms(**kw), pt.scene.CoordinateTransforms(**kw)
+    np.testing.assert_array_equal(pt_map.solver_to_world(pts), jt_map.solver_to_world(pts))
+    np.testing.assert_array_equal(pt_map.world_to_solver(pts), jt_map.world_to_solver(pts))
+    for p in ((0.0, 0.0, 0.0), (1.0, 1.5, 0.2), (40.0, 0.0, 0.0)):
+        assert pt_map.world_point_to_lattice(p) == jt_map.world_point_to_lattice(p)
+    np.testing.assert_array_equal(pt_map.cell_centers_world(), jt_map.cell_centers_world())
+
+
+def _mixed_scene(mod):
+    """Posed, rotated and nested material entities, a source and an
+    observer, built with ``mod``'s scene classes."""
+    s = mod.scene
+    scene = s.Scene()
+    rot = s.Isometry.from_axis_angle((0.0, 0.0, 1.0), 0.4, (1.0, 0.5, 0.0))
+    parent = scene.spawn(name="frame", pose=rot)
+    scene.spawn(name="box", shape=s.Cuboid((2.0, 1.0, 1.5)), parent=parent,
+                material=mod.Material(relative_permittivity=2.2))
+    scene.spawn(name="ball", shape=s.Ball(2.5), pose=s.Isometry.from_translation((-2.0, 0, 0)),
+                material=mod.Material(relative_permittivity=3.9))
+    scene.spawn(name="rod", shape=s.Cylinder(3.0, 0.7),
+                pose=s.Isometry.from_axis_angle((1.0, 0.0, 0.0), 1.2, (0.0, -2.0, 1.0)),
+                material=mod.Material(relative_permittivity=2.2))
+    scene.spawn(name="feed", pose=s.Isometry.from_translation((3.0, 2.0, -1.0)),
+                source=s.SourceSpec(mod.GaussianPulse(1.0, 0.4), j=(0, 0, 1.0)))
+    scene.spawn(name="view", pose=s.Isometry.from_translation((0.0, 0.0, 2.0)),
+                observer=s.Observer(field="h"))
+    return scene
+
+
+def test_scene_and_voxelize_equal():
+    """scene/scene.py and scene/voxelize.py: entity queries and the
+    material index of a scene with rotated and nested entities (the JAX
+    package's NumPy path and its default, the native voxelizer, give the
+    same index)."""
+    js, ps = _mixed_scene(jt), _mixed_scene(pt)
+    for a, b in zip(js.entities, ps.entities):
+        wa, wb = a.world_aabb(), b.world_aabb()
+        assert (wa is None) == (wb is None)
+        if wa is not None:
+            np.testing.assert_array_equal(wb[0], wa[0])
+            np.testing.assert_array_equal(wb[1], wa[1])
+    for get in ("materials", "sources", "observers", "pmls", "shaped_entities"):
+        assert [e.name for e in getattr(ps, get)()] == [e.name for e in getattr(js, get)()]
+    ja, pa = js.world_aabb(), ps.world_aabb()
+    np.testing.assert_array_equal(pa[0], ja[0])
+    np.testing.assert_array_equal(pa[1], ja[1])
+    kw = dict(spatial=(0.5, 0.5, 0.5), origin=(-6.0, -5.0, -4.0), lattice_size=(24, 20, 16))
+    pm, ptab = pt.scene.voxelize_materials(ps, pt.scene.CoordinateTransforms(**kw))
+    for native in (False, True):
+        jm, jtab = jt.scene.voxelize_materials(js, jt.scene.CoordinateTransforms(**kw),
+                                               use_native=native)
+        assert pm.dtype == jm.dtype == np.uint8
+        np.testing.assert_array_equal(pm, jm)
+        assert len(ptab) == len(jtab) == 3
+    assert len(np.unique(pm)) == 3
+
+
+def _config3_scene(mod):
+    s = mod.scene
+    scene = s.Scene()
+    scene.spawn(shape=s.Ball(4.0), pose=s.Isometry.from_translation((0.0, 0.0, 0.0)),
+                material=mod.Material(relative_permittivity=3.9))
+    # a GradedPml slab on the high-x face: the slab route of the compiler
+    spec = mod.solver.pml.GradedPmlSpec()
+    scene.spawn(shape=s.Cuboid((1.5, 20.0, 20.0)), pose=s.Isometry.from_translation((10.5, 0, 0)),
+                pml=s.GradedPmlComponent(spec=spec, normal=(-1.0, 0, 0)))
+    return scene
+
+
+@pytest.mark.parametrize("with_cpml", [True, False])
+def test_compile_scene_config3_equal(with_cpml):
+    """scene/compile.py on BASELINE config 3's scene cut to 24 x 16 x 16: the
+    same grid, matid, coefficient table, absorbers and sources as the JAX
+    compiler; the port's Simulation is on the CPU as asked."""
+    from fdtd_tpu.solver.cpml import Cpml as JCpml
+
+    out = []
+    for mod, cpml in ((jt, JCpml), (pt, pt.Cpml)):
+        res = mod.Resolution.courant(1.0, mod.REDUCED, safety=0.9)
+        kw = dict(constants=mod.REDUCED,
+                  volume=mod.scene.Volume.fixed((12.0, 8.0, 8.0)),
+                  cpml=cpml.uniform(3) if with_cpml else None)
+        if mod is pt:
+            kw["device"] = "cpu"
+        out.append(mod.scene.compile_scene(_config3_scene(mod), res, **kw))
+    jc, pc = out
+    assert pc.grid.shape == jc.grid.shape == (24, 16, 16)
+    assert pc.grid.dt == jc.grid.dt and pc.grid.dx == jc.grid.dx
+    np.testing.assert_array_equal(pc.matid, jc.matid)
+    assert pc.num_materials == jc.num_materials == 2
+    np.testing.assert_array_equal(pc.simulation.table.numpy(), np.asarray(jc.simulation.table))
+    np.testing.assert_array_equal(pc.simulation.matid.numpy(), np.asarray(jc.simulation.matid))
+    jcp, pcp = jc.simulation.cpml, pc.simulation.cpml
+    assert pcp.thickness == jcp.thickness
+    assert dataclasses.asdict(pcp.spec) == dataclasses.asdict(jcp.spec)
+    if not with_cpml:
+        assert pcp.thickness == ((0, 3), (0, 0), (0, 0))  # the scene's slab
+    assert pc.simulation.dense_pml is None and jc.simulation.dense_pml is None
+    assert pc.simulation.device == torch.device("cpu")
+    assert pc.sources.num_sources == jc.sources.num_sources == 0

@@ -101,11 +101,23 @@ def test_absorbing_run_matches_jax_simulation():
     assert np.abs(re.numpy()).max() > 1e-3 * np.abs(state.e_stacked()).max()
 
 
+class _PerTick:
+    """An accumulator with only init/update: it fits none of K4's options."""
+
+    def init(self, state, dt):
+        return torch.zeros((), dtype=torch.float32, device=state.device)
+
+    def update(self, acc, state, dt):
+        return acc + state.ez[4, 8, 8].float()
+
+
 @pytest.mark.parametrize("k", [2, 4])
 def test_k_plan_gives_the_k3_result(monkeypatch, k):
     """With the eligibility check forced on a CPU device the CPML wrappers
-    take their plain versions: K4's plan (K ticks per call, probes every K)
-    must give K3's result, and K3's the plain engine's."""
+    take their plain versions: K4's plan (K ticks per call, probes every K,
+    an axis-0 DFT plane on its options) must give K3's result (an
+    accumulator that fits no option drops the run to K3 with per-tick
+    updates), and K3's the plain engine's."""
     monkeypatch.setattr(sim_mod.Simulation, "_cuda_eligible", lambda self: True)
     sim = _port_sim(torch.float32)
     probes = (PointProbe(points=POINTS),)
@@ -113,10 +125,15 @@ def test_k_plan_gives_the_k3_result(monkeypatch, k):
     assert sim.plan(n, probes, (), k) == (k, "cuda_cpml_k")
     assert sim.plan(n, probes, (), k + 1)[1] == "cuda_cpml"
     dft = DftProbe(**DFT)
-    assert sim.plan(n, probes, (dft,), k) == (1, "cuda_cpml")
-    s_k, p_k, _ = sim.run(sim.init(), n, probes=probes, probe_every=k)
-    s_1, p_1, _ = sim.run(sim.init(), n, probes=probes, accumulators=(dft,),
-                          probe_every=k)
+    assert sim.plan(n, probes, (dft,), k) == (k, "cuda_cpml_k")
+    assert sim.plan(n, probes, (dft, _PerTick()), k) == (1, "cuda_cpml")
+    s_k, p_k, (spec_k,) = sim.run(sim.init(), n, probes=probes, accumulators=(dft,),
+                                  probe_every=k)
+    s_1, p_1, (spec_1, _) = sim.run(sim.init(), n, probes=probes,
+                                    accumulators=(dft, _PerTick()), probe_every=k)
+    assert s_k.dft == () and s_1.dft == ()
+    for a, b in zip(spec_k, spec_1):
+        _close(a.numpy(), b.numpy(), 2e-6 * n)
     plain = _port_sim(torch.float32, backend="torch")
     s_0, p_0, _ = plain.run(plain.init(), n, probes=probes, probe_every=k)
     assert s_k.tick == s_1.tick == s_0.tick == n

@@ -177,3 +177,103 @@ def test_k4_matches_plain(cuda_device, dtype, k):
     got = cuda_cpml_stepk_fn(SHAPE, k, **dkw)(ds, dc, dsrc)
     assert cuda_cpml_k.launches() == before + 1
     _check_engine(got, want, dtype, k)
+
+
+# -- K4's accumulator options (K4a flux faces, K4b DFT planes and row
+# captures) on the same ragged inputs: descriptors on tile edges (y 8 and
+# 23, z 31 and 32), DFT planes of E and H inside and outside the x chunks'
+# edges, rows of both kinds
+
+FLUX_FACES = (("x",), ("y", 8), ("y", 23), ("z", 31), ("z", 32))
+DFT = (((5, 0), (20, 1), (36, 0)), (0.02, 0.05, 0.11))
+DFT_ROWS = (("y", 7), ("z", 32), ("y", 28), ("z", 0))
+
+
+def _with_dft(s, device):
+    rng = np.random.default_rng(13)
+    n = 6 * len(DFT[1])
+    return s.replace(dft=tuple(
+        torch.from_numpy(rng.standard_normal((n, *SHAPE[1:])).astype(np.float32)).to(device)
+        for _ in DFT[0]))
+
+
+def _scaled_err(got, want):
+    """max |got - want| over max |want| (0 when want is all zero)."""
+    want = want.detach().cpu().double()
+    scale = float(want.abs().max())
+    return float((got.detach().cpu().double() - want).abs().max()) / (scale or 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [2, 8])
+def test_k4_options_match_plain(cuda_device, dtype, k):
+    """Flux rows within 2e-5 of max|row| per descriptor, DFT planes within
+    3e-6 of max|acc|, captures within 5e-6 of max|capture| (the JAX
+    package's bars, tests/test_pallas_cpml.py:467-748), fields and psi as
+    K4 without options. bf16 storage: the options sample the f32 fields of
+    every level (the kernel writes level K to an f32 work set), so the
+    same bars hold."""
+    (hs, hc, hsrc, hkw), (ds, dc, dsrc, dkw) = _engine_inputs(dtype, cuda_device)
+    hs, ds = _with_dft(hs, "cpu"), _with_dft(ds, cuda_device)
+    opts = dict(flux_faces=FLUX_FACES, dft=DFT, dft_rows=DFT_ROWS)
+    want, w_flux, w_caps = cuda_cpml_stepk_fn(SHAPE, k, **hkw, **opts)(hs, hc, hsrc)
+    before = cuda_cpml_k.launches()
+    got, flux, caps = cuda_cpml_stepk_fn(SHAPE, k, **dkw, **opts)(ds, dc, dsrc)
+    assert cuda_cpml_k.launches() == before + 1
+    _check_engine(got, want, dtype, k)
+    assert tuple(flux.shape) == (k, SHAPE[0], len(FLUX_FACES))
+    for q in range(len(FLUX_FACES)):
+        err = _scaled_err(flux[:, :, q], w_flux[:, :, q])
+        assert err <= 2e-5, f"flux descriptor {FLUX_FACES[q]}: {err:.3e}"
+    for a, b in zip(got.dft, want.dft):
+        assert _scaled_err(a, b) <= 3e-6
+    for (ax, _), a, b in zip(DFT_ROWS, caps, w_caps):
+        assert tuple(a.shape) == (k, SHAPE[0], 6, SHAPE[2] if ax == "y" else SHAPE[1])
+        assert _scaled_err(a, b) <= 5e-6
+
+
+@pytest.mark.cuda
+def test_k4_flux_rows_are_deterministic(cuda_device):
+    """Plane sums are per-tile partials summed in a fixed order: two
+    launches on the same input give bit-identical flux rows."""
+    _, (ds, dc, dsrc, dkw) = _engine_inputs(torch.float32, cuda_device)
+    step = cuda_cpml_stepk_fn(SHAPE, 4, **dkw, flux_faces=FLUX_FACES)
+    _, a = step(ds, dc, dsrc)
+    _, b = step(ds, dc, dsrc)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_dft_row_fold_is_f32_under_tf32(cuda_device):
+    """The lateral DFT fold (DftProbe and BoxDft update_from_dft_rows)
+    stays full f32 on the card when the process allows TF32 matmuls: within
+    5e-6 of max|acc| of the same fold in f64 on the host."""
+    from fdtd_tpu_torch.probes import BoxDft, DftProbe
+
+    rng = np.random.default_rng(3)
+    rows = torch.from_numpy(rng.standard_normal((8, 12, 6, 40)).astype(np.float32))
+    freqs = (0.013, 0.05, 0.21)
+    probe = DftProbe(frequencies=freqs, axis=1, index=3)
+    box = BoxDft(frequencies=freqs, box=((2, 9), (2, 9), (2, 9)))
+    t = (np.float32(5) + np.float32(1.0) + np.arange(8, dtype=np.float32)) * np.float32(0.4)
+    phase = (-2.0 * np.pi) * np.asarray(freqs, np.float32)[:, None].astype(np.float64) * t[None]
+    want_re = np.einsum("fk,kxcl->fcxl", np.cos(phase), rows.double().numpy())
+    want_im = np.einsum("fk,kxcl->fcxl", np.sin(phase), rows.double().numpy())
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        z = torch.zeros((3, 3, 12, 40), device=cuda_device)
+        dev_rows = rows.to(cuda_device)
+        re, im = probe.update_from_dft_rows((z, z), (dev_rows,), 5, 0.4)
+        ((bre, bim),) = box.update_from_dft_rows(((z.repeat(1, 2, 1, 1),) * 2,),
+                                                 (dev_rows,), 5, 0.4)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    scale = np.abs(want_re).max()
+    for got, want in ((re, want_re[:, :3]), (im, want_im[:, :3]),
+                      (bre, want_re), (bim, want_im)):
+        err = np.abs(got.double().cpu().numpy() - want).max() / scale
+        assert err <= 5e-6, f"fold error {err:.3e}"

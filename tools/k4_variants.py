@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time register-cap variants of the K4 CPML kernel on one CUDA card.
 
-    python3 tools/k4_variants.py [--baseline DIR ...]
+    python3 tools/k4_variants.py [--baseline DIR ...] [--shipped-only]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc. It
 writes copies of ``fdtd_tpu_torch/csrc/cpmlk.cu`` (and its ``cpml.cuh``)
@@ -13,7 +13,11 @@ line, adds each ``--baseline`` directory's own ``cpmlk.cu`` and
 it stands), builds them with one nvcc each, checks each against K4's plain
 version on a ragged lattice (37x29x53, CPML on every axis, a TF/SF box,
 K = 4), and times each with K3 beside it at config 3's 256^3 and at 512^3
-with ``Cpml.uniform(10)`` (f32), with CUDA events, in turns.
+with ``Cpml.uniform(10)`` (f32), with CUDA events, in turns. All runs are
+K4 without its accumulator options. A baseline from before the options
+(no ``opt_meta`` in its C entry) is called through its own interface.
+``--shipped-only`` keeps the shipped cap (4 blocks per SM) and the
+baselines only.
 """
 
 from __future__ import annotations
@@ -48,7 +52,17 @@ def sources(d: Path):
         '#include "yee.cuh"', f'#include "{CSRC / "yee.cuh"}"'))
 
 
-def variants(baselines):
+class _BeforeOptions(_build.Kernel):
+    """A K4 source whose C entry predates the accumulator options: the
+    wrapper's two option arguments (null without options) are dropped."""
+
+    def launch(self, *args):
+        if args[-3] is not None or args[-2] is not None:
+            raise ValueError("this K4 version has no accumulator options")
+        super().launch(*args[:-3], args[-1])
+
+
+def variants(baselines, shipped_only=False):
     """name -> (cpmlk.cu, cpml.cuh) source texts."""
     cu, cuh = sources(CSRC)
     assert BOUNDS.search(cu), "cpmlk_kernel's launch bounds not found"
@@ -57,32 +71,38 @@ def variants(baselines):
         arg = "" if blocks is None else f", {blocks}"
         return BOUNDS.sub(f"__launch_bounds__(yee::THREADS{arg})\ncpmlk_kernel", cu)
 
-    out = {"no cap": (cap(None), cuh)}
-    for blocks in (3, 4, 5, 6):
-        out[f"{blocks} blocks/SM"] = (cap(blocks), cuh)
-    out_of_line = cuh.replace("__device__ void tile_pass",
-                              "__device__ __noinline__ void tile_pass")
-    for blocks in (None, 4):
-        name = "no cap" if blocks is None else f"{blocks} blocks/SM"
-        out[f"{name}, tile_pass out of line"] = (cap(blocks), out_of_line)
+    if shipped_only:
+        out = {"4 blocks/SM": (cap(4), cuh)}
+    else:
+        out = {"no cap": (cap(None), cuh)}
+        for blocks in (3, 4, 5, 6):
+            out[f"{blocks} blocks/SM"] = (cap(blocks), cuh)
+        out_of_line = cuh.replace("__device__ void tile_pass",
+                                  "__device__ __noinline__ void tile_pass")
+        for blocks in (None, 4):
+            name = "no cap" if blocks is None else f"{blocks} blocks/SM"
+            out[f"{name}, tile_pass out of line"] = (cap(blocks), out_of_line)
     for d in baselines:
         out[f"baseline {d}"] = sources(Path(d))
     return out
 
 
-def build(baselines):
+def build(baselines, shipped_only=False):
     kernels = {}
-    for i, (name, (cu, cuh)) in enumerate(variants(baselines).items()):
+    for i, (name, (cu, cuh)) in enumerate(variants(baselines, shipped_only).items()):
         d = OUT / f"v{i}"
         d.mkdir(parents=True, exist_ok=True)
         (d / "cpml.cuh").write_text(cuh)
         # the library's name hashes cpmlk.cu but not this cpml.cuh: name
         # the variant in cpmlk.cu so that no two variants share a library
         (d / "cpmlk.cu").write_text(f"// variant: {name}\n{cu}")
-        kernels[name] = _build.Kernel(f"K4 {name}", str(Path("..", "..", "build",
-                                                               "k4_variants", f"v{i}",
-                                                               "cpmlk.cu")),
-                                      "fdtd_cpmlk", _build.CPMLK.argtypes)
+        path = str(Path("..", "..", "build", "k4_variants", f"v{i}", "cpmlk.cu"))
+        argtypes = list(_build.CPMLK.argtypes)
+        if "opt_meta" in cu:
+            kernels[name] = _build.Kernel(f"K4 {name}", path, "fdtd_cpmlk", argtypes)
+        else:
+            kernels[name] = _BeforeOptions(f"K4 {name}", path, "fdtd_cpmlk",
+                                           argtypes[:-3] + argtypes[-1:])
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda k: k.build(), kernels.values()))
     for name, k in kernels.items():
@@ -150,12 +170,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", action="append", default=[],
                     help="a directory with another cpmlk.cu and cpml.cuh to time")
+    ap.add_argument("--shipped-only", action="store_true",
+                    help="time only the shipped cap beside the baselines")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    kernels = build(args.baseline)
+    kernels = build(args.baseline, args.shipped_only)
     check(kernels, dev)
     time_variants(kernels, cs.ABSORB_SHAPE, cs.config3(ft, cs.ABSORB_SHAPE, torch.float32,
                                                        dev), dev)

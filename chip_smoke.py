@@ -17,7 +17,11 @@ Run from the root of a checkout. In order it
    config-2 material index and J+M sources, in f32 and bf16, psi included,
    and at config 3's 256^3; K4's accumulator options (K4a, K4b) on the
    same 37x29x53 case and at 256^3 with config 3's accumulators, in f32
-   and bf16;
+   and bf16; K3 and K4 (K = 8, 4, 2) with a DensePml region (``dense``:
+   K3 dense, K4c), an oblique TF/SF (``oblique``: K3 oblique, K4d) and both,
+   on the 37x29x53 case (a ball region graded along y whose box crosses
+   tile edges, tests/test_oblique_kernel.py's skew frame) and at 256^3 with
+   paths A's and B's absorbers, in f32 and bf16, psi and psi_d included;
 4. runs the free-space main path: BASELINE config 2 at 128^3 (a dielectric
    sphere and a lossy slab in a uint8 material index, a Gaussian J dipole),
    built as __graft_entry__._flagship builds it, for 1000 ticks with a
@@ -39,16 +43,31 @@ Run from the root of a checkout. In order it
 7. runs the slice's entry point, fdtd_tpu_torch.models.
    scattering_cross_section, on a Ball(32) scene at 256^3 for 1000 ticks
    (K4 with the flux faces) and holds sigma to the plain engine's;
-   each of phases 4-7 sets the launch counts to 0 just before it and reads
-   them just after, and each of its kernels must have launched;
-8. times, with CUDA events and in turns, config 2 at 128^3 (K1, K2, the
+8. path A, oblique incidence: the same entry point at 20 degrees
+   (direction (cos 20, sin 20, 0), z polarization; the ObliqueTfsf), 1000
+   ticks through K4 with its oblique option and flux faces, and through
+   the plain engine, sigma within 1e-4; then the same flux accumulator
+   through K3 with a per-tick update (K3's oblique option);
+9. path B, an interior absorber: compile_scene on config 3's scene with six
+   10-cell edge-slab GradedPml entities (the boundary CPML) and a GradedPml
+   cuboid behind the sphere (solver x 200-216 across the whole y-z
+   cross-section, normal +x; a DensePml region reaching into the y and z
+   slabs), config 3's TF/SF box and probes, 1000 ticks through
+   K4 with its dense option (probes every 8 ticks), through K3 (probes
+   every tick) and through the plain engine, fields and probes within
+   rel 1e-5, and once more without the region for the energy behind it;
+   each of phases 4-9 sets the launch counts to 0 just before each run
+   and reads them just after, and each of its kernels must have launched;
+10. times, with CUDA events and in turns, config 2 at 128^3 (K1, K2, the
    plain step), 512^3 free space (f32 and bf16), config 3 at 256^3 (K3, K4
-   at K = 8, 4, 2, K4 at K = 8 with each of its options, the plain engine)
-   and 512^3 with Cpml.uniform(10) (f32 and bf16), and prints Gcell/s and
-   the byte model's share of the H100's 3.35 TB/s;
-9. profiles 64 ticks of each absorbing run, of each accumulator route and
-   of the plain engine at 256^3 (torch.profiler) and prints each one's
-   device busy time, idle share and top kernel.
+   at K = 8, 4, 2, K4 at K = 8 with each of its options, the plain engine),
+   paths A and B at 256^3 (K3 and K4 at K = 8 with and without ``oblique``
+   or ``dense``, the oblique corrections' evaluation apart from the kernel,
+   the plain engine) and 512^3 with Cpml.uniform(10) (f32 and bf16), and
+   prints Gcell/s and the byte model's share of the H100's 3.35 TB/s;
+11. profiles 64 ticks of each absorbing run, of each accumulator route, of
+   paths A and B and of the plain engine at 256^3 (torch.profiler) and
+   prints each one's device busy time, idle share and top kernel.
 
 The last three lines of its output are the card's name and power limit,
 one JSON object describing each kernel, and {"ok": true, "device": ...}.
@@ -59,6 +78,7 @@ rest of the repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -75,6 +95,13 @@ MAIN_SHAPE = (128, 128, 128)  # config 2
 ABSORB_SHAPE = (256, 256, 256)  # config 3
 SCALE_SHAPE = (512, 512, 512)
 MAIN_STEPS = 1000
+PATH_A_DEGREES = 20.0  # the middle angle of examples/05_oblique_incidence_rcs.py
+# path B's interior absorber: its solver x extent; it spans the whole y-z
+# cross-section. A uniaxial region whose y or z faces lie inside the domain
+# grows without bound at those faces, in the JAX engine as in the port's
+# (tools/absorber_findings.py), so the region reaches into the y and z
+# boundary slabs, as the engine allows.
+PATH_B_ABSORBER = (200, 216)
 # the Yee update's operations per cell and tick (H and E: 6 differences,
 # 6 scalings, 3 curl sums, 3 x (2 multiplies, 1 add) each), and a CPML
 # term's per cell in its slab (psi = b psi + c dF, dF~ = ik dF + psi)
@@ -150,6 +177,93 @@ def config3_absorbers(ft, shape, dt):
                    waveform=ft.GaussianDerivative(time=30 * dt, duration=10 * dt),
                    span_y=(lat, shape[1] - 1 - lat), span_z=(lat, shape[2] - 1 - lat))
     return ft.Cpml.uniform(cells), tfsf
+
+
+def config3_scene(ft, n, absorbers=False):
+    """Config 3's scene at n^3 (half extents n/2, dx 1): a Ball(n/8) with
+    eps_r 3.9 at the centre. With ``absorbers``, path B's GradedPml
+    entities: a 10-cell slab on each face of the domain (compile_scene
+    makes them the boundary CPML) and a cuboid over PATH_B_ABSORBER in x and
+    the whole cross-section, graded along +x (compile_scene makes it a
+    DensePml region)."""
+    from fdtd_tpu_torch.scene import Ball, Cuboid, GradedPmlComponent, Isometry, Scene
+
+    scene = Scene()
+    scene.spawn(shape=Ball(n / 8), pose=Isometry.from_translation((0.0, 0.0, 0.0)),
+                material=ft.Material(relative_permittivity=3.9))
+    if absorbers:
+        spec, h = ft.solver.GradedPmlSpec(), n / 2
+        for axis in range(3):
+            for sign in (1.0, -1.0):
+                # the normal points into the domain: +axis on the low face
+                half, at, normal = [h] * 3, [0.0] * 3, [0.0] * 3
+                half[axis], at[axis], normal[axis] = 5.0, -sign * (h - 5.0), sign
+                scene.spawn(shape=Cuboid(tuple(half)),
+                            pose=Isometry.from_translation(tuple(at)),
+                            pml=GradedPmlComponent(spec=spec, normal=tuple(normal)))
+        x0, x1 = PATH_B_ABSORBER
+        scene.spawn(name="interior absorber", shape=Cuboid(((x1 - x0) / 2, h, h)),
+                    pose=Isometry.from_translation(((x0 + x1) / 2 - h, 0.0, 0.0)),
+                    pml=GradedPmlComponent(spec=spec, normal=(1.0, 0.0, 0.0)))
+    return scene
+
+
+_PATH_B = {}
+
+
+def path_b_sim(ft, device, backend="cuda", region=True):
+    """Path B's Simulation at 256^3: compile_scene on config 3's scene with
+    its absorbers builds the boundary CPML from the edge slabs and the
+    DensePml region from the interior cuboid; config 3's TF/SF box is added
+    as scattering_cross_section adds its own. ``region=False``: the same
+    without the region. The compiled scene is made once per device."""
+    from fdtd_tpu_torch.scene import Volume, compile_scene
+
+    key = str(device)
+    if key not in _PATH_B:
+        n = ABSORB_SHAPE[0]
+        res = ft.Resolution.courant(1.0, ft.REDUCED, safety=0.9)
+        _PATH_B[key] = compile_scene(config3_scene(ft, n, absorbers=True), res,
+                                     constants=ft.REDUCED, volume=Volume.fixed((n / 2,) * 3),
+                                     device=device).simulation
+    sim = _PATH_B[key]
+    _, tfsf = config3_absorbers(ft, ABSORB_SHAPE, sim.grid.dt)
+    return dataclasses.replace(sim, tfsf=tfsf, backend=backend,
+                               dense_pml=sim.dense_pml if region else None)
+
+
+def path_a_direction():
+    """Path A's direction, normalized as scattering_cross_section does."""
+    import numpy as np
+
+    a = math.radians(PATH_A_DEGREES)
+    d = np.asarray((math.cos(a), math.sin(a), 0.0), np.float64)
+    return tuple(float(v) for v in d / np.linalg.norm(d))
+
+
+def path_a_sim(ft, device, backend="cuda"):
+    """Path A's Simulation and flux accumulator at 256^3 as
+    scattering_cross_section builds them at 20 degrees (CPML 10, the
+    ObliqueTfsf box 6 cells inside the absorber along x and 2 laterally, a
+    GaussianDerivative(30 dt, 10 dt), the flux box one cell outside it),
+    for the per-tick route, the timings and the profiles."""
+    from fdtd_tpu_torch.models.scattering import _BoxFluxAccumulator
+    from fdtd_tpu_torch.scene import Volume, compile_scene
+
+    n, cells = ABSORB_SHAPE[0], 10
+    res = ft.Resolution.courant(1.0, ft.REDUCED, safety=0.9)
+    sim = compile_scene(config3_scene(ft, n), res, constants=ft.REDUCED,
+                        volume=Volume.fixed((n / 2,) * 3), cpml=ft.Cpml.uniform(cells),
+                        device=device).simulation
+    dt = sim.grid.dt
+    pad, lat = cells + 6, cells + 2
+    span, lateral = (pad, n - 1 - pad), (lat, n - 1 - lat)
+    tfsf = ft.ObliqueTfsf(box=(span, lateral, lateral), direction=path_a_direction(),
+                          polarization=(0.0, 0.0, 1.0),
+                          waveform=ft.GaussianDerivative(time=30 * dt, duration=10 * dt))
+    flux = _BoxFluxAccumulator(((span[0] - 3, span[1] + 3), (lat - 1, n - lat),
+                                (lat - 1, n - lat)), (1.0, 1.0, 1.0), dt)
+    return dataclasses.replace(sim, tfsf=tfsf, backend=backend), flux
 
 
 CONFIG3_FREQS = (0.02, 0.03, 0.05)
@@ -389,10 +503,12 @@ def self_checks(torch, ft, seed):
     return {name: max(v) for name, v in errs.items()}
 
 
-def random_engine_state(torch, ft, sim, dtype, cpml, tfsf, gen):
-    """An EngineState on the card with random fields, psi and aux line."""
+def random_engine_state(torch, ft, sim, dtype, cpml, tfsf, gen, dense=None):
+    """An EngineState on the card with random fields, psi, aux line and
+    region psi."""
     dev = sim.device
-    s = ft.init_engine_state(sim.grid.shape, dtype, cpml=cpml, tfsf=tfsf, device=dev)
+    s = ft.init_engine_state(sim.grid.shape, dtype, cpml=cpml, tfsf=tfsf, dense=dense,
+                             device=dev)
 
     def rand(t):
         return torch.randn(t.shape, generator=gen, device=dev).to(t.dtype)
@@ -400,7 +516,8 @@ def random_engine_state(torch, ft, sim, dtype, cpml, tfsf, gen):
     return s.replace(**{f: rand(getattr(s, f)) for f in ("ex", "ey", "ez", "hx", "hy", "hz")},
                      psi_h=tuple((rand(a), rand(b)) for a, b in s.psi_h),
                      psi_e=tuple((rand(a), rand(b)) for a, b in s.psi_e),
-                     aux_e=rand(s.aux_e), aux_h=rand(s.aux_h), tick=3)
+                     aux_e=rand(s.aux_e), aux_h=rand(s.aux_h),
+                     psi_d=tuple(rand(p) for p in s.psi_d), tick=3)
 
 
 def cpml_self_checks(torch, ft, seed):
@@ -420,16 +537,10 @@ def cpml_self_checks(torch, ft, seed):
     # tile rows 8 and 24 (the +1 ring) and its z span across the tile edge
     sim = flagship(ft, LADDER_CHECK_SHAPE, torch.float32, dev)
     dt = sim.grid.dt
-    nx, ny, nz = LADDER_CHECK_SHAPE
     ragged = (sim, ft.Cpml(thickness=((4, 3), (3, 5), (5, 4))),
               ft.Tfsf(span=(8, 27), waveform=ft.GaussianDerivative(6 * dt, 2 * dt),
                       span_y=(8, 23), span_z=(3, 40)),
-              ft.SourceSet.build([
-                  ft.PointSource((nx // 4, ny // 2, nz // 2), ft.GaussianPulse(0.0, 6 * dt),
-                                 j=(0.3, -0.2, 1.0), m=(0.1, 0.2, -0.3)),
-                  ft.PointSource((nx - 1, 0, nz - 1), ft.ContinuousWave(0.05), j=(0, 1.0, 0)),
-                  ft.PointSource((0, ny - 1, 0), ft.Ricker(0.05, 10 * dt), m=(0.5, 0, 0))],
-                  device=dev),
+              ragged_sources(ft, LADDER_CHECK_SHAPE, dt, dev),
               (torch.float32, torch.bfloat16), K_LADDER)
     main = config3(ft, ABSORB_SHAPE, torch.float32, dev)
     cases = (ragged, (main, main.cpml, main.tfsf, None, (torch.float32,), (K_LADDER[0],)))
@@ -572,6 +683,129 @@ def option_self_checks(torch, ft, seed):
     return errs
 
 
+RAGGED_REGION_BOX = ((10, 26), (6, 20), (28, 45))
+RAGGED_OBLIQUE_BOX = ((8, 27), (8, 23), (3, 40))
+
+
+def ragged_sources(ft, shape, dt, device):
+    """J+M point sources on the ragged case: one inside, two on corners."""
+    nx, ny, nz = shape
+    return ft.SourceSet.build([
+        ft.PointSource((nx // 4, ny // 2, nz // 2), ft.GaussianPulse(0.0, 6 * dt),
+                       j=(0.3, -0.2, 1.0), m=(0.1, 0.2, -0.3)),
+        ft.PointSource((nx - 1, 0, nz - 1), ft.ContinuousWave(0.05), j=(0, 1.0, 0)),
+        ft.PointSource((0, ny - 1, 0), ft.Ricker(0.05, 10 * dt), m=(0.5, 0, 0))],
+        device=device)
+
+
+def ragged_absorbers(ft, dt):
+    """The 37x29x53 case's DensePml region and ObliqueTfsf: a Ball(7) region
+    graded along y, clear of the y slabs, whose box crosses tile row 8 and
+    the tile edge at z = 32; the skew frame of tests/test_oblique_kernel.py
+    (direction (1, 0.7, -0.4), polarization (0, 0.2, 1)) on a box whose y
+    faces sit on tile rows 8 and 24 and whose z span crosses the tile edge."""
+    import numpy as np
+    from fdtd_tpu_torch.scene import Ball
+
+    ball, ctr = Ball(7.0), np.array([[18.0], [13.0], [36.5]])
+    d_h, d_e = ft.depth_from_contains(lambda p: ball.contains(p - ctr), RAGGED_REGION_BOX,
+                                      1, 1)
+    region = ft.dense_pml_from_depth(1, RAGGED_REGION_BOX, d_h, d_e,
+                                     spec=ft.solver.GradedPmlSpec(), dx=1.0, dt=dt,
+                                     constants=ft.REDUCED)
+    oblique = ft.ObliqueTfsf(box=RAGGED_OBLIQUE_BOX, direction=(1.0, 0.7, -0.4),
+                             polarization=(0.0, 0.2, 1.0),
+                             waveform=ft.GaussianPulse(6 * dt, 2 * dt))
+    return region, oblique
+
+
+EXT_KEYS = {("K3", "dense"): "K3 dense", ("K3", "oblique"): "K3 oblique",
+            ("K4", "dense"): "K4c", ("K4", "oblique"): "K4d"}
+
+
+def ext_self_checks(torch, ft, seed):
+    """K3 and K4 with a DensePml region (``dense``), an oblique TF/SF
+    (``oblique``) and both, against their plain versions on the card: the
+    37x29x53 case (CPML of unequal thickness on every axis, the config-2
+    material index, J+M sources, ragged_absorbers; a region run keeps the
+    TF/SF box of cpml_self_checks beside it) at K = 8, 4, 2, and at 256^3
+    with path B's region and config 3's TF/SF box, path A's ObliqueTfsf, and
+    both, at K = 8, in f32 and bf16. The plain version is the engine in f32
+    (plain_cpml_ticks), built once per configuration.
+
+    Bar (tests/test_pallas_cpml.py, the TPU kernels'): fields within 2e-5
+    of max|field| at f32 and 2^-7 of it at bf16 storage (compared in bf16,
+    as self_checks); slab psi and psi_d, f32 at every storage type, within
+    2e-5 of max|psi|. Returns the max abs field errors at 256^3 f32 of K3
+    and K4 with each option alone."""
+    from fdtd_tpu_torch.solver.best import K_LADDER
+    from fdtd_tpu_torch.solver.cuda_cpml import cuda_cpml_step_fn, plain_cpml_ticks, psi_tensors
+    from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+    ragged_sim = flagship(ft, LADDER_CHECK_SHAPE, torch.float32, dev)
+    dt = ragged_sim.grid.dt
+    region, oblique = ragged_absorbers(ft, dt)
+    ragged = (ragged_sim, ft.Cpml(thickness=((4, 3), (3, 5), (5, 4))),
+              ft.Tfsf(span=(8, 27), waveform=ft.GaussianDerivative(6 * dt, 2 * dt),
+                      span_y=(8, 23), span_z=(3, 40)),
+              region, oblique, ragged_sources(ft, LADDER_CHECK_SHAPE, dt, dev), K_LADDER)
+    path_b = path_b_sim(ft, dev)
+    main = (path_b, path_b.cpml, path_b.tfsf, path_b.dense_pml, path_a_sim(ft, dev)[0].tfsf,
+            None, (K_LADDER[0],))
+    errs = {}
+    for sim, cpml, tfsf, region, oblique, src, ks in (ragged, main):
+        shape = sim.grid.shape
+        matid, table = sim.matid, sim._table_f32
+        for option in ("dense", "oblique", "both"):
+            ext = dict(dense=region if option != "oblique" else None,
+                       oblique=oblique if option != "dense" else None)
+            slab = tfsf if option == "dense" else None
+            common = dict(inv_dx=tuple(1.0 / d for d in sim.grid.dx), dt=sim.grid.dt,
+                          constants=ft.REDUCED, cpml=cpml, tfsf=slab,
+                          with_m=src is not None)
+            step32 = ft.build_step(shape, dtype=torch.float32, inv_dx=common["inv_dx"],
+                                   dt=sim.grid.dt, constants=ft.REDUCED, cpml=cpml,
+                                   tfsf=ext["oblique"] or slab, dense=ext["dense"])
+            for dtype in (torch.float32, torch.bfloat16):
+                state = random_engine_state(torch, ft, sim, dtype, cpml, slab, gen,
+                                            dense=ext["dense"])
+                kw = dict(common, **ext, dtype=dtype, matid=matid,
+                          n_materials=table.shape[0])
+                runs = [("K3", 1, cuda_cpml_step_fn(shape, **kw))]
+                runs += [("K4", k, cuda_cpml_stepk_fn(shape, k, **kw)) for k in ks]
+                for name, k, kernel in runs:
+                    got = kernel(state, table, src)
+                    want = plain_cpml_ticks(state, step32, table, matid, src, k,
+                                            common["with_m"])
+                    torch.cuda.synchronize()
+                    require(got.tick == want.tick == state.tick + k, "tick")
+                    require(len(got.psi_d) == len(want.psi_d) == (4 if ext["dense"] else 0),
+                            "psi_d")
+                    err, scale = max_abs_err(got, want), field_scale(want)
+                    tol = (2e-5 if dtype == torch.float32 else 2.0 ** -7) * scale
+                    psi_err, psi_scale = 0.0, 0.0
+                    for a, b in zip((*psi_tensors(got), *got.psi_d),
+                                    (*psi_tensors(want), *want.psi_d)):
+                        if b.numel():
+                            psi_err = max(psi_err, float((a - b).abs().max()))
+                            psi_scale = max(psi_scale, float(b.abs().max()))
+                    ok = err <= tol and psi_err <= 2e-5 * psi_scale and all(
+                        bool(torch.isfinite(f).all()) for f in (*got.e, *got.h))
+                    log(f"selfcheck {name} {option} K={k} {tuple(shape)} {str(dtype)[6:]}: "
+                        f"max_abs_err {err:.3e} (tol {tol:.3e}, max|field| {scale:.3f}); "
+                        f"psi and psi_d {psi_err:.3e} (tol {2e-5 * psi_scale:.3e}) "
+                        f"{'ok' if ok else 'FAIL'}")
+                    require(ok, f"{name} {option} K={k} {shape} {dtype} disagrees with "
+                            "its plain version")
+                    if shape == ABSORB_SHAPE and dtype == torch.float32 and option != "both":
+                        errs[EXT_KEYS[(name, option)]] = err
+                del state
+    return errs
+
+
 def main_path(torch, ft):
     """Config 2 at 128^3 through Simulation: 1000 ticks through K2 with a
     point probe every K, 1000 through K1 with a DFT accumulator, each held
@@ -628,10 +862,11 @@ def main_path(torch, ft):
 
 
 def reset_counts():
-    from fdtd_tpu_torch.solver import _build, cuda_cpml_k
+    from fdtd_tpu_torch.solver import _build, cuda_cpml, cuda_cpml_k
 
     for kernel in _build.KERNELS:
         kernel.launches = 0
+    cuda_cpml.reset_launches()
     cuda_cpml_k.reset_launches()
 
 
@@ -769,14 +1004,11 @@ def scattering_path(torch, ft):
     pulse_duration_steps 10, 1000 ticks, through K4 with its flux faces,
     and through the plain engine; sigma within 1e-4 relative."""
     from fdtd_tpu_torch.models import scattering_cross_section
-    from fdtd_tpu_torch.scene import Ball, Isometry, Scene
     from fdtd_tpu_torch.solver import cuda_cpml_k
 
     dev = torch.device("cuda")
     n = ABSORB_SHAPE[0]
-    scene = Scene()
-    scene.spawn(shape=Ball(n / 8), pose=Isometry.from_translation((0.0, 0.0, 0.0)),
-                material=ft.Material(relative_permittivity=3.9))
+    scene = config3_scene(ft, n)
     kw = dict(domain_half_extents=(n / 2,) * 3, dx=1.0, pulse_duration_steps=10,
               n_steps=MAIN_STEPS, cpml_cells=10)
     reset_counts()
@@ -792,14 +1024,155 @@ def scattering_path(torch, ft):
             "the flux accumulator did not ride K4")
     require(math.isfinite(res.sigma_scat) and res.sigma_scat > 0, "sigma")
     require(rel <= 1e-4, f"sigma differs from the plain engine's by {rel:.3e}")
-    return res.gcell_per_s, ref.gcell_per_s
+    return res, ref
+
+
+def oblique_path(torch, ft, sigma_x):
+    """Path A: scattering_cross_section at PATH_A_DEGREES (z polarization)
+    on config 3's scene at 256^3, 1000 ticks, through K4 with its oblique
+    option and flux faces and through the plain engine, sigma within 1e-4
+    relative; logged beside the +x run's ``sigma_x`` (a sphere's sigma does
+    not depend on the angle: a physics check for the record), and the empty
+    scene's sigma (the oblique box's leakage) beside it. Then the same
+    flux accumulator through K3 with a per-tick update (PerTick), its
+    scattered energy within 1e-4 of the plain engine's. Returns (launches,
+    the two results)."""
+    from fdtd_tpu_torch.models import scattering_cross_section
+    from fdtd_tpu_torch.scene import Scene
+    from fdtd_tpu_torch.solver import cuda_cpml, cuda_cpml_k
+
+    dev = torch.device("cuda")
+    n = ABSORB_SHAPE[0]
+    scene = config3_scene(ft, n)
+    kw = dict(domain_half_extents=(n / 2,) * 3, dx=1.0, pulse_duration_steps=10,
+              n_steps=MAIN_STEPS, cpml_cells=10, direction=path_a_direction(),
+              polarization=(0.0, 0.0, 1.0))
+    reset_counts()
+    res = scattering_cross_section(scene, device=dev, **kw)
+    launches = {"K4": cuda_cpml_k.launches(), **cuda_cpml_k.option_launches()}
+    ref = scattering_cross_section(scene, device=dev, backend="torch", **kw)
+    rel = abs(res.sigma_scat - ref.sigma_scat) / abs(ref.sigma_scat)
+    log(f"path A: {PATH_A_DEGREES} degrees, grid {res.grid.shape}, sigma_scat "
+        f"{res.sigma_scat:.8e} (plain engine {ref.sigma_scat:.8e}, rel diff {rel:.3e}), "
+        f"gcell_per_s {res.gcell_per_s:.3f} (plain engine {ref.gcell_per_s:.3f}); "
+        f"launches {launches}; sigma / sigma(+x) {res.sigma_scat / sigma_x:.6f}")
+    require(res.grid.shape == ABSORB_SHAPE, f"scene compiled to {res.grid.shape}")
+    require(launches["K4"] == MAIN_STEPS // 8 == launches["oblique"] == launches["flux_faces"],
+            "path A did not ride K4 with its oblique option and flux faces")
+    require(math.isfinite(res.sigma_scat) and res.sigma_scat > 0, "sigma")
+    require(rel <= 1e-4, f"sigma differs from the plain engine's by {rel:.3e}")
+    # the same box with nothing inside: what the oblique TF/SF leaks
+    leak = scattering_cross_section(Scene(), device=dev, **kw).sigma_scat
+    log(f"path A: sigma_scat of the empty scene (the box's leakage) {leak:.8e}, "
+        f"{leak / res.sigma_scat:.4f} of the sphere's")
+
+    sim, flux = path_a_sim(ft, dev)
+    per_tick = (PerTick(flux),)
+    require(sim.plan(MAIN_STEPS, (), per_tick, 1) == (1, "cuda_cpml"), "per-tick plan")
+    reset_counts()
+    t0 = time.perf_counter()
+    state, _, (f_k3,) = sim.run(sim.init(), MAIN_STEPS, accumulators=per_tick)
+    energy = float(f_k3) * sim.grid.dt
+    wall = time.perf_counter() - t0
+    k3 = {"K3": cuda_cpml.launches(), **cuda_cpml.option_launches()}
+    rel3 = abs(energy - ref.scattered_energy) / abs(ref.scattered_energy)
+    log(f"path A through K3 + per-tick update: {wall:.3f} s, scattered energy {energy:.8e} "
+        f"(plain engine {ref.scattered_energy:.8e}, rel diff {rel3:.3e}); launches {k3}")
+    require(k3["K3"] == MAIN_STEPS == k3["oblique"], "K3's oblique option did not run")
+    require(bool(torch.isfinite(state.ez).all()) and rel3 <= 1e-4,
+            f"K3's scattered energy differs from the plain engine's by {rel3:.3e}")
+    return ({"K4d": launches["oblique"], "K3 oblique": k3["oblique"]},
+            {"sigma": res.sigma_scat, "plain_sigma": ref.sigma_scat, "rel": rel,
+             "empty_scene_sigma": leak,
+             "gcell_per_s": res.gcell_per_s, "plain_gcell_per_s": ref.gcell_per_s,
+             "k3_wall_s": wall, "k3_rel": rel3, "sigma_over_sigma_x": res.sigma_scat / sigma_x})
+
+
+class SlabEnergy:
+    """A probe: sum of E^2 + H^2 over the x planes ``xs``, in f32."""
+
+    def __init__(self, xs):
+        self.xs = xs
+
+    def sample(self, state, dt):
+        return sum((f[self.xs].float() ** 2).sum() for f in (*state.e, *state.h))
+
+
+def region_path(torch, ft):
+    """Path B: path_b_sim at 256^3 for 1000 ticks with config 3's 3-point
+    probe, through K4 (K = 8, probes every 8 ticks) with its dense option,
+    through K3 (probes every tick) with its dense option, and through the
+    plain engine (probes every tick); final fields within rel-L2 1e-5 and
+    probe stacks within 1e-5 of their largest value. Logs the peak field
+    energy behind the absorber (x from its far face to the TF/SF box's x
+    face, every 8 ticks) with the region and without it (K4 core). Returns
+    (launches, numbers)."""
+    from fdtd_tpu_torch.solver import cuda_cpml, cuda_cpml_k
+
+    dev = torch.device("cuda")
+    sim = path_b_sim(ft, dev)
+    x0, x1 = PATH_B_ABSORBER
+    n = ABSORB_SHAPE[0]
+    require(sim.cpml.thickness == ((10, 10),) * 3, f"boundary CPML {sim.cpml.thickness}")
+    require(sim.dense_pml.axis == 0
+            and sim.dense_pml.box == ((x0, x1 + 1), (0, n), (0, n)),
+            f"region {sim.dense_pml.axis} {sim.dense_pml.box}")
+    probes, _ = absorbing_probes(ABSORB_SHAPE)
+    require(sim.plan(MAIN_STEPS, probes, (), 8) == (8, "cuda_cpml_k"), "K4 plan")
+    require(sim.plan(MAIN_STEPS, probes, (), 1) == (1, "cuda_cpml"), "K3 plan")
+    log(f"path B: compile_scene region box {sim.dense_pml.box}, boundary CPML "
+        f"{sim.cpml.thickness}, {MAIN_STEPS} ticks")
+    behind = SlabEnergy(slice(x1 + 1, ABSORB_SHAPE[0] - 16))
+    runs, launches, walls = {}, {}, {}
+    for name, s, every in (("K4 + dense", sim, 8), ("K3 + dense", sim, 1),
+                           ("plain engine", path_b_sim(ft, dev, backend="torch"), 1),
+                           ("K4 without the region", path_b_sim(ft, dev, region=False), 8)):
+        extra = (behind,) if every == 8 else ()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, (trace, *energy), _ = s.run(s.init(), MAIN_STEPS, probes=probes + extra,
+                                           probe_every=every)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        runs[name] = (state, trace, energy)
+        launches[name] = {"K3": cuda_cpml.launches(), "K3 dense": cuda_cpml.option_launches()[
+            "dense"], "K4": cuda_cpml_k.launches(), "K4c": cuda_cpml_k.option_launches()["dense"]}
+    log(f"path B: wall {', '.join(f'{n} {w:.3f} s' for n, w in walls.items())}; "
+        f"launches {launches}")
+    require(launches["K4 + dense"]["K4"] == MAIN_STEPS // 8 == launches["K4 + dense"]["K4c"],
+            "path B did not ride K4's dense option")
+    require(launches["K3 + dense"]["K3"] == MAIN_STEPS == launches["K3 + dense"]["K3 dense"],
+            "K3's dense option did not run")
+    p_state, p_trace, _ = runs["plain engine"]
+    out = {"wall_s": walls}
+    for name, every in (("K4 + dense", 8), ("K3 + dense", 1)):
+        got, trace, _ = runs[name]
+        want_trace = p_trace[every - 1::every]
+        err = rel_l2(got, p_state)
+        t_err = float((trace - want_trace).abs().max() / want_trace.abs().max())
+        finite = all(bool(torch.isfinite(f).all()) for f in (*got.e, *got.h))
+        log(f"path B {name}: rel-L2 vs plain {err:.3e}, probe rel err {t_err:.3e}, "
+            f"max|psi_d| {max(float(p.abs().max()) for p in got.psi_d):.4e}, finite {finite}")
+        require(finite and got.tick == MAIN_STEPS and len(got.psi_d) == 4, f"{name}: state")
+        require(err <= 1e-5 and t_err <= 1e-5, f"{name} disagrees with the plain engine")
+        out[name] = {"rel_l2": err, "probe_rel": t_err}
+    e_with = float(runs["K4 + dense"][2][0].max())
+    e_without = float(runs["K4 without the region"][2][0].max())
+    log(f"path B: peak field energy at x in [{behind.xs.start}, {behind.xs.stop}): "
+        f"{e_with:.6e} with the region, {e_without:.6e} without (ratio "
+        f"{e_with / e_without if e_without else math.nan:.4e})")
+    out.update(energy_behind=e_with, energy_behind_without=e_without)
+    return ({"K4c": launches["K4 + dense"]["K4c"],
+             "K3 dense": launches["K3 + dense"]["K3 dense"]}, out)
 
 
 def profile_absorbing(torch, ft, ticks=64):
     """Config 3 at 256^3 under torch.profiler (CPU and CUDA activities): for
     the K4 probe run, the K4 DFT run, the plain engine with the DFT plane,
-    and config 3's accumulators on K4's options, through K3 with a per-tick
-    update and through the plain engine, a window of ``ticks`` after a
+    config 3's accumulators on K4's options, through K3 with a per-tick
+    update and through the plain engine, path A (K4 with its oblique option
+    and flux faces) and path B (K4 with its dense option and the probe), a
+    window of ``ticks`` after a
     warm-up of the same length; prints the wall time, the device's busy
     time (the union of its events' intervals), the idle share of the wall
     time and the top device entry. The profiler adds host time to every
@@ -813,13 +1186,17 @@ def profile_absorbing(torch, ft, ticks=64):
     probes, dft = absorbing_probes(ABSORB_SHAPE)
     accs = config3_accumulators(ft, ABSORB_SHAPE, sim.grid.dt)
     per_tick = tuple(PerTick(a) for a in accs)
+    path_a, flux = path_a_sim(ft, dev)
     runs = (("K4 K=8, 3-point probe every 8", sim, dict(probes=probes, probe_every=8)),
             ("K4 K=8, DFT plane", sim, dict(accumulators=dft)),
             ("plain engine, DFT plane", plain, dict(accumulators=dft)),
             ("K4 K=8 + options, config 3 accumulators", sim, dict(accumulators=accs)),
             ("K3 + per-tick update, config 3 accumulators", sim,
              dict(accumulators=per_tick)),
-            ("plain engine, config 3 accumulators", plain, dict(accumulators=accs)))
+            ("plain engine, config 3 accumulators", plain, dict(accumulators=accs)),
+            ("path A: K4 K=8 + oblique + flux faces", path_a, dict(accumulators=(flux,))),
+            ("path B: K4 K=8 + dense, 3-point probe every 8", path_b_sim(ft, dev),
+             dict(probes=probes, probe_every=8)))
     out = {}
     for name, s, kw in runs:
         state = s.run(s.init(), ticks, **kw)[0]
@@ -849,6 +1226,141 @@ def profile_absorbing(torch, ft, ticks=64):
     return out
 
 
+def report_group(key, named, ms, shape, models):
+    """Log and return one group of in_turns timings: per name, ms per call,
+    Gcell/s and, where ``models`` gives its bytes per tick, the share of
+    3.35 TB/s."""
+    cells = math.prod(shape)
+    out = {}
+    for name, _, ticks in named:
+        mean = sum(ms[name]) / len(ms[name])
+        g = cells * ticks / (mean * 1e-3) / 1e9
+        model = models.get(name)
+        share = None if model is None else model * ticks / (mean * 1e-3) / HBM_BYTES_PER_S
+        out[name] = {"ms_per_call": ms[name], "ticks_per_call": ticks, "gcells": g,
+                     "bytes_per_call": model, "hbm_share": share}
+        log(f"timing {key} {name}: {ms[name][0]:.4f} / {ms[name][1]:.4f} ms per call "
+            f"({ticks} ticks), {g:.2f} Gcell/s"
+            + ("" if model is None else
+               f", {model / cells:.1f} B/cell/tick model -> {share:.1%} of 3.35 TB/s"))
+    return out
+
+
+def region_bytes(region):
+    """What a call adds for a DensePml region: its six (bx, by, bz) f32
+    coefficient volumes read once, its four psi volumes read and written."""
+    return (6 + 2 * 4) * 4 * math.prod(region.box_shape)
+
+
+def oblique_cells(oblique):
+    """The cells whose corrections the wrappers hand the kernels (the
+    shell's boxes)."""
+    from fdtd_tpu_torch.solver.tfsf_oblique import shell_boxes
+
+    return sum(math.prod(b1 - b0 for b0, b1 in b) for b in shell_boxes(oblique))
+
+
+class _FixedPack:
+    """An oblique correction that hands the kernel one precomputed pack."""
+
+    def __init__(self, pack):
+        self._pack = pack
+
+    def pack(self, tick, k_steps, dt):
+        return self._pack
+
+
+def ext_timings(torch, ft):
+    """ms per call at 256^3 f32, in turns. Path B (config 3's CPML, TF/SF
+    box and material index with the region): K3 and K4 at K = 8 with and
+    without ``dense``, their plain versions and the plain engine. Path A
+    (CPML 10 and the 20-degree ObliqueTfsf): K3 and K4 at K = 8 with and
+    without ``oblique``, K4's kernel alone on a precomputed correction pack,
+    the wrapper's evaluation of the corrections alone (K = 8 and 1 on the
+    shell's boxes, K = 8 on the whole commutator subgrid), the plain
+    versions (each a prebuilt f32 engine, plain_cpml_ticks) and the plain
+    engine."""
+    from fdtd_tpu_torch.solver import _build
+    from fdtd_tpu_torch.solver.best import K_LADDER
+    from fdtd_tpu_torch.solver.cuda_cpml import (
+        CpmlSetup,
+        cuda_cpml_step_fn,
+        launch_cpml,
+        plain_cpml_ticks,
+    )
+    from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn
+    from fdtd_tpu_torch.solver.tfsf_oblique import ObliqueCorrection
+
+    dev = torch.device("cuda")
+    top = K_LADDER[0]
+    results = {}
+    b = path_b_sim(ft, dev)
+    a, _ = path_a_sim(ft, dev)
+    for key, sim, ext in (("path_b_256", b, "dense"), ("path_a_256", a, "oblique")):
+        tab, mid = sim._table_f32, sim.matid
+        tfsf = None if ext == "oblique" else sim.tfsf
+        kw = dict(inv_dx=(1.0, 1.0, 1.0), dt=sim.grid.dt, constants=ft.REDUCED,
+                  cpml=sim.cpml, tfsf=tfsf, matid=mid, n_materials=tab.shape[0])
+        opt = {ext: sim.dense_pml if ext == "dense" else sim.tfsf}
+        plain_kw = dict(kw, dtype=torch.float32)
+        del plain_kw["matid"], plain_kw["n_materials"]
+        engine = ft.build_step(ABSORB_SHAPE, **dict(plain_kw, tfsf=sim.tfsf),
+                               dense=sim.dense_pml)
+        coeffs = ft.CellCoefficients.from_table(tab, mid)
+        k3, k3x = cuda_cpml_step_fn(ABSORB_SHAPE, **kw), cuda_cpml_step_fn(ABSORB_SHAPE, **kw, **opt)
+        k4 = cuda_cpml_stepk_fn(ABSORB_SHAPE, top, **kw)
+        k4x = cuda_cpml_stepk_fn(ABSORB_SHAPE, top, **kw, **opt)
+        named = [
+            ("plain engine", lambda s, f=engine: f(s, coeffs, None), 1),
+            (f"K3 + {ext} plain version",
+             lambda s, f=engine: plain_cpml_ticks(s, f, tab, mid, None, 1, False), 1),
+            (f"K4 K={top} + {ext} plain version",
+             lambda s, f=engine: plain_cpml_ticks(s, f, tab, mid, None, top, False), top),
+            ("K3", lambda s: k3(s, tab, None), 1),
+            (f"K3 + {ext}", lambda s: k3x(s, tab, None), 1),
+            (f"K4 K={top}", lambda s: k4(s, tab, None), top),
+            (f"K4 K={top} + {ext}", lambda s: k4x(s, tab, None), top),
+        ]
+        aux_len = 0 if tfsf is None else tfsf.aux_length(ABSORB_SHAPE[0])
+        base = cpml_bytes(ABSORB_SHAPE, 4, True, sim.cpml, aux_len)
+        models = {"K3": base, f"K4 K={top}": cpml_bytes(ABSORB_SHAPE, 4, True, sim.cpml,
+                                                      aux_len, top) / top}
+        if ext == "dense":
+            models[f"K3 + {ext}"] = base + region_bytes(sim.dense_pml)
+            models[f"K4 K={top} + {ext}"] = models[f"K4 K={top}"] + region_bytes(
+                sim.dense_pml) / top
+        else:
+            models[f"K3 + {ext}"] = base + 6 * 4 * oblique_cells(sim.tfsf)
+            models[f"K4 K={top} + {ext}"] = models[f"K4 K={top}"] + 6 * 4 * oblique_cells(
+                sim.tfsf)
+            # the kernel alone, on a pack made once; and the corrections
+            # alone, on the shell's boxes (what the wrappers evaluate) and on
+            # the whole commutator subgrid (what the TPU wrappers evaluate)
+            dt = sim.grid.dt
+            fixed = CpmlSetup(ABSORB_SHAPE, (1.0, 1.0, 1.0), dt, ft.REDUCED, sim.cpml, None,
+                              oblique=sim.tfsf)
+            on = torch.empty(0, device=dev).device  # the states' device, with its index
+            shell = fixed.ext_on(on)[1]
+            fixed._ext_device[on] = (None, _FixedPack(shell.pack(0, top, dt)))
+            full = ObliqueCorrection(sim.tfsf, ABSORB_SHAPE, (1.0, 1.0, 1.0), dt, ft.REDUCED,
+                                     torch.float32, dev)
+            named += [
+                (f"K4 K={top} + {ext}, kernel alone",
+                 lambda s: launch_cpml(_build.CPMLK, s, fixed, top, torch.float32, tab, mid,
+                                       None, False), top),
+                (f"corrections K={top}, shell",
+                 lambda s: (shell.pack(s.tick, top, dt), s)[1], top),
+                ("corrections K=1, shell", lambda s: (shell.pack(s.tick, 1, dt), s)[1], 1),
+                (f"corrections K={top}, whole subgrid",
+                 lambda s: (full.pack(s.tick, top, dt), s)[1], top),
+            ]
+            models[f"K4 K={top} + {ext}, kernel alone"] = models[f"K4 K={top} + {ext}"]
+        results[key] = report_group(key, named, in_turns(torch, named, sim.init(), 6),
+                                    ABSORB_SHAPE, models)
+        torch.cuda.empty_cache()
+    return results
+
+
 def cpml_timings(torch, ft):
     """ms per call at config 3's 256^3 (K3, K4 at every K of the ladder, K4
     at K = 8 with config 3's accumulator options, the plain engine and each
@@ -862,21 +1374,7 @@ def cpml_timings(torch, ft):
     results = {}
 
     def report(key, named, ms, shape, models):
-        cells = math.prod(shape)
-        results[key] = {}
-        for name, _, ticks in named:
-            mean = sum(ms[name]) / len(ms[name])
-            g = cells * ticks / (mean * 1e-3) / 1e9
-            model = models.get(name)
-            share = None if model is None else \
-                model * ticks / (mean * 1e-3) / HBM_BYTES_PER_S
-            results[key][name] = {"ms_per_call": ms[name], "ticks_per_call": ticks,
-                                  "gcells": g, "bytes_per_call": model,
-                                  "hbm_share": share}
-            log(f"timing {key} {name}: {ms[name][0]:.4f} / {ms[name][1]:.4f} ms per call "
-                f"({ticks} ticks), {g:.2f} Gcell/s"
-                + ("" if model is None else
-                   f", {model / cells:.1f} B/cell/tick model -> {share:.1%} of 3.35 TB/s"))
+        results[key] = report_group(key, named, ms, shape, models)
 
     # config 3 at 256^3 (matid, TF/SF box, f32)
     sim = config3(ft, ABSORB_SHAPE, torch.float32, dev)
@@ -1097,15 +1595,23 @@ def measure(torch, ft, seed):
     errs = self_checks(torch, ft, seed)
     errs.update(cpml_self_checks(torch, ft, seed))
     errs.update(option_self_checks(torch, ft, seed))
+    errs.update(ext_self_checks(torch, ft, seed))
     launches = main_path(torch, ft)
     launches.update(absorbing_path(torch, ft))
     acc_launches, walls = accumulator_path(torch, ft)
     launches.update(acc_launches)
-    gcell, plain_gcell = scattering_path(torch, ft)
+    res_x, ref_x = scattering_path(torch, ft)
+    a_launches, path_a = oblique_path(torch, ft, res_x.sigma_scat)
+    b_launches, path_b = region_path(torch, ft)
+    launches.update(a_launches)
+    launches.update(b_launches)
     times = timings(torch, ft)
     times.update(cpml_timings(torch, ft))
+    times.update(ext_timings(torch, ft))
     times["accumulators_256_wall_s"] = walls
-    times["scattering_256_gcell_per_s"] = {"K4 + flux faces": gcell, "plain engine": plain_gcell}
+    times["scattering_256_gcell_per_s"] = {"K4 + flux faces": res_x.gcell_per_s,
+                                           "plain engine": ref_x.gcell_per_s}
+    times["path_a"], times["path_b"] = path_a, path_b
 
     top = K_LADDER[0]
     c2, c3 = times["config2_128"], times["config3_256"]
@@ -1144,8 +1650,37 @@ def measure(torch, ft, seed):
                psi3, option_flop(ABSORB_SHAPE, top, dft=opts3["dft"],
                                  dft_rows=opts3["dft_rows"]))),
     ]
+    # the region and oblique options at paths B's and A's 256^3 set-ups
+    pb, pa = times["path_b_256"], times["path_a_256"]
+    region = path_b_sim(ft, torch.device("cuda")).dense_pml
+    rc = math.prod(region.box_shape)
+    aux_b = config3_absorbers(ft, ABSORB_SHAPE, 1.0)[1].aux_length(ABSORB_SHAPE[0])
+    ob_cells = oblique_cells(path_a_sim(ft, torch.device("cuda"))[0].tfsf)
+    rows += [
+        ("K3 dense (DensePml region, K3 option)", "cpml.cu",
+         "fdtd_tpu/solver/pallas_cpml.py:370", "K3 dense", pb, "K3 + dense",
+         "K3 + dense plain version",
+         bound(cells3, 1, cpml_bytes(ABSORB_SHAPE, 4, True, cpml3, aux_b)
+               + region_bytes(region), psi3 + 4 * rc)),
+        ("K3 oblique (oblique TF/SF, K3 option)", "cpml.cu",
+         "fdtd_tpu/solver/pallas_cpml.py:489", "K3 oblique", pa, "K3 + oblique",
+         "K3 + oblique plain version",
+         bound(cells3, 1, cpml_bytes(ABSORB_SHAPE, 4, True, cpml3) + 6 * 4 * ob_cells,
+               psi3, 6 * 2 * ob_cells)),
+        ("K4c DensePml region (K4 option)", "cpmlk.cu",
+         "fdtd_tpu/solver/pallas_cpml_k.py:478", "K4c", pb, f"K4 K={top} + dense",
+         f"K4 K={top} + dense plain version",
+         bound(cells3, top, cpml_bytes(ABSORB_SHAPE, 4, True, cpml3, aux_b, top)
+               + region_bytes(region), psi3 + 4 * rc)),
+        ("K4d oblique TF/SF (K4 option)", "cpmlk.cu",
+         "fdtd_tpu/solver/pallas_cpml_k.py:758", "K4d", pa, f"K4 K={top} + oblique",
+         f"K4 K={top} + oblique plain version",
+         bound(cells3, top, cpml_bytes(ABSORB_SHAPE, 4, True, cpml3, 0, top)
+               + top * 6 * 4 * ob_cells, psi3, top * 6 * 2 * ob_cells)),
+    ]
     # no single PyTorch call computes a Yee or CPML tick, or K4's in-kernel
-    # reductions and captures beside one: library_ms is null
+    # reductions, captures, region stretch or oblique correction beside
+    # one: library_ms is null
     kernels = [
         {"name": name, "route": "cuda", "source": f"fdtd_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": launches[key], "max_abs_err": errs[key],

@@ -2,7 +2,8 @@
 
 The same Yee-lattice FDTD as the JAX package, with the same module paths
 and public names: grids, materials, coefficient tables, point sources, the
-leapfrog step, CPML absorbers and TF/SF plane waves (the absorbing engine),
+leapfrog step, CPML absorbers, volumetric DensePml regions and TF/SF plane
+waves, axis-aligned or oblique (the absorbing engine),
 probes and accumulators (DFT planes, the BoxDft near-to-far-field box),
 the ``Simulation`` time loop, scene compilation (``scene``) and the
 scattering workflow (``models.scattering_cross_section``). Its plain path is PyTorch on any
@@ -22,11 +23,13 @@ from .solver import (
     CellCoefficients,
     ContinuousWave,
     Cpml,
+    DensePml,
     Dirichlet,
     EngineState,
     GaussianDerivative,
     GaussianPulse,
     Neumann,
+    ObliqueTfsf,
     PointSource,
     Ricker,
     SimState,
@@ -34,6 +37,8 @@ from .solver import (
     SourceSet,
     Tfsf,
     build_step,
+    dense_pml_from_depth,
+    depth_from_contains,
     init_engine_state,
     state_from_stacked,
     step,

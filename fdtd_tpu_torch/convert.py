@@ -19,6 +19,7 @@ import torch
 from .solver.cpml import Cpml
 from .solver.engine import EngineState, carry_dtype
 from .solver.pml import GradedPmlSpec
+from .solver.pml_region import DensePml
 from .solver.sources import (
     ContinuousWave,
     GaussianDerivative,
@@ -29,6 +30,7 @@ from .solver.sources import (
 from .solver.state import DEFAULT_DEVICE, FIELDS, SimState, resolve_device
 from .solver.step import CellCoefficients
 from .solver.tfsf import Tfsf
+from .solver.tfsf_oblique import ObliqueTfsf
 
 __all__ = [
     "tensor_from_numpy",
@@ -44,6 +46,8 @@ __all__ = [
     "engine_state_to_numpy",
     "cpml_from_numpy",
     "tfsf_from_numpy",
+    "dense_pml_from_numpy",
+    "oblique_tfsf_from_numpy",
 ]
 
 _COEFFS = ("c_a", "c_b", "d_a", "d_b")
@@ -126,9 +130,9 @@ def material_to_numpy(matid: torch.Tensor, table: torch.Tensor):
 
 def engine_state_from_numpy(obj, device=DEFAULT_DEVICE, dtype=None) -> EngineState:
     """EngineState from an object with the JAX EngineState's fields (ex..hz,
-    tick, psi_h, psi_e, aux_e, aux_h). Fields take ``dtype`` (default:
-    their own); psi and the aux line take its carry dtype (f32 for bf16
-    fields)."""
+    tick, psi_h, psi_e, aux_e, aux_h, psi_d). Fields take ``dtype``
+    (default: their own); psi, the region's psi and the aux line take its
+    carry dtype (f32 for bf16 fields)."""
     state = state_from_numpy(obj, device, dtype)
     cdt = carry_dtype(state.dtype)
 
@@ -139,16 +143,19 @@ def engine_state_from_numpy(obj, device=DEFAULT_DEVICE, dtype=None) -> EngineSta
     return EngineState(*(getattr(state, f) for f in FIELDS), tick=state.tick,
                        psi_h=pairs(obj.psi_h), psi_e=pairs(obj.psi_e),
                        aux_e=tensor_from_numpy(obj.aux_e, device, cdt),
-                       aux_h=tensor_from_numpy(obj.aux_h, device, cdt))
+                       aux_h=tensor_from_numpy(obj.aux_h, device, cdt),
+                       psi_d=tuple(tensor_from_numpy(p, device, cdt)
+                                   for p in getattr(obj, "psi_d", ())))
 
 
 def engine_state_to_numpy(state: EngineState) -> dict:
     """The EngineState as a dict of numpy arrays under the JAX field names
-    (psi_h/psi_e as tuples of (lo, hi) pairs)."""
+    (psi_h/psi_e as tuples of (lo, hi) pairs, psi_d as a tuple)."""
     out = state_to_numpy(state)
     for half in ("psi_h", "psi_e"):
         out[half] = tuple(tuple(_numpy(p) for p in pair) for pair in getattr(state, half))
     out["aux_e"], out["aux_h"] = _numpy(state.aux_e), _numpy(state.aux_h)
+    out["psi_d"] = tuple(_numpy(p) for p in state.psi_d)
     return out
 
 
@@ -169,15 +176,44 @@ def cpml_from_numpy(obj) -> Cpml:
     return Cpml(thickness=thickness, spec=spec)
 
 
+def _waveform(obj):
+    """The port's waveform rebuilt from ``params()`` (kind, p0, p1)."""
+    kind, p0, p1 = obj.params()
+    return _WAVEFORMS[int(kind)](float(p0), float(p1))
+
+
 def tfsf_from_numpy(obj) -> Tfsf:
     """The port's Tfsf from an object with the JAX Tfsf's fields; the
     waveform is rebuilt from its ``params()`` (kind, p0, p1)."""
-    kind, p0, p1 = obj.waveform.params()
 
     def span(v):
         return None if v is None else tuple(int(a) for a in v)
 
-    return Tfsf(span=span(obj.span), waveform=_WAVEFORMS[int(kind)](float(p0), float(p1)),
+    return Tfsf(span=span(obj.span), waveform=_waveform(obj.waveform),
                 amplitude=float(obj.amplitude), aux_margin=int(obj.aux_margin),
                 absorber_cells=int(obj.absorber_cells), span_y=span(obj.span_y),
                 span_z=span(obj.span_z))
+
+
+def oblique_tfsf_from_numpy(obj) -> ObliqueTfsf:
+    """The port's ObliqueTfsf from an object with the JAX ObliqueTfsf's
+    fields; the waveform is rebuilt from its ``params()``."""
+    return ObliqueTfsf(
+        box=tuple(tuple(int(v) for v in r) for r in obj.box),
+        direction=tuple(float(v) for v in obj.direction),
+        polarization=tuple(float(v) for v in obj.polarization),
+        waveform=_waveform(obj.waveform),
+        dispersion_f=None if obj.dispersion_f is None else float(obj.dispersion_f))
+
+
+def dense_pml_from_numpy(obj) -> DensePml:
+    """The port's DensePml from an object with the JAX DensePml's fields
+    (axis, box, coeffs_h, coeffs_e, live_box), its coefficient volumes as
+    NumPy arrays of their own dtype."""
+    def box(b):
+        return None if b is None else tuple(tuple(int(v) for v in r) for r in b)
+
+    return DensePml(axis=int(obj.axis), box=box(obj.box),
+                    coeffs_h=tuple(np.asarray(c) for c in obj.coeffs_h),
+                    coeffs_e=tuple(np.asarray(c) for c in obj.coeffs_e),
+                    live_box=box(obj.live_box))

@@ -23,6 +23,22 @@
 // CPML terms, the TF/SF H corrections, M sources) runs in the same code for
 // the tile, the ring and the seed, so E on a tile's edge reads the H its
 // neighbour stores.
+//
+// The extensions (EXT = true: instantiations of K3 and K4 of their own, so
+// the kernels without them compile as they were), each switched on at run
+// time:
+//
+//   DensePml: a per-cell uniaxial stretch on a box, applied to the two
+//         terms along the region's axis before their slab stretch,
+//         psi_d = b psi_d + c dF, dF~ = ik dF + psi_d, with (ik, b, c) the
+//         cell's H or E coefficients (identity cells carry (1, 0, 0)). Its
+//         four psi tensors (the box's shape) follow the slab psi's rule:
+//         read from one set, written to another, only by the cell's owner.
+//   Oblique TF/SF: after each curl update, new H -= d_b corr_h and new E +=
+//         c_b corr_e at the cells of a list of disjoint boxes, from one
+//         level's row of precomputed corrections (the wrapper evaluates
+//         the analytic incident wave; solver/tfsf_oblique.py). The H
+//         addition runs for the ring and the seed too.
 #pragma once
 
 #include "yee.cuh"
@@ -65,6 +81,72 @@ struct Tfsf {
   int lo, hi, box, y0, y1, z0, z1;
 };
 
+constexpr int MAX_OB_BOXES = 8;
+
+// DensePml region: axis < 0 for none; box [x0, x1) x [y0, y1) x [z0, z1);
+// coef (6, bx, by, bz) f32: ik, b, c of the H half, then of the E half;
+// psi [set][H term 0, H term 1, E term 0, E term 1], (bx, by, bz) f32 each,
+// the terms along the axis in _TERMS order.
+struct Dense {
+  int axis;
+  int x0, x1, y0, y1, z0, z1;
+  const float* coef;
+  float* psi[MAX_SETS][4];
+};
+
+// Oblique TF/SF: n_box disjoint boxes (x0, x1, y0, y1, z0, z1), their
+// union's bounds lo/hi, and per level a row of level_len floats holding,
+// for each box from off[j], its (6, bx, by, bz) corrections: corr_h x, y,
+// z, then corr_e x, y, z. corr: (levels, level_len), or null for none.
+struct Oblique {
+  int n_box;
+  int lo[3], hi[3];
+  int box[MAX_OB_BOXES][6];
+  long long off[MAX_OB_BOXES];
+  long long level_len;
+  const float* corr;
+};
+
+struct Ext {
+  Dense D;
+  Oblique O;
+};
+
+// The DensePml stretch of one term (SLOT 0/1 of the two along AXIS) of half
+// HALF at (p, y, z): psi from set QS, the new psi to set QD when `store`.
+template <int HALF, int SLOT, int AXIS, int QS, int QD>
+__device__ __forceinline__ float dense_stretch(const Dense& D, bool store, int p, int y,
+                                               int z, float raw) {
+  if (D.axis != AXIS || p < D.x0 || p >= D.x1 || y < D.y0 || y >= D.y1 || z < D.z0 ||
+      z >= D.z1)
+    return raw;
+  const int by = D.y1 - D.y0, bz = D.z1 - D.z0;
+  const long long vol = (long long)(D.x1 - D.x0) * by * bz;
+  const long long i = ((long long)(p - D.x0) * by + (y - D.y0)) * bz + (z - D.z0);
+  const float* c = D.coef + 3 * HALF * vol + i;
+  const float psi = c[vol] * D.psi[QS][2 * HALF + SLOT][i] + c[2 * vol] * raw;
+  if (store) D.psi[QD][2 * HALF + SLOT][i] = psi;
+  return c[0] * raw + psi;
+}
+
+// The index of (p, y, z)'s corr_h x value in a level's row, with the box's
+// cell count in `vol`; -1 outside every box.
+__device__ __forceinline__ long long oblique_at(const Oblique& O, int p, int y, int z,
+                                                long long& vol) {
+  if (p < O.lo[0] || p >= O.hi[0] || y < O.lo[1] || y >= O.hi[1] || z < O.lo[2] ||
+      z >= O.hi[2])
+    return -1;
+  for (int j = 0; j < O.n_box; ++j) {
+    const int* b = O.box[j];
+    if (p >= b[0] && p < b[1] && y >= b[2] && y < b[3] && z >= b[4] && z < b[5]) {
+      const int by = b[3] - b[2], bz = b[5] - b[4];
+      vol = (long long)(b[1] - b[0]) * by * bz;
+      return O.off[j] + ((long long)(p - b[0]) * by + (y - b[2])) * bz + (z - b[4]);
+    }
+  }
+  return -1;
+}
+
 // The stretched derivative of term TERM (along AXIS) of half HALF at
 // (p, y, z), from the raw derivative (already times 1/dx). Reads psi from
 // set QS; writes the new psi to set QD when `store`. The set indices are
@@ -100,14 +182,16 @@ __device__ __forceinline__ float stretch(const Profiles& P, const Psi& Q, bool s
 // One absorbing tick over tile (y0, z0) and planes [x_lo, x_hi): fields
 // from `in` to `out`, psi from set QS to set QD, TF/SF from the rows
 // aux_e / aux_h (null without TF/SF). j_col / m_col: the source-row column
-// of this tick's J / M, or -1 for none.
-template <typename TI, typename TO, int QS, int QD>
+// of this tick's J / M, or -1 for none. With EXT: the region of X.D (its
+// psi sets QS/QD too) and the oblique corrections of row `ob` (null: none).
+template <typename TI, typename TO, int QS, int QD, bool EXT = false>
 __device__ void tile_pass(yee::Fields<const TI> in, yee::Fields<TO> out,
                           const yee::Lattice& L, const yee::Material& M,
                           const yee::Sources& S, int j_col, int m_col,
                           const Profiles& P, const Psi& Q,
                           const Tfsf T, const float* aux_e, const float* aux_h,
-                          int y0, int z0, int x_lo, int x_hi, yee::Shared& sh) {
+                          int y0, int z0, int x_lo, int x_hi, yee::Shared& sh,
+                          const Ext& X, const float* ob) {
   const int tz = threadIdx.x, ty = threadIdx.y, tid = ty * TZ + tz;
   const int y = y0 + ty, z = z0 + tz;
   const bool own = y < L.ny && z < L.nz;
@@ -135,6 +219,14 @@ __device__ void tile_pass(yee::Fields<const TI> in, yee::Fields<TO> out,
       float dez_x = (p > 0 ? ez - yee::load(in.ez, i - plane) : 0.f) * L.inv_x;
       float dey_x = (p > 0 ? ey - yee::load(in.ey, i - plane) : 0.f) * L.inv_x;
       float dex_y = (yy > 0 ? ex - yee::load(in.ex, i - L.nz) : 0.f) * L.inv_y;
+      if constexpr (EXT) {
+        dez_y = dense_stretch<0, 0, 1, QS, QD>(X.D, keep, p, yy, zz, dez_y);
+        dey_z = dense_stretch<0, 0, 2, QS, QD>(X.D, keep, p, yy, zz, dey_z);
+        dex_z = dense_stretch<0, 1, 2, QS, QD>(X.D, keep, p, yy, zz, dex_z);
+        dez_x = dense_stretch<0, 0, 0, QS, QD>(X.D, keep, p, yy, zz, dez_x);
+        dey_x = dense_stretch<0, 1, 0, QS, QD>(X.D, keep, p, yy, zz, dey_x);
+        dex_y = dense_stretch<0, 1, 1, QS, QD>(X.D, keep, p, yy, zz, dex_y);
+      }
       dez_y = stretch<0, 0, 1, QS, QD>(P, Q, keep, L, p, yy, zz, dez_y);
       dey_z = stretch<0, 1, 2, QS, QD>(P, Q, keep, L, p, yy, zz, dey_z);
       dex_z = stretch<0, 2, 2, QS, QD>(P, Q, keep, L, p, yy, zz, dex_z);
@@ -146,6 +238,15 @@ __device__ void tile_pass(yee::Fields<const TI> in, yee::Fields<TO> out,
       float hx = d_a * yee::load(in.hx, i) - d_b * (dez_y - dey_z);
       float hy = d_a * yee::load(in.hy, i) - d_b * (dex_z - dez_x);
       float hz = d_a * yee::load(in.hz, i) - d_b * (dey_x - dex_y);
+      if constexpr (EXT) {
+        long long vol = 0;
+        const long long j = ob != nullptr ? oblique_at(X.O, p, yy, zz, vol) : -1;
+        if (j >= 0) {
+          hx -= d_b * ob[j];
+          hy -= d_b * ob[j + vol];
+          hz -= d_b * ob[j + 2 * vol];
+        }
+      }
       if (aux_e != nullptr) {
         const bool lat = !T.box || (yy >= T.y0 && yy <= T.y1 && zz >= T.z0 && zz <= T.z1);
         if (lat && p == T.lo) hy -= d_b * aux_e[T.lo - 1] * L.inv_x;
@@ -179,6 +280,14 @@ __device__ void tile_pass(yee::Fields<const TI> in, yee::Fields<TO> out,
         float dhz_x = (x_in ? top_hz - hz : 0.f) * L.inv_x;
         float dhy_x = (x_in ? top_hy - hy : 0.f) * L.inv_x;
         float dhx_y = (y_in ? sh.hx[ty + 1][tz] - hx : 0.f) * L.inv_y;
+        if constexpr (EXT) {
+          dhz_y = dense_stretch<1, 0, 1, QS, QD>(X.D, true, p, y, z, dhz_y);
+          dhy_z = dense_stretch<1, 0, 2, QS, QD>(X.D, true, p, y, z, dhy_z);
+          dhx_z = dense_stretch<1, 1, 2, QS, QD>(X.D, true, p, y, z, dhx_z);
+          dhz_x = dense_stretch<1, 0, 0, QS, QD>(X.D, true, p, y, z, dhz_x);
+          dhy_x = dense_stretch<1, 1, 0, QS, QD>(X.D, true, p, y, z, dhy_x);
+          dhx_y = dense_stretch<1, 1, 1, QS, QD>(X.D, true, p, y, z, dhx_y);
+        }
         dhz_y = stretch<1, 0, 1, QS, QD>(P, Q, true, L, p, y, z, dhz_y);
         dhy_z = stretch<1, 1, 2, QS, QD>(P, Q, true, L, p, y, z, dhy_z);
         dhx_z = stretch<1, 2, 2, QS, QD>(P, Q, true, L, p, y, z, dhx_z);
@@ -190,6 +299,15 @@ __device__ void tile_pass(yee::Fields<const TI> in, yee::Fields<TO> out,
         float ex = c_a * yee::load(in.ex, i) + c_b * (dhz_y - dhy_z);
         float ey = c_a * yee::load(in.ey, i) + c_b * (dhx_z - dhz_x);
         float ez = c_a * yee::load(in.ez, i) + c_b * (dhy_x - dhx_y);
+        if constexpr (EXT) {
+          long long vol = 0;
+          const long long j = ob != nullptr ? oblique_at(X.O, p, y, z, vol) : -1;
+          if (j >= 0) {
+            ex += c_b * ob[j + 3 * vol];
+            ey += c_b * ob[j + 4 * vol];
+            ez += c_b * ob[j + 5 * vol];
+          }
+        }
         if (aux_h != nullptr) {
           const bool lat = !T.box || (y >= T.y0 && y <= T.y1 && z >= T.z0 && z <= T.z1);
           if (lat && p == T.lo - 1) ez -= c_b * aux_h[T.lo] * L.inv_x;
@@ -240,6 +358,46 @@ inline Psi make_psi(void* const* ptrs, int n_sets) {
 // tf: lo, hi, box, y0, y1, z0, z1.
 inline Tfsf make_tfsf(const float* aux, int len, const int* tf) {
   return Tfsf{aux, len, tf[0], tf[1], tf[2], tf[3], tf[4], tf[5], tf[6]};
+}
+
+// meta: the region's axis (< 0: none) and box x0, x1, y0, y1, z0, z1, then
+// n_box and n_box x (x0, x1, y0, y1, z0, z1); ptrs: the region's
+// coefficients, n_sets x 4 psi pointers, the corrections (null: none).
+// False when the layout does not fit.
+inline bool make_ext(const int* meta, void* const* ptrs, int n_sets, Ext& X) {
+  X = Ext{};
+  X.D.axis = meta[0];
+  X.D.x0 = meta[1]; X.D.x1 = meta[2];
+  X.D.y0 = meta[3]; X.D.y1 = meta[4];
+  X.D.z0 = meta[5]; X.D.z1 = meta[6];
+  X.D.coef = (const float*)ptrs[0];
+  for (int s = 0; s < MAX_SETS; ++s)
+    for (int t = 0; t < 4; ++t) X.D.psi[s][t] = s < n_sets ? (float*)ptrs[1 + 4 * s + t] : nullptr;
+  if (X.D.axis > 2 || (X.D.axis >= 0 && X.D.coef == nullptr)) return false;
+  X.O.corr = (const float*)ptrs[1 + 4 * n_sets];
+  X.O.n_box = X.O.corr != nullptr ? meta[7] : 0;
+  if (X.O.n_box < 0 || X.O.n_box > MAX_OB_BOXES) return false;
+  for (int a = 0; a < 3; ++a) {
+    X.O.lo[a] = 1 << 30;
+    X.O.hi[a] = -1;
+  }
+  long long off = 0;
+  for (int j = 0; j < X.O.n_box; ++j) {
+    long long vol = 1;
+    for (int a = 0; a < 3; ++a) {
+      const int b0 = meta[8 + 6 * j + 2 * a], b1 = meta[9 + 6 * j + 2 * a];
+      if (b1 <= b0) return false;
+      X.O.box[j][2 * a] = b0;
+      X.O.box[j][2 * a + 1] = b1;
+      X.O.lo[a] = b0 < X.O.lo[a] ? b0 : X.O.lo[a];
+      X.O.hi[a] = b1 > X.O.hi[a] ? b1 : X.O.hi[a];
+      vol *= b1 - b0;
+    }
+    X.O.off[j] = off;
+    off += 6 * vol;
+  }
+  X.O.level_len = off;
+  return true;
 }
 
 }  // namespace cpml

@@ -28,8 +28,15 @@
 // per-tile partials (a fixed shuffle tree inside the block), summed over
 // the tiles in a fixed order after one more grid barrier at the end: two
 // launches on the same input give bit-identical flux rows. DFT planes and
-// captures have exactly one owner per cell. The TPU kernel's dense,
-// oblique, dft_runtime and runtime_* options are not part of this kernel.
+// captures have exactly one owner per cell.
+//
+// K4c dense and K4d oblique (EXT = true; the third instantiation per
+// storage type, which also holds the accumulator options, switched off at
+// run time when absent): the DensePml region's per-cell stretch with its
+// psi carried level to level through the same sets as the slab psi, and
+// the oblique TF/SF corrections, one row of the wrapper's (K, level_len)
+// pack per level (cpml.cuh). The TPU kernel's dft_runtime and runtime_*
+// options are not part of this kernel.
 //
 // Bound on the H100: device memory, as K3 (cpml.cu). This first version
 // runs each tick as K3's tile pass (cpml.cuh) and does not block in time:
@@ -201,14 +208,15 @@ __device__ void reduce_flux(const Options& A, int k, int nx) {
 // 6 blocks); with the cap and its spills it ran 1.40x faster at 512^3 with
 // Cpml.uniform(10), and caps for 5 or 6 blocks spill more and ran slower
 // there (tools/k4_variants.py; PERF.md).
-template <typename T, bool OPT>
+template <typename T, bool OPT, bool EXT>
 __global__ void __launch_bounds__(yee::THREADS, 4)
 cpmlk_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
              yee::Fields<float> w2, yee::Fields<T> out, yee::Lattice L,
              yee::Material M, yee::Sources S, int k, int with_m, yee::Work w,
              const __grid_constant__ cpml::Profiles P,
              const __grid_constant__ cpml::Psi Q, cpml::Tfsf tf,
-             const __grid_constant__ Options A) {
+             const __grid_constant__ Options A,
+             const __grid_constant__ cpml::Ext X) {
   // with the options at bf16 storage, level K goes to work set 2 in f32
   // (the epilogue rounds it into the output); at f32 storage work set 2
   // is the output
@@ -222,6 +230,7 @@ cpmlk_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
     const int m_col = with_m ? 3 + 3 * k + 3 * (lvl - 1) : -1;
     const float* aux_e = tf.aux ? tf.aux + (long long)(2 * (lvl - 1)) * tf.len : nullptr;
     const float* aux_h = tf.aux ? aux_e + tf.len : nullptr;
+    const float* ob = EXT && X.O.n_box > 0 ? X.O.corr + (lvl - 1) * X.O.level_len : nullptr;
     // K - lvl odd: write work set 1 of the fields and psi set 2 (the work
     // set); even: work set 2 (the output at f32 storage) and psi set 1 (the
     // output). Psi set 0 is the input.
@@ -231,9 +240,9 @@ cpmlk_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
       yee::decode(w, item, L, y0, z0, x_lo, x_hi);
       // one branch per (psi sets, field buffers), with the sets as
       // template parameters and the buffers named directly
-#define CPMLK_PASS(TI, TO, QS, QD, SRC, DST)                                   \
-  cpml::tile_pass<TI, TO, QS, QD>(SRC, DST, L, M, S, j_col, m_col, P, Q, tf, \
-                                  aux_e, aux_h, y0, z0, x_lo, x_hi, sh)
+#define CPMLK_PASS(TI, TO, QS, QD, SRC, DST)                                       \
+  cpml::tile_pass<TI, TO, QS, QD, EXT>(SRC, DST, L, M, S, j_col, m_col, P, Q, tf, \
+                                       aux_e, aux_h, y0, z0, x_lo, x_hi, sh, X, ob)
       if (lvl == 1 && odd) CPMLK_PASS(T, float, 0, 2, in, w1);
       else if (lvl == 1) CPMLK_PASS(T, float, 0, 1, in, w2);
       else if (lvl == k && !f32_last) CPMLK_PASS(float, T, 2, 1, yee::as_const(w1), out);
@@ -286,12 +295,12 @@ bool make_options(const int* meta, void* const* ptrs, Options& A) {
   return true;
 }
 
-template <typename T, bool OPT>
+template <typename T, bool OPT, bool EXT>
 int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q,
            const cpml::Tfsf& tf, const float* table, int n_mat,
            const uint8_t* matid, const float* rows, int n_src, int row_w,
            int with_m, int k, int nx, int ny, int nz, float inv_x, float inv_y,
-           float inv_z, const Options& A, cudaStream_t stream) {
+           float inv_z, const Options& A, const cpml::Ext& X, cudaStream_t stream) {
   yee::Fields<const T> in{(const T*)f[0], (const T*)f[1], (const T*)f[2],
                           (const T*)f[3], (const T*)f[4], (const T*)f[5]};
   yee::Fields<T> out{(T*)f[6], (T*)f[7], (T*)f[8], (T*)f[9], (T*)f[10], (T*)f[11]};
@@ -311,20 +320,22 @@ int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q,
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, cpmlk_kernel<T, OPT>, yee::THREADS, 0);
+        &per_sm, cpmlk_kernel<T, OPT, EXT>, yee::THREADS, 0);
   if (err != cudaSuccess) return (int)err;
   if (!coop || per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   // every block of a cooperative grid must be resident at once
   const int resident = sms * per_sm;
   yee::Work w = yee::plan_work(L, resident);
   const int blocks = w.n_items < resident ? w.n_items : resident;
-  if (OPT && A.n_tiles != w.n_ty * w.n_tz) return (int)cudaErrorInvalidValue;
+  Options a = A;
+  if (EXT && a.n_tiles == 0) a.n_tiles = w.n_ty * w.n_tz;  // no accumulator option
+  if (OPT && a.n_tiles != w.n_ty * w.n_tz) return (int)cudaErrorInvalidValue;
   cpml::Profiles p = P;
   cpml::Psi q = Q;
   cpml::Tfsf t = tf;
-  Options a = A;
-  void* args[] = {&in, &w1, &w2, &out, &L, &M, &S, &k, &with_m, &w, &p, &q, &t, &a};
-  err = cudaLaunchCooperativeKernel((const void*)cpmlk_kernel<T, OPT>, dim3(blocks),
+  cpml::Ext x = X;
+  void* args[] = {&in, &w1, &w2, &out, &L, &M, &S, &k, &with_m, &w, &p, &q, &t, &a, &x};
+  err = cudaLaunchCooperativeKernel((const void*)cpmlk_kernel<T, OPT, EXT>, dim3(blocks),
                                     dim3(yee::TZ, yee::TY), args, 0, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -342,15 +353,18 @@ extern "C" {
 // rows: n_src source rows [x, y, z, J levels 1..K, M levels 1..K (only when
 // with_m)], f32; null when n_src == 0. aux: the (2K, aux_len) TF/SF rows,
 // or null; tf: lo, hi, box, y0, y1, z0, z1. k >= 2. opt_meta / opt_ptrs:
-// the accumulator options (make_options), or null for none; with them at
-// bf16 storage work set 2 must be its own f32 set at every K. Returns a
-// cudaError_t.
+// the accumulator options (make_options), or null for none. ext_meta /
+// ext_ptrs: the DensePml region and the oblique corrections (cpml.cuh
+// make_ext; psi sets in, out, work; the corrections a (K, level_len)
+// pack), or null for neither. With options or extensions at bf16 storage
+// work set 2 must be its own f32 set at every K. Returns a cudaError_t.
 int fdtd_cpmlk(int dtype, void** fields, void** psi, void** prof,
                const int* ext, const float* table, int n_mat,
                const uint8_t* matid, const float* rows, int n_src, int row_w,
                int with_m, const float* aux, int aux_len, const int* tf, int k,
                int nx, int ny, int nz, float inv_x, float inv_y, float inv_z,
-               const int* opt_meta, void** opt_ptrs, void* stream) {
+               const int* opt_meta, void** opt_ptrs, const int* ext_meta,
+               void** ext_ptrs, void* stream) {
   if (n_mat < 1 || n_mat > yee::MAX_MATERIALS || k < 2)
     return (int)cudaErrorInvalidValue;
   const cpml::Profiles P = cpml::make_profiles(prof, ext);
@@ -359,13 +373,21 @@ int fdtd_cpmlk(int dtype, void** fields, void** psi, void** prof,
   Options A{};
   const bool opt = opt_meta != nullptr;
   if (opt && !make_options(opt_meta, opt_ptrs, A)) return (int)cudaErrorInvalidValue;
+  cpml::Ext X{};
+  X.D.axis = -1;
+  const bool has_ext = ext_meta != nullptr;
+  if (has_ext && !cpml::make_ext(ext_meta, ext_ptrs, 3, X)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define CPMLK_LAUNCH(T, O)                                                       \
-  launch<T, O>(fields, P, Q, F, table, n_mat, matid, rows, n_src, row_w, with_m, \
-               k, nx, ny, nz, inv_x, inv_y, inv_z, A, s)
-  if (dtype == 0) return opt ? CPMLK_LAUNCH(float, true) : CPMLK_LAUNCH(float, false);
+#define CPMLK_LAUNCH(T, O, E)                                                    \
+  launch<T, O, E>(fields, P, Q, F, table, n_mat, matid, rows, n_src, row_w,      \
+                  with_m, k, nx, ny, nz, inv_x, inv_y, inv_z, A, X, s)
+  if (dtype == 0)
+    return has_ext ? CPMLK_LAUNCH(float, true, true)
+                   : (opt ? CPMLK_LAUNCH(float, true, false) : CPMLK_LAUNCH(float, false, false));
   if (dtype == 1)
-    return opt ? CPMLK_LAUNCH(__nv_bfloat16, true) : CPMLK_LAUNCH(__nv_bfloat16, false);
+    return has_ext ? CPMLK_LAUNCH(__nv_bfloat16, true, true)
+                   : (opt ? CPMLK_LAUNCH(__nv_bfloat16, true, false)
+                          : CPMLK_LAUNCH(__nv_bfloat16, false, false));
 #undef CPMLK_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

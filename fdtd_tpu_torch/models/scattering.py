@@ -11,8 +11,9 @@ the device: on the card through K4's in-kernel flux faces (the accumulator
 rides the K-tick CPML kernel), elsewhere per tick; sigma_scat = (scattered
 energy flux) / (incident fluence).
 
-Oblique incidence (any direction other than +x with z polarization) needs
-``ObliqueTfsf``, which is not ported yet (ROADMAP.md, queue 1 item 7).
+Oblique incidence (any direction other than +x with z polarization) uses
+``ObliqueTfsf`` (solver/tfsf_oblique.py), whose analytic correction rides
+K4's ``oblique`` option beside its flux faces on the card.
 """
 
 from __future__ import annotations
@@ -28,10 +29,10 @@ from ..constants import REDUCED, PhysicalConstants
 from ..grid import Grid, Resolution
 from ..scene import Scene, Volume, compile_scene
 from ..solver.cpml import Cpml
-from ..solver.engine import OBLIQUE_NOT_PORTED
 from ..solver.sources import GaussianDerivative
 from ..solver.state import DEFAULT_DEVICE
 from ..solver.tfsf import Tfsf
+from ..solver.tfsf_oblique import ObliqueTfsf
 
 __all__ = ["ScatteringResult", "scattering_cross_section"]
 
@@ -129,10 +130,10 @@ def scattering_cross_section(
     scattering cross-section.
 
     The +x / z-polarized incidence uses the dispersion-exact aux-grid box
-    (solver/tfsf.py, leakage ~1e-7). Other directions need the oblique
-    TF/SF, not ported yet: they raise ``NotImplementedError``. The run
-    lives on ``device`` (the CUDA card by default); ``backend`` is the
-    Simulation's ("torch" forces the plain engine)."""
+    (solver/tfsf.py, leakage ~1e-7); any other direction and polarization
+    the analytic oblique TF/SF (solver/tfsf_oblique.py, the same closed
+    box). The run lives on ``device`` (the CUDA card by default);
+    ``backend`` is the Simulation's ("torch" forces the plain engine)."""
     res = Resolution.courant(dx, constants, safety=0.9)
     compiled = compile_scene(
         scene,
@@ -164,14 +165,20 @@ def scattering_cross_section(
         and abs(float(np.asarray(polarization)[0])) < 1e-12
         and abs(float(np.asarray(polarization)[1])) < 1e-12
     )
-    if not axis_aligned:
-        raise NotImplementedError(OBLIQUE_NOT_PORTED)
-    tfsf = Tfsf(
-        span=span,
-        waveform=waveform,
-        span_y=(lat, shape[1] - 1 - lat),
-        span_z=(lat, shape[2] - 1 - lat),
-    )
+    if axis_aligned:
+        tfsf = Tfsf(
+            span=span,
+            waveform=waveform,
+            span_y=(lat, shape[1] - 1 - lat),
+            span_z=(lat, shape[2] - 1 - lat),
+        )
+    else:
+        tfsf = ObliqueTfsf(
+            box=(span, (lat, shape[1] - 1 - lat), (lat, shape[2] - 1 - lat)),
+            direction=tuple(float(v) for v in d),
+            polarization=tuple(float(v) for v in polarization),
+            waveform=waveform,
+        )
     sim = dataclasses.replace(compiled.simulation, tfsf=tfsf, backend=backend)
 
     if n_steps is None:

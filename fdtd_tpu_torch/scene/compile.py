@@ -10,9 +10,9 @@ compressed index buffer, gather sources from posed entities, and resolve
 observers to lattice slice planes. Output is an immutable CompiledScene
 wrapping a ready `Simulation`.
 
-Scene-embedded GradedPml entities become boundary CPML slabs; the
-volumetric route of the JAX package (a DensePml region) is not ported yet
-(ROADMAP.md, queue 1 item 7) and raises ``NotImplementedError``.
+Scene-embedded GradedPml entities become boundary CPML slabs or, for an
+interior or bounded shape, one volumetric DensePml region per scene
+(solver/pml_region.py), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,20 +39,21 @@ from .voxelize import voxelize_materials
 
 
 def _cpml_from_scene_pml(scene: Scene, transforms: CoordinateTransforms, grid: Grid):
-    """Map scene-embedded GradedPml entities onto boundary CPML (or None).
+    """Map scene-embedded GradedPml entities onto (boundary CPML or None,
+    volumetric DensePml region or None).
 
     The reference computes per-cell PML coefficients from such entities by
     collider ray-cast (cem-app/src/solver/runner.rs:633-676) but never
     applies the psi fields (cem-solver/src/fdtd/cpu/mod.rs:424-425), so
     they are physically inert there. The JAX package makes them REAL
-    absorbers along two routes; the port has the first and raises
-    ``NotImplementedError`` on the second:
+    absorbers along two routes, and so does the port:
 
     - an axis-aligned slab covering a full domain face -> boundary CPML
       (the fast path: slab thickness in cells + the entity's grading spec);
     - any other bounded shape with an axis-aligned normal, inside the
-      volume -> a volumetric per-cell region (the JAX package's
-      solver/pml_region.py, not ported).
+      volume -> a volumetric per-cell region (solver/pml_region.py): depth
+      from the entity's containment query, graded with its spec. One
+      region per scene; extras warn and are skipped.
 
     Non-axis-aligned normals warn and are skipped: an oblique uniaxial
     stretch is not representable in the per-axis Yee curl (the reference
@@ -62,14 +63,15 @@ def _cpml_from_scene_pml(scene: Scene, transforms: CoordinateTransforms, grid: G
     import warnings
 
     from ..solver.cpml import Cpml
-    from ..solver.engine import DENSE_NOT_PORTED
+    from ..solver.pml_region import dense_pml_from_depth, depth_from_contains
     from .transform import _quat_to_matrix
 
     pmls = scene.pmls()
     if not pmls:
-        return None
+        return None, None
     thickness = [[0, 0], [0, 0], [0, 0]]
     spec = None
+    dense = None
     for e in pmls:
         normal = np.asarray(e.pml.normal, np.float64)
         normal = normal / np.linalg.norm(normal)
@@ -112,6 +114,13 @@ def _cpml_from_scene_pml(scene: Scene, transforms: CoordinateTransforms, grid: G
             continue
 
         # volumetric region (arbitrary shape / interior placement)
+        if dense is not None:
+            warnings.warn(
+                f"GradedPml entity {e.name!r}: only one volumetric PML "
+                f"region per scene is supported; ignoring extras",
+                stacklevel=2,
+            )
+            continue
         box = tuple(
             (max(0, int(np.floor(lo[a]))),
              min(grid.shape[a], int(np.ceil(hi[a])) + 1))
@@ -123,12 +132,18 @@ def _cpml_from_scene_pml(scene: Scene, transforms: CoordinateTransforms, grid: G
                 f"volume; ignoring", stacklevel=2,
             )
             continue
-        # the JAX package builds a DensePml region here (depth_from_contains,
-        # dense_pml_from_depth; solver/pml_region.py, not ported)
-        raise NotImplementedError(
-            f"GradedPml entity {e.name!r}: the volumetric route; " + DENSE_NOT_PORTED)
-    return (Cpml(thickness=tuple(tuple(t) for t in thickness), spec=spec)
+        d_h, d_e = depth_from_contains(
+            e.contains_world, box, axis, sign,
+            to_world=transforms.solver_to_world,
+        )
+        dense = dense_pml_from_depth(
+            axis, box, d_h, d_e, spec=e.pml.spec,
+            dx=grid.resolution.spatial[axis], dt=grid.dt,
+            constants=grid.constants,
+        )
+    cpml = (Cpml(thickness=tuple(tuple(t) for t in thickness), spec=spec)
             if spec is not None else None)
+    return cpml, dense
 
 __all__ = ["Volume", "CompiledScene", "compile_scene", "ResolvedObserver"]
 
@@ -258,10 +273,11 @@ def compile_scene(
             f"{memory_limit_bytes / 1e6:.1f} MB"
         )
 
-    # scene-embedded GradedPml entities -> boundary CPML (unless the caller
-    # already supplied one)
+    # scene-embedded GradedPml entities -> boundary CPML and/or a
+    # volumetric per-cell region (unless the caller already supplied one)
+    dense_pml = None
     if cpml is None:
-        cpml = _cpml_from_scene_pml(scene, transforms, grid)
+        cpml, dense_pml = _cpml_from_scene_pml(scene, transforms, grid)
 
     matid, table = voxelize_materials(scene, transforms, default_material)
     ctable = coefficient_table(table.materials, resolution, constants)
@@ -303,7 +319,7 @@ def compile_scene(
 
     sim = Simulation(
         grid=grid, coeffs=coeffs, sources=sources, bc=bc, dtype=dtype,
-        cpml=cpml, matid=sim_matid, table=sim_table,
+        cpml=cpml, dense_pml=dense_pml, matid=sim_matid, table=sim_table,
         device=device,
     )
     return CompiledScene(

@@ -2,6 +2,7 @@ from .boundary import BoundaryConditions, Dirichlet, Neumann, default_boundaries
 from .cpml import Cpml
 from .engine import EngineState, build_step, init_engine_state
 from .pml import GradedPmlSpec
+from .pml_region import DensePml, dense_pml_from_depth, depth_from_contains
 from .sources import (
     ContinuousWave,
     GaussianDerivative,
@@ -13,6 +14,7 @@ from .sources import (
 from .simulation import Simulation
 from .state import SimState, state_from_stacked, zero_state
 from .tfsf import Tfsf
+from .tfsf_oblique import ObliqueTfsf
 from .step import (
     CellCoefficients,
     curl_backward,
@@ -34,6 +36,10 @@ __all__ = [
     "init_engine_state",
     "GradedPmlSpec",
     "Tfsf",
+    "ObliqueTfsf",
+    "DensePml",
+    "dense_pml_from_depth",
+    "depth_from_contains",
     "ContinuousWave",
     "GaussianDerivative",
     "GaussianPulse",

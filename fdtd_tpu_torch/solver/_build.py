@@ -143,15 +143,15 @@ STEPK = Kernel("K2 stepk", "stepk.cu", "fdtd_stepk",
                 _F, _P])
 # fdtd_cpml(dtype, fields, psi, prof, ext, table, n_mat, matid, rows, n_src,
 #           row_w, with_m, aux, aux_len, tf, nx, ny, nz, inv_x, inv_y, inv_z,
-#           stream)
+#           ext_meta, ext_ptrs, stream)
 CPML = Kernel("K3 cpml", "cpml.cu", "fdtd_cpml",
               [_I, _PP, _PP, _PP, _PI, _P, _I, _P, _P, _I, _I, _I, _P, _I, _PI,
-               _I, _I, _I, _F, _F, _F, _P])
+               _I, _I, _I, _F, _F, _F, _PI, _PP, _P])
 # fdtd_cpmlk(dtype, fields, psi, prof, ext, table, n_mat, matid, rows, n_src,
 #            row_w, with_m, aux, aux_len, tf, k, nx, ny, nz, inv_x, inv_y,
-#            inv_z, opt_meta, opt_ptrs, stream)
+#            inv_z, opt_meta, opt_ptrs, ext_meta, ext_ptrs, stream)
 CPMLK = Kernel("K4 cpmlk", "cpmlk.cu", "fdtd_cpmlk",
                [_I, _PP, _PP, _PP, _PI, _P, _I, _P, _P, _I, _I, _I, _P, _I, _PI,
-                _I, _I, _I, _I, _F, _F, _F, _PI, _PP, _P])
+                _I, _I, _I, _I, _F, _F, _F, _PI, _PP, _PI, _PP, _P])
 
 KERNELS = (STEP, STEPK, CPML, CPMLK)

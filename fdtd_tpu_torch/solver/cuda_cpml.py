@@ -14,6 +14,15 @@ Sources ride the kernel in f32: J always, M when built ``with_m`` (the TPU
 kernel adds J in-kernel in f32 when built with ``max_sources > 0`` and M
 when ``with_m``). Source and TF/SF times are f32 ``tick * dt``.
 
+The TPU kernel's options ``dense`` (a DensePml region: its coefficient
+volumes and the state's four ``psi_d`` tensors, read from one set and
+written to another like the slab psi) and ``oblique`` (an ObliqueTfsf: the
+wrapper evaluates the analytic correction in f32 at the tick, and at half a
+tick later for the E pass, on the disjoint boxes of its shell, and the
+kernel adds it after each curl update) run in the kernel's extension
+instantiation. The TPU kernel takes the correction on the whole commutator
+subgrid; off the shell it is exactly zero (solver/tfsf_oblique.py).
+
 The wrapper launches the kernel for CUDA tensors and takes the kernel's
 plain PyTorch version (``plain_cpml_step``: the engine step in f32, one
 rounding to the storage dtype) only for CPU tensors.
@@ -38,13 +47,21 @@ from .cuda_step import (
     kernel_table,
     supports,
 )
-from .engine import _TERMS, EngineState, _slab_extents, aux_coefficients, build_step
+from .engine import (
+    _TERMS,
+    EngineState,
+    _slab_extents,
+    aux_coefficients,
+    build_step,
+    check_absorbers,
+    split_tfsf,
+)
 from .sources import SourceSet
 from .state import FIELDS
 from .step import CellCoefficients, field_dtype_time
 
 __all__ = ["cuda_cpml_step_fn", "supports_cpml", "plain_cpml_step",
-           "launches", "reset_launches"]
+           "launches", "option_launches", "reset_launches"]
 
 
 def supports_cpml(shape, bc: BoundaryConditions, cpml,
@@ -59,13 +76,26 @@ def supports_cpml(shape, bc: BoundaryConditions, cpml,
                for a in cpml.active_axes())
 
 
+#: K3 launches that carried each option ("dense": a DensePml region,
+#: "oblique": an ObliqueTfsf) since the last reset; the wrapper adds one per
+#: launch.
+OPTION_LAUNCHES = {"dense": 0, "oblique": 0}
+
+
 def launches() -> int:
     """How many times the K3 kernel has launched since the last reset."""
     return _build.CPML.launches
 
 
+def option_launches() -> dict:
+    """How many K3 launches carried each option since the last reset."""
+    return dict(OPTION_LAUNCHES)
+
+
 def reset_launches() -> None:
     _build.CPML.launches = 0
+    for name in OPTION_LAUNCHES:
+        OPTION_LAUNCHES[name] = 0
 
 
 # -- the set-up both CPML kernels share -------------------------------------------
@@ -74,16 +104,23 @@ def reset_launches() -> None:
 class CpmlSetup:
     """What the CPML kernels take besides the state: the 1-D profiles per
     (half, axis) as (3, n) f32 [ik, b, c] tensors, the slab extents, the
-    TF/SF spans and the aux grid's coefficients, made once per device."""
+    TF/SF spans and the aux grid's coefficients, a DensePml region's
+    (6, bx, by, bz) f32 coefficients and an ObliqueTfsf's correction on the
+    shell's boxes, made once per device."""
 
-    def __init__(self, shape, inv_dx, dt, constants, cpml, tfsf):
+    def __init__(self, shape, inv_dx, dt, constants, cpml, tfsf, dense=None,
+                 oblique=None):
         from .cpml import _profiles_1d
+        from .tfsf_oblique import shell_boxes
 
         self.shape = tuple(shape)
         self.inv_dx = inv_dx
         self.dt = dt
+        self.constants = constants
         self.cpml = cpml
         self.tfsf = tfsf
+        self.dense = dense
+        self.oblique = oblique
         self.profiles = {}
         ext = []
         active = set(cpml.active_axes())
@@ -109,7 +146,19 @@ class CpmlSetup:
         else:
             self.tf = (ctypes.c_int * 7)(*[0] * 7)
             self.aux_np = None
+        # the extensions' C layout (csrc/cpml.cuh make_ext), or None
+        self.ext_meta = None
+        self.ob_boxes = ()
+        if dense is not None or oblique is not None:
+            meta = [-1] + [0] * 6
+            if dense is not None:
+                meta = [dense.axis] + [v for r in dense.box for v in r]
+            if oblique is not None:
+                self.ob_boxes = shell_boxes(oblique)
+            meta += [len(self.ob_boxes)] + [v for b in self.ob_boxes for r in b for v in r]
+            self.ext_meta = (ctypes.c_int * len(meta))(*meta)
         self._device = {}
+        self._ext_device = {}
 
     def on(self, device):
         """(profile tensors [half][axis] or None, aux coefficients or None)
@@ -125,6 +174,22 @@ class CpmlSetup:
                 for v in self.aux_np)
             self._device[device] = (prof, aux)
         return self._device[device]
+
+    def ext_on(self, device):
+        """(the region's (6, bx, by, bz) f32 coefficients or None, the
+        oblique correction on the boxes handed over or None) on
+        ``device``."""
+        from .tfsf_oblique import ObliqueCorrection
+
+        if device not in self._ext_device:
+            coef = None if self.dense is None else torch.from_numpy(np.stack(
+                [np.asarray(c, np.float32) for c in (*self.dense.coeffs_h,
+                                                     *self.dense.coeffs_e)])).to(device)
+            corr = None if self.oblique is None else ObliqueCorrection(
+                self.oblique, self.shape, self.inv_dx, self.dt, self.constants,
+                torch.float32, device, boxes=self.ob_boxes)
+            self._ext_device[device] = (coef, corr)
+        return self._ext_device[device]
 
     def aux_levels(self, state: EngineState, aux, k_steps: int):
         """Tick the aux grid ``k_steps`` times from the state's line at f32
@@ -180,6 +245,15 @@ def check_cpml_inputs(state: EngineState, setup: CpmlSetup, shape, dtype,
             if a is None or a.dtype != torch.float32 or tuple(a.shape) != (n,) \
                     or a.device != state.device:
                 raise ValueError(f"TF/SF aux line: need float32 ({n},) on {state.device}")
+    if setup.dense is not None:
+        box = tuple(setup.dense.box_shape)
+        if len(state.psi_d) != 4 or any(
+                p.dtype != torch.float32 or tuple(p.shape) != box or p.device != state.device
+                or not p.is_contiguous() for p in state.psi_d):
+            raise ValueError(
+                f"psi_d: need 4 contiguous float32 {box} tensors on {state.device} "
+                f"(init_engine_state(dense=...)), got "
+                f"{[(p.dtype, tuple(p.shape)) for p in state.psi_d]}")
 
 
 # -- the plain version -----------------------------------------------------------
@@ -210,11 +284,11 @@ def plain_cpml_step(state: EngineState, table: torch.Tensor,
                     matid: Optional[torch.Tensor], sources: Optional[SourceSet],
                     *, inv_dx, dt, cpml, tfsf=None, bc=BoundaryConditions(),
                     constants: PhysicalConstants = SI,
-                    with_m: bool = False) -> EngineState:
+                    with_m: bool = False, dense=None, oblique=None) -> EngineState:
     """K3's plain version: one tick, as the kernel computes it."""
     step32 = build_step(state.shape, inv_dx=inv_dx, dt=dt, bc=bc,
                         constants=constants, dtype=torch.float32, cpml=cpml,
-                        tfsf=tfsf)
+                        tfsf=oblique if oblique is not None else tfsf, dense=dense)
     return plain_cpml_ticks(state, step32, table, matid, sources, 1, with_m)
 
 
@@ -246,7 +320,7 @@ def launch_cpml(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup,
         w1 = [torch.empty(f.shape, dtype=torch.float32, device=f.device) for f in fields]
         if dtype == torch.float32:
             w2 = outs  # ping-pong partner of w1 (see csrc/cpmlk.cu)
-        elif k_steps >= 3 or options is not None:
+        elif k_steps >= 3 or options is not None or setup.ext_meta is not None:
             w2 = [torch.empty_like(w) for w in w1]
         else:
             w2 = w1  # K = 2 without options never writes the second work set
@@ -255,6 +329,24 @@ def launch_cpml(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup,
                          for p, ok in zip(psi_in, live)])
     psi_ptrs = [p.data_ptr() if ok else None
                 for ps in psi_sets for p, ok in zip(ps, live)]
+    psi_d = state.psi_d
+    ext_ptrs = ob_pack = None
+    if setup.ext_meta is not None:
+        # the region's psi sets (in, out, and K4's work set) and this call's
+        # corrections; the pack stays referenced until the launch is queued
+        coef, corr = setup.ext_on(state.device)
+        d_sets = [list(state.psi_d), [torch.empty_like(p) for p in state.psi_d]]
+        if k_steps > 1:
+            d_sets.append([torch.empty_like(p) for p in state.psi_d])
+        d_ptrs = [d_sets[s][t].data_ptr() if setup.dense is not None else None
+                  for s in range(len(d_sets)) for t in range(4)]
+        if corr is not None:
+            ob_pack = corr.pack(state.tick, k_steps, setup.dt)
+        ptrs = [None if coef is None else coef.data_ptr(), *d_ptrs,
+                None if ob_pack is None else ob_pack.data_ptr()]
+        ext_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+        if setup.dense is not None:
+            psi_d = tuple(d_sets[1])
     args = [
         _DTYPE_CODE[dtype], _build.pointers(field_sets),
         (ctypes.c_void_p * len(psi_ptrs))(*psi_ptrs),
@@ -269,12 +361,13 @@ def launch_cpml(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup,
     args += [nx, ny, nz, *setup.inv_dx]
     if k_steps > 1:
         args += [None, None] if options is None else list(options)
-    args.append(_build.stream_handle(state.device))
+    args += [setup.ext_meta, ext_ptrs, _build.stream_handle(state.device)]
     kernel.launch(*args)
+    del pack, ob_pack
     pairs = list(zip(psi_out[0::2], psi_out[1::2]))
     return EngineState(*outs, tick=state.tick + k_steps, psi_h=tuple(pairs[:6]),
                        psi_e=tuple(pairs[6:]), aux_e=aux_e, aux_h=aux_h,
-                       psi_d=state.psi_d, dft=state.dft)
+                       psi_d=psi_d, dft=state.dft)
 
 
 def cuda_cpml_step_fn(
@@ -290,24 +383,31 @@ def cuda_cpml_step_fn(
     n_materials: int = 1,
     with_m: bool = False,
     dtype=torch.float32,
+    dense=None,
+    oblique=None,
 ):
     """Build step(state: EngineState, coeffs, sources) -> EngineState
     backed by K3.
 
     ``coeffs`` is CellCoefficients of scalars, or the (K, 4) table when
-    ``matid`` (uint8, on the state's device) is given. CPU states take the
-    plain version; CUDA states launch the kernel or raise.
+    ``matid`` (uint8, on the state's device) is given. ``dense`` (a
+    DensePml; the state from ``init_engine_state(dense=...)``) and
+    ``oblique`` (an ObliqueTfsf, or given as ``tfsf``) switch on the
+    kernel's options. CPU states take the plain version; CUDA states launch
+    the kernel or raise.
     """
     if not supports_cpml(shape, bc, cpml, dtype=dtype):
         raise ValueError(f"K3 does not support {shape=} {bc=} {cpml=} {dtype=}")
     if matid is not None and not 1 <= n_materials <= 256:
         raise ValueError(f"K3 takes 1..256 materials, got {n_materials}")
-    if tfsf is not None:
-        tfsf.validate(shape)
+    check_absorbers(shape, cpml, tfsf, dense, oblique)
+    tfsf, ob = split_tfsf(tfsf)
+    oblique = oblique if oblique is not None else ob
     inv_dx = tuple(float(v) for v in inv_dx)
-    setup = CpmlSetup(shape, inv_dx, dt, constants, cpml, tfsf)
+    setup = CpmlSetup(shape, inv_dx, dt, constants, cpml, tfsf, dense, oblique)
     step32 = build_step(shape, inv_dx=inv_dx, dt=dt, bc=bc, constants=constants,
-                        dtype=torch.float32, cpml=cpml, tfsf=tfsf)
+                        dtype=torch.float32, cpml=cpml,
+                        tfsf=oblique if oblique is not None else tfsf, dense=dense)
 
     def step(state: EngineState, coeffs, sources: Optional[SourceSet]) -> EngineState:
         table = kernel_table(coeffs, matid, state.device)
@@ -316,7 +416,10 @@ def cuda_cpml_step_fn(
             return plain_cpml_ticks(state, step32, table, matid, sources, 1, with_m)
         if state.device.type != "cuda":
             raise ValueError(f"K3 runs on CUDA or CPU tensors, not {state.device}")
-        return launch_cpml(_build.CPML, state, setup, 1, dtype, table, matid,
-                           sources, with_m)
+        new = launch_cpml(_build.CPML, state, setup, 1, dtype, table, matid,
+                          sources, with_m)
+        OPTION_LAUNCHES["dense"] += dense is not None
+        OPTION_LAUNCHES["oblique"] += oblique is not None
+        return new
 
     return step

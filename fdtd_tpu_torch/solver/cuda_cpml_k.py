@@ -28,8 +28,19 @@ The accumulator options, with the JAX wrapper's semantics and return order
   outside the kernel.
 
 Every value is sampled after the level's source injection, from the
-level's f32 fields. Not part of this kernel: the TPU kernel's DensePml,
-oblique TF/SF, ``dft_runtime`` and runtime coordinates.
+level's f32 fields.
+
+The region and oblique options, as K3's (solver/cuda_cpml.py):
+
+* K4c ``dense``: a DensePml region's stretch at every level, its psi
+  carried level to level through an f32 work set like the slab psi;
+* K4d ``oblique``: the ObliqueTfsf correction of every level, a (K,
+  level_len) f32 pack that the wrapper evaluates per call, corr_h at
+  (tick + l) dt and corr_e half a tick later (pallas_cpml_k.py:1936-1947),
+  on the shell's disjoint boxes.
+
+They combine with each other and with K4a and K4b. Not part of this
+kernel: the TPU kernel's ``dft_runtime`` and runtime coordinates.
 
 The plain version (``plain_cpml_stepk``) is K applications of K3's plain
 version with one rounding at the end, and computes the options from each
@@ -57,7 +68,7 @@ from .cuda_cpml import (
 )
 from .cuda_step import kernel_table
 from .cuda_stepk import MAX_K
-from .engine import EngineState, build_step
+from .engine import EngineState, build_step, check_absorbers, split_tfsf
 from .sources import SourceSet
 
 __all__ = ["cuda_cpml_stepk_fn", "supports_cpml_k", "plain_cpml_stepk",
@@ -105,20 +116,28 @@ def _options_fit(shape, flux_faces, dft, dft_rows) -> bool:
 
 def supports_cpml_k(shape, bc, cpml, k: int, dtype=torch.float32,
                     n_materials: int = 1, flux_faces=(), dft=None,
-                    dft_rows=()) -> bool:
+                    dft_rows=(), dense=None, oblique=None) -> bool:
     """Whether K4 covers this configuration at ``k`` ticks per call: what
-    K3 covers, 2 <= k <= 16, at most 256 materials, and options inside the
+    K3 covers, 2 <= k <= 16, at most 256 materials, options inside the
     kernel's limits (16 flux descriptors, 16 DFT planes of at most 16
-    frequencies, 16 row descriptors, every index on the lattice). ``dft``
+    frequencies, 16 row descriptors, every index on the lattice), and a
+    DensePml region or ObliqueTfsf that the engine takes (any box). ``dft``
     is (planes, number of frequencies), as in the JAX package."""
-    return supports_cpml(shape, bc, cpml, dtype=dtype) and 2 <= k <= MAX_K \
-        and 1 <= n_materials <= 256 \
-        and _options_fit(shape, tuple(flux_faces), dft, tuple(dft_rows))
+    if not (supports_cpml(shape, bc, cpml, dtype=dtype) and 2 <= k <= MAX_K
+            and 1 <= n_materials <= 256
+            and _options_fit(shape, tuple(flux_faces), dft, tuple(dft_rows))):
+        return False
+    try:
+        check_absorbers(shape, cpml, dense=dense, oblique=oblique)
+    except (ValueError, TypeError):
+        return False
+    return True
 
 
 #: K4 launches that carried each option (K4a "flux_faces", K4b "dft" and
-#: "dft_rows") since the last reset; the wrapper adds one per launch.
-OPTION_LAUNCHES = {"flux_faces": 0, "dft": 0, "dft_rows": 0}
+#: "dft_rows", K4c "dense", K4d "oblique") since the last reset; the wrapper
+#: adds one per launch.
+OPTION_LAUNCHES = {"flux_faces": 0, "dft": 0, "dft_rows": 0, "dense": 0, "oblique": 0}
 
 
 def launches() -> int:
@@ -221,14 +240,15 @@ def plain_cpml_stepk(state: EngineState, table: torch.Tensor,
                      matid: Optional[torch.Tensor], sources: Optional[SourceSet],
                      k_steps: int, *, inv_dx, dt, cpml, tfsf=None,
                      bc=BoundaryConditions(), constants: PhysicalConstants = SI,
-                     with_m: bool = False, flux_faces=(), dft=None, dft_rows=()):
+                     with_m: bool = False, flux_faces=(), dft=None, dft_rows=(),
+                     dense=None, oblique=None):
     """K4's plain version: K applications of K3's plain version (f32
     carries, one rounding to the storage dtype at the end), with the
     options computed from each level's f32 state; returns what the kernel
     wrapper returns."""
     step32 = build_step(state.shape, inv_dx=inv_dx, dt=dt, bc=bc,
                         constants=constants, dtype=torch.float32, cpml=cpml,
-                        tfsf=tfsf)
+                        tfsf=oblique if oblique is not None else tfsf, dense=dense)
     planes, freqs = (_planes(dft[0]), tuple(dft[1])) if dft is not None else ((), ())
     return plain_with_options(state, step32, table, matid, sources, k_steps, with_m,
                               tuple(flux_faces), planes, freqs, tuple(dft_rows), dt)
@@ -306,6 +326,8 @@ def cuda_cpml_stepk_fn(
     flux_faces=(),
     dft=None,
     dft_rows=(),
+    dense=None,
+    oblique=None,
 ):
     """Build stepk(state: EngineState, coeffs, sources) advancing
     ``k_steps`` absorbing ticks.
@@ -315,26 +337,30 @@ def cuda_cpml_stepk_fn(
     injected only when ``with_m``. ``flux_faces``, ``dft`` = (planes,
     frequencies) and ``dft_rows`` switch on the accumulator options (module
     docstring); the step then returns ``state[, flux_rows][, caps]``, and
-    with ``dft`` it reads and writes ``state.dft``.
+    with ``dft`` it reads and writes ``state.dft``. ``dense`` (a DensePml;
+    the state from ``init_engine_state(dense=...)``) and ``oblique`` (an
+    ObliqueTfsf, or given as ``tfsf``) switch on K4c and K4d.
     """
     flux_faces = tuple(tuple(fd) for fd in flux_faces)
     dft_rows = tuple((str(a), int(v)) for a, v in dft_rows)
     planes, freqs = (_planes(dft[0]), tuple(float(f) for f in dft[1])) \
         if dft is not None else ((), ())
     n_mat = n_materials if matid is not None else 1
+    check_absorbers(shape, cpml, tfsf, dense, oblique)
+    tfsf, ob = split_tfsf(tfsf)
+    oblique = oblique if oblique is not None else ob
     if not supports_cpml_k(shape, bc, cpml, k_steps, dtype=dtype, n_materials=n_mat,
                            flux_faces=flux_faces,
                            dft=(planes, len(freqs)) if dft is not None else None,
-                           dft_rows=dft_rows):
+                           dft_rows=dft_rows, dense=dense, oblique=oblique):
         raise ValueError(
             f"K4 does not support {k_steps=} {shape=} {bc=} {cpml=} {dtype=} "
             f"{flux_faces=} {dft=} {dft_rows=}")
-    if tfsf is not None:
-        tfsf.validate(shape)
     inv_dx = tuple(float(v) for v in inv_dx)
-    setup = CpmlSetup(shape, inv_dx, dt, constants, cpml, tfsf)
+    setup = CpmlSetup(shape, inv_dx, dt, constants, cpml, tfsf, dense, oblique)
     step32 = build_step(shape, inv_dx=inv_dx, dt=dt, bc=bc, constants=constants,
-                        dtype=torch.float32, cpml=cpml, tfsf=tfsf)
+                        dtype=torch.float32, cpml=cpml,
+                        tfsf=oblique if oblique is not None else tfsf, dense=dense)
     options = (_Options(tuple(shape), k_steps, flux_faces, planes, freqs, dft_rows)
                if flux_faces or planes or dft_rows else None)
 
@@ -348,15 +374,20 @@ def cuda_cpml_stepk_fn(
                                       with_m, flux_faces, planes, freqs, dft_rows, dt)
         if state.device.type != "cuda":
             raise ValueError(f"K4 runs on CUDA or CPU tensors, not {state.device}")
+        used = (("flux_faces", flux_faces), ("dft", planes), ("dft_rows", dft_rows),
+                ("dense", dense is not None), ("oblique", oblique is not None))
         if options is None:
-            return launch_cpml(_build.CPMLK, state, setup, k_steps, dtype, table,
-                               matid, sources, with_m)
+            new = launch_cpml(_build.CPMLK, state, setup, k_steps, dtype, table,
+                              matid, sources, with_m)
+            for name, on in used:
+                OPTION_LAUNCHES[name] += bool(on)
+            return new
         # scratch holds the phase pack and the partials until the launch is
         # queued (freed after it, they stay the stream's until it has run)
         flux, caps, acc_out, scratch, c_ptrs = options.buffers(state, dt)
         new = launch_cpml(_build.CPMLK, state, setup, k_steps, dtype, table, matid,
                           sources, with_m, options=(options.meta, c_ptrs))
-        for name, on in (("flux_faces", flux_faces), ("dft", planes), ("dft_rows", dft_rows)):
+        for name, on in used:
             OPTION_LAUNCHES[name] += bool(on)
         del scratch
         if planes:

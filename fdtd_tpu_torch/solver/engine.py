@@ -4,24 +4,24 @@ Counterpart of ``fdtd_tpu.solver.engine``, in its order:
 
   1. point-source waveform evaluation at the pre-step time
   2. H half-update (backward-diff curl of E), CPML-stretched derivatives
-  3. TF/SF H-face corrections (incident E at the old time level)
-  4. 1D auxiliary-grid tick for the incident wave
+     (a DensePml region's stretch before the boundary slabs' on its axis)
+  3. oblique TF/SF H correction (incident E at the old time level), or the
+     slab/box TF/SF H-face corrections
+  4. 1D auxiliary-grid tick for the incident wave (slab/box TF/SF)
   5. M point-source scatter
   6. E half-update (forward-diff curl of the NEW H), CPML-stretched
-  7. TF/SF E-face corrections (incident H at the new time level)
+  7. oblique TF/SF E correction (incident H half a tick later), or the
+     slab/box TF/SF E-face corrections (incident H at the new time level)
   8. J point-source scatter
 
 It runs on any device and float dtype and is the CPU twin that the CUDA
 CPML kernels (solver/cuda_cpml.py, solver/cuda_cpml_k.py) are held to;
 their plain versions run this step in f32. The state layout is the JAX
-package's: psi lives in slabs, one (lo, hi) pair per ``_TERMS`` entry, and
-the kernels read and write the same tensors. psi and the TF/SF aux line are
-kept in at least f32 (bf16 storage keeps them f32, as the TPU kernels do:
-a bf16-rounded recurrence measurably degrades the absorber).
-
-Not ported yet: the volumetric DensePml region and oblique TF/SF
-(ROADMAP.md, queue 1 item 7); asking for either raises
-``NotImplementedError``.
+package's: psi lives in slabs, one (lo, hi) pair per ``_TERMS`` entry, a
+DensePml region's psi in four volumes of its box (``psi_d``), and the
+kernels read and write the same tensors. psi, ``psi_d`` and the TF/SF aux
+line are kept in at least f32 (bf16 storage keeps them f32, as the TPU
+kernels do: a bf16-rounded recurrence measurably degrades the absorber).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..constants import SI, PhysicalConstants
@@ -46,15 +47,10 @@ from .step import (
 )
 
 __all__ = ["EngineState", "build_step", "init_engine_state", "carry_dtype",
-           "check_absorbers"]
+           "check_absorbers", "split_tfsf"]
 
 # the 6 (component, axis) derivative terms entering a curl
 _TERMS = ((2, 1), (1, 2), (0, 2), (2, 0), (1, 0), (0, 1))
-
-DENSE_NOT_PORTED = ("DensePml regions are not ported to PyTorch yet "
-                    "(ROADMAP.md, queue 1 item 7)")
-OBLIQUE_NOT_PORTED = ("oblique TF/SF (ObliqueTfsf) is not ported to PyTorch "
-                      "yet (ROADMAP.md, queue 1 item 7)")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -64,8 +60,10 @@ class EngineState(SimState):
     psi entries are SLAB-resident: per _TERMS entry, a (lo_slab, hi_slab)
     pair of tensors covering only the absorber thickness along the term's
     axis (0-d zeros when that axis has no CPML). ``aux_e``/``aux_h`` are the
-    1D incident-wave line (0-d zeros without TF/SF). ``psi_d`` stays empty
-    (DensePml is not ported). ``dft`` holds the running x-plane spectra of
+    1D incident-wave line (0-d zeros without a slab or box TF/SF).
+    ``psi_d`` holds a DensePml region's psi, four tensors of its box shape
+    (H's two terms along its axis in ``_TERMS`` order, then E's), or
+    nothing without one. ``dft`` holds the running x-plane spectra of
     K4's ``dft`` option, one (6F, ny, nz) f32 tensor per plane (slot
     (f, re/im, component)); the steps that do not write them carry them
     through, and ``Simulation.run`` adds and strips them around a run (the
@@ -99,28 +97,63 @@ def _slab_extents(n, lo, hi, half):
     return lo_range, hi_range
 
 
-def check_absorbers(shape, cpml=None, tfsf=None, dense=None) -> None:
-    """Raise on what the port does not run: DensePml, oblique TF/SF, or
-    CPML slabs that meet (the E half's hi slab is one plane deeper, so
-    lo + hi + 1 planes must fit each active axis)."""
-    if dense is not None:
-        raise NotImplementedError(DENSE_NOT_PORTED)
-    if tfsf is not None:
-        from .tfsf import Tfsf
+def split_tfsf(tfsf):
+    """(slab or box Tfsf or None, ObliqueTfsf or None) of a run's ``tfsf``."""
+    from .tfsf_oblique import ObliqueTfsf
 
-        if not hasattr(tfsf, "span"):
-            raise NotImplementedError(OBLIQUE_NOT_PORTED)
+    return (None, tfsf) if isinstance(tfsf, ObliqueTfsf) else (tfsf, None)
+
+
+def check_absorbers(shape, cpml=None, tfsf=None, dense=None, oblique=None) -> None:
+    """Raise on what the engine and kernels do not run, as the JAX package
+    does: CPML slabs that meet (the E half's hi slab is one plane deeper,
+    so lo + hi + 1 planes must fit each active axis), a DensePml region
+    that overlaps a boundary slab on its axis, an oblique box without 2
+    cells of margin, and an oblique TF/SF beside a slab or box one.
+    ``tfsf`` may be either kind; ``oblique`` names the oblique one apart
+    (the kernels' ``oblique=``)."""
+    from .pml_region import DensePml
+    from .tfsf import Tfsf
+    from .tfsf_oblique import ObliqueTfsf
+
+    tfsf, ob = split_tfsf(tfsf)
+    if ob is not None and oblique is not None:
+        raise ValueError("two oblique TF/SF sources")
+    oblique = oblique if oblique is not None else ob
+    if oblique is not None:
+        if tfsf is not None:
+            raise ValueError("oblique and tfsf are mutually exclusive")
+        if not isinstance(oblique, ObliqueTfsf):
+            raise TypeError("oblique must be fdtd_tpu_torch's ObliqueTfsf "
+                            "(convert.oblique_tfsf_from_numpy builds one)")
+        oblique.validate(shape)
+    if tfsf is not None:
         if not isinstance(tfsf, Tfsf):
-            raise TypeError("tfsf must be fdtd_tpu_torch's Tfsf "
+            raise TypeError("tfsf must be fdtd_tpu_torch's Tfsf or ObliqueTfsf "
                             "(convert.tfsf_from_numpy builds one)")
         tfsf.validate(shape)
-    if cpml is not None:
-        for axis in cpml.active_axes():
-            lo, hi = cpml.thickness[axis]
-            if lo + hi + 1 > shape[axis]:
+    active = set(cpml.active_axes()) if cpml is not None else set()
+    for axis in active:
+        lo, hi = cpml.thickness[axis]
+        if lo + hi + 1 > shape[axis]:
+            raise ValueError(
+                f"CPML slabs ({lo}, {hi}) on axis {axis} need more than "
+                f"{shape[axis]} planes")
+    if dense is not None:
+        if not isinstance(dense, DensePml):
+            raise TypeError("dense must be fdtd_tpu_torch's DensePml "
+                            "(convert.dense_pml_from_numpy builds one)")
+        dense.validate(shape)
+        if dense.axis in active:
+            # live extent only: tile-padded cells are identity no-ops
+            (d0, d1) = dense.live[dense.axis]
+            lo, hi = cpml.thickness[dense.axis]
+            n = shape[dense.axis]
+            if d0 < lo or d1 > n - hi:
                 raise ValueError(
-                    f"CPML slabs ({lo}, {hi}) on axis {axis} need more than "
-                    f"{shape[axis]} planes")
+                    "DensePml region overlaps a boundary CPML slab on axis "
+                    f"{dense.axis}: box [{d0}, {d1}) vs slabs "
+                    f"[0, {lo}) / [{n - hi}, {n})")
 
 
 def init_engine_state(shape, dtype=torch.float32, cpml=None, tfsf=None,
@@ -151,13 +184,16 @@ def init_engine_state(shape, dtype=torch.float32, cpml=None, tfsf=None,
         slab_pair(axis, True) if axis in active else (zeros(), zeros())
         for _, axis in _TERMS
     )
-    if tfsf is not None:
-        aux_e, aux_h = tfsf.init_aux(shape[0], cdt, device)
+    slab_tfsf, _ = split_tfsf(tfsf)
+    if slab_tfsf is not None:
+        aux_e, aux_h = slab_tfsf.init_aux(shape[0], cdt, device)
     else:
+        # no TF/SF, or an ObliqueTfsf (analytic incident: no aux grid)
         aux_e, aux_h = zeros(), zeros()
+    psi_d = tuple(zeros(*dense.box_shape) for _ in range(4)) if dense is not None else ()
     f = [zeros(*shape, dt=dtype) for _ in range(6)]
     return EngineState(*f, tick=0, psi_h=psi_h, psi_e=psi_e, aux_e=aux_e,
-                       aux_h=aux_h)
+                       aux_h=aux_h, psi_d=psi_d)
 
 
 def aux_coefficients(tfsf, nx, inv_dx0, dt, constants):
@@ -188,9 +224,16 @@ def build_step(
 ):
     """Build step(state: EngineState, coeffs, sources) -> EngineState.
 
-    Profiles and aux coefficients move to the state's device on its first
-    step there, in the carry dtype of ``dtype``."""
+    ``tfsf`` is a slab or box ``Tfsf`` or an ``ObliqueTfsf``. ``dense`` is
+    an optional solver.pml_region.DensePml: a per-cell uniaxial CPML on an
+    AABB subgrid (arbitrary-shape absorbers). It must not overlap boundary
+    ``cpml`` slabs on the same axis (the stretches would compound).
+
+    Profiles, region coefficients, aux coefficients and the oblique
+    correction's tables move to the state's device on its first step there,
+    in the carry dtype of ``dtype``."""
     check_absorbers(shape, cpml, tfsf, dense)
+    tfsf, oblique = split_tfsf(tfsf)
     inv_dx = tuple(float(v) for v in inv_dx)
     cdt = carry_dtype(dtype)
     active = set(cpml.active_axes()) if cpml is not None else set()
@@ -214,12 +257,19 @@ def build_step(
             xs, ys, zs = slice(lo, hi + 1), slice(ylo, yhi + 1), slice(zlo, zhi + 1)
         else:
             xs, ys, zs = slice(lo, hi + 1), slice(None), slice(None)
+    if dense is not None:
+        dbox = tuple(slice(b0, b1) for b0, b1 in dense.box)
+    if oblique is not None:
+        ob_sub = tuple(slice(b0, b1) for b0, b1 in oblique.subgrid())
 
     per_device = {}
 
     def consts(device):
-        """(slab profiles, aux coefficients) on ``device``."""
+        """(slab profiles, aux coefficients, region coefficients, oblique
+        correction) on ``device``."""
         if device not in per_device:
+            from .tfsf_oblique import ObliqueCorrection
+
             profs = {}
             for (key, axis), ((ik, b, c), ((l0, l1), (h0, h1))) in profs_np.items():
 
@@ -238,18 +288,34 @@ def build_step(
                 )
             aux = None if aux_np is None else tuple(
                 torch.as_tensor(v).to(device=device, dtype=cdt) for v in aux_np)
-            per_device[device] = (profs, aux)
+            region = None if dense is None else {
+                key: tuple(torch.as_tensor(np.asarray(c)).to(device=device, dtype=cdt)
+                           for c in cofs)
+                for key, cofs in (("h", dense.coeffs_h), ("e", dense.coeffs_e))}
+            ob = None if oblique is None else ObliqueCorrection(
+                oblique, shape, inv_dx, dt, constants, cdt, device)
+            per_device[device] = (profs, aux, region, ob)
         return per_device[device]
 
-    def curl_with_psi(f3, psi, diff, key, profs):
+    def curl_with_psi(f3, psi, diff, key, profs, region, psi_d):
         """CPML-stretched curl with SLAB-resident psi: the recurrence and
         stretch touch only the absorber thickness along each term's axis
         (the interior passes through untouched: kappa there is 1 and psi
-        is identically 0)."""
+        is identically 0). ``psi_d`` carries this half's two region psi
+        tensors when a DensePml is configured; its stretch comes first."""
         d = {}
         new_psi = list(psi)
+        new_psi_d = list(psi_d)
+        n_dense = 0
         for idx, (comp, axis) in enumerate(_TERMS):
             raw = diff(f3[comp], axis, bc.axis(axis), comp) * inv_dx[axis]
+            if region is not None and axis == dense.axis:
+                ik, b, c = region[key]
+                sub = raw[dbox]
+                p = b * psi_d[n_dense] + c * sub
+                raw[dbox] = (ik * sub + p).to(raw.dtype)  # raw is this term's own
+                new_psi_d[n_dense] = p
+                n_dense += 1
             if axis in active:
                 (lo_prof, hi_prof, ((l0, l1), (h0, h1))) = profs[(key, axis)]
                 psi_lo, psi_hi = psi[idx]
@@ -273,14 +339,14 @@ def build_step(
         cx = d[(2, 1)] - d[(1, 2)]
         cy = d[(0, 2)] - d[(2, 0)]
         cz = d[(1, 0)] - d[(0, 1)]
-        return (cx, cy, cz), tuple(new_psi)
+        return (cx, cy, cz), tuple(new_psi), tuple(new_psi_d)
 
     def _coef_block(coef, *idx):
         return coef if coef.dim() == 0 else coef[idx]
 
     def step(state: EngineState, coeffs: CellCoefficients,
              sources: Optional[SourceSet]) -> EngineState:
-        profs, aux_coeffs = consts(state.device)
+        profs, aux_coeffs, region, ob = consts(state.device)
         fdt = state.dtype
         t = field_dtype_time(state.tick, dt, fdt)
         pts = j_vals = m_vals = None
@@ -290,8 +356,17 @@ def build_step(
                                               j_vals, m_vals)
 
         # --- H half-update -------------------------------------------------
-        ce, psi_h = curl_with_psi(state.e, state.psi_h, _diff_backward, "h", profs)
+        ce, psi_h, psi_d_h = curl_with_psi(state.e, state.psi_h, _diff_backward, "h",
+                                           profs, region, state.psi_d[0:2])
         h = [coeffs.d_a * state.h[c] - coeffs.d_b * ce[c] for c in range(3)]
+
+        if ob is not None:
+            # surface currents of the oblique plane wave (incident E at the
+            # OLD time level, like the aux-grid path)
+            corr = ob.corr_h(t)[0][0]
+            db_sub = _coef_block(coeffs.d_b, *ob_sub)
+            for c in range(3):
+                h[c][ob_sub] += (-db_sub * corr[c]).to(fdt)
 
         aux_e, aux_h = state.aux_e, state.aux_h
         if tfsf is not None:
@@ -317,8 +392,16 @@ def build_step(
             h = add_at(h, pts, _cells(coeffs.d_b, pts, len(pts), fdt), m_vals, fdt)
 
         # --- E half-update (uses the new H) ---------------------------------
-        ch, psi_e = curl_with_psi(tuple(h), state.psi_e, _diff_forward, "e", profs)
+        ch, psi_e, psi_d_e = curl_with_psi(tuple(h), state.psi_e, _diff_forward, "e",
+                                           profs, region, state.psi_d[2:4])
         e = [coeffs.c_a * state.e[c] + coeffs.c_b * ch[c] for c in range(3)]
+
+        if ob is not None:
+            # incident H at the NEW (half-step advanced) time level
+            corr = ob.corr_e(half_tick_later(t, dt, fdt))[0][0]
+            cb_sub = _coef_block(coeffs.c_b, *ob_sub)
+            for c in range(3):
+                e[c][ob_sub] += (cb_sub * corr[c]).to(fdt)
 
         if tfsf is not None:
             # incident H at the new time level (aux just stepped).
@@ -342,7 +425,15 @@ def build_step(
 
         return EngineState(
             *e, *h, tick=state.tick + 1, psi_h=psi_h, psi_e=psi_e,
-            aux_e=aux_e, aux_h=aux_h, psi_d=state.psi_d, dft=state.dft,
+            aux_e=aux_e, aux_h=aux_h,
+            psi_d=psi_d_h + psi_d_e if dense is not None else state.psi_d,
+            dft=state.dft,
         )
 
     return step
+
+
+def half_tick_later(t: float, dt: float, dtype: torch.dtype) -> float:
+    """``t + dt/2`` in ``dtype``, as the JAX engine times the oblique E
+    correction (a host computation)."""
+    return float(torch.tensor(t, dtype=dtype) + torch.tensor(0.5 * dt, dtype=dtype))

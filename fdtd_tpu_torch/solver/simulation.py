@@ -12,16 +12,17 @@ when no accumulator rides the run and the cadence allows K > 1 ticks per
 call, else K1 (``cuda_step``). Elsewhere, or with ``backend="torch"``, it
 runs the plain step. ``plan()`` says which.
 
-Absorbing runs (``cpml`` and/or a slab or box ``tfsf``) step an
-``EngineState`` (solver/engine.py): on a CUDA device through K4
-(``cuda_cpml_k``) or K3 (``cuda_cpml``), elsewhere through the plain
-engine. Accumulators ride K4 when ``kernel_accumulator_spec`` places every
-one of them on the kernel's options (flux faces, DFT planes, row
-captures), as in the JAX package; an accumulator that fits none drops the
-run to K3 with a per-tick ``update()``. TF/SF-only runs ride the CPML
-kernels with an empty absorber. DensePml regions and oblique TF/SF are not
-ported yet (ROADMAP.md, queue 1 item 7): asking for either raises
-``NotImplementedError``.
+Absorbing runs (``cpml``, a slab, box or oblique ``tfsf``, and/or a
+``dense_pml`` region) step an ``EngineState`` (solver/engine.py): on a
+CUDA device through K4 (``cuda_cpml_k``) or K3 (``cuda_cpml``), whose
+``dense`` and ``oblique`` options carry the region and the oblique TF/SF,
+elsewhere through the plain engine. Accumulators ride K4 when
+``kernel_accumulator_spec`` places every one of them on the kernel's
+options (flux faces, DFT planes, row captures), as in the JAX package; an
+accumulator that fits none drops the run to K3 with a per-tick
+``update()``. TF/SF-only and region-only runs ride the CPML kernels with an
+empty absorber. Unlike the TPU kernels, the port's take a region box of
+any extent: no tile padding.
 
 The device defaults to the current CUDA card; without one, construction
 raises unless the caller passes ``device="cpu"``.
@@ -44,7 +45,7 @@ from .cuda_cpml import cuda_cpml_step_fn, supports_cpml
 from .cuda_cpml_k import cuda_cpml_stepk_fn, supports_cpml_k
 from .cuda_step import cuda_step_fn, supports
 from .cuda_stepk import cuda_stepk_fn, supports_k
-from .engine import build_step, check_absorbers, init_engine_state
+from .engine import build_step, check_absorbers, init_engine_state, split_tfsf
 from .sources import SourceSet
 from .state import DEFAULT_DEVICE, SimState, resolve_device, zero_state
 from .step import CellCoefficients, step_fn
@@ -123,14 +124,16 @@ class Simulation:
 
     @property
     def _absorbing(self) -> bool:
-        return self.cpml is not None or self.tfsf is not None
+        return self.cpml is not None or self.tfsf is not None \
+            or self.dense_pml is not None
 
     def init(self) -> SimState:
-        """The zero state: an ``EngineState`` (psi slabs, aux line) for
-        absorbing runs, else a ``SimState``."""
+        """The zero state: an ``EngineState`` (psi slabs, aux line, region
+        psi) for absorbing runs, else a ``SimState``."""
         if self._absorbing:
             return init_engine_state(self.grid.shape, self.dtype, cpml=self.cpml,
-                                     tfsf=self.tfsf, device=self.device)
+                                     tfsf=self.tfsf, dense=self.dense_pml,
+                                     device=self.device)
         return zero_state(self.grid.shape, self.dtype, self.device)
 
     @property
@@ -158,7 +161,10 @@ class Simulation:
         """Whether the CPML kernels cover this absorbing run (the
         counterpart of ``_cpml_kernel_eligible``): a CUDA device, f32/bf16,
         Neumann(0) edges, scalar coefficients or a uint8 matid with at most
-        256 materials, and CPML slabs that do not meet."""
+        256 materials, and CPML slabs that do not meet. A DensePml region
+        (clear of the slabs on its axis, which ``check_absorbers`` holds at
+        construction) and an oblique TF/SF ride the kernels' options at any
+        box: the JAX package's tile-alignment condition is Mosaic's."""
         if self.device.type != "cuda":
             return False
         if not supports_cpml(self.grid.shape, self.bc, self._cpml_or_empty,
@@ -168,7 +174,8 @@ class Simulation:
 
     @property
     def _cpml_or_empty(self) -> Cpml:
-        """TF/SF-only runs ride the CPML kernels with an empty absorber."""
+        """TF/SF-only and region-only runs ride the CPML kernels with an
+        empty absorber."""
         if self.cpml is not None:
             return self.cpml
         return Cpml(thickness=((0, 0), (0, 0), (0, 0)))
@@ -200,8 +207,9 @@ class Simulation:
         if self.matid is not None:
             kw.update(matid=self.matid, n_materials=self._n_materials)
         if self._absorbing:
+            tfsf, oblique = split_tfsf(self.tfsf)
             kw.update(constants=self.grid.constants, cpml=self._cpml_or_empty,
-                      tfsf=self.tfsf)
+                      tfsf=tfsf, dense=self.dense_pml, oblique=oblique)
         return kw
 
     def _bind(self, kernel):
@@ -223,7 +231,8 @@ class Simulation:
         if self._absorbing:
             plain = build_step(self.grid.shape, inv_dx=inv_dx, dt=self.grid.dt,
                                bc=self.bc, constants=self.grid.constants,
-                               dtype=self.dtype, cpml=self.cpml, tfsf=self.tfsf)
+                               dtype=self.dtype, cpml=self.cpml, tfsf=self.tfsf,
+                               dense=self.dense_pml)
         else:
             plain = step_fn(inv_dx=inv_dx, dt=self.grid.dt, bc=self.bc)
         coeffs = self._dense_coeffs
@@ -290,7 +299,8 @@ class Simulation:
             if self._absorbing:
                 fits = supports_cpml_k(self.grid.shape, self.bc, self._cpml_or_empty,
                                        k, dtype=self.dtype, n_materials=n_mat,
-                                       **options)
+                                       dense=self.dense_pml,
+                                       oblique=split_tfsf(self.tfsf)[1], **options)
             else:
                 fits = supports_k(self.grid.shape, self.bc, k,
                                   dtype=self.dtype, n_materials=n_mat)

@@ -145,6 +145,41 @@ def test_pml_and_cpml_profiles_equal(units):
     assert ppml.sigma_max_optimal(3.0, dx, pc) == jpml.sigma_max_optimal(3.0, dx, jc)
 
 
+@pytest.mark.parametrize("axis", [0, 2])
+def test_pml_region_equal(axis):
+    """solver/pml_region.py: the depth march on a ball's containment, the
+    per-cell coefficients of both staggers and the tile padding."""
+    from fdtd_tpu.scene.shapes import Ball
+    from fdtd_tpu.solver import pml as jpml
+    from fdtd_tpu.solver import pml_region as jreg
+    from fdtd_tpu_torch.solver import pml as ppml
+    from fdtd_tpu_torch.solver import pml_region as preg
+
+    ball, ctr = Ball(4.0), np.array([[7.5], [6.0], [8.5]])
+    box = ((3, 12), (2, 11), (4, 13))
+
+    def contains(p):
+        return ball.contains(p - ctr)
+
+    jd = jreg.depth_from_contains(contains, box, axis, -1)
+    pd = preg.depth_from_contains(contains, box, axis, -1)
+    for a, b in zip(pd, jd):
+        np.testing.assert_array_equal(a, b)
+    kw = dict(dx=0.7, dt=0.3)
+    jr = jreg.dense_pml_from_depth(axis, box, *jd, spec=jpml.GradedPmlSpec(m=3.0),
+                                   constants=jt.REDUCED, **kw)
+    pr = preg.dense_pml_from_depth(axis, box, *pd, spec=ppml.GradedPmlSpec(m=3.0),
+                                   constants=pt.REDUCED, **kw)
+    for j, p in ((jr, pr), (jreg.pad_dense_to_tiles(jr, (16, 24, 256)),
+                            preg.pad_dense_to_tiles(pr, (16, 24, 256)))):
+        assert (p.axis, p.box, p.live, p.box_shape) == (j.axis, j.box, j.live, j.box_shape)
+        for a, b in zip((*p.coeffs_h, *p.coeffs_e), (*j.coeffs_h, *j.coeffs_e)):
+            assert a.dtype == b.dtype == np.float32
+            np.testing.assert_array_equal(a, b)
+    assert float(pr.coeffs_e[1].max()) > 0 and pr.box_shape != preg.pad_dense_to_tiles(
+        pr, (16, 24, 256)).box_shape
+
+
 @pytest.mark.parametrize("box", [False, True])
 def test_tfsf_build_aux_equal(box):
     """The TF/SF aux grid's coefficients (vacuum, then the lossy ramp)."""

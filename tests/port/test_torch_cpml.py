@@ -16,6 +16,8 @@
 JAX runs at x64 (tests/conftest.py), so every JAX call names its dtype.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -165,14 +167,46 @@ def test_cpml_delegates_to_the_engine(rng):
 
 
 def test_engine_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """What the JAX engine and kernels refuse still raises: objects that are
+    not the port's, CPML slabs that meet, a region over a boundary slab on
+    its axis, an oblique box without 2 cells of margin, an oblique TF/SF
+    beside a slab one. A DensePml region and an ObliqueTfsf, refused before
+    they were ported, now build and step."""
+    cpml = pt.Cpml(thickness=RAGGED_CPML)
+    with pytest.raises(TypeError, match="DensePml"):
         pt.build_step(RAGGED, inv_dx=INV_DX, dt=DT, dense=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.init_engine_state(RAGGED, tfsf=object(), device="cpu")  # no span: oblique
+    with pytest.raises(TypeError, match="Tfsf"):
+        pt.init_engine_state(RAGGED, tfsf=object(), device="cpu")
     with pytest.raises(TypeError):
         pt.init_engine_state(RAGGED, tfsf=_jax_tfsf((6, 12)), device="cpu")
     with pytest.raises(ValueError, match="planes"):
         pt.init_engine_state((8, 8, 8), cpml=pt.Cpml.uniform(4), device="cpu")
+    depth = np.linspace(0.1, 1.0, 2 * 13 * 11).reshape(2, 13, 11)
+    over = pt.dense_pml_from_depth(0, ((2, 4), (0, 13), (0, 11)), depth, depth,
+                                   spec=cpml.spec, dx=1.0, dt=DT, constants=pt.REDUCED)
+    with pytest.raises(ValueError, match="overlaps"):
+        pt.build_step(RAGGED, inv_dx=INV_DX, dt=DT, cpml=cpml, dense=over)
+    oblique = pt.ObliqueTfsf(box=((4, 14), (1, 9), (3, 7)), direction=(1.0, 0.7, -0.4),
+                             polarization=(0.0, 0.2, 1.0),
+                             waveform=pt.GaussianPulse(4 * DT, 1.5 * DT))
+    with pytest.raises(ValueError, match="margin"):
+        pt.build_step(RAGGED, inv_dx=INV_DX, dt=DT, tfsf=oblique)
+    oblique = dataclasses.replace(oblique, box=((4, 14), (3, 9), (3, 7)))
+    slab = convert.tfsf_from_numpy(_jax_tfsf((6, 12)))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        cuda_cpml_step_fn(RAGGED, inv_dx=INV_DX, dt=DT, cpml=cpml, tfsf=slab, oblique=oblique)
+    # formerly refused: a region clear of the slabs on its axis and an
+    # oblique plane wave, together on the engine
+    inside = dataclasses.replace(over, box=((5, 7), (0, 13), (0, 11)))
+    state = pt.init_engine_state(RAGGED, torch.float64, cpml=cpml, tfsf=oblique,
+                                 dense=inside, device="cpu")
+    step = pt.build_step(RAGGED, inv_dx=INV_DX, dt=DT, constants=pt.REDUCED,
+                         dtype=torch.float64, cpml=cpml, tfsf=oblique, dense=inside)
+    coeffs = pt.CellCoefficients.uniform((1.0, DT, 1.0, DT), torch.float64, device="cpu")
+    for _ in range(12):
+        state = step(state, coeffs, None)
+    assert state.tick == 12 and len(state.psi_d) == 4
+    assert float(state.ez.abs().max()) > 0 and float(state.psi_d[2].abs().max()) > 0
 
 
 # -- the kernels' plain versions against the TPU kernels -----------------------------

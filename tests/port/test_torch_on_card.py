@@ -147,7 +147,8 @@ def _check_engine(got, want, dtype, ticks):
         scale = float(b.float().abs().max())
         np.testing.assert_allclose(a.float().numpy(), b.float().numpy(), rtol=0,
                                    atol=tol * scale, err_msg=f)
-    for a, b in zip(psi_tensors(got), psi_tensors(want)):
+    assert len(got.psi_d) == len(want.psi_d)
+    for a, b in zip((*psi_tensors(got), *got.psi_d), (*psi_tensors(want), *want.psi_d)):
         scale = float(b.abs().max()) if b.numel() else 0.0
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
                                    atol=2e-6 * ticks * scale)
@@ -176,6 +177,64 @@ def test_k4_matches_plain(cuda_device, dtype, k):
     before = cuda_cpml_k.launches()
     got = cuda_cpml_stepk_fn(SHAPE, k, **dkw)(ds, dc, dsrc)
     assert cuda_cpml_k.launches() == before + 1
+    _check_engine(got, want, dtype, k)
+
+
+# -- the region and oblique options (K3 dense/oblique, K4c, K4d) on the same
+# ragged inputs: a ball region graded along y whose box crosses the tile
+# edges (y 8, z 32), the skew frame's oblique box (tests/test_oblique_kernel.py)
+
+REGION_BOX = ((10, 26), (6, 20), (28, 45))
+OBLIQUE = pt.ObliqueTfsf(box=((8, 27), (8, 23), (3, 40)), direction=(1.0, 0.7, -0.4),
+                         polarization=(0.0, 0.2, 1.0),
+                         waveform=pt.GaussianPulse(6 * DT, 2 * DT))
+
+
+def _region():
+    from fdtd_tpu_torch.scene import Ball
+
+    ball, ctr = Ball(7.0), np.array([[18.0], [13.0], [36.5]])
+    d_h, d_e = pt.depth_from_contains(lambda p: ball.contains(p - ctr), REGION_BOX, 1, 1)
+    return pt.dense_pml_from_depth(1, REGION_BOX, d_h, d_e, spec=pt.solver.GradedPmlSpec(),
+                                   dx=1.0 / INV_DX[1], dt=DT, constants=pt.REDUCED)
+
+
+def _ext_inputs(dtype, device, option):
+    """_engine_inputs with the region (random psi_d), the oblique box in
+    place of the TF/SF box, or both."""
+    (hs, hc, hsrc, hkw), (ds, dc, dsrc, dkw) = _engine_inputs(dtype, device)
+    ext = {}
+    if option in ("dense", "both"):
+        ext["dense"] = _region()
+        rng = np.random.default_rng(17)
+        psi_d = tuple(torch.from_numpy(rng.standard_normal(ext["dense"].box_shape)
+                                       .astype(np.float32)) for _ in range(4))
+        hs, ds = hs.replace(psi_d=psi_d), ds.replace(psi_d=tuple(p.to(device) for p in psi_d))
+    if option in ("oblique", "both"):
+        ext.update(tfsf=None, oblique=OBLIQUE)
+    return (hs, hc, hsrc, dict(hkw, **ext)), (ds, dc, dsrc, dict(dkw, **ext))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("option", ["dense", "oblique", "both"])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_region_and_oblique_options_match_plain(cuda_device, dtype, option, k):
+    """K3 (k = 1) and K4 with ``dense``, ``oblique`` or both against their
+    plain versions: fields, slab psi and psi_d at the bars of K3 and K4."""
+    (hs, hc, hsrc, hkw), (ds, dc, dsrc, dkw) = _ext_inputs(dtype, cuda_device, option)
+    mod = cuda_cpml if k == 1 else cuda_cpml_k
+
+    def build(kw):
+        return cuda_cpml_step_fn(SHAPE, **kw) if k == 1 else cuda_cpml_stepk_fn(SHAPE, k, **kw)
+
+    want = build(hkw)(hs, hc, hsrc)
+    before, opts = mod.launches(), mod.option_launches()
+    got = build(dkw)(ds, dc, dsrc)
+    after = mod.option_launches()
+    assert mod.launches() == before + 1
+    for name in ("dense", "oblique"):
+        assert after[name] == opts[name] + (option in (name, "both"))
     _check_engine(got, want, dtype, k)
 
 

@@ -76,14 +76,34 @@ def test_sigma_meets_the_rayleigh_gate():
 
 
 def test_what_is_not_ported_raises():
+    """Oblique incidence and an interior GradedPml entity, refused before
+    they were ported, now run; what the JAX package refuses still raises:
+    a polarization along the direction, a region over a boundary slab on
+    its axis, and the kernels off the card."""
     scene = _sphere(pt, Scene, Ball, Isometry)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    kw = dict(_KWARGS, n_steps=24)
+    with pytest.raises(ValueError, match="parallel"):
+        scattering_cross_section(scene, direction=(1.0, 1.0, 0.0),
+                                 polarization=(2.0, 2.0, 0.0), device="cpu", **kw)
+    with pytest.raises(ValueError, match="not eligible"):
         scattering_cross_section(scene, direction=(1.0, 1.0, 0.0), device="cpu",
-                                 **_KWARGS)
-    # a GradedPml entity inside the domain needs the volumetric route
+                                 backend="cuda", **kw)
+    res = scattering_cross_section(scene, direction=(1.0, 1.0, 0.0), device="cpu", **kw)
+    assert res.grid.shape == (44, 32, 32) and np.isfinite(res.sigma_scat)
+    # a GradedPml entity inside the domain takes the volumetric route
     scene.spawn(shape=Cuboid((2.0, 2.0, 2.0)), pose=Isometry.from_translation((5.0, 0, 0)),
                 pml=GradedPmlComponent(spec=pt.solver.GradedPmlSpec(), normal=(1.0, 0, 0)))
     res = pt.Resolution.courant(1.0, pt.REDUCED, safety=0.9)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    compiled = pt.scene.compile_scene(scene, res, constants=pt.REDUCED,
+                                      volume=pt.scene.Volume.fixed((8.0, 6.0, 6.0)),
+                                      device="cpu")
+    region = compiled.simulation.dense_pml
+    assert region.axis == 0 and region.box[0] == (11, 16)
+    state = compiled.simulation.run(compiled.simulation.init(), 4)[0]
+    assert state.tick == 4 and len(state.psi_d) == 4
+    # ... but not when it reaches into a boundary slab along its normal
+    scene.spawn(shape=Cuboid((0.5, 6.0, 6.0)), pose=Isometry.from_translation((7.5, 0, 0)),
+                pml=GradedPmlComponent(spec=pt.solver.GradedPmlSpec(), normal=(-1.0, 0, 0)))
+    with pytest.raises(ValueError, match="overlaps"):
         pt.scene.compile_scene(scene, res, constants=pt.REDUCED,
                                volume=pt.scene.Volume.fixed((8.0, 6.0, 6.0)), device="cpu")

@@ -11,6 +11,8 @@ largest value, and the energy, an f32 sum over 7e4 squares taken in another
 order by each package, to 1e-4.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +24,6 @@ from fdtd_tpu.probes import DftProbe as JDft
 from fdtd_tpu.probes import EnergyProbe as JEnergy
 from fdtd_tpu.probes import LineProbe as JLine
 from fdtd_tpu.probes import PointProbe as JPoint
-from fdtd_tpu.solver.tfsf_oblique import ObliqueTfsf
 from fdtd_tpu_torch.probes import (
     DftProbe,
     EnergyProbe,
@@ -165,17 +166,42 @@ def test_step_and_reporting():
 
 
 def test_unported_and_ineligible_configurations_raise():
+    """Both absorbers run on the plain engine (an oblique TF/SF and a
+    DensePml region, each alone); what the JAX package refuses still raises:
+    a box without 2 cells of margin, a region over a boundary slab on its
+    axis, a region that is not the port's, and the kernels off the card."""
     grid = pt.Grid(shape=(8, 8, 8), resolution=pt.Resolution.courant(1.0, pt.REDUCED),
                    constants=pt.REDUCED)
     coeffs = pt.CellCoefficients.uniform((1, 0.5, 1, 0.5), device="cpu")
-    oblique = ObliqueTfsf(box=((2, 5), (2, 5), (2, 5)), direction=(1.0, 1.0, 0.0),
-                          polarization=(0.0, 0.0, 1.0),
-                          waveform=jt.GaussianPulse(1.0, 0.5))
-    for kw in (dict(tfsf=oblique), dict(dense_pml=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt.Simulation(grid=grid, coeffs=coeffs, device="cpu", **kw)
+    oblique = pt.ObliqueTfsf(box=((2, 5), (2, 5), (2, 5)), direction=(1.0, 1.0, 0.0),
+                             polarization=(0.0, 0.0, 1.0),
+                             waveform=pt.GaussianPulse(1.0, 0.5))
+    depth = np.ones((2, 8, 8))
+    dense = pt.dense_pml_from_depth(0, ((3, 5), (0, 8), (0, 8)), depth, depth,
+                                    spec=pt.solver.GradedPmlSpec(), dx=1.0, dt=grid.dt,
+                                    constants=pt.REDUCED)
+    for kw, n_psi_d in ((dict(tfsf=oblique), 0), (dict(dense_pml=dense), 4)):
+        sim = pt.Simulation(grid=grid, coeffs=coeffs, device="cpu", **kw)
+        state = sim.run(sim.init(), 12)[0]
+        assert state.tick == 12 and len(state.psi_d) == n_psi_d
+        assert sim.plan(12) == (1, "torch")
+        if n_psi_d:
+            # no field reaches the region: its psi stays 0
+            assert float(state.psi_d[0].abs().max()) == 0.0
+        else:
+            assert float(state.ez.abs().max()) > 0  # the plane wave entered the box
+    with pytest.raises(ValueError, match="margin"):
+        pt.Simulation(grid=grid, coeffs=coeffs, device="cpu",
+                      tfsf=dataclasses.replace(oblique, box=((1, 5), (2, 5), (2, 5))))
+    with pytest.raises(ValueError, match="overlaps"):
+        pt.Simulation(grid=grid, coeffs=coeffs, device="cpu", dense_pml=dense,
+                      cpml=pt.Cpml(thickness=((4, 2), (0, 0), (0, 0))))
+    with pytest.raises(TypeError):
+        pt.Simulation(grid=grid, coeffs=coeffs, device="cpu", dense_pml=object())
     with pytest.raises(ValueError, match="not eligible"):
         pt.Simulation(grid=grid, coeffs=coeffs, backend="cuda", device="cpu")
+    with pytest.raises(ValueError, match="not eligible"):
+        pt.Simulation(grid=grid, coeffs=coeffs, backend="cuda", device="cpu", tfsf=oblique)
     with pytest.raises(ValueError, match="outside the table"):
         pt.Simulation(grid=grid, matid=np.full((8, 8, 8), 3, np.uint8),
                       table=np.ones((3, 4)), device="cpu")

@@ -14,8 +14,9 @@ it stands), builds them with one nvcc each, checks each against K4's plain
 version on a ragged lattice (37x29x53, CPML on every axis, a TF/SF box,
 K = 4), and times each with K3 beside it at config 3's 256^3 and at 512^3
 with ``Cpml.uniform(10)`` (f32), with CUDA events, in turns. All runs are
-K4 without its accumulator options. A baseline from before the options
-(no ``opt_meta`` in its C entry) is called through its own interface.
+K4 without its options. A baseline from before the accumulator options
+(no ``opt_meta`` in its C entry) or before the region and oblique options
+(no ``ext_meta``) is called through its own interface.
 ``--shipped-only`` keeps the shipped cap (4 blocks per SM) and the
 baselines only.
 """
@@ -52,14 +53,20 @@ def sources(d: Path):
         '#include "yee.cuh"', f'#include "{CSRC / "yee.cuh"}"'))
 
 
-class _BeforeOptions(_build.Kernel):
-    """A K4 source whose C entry predates the accumulator options: the
-    wrapper's two option arguments (null without options) are dropped."""
+class _OlderEntry(_build.Kernel):
+    """A K4 source whose C entry predates its last ``drop`` arguments before
+    the stream (the accumulator options, then the region and oblique
+    extensions): the wrapper's values for them, null when a run does not
+    use them, are dropped."""
+
+    def __init__(self, name, source, entry, argtypes, drop):
+        super().__init__(name, source, entry, argtypes[:-1 - drop] + argtypes[-1:])
+        self.drop = drop
 
     def launch(self, *args):
-        if args[-3] is not None or args[-2] is not None:
-            raise ValueError("this K4 version has no accumulator options")
-        super().launch(*args[:-3], args[-1])
+        if any(a is not None for a in args[-1 - self.drop:-1]):
+            raise ValueError("this K4 version lacks an option this run uses")
+        super().launch(*args[:-1 - self.drop], args[-1])
 
 
 def variants(baselines, shipped_only=False):
@@ -98,19 +105,36 @@ def build(baselines, shipped_only=False):
         (d / "cpmlk.cu").write_text(f"// variant: {name}\n{cu}")
         path = str(Path("..", "..", "build", "k4_variants", f"v{i}", "cpmlk.cu"))
         argtypes = list(_build.CPMLK.argtypes)
-        if "opt_meta" in cu:
-            kernels[name] = _build.Kernel(f"K4 {name}", path, "fdtd_cpmlk", argtypes)
-        else:
-            kernels[name] = _BeforeOptions(f"K4 {name}", path, "fdtd_cpmlk",
-                                           argtypes[:-3] + argtypes[-1:])
+        drop = 0 if "ext_meta" in cu else (2 if "opt_meta" in cu else 4)
+        kernels[name] = (_OlderEntry(f"K4 {name}", path, "fdtd_cpmlk", argtypes, drop)
+                         if drop else _build.Kernel(f"K4 {name}", path, "fdtd_cpmlk",
+                                                    argtypes))
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda k: k.build(), kernels.values()))
     for name, k in kernels.items():
         k.function()
-        regs = [ln.strip() for ln in k.build_log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"{name}: {' | '.join(regs[:2])}", flush=True)
+        print(f"{name}: built in {k.build_seconds} s", flush=True)
+        for entry, regs in ptxas_entries(k.build_log):
+            print(f"  {entry}: {' | '.join(regs)}", flush=True)
     return kernels
+
+
+def ptxas_entries(log):
+    """[(kernel instantiation, its ptxas spill and register lines)] of a
+    build log, the instantiation named by its template arguments."""
+    out = []
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
+        if m and "cpmlk_kernel" in m.group(1):
+            args = re.search(r"cpmlk_kernelI(\w+?)EEv", m.group(1))
+            name = m.group(1) if args is None else "<" + args.group(1).replace(
+                "13__nv_bfloat16", "bf16").replace("Lb1E", ", true").replace(
+                "Lb0E", ", false").replace("f,", "float,") + ">"
+            if not out or out[-1][0] != name:
+                out.append((name, []))
+        elif out and ("registers" in ln or "spill" in ln):
+            out[-1][1].append(ln.split(":", 1)[-1].strip())
+    return out
 
 
 def check(kernels, dev):

@@ -22,33 +22,44 @@ Run from the root of a checkout. In order it
    on the 37x29x53 case (a ball region graded along y whose box crosses
    tile edges, tests/test_oblique_kernel.py's skew frame) and at 256^3 with
    paths A's and B's absorbers, in f32 and bf16, psi and psi_d included;
+   K1 and K2 (every K of the ladder) in place (``io_alias``) on 37x29x53
+   and at 256^3, uniform, J+M sources, f32 and bf16, against their
+   in-place plain versions and against the out-of-place kernels (f32:
+   bit-identical), every output in its input tensor;
 4. runs the free-space main path: BASELINE config 2 at 128^3 (a dielectric
    sphere and a lossy slab in a uint8 material index, a Gaussian J dipole),
    built as __graft_entry__._flagship builds it, for 1000 ticks with a
    point probe through K2 and for 1000 ticks with a DFT accumulator through
    K1, held to the plain step run on the card;
-5. runs the absorbing main path: BASELINE config 3 at 256^3 (CPML 10 cells
+5. runs BASELINE config 5 on one card in place: 64 ticks of a Gaussian J
+   dipole at the centre of a 1024^3 vacuum lattice (f32 and bf16) and of a
+   1440^3 one (f32: two sets of fields would not fit the card) through K2
+   io_alias (K = 8; at bf16 also K = 2) and K1 io_alias, with a live z
+   slice after every K2 call; the central 256^3 crop must equal a 256^3
+   run, every cell outside it must be 0, the peak memory at most one set
+   of fields plus 2 %, and every slice sample must keep its values;
+6. runs the absorbing main path: BASELINE config 3 at 256^3 (CPML 10 cells
    on every face, a closed TF/SF box with a Gaussian-derivative plane wave,
    a dielectric sphere of radius 32 in a uint8 material index, as
    fdtd_tpu/models/scattering.py builds it), for 1000 ticks with a 3-point
    probe every 8 ticks and for 1000 ticks with a DFT plane in the scattered
    field, both through K4 (K = 8; the DFT on its dft option), held to the
    plain engine run on the card;
-6. runs config 3's accumulators (the x = 13 DFT plane, a lateral DFT
+7. runs config 3's accumulators (the x = 13 DFT plane, a lateral DFT
    plane, a BoxDft around the sphere and the scattering box flux) for 1000
    ticks three ways: on K4's options (K4a flux faces, K4b DFT planes and
    row captures), through K3 with a per-tick update (each accumulator
    wrapped so that it fits no option), and through the plain engine, and
    holds both kernel routes to the plain one;
-7. runs the slice's entry point, fdtd_tpu_torch.models.
+8. runs the slice's entry point, fdtd_tpu_torch.models.
    scattering_cross_section, on a Ball(32) scene at 256^3 for 1000 ticks
    (K4 with the flux faces) and holds sigma to the plain engine's;
-8. path A, oblique incidence: the same entry point at 20 degrees
+9. path A, oblique incidence: the same entry point at 20 degrees
    (direction (cos 20, sin 20, 0), z polarization; the ObliqueTfsf), 1000
    ticks through K4 with its oblique option and flux faces, and through
    the plain engine, sigma within 1e-4; then the same flux accumulator
    through K3 with a per-tick update (K3's oblique option);
-9. path B, an interior absorber: compile_scene on config 3's scene with six
+10. path B, an interior absorber: compile_scene on config 3's scene with six
    10-cell edge-slab GradedPml entities (the boundary CPML) and a GradedPml
    cuboid behind the sphere (solver x 200-216 across the whole y-z
    cross-section, normal +x; a DensePml region reaching into the y and z
@@ -56,16 +67,18 @@ Run from the root of a checkout. In order it
    K4 with its dense option (probes every 8 ticks), through K3 (probes
    every tick) and through the plain engine, fields and probes within
    rel 1e-5, and once more without the region for the energy behind it;
-   each of phases 4-9 sets the launch counts to 0 just before each run
+   each of phases 4-10 sets the launch counts to 0 just before each run
    and reads them just after, and each of its kernels must have launched;
-10. times, with CUDA events and in turns, config 2 at 128^3 (K1, K2, the
-   plain step), 512^3 free space (f32 and bf16), config 3 at 256^3 (K3, K4
+11. times, with CUDA events and in turns, config 2 at 128^3 (K1, K2, the
+   plain step), 512^3 free space (f32 and bf16; K1 and K2 K = 8 in place
+   too, with their plain versions, and the peak memory of a call in each
+   mode), config 3 at 256^3 (K3, K4
    at K = 8, 4, 2, K4 at K = 8 with each of its options, the plain engine),
    paths A and B at 256^3 (K3 and K4 at K = 8 with and without ``oblique``
    or ``dense``, the oblique corrections' evaluation apart from the kernel,
    the plain engine) and 512^3 with Cpml.uniform(10) (f32 and bf16), and
    prints Gcell/s and the byte model's share of the H100's 3.35 TB/s;
-11. profiles 64 ticks of each absorbing run, of each accumulator route, of
+12. profiles 64 ticks of each absorbing run, of each accumulator route, of
    paths A and B and of the plain engine at 256^3 (torch.profiler) and
    prints each one's device busy time, idle share and top kernel.
 
@@ -95,6 +108,12 @@ MAIN_SHAPE = (128, 128, 128)  # config 2
 ABSORB_SHAPE = (256, 256, 256)  # config 3
 SCALE_SHAPE = (512, 512, 512)
 MAIN_STEPS = 1000
+# BASELINE config 5 on one card: (n, storage, K; 1 = K1) of each in-place
+# run, its ticks, and the central crop held to a run at that size
+CONFIG5_RUNS = ((1024, "float32", 8), (1024, "float32", 1), (1024, "bfloat16", 8),
+                (1024, "bfloat16", 2), (1024, "bfloat16", 1), (1440, "float32", 8))
+CONFIG5_TICKS = 64
+CONFIG5_CROP = 256
 PATH_A_DEGREES = 20.0  # the middle angle of examples/05_oblique_incidence_rcs.py
 # path B's interior absorber: its solver x extent; it spans the whole y-z
 # cross-section. A uniaxial region whose y or z faces lie inside the domain
@@ -405,6 +424,19 @@ def cuda_ms(torch, fn, state, n, warmup=2):
     return start.elapsed_time(end) / n
 
 
+def peak_call_bytes(torch, fn, state):
+    """Bytes one call of ``fn(state)`` allocates at its peak beyond what was
+    live before it (its outputs and work sets; 0 for an in-place call)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(state)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
 def in_turns(torch, named, state, n):
     """Time each (name, fn, ticks_per_call) twice, in the order given and
     then reversed (plain, kernel, kernel, plain); ms per call, both runs."""
@@ -501,6 +533,95 @@ def self_checks(torch, ft, seed):
                 if shape == MAIN_SHAPE:
                     errs[name].append(err)
     return {name: max(v) for name, v in errs.items()}
+
+
+def inplace_self_checks(torch, ft, seed):
+    """K1 and K2 ``io_alias`` (every K of the ladder) against their in-place
+    plain versions and against the out-of-place kernels, on the same inputs:
+    the ragged 37x29x53 case and 256^3, uniform coefficients, J+M sources,
+    f32 and bf16. Every output must be the input tensor (same data_ptr).
+
+    Tolerance: at f32 bit-identical to the out-of-place kernel, and within
+    2e-6 x ticks x max|field| of the plain version; at bf16, compared in
+    bf16, within 2^-7 x max|field| of the plain version, and within 3 % of
+    max|field| of the out-of-place kernel (which keeps H in f32 for E, as
+    the TPU kernel does: the bar of the CPU tests against JAX)."""
+    import numpy as np
+    from fdtd_tpu_torch.solver.best import K_LADDER
+    from fdtd_tpu_torch.solver.cuda_step import cuda_step_fn, plain_step_inplace
+    from fdtd_tpu_torch.solver.cuda_stepk import cuda_stepk_fn, plain_stepk_inplace
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 5)
+    inv_dx, dt = (1.0, 1.0 / 0.7, 1.0 / 1.3), 0.2
+    coeffs = ft.CellCoefficients.uniform((0.97, 0.21, 0.99, 0.18), device=dev)
+    table = torch.stack(coeffs.astuple()).reshape(1, 4)
+    errs = {}
+    for shape in (LADDER_CHECK_SHAPE, ABSORB_SHAPE):
+        nx, ny, nz = shape
+        src = ft.SourceSet.build([
+            ft.PointSource((nx // 4, ny // 2, nz // 2), ft.GaussianPulse(0.0, 6 * dt),
+                           j=(0.3, -0.2, 1.0), m=(0.1, 0.2, -0.3)),
+            ft.PointSource((nx - 1, 0, nz - 1), ft.ContinuousWave(0.05), j=(0, 1.0, 0)),
+            ft.PointSource((0, ny - 1, 0), ft.Ricker(0.05, 10 * dt), m=(0.5, 0, 0)),
+        ], device=dev)
+        ks = (1, *K_LADDER) if shape == LADDER_CHECK_SHAPE else (1, K_LADDER[0])
+        for dtype in (torch.float32, torch.bfloat16):
+            e = rng.standard_normal((3, *shape)).astype(np.float32)
+            h = rng.standard_normal((3, *shape)).astype(np.float32)
+            state = ft.state_from_stacked(e, h, tick=3, dtype=dtype, device=dev)
+            kw = dict(inv_dx=inv_dx, dt=dt, dtype=dtype, with_m=True)
+            for k in ks:
+                if k == 1:
+                    name = "K1 io_alias"
+                    out_f, in_f = cuda_step_fn(shape, **kw), cuda_step_fn(
+                        shape, io_alias=True, **kw)
+                    plain = lambda s: plain_step_inplace(s, table, None, src,
+                                                         inv_dx=inv_dx, dt=dt,
+                                                         with_m=True)
+                else:
+                    name = "K2 io_alias"
+                    out_f, in_f = cuda_stepk_fn(shape, k, **kw), cuda_stepk_fn(
+                        shape, k, io_alias=True, **kw)
+                    plain = lambda s, k=k: plain_stepk_inplace(
+                        s, table, None, src, k, inv_dx=inv_dx, dt=dt, with_m=True)
+                ref = out_f(state, coeffs, src)
+                want = plain(clone_state(torch, state))
+                work = clone_state(torch, state)
+                fields = (*work.e, *work.h)
+                ptrs = [f.data_ptr() for f in fields]
+                got = in_f(work, coeffs, src)
+                torch.cuda.synchronize()
+                require(got.tick == want.tick == ref.tick == state.tick + k, "tick")
+                require([f.data_ptr() for f in (*got.e, *got.h)] == ptrs,
+                        f"{name}: an output is not its input tensor")
+                err = max_abs_err(got, want)
+                scale = field_scale(want)
+                tol = (2e-6 * k if dtype == torch.float32 else 2.0 ** -7) * scale
+                same = all(torch.equal(a, b) for a, b in zip((*got.e, *got.h),
+                                                             (*ref.e, *ref.h)))
+                vs_out = max_abs_err(got, ref)
+                ok = (err <= tol and all(bool(torch.isfinite(f).all()) for f in fields)
+                      and (same if dtype == torch.float32 else vs_out <= 0.03 * scale))
+                log(f"selfcheck {name} K={k} {tuple(shape)} {str(dtype)[6:]}: "
+                    f"max_abs_err {err:.3e} (tol {tol:.3e}, max|field| {scale:.3f}); "
+                    f"vs out of place {vs_out:.3e}"
+                    f"{' (bit-identical)' if same else ''}; data_ptr kept "
+                    f"{'ok' if ok else 'FAIL'}")
+                require(ok, f"{name} K={k} {shape} {dtype} disagrees")
+                if shape == ABSORB_SHAPE and dtype == torch.float32:
+                    errs[name] = max(errs.get(name, 0.0), err)
+                del ref, want, work, got, fields
+            del state
+        torch.cuda.empty_cache()
+    return errs
+
+
+def clone_state(torch, s):
+    """A state over fresh copies of ``s``'s fields (an in-place call
+    consumes the state it is given)."""
+    return s.replace(**{n: getattr(s, n).clone()
+                        for n in ("ex", "ey", "ez", "hx", "hy", "hz")})
 
 
 def random_engine_state(torch, ft, sim, dtype, cpml, tfsf, gen, dense=None):
@@ -859,6 +980,150 @@ def main_path(torch, ft):
     log(f"main path probes: trace rel err {t_err:.3e}, DFT rel err {s_err:.3e}")
     require(t_err <= 1e-5 and s_err <= 1e-5, "probe/DFT disagree with the plain run")
     return launches
+
+
+def config5(ft, n, device):
+    """BASELINE config 5 on one card, as bench.py's 1024^3 section builds it:
+    an n^3 vacuum lattice (Courant 0.99), a Gaussian J dipole (20 dt, 6 dt)
+    along z at the centre. (grid, sources, coefficients); the sources are
+    f32 at every storage type, as the kernels evaluate them."""
+    res = ft.Resolution.courant(1.0, ft.REDUCED, safety=0.99)
+    grid = ft.Grid(shape=(n, n, n), resolution=res, constants=ft.REDUCED)
+    src = ft.SourceSet.build(
+        [ft.PointSource((n // 2,) * 3, ft.GaussianPulse(20 * grid.dt, 6 * grid.dt),
+                        j=(0.0, 0.0, 1.0))], device=device)
+    table = ft.coefficient_table([ft.VACUUM], res, ft.REDUCED)
+    return grid, src, ft.CellCoefficients.uniform(table[0], device=device)
+
+
+def config5_run(torch, ft, n, dtype, k, io_alias):
+    """CONFIG5_TICKS ticks of config 5 at n^3 from rest through K1 (k = 1) or
+    K2, in place or not, with a SliceProbe at the dipole's z plane after
+    every K2 call. (final state, slice samples, seconds of the loop by CUDA
+    events, peak bytes allocated during the loop beyond what was live
+    before the state, the launch counts read just after)."""
+    from fdtd_tpu_torch.probes import SliceProbe
+    from fdtd_tpu_torch.solver.cuda_step import cuda_step_fn
+    from fdtd_tpu_torch.solver.cuda_stepk import cuda_stepk_fn
+
+    dev = torch.device("cuda")
+    grid, src, coeffs = config5(ft, n, dev)
+    shape = (n, n, n)
+    kw = dict(inv_dx=(1.0, 1.0, 1.0), dt=grid.dt, dtype=dtype, io_alias=io_alias)
+    step = cuda_step_fn(shape, **kw) if k == 1 else cuda_stepk_fn(shape, k, **kw)
+    probe = SliceProbe(axis=2, index=n // 2)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = ft.zero_state(shape, dtype, dev)
+    samples = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    start.record()
+    for _ in range(CONFIG5_TICKS // k):
+        state = step(state, coeffs, src)
+        if k > 1:
+            samples.append(probe.sample(state, grid.dt))
+    end.record()
+    end.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    return state, samples, start.elapsed_time(end) / 1e3, peak, counts
+
+
+def nonzero_outside(torch, f, lo, width, chunk=16):
+    """Cells of ``f`` outside the cube [lo, lo + width)^3 that are not 0 (a
+    NaN counts), counted over chunks of x planes: no lattice-sized
+    temporary."""
+    total = sum(int(torch.count_nonzero(f[x:x + chunk]))
+                for x in range(0, f.shape[0], chunk))
+    inside = int(torch.count_nonzero(f[lo:lo + width, lo:lo + width, lo:lo + width]))
+    return total - inside
+
+
+def config5_path(torch, ft):
+    """BASELINE config 5 on one card: 64 ticks of a J dipole at the centre
+    of a 1024^3 lattice (f32 and bf16) and of a 1440^3 one (f32, whose two
+    sets of fields would need 143 GB), through K2 ``io_alias`` (K = 8; at
+    bf16 also K = 2) and K1 ``io_alias``, with a live z slice after every
+    K2 call. Each run: its launch counts (set to 0 just before it, read just
+    after), the central 256^3 crop equal to a 256^3 run of the same ticks
+    (f32: out of place; bf16: in place), every cell outside the crop 0, the
+    peak memory at most one set of fields plus 2 %, and each slice sample
+    equal to the 256^3 run's at its tick after later calls overwrote the
+    state."""
+    import gc
+
+    f32 = torch.float32
+    w = CONFIG5_CROP
+    runs = [(n, getattr(torch, d), k) for n, d, k in CONFIG5_RUNS]
+    refs = {}
+    for dtype, k in sorted({(d, k) for _, d, k in runs}, key=str):
+        ref, ref_samples, *_ = config5_run(torch, ft, w, dtype, k,
+                                           io_alias=dtype != f32)
+        refs[dtype, k] = (ref, ref_samples)
+    launches = {"K1 io_alias": 0, "K2 io_alias": 0}
+    gcells = {}
+    for n, dtype, k in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        itemsize = 4 if dtype == f32 else 2
+        set_bytes = 6 * n ** 3 * itemsize
+        label = f"config 5 {n}^3 {str(dtype)[6:]} {'K1' if k == 1 else f'K2 K={k}'} io_alias"
+        log(f"{label}: one set {set_bytes / 1e9:.3f} GB, card free "
+            f"{free / 1e9:.3f} of {total / 1e9:.3f} GB")
+        state, samples, secs, peak, counts = config5_run(torch, ft, n, dtype, k,
+                                                         io_alias=True)
+        key = "K1 io_alias" if k == 1 else "K2 io_alias"
+        want = {name: 0 for name in counts}
+        want[key] = CONFIG5_TICKS // k
+        require(counts == want, f"{label}: launches {counts}, expected {want}")
+        launches[key] += counts[key]
+        g = n ** 3 * CONFIG5_TICKS / secs / 1e9
+        gcells[label] = {"seconds": secs, "gcells": g, "peak_bytes": peak,
+                         "set_bytes": set_bytes}
+        log(f"{label}: {CONFIG5_TICKS} ticks in {secs * 1e3:.3f} ms, {g:.3f} Gcell/s; "
+            f"launches {counts}; peak {peak / 1e9:.4f} GB = "
+            f"{peak / set_bytes:.5f} sets")
+        require(peak <= 1.02 * set_bytes, f"{label}: peak {peak} > one set + 2 %")
+        ref, ref_samples = refs[dtype, k]
+        lo = n // 2 - w // 2
+        crop_ok = all(torch.equal(f[lo:lo + w, lo:lo + w, lo:lo + w], r)
+                      for f, r in zip((*state.e, *state.h), (*ref.e, *ref.h)))
+        outside = sum(nonzero_outside(torch, f, lo, w) for f in (*state.e, *state.h))
+        scale = field_scale(ref)
+        slices_ok = len(samples) == len(ref_samples)
+        for got, exp in zip(samples, ref_samples):
+            crop = got[:, lo:lo + w, lo:lo + w]
+            slices_ok &= torch.equal(crop, exp) and int(torch.count_nonzero(got)) == \
+                int(torch.count_nonzero(crop))
+        if samples:
+            slices_ok &= torch.equal(samples[-1], torch.stack(
+                [f[:, :, n // 2] for f in state.e]))
+        log(f"{label}: tick {state.tick}, crop {w}^3 equal to the {w}^3 run "
+            f"{crop_ok} (max|field| {scale:.4e}), nonzero cells outside {outside}, "
+            f"{len(samples)} slice samples equal to the {w}^3 run's {slices_ok}")
+        require(state.tick == CONFIG5_TICKS and tuple(state.ex.shape) == (n, n, n),
+                f"{label}: bad final state")
+        require(crop_ok and scale > 0, f"{label}: the central crop differs from the "
+                f"{w}^3 run")
+        require(outside == 0, f"{label}: {outside} nonzero cells outside the crop")
+        require(slices_ok, f"{label}: a live slice lost its values")
+        del state, samples
+    del refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, gcells
+
+
+def launch_counts():
+    """Each kernel's launches since the last reset_counts, by name."""
+    from fdtd_tpu_torch.solver import _build
+
+    return {kernel.name: kernel.launches for kernel in _build.KERNELS}
 
 
 def reset_counts():
@@ -1452,8 +1717,10 @@ def timings(torch, ft):
     """ms per call of each kernel and its plain version at the main path's
     shape, and Gcell/s at 128^3 config 2 and 512^3 free space."""
     from fdtd_tpu_torch.solver.best import K_LADDER
-    from fdtd_tpu_torch.solver.cuda_step import cuda_step_fn, plain_step
-    from fdtd_tpu_torch.solver.cuda_stepk import cuda_stepk_fn, plain_stepk
+    from fdtd_tpu_torch.solver.cuda_step import (cuda_step_fn, plain_step,
+                                                 plain_step_inplace)
+    from fdtd_tpu_torch.solver.cuda_stepk import (cuda_stepk_fn, plain_stepk,
+                                                  plain_stepk_inplace)
 
     dev = torch.device("cuda")
     results = {}
@@ -1486,22 +1753,35 @@ def timings(torch, ft):
         log(f"timing config2 128^3 {name}: {ms[name][0]:.4f} / {ms[name][1]:.4f} ms "
             f"per call ({ticks} ticks), {results['config2_128'][name]['gcells']:.2f} Gcell/s")
 
-    # scale: 512^3 free space, f32 and bf16
+    # scale: 512^3 free space, f32 and bf16, out of place and in place
     res = ft.Resolution.courant(1.0, ft.REDUCED, safety=0.99)
     coeffs1 = ft.CellCoefficients.uniform((1.0, res.temporal, 1.0, res.temporal),
                                           device=dev)
+    table1 = torch.stack(coeffs1.astuple()).reshape(1, 4)
     inv = (1.0, 1.0, 1.0)
+    top = K_LADDER[0]
     cells = math.prod(SCALE_SHAPE)
     for dtype in (torch.float32, torch.bfloat16):
         b = 4 if dtype == torch.float32 else 2
-        named = [("K1", cuda_step_fn(SCALE_SHAPE, inv_dx=inv, dt=res.temporal,
-                                     dtype=dtype), 1, 12 * b)]
+        kw = dict(inv_dx=inv, dt=res.temporal, dtype=dtype)
+        named = [("K1", cuda_step_fn(SCALE_SHAPE, **kw), 1, 12 * b)]
         for k in K_LADDER:
             # ticks 1 and K move storage <-> f32, the K-2 inner ticks f32 only
             model = (2 * (6 * b + 24) + (k - 2) * 48) / k
-            named.append((f"K2 K={k}", cuda_stepk_fn(SCALE_SHAPE, k, inv_dx=inv,
-                                                     dt=res.temporal, dtype=dtype),
-                          k, model))
+            named.append((f"K2 K={k}", cuda_stepk_fn(SCALE_SHAPE, k, **kw), k, model))
+        # in place: the H half reads 3 E + 3 H and writes 3 H, the E half
+        # reads 3 H + 3 E and writes 3 E: 18 fields per tick
+        named += [
+            ("K1 io_alias", cuda_step_fn(SCALE_SHAPE, io_alias=True, **kw), 1, 18 * b),
+            (f"K2 K={top} io_alias",
+             cuda_stepk_fn(SCALE_SHAPE, top, io_alias=True, **kw), top, 18 * b),
+            ("K1 io_alias plain version",
+             lambda s, c, src: plain_step_inplace(s, table1, None, src, inv_dx=inv,
+                                                  dt=res.temporal), 1, None),
+            (f"K2 K={top} io_alias plain version",
+             lambda s, c, src: plain_stepk_inplace(s, table1, None, src, top,
+                                                   inv_dx=inv, dt=res.temporal),
+             top, None)]
         if dtype == torch.float32:
             named.insert(0, ("plain step", ft.step_fn(inv_dx=inv, dt=res.temporal),
                              1, None))
@@ -1511,6 +1791,17 @@ def timings(torch, ft):
         ms = in_turns(torch, fns, state, 20)
         key = f"free_512_{str(dtype)[6:]}"
         results[key] = {}
+        set_bytes = 6 * cells * b
+        peaks = {}
+        for name, f, _, _ in named:
+            if name in ("K1", f"K2 K={top}", "K1 io_alias", f"K2 K={top} io_alias"):
+                peaks[name] = peak_call_bytes(torch, lambda s, f=f: f(s, coeffs1, None),
+                                              state)
+                log(f"peak 512^3 {str(dtype)[6:]} {name}: {peaks[name] / 1e9:.4f} GB "
+                    f"allocated by the call = {1 + peaks[name] / set_bytes:.4f} sets "
+                    f"held with the state")
+        results[f"peak_512_{str(dtype)[6:]}"] = {"set_bytes": set_bytes,
+                                                  "call_bytes": peaks}
         for name, _, ticks, model in named:
             mean = sum(ms[name]) / len(ms[name])
             g = cells * ticks / (mean * 1e-3) / 1e9
@@ -1562,12 +1853,17 @@ def main(argv=None) -> int:
     log(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
 
-    # one nvcc per source, all started together
+    # one nvcc per source, all started together (the in-place entry points
+    # share their sources' libraries)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(_build.KERNELS)) as pool:
-        list(pool.map(lambda kernel: kernel.build(), _build.KERNELS))
+    builders = {}
+    for kernel in _build.KERNELS:
+        builders.setdefault(kernel.source, kernel)
+    with ThreadPoolExecutor(len(builders)) as pool:
+        list(pool.map(lambda kernel: kernel.build(), builders.values()))
     for kernel in _build.KERNELS:
         kernel.function()
+    for kernel in builders.values():
         regs = [ln.strip() for ln in kernel.build_log.splitlines()
                 if "registers" in ln or "spill" in ln]
         log(f"build {kernel.source}: {kernel.build_seconds} s; " + " | ".join(regs))
@@ -1593,10 +1889,13 @@ def measure(torch, ft, seed):
     from fdtd_tpu_torch.solver.best import K_LADDER
 
     errs = self_checks(torch, ft, seed)
+    errs.update(inplace_self_checks(torch, ft, seed))
     errs.update(cpml_self_checks(torch, ft, seed))
     errs.update(option_self_checks(torch, ft, seed))
     errs.update(ext_self_checks(torch, ft, seed))
     launches = main_path(torch, ft)
+    c5_launches, c5_gcells = config5_path(torch, ft)
+    launches.update(c5_launches)
     launches.update(absorbing_path(torch, ft))
     acc_launches, walls = accumulator_path(torch, ft)
     launches.update(acc_launches)
@@ -1612,6 +1911,7 @@ def measure(torch, ft, seed):
     times["scattering_256_gcell_per_s"] = {"K4 + flux faces": res_x.gcell_per_s,
                                            "plain engine": ref_x.gcell_per_s}
     times["path_a"], times["path_b"] = path_a, path_b
+    times["config5"] = c5_gcells
 
     top = K_LADDER[0]
     c2, c3 = times["config2_128"], times["config3_256"]
@@ -1649,6 +1949,18 @@ def measure(torch, ft, seed):
                + option_bytes(ABSORB_SHAPE, top, dft=opts3["dft"], dft_rows=opts3["dft_rows"]),
                psi3, option_flop(ABSORB_SHAPE, top, dft=opts3["dft"],
                                  dft_rows=opts3["dft_rows"]))),
+    ]
+    # the in-place variants: launches on config 5's path, times at 512^3 f32
+    # (the plain versions cannot hold a 1024^3 f32 copy beside the state)
+    f512, cells512 = times["free_512_float32"], math.prod(SCALE_SHAPE)
+    rows += [
+        ("K1 io_alias (in place)", "step.cu", "fdtd_tpu/solver/pallas_step.py:77",
+         "K1 io_alias", f512, "K1 io_alias", "K1 io_alias plain version",
+         bound(cells512, 1, yee_bytes(SCALE_SHAPE, 4, False))),
+        ("K2 io_alias (in place)", "stepk.cu", "fdtd_tpu/solver/pallas_stepk.py:60",
+         "K2 io_alias", f512, f"K2 K={top} io_alias",
+         f"K2 K={top} io_alias plain version",
+         bound(cells512, top, yee_bytes(SCALE_SHAPE, 4, False))),
     ]
     # the region and oblique options at paths B's and A's 256^3 set-ups
     pb, pa = times["path_b_256"], times["path_a_256"]

@@ -21,6 +21,17 @@
 // reads it, J from the new E before it is stored, both in f32 (the TPU
 // kernel leaves M to the XLA step and adds J after the call in the storage
 // type).
+//
+// In place (fdtd_step_inplace, the TPU kernel's io_alias build,
+// pallas_step.py:86-91): the outputs are the inputs, so the call holds one
+// set of fields (24 B/cell at f32) instead of two. The fused pass cannot
+// run in place with its blocks in parallel (yee.cuh), so the tick is two
+// ordinary launches on the caller's stream, the H half and then the E
+// half; the launch boundary is the barrier between them. They move ~72
+// B/cell at f32 (36 at bf16) against the fused pass's 48: E is read by
+// both halves and H is written by one and read by the other. At bf16
+// storage E reads H after its rounding to bf16 (the TPU kernel keeps that
+// H in f32 on chip).
 #include "yee.cuh"
 
 namespace {
@@ -39,6 +50,62 @@ step_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(yee::THREADS)
+h_half_kernel(yee::Fields<T> f, yee::Lattice L, yee::Material M,
+              yee::Sources S, int with_m, yee::Work w) {
+  __shared__ yee::Shared sh;
+  yee::load_table(sh, M);
+  int y0, z0, x_lo, x_hi;
+  yee::decode(w, blockIdx.x, L, y0, z0, x_lo, x_hi);
+  yee::h_half<T>(f, L, M, S, with_m ? 6 : -1, y0, z0, x_lo, x_hi, sh);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(yee::THREADS)
+e_half_kernel(yee::Fields<T> f, yee::Lattice L, yee::Material M,
+              yee::Sources S, yee::Work w) {
+  __shared__ yee::Shared sh;
+  yee::load_table(sh, M);
+  int y0, z0, x_lo, x_hi;
+  yee::decode(w, blockIdx.x, L, y0, z0, x_lo, x_hi);
+  yee::e_half<T>(f, L, M, S, 3, y0, z0, x_lo, x_hi, sh);
+}
+
+// The resident blocks of `kernel` on the current device (one wave).
+template <typename K>
+cudaError_t resident_blocks(K kernel, int& blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        yee::THREADS, 0);
+  blocks = sms * (per_sm > 0 ? per_sm : 1);
+  return err;
+}
+
+template <typename T>
+int launch_inplace(void** f, const float* table, int n_mat, const float* rows,
+                   int n_src, int row_w, int with_m, int nx, int ny, int nz,
+                   float inv_x, float inv_y, float inv_z, cudaStream_t stream) {
+  yee::Fields<T> fields{(T*)f[0], (T*)f[1], (T*)f[2], (T*)f[3], (T*)f[4], (T*)f[5]};
+  yee::Lattice L{nx, ny, nz, inv_x, inv_y, inv_z};
+  yee::Material M{table, n_mat, nullptr};
+  yee::Sources S{rows, n_src, row_w};
+  int target = 0;
+  cudaError_t err = resident_blocks(h_half_kernel<T>, target);
+  if (err != cudaSuccess) return (int)err;
+  const yee::Work w = yee::plan_work(L, target, yee::HALF_CHUNK);
+  const dim3 block(yee::TZ, yee::TY);
+  h_half_kernel<T><<<w.n_items, block, 0, stream>>>(fields, L, M, S, with_m, w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  e_half_kernel<T><<<w.n_items, block, 0, stream>>>(fields, L, M, S, w);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch(void** f, const float* table, int n_mat, const uint8_t* matid,
            const float* rows, int n_src, int row_w, int with_m, int nx, int ny,
            int nz, float inv_x, float inv_y, float inv_z, cudaStream_t stream) {
@@ -48,15 +115,10 @@ int launch(void** f, const float* table, int n_mat, const uint8_t* matid,
   yee::Lattice L{nx, ny, nz, inv_x, inv_y, inv_z};
   yee::Material M{table, n_mat, matid};
   yee::Sources S{rows, n_src, row_w};
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, step_kernel<T>,
-                                                        yee::THREADS, 0);
+  int target = 0;
+  const cudaError_t err = resident_blocks(step_kernel<T>, target);
   if (err != cudaSuccess) return (int)err;
-  const yee::Work w = yee::plan_work(L, sms * (per_sm > 0 ? per_sm : 1));
+  const yee::Work w = yee::plan_work(L, target);
   step_kernel<T><<<w.n_items, dim3(yee::TZ, yee::TY), 0, stream>>>(
       in, out, L, M, S, with_m, w);
   return (int)cudaGetLastError();
@@ -84,6 +146,25 @@ int fdtd_step(int dtype, void** fields, const float* table, int n_mat,
     return launch<__nv_bfloat16>(fields, table, n_mat, matid, rows, n_src,
                                  row_w, with_m, nx, ny, nz, inv_x, inv_y,
                                  inv_z, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// In place: fields are the 6 device pointers (ex, ey, ez, hx, hy, hz),
+// read and overwritten; a uniform medium (table row 0). Otherwise as
+// fdtd_step.
+int fdtd_step_inplace(int dtype, void** fields, const float* table, int n_mat,
+                      const float* rows, int n_src, int row_w, int with_m,
+                      int nx, int ny, int nz, float inv_x, float inv_y,
+                      float inv_z, void* stream) {
+  if (n_mat < 1 || n_mat > yee::MAX_MATERIALS) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_inplace<float>(fields, table, n_mat, rows, n_src, row_w,
+                                 with_m, nx, ny, nz, inv_x, inv_y, inv_z, s);
+  if (dtype == 1)
+    return launch_inplace<__nv_bfloat16>(fields, table, n_mat, rows, n_src,
+                                         row_w, with_m, nx, ny, nz, inv_x,
+                                         inv_y, inv_z, s);
   return (int)cudaErrorInvalidValue;
 }
 

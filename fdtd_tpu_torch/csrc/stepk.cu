@@ -20,6 +20,15 @@
 // resident across all K ticks, so a call costs one launch and one source
 // upload for K ticks instead of K. The barrier also orders the writes of
 // one tick before the reads of the next across blocks.
+//
+// In place (fdtd_stepk_inplace, the TPU kernel's io_alias build,
+// pallas_stepk.py:62-68): the outputs are the inputs and there is no work
+// set, so the call holds one set of fields instead of three (f32) or six
+// bf16-set units (bf16 at K >= 3). Each tick is yee.cuh's two half passes
+// with a grid-wide barrier after each: 2K half-ticks in one cooperative
+// launch, ~72 B/cell/tick at f32 (36 at bf16). At bf16 storage every
+// tick's H and E are rounded to bf16 (the TPU kernel carries its
+// intermediate levels in f32 and rounds once per call).
 #include <cooperative_groups.h>
 
 #include "yee.cuh"
@@ -61,6 +70,75 @@ stepk_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(yee::THREADS)
+stepk_inplace_kernel(yee::Fields<T> f, yee::Lattice L, yee::Material M,
+                     yee::Sources S, int k, int with_m, yee::Work w) {
+  __shared__ yee::Shared sh;
+  yee::load_table(sh, M);
+  cg::grid_group grid = cg::this_grid();
+  for (int lvl = 1; lvl <= k; ++lvl) {
+    const int j_col = 3 + 3 * (lvl - 1);
+    const int m_col = with_m ? 3 + 3 * k + 3 * (lvl - 1) : -1;
+    int y0, z0, x_lo, x_hi;
+    for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
+      yee::decode(w, item, L, y0, z0, x_lo, x_hi);
+      yee::h_half<T>(f, L, M, S, m_col, y0, z0, x_lo, x_hi, sh);
+    }
+    grid.sync();
+    for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
+      yee::decode(w, item, L, y0, z0, x_lo, x_hi);
+      yee::e_half<T>(f, L, M, S, j_col, y0, z0, x_lo, x_hi, sh);
+    }
+    if (lvl < k) grid.sync();
+  }
+}
+
+// Plan a cooperative launch of `kernel`: every block must be resident at
+// once, and the blocks loop over the work items (x chunks of at most
+// `max_chunk` planes).
+template <typename K>
+cudaError_t cooperative_plan(K kernel, const yee::Lattice& L, yee::Work& w,
+                             int& blocks, int max_chunk = 1 << 30) {
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        yee::THREADS, 0);
+  if (err != cudaSuccess) return err;
+  if (!coop || per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int resident = sms * per_sm;
+  w = yee::plan_work(L, resident, max_chunk);
+  blocks = w.n_items < resident ? w.n_items : resident;
+  return cudaSuccess;
+}
+
+template <typename T>
+int launch_inplace(void** f, const float* table, int n_mat, const float* rows,
+                   int n_src, int row_w, int with_m, int k, int nx, int ny,
+                   int nz, float inv_x, float inv_y, float inv_z,
+                   cudaStream_t stream) {
+  yee::Fields<T> fields{(T*)f[0], (T*)f[1], (T*)f[2], (T*)f[3], (T*)f[4], (T*)f[5]};
+  yee::Lattice L{nx, ny, nz, inv_x, inv_y, inv_z};
+  yee::Material M{table, n_mat, nullptr};
+  yee::Sources S{rows, n_src, row_w};
+  yee::Work w;
+  int blocks = 0;
+  cudaError_t err = cooperative_plan(stepk_inplace_kernel<T>, L, w, blocks,
+                                     yee::HALF_CHUNK);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&fields, &L, &M, &S, &k, &with_m, &w};
+  err = cudaLaunchCooperativeKernel((const void*)stepk_inplace_kernel<T>,
+                                    dim3(blocks), dim3(yee::TZ, yee::TY), args,
+                                    0, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch(void** f, const float* table, int n_mat, const uint8_t* matid,
            const float* rows, int n_src, int row_w, int with_m, int k, int nx,
            int ny, int nz, float inv_x, float inv_y, float inv_z,
@@ -75,22 +153,10 @@ int launch(void** f, const float* table, int n_mat, const uint8_t* matid,
   yee::Lattice L{nx, ny, nz, inv_x, inv_y, inv_z};
   yee::Material M{table, n_mat, matid};
   yee::Sources S{rows, n_src, row_w};
-
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, stepk_kernel<T>, yee::THREADS, 0);
+  yee::Work w;
+  int blocks = 0;
+  cudaError_t err = cooperative_plan(stepk_kernel<T>, L, w, blocks);
   if (err != cudaSuccess) return (int)err;
-  if (!coop || per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  // every block of a cooperative grid must be resident at once
-  const int resident = sms * per_sm;
-  yee::Work w = yee::plan_work(L, resident);
-  const int blocks = w.n_items < resident ? w.n_items : resident;
   void* args[] = {&in, &w1, &w2, &out, &L, &M, &S, &k, &with_m, &w};
   err = cudaLaunchCooperativeKernel((const void*)stepk_kernel<T>, dim3(blocks),
                                     dim3(yee::TZ, yee::TY), args, 0, stream);
@@ -122,6 +188,26 @@ int fdtd_stepk(int dtype, void** fields, const float* table, int n_mat,
     return launch<__nv_bfloat16>(fields, table, n_mat, matid, rows, n_src,
                                  row_w, with_m, k, nx, ny, nz, inv_x, inv_y,
                                  inv_z, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// In place: fields are the 6 device pointers (ex, ey, ez, hx, hy, hz),
+// read and overwritten; a uniform medium (table row 0). Otherwise as
+// fdtd_stepk.
+int fdtd_stepk_inplace(int dtype, void** fields, const float* table, int n_mat,
+                       const float* rows, int n_src, int row_w, int with_m,
+                       int k, int nx, int ny, int nz, float inv_x, float inv_y,
+                       float inv_z, void* stream) {
+  if (n_mat < 1 || n_mat > yee::MAX_MATERIALS || k < 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_inplace<float>(fields, table, n_mat, rows, n_src, row_w,
+                                 with_m, k, nx, ny, nz, inv_x, inv_y, inv_z, s);
+  if (dtype == 1)
+    return launch_inplace<__nv_bfloat16>(fields, table, n_mat, rows, n_src,
+                                         row_w, with_m, k, nx, ny, nz, inv_x,
+                                         inv_y, inv_z, s);
   return (int)cudaErrorInvalidValue;
 }
 

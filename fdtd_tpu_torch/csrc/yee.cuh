@@ -20,6 +20,17 @@
 // blocks to fill the card. Inputs are read and outputs written through
 // different buffers, so no block ever sees another's new values.
 //
+// In place (the io_alias kernels) that schedule would race: a block reads
+// old E and H in its ring, at y0-1, z0-1 and in the planes beside its
+// chunk, which other blocks overwrite. So the in-place tick is two half
+// passes with every block finished between them (h_half, then e_half):
+// the H half reads E and writes only H, the E half reads H and writes only
+// E, each thread at its own cells, so no block order can mix old and new
+// values. Both halves share the per-cell arithmetic of tile_pass (h_cell,
+// e_cell); at f32 storage E's forward differences read the stored H, the
+// same numbers tile_pass keeps on chip, so the results are bit-identical.
+// At bf16 storage H is rounded to bf16 before E reads it.
+//
 // Compute is f32 for every storage type (f32 or bf16), as on the TPU.
 // Edges are the reference's Neumann(0) closure: a difference that would
 // cross the lattice edge is zero. Offsets are 64-bit (1024^3 lattices).
@@ -113,6 +124,48 @@ __device__ __forceinline__ void inject(const Sources& s, int col, int p, int y,
   }
 }
 
+// New H at cell i: h = d_a*h - d_b*curl_b(E), from the backward
+// differences of E (zero across the lattice edge) and the old H at i in
+// `h`. Returns d_b, the M source's coefficient.
+template <typename T>
+__device__ __forceinline__ float h_cell(Fields<const T> h, long long i,
+                                        const Lattice& L, const Material& M,
+                                        const Shared& sh, float dey_x,
+                                        float dez_x, float dez_y, float dex_y,
+                                        float dey_z, float dex_z, float& hx,
+                                        float& hy, float& hz) {
+  const float ce_x = dez_y * L.inv_y - dey_z * L.inv_z;
+  const float ce_y = dex_z * L.inv_z - dez_x * L.inv_x;
+  const float ce_z = dey_x * L.inv_x - dex_y * L.inv_y;
+  const int mat = material_at(M, i);
+  const float d_a = sh.table[mat][2], d_b = sh.table[mat][3];
+  hx = d_a * load(h.hx, i) - d_b * ce_x;
+  hy = d_a * load(h.hy, i) - d_b * ce_y;
+  hz = d_a * load(h.hz, i) - d_b * ce_z;
+  return d_b;
+}
+
+// New E at cell i: e = c_a*e + c_b*curl_f(H), from the forward
+// differences of the new H (zero across the lattice edge) and the old E at
+// i in `e`. Returns c_b, the J source's coefficient.
+template <typename T>
+__device__ __forceinline__ float e_cell(Fields<const T> e, long long i,
+                                        const Lattice& L, const Material& M,
+                                        const Shared& sh, float dhy_x,
+                                        float dhz_x, float dhz_y, float dhx_y,
+                                        float dhy_z, float dhx_z, float& ex,
+                                        float& ey, float& ez) {
+  const float ch_x = dhz_y * L.inv_y - dhy_z * L.inv_z;
+  const float ch_y = dhx_z * L.inv_z - dhz_x * L.inv_x;
+  const float ch_z = dhy_x * L.inv_x - dhx_y * L.inv_y;
+  const int mat = material_at(M, i);
+  const float c_a = sh.table[mat][0], c_b = sh.table[mat][1];
+  ex = c_a * load(e.ex, i) + c_b * ch_x;
+  ey = c_a * load(e.ey, i) + c_b * ch_y;
+  ez = c_a * load(e.ez, i) + c_b * ch_z;
+  return c_b;
+}
+
 // One tick over tile (y0, z0) and planes [x_lo, x_hi). j_col / m_col: the
 // source-row column of this tick's J / M, or -1 for none.
 template <typename TI, typename TO>
@@ -145,14 +198,9 @@ __device__ void tile_pass(Fields<const TI> in, Fields<TO> out, const Lattice& L,
       const float dex_y = yy > 0 ? ex - load(in.ex, i - L.nz) : 0.f;
       const float dey_z = zz > 0 ? ey - load(in.ey, i - 1) : 0.f;
       const float dex_z = zz > 0 ? ex - load(in.ex, i - 1) : 0.f;
-      const float ce_x = dez_y * L.inv_y - dey_z * L.inv_z;
-      const float ce_y = dex_z * L.inv_z - dez_x * L.inv_x;
-      const float ce_z = dey_x * L.inv_x - dex_y * L.inv_y;
-      const int mat = material_at(M, i);
-      const float d_a = sh.table[mat][2], d_b = sh.table[mat][3];
-      float hx = d_a * load(in.hx, i) - d_b * ce_x;
-      float hy = d_a * load(in.hy, i) - d_b * ce_y;
-      float hz = d_a * load(in.hz, i) - d_b * ce_z;
+      float hx, hy, hz;
+      const float d_b = h_cell(in, i, L, M, sh, dey_x, dez_x, dez_y, dex_y,
+                               dey_z, dex_z, hx, hy, hz);
       if (m_col >= 0) inject(S, m_col, p, yy, zz, d_b, hx, hy, hz);
       sh.hx[ly][lz] = hx;
       sh.hy[ly][lz] = hy;
@@ -177,14 +225,9 @@ __device__ void tile_pass(Fields<const TI> in, Fields<TO> out, const Lattice& L,
         const float dhx_y = y_in ? sh.hx[ty + 1][tz] - hx : 0.f;
         const float dhy_z = z_in ? sh.hy[ty][tz + 1] - hy : 0.f;
         const float dhx_z = z_in ? sh.hx[ty][tz + 1] - hx : 0.f;
-        const float ch_x = dhz_y * L.inv_y - dhy_z * L.inv_z;
-        const float ch_y = dhx_z * L.inv_z - dhz_x * L.inv_x;
-        const float ch_z = dhy_x * L.inv_x - dhx_y * L.inv_y;
-        const int mat = material_at(M, i);
-        const float c_a = sh.table[mat][0], c_b = sh.table[mat][1];
-        float ex = c_a * load(in.ex, i) + c_b * ch_x;
-        float ey = c_a * load(in.ey, i) + c_b * ch_y;
-        float ez = c_a * load(in.ez, i) + c_b * ch_z;
+        float ex, ey, ez;
+        const float c_b = e_cell(in, i, L, M, sh, dhy_x, dhz_x, dhz_y, dhx_y,
+                                 dhy_z, dhx_z, ex, ey, ez);
         if (j_col >= 0) inject(S, j_col, p, y, z, c_b, ex, ey, ez);
         store(out.ex, i, ex);
         store(out.ey, i, ey);
@@ -196,6 +239,79 @@ __device__ void tile_pass(Fields<const TI> in, Fields<TO> out, const Lattice& L,
     __syncthreads();
   }
 }
+
+// The H half of an in-place tick over tile (y0, z0) and planes
+// [x_lo, x_hi): each thread its own (y, z) column, x ascending, with E at
+// plane p-1 carried in registers. Reads E, writes only H; m_col as in
+// tile_pass.
+template <typename T>
+__device__ void h_half(Fields<T> f, const Lattice& L, const Material& M,
+                       const Sources& S, int m_col, int y0, int z0, int x_lo,
+                       int x_hi, const Shared& sh) {
+  const int y = y0 + (int)threadIdx.y, z = z0 + (int)threadIdx.x;
+  if (y >= L.ny || z >= L.nz) return;
+  const long long plane = (long long)L.ny * L.nz;
+  long long i = (long long)x_lo * plane + (long long)y * L.nz + z;
+  float ey_m = x_lo > 0 ? load(f.ey, i - plane) : 0.f;  // E at plane p-1
+  float ez_m = x_lo > 0 ? load(f.ez, i - plane) : 0.f;
+  for (int p = x_lo; p < x_hi; ++p, i += plane) {
+    const float ex = load(f.ex, i), ey = load(f.ey, i), ez = load(f.ez, i);
+    const float dey_x = p > 0 ? ey - ey_m : 0.f;
+    const float dez_x = p > 0 ? ez - ez_m : 0.f;
+    const float dez_y = y > 0 ? ez - load(f.ez, i - L.nz) : 0.f;
+    const float dex_y = y > 0 ? ex - load(f.ex, i - L.nz) : 0.f;
+    const float dey_z = z > 0 ? ey - load(f.ey, i - 1) : 0.f;
+    const float dex_z = z > 0 ? ex - load(f.ex, i - 1) : 0.f;
+    float hx, hy, hz;
+    const float d_b = h_cell(as_const(f), i, L, M, sh, dey_x, dez_x, dez_y,
+                             dex_y, dey_z, dex_z, hx, hy, hz);
+    if (m_col >= 0) inject(S, m_col, p, y, z, d_b, hx, hy, hz);
+    store(f.hx, i, hx);
+    store(f.hy, i, hy);
+    store(f.hz, i, hz);
+    ey_m = ey;
+    ez_m = ez;
+  }
+}
+
+// The E half of an in-place tick: x descending, with H at plane p+1
+// carried in registers. Reads the stored (new) H, writes only E; j_col as
+// in tile_pass.
+template <typename T>
+__device__ void e_half(Fields<T> f, const Lattice& L, const Material& M,
+                       const Sources& S, int j_col, int y0, int z0, int x_lo,
+                       int x_hi, const Shared& sh) {
+  const int y = y0 + (int)threadIdx.y, z = z0 + (int)threadIdx.x;
+  if (y >= L.ny || z >= L.nz) return;
+  const long long plane = (long long)L.ny * L.nz;
+  long long i = (long long)(x_hi - 1) * plane + (long long)y * L.nz + z;
+  const bool y_in = y < L.ny - 1, z_in = z < L.nz - 1;
+  float top_hy = x_hi < L.nx ? load(f.hy, i + plane) : 0.f;  // H at plane p+1
+  float top_hz = x_hi < L.nx ? load(f.hz, i + plane) : 0.f;
+  for (int p = x_hi - 1; p >= x_lo; --p, i -= plane) {
+    const float hx = load(f.hx, i), hy = load(f.hy, i), hz = load(f.hz, i);
+    const float dhy_x = p < L.nx - 1 ? top_hy - hy : 0.f;
+    const float dhz_x = p < L.nx - 1 ? top_hz - hz : 0.f;
+    const float dhz_y = y_in ? load(f.hz, i + L.nz) - hz : 0.f;
+    const float dhx_y = y_in ? load(f.hx, i + L.nz) - hx : 0.f;
+    const float dhy_z = z_in ? load(f.hy, i + 1) - hy : 0.f;
+    const float dhx_z = z_in ? load(f.hx, i + 1) - hx : 0.f;
+    float ex, ey, ez;
+    const float c_b = e_cell(as_const(f), i, L, M, sh, dhy_x, dhz_x, dhz_y,
+                             dhx_y, dhy_z, dhx_z, ex, ey, ez);
+    if (j_col >= 0) inject(S, j_col, p, y, z, c_b, ex, ey, ez);
+    store(f.ex, i, ex);
+    store(f.ey, i, ey);
+    store(f.ez, i, ez);
+    top_hy = hy;
+    top_hz = hz;
+  }
+}
+
+// The in-place halves' x chunks: a chunk edge costs a half one extra plane
+// read (its carry's seed), so short chunks are cheap, and many equal work
+// items leave the last round of a cooperative grid nearly full.
+constexpr int HALF_CHUNK = 32;
 
 // Work items: (x chunk, y tile, z tile), z tiles fastest so that blocks in
 // flight together share their ring planes in L2.
@@ -216,13 +332,16 @@ __device__ __forceinline__ void decode(const Work& w, int item, const Lattice& L
 }
 
 // Split x into as many chunks as fit the `target` resident blocks in one
-// wave (a partial second wave would idle most of the card).
-inline Work plan_work(const Lattice& L, int target) {
+// wave (a partial second wave would idle most of the card), and into
+// chunks of at most `max_chunk` planes.
+inline Work plan_work(const Lattice& L, int target, int max_chunk = 1 << 30) {
   Work w;
   w.n_ty = (L.ny + TY - 1) / TY;
   w.n_tz = (L.nz + TZ - 1) / TZ;
   const long long tiles = (long long)w.n_ty * w.n_tz;
   long long n_chunks = target / tiles;
+  const long long short_chunks = (L.nx + max_chunk - 1) / max_chunk;
+  if (n_chunks < short_chunks) n_chunks = short_chunks;
   if (n_chunks < 1) n_chunks = 1;
   if (n_chunks > L.nx) n_chunks = L.nx;
   w.chunk = (int)((L.nx + n_chunks - 1) / n_chunks);

@@ -4,7 +4,9 @@ Each kernel source compiles with ``nvcc`` into its own shared library with
 a plain C interface, loaded with ctypes. The build runs on first use, from
 the sources in the checkout alone, into ``build/fdtd_tpu_torch/`` next to
 the package; the library's name carries a hash of its sources, so an edited
-source never loads a stale build. Nothing here runs at import time.
+source never loads a stale build. A source may hold several entry points
+(K1's and K2's in-place variants beside them), each a ``Kernel`` with its
+own launch count; they share one build. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "STEP", "STEPK", "CPML", "CPMLK", "KERNELS", "BUILD_DIR"]
+__all__ = ["Kernel", "STEP", "STEPK", "STEP_INPLACE", "STEPK_INPLACE", "CPML",
+           "CPMLK", "KERNELS", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fdtd_tpu_torch"
@@ -33,6 +36,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _PI = ctypes.POINTER(ctypes.c_int)
+
+# one lock per library path: entry points of one source build it once
+_BUILD_LOCKS: dict = {}
+_BUILD_LOCKS_GUARD = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -48,16 +55,23 @@ def _nvcc() -> str:
 class Kernel:
     """One kernel source: its library, its C entry point and its launch count.
 
+    ``csrc`` is the directory that holds the source and its headers, and
+    ``build_dir`` the one its library goes to: the package's own, or
+    another version's that a comparison builds beside them.
+
     ``launches`` counts the kernel's launches; the wrapper that launches it
     adds one per launch and nothing else touches it except a caller that
     resets it to 0.
     """
 
-    def __init__(self, name: str, source: str, entry: str, argtypes):
+    def __init__(self, name: str, source: str, entry: str, argtypes,
+                 csrc: Path = CSRC, build_dir: Path = BUILD_DIR):
         self.name = name
         self.source = source
         self.entry = entry
         self.argtypes = argtypes
+        self.csrc = Path(csrc)
+        self.build_dir = Path(build_dir)
         self.launches = 0
         self.build_seconds = None
         self.build_log = ""
@@ -66,7 +80,7 @@ class Kernel:
         self._lock = threading.Lock()
 
     def _sources(self):
-        return [CSRC / self.source, *sorted(CSRC.glob("*.cuh"))]
+        return [self.csrc / self.source, *sorted(self.csrc.glob("*.cuh"))]
 
     def library_path(self) -> Path:
         digest = hashlib.sha256()
@@ -74,20 +88,26 @@ class Kernel:
             digest.update(path.name.encode())
             digest.update(path.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"lib{Path(self.source).stem}_{digest.hexdigest()[:16]}.so"
+        return self.build_dir / f"lib{Path(self.source).stem}_{digest.hexdigest()[:16]}.so"
 
     def build(self) -> Path:
         """Compile the library unless this exact source was built before."""
         lib = self.library_path()
-        if lib.exists():
-            return lib
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with _BUILD_LOCKS_GUARD:
+            lock = _BUILD_LOCKS.setdefault(lib, threading.Lock())
+        with lock:
+            if not lib.exists():
+                self._compile(lib)
+        return lib
+
+    def _compile(self, lib: Path) -> None:
+        self.build_dir.mkdir(parents=True, exist_ok=True)
         start = time.perf_counter()
         # build under a temporary name and rename: concurrent builds never
         # load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=self.build_dir)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / self.source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.csrc / self.source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         self.build_log = proc.stdout + proc.stderr
         if proc.returncode != 0:
@@ -97,7 +117,6 @@ class Kernel:
                 f"{' '.join(cmd)}\n{self.build_log}")
         os.replace(tmp, lib)
         self.build_seconds = time.perf_counter() - start
-        return lib
 
     def function(self):
         """The C entry point, building and loading the library on first use."""
@@ -154,4 +173,15 @@ CPMLK = Kernel("K4 cpmlk", "cpmlk.cu", "fdtd_cpmlk",
                [_I, _PP, _PP, _PP, _PI, _P, _I, _P, _P, _I, _I, _I, _P, _I, _PI,
                 _I, _I, _I, _I, _F, _F, _F, _PI, _PP, _PI, _PP, _P])
 
-KERNELS = (STEP, STEPK, CPML, CPMLK)
+# fdtd_step_inplace(dtype, fields, table, n_mat, rows, n_src, row_w, with_m,
+#                   nx, ny, nz, inv_x, inv_y, inv_z, stream)
+STEP_INPLACE = Kernel("K1 io_alias", "step.cu", "fdtd_step_inplace",
+                      [_I, _PP, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                       _P])
+# fdtd_stepk_inplace(dtype, fields, table, n_mat, rows, n_src, row_w, with_m,
+#                    k, nx, ny, nz, inv_x, inv_y, inv_z, stream)
+STEPK_INPLACE = Kernel("K2 io_alias", "stepk.cu", "fdtd_stepk_inplace",
+                       [_I, _PP, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                        _F, _P])
+
+KERNELS = (STEP, STEPK, CPML, CPMLK, STEP_INPLACE, STEPK_INPLACE)

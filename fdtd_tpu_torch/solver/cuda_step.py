@@ -11,6 +11,15 @@ XLA step; at f32 storage the results agree to rounding.)
 The wrapper launches the kernel for CUDA tensors and takes the kernel's
 plain PyTorch version (``plain_step``) only for CPU tensors. Source times
 are f32 ``tick * dt`` on every storage type, as the K-step kernel's are.
+
+``io_alias=True`` is the TPU kernel's in-place build: the new fields are
+written into the state's own tensors, so a call holds one set of fields
+instead of two. The state passed in is consumed (as ``donate_argnums=0``
+consumes it in JAX): the returned state holds the same tensors, one tick
+later. The kernel runs the tick as two half passes (csrc/step.cu); at f32
+storage it is bit-identical to the out-of-place kernel, at bf16 storage E
+reads H after its rounding to bf16 (``plain_step_inplace`` does the same).
+As in JAX, the in-place build takes no material index.
 """
 
 from __future__ import annotations
@@ -23,10 +32,10 @@ from . import _build
 from .boundary import BoundaryConditions, Neumann
 from .sources import SourceSet
 from .state import SimState
-from .step import CellCoefficients, advance, clip_points
+from .step import CellCoefficients, advance, advance_e, advance_h, clip_points
 
-__all__ = ["cuda_step_fn", "supports", "plain_step", "build_src_rows",
-           "launches", "reset_launches"]
+__all__ = ["cuda_step_fn", "supports", "plain_step", "plain_step_inplace",
+           "build_src_rows", "launches", "reset_launches"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -51,13 +60,14 @@ def supports(
     return True
 
 
-def launches() -> int:
-    """How many times the K1 kernel has launched since the last reset."""
-    return _build.STEP.launches
+def launches(io_alias: bool = False) -> int:
+    """How many times the K1 kernel (``io_alias``: its in-place variant, one
+    per tick) has launched since the last reset."""
+    return (_build.STEP_INPLACE if io_alias else _build.STEP).launches
 
 
 def reset_launches() -> None:
-    _build.STEP.launches = 0
+    _build.STEP.launches = _build.STEP_INPLACE.launches = 0
 
 
 # -- sources ------------------------------------------------------------------
@@ -109,6 +119,21 @@ def kernel_table(coeffs, matid, device) -> torch.Tensor:
 # -- the plain version -----------------------------------------------------------
 
 
+def _plain_levels(state: SimState, table, matid, sources, k_steps: int,
+                  with_m: bool, dt):
+    """The plain versions' coefficients and, per tick, (pts, J, M) in f32
+    (``clip_points`` output; J and M None where absent)."""
+    coeffs = (CellCoefficients(*table[0]) if matid is None
+              else CellCoefficients.from_table(table, matid))
+    levels = source_levels(sources, state.tick, k_steps, dt)
+    if levels is None:
+        return coeffs, [(None, None, None)] * k_steps
+    pts, j, m = clip_points(sources.points, state.shape,
+                            levels[0].transpose(0, 1), levels[1].transpose(0, 1))
+    return coeffs, [(pts, j[:, lvl], m[:, lvl] if with_m else None)
+                    for lvl in range(k_steps)]
+
+
 def plain_ticks(state: SimState, table: torch.Tensor,
                 matid: Optional[torch.Tensor], sources: Optional[SourceSet],
                 k_steps: int, with_m: bool, inv_dx, dt) -> SimState:
@@ -116,24 +141,42 @@ def plain_ticks(state: SimState, table: torch.Tensor,
     of the plain step in f32 (the kernels' carries are f32) with J and, when
     ``with_m``, M at f32 times, and one rounding to the storage dtype at the
     end."""
-    dtype = state.dtype
-    coeffs = (CellCoefficients(*table[0]) if matid is None
-              else CellCoefficients.from_table(table, matid))
+    coeffs, levels = _plain_levels(state, table, matid, sources, k_steps,
+                                   with_m, dt)
     e = tuple(c.to(torch.float32) for c in state.e)
     h = tuple(c.to(torch.float32) for c in state.h)
-    levels = source_levels(sources, state.tick, k_steps, dt)
-    pts = j = m = None
-    if levels is not None:
-        pts, j, m = clip_points(sources.points, state.shape,
-                                levels[0].transpose(0, 1),
-                                levels[1].transpose(0, 1))
-        j, m = j.transpose(0, 1), m.transpose(0, 1)
     bc = BoundaryConditions()
-    for lvl in range(k_steps):
-        j_l = None if j is None else j[lvl]
-        m_l = m[lvl] if m is not None and with_m else None
+    for pts, j_l, m_l in levels:
         e, h = advance(e, h, coeffs, inv_dx, bc, pts, j_l, m_l)
-    return SimState(*(c.to(dtype) for c in (*e, *h)), tick=state.tick + k_steps)
+    return SimState(*(c.to(state.dtype) for c in (*e, *h)),
+                    tick=state.tick + k_steps)
+
+
+def plain_ticks_inplace(state: SimState, table: torch.Tensor,
+                        matid: Optional[torch.Tensor],
+                        sources: Optional[SourceSet], k_steps: int,
+                        with_m: bool, inv_dx, dt) -> SimState:
+    """What the in-place kernels compute, in plain PyTorch: per tick the H
+    half in f32 from the stored fields, H rounded to the storage dtype, then
+    the E half from that H, E rounded; the result is written into the
+    state's own tensors and returned over them. At f32 storage this is
+    ``plain_ticks`` exactly."""
+    dtype = state.dtype
+    coeffs, levels = _plain_levels(state, table, matid, sources, k_steps,
+                                   with_m, dt)
+
+    def stored(fields):
+        return tuple(c.to(dtype).to(torch.float32) for c in fields)
+
+    e, h = stored(state.e), stored(state.h)
+    bc = BoundaryConditions()
+    for pts, j_l, m_l in levels:
+        h = stored(advance_h(e, h, coeffs, inv_dx, bc, pts, m_l))
+        e = stored(advance_e(e, h, coeffs, inv_dx, bc, pts, j_l))
+    fields = (*state.e, *state.h)
+    for dst, src in zip(fields, (*e, *h)):
+        dst.copy_(src)
+    return SimState(*fields, tick=state.tick + k_steps)
 
 
 def plain_step(state: SimState, table: torch.Tensor,
@@ -141,6 +184,16 @@ def plain_step(state: SimState, table: torch.Tensor,
                *, inv_dx, dt, with_m: bool = False) -> SimState:
     """K1's plain version: one tick, as the kernel computes it."""
     return plain_ticks(state, table, matid, sources, 1, with_m, inv_dx, dt)
+
+
+def plain_step_inplace(state: SimState, table: torch.Tensor,
+                       matid: Optional[torch.Tensor],
+                       sources: Optional[SourceSet], *, inv_dx, dt,
+                       with_m: bool = False) -> SimState:
+    """K1 ``io_alias``'s plain version: one tick into the state's tensors,
+    as the in-place kernel computes it."""
+    return plain_ticks_inplace(state, table, matid, sources, 1, with_m,
+                               inv_dx, dt)
 
 
 # -- the kernel ---------------------------------------------------------------
@@ -166,6 +219,13 @@ def check_launch_inputs(state: SimState, shape, dtype, table, matid) -> None:
                          f"tensor on {dev}")
 
 
+def check_inplace(state: SimState) -> None:
+    """Raise on fields that share storage: the in-place variants overwrite
+    each field while reading the others."""
+    if len({f.data_ptr() for f in (*state.e, *state.h)}) != 6:
+        raise ValueError("io_alias: the six fields must be distinct tensors")
+
+
 def _launch_step(state: SimState, shape, dtype, table, matid, sources, with_m,
                  inv_dx, dt):
     nx, ny, nz = shape
@@ -180,6 +240,19 @@ def _launch_step(state: SimState, shape, dtype, table, matid, sources, with_m,
     return SimState(*outs, tick=state.tick + 1)
 
 
+def _launch_step_inplace(state: SimState, shape, dtype, table, sources, with_m,
+                         inv_dx, dt):
+    nx, ny, nz = shape
+    rows = build_src_rows(sources, state.tick, 1, with_m, dt)
+    fields = (*state.e, *state.h)
+    _build.STEP_INPLACE.launch(
+        _DTYPE_CODE[dtype], _build.pointers(fields), table.data_ptr(),
+        table.shape[0], rows.data_ptr() if len(rows) else None, len(rows),
+        rows.shape[1], int(with_m), nx, ny, nz, *inv_dx,
+        _build.stream_handle(state.device))
+    return SimState(*fields, tick=state.tick + 1)
+
+
 def cuda_step_fn(
     shape: Tuple[int, int, int],
     *,
@@ -190,27 +263,37 @@ def cuda_step_fn(
     n_materials: int = 1,
     dtype=torch.float32,
     with_m: bool = False,
+    io_alias: bool = False,
 ):
     """Build step(state, coeffs, sources) -> state backed by K1.
 
     ``coeffs`` is CellCoefficients of scalars, or the (K, 4) table when
     ``matid`` (uint8, on the state's device) is given. CPU states take the
-    plain version; CUDA states launch the kernel or raise.
+    plain version; CUDA states launch the kernel or raise. ``io_alias``
+    updates the state's tensors in place (see the module's docstring).
     """
     if not supports(shape, bc, dtype=dtype):
         raise ValueError(f"K1 does not support {shape=} {bc=} {dtype=}")
     if matid is not None and not 1 <= n_materials <= 256:
         raise ValueError(f"K1 takes 1..256 materials, got {n_materials}")
+    if io_alias and matid is not None:
+        raise ValueError("io_alias does not support matid mode")
     inv_dx = tuple(float(v) for v in inv_dx)
 
     def step(state: SimState, coeffs, sources: Optional[SourceSet]) -> SimState:
         table = kernel_table(coeffs, matid, state.device)
         check_launch_inputs(state, shape, dtype, table, matid)
+        if io_alias:
+            check_inplace(state)
         if state.device.type == "cpu":
-            return plain_step(state, table, matid, sources, inv_dx=inv_dx,
-                              dt=dt, with_m=with_m)
+            plain = plain_step_inplace if io_alias else plain_step
+            return plain(state, table, matid, sources, inv_dx=inv_dx, dt=dt,
+                         with_m=with_m)
         if state.device.type != "cuda":
             raise ValueError(f"K1 runs on CUDA or CPU tensors, not {state.device}")
+        if io_alias:
+            return _launch_step_inplace(state, shape, dtype, table, sources,
+                                        with_m, inv_dx, dt)
         return _launch_step(state, shape, dtype, table, matid, sources, with_m,
                             inv_dx, dt)
 

@@ -165,22 +165,38 @@ def add_at(fields, pts, coef_cells, vals, dtype):
     )
 
 
-def advance(e, h, coeffs: CellCoefficients, inv_dx, bc, pts=None,
-            j_vals=None, m_vals=None):
-    """One leapfrog tick of (e, h) with per-source J/M values already
-    evaluated (``clip_points`` output)."""
+def advance_h(e, h, coeffs: CellCoefficients, inv_dx, bc, pts=None,
+              m_vals=None):
+    """The H half of a tick: the new H from the backward curl of E, minus
+    M at the source points (``clip_points`` output)."""
     dtype = e[0].dtype
     ce = curl_backward(e, inv_dx, bc)
     h = tuple(coeffs.d_a * h[c] - coeffs.d_b * ce[c] for c in range(3))
     if m_vals is not None:
         h = add_at(h, pts, _cells(coeffs.d_b, pts, len(pts), dtype), m_vals,
                    dtype)
+    return h
+
+
+def advance_e(e, h, coeffs: CellCoefficients, inv_dx, bc, pts=None,
+              j_vals=None):
+    """The E half of a tick: the new E from the forward curl of the new H,
+    minus J at the source points."""
+    dtype = e[0].dtype
     ch = curl_forward(h, inv_dx, bc)
     e = tuple(coeffs.c_a * e[c] + coeffs.c_b * ch[c] for c in range(3))
     if j_vals is not None:
         e = add_at(e, pts, _cells(coeffs.c_b, pts, len(pts), dtype), j_vals,
                    dtype)
-    return e, h
+    return e
+
+
+def advance(e, h, coeffs: CellCoefficients, inv_dx, bc, pts=None,
+            j_vals=None, m_vals=None):
+    """One leapfrog tick of (e, h) with per-source J/M values already
+    evaluated (``clip_points`` output)."""
+    h = advance_h(e, h, coeffs, inv_dx, bc, pts, m_vals)
+    return advance_e(e, h, coeffs, inv_dx, bc, pts, j_vals), h
 
 
 def field_dtype_time(tick: int, dt: float, dtype: torch.dtype) -> float:

@@ -98,6 +98,42 @@ def test_k2_matches_plain(cuda_device, dtype, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2, 8])
+def test_inplace_matches_plain_and_out_of_place(cuda_device, dtype, k):
+    """K1 (k = 1) and K2 with ``io_alias``: one launch of the in-place
+    variant, the result in the input tensors, within 2e-6 x ticks (f32) or
+    2^-7 (bf16) of max|field| of the in-place plain version, and at f32
+    bit-identical to the out-of-place kernel."""
+    (hs, hc, hsrc, _), (ds, dc, dsrc, _) = _inputs(dtype, cuda_device, False)
+    kw = dict(inv_dx=INV_DX, dt=DT, dtype=dtype, with_m=True)
+
+    def build(io_alias):
+        if k == 1:
+            return cuda_step_fn(SHAPE, io_alias=io_alias, **kw)
+        return cuda_stepk_fn(SHAPE, k, io_alias=io_alias, **kw)
+
+    want = build(True)(hs, hc, hsrc)
+    ref = build(False)(ds, dc, dsrc)
+    fields = (*ds.e, *ds.h)
+    mod = cuda_step if k == 1 else cuda_stepk
+    before = mod.launches(io_alias=True)
+    got = build(True)(ds, dc, dsrc)
+    torch.cuda.synchronize()
+    assert mod.launches(io_alias=True) == before + 1
+    assert got.tick == want.tick == ds.tick + k
+    assert all(a is b for a, b in zip((*got.e, *got.h), fields))
+    bar = 2e-6 * k if dtype == torch.float32 else 2.0 ** -7
+    scale = max(float(w.float().abs().max()) for w in (*want.e, *want.h))
+    for g, w in zip((*got.e, *got.h), (*want.e, *want.h)):
+        err = float((g.float().cpu() - w.float()).abs().max())
+        assert err <= bar * scale, (err, bar * scale)
+    if dtype == torch.float32:
+        for g, r in zip((*got.e, *got.h), (*ref.e, *ref.h)):
+            assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take(cuda_device):
     (_, _, _, _), (ds, dc, dsrc, _) = _inputs(torch.float32, cuda_device, False)
     step = cuda_step_fn(SHAPE, inv_dx=INV_DX, dt=DT)

@@ -59,8 +59,9 @@ class _OlderEntry(_build.Kernel):
     extensions): the wrapper's values for them, null when a run does not
     use them, are dropped."""
 
-    def __init__(self, name, source, entry, argtypes, drop):
-        super().__init__(name, source, entry, argtypes[:-1 - drop] + argtypes[-1:])
+    def __init__(self, name, source, entry, argtypes, drop, csrc):
+        super().__init__(name, source, entry, argtypes[:-1 - drop] + argtypes[-1:],
+                         csrc=csrc)
         self.drop = drop
 
     def launch(self, *args):
@@ -100,15 +101,15 @@ def build(baselines, shipped_only=False):
         d = OUT / f"v{i}"
         d.mkdir(parents=True, exist_ok=True)
         (d / "cpml.cuh").write_text(cuh)
-        # the library's name hashes cpmlk.cu but not this cpml.cuh: name
-        # the variant in cpmlk.cu so that no two variants share a library
+        # named in its source, so that two equal variants still build (and
+        # print their ptxas lines) apart
         (d / "cpmlk.cu").write_text(f"// variant: {name}\n{cu}")
-        path = str(Path("..", "..", "build", "k4_variants", f"v{i}", "cpmlk.cu"))
         argtypes = list(_build.CPMLK.argtypes)
         drop = 0 if "ext_meta" in cu else (2 if "opt_meta" in cu else 4)
-        kernels[name] = (_OlderEntry(f"K4 {name}", path, "fdtd_cpmlk", argtypes, drop)
-                         if drop else _build.Kernel(f"K4 {name}", path, "fdtd_cpmlk",
-                                                    argtypes))
+        kernels[name] = (_OlderEntry(f"K4 {name}", "cpmlk.cu", "fdtd_cpmlk", argtypes,
+                                     drop, d)
+                         if drop else _build.Kernel(f"K4 {name}", "cpmlk.cu",
+                                                    "fdtd_cpmlk", argtypes, csrc=d))
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda k: k.build(), kernels.values()))
     for name, k in kernels.items():

@@ -22,10 +22,15 @@ Run from the root of a checkout. In order it
    on the 37x29x53 case (a ball region graded along y whose box crosses
    tile edges, tests/test_oblique_kernel.py's skew frame) and at 256^3 with
    paths A's and B's absorbers, in f32 and bf16, psi and psi_d included;
-   K1 and K2 (every K of the ladder) in place (``io_alias``) on 37x29x53
-   and at 256^3, uniform, J+M sources, f32 and bf16, against their
-   in-place plain versions and against the out-of-place kernels (f32:
-   bit-identical), every output in its input tensor;
+   K1 and K2 (every K of the ladder, and K2 at K = 16 in bf16) in place
+   (``io_alias``) on 37x29x53 and at 256^3, uniform, J+M sources, f32 and
+   bf16, against their in-place plain versions and against the
+   out-of-place kernels (f32: bit-identical), every output in its input
+   tensor; K4 in place (``io_alias``) beside each K4 check above (the
+   ragged case with every option at K = 8, 4, 2, config 3 with its
+   accumulators and paths A's and B's options at 256^3, f32 and bf16)
+   against its in-place plain version and against K4 (f32: every output
+   bit-identical), every field, psi and psi_d in its input tensor;
 4. runs the free-space main path: BASELINE config 2 at 128^3 (a dielectric
    sphere and a lossy slab in a uint8 material index, a Gaussian J dipole),
    built as __graft_entry__._flagship builds it, for 1000 ticks with a
@@ -38,28 +43,36 @@ Run from the root of a checkout. In order it
    slice after every K2 call; the central 256^3 crop must equal a 256^3
    run, every cell outside it must be 0, the peak memory at most one set
    of fields plus 2 %, and every slice sample must keep its values;
-6. runs the absorbing main path: BASELINE config 3 at 256^3 (CPML 10 cells
+6. runs BASELINE config 3's absorbing run at 1024^3 f32 through
+   Simulation.run, in place (K4 io_alias) on one copy of the caller's
+   state: 128 ticks with its 3-point probe at K = 8 and at K = 2, whose
+   traces and per-x-plane sums must be bit-identical, with the peak memory
+   at most two states plus the material index plus 2 %; then 32 ticks of
+   the largest cubes (multiples of 16) the card holds through run (two
+   states) and through the in-place wrapper (one state);
+7. runs the absorbing main path: BASELINE config 3 at 256^3 (CPML 10 cells
    on every face, a closed TF/SF box with a Gaussian-derivative plane wave,
    a dielectric sphere of radius 32 in a uint8 material index, as
    fdtd_tpu/models/scattering.py builds it), for 1000 ticks with a 3-point
    probe every 8 ticks and for 1000 ticks with a DFT plane in the scattered
-   field, both through K4 (K = 8; the DFT on its dft option), held to the
-   plain engine run on the card;
-7. runs config 3's accumulators (the x = 13 DFT plane, a lateral DFT
+   field, both through K4 in place (f32: K = 8; the DFT on its dft option),
+   held to the plain engine run on the card, and the probe run at bf16
+   through K4 out of place, within 3 % of the f32 trace;
+8. runs config 3's accumulators (the x = 13 DFT plane, a lateral DFT
    plane, a BoxDft around the sphere and the scattering box flux) for 1000
    ticks three ways: on K4's options (K4a flux faces, K4b DFT planes and
    row captures), through K3 with a per-tick update (each accumulator
    wrapped so that it fits no option), and through the plain engine, and
    holds both kernel routes to the plain one;
-8. runs the slice's entry point, fdtd_tpu_torch.models.
+9. runs the slice's entry point, fdtd_tpu_torch.models.
    scattering_cross_section, on a Ball(32) scene at 256^3 for 1000 ticks
    (K4 with the flux faces) and holds sigma to the plain engine's;
-9. path A, oblique incidence: the same entry point at 20 degrees
+10. path A, oblique incidence: the same entry point at 20 degrees
    (direction (cos 20, sin 20, 0), z polarization; the ObliqueTfsf), 1000
    ticks through K4 with its oblique option and flux faces, and through
    the plain engine, sigma within 1e-4; then the same flux accumulator
    through K3 with a per-tick update (K3's oblique option);
-10. path B, an interior absorber: compile_scene on config 3's scene with six
+11. path B, an interior absorber: compile_scene on config 3's scene with six
    10-cell edge-slab GradedPml entities (the boundary CPML) and a GradedPml
    cuboid behind the sphere (solver x 200-216 across the whole y-z
    cross-section, normal +x; a DensePml region reaching into the y and z
@@ -67,18 +80,20 @@ Run from the root of a checkout. In order it
    K4 with its dense option (probes every 8 ticks), through K3 (probes
    every tick) and through the plain engine, fields and probes within
    rel 1e-5, and once more without the region for the energy behind it;
-   each of phases 4-10 sets the launch counts to 0 just before each run
-   and reads them just after, and each of its kernels must have launched;
-11. times, with CUDA events and in turns, config 2 at 128^3 (K1, K2, the
+   each of phases 4-11 sets the launch counts to 0 just before each run
+   and reads them just after, and each of its kernels must have launched
+   (at f32 Simulation.run steps K4 in place);
+12. times, with CUDA events and in turns, config 2 at 128^3 (K1, K2, the
    plain step), 512^3 free space (f32 and bf16; K1 and K2 K = 8 in place
    too, with their plain versions, and the peak memory of a call in each
    mode), config 3 at 256^3 (K3, K4
    at K = 8, 4, 2, K4 at K = 8 with each of its options, the plain engine),
    paths A and B at 256^3 (K3 and K4 at K = 8 with and without ``oblique``
    or ``dense``, the oblique corrections' evaluation apart from the kernel,
-   the plain engine) and 512^3 with Cpml.uniform(10) (f32 and bf16), and
-   prints Gcell/s and the byte model's share of the H100's 3.35 TB/s;
-12. profiles 64 ticks of each absorbing run, of each accumulator route, of
+   the plain engine), K4 io_alias beside K4 at 256^3 (config 3) and at
+   256^3 and 512^3 with Cpml.uniform(10) (f32 and bf16), and prints
+   Gcell/s and the byte model's share of the H100's 3.35 TB/s;
+13. profiles 64 ticks of each absorbing run, of each accumulator route, of
    paths A and B and of the plain engine at 256^3 (torch.profiler) and
    prints each one's device busy time, idle share and top kernel.
 
@@ -114,6 +129,13 @@ CONFIG5_RUNS = ((1024, "float32", 8), (1024, "float32", 1), (1024, "bfloat16", 8
                 (1024, "bfloat16", 2), (1024, "bfloat16", 1), (1440, "float32", 8))
 CONFIG5_TICKS = 64
 CONFIG5_CROP = 256
+# BASELINE config 3's absorbing run at 1024^3 f32 through Simulation.run
+# (K4 in place): its ticks, at K = 8 and K = 2
+CONFIG3_LARGE = 1024
+CONFIG3_LARGE_TICKS = 128
+# then the largest config-3 cubes the card holds (a multiple of 16 cells),
+# through Simulation.run and through the in-place wrapper, for these ticks
+LARGEST_TICKS = 32
 PATH_A_DEGREES = 20.0  # the middle angle of examples/05_oblique_incidence_rcs.py
 # path B's interior absorber: its solver x extent; it spans the whole y-z
 # cross-section. A uniaxial region whose y or z faces lie inside the domain
@@ -178,14 +200,26 @@ def config3(ft, shape, dtype, device, backend="cuda"):
     grid = ft.Grid(shape=shape, resolution=res, constants=ft.REDUCED)
     table = ft.MaterialTable()
     diel = table.register(ft.Material(relative_permittivity=3.9))
-    matid = np.zeros(shape, np.uint8)
-    idx = np.indices(shape)
-    r2 = ((idx - np.asarray(shape)[:, None, None, None] // 2) ** 2).sum(axis=0)
-    matid[r2 < (min(shape) // 8) ** 2] = diel
+    matid = sphere_matid(shape, min(shape) // 8, diel)
     ctable = ft.coefficient_table(table.materials, res, ft.REDUCED, dtype=np.float32)
     cpml, tfsf = config3_absorbers(ft, shape, grid.dt)
     return ft.Simulation(grid=grid, dtype=dtype, cpml=cpml, tfsf=tfsf, matid=matid,
                          table=ctable, backend=backend, device=device)
+
+
+def sphere_matid(shape, radius, value):
+    """A uint8 material index holding ``value`` where |cell - shape // 2|^2
+    < radius^2, else 0: np.indices' sphere, built one x plane at a time
+    (np.indices at 1024^3 would take 26 GB of int64 on the host)."""
+    import numpy as np
+
+    matid = np.zeros(shape, np.uint8)
+    c = [s // 2 for s in shape]
+    lateral = ((np.arange(shape[1])[:, None] - c[1]) ** 2
+               + (np.arange(shape[2])[None, :] - c[2]) ** 2)
+    for x in range(shape[0]):
+        matid[x][lateral + (x - c[0]) ** 2 < radius ** 2] = value
+    return matid
 
 
 def config3_absorbers(ft, shape, dt):
@@ -536,10 +570,11 @@ def self_checks(torch, ft, seed):
 
 
 def inplace_self_checks(torch, ft, seed):
-    """K1 and K2 ``io_alias`` (every K of the ladder) against their in-place
-    plain versions and against the out-of-place kernels, on the same inputs:
-    the ragged 37x29x53 case and 256^3, uniform coefficients, J+M sources,
-    f32 and bf16. Every output must be the input tensor (same data_ptr).
+    """K1 and K2 ``io_alias`` (every K of the ladder, and K = 16 at bf16)
+    against their in-place plain versions and against the out-of-place
+    kernels, on the same inputs: the ragged 37x29x53 case and 256^3,
+    uniform coefficients, J+M sources, f32 and bf16. Every output must be
+    the input tensor (same data_ptr).
 
     Tolerance: at f32 bit-identical to the out-of-place kernel, and within
     2e-6 x ticks x max|field| of the plain version; at bf16, compared in
@@ -549,7 +584,7 @@ def inplace_self_checks(torch, ft, seed):
     import numpy as np
     from fdtd_tpu_torch.solver.best import K_LADDER
     from fdtd_tpu_torch.solver.cuda_step import cuda_step_fn, plain_step_inplace
-    from fdtd_tpu_torch.solver.cuda_stepk import cuda_stepk_fn, plain_stepk_inplace
+    from fdtd_tpu_torch.solver.cuda_stepk import MAX_K, cuda_stepk_fn, plain_stepk_inplace
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 5)
@@ -571,7 +606,9 @@ def inplace_self_checks(torch, ft, seed):
             h = rng.standard_normal((3, *shape)).astype(np.float32)
             state = ft.state_from_stacked(e, h, tick=3, dtype=dtype, device=dev)
             kw = dict(inv_dx=inv_dx, dt=dt, dtype=dtype, with_m=True)
-            for k in ks:
+            # bf16 also at the largest K stepk.cu takes: the in-place
+            # rounding's gap to the out-of-place kernel grows with K
+            for k in ks + ((MAX_K,) if dtype == torch.bfloat16 else ()):
                 if k == 1:
                     name = "K1 io_alias"
                     out_f, in_f = cuda_step_fn(shape, **kw), cuda_step_fn(
@@ -624,6 +661,77 @@ def clone_state(torch, s):
                         for n in ("ex", "ey", "ez", "hx", "hy", "hz")})
 
 
+def clone_engine(torch, s):
+    """An EngineState over fresh copies of ``s``'s fields, psi slabs and
+    region psi (an in-place K4 call consumes them)."""
+    return clone_state(torch, s).replace(
+        psi_h=tuple((a.clone(), b.clone()) for a, b in s.psi_h),
+        psi_e=tuple((a.clone(), b.clone()) for a, b in s.psi_e),
+        psi_d=tuple(p.clone() for p in s.psi_d))
+
+
+def k4_outputs(out):
+    """(state, [flux rows, captures ...]) of a K4 step's result."""
+    if not isinstance(out, tuple):
+        return out, []
+    extra = [out[1]] if hasattr(out[1], "data_ptr") else list(out[1])
+    return out[0], extra + (list(out[2]) if len(out) == 3 else [])
+
+
+def inplace_k4_check(torch, label, k, dtype, state, ref, inplace, plain, f32_tol):
+    """K4 ``io_alias`` (``inplace``) on a copy of ``state``, against its
+    in-place plain version (``plain``) on another copy and against the
+    out-of-place kernel's result on ``state`` (``ref``). Every field, psi
+    slab and region psi of the result must be the input's own tensor. f32:
+    every output (fields, psi, psi_d, DFT planes, flux rows, captures)
+    bit-identical to ``ref``'s, fields and psi within ``f32_tol`` of the
+    largest value of the plain version's. bf16 (the in-place build rounds
+    the fields every tick, and the options sample the rounded fields):
+    fields (compared in bf16), psi, psi_d and every accumulator output
+    within 2^-7 of the plain version's largest value (one bf16 rounding
+    step of a field at the top of its range), and the fields within 3 % of
+    max|field| of ``ref`` (which rounds once per call). Returns the
+    fields' max abs error against the plain version."""
+    from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
+
+    def written(s):
+        return (*s.e, *s.h, *psi_tensors(s), *s.psi_d)
+
+    work = clone_engine(torch, state)
+    own = [t.data_ptr() for t in written(work)]
+    got, extra = k4_outputs(inplace(work))
+    want, w_extra = k4_outputs(plain(clone_engine(torch, state)))
+    r_state, r_extra = k4_outputs(ref)
+    torch.cuda.synchronize()
+    require(got.tick == want.tick == r_state.tick == state.tick + k, f"{label}: tick")
+    kept = [t.data_ptr() for t in written(got)] == own
+    err, scale = max_abs_err(got, want), field_scale(want)
+    psi = [(a, b) for a, b in zip(written(got)[6:], written(want)[6:]) if b.numel()]
+    psi_err = max((float((a - b).abs().max()) for a, b in psi), default=0.0)
+    psi_scale = max((float(b.abs().max()) for _, b in psi), default=0.0)
+    acc = max((acc_rel_err(a, b) for a, b in zip((*got.dft, *extra), (*want.dft, *w_extra))),
+              default=0.0)
+    vs_out = max_abs_err(got, r_state)
+    finite = all(bool(torch.isfinite(f).all()) for f in (*got.e, *got.h))
+    if dtype == torch.float32:
+        same = all(torch.equal(a, b) for a, b in zip(
+            (*written(got), *got.dft, *extra), (*written(r_state), *r_state.dft, *r_extra)))
+        ok = same and err <= f32_tol * scale and psi_err <= f32_tol * psi_scale
+    else:
+        same = False
+        bar = 2.0 ** -7
+        ok = (err <= bar * scale and psi_err <= bar * psi_scale and acc <= bar
+              and vs_out <= 0.03 * scale)
+    ok = ok and kept and finite
+    log(f"selfcheck {label} K={k} {tuple(state.shape)} {str(dtype)[6:]}: max_abs_err "
+        f"{err:.3e} (max|field| {scale:.3f}), psi {psi_err:.3e} (max|psi| {psi_scale:.3f}), "
+        f"accumulators {acc:.3e} of their max; vs out of place {vs_out:.3e}"
+        f"{' (every output bit-identical)' if same else ''}; data_ptr kept {kept} "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"{label} K={k} {tuple(state.shape)} {dtype} disagrees")
+    return err
+
+
 def random_engine_state(torch, ft, sim, dtype, cpml, tfsf, gen, dense=None):
     """An EngineState on the card with random fields, psi, aux line and
     region psi."""
@@ -642,18 +750,24 @@ def random_engine_state(torch, ft, sim, dtype, cpml, tfsf, gen, dense=None):
 
 
 def cpml_self_checks(torch, ft, seed):
-    """K3 and K4 against their plain versions on the card, psi included.
+    """K3 and K4 against their plain versions on the card, psi included,
+    and K4 ``io_alias`` against its in-place plain version and K4
+    (inplace_k4_check).
 
     Tolerances as self_checks; psi (f32 at every storage type) within
     2e-6 per tick of max|psi|."""
     from fdtd_tpu_torch.solver.best import K_LADDER
     from fdtd_tpu_torch.solver.cuda_cpml import cuda_cpml_step_fn, plain_cpml_step, psi_tensors
-    from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn, plain_cpml_stepk
+    from fdtd_tpu_torch.solver.cuda_cpml_k import (
+        cuda_cpml_stepk_fn,
+        plain_cpml_stepk,
+        plain_cpml_stepk_inplace,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    errs = {"K3": [], "K4": []}
+    errs = {"K3": [], "K4": [], "K4 io_alias": []}
     # the ragged check: unequal slabs on every axis; the box's y faces on
     # tile rows 8 and 24 (the +1 ring) and its z span across the tile edge
     sim = flagship(ft, LADDER_CHECK_SHAPE, torch.float32, dev)
@@ -701,6 +815,16 @@ def cpml_self_checks(torch, ft, seed):
                 require(ok, f"{name} K={k} {shape} {dtype} disagrees with its plain version")
                 if shape == ABSORB_SHAPE:
                     errs[name].append(err)
+                if name == "K4":
+                    err = inplace_k4_check(
+                        torch, "K4 io_alias", k, dtype, state, got,
+                        lambda s, k=k: cuda_cpml_stepk_fn(shape, k, io_alias=True, **kw)(
+                            s, table, src),
+                        lambda s, k=k: plain_cpml_stepk_inplace(s, table, matid, src, k,
+                                                                **common), 2e-6 * k)
+                    if shape == ABSORB_SHAPE:
+                        errs["K4 io_alias"].append(err)
+                del got, want
             del state
     return {name: max(v) for name, v in errs.items()}
 
@@ -731,14 +855,19 @@ def with_dft(torch, state, options, gen):
 def option_self_checks(torch, ft, seed):
     """K4's accumulator options against the plain version on the card, on
     the ragged 37x29x53 case (descriptors on tile edges) and at 256^3 with
-    config 3's accumulators, K = 8 (and 2 on the ragged case), f32 and
+    config 3's accumulators, K = 8 (and 4, 2 on the ragged case), f32 and
     bf16. Bars (tests/test_pallas_cpml.py:467-748, the TPU kernel's): flux
     rows within 2e-5 of max|row| per descriptor, DFT planes 3e-6 of
     max|acc|, captures 5e-6 of max|capture|; the options sample f32 fields
-    at every storage type, so bf16 is held to the same bars. Returns the
-    max abs errors at 256^3 f32: {"K4a": flux rows, "K4b": DFT planes and
-    captures}."""
-    from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn, plain_cpml_stepk
+    at every storage type, so bf16 is held to the same bars. K4
+    ``io_alias`` with the same options on the same inputs:
+    inplace_k4_check. Returns the max abs errors at 256^3 f32: {"K4a": flux
+    rows, "K4b": DFT planes and captures}."""
+    from fdtd_tpu_torch.solver.cuda_cpml_k import (
+        cuda_cpml_stepk_fn,
+        plain_cpml_stepk,
+        plain_cpml_stepk_inplace,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -747,7 +876,7 @@ def option_self_checks(torch, ft, seed):
     dt = ragged_sim.grid.dt
     ragged = (ragged_sim, ft.Cpml(thickness=((4, 3), (3, 5), (5, 4))),
               ft.Tfsf(span=(8, 27), waveform=ft.GaussianDerivative(6 * dt, 2 * dt),
-                      span_y=(8, 23), span_z=(3, 40)), RAGGED_OPTIONS, (8, 2))
+                      span_y=(8, 23), span_z=(3, 40)), RAGGED_OPTIONS, (8, 4, 2))
     main = config3(ft, ABSORB_SHAPE, torch.float32, dev)
     cases = (ragged, (main, main.cpml, main.tfsf,
                       config3_options(ft, ABSORB_SHAPE, main.grid.dt), (8,)))
@@ -785,6 +914,14 @@ def option_self_checks(torch, ft, seed):
                 require(ok, f"K4 options K={k} {shape} {dtype} disagree with the plain version")
                 if shape == ABSORB_SHAPE and dtype == torch.float32:
                     errs = {"K4a": max(errs["K4a"], f_abs), "K4b": max(errs["K4b"], b_abs)}
+                inplace_k4_check(
+                    torch, "K4 io_alias + options", k, dtype, state, (got, flux, caps),
+                    lambda s, k=k: cuda_cpml_stepk_fn(
+                        shape, k, dtype=dtype, matid=matid, n_materials=table.shape[0],
+                        io_alias=True, **common, **options)(s, table, None),
+                    lambda s, k=k: plain_cpml_stepk_inplace(s, table, matid, None, k,
+                                                            **common, **options), 2e-6 * k)
+                del got, flux, caps, want, w_flux, w_caps
             del state
     # the plane sums are deterministic: two launches, bit-identical rows
     state = with_dft(torch, random_engine_state(torch, ft, main, torch.float32, main.cpml,
@@ -852,7 +989,9 @@ def ext_self_checks(torch, ft, seed):
     TF/SF box of cpml_self_checks beside it) at K = 8, 4, 2, and at 256^3
     with path B's region and config 3's TF/SF box, path A's ObliqueTfsf, and
     both, at K = 8, in f32 and bf16. The plain version is the engine in f32
-    (plain_cpml_ticks), built once per configuration.
+    (plain_cpml_ticks), built once per configuration. K4 ``io_alias`` with
+    the same options on the same inputs: inplace_k4_check, at the f32 bar
+    below.
 
     Bar (tests/test_pallas_cpml.py, the TPU kernels'): fields within 2e-5
     of max|field| at f32 and 2^-7 of it at bf16 storage (compared in bf16,
@@ -923,6 +1062,15 @@ def ext_self_checks(torch, ft, seed):
                             "its plain version")
                     if shape == ABSORB_SHAPE and dtype == torch.float32 and option != "both":
                         errs[EXT_KEYS[(name, option)]] = err
+                    if name == "K4":
+                        inplace_k4_check(
+                            torch, f"K4 io_alias {option}", k, dtype, state, got,
+                            lambda s, k=k: cuda_cpml_stepk_fn(shape, k, io_alias=True, **kw)(
+                                s, table, src),
+                            lambda s, k=k: plain_cpml_ticks(s, step32, table, matid, src, k,
+                                                            common["with_m"], inplace=True),
+                            2e-5)
+                    del got, want
                 del state
     return errs
 
@@ -1119,6 +1267,190 @@ def config5_path(torch, ft):
     return launches, gcells
 
 
+def plane_sums(torch, s, chunk=32):
+    """(6, nx) f64 sums of each field over every x plane, in chunks of
+    ``chunk`` planes: no lattice-sized temporary."""
+    return torch.stack([
+        torch.cat([f[x:x + chunk].double().sum(dim=(1, 2)) for x in range(0, f.shape[0], chunk)])
+        for f in (*s.e, *s.h)])
+
+
+def config3_large_path(torch, ft):
+    """BASELINE config 3 at 1024^3 f32 through Simulation.run (the sphere
+    of radius n/8, config3_absorbers' CPML 10 and TF/SF box; the material
+    index built plane by plane): CONFIG3_LARGE_TICKS ticks with the 3-point
+    probe every 8 ticks at K = 8, then (the first run's states deleted) at
+    K = 2, where plan() needs the probe every 2 ticks; every fourth sample
+    is then the K = 8 run's. Each run: its launch counts (set to 0 just
+    before it, read just after) show K4 io_alias alone; its peak memory is
+    at most two states (six fields and the psi slabs each: the caller's
+    and run's copy) plus the material index plus 2 %; the caller's state
+    stays zero. The two runs' probe traces and per-x-plane f64 sums of the
+    six fields must be bit-identical, finite and nonzero. Then one in-place
+    wrapper call on the final state must allocate < 2 % of one set of
+    fields beyond it. Last, the largest cubes the card holds through run
+    and through the wrapper (largest_config3). Returns (launches,
+    numbers)."""
+    import gc
+
+    from fdtd_tpu_torch.solver import cuda_cpml_k
+    from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
+
+    dev = torch.device("cuda")
+    n, ticks = CONFIG3_LARGE, CONFIG3_LARGE_TICKS
+    shape = (n, n, n)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sim = config3(ft, shape, torch.float32, dev)
+    probes, _ = absorbing_probes(shape)
+    set_bytes = 6 * 4 * n ** 3
+    matid_bytes = sim.matid.numel()
+    log(f"config 3 {n}^3 f32: scene and Simulation built in {time.perf_counter() - t0:.1f} s; "
+        f"one set of fields {set_bytes / 1e9:.3f} GB, material index {matid_bytes / 1e9:.3f} "
+        f"GB; card free {free / 1e9:.3f} of {total / 1e9:.3f} GB")
+    runs, launches, out = {}, 0, None
+    for k, every in ((8, 8), (2, 2)):
+        label = f"config 3 {n}^3 f32 K={k}"
+        require(sim.plan(ticks, probes, (), every) == (k, "cuda_cpml_k"), f"{label}: plan")
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = sim.init()
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in (*state.e, *state.h, *psi_tensors(state)))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        reset_counts()
+        start.record()
+        out, (trace,), _ = sim.run(state, ticks, probes=probes, probe_every=every)
+        end.record()
+        end.synchronize()
+        counts = launch_counts()
+        options = cuda_cpml_k.option_launches()
+        peak = torch.cuda.max_memory_allocated() - base
+        secs = start.elapsed_time(end) / 1e3
+        want = {name: 0 for name in counts}
+        want["K4 io_alias"] = ticks // k
+        require(counts == want and not any(options.values()),
+                f"{label}: launches {counts} {options}, expected {want}")
+        launches += counts["K4 io_alias"]
+        limit = 1.02 * (2 * state_bytes + matid_bytes)
+        untouched = all(int(torch.count_nonzero(t)) == 0
+                        for t in (*state.e, *state.h, *psi_tensors(state)))
+        del state
+        sums = plane_sums(torch, out)
+        trace = trace if every == 8 else trace[3::4]
+        g = n ** 3 * ticks / secs / 1e9
+        runs[k] = {"seconds": secs, "gcells": g, "peak_bytes": peak, "limit_bytes": limit,
+                   "state_bytes": state_bytes, "max_probe": float(trace.abs().max()),
+                   "trace": trace, "sums": sums}
+        log(f"{label}: {ticks} ticks in {secs * 1e3:.3f} ms, {g:.3f} Gcell/s; launches "
+            f"{counts}; peak {peak / 1e9:.4f} GB (limit {limit / 1e9:.4f} GB: two states of "
+            f"{state_bytes / 1e9:.4f} GB + the material index + 2 %); caller's state "
+            f"untouched {untouched}; max|E| {float(max(f.abs().max() for f in out.e)):.4e}, "
+            f"max|probe| {float(trace.abs().max()):.4e}")
+        require(out.tick == ticks and tuple(out.ex.shape) == shape, f"{label}: bad final state")
+        require(peak <= limit, f"{label}: peak {peak} > {limit}")
+        require(untouched, f"{label}: the caller's state changed")
+        # in 128 ticks the plane wave reaches x ~ 80 of 1024: the probe's
+        # points (the sphere's centre, behind it, the scattered field at
+        # x = 13) see at most the TF/SF box's leakage; the plane sums see
+        # the wave
+        require(bool(torch.isfinite(sums).all()) and float(sums.abs().max()) > 0
+                and bool(torch.isfinite(trace).all()), f"{label}: no finite field")
+    same_trace = torch.equal(runs[8]["trace"], runs[2]["trace"])
+    same_sums = torch.equal(runs[8]["sums"], runs[2]["sums"])
+    log(f"config 3 {n}^3: K=8 and K=2 probe traces bit-identical {same_trace}, per-x-plane "
+        f"f64 sums of the six fields bit-identical {same_sums}")
+    require(same_trace and same_sums, f"config 3 {n}^3: K = 8 and K = 2 differ")
+    step = sim._multi_step(8)
+    call = peak_call_bytes(torch, lambda s: step(s, sim.coeffs, sim.sources), out)
+    log(f"config 3 {n}^3: one K4 io_alias call (K=8) allocates {call} B beyond the state "
+        f"= {call / set_bytes:.3e} of one set")
+    require(call < 0.02 * set_bytes, f"an in-place call allocates {call} B")
+    del out, sim, step
+    numbers = {k: {key: v for key, v in r.items() if key not in ("trace", "sums")}
+               for k, r in runs.items()}
+    numbers["call_bytes"] = call
+    for route, states in (("Simulation.run", 2), ("the in-place wrapper", 1)):
+        count, numbers[route] = largest_config3(torch, ft, route, states)
+        launches += count
+    return launches, numbers
+
+
+def config3_bytes(n, states, cpml):
+    """Device bytes of config 3 at n^3 f32 holding ``states`` states (six
+    fields and the psi slabs of ``cpml`` each) and the material index."""
+    psi = 4 * psi_cells((n, n, n), cpml)
+    return states * (24 * n ** 3 + psi) + n ** 3
+
+
+def largest_config3(torch, ft, route, states):
+    """The largest config-3 cube (a multiple of 16) whose ``states`` states
+    and material index fit 99 % of the card's free memory, run for
+    LARGEST_TICKS ticks at K = 8 in place: through Simulation.run (two
+    states: the caller's and run's copy) or through the in-place wrapper
+    (``sim._multi_step``, one state). Its launch counts must show K4
+    io_alias alone, its peak memory at most config3_bytes + 2 %, its
+    fields finite and nonzero. Returns (launches, numbers)."""
+    import gc
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    cpml = config3_absorbers(ft, (256,) * 3, 1.0)[0]
+    n = 16 * int(round((0.99 * free / (24 * states + 1)) ** (1 / 3) / 16)) + 32
+    while config3_bytes(n, states, cpml) > 0.99 * free:
+        n -= 16
+    shape = (n, n, n)
+    base = torch.cuda.memory_allocated()
+    sim = config3(ft, shape, torch.float32, dev)
+    probes, _ = absorbing_probes(shape)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = sim.init()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    if states == 2:
+        out = sim.run(state, LARGEST_TICKS, probes=probes, probe_every=8)[0]
+    else:
+        step, out = sim._multi_step(8), state
+        for _ in range(LARGEST_TICKS // 8):
+            out = step(out, sim.coeffs, sim.sources)
+    end.record()
+    end.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    secs = start.elapsed_time(end) / 1e3
+    limit = 1.02 * config3_bytes(n, states, cpml)
+    del state
+    sums = plane_sums(torch, out)
+    label = f"config 3 {n}^3 f32 through {route}"
+    log(f"{label} (the largest multiple of 16 whose {states} state(s) and index fit 99 % of "
+        f"{free / 1e9:.3f} GB free): {LARGEST_TICKS} ticks in {secs * 1e3:.3f} ms, "
+        f"{n ** 3 * LARGEST_TICKS / secs / 1e9:.3f} Gcell/s; launches {counts}; peak "
+        f"{peak / 1e9:.4f} GB (limit {limit / 1e9:.4f} GB)")
+    want = {name: 0 for name in counts}
+    want["K4 io_alias"] = LARGEST_TICKS // 8
+    require(counts == want, f"{label}: launches {counts}, expected {want}")
+    require(peak <= limit, f"{label}: peak {peak} > {limit}")
+    require(out.tick == LARGEST_TICKS and bool(torch.isfinite(sums).all())
+            and float(sums.abs().max()) > 0, f"{label}: no finite field")
+    del out, sim, sums
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want["K4 io_alias"], {"n": n, "seconds": secs, "peak_bytes": peak,
+                                 "limit_bytes": limit, "free_bytes": free}
+
+
 def launch_counts():
     """Each kernel's launches since the last reset_counts, by name."""
     from fdtd_tpu_torch.solver import _build
@@ -1149,10 +1481,13 @@ def absorbing_probes(shape):
 
 
 def absorbing_path(torch, ft):
-    """Config 3 at 256^3 through Simulation: 1000 ticks through K4 (K = 8)
-    with a 3-point probe every 8 ticks, 1000 through K4 with a DFT plane in
-    the scattered field on its dft option, each held to one plain-engine
-    run on the card that carries both the probe and the DFT."""
+    """Config 3 at 256^3 through Simulation: 1000 ticks through K4 in place
+    (f32: K = 8, io_alias) with a 3-point probe every 8 ticks, 1000 through
+    it with a DFT plane in the scattered field on its dft option, each held
+    to one plain-engine run on the card that carries both the probe and the
+    DFT; and the probe run at bf16 storage, which steps out of place (K4),
+    its trace within 3 % of the f32 trace's largest value (bf16 storage
+    tracks f32 to < 3 % over a pulse, docs/ARCHITECTURE.md:95-98)."""
     from fdtd_tpu_torch.solver import cuda_cpml_k
 
     dev = torch.device("cuda")
@@ -1172,10 +1507,28 @@ def absorbing_path(torch, ft):
     s_k3, _, (spec,) = sim.run(sim.init(), MAIN_STEPS, accumulators=dft)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K4": cuda_cpml_k.launches(), **cuda_cpml_k.option_launches()}
+    launches = {"K4 io_alias": cuda_cpml_k.launches(io_alias=True),
+                "K4": cuda_cpml_k.launches(), **cuda_cpml_k.option_launches()}
     log(f"absorbing path: {wall:.2f} s for both runs; launches {launches}")
-    require(launches["K4"] == 2 * MAIN_STEPS // k, "K4 did not run both runs")
+    require(launches["K4 io_alias"] == 2 * MAIN_STEPS // k and launches["K4"] == 0,
+            "K4 io_alias did not run both runs alone")
     require(launches["dft"] == MAIN_STEPS // k1, "the DFT run did not ride K4's dft option")
+
+    sim16 = config3(ft, ABSORB_SHAPE, torch.bfloat16, dev)
+    require(sim16.plan(MAIN_STEPS, probes, (), 8) == (8, "cuda_cpml_k"), "bf16 plan")
+    reset_counts()
+    s_16, (trace16,), _ = sim16.run(sim16.init(), MAIN_STEPS, probes=probes, probe_every=8)
+    torch.cuda.synchronize()
+    bf16_launches = {"K4": cuda_cpml_k.launches(),
+                     "K4 io_alias": cuda_cpml_k.launches(io_alias=True)}
+    t16 = float((trace16.float() - trace).abs().max() / trace.abs().max())
+    log(f"absorbing path bf16 probe run: launches {bf16_launches}; trace rel err vs the f32 "
+        f"run {t16:.3e} (tol 3e-2)")
+    require(bf16_launches == {"K4": MAIN_STEPS // 8, "K4 io_alias": 0},
+            "the bf16 run did not step out of place through K4")
+    require(s_16.tick == MAIN_STEPS and bool(torch.isfinite(s_16.ez).all()) and t16 <= 3e-2,
+            "the bf16 probe run strays from the f32 run")
+    del s_16, sim16
 
     t0 = time.perf_counter()
     p_state, (p_trace,), (p_spec,) = plain.run(plain.init(), MAIN_STEPS, probes=probes,
@@ -1199,12 +1552,12 @@ def absorbing_path(torch, ft):
         f"(max |DFT re| {scattered:.4e})")
     require(scattered > 0, "no scattered field reached the DFT plane")
     require(t_err <= 1e-5 and s_err <= 1e-5, "probe/DFT disagree with the plain run")
-    return {"K4": launches["K4"]}
+    return {"K4": bf16_launches["K4"], "K4 io_alias": launches["K4 io_alias"]}
 
 
 def accumulator_path(torch, ft):
     """Config 3's accumulators at 256^3 for 1000 ticks, three ways: on K4's
-    options (plan: K = 8, cuda_cpml_k), through K3 with a per-tick update
+    options (plan: K = 8, cuda_cpml_k; in place), through K3 with a per-tick update
     (PerTick), and through the plain engine. Both kernel routes are held
     to the plain one: final fields at rel-L2 <= 1e-5, every accumulator
     within 1e-5 of its largest value (BoxDft: tangential components).
@@ -1228,7 +1581,8 @@ def accumulator_path(torch, ft):
     s_k4, _, f_k4 = sim.run(sim.init(), MAIN_STEPS, accumulators=accs)
     torch.cuda.synchronize()
     walls["K4 + options"] = time.perf_counter() - t0
-    k4_launches = {"K4": cuda_cpml_k.launches(), **cuda_cpml_k.option_launches()}
+    k4_launches = {"K4 io_alias": cuda_cpml_k.launches(io_alias=True),
+                   **cuda_cpml_k.option_launches()}
     t0 = time.perf_counter()
     s_k3, _, f_k3 = sim.run(sim.init(), MAIN_STEPS, accumulators=per_tick)
     torch.cuda.synchronize()
@@ -1240,7 +1594,7 @@ def accumulator_path(torch, ft):
     walls["plain engine"] = time.perf_counter() - t0
     log(f"accumulator path: wall {', '.join(f'{n} {w:.3f} s' for n, w in walls.items())}; "
         f"launches {launches}")
-    require(launches["K4"] == MAIN_STEPS // k, "K4 did not run the accumulator run")
+    require(launches["K4 io_alias"] == MAIN_STEPS // k, "K4 did not run the accumulator run")
     require(all(launches[o] == MAIN_STEPS // k for o in ("flux_faces", "dft", "dft_rows")),
             "an option did not ride every K4 launch")
     require(launches["K3"] == MAIN_STEPS, "K3 did not run the per-tick route")
@@ -1266,8 +1620,9 @@ def accumulator_path(torch, ft):
 def scattering_path(torch, ft):
     """The slice's entry point: scattering_cross_section on a Ball(32)
     (eps_r 3.9) scene at 256^3 (half extents 128, dx 1), cpml_cells 10,
-    pulse_duration_steps 10, 1000 ticks, through K4 with its flux faces,
-    and through the plain engine; sigma within 1e-4 relative."""
+    pulse_duration_steps 10, 1000 ticks, through K4 in place with its flux
+    faces, and through the plain engine; sigma within 1e-4 relative, and
+    equal to the same run's through K4 out of place."""
     from fdtd_tpu_torch.models import scattering_cross_section
     from fdtd_tpu_torch.solver import cuda_cpml_k
 
@@ -1278,24 +1633,43 @@ def scattering_path(torch, ft):
               n_steps=MAIN_STEPS, cpml_cells=10)
     reset_counts()
     res = scattering_cross_section(scene, device=dev, **kw)
-    launches = {"K4": cuda_cpml_k.launches(), **cuda_cpml_k.option_launches()}
+    launches = {"K4 io_alias": cuda_cpml_k.launches(io_alias=True),
+                **cuda_cpml_k.option_launches()}
     ref = scattering_cross_section(scene, device=dev, backend="torch", **kw)
     rel = abs(res.sigma_scat - ref.sigma_scat) / abs(ref.sigma_scat)
     log(f"scattering path: grid {res.grid.shape}, sigma_scat {res.sigma_scat:.8e} (plain "
         f"engine {ref.sigma_scat:.8e}, rel diff {rel:.3e}), gcell_per_s {res.gcell_per_s:.3f} "
         f"(plain engine {ref.gcell_per_s:.3f}); launches {launches}")
     require(res.grid.shape == ABSORB_SHAPE, f"scene compiled to {res.grid.shape}")
-    require(launches["K4"] == MAIN_STEPS // 8 == launches["flux_faces"],
-            "the flux accumulator did not ride K4")
+    require(launches["K4 io_alias"] == MAIN_STEPS // 8 == launches["flux_faces"],
+            "the flux accumulator did not ride K4 in place")
     require(math.isfinite(res.sigma_scat) and res.sigma_scat > 0, "sigma")
     require(rel <= 1e-4, f"sigma differs from the plain engine's by {rel:.3e}")
+    # the same run with run's K4 route out of place: at f32 the in-place
+    # build is bit-identical, so sigma is the same number
+    from fdtd_tpu_torch.solver.simulation import Simulation
+
+    in_place = Simulation._in_place
+    Simulation._in_place = property(lambda self: False)
+    reset_counts()
+    try:
+        oop = scattering_cross_section(scene, device=dev, **kw)
+    finally:
+        Simulation._in_place = in_place
+    oop_launches = {"K4": cuda_cpml_k.launches(),
+                    "K4 io_alias": cuda_cpml_k.launches(io_alias=True)}
+    log(f"scattering path, K4 out of place: sigma_scat {oop.sigma_scat:.8e}, equal to the "
+        f"in-place run's {oop.sigma_scat == res.sigma_scat}; launches {oop_launches}")
+    require(oop_launches == {"K4": MAIN_STEPS // 8, "K4 io_alias": 0},
+            "the out-of-place run did not ride K4")
+    require(oop.sigma_scat == res.sigma_scat, "sigma in place differs from sigma out of place")
     return res, ref
 
 
 def oblique_path(torch, ft, sigma_x):
     """Path A: scattering_cross_section at PATH_A_DEGREES (z polarization)
-    on config 3's scene at 256^3, 1000 ticks, through K4 with its oblique
-    option and flux faces and through the plain engine, sigma within 1e-4
+    on config 3's scene at 256^3, 1000 ticks, through K4 in place with its
+    oblique option and flux faces and through the plain engine, sigma within 1e-4
     relative; logged beside the +x run's ``sigma_x`` (a sphere's sigma does
     not depend on the angle: a physics check for the record), and the empty
     scene's sigma (the oblique box's leakage) beside it. Then the same
@@ -1314,7 +1688,8 @@ def oblique_path(torch, ft, sigma_x):
               polarization=(0.0, 0.0, 1.0))
     reset_counts()
     res = scattering_cross_section(scene, device=dev, **kw)
-    launches = {"K4": cuda_cpml_k.launches(), **cuda_cpml_k.option_launches()}
+    launches = {"K4 io_alias": cuda_cpml_k.launches(io_alias=True),
+                **cuda_cpml_k.option_launches()}
     ref = scattering_cross_section(scene, device=dev, backend="torch", **kw)
     rel = abs(res.sigma_scat - ref.sigma_scat) / abs(ref.sigma_scat)
     log(f"path A: {PATH_A_DEGREES} degrees, grid {res.grid.shape}, sigma_scat "
@@ -1322,8 +1697,9 @@ def oblique_path(torch, ft, sigma_x):
         f"gcell_per_s {res.gcell_per_s:.3f} (plain engine {ref.gcell_per_s:.3f}); "
         f"launches {launches}; sigma / sigma(+x) {res.sigma_scat / sigma_x:.6f}")
     require(res.grid.shape == ABSORB_SHAPE, f"scene compiled to {res.grid.shape}")
-    require(launches["K4"] == MAIN_STEPS // 8 == launches["oblique"] == launches["flux_faces"],
-            "path A did not ride K4 with its oblique option and flux faces")
+    require(launches["K4 io_alias"] == MAIN_STEPS // 8 == launches["oblique"]
+            == launches["flux_faces"],
+            "path A did not ride K4 in place with its oblique option and flux faces")
     require(math.isfinite(res.sigma_scat) and res.sigma_scat > 0, "sigma")
     require(rel <= 1e-4, f"sigma differs from the plain engine's by {rel:.3e}")
     # the same box with nothing inside: what the oblique TF/SF leaks
@@ -1365,7 +1741,7 @@ class SlabEnergy:
 
 def region_path(torch, ft):
     """Path B: path_b_sim at 256^3 for 1000 ticks with config 3's 3-point
-    probe, through K4 (K = 8, probes every 8 ticks) with its dense option,
+    probe, through K4 in place (K = 8, probes every 8 ticks) with its dense option,
     through K3 (probes every tick) with its dense option, and through the
     plain engine (probes every tick); final fields within rel-L2 1e-5 and
     probe stacks within 1e-5 of their largest value. Logs the peak field
@@ -1401,11 +1777,12 @@ def region_path(torch, ft):
         walls[name] = time.perf_counter() - t0
         runs[name] = (state, trace, energy)
         launches[name] = {"K3": cuda_cpml.launches(), "K3 dense": cuda_cpml.option_launches()[
-            "dense"], "K4": cuda_cpml_k.launches(), "K4c": cuda_cpml_k.option_launches()["dense"]}
+            "dense"], "K4 io_alias": cuda_cpml_k.launches(io_alias=True),
+            "K4c": cuda_cpml_k.option_launches()["dense"]}
     log(f"path B: wall {', '.join(f'{n} {w:.3f} s' for n, w in walls.items())}; "
         f"launches {launches}")
-    require(launches["K4 + dense"]["K4"] == MAIN_STEPS // 8 == launches["K4 + dense"]["K4c"],
-            "path B did not ride K4's dense option")
+    require(launches["K4 + dense"]["K4 io_alias"] == MAIN_STEPS // 8
+            == launches["K4 + dense"]["K4c"], "path B did not ride K4's dense option in place")
     require(launches["K3 + dense"]["K3"] == MAIN_STEPS == launches["K3 + dense"]["K3 dense"],
             "K3's dense option did not run")
     p_state, p_trace, _ = runs["plain engine"]
@@ -1433,7 +1810,8 @@ def region_path(torch, ft):
 
 def profile_absorbing(torch, ft, ticks=64):
     """Config 3 at 256^3 under torch.profiler (CPU and CUDA activities): for
-    the K4 probe run, the K4 DFT run, the plain engine with the DFT plane,
+    the K4 probe run, the K4 DFT run (both in place at f32, as
+    Simulation.run steps them), the plain engine with the DFT plane,
     config 3's accumulators on K4's options, through K3 with a per-tick
     update and through the plain engine, path A (K4 with its oblique option
     and flux faces) and path B (K4 with its dense option and the probe), a
@@ -1452,15 +1830,18 @@ def profile_absorbing(torch, ft, ticks=64):
     accs = config3_accumulators(ft, ABSORB_SHAPE, sim.grid.dt)
     per_tick = tuple(PerTick(a) for a in accs)
     path_a, flux = path_a_sim(ft, dev)
-    runs = (("K4 K=8, 3-point probe every 8", sim, dict(probes=probes, probe_every=8)),
-            ("K4 K=8, DFT plane", sim, dict(accumulators=dft)),
+    runs = (("K4 io_alias K=8, 3-point probe every 8", sim,
+             dict(probes=probes, probe_every=8)),
+            ("K4 io_alias K=8, DFT plane", sim, dict(accumulators=dft)),
             ("plain engine, DFT plane", plain, dict(accumulators=dft)),
-            ("K4 K=8 + options, config 3 accumulators", sim, dict(accumulators=accs)),
+            ("K4 io_alias K=8 + options, config 3 accumulators", sim,
+             dict(accumulators=accs)),
             ("K3 + per-tick update, config 3 accumulators", sim,
              dict(accumulators=per_tick)),
             ("plain engine, config 3 accumulators", plain, dict(accumulators=accs)),
-            ("path A: K4 K=8 + oblique + flux faces", path_a, dict(accumulators=(flux,))),
-            ("path B: K4 K=8 + dense, 3-point probe every 8", path_b_sim(ft, dev),
+            ("path A: K4 io_alias K=8 + oblique + flux faces", path_a,
+             dict(accumulators=(flux,))),
+            ("path B: K4 io_alias K=8 + dense, 3-point probe every 8", path_b_sim(ft, dev),
              dict(probes=probes, probe_every=8)))
     out = {}
     for name, s, kw in runs:
@@ -1628,12 +2009,17 @@ def ext_timings(torch, ft):
 
 def cpml_timings(torch, ft):
     """ms per call at config 3's 256^3 (K3, K4 at every K of the ladder, K4
-    at K = 8 with config 3's accumulator options, the plain engine and each
-    kernel's plain version) and at 512^3 with Cpml.uniform(10), no TF/SF,
-    uniform coefficients (f32 and bf16)."""
+    at K = 8 with config 3's accumulator options, K4 io_alias at K = 8, the
+    plain engine and each kernel's plain version) and at 256^3 and 512^3
+    with Cpml.uniform(10), no TF/SF, uniform coefficients (f32 and bf16;
+    K4 io_alias at K = 8 beside K4)."""
     from fdtd_tpu_torch.solver.best import K_LADDER
     from fdtd_tpu_torch.solver.cuda_cpml import cuda_cpml_step_fn, plain_cpml_step
-    from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn, plain_cpml_stepk
+    from fdtd_tpu_torch.solver.cuda_cpml_k import (
+        cuda_cpml_stepk_fn,
+        plain_cpml_stepk,
+        plain_cpml_stepk_inplace,
+    )
 
     dev = torch.device("cuda")
     results = {}
@@ -1664,6 +2050,13 @@ def cpml_timings(torch, ft):
         f = cuda_cpml_stepk_fn(ABSORB_SHAPE, k, matid=mid, n_materials=tab.shape[0], **kw)
         named.append((f"K4 K={k}", lambda s, f=f: f(s, tab, None), k))
         models[f"K4 K={k}"] = cpml_bytes(ABSORB_SHAPE, 4, True, sim.cpml, aux_len, k) / k
+    # K4 in place, at K4's bound (it moves 18 fields a tick as it runs)
+    f = cuda_cpml_stepk_fn(ABSORB_SHAPE, top, matid=mid, n_materials=tab.shape[0],
+                           io_alias=True, **kw)
+    named += [(f"K4 K={top} io_alias", lambda s, f=f: f(s, tab, None), top),
+              (f"K4 K={top} io_alias plain version",
+               lambda s: plain_cpml_stepk_inplace(s, tab, mid, None, top, **kw), top)]
+    models[f"K4 K={top} io_alias"] = models[f"K4 K={top}"]
     # K4 at K = 8 with config 3's accumulator options, each alone and all
     # together, and their plain versions (the state carries the DFT planes;
     # the steps without the dft option pass them through)
@@ -1687,29 +2080,35 @@ def cpml_timings(torch, ft):
     report("config3_256", named, in_turns(torch, named, state, 8), ABSORB_SHAPE, models)
     del state
 
-    # 512^3 with Cpml.uniform(10), no TF/SF, uniform coefficients
+    # 256^3 and 512^3 with Cpml.uniform(10), no TF/SF, uniform coefficients;
+    # K4 io_alias in turns with K4 (the in-place calls advance the shared
+    # starting state: the fields' values do not change the work)
     cpml = ft.Cpml.uniform(10)
     res = ft.Resolution.courant(1.0, ft.REDUCED, safety=0.99)
     row = (1.0, res.temporal, 1.0, res.temporal)
     coeffs1 = ft.CellCoefficients.uniform(row, device=dev)
     kw = dict(inv_dx=(1.0, 1.0, 1.0), dt=res.temporal, constants=ft.REDUCED, cpml=cpml)
-    for dtype in (torch.float32, torch.bfloat16):
-        b = 4 if dtype == torch.float32 else 2
-        engine = ft.build_step(SCALE_SHAPE, dtype=dtype, **kw)
-        named = [("plain engine", lambda s, f=engine: f(s, coeffs1, None), 1),
-                 ("K3", lambda s, f=cuda_cpml_step_fn(SCALE_SHAPE, dtype=dtype, **kw):
-                  f(s, coeffs1, None), 1)]
-        models = {"K3": cpml_bytes(SCALE_SHAPE, b, False, cpml)}
-        for k in K_LADDER:
-            f = cuda_cpml_stepk_fn(SCALE_SHAPE, k, dtype=dtype, **kw)
-            named.append((f"K4 K={k}", lambda s, f=f: f(s, coeffs1, None), k))
-            models[f"K4 K={k}"] = cpml_bytes(SCALE_SHAPE, b, False, cpml) / k
-        state = ft.init_engine_state(SCALE_SHAPE, dtype, cpml=cpml, device=dev)
-        state = state.replace(ez=torch.ones_like(state.ez))
-        report(f"cpml_512_{str(dtype)[6:]}", named, in_turns(torch, named, state, 6),
-               SCALE_SHAPE, models)
-        del state
-        torch.cuda.empty_cache()
+    for shape in (ABSORB_SHAPE, SCALE_SHAPE):
+        for dtype in (torch.float32, torch.bfloat16):
+            b = 4 if dtype == torch.float32 else 2
+            engine = ft.build_step(shape, dtype=dtype, **kw)
+            named = [("plain engine", lambda s, f=engine: f(s, coeffs1, None), 1),
+                     ("K3", lambda s, f=cuda_cpml_step_fn(shape, dtype=dtype, **kw):
+                      f(s, coeffs1, None), 1)]
+            models = {"K3": cpml_bytes(shape, b, False, cpml)}
+            for k in K_LADDER:
+                f = cuda_cpml_stepk_fn(shape, k, dtype=dtype, **kw)
+                named.append((f"K4 K={k}", lambda s, f=f: f(s, coeffs1, None), k))
+                models[f"K4 K={k}"] = cpml_bytes(shape, b, False, cpml) / k
+            f = cuda_cpml_stepk_fn(shape, top, dtype=dtype, io_alias=True, **kw)
+            named.append((f"K4 K={top} io_alias", lambda s, f=f: f(s, coeffs1, None), top))
+            models[f"K4 K={top} io_alias"] = models[f"K4 K={top}"]
+            state = ft.init_engine_state(shape, dtype, cpml=cpml, device=dev)
+            state = state.replace(ez=torch.ones_like(state.ez))
+            report(f"cpml_{shape[0]}_{str(dtype)[6:]}", named,
+                   in_turns(torch, named, state, 6), shape, models)
+            del state
+            torch.cuda.empty_cache()
     return results
 
 
@@ -1896,7 +2295,9 @@ def measure(torch, ft, seed):
     launches = main_path(torch, ft)
     c5_launches, c5_gcells = config5_path(torch, ft)
     launches.update(c5_launches)
+    c3_launches, c3_large = config3_large_path(torch, ft)
     launches.update(absorbing_path(torch, ft))
+    launches["K4 io_alias"] += c3_launches
     acc_launches, walls = accumulator_path(torch, ft)
     launches.update(acc_launches)
     res_x, ref_x = scattering_path(torch, ft)
@@ -1912,6 +2313,7 @@ def measure(torch, ft, seed):
                                            "plain engine": ref_x.gcell_per_s}
     times["path_a"], times["path_b"] = path_a, path_b
     times["config5"] = c5_gcells
+    times["config3_1024"] = c3_large
 
     top = K_LADDER[0]
     c2, c3 = times["config2_128"], times["config3_256"]
@@ -1933,6 +2335,11 @@ def measure(torch, ft, seed):
         ("K4 K-tick CPML + TF/SF step (core)", "cpmlk.cu",
          "fdtd_tpu/solver/pallas_cpml_k.py:130", "K4", c3, f"K4 K={top}",
          f"K4 K={top} plain version",
+         bound(cells3, top, cpml_bytes(ABSORB_SHAPE, 4, True, cpml3, aux_len, top),
+               psi3)),
+        ("K4 io_alias (in place)", "cpmlk_inplace.cu",
+         "fdtd_tpu/solver/pallas_cpml_k.py:1605", "K4 io_alias", c3, f"K4 K={top} io_alias",
+         f"K4 K={top} io_alias plain version",
          bound(cells3, top, cpml_bytes(ABSORB_SHAPE, 4, True, cpml3, aux_len, top),
                psi3)),
         ("K4a in-kernel flux faces (K4 option)", "cpmlk.cu",

@@ -1,4 +1,4 @@
-// Shared device code of the CPML kernels (cpml.cu, cpmlk.cu).
+// Shared device code of the CPML kernels (cpml.cu, cpmlk.cu, cpmlk_inplace.cu).
 //
 // The tile pass of yee.cuh (a (y, z) tile of TY x TZ cells marching its x
 // chunk downward, new H of the tile plus its +1 ring in shared memory, the
@@ -21,8 +21,18 @@
 // place), and only the owner of a cell writes its new psi; the ring and the
 // seed recompute it without storing it. Everything that changes new H (the
 // CPML terms, the TF/SF H corrections, M sources) runs in the same code for
-// the tile, the ring and the seed, so E on a tile's edge reads the H its
-// neighbour stores.
+// the tile, the ring and the seed (h_cell), so E on a tile's edge reads the
+// H its neighbour stores.
+//
+// In place (cpmlk_inplace.cu, K4's io_alias build) the tile pass would
+// race: its ring and seed read old E and psi at cells that other blocks
+// overwrite. So the in-place tick is two half passes with every block
+// finished between them, as yee.cuh's: h_half reads E and writes H and its
+// psi, e_half reads H and writes E and its psi, each thread at its own
+// cells, with one psi set read and written by the cell's owner. All three
+// passes share the per-cell arithmetic (h_cell, e_cell, in the tile pass's
+// order), so at f32 storage the halves are bit-identical to the tile pass;
+// at bf16 storage H is rounded to bf16 before E reads it.
 //
 // The extensions (EXT = true: instantiations of K3 and K4 of their own, so
 // the kernels without them compile as they were), each switched on at run
@@ -179,6 +189,117 @@ __device__ __forceinline__ float stretch(const Profiles& P, const Psi& Q, bool s
   return prof[c] * raw + psi;
 }
 
+// New H at cell i = (p, yy, zz): h = d_a*h - d_b*curl~_b(E) from the raw
+// backward differences of E (times 1/dx, zero across the lattice edge) and
+// the old H at i in `h`: the differences stretched by the region (EXT) and
+// then the slabs, psi from set QS and, when `store`, the new psi to set QD;
+// then the oblique correction of row `ob` (EXT), the TF/SF H corrections
+// from the OLD aux_e row, and the M sources of column m_col (-1: none).
+// T by value, as tile_pass takes it: by reference, ptxas gave K4's core
+// instantiations 44 B more spill stores.
+template <typename TH, int QS, int QD, bool EXT>
+__device__ __forceinline__ void h_cell(yee::Fields<const TH> h, long long i, int p, int yy,
+                                       int zz, bool store, float dez_y, float dey_z,
+                                       float dex_z, float dez_x, float dey_x, float dex_y,
+                                       const yee::Lattice& L, const yee::Material& M,
+                                       const yee::Sources& S, int m_col, const Profiles& P,
+                                       const Psi& Q, const Tfsf T, const float* aux_e,
+                                       const yee::Shared& sh, const Ext& X, const float* ob,
+                                       float& hx, float& hy, float& hz) {
+  if constexpr (EXT) {
+    dez_y = dense_stretch<0, 0, 1, QS, QD>(X.D, store, p, yy, zz, dez_y);
+    dey_z = dense_stretch<0, 0, 2, QS, QD>(X.D, store, p, yy, zz, dey_z);
+    dex_z = dense_stretch<0, 1, 2, QS, QD>(X.D, store, p, yy, zz, dex_z);
+    dez_x = dense_stretch<0, 0, 0, QS, QD>(X.D, store, p, yy, zz, dez_x);
+    dey_x = dense_stretch<0, 1, 0, QS, QD>(X.D, store, p, yy, zz, dey_x);
+    dex_y = dense_stretch<0, 1, 1, QS, QD>(X.D, store, p, yy, zz, dex_y);
+  }
+  dez_y = stretch<0, 0, 1, QS, QD>(P, Q, store, L, p, yy, zz, dez_y);
+  dey_z = stretch<0, 1, 2, QS, QD>(P, Q, store, L, p, yy, zz, dey_z);
+  dex_z = stretch<0, 2, 2, QS, QD>(P, Q, store, L, p, yy, zz, dex_z);
+  dez_x = stretch<0, 3, 0, QS, QD>(P, Q, store, L, p, yy, zz, dez_x);
+  dey_x = stretch<0, 4, 0, QS, QD>(P, Q, store, L, p, yy, zz, dey_x);
+  dex_y = stretch<0, 5, 1, QS, QD>(P, Q, store, L, p, yy, zz, dex_y);
+  const int mat = yee::material_at(M, i);
+  const float d_a = sh.table[mat][2], d_b = sh.table[mat][3];
+  hx = d_a * yee::load(h.hx, i) - d_b * (dez_y - dey_z);
+  hy = d_a * yee::load(h.hy, i) - d_b * (dex_z - dez_x);
+  hz = d_a * yee::load(h.hz, i) - d_b * (dey_x - dex_y);
+  if constexpr (EXT) {
+    long long vol = 0;
+    const long long j = ob != nullptr ? oblique_at(X.O, p, yy, zz, vol) : -1;
+    if (j >= 0) {
+      hx -= d_b * ob[j];
+      hy -= d_b * ob[j + vol];
+      hz -= d_b * ob[j + 2 * vol];
+    }
+  }
+  if (aux_e != nullptr) {
+    const bool lat = !T.box || (yy >= T.y0 && yy <= T.y1 && zz >= T.z0 && zz <= T.z1);
+    if (lat && p == T.lo) hy -= d_b * aux_e[T.lo - 1] * L.inv_x;
+    else if (lat && p == T.hi + 1) hy += d_b * aux_e[T.hi] * L.inv_x;
+    if (T.box && p >= T.lo && p <= T.hi && zz >= T.z0 && zz <= T.z1) {
+      if (yy == T.y0) hx += d_b * (aux_e[p] * L.inv_y);
+      else if (yy == T.y1 + 1) hx -= d_b * (aux_e[p] * L.inv_y);
+    }
+  }
+  if (m_col >= 0) yee::inject(S, m_col, p, yy, zz, d_b, hx, hy, hz);
+}
+
+// New E at cell i = (p, y, z): e = c_a*e + c_b*curl~_f(H_new) from the raw
+// forward differences of the new H (times 1/dx, zero across the lattice
+// edge) and the old E at i in `e`, stretched and corrected as h_cell does
+// (psi always stored), with the TF/SF E corrections from the NEW aux_h row
+// and the J sources of column j_col (-1: none).
+template <typename TE, int QS, int QD, bool EXT>
+__device__ __forceinline__ void e_cell(yee::Fields<const TE> e, long long i, int p, int y,
+                                       int z, float dhz_y, float dhy_z, float dhx_z,
+                                       float dhz_x, float dhy_x, float dhx_y,
+                                       const yee::Lattice& L, const yee::Material& M,
+                                       const yee::Sources& S, int j_col, const Profiles& P,
+                                       const Psi& Q, const Tfsf T, const float* aux_h,
+                                       const yee::Shared& sh, const Ext& X, const float* ob,
+                                       float& ex, float& ey, float& ez) {
+  if constexpr (EXT) {
+    dhz_y = dense_stretch<1, 0, 1, QS, QD>(X.D, true, p, y, z, dhz_y);
+    dhy_z = dense_stretch<1, 0, 2, QS, QD>(X.D, true, p, y, z, dhy_z);
+    dhx_z = dense_stretch<1, 1, 2, QS, QD>(X.D, true, p, y, z, dhx_z);
+    dhz_x = dense_stretch<1, 0, 0, QS, QD>(X.D, true, p, y, z, dhz_x);
+    dhy_x = dense_stretch<1, 1, 0, QS, QD>(X.D, true, p, y, z, dhy_x);
+    dhx_y = dense_stretch<1, 1, 1, QS, QD>(X.D, true, p, y, z, dhx_y);
+  }
+  dhz_y = stretch<1, 0, 1, QS, QD>(P, Q, true, L, p, y, z, dhz_y);
+  dhy_z = stretch<1, 1, 2, QS, QD>(P, Q, true, L, p, y, z, dhy_z);
+  dhx_z = stretch<1, 2, 2, QS, QD>(P, Q, true, L, p, y, z, dhx_z);
+  dhz_x = stretch<1, 3, 0, QS, QD>(P, Q, true, L, p, y, z, dhz_x);
+  dhy_x = stretch<1, 4, 0, QS, QD>(P, Q, true, L, p, y, z, dhy_x);
+  dhx_y = stretch<1, 5, 1, QS, QD>(P, Q, true, L, p, y, z, dhx_y);
+  const int mat = yee::material_at(M, i);
+  const float c_a = sh.table[mat][0], c_b = sh.table[mat][1];
+  ex = c_a * yee::load(e.ex, i) + c_b * (dhz_y - dhy_z);
+  ey = c_a * yee::load(e.ey, i) + c_b * (dhx_z - dhz_x);
+  ez = c_a * yee::load(e.ez, i) + c_b * (dhy_x - dhx_y);
+  if constexpr (EXT) {
+    long long vol = 0;
+    const long long j = ob != nullptr ? oblique_at(X.O, p, y, z, vol) : -1;
+    if (j >= 0) {
+      ex += c_b * ob[j + 3 * vol];
+      ey += c_b * ob[j + 4 * vol];
+      ez += c_b * ob[j + 5 * vol];
+    }
+  }
+  if (aux_h != nullptr) {
+    const bool lat = !T.box || (y >= T.y0 && y <= T.y1 && z >= T.z0 && z <= T.z1);
+    if (lat && p == T.lo - 1) ez -= c_b * aux_h[T.lo] * L.inv_x;
+    else if (lat && p == T.hi) ez += c_b * aux_h[T.hi + 1] * L.inv_x;
+    if (T.box && p >= T.lo && p <= T.hi && y >= T.y0 && y <= T.y1) {
+      if (z == T.z0 - 1) ex += c_b * (aux_h[p] * L.inv_z);
+      else if (z == T.z1) ex -= c_b * (aux_h[p] * L.inv_z);
+    }
+  }
+  if (j_col >= 0) yee::inject(S, j_col, p, y, z, c_b, ex, ey, ez);
+}
+
 // One absorbing tick over tile (y0, z0) and planes [x_lo, x_hi): fields
 // from `in` to `out`, psi from set QS to set QD, TF/SF from the rows
 // aux_e / aux_h (null without TF/SF). j_col / m_col: the source-row column
@@ -213,50 +334,15 @@ __device__ void tile_pass(yee::Fields<const TI> in, yee::Fields<TO> out,
       const long long i = base + (long long)yy * L.nz + zz;
       const float ex = yee::load(in.ex, i), ey = yee::load(in.ey, i),
                   ez = yee::load(in.ez, i);
-      float dez_y = (yy > 0 ? ez - yee::load(in.ez, i - L.nz) : 0.f) * L.inv_y;
-      float dey_z = (zz > 0 ? ey - yee::load(in.ey, i - 1) : 0.f) * L.inv_z;
-      float dex_z = (zz > 0 ? ex - yee::load(in.ex, i - 1) : 0.f) * L.inv_z;
-      float dez_x = (p > 0 ? ez - yee::load(in.ez, i - plane) : 0.f) * L.inv_x;
-      float dey_x = (p > 0 ? ey - yee::load(in.ey, i - plane) : 0.f) * L.inv_x;
-      float dex_y = (yy > 0 ? ex - yee::load(in.ex, i - L.nz) : 0.f) * L.inv_y;
-      if constexpr (EXT) {
-        dez_y = dense_stretch<0, 0, 1, QS, QD>(X.D, keep, p, yy, zz, dez_y);
-        dey_z = dense_stretch<0, 0, 2, QS, QD>(X.D, keep, p, yy, zz, dey_z);
-        dex_z = dense_stretch<0, 1, 2, QS, QD>(X.D, keep, p, yy, zz, dex_z);
-        dez_x = dense_stretch<0, 0, 0, QS, QD>(X.D, keep, p, yy, zz, dez_x);
-        dey_x = dense_stretch<0, 1, 0, QS, QD>(X.D, keep, p, yy, zz, dey_x);
-        dex_y = dense_stretch<0, 1, 1, QS, QD>(X.D, keep, p, yy, zz, dex_y);
-      }
-      dez_y = stretch<0, 0, 1, QS, QD>(P, Q, keep, L, p, yy, zz, dez_y);
-      dey_z = stretch<0, 1, 2, QS, QD>(P, Q, keep, L, p, yy, zz, dey_z);
-      dex_z = stretch<0, 2, 2, QS, QD>(P, Q, keep, L, p, yy, zz, dex_z);
-      dez_x = stretch<0, 3, 0, QS, QD>(P, Q, keep, L, p, yy, zz, dez_x);
-      dey_x = stretch<0, 4, 0, QS, QD>(P, Q, keep, L, p, yy, zz, dey_x);
-      dex_y = stretch<0, 5, 1, QS, QD>(P, Q, keep, L, p, yy, zz, dex_y);
-      const int mat = yee::material_at(M, i);
-      const float d_a = sh.table[mat][2], d_b = sh.table[mat][3];
-      float hx = d_a * yee::load(in.hx, i) - d_b * (dez_y - dey_z);
-      float hy = d_a * yee::load(in.hy, i) - d_b * (dex_z - dez_x);
-      float hz = d_a * yee::load(in.hz, i) - d_b * (dey_x - dex_y);
-      if constexpr (EXT) {
-        long long vol = 0;
-        const long long j = ob != nullptr ? oblique_at(X.O, p, yy, zz, vol) : -1;
-        if (j >= 0) {
-          hx -= d_b * ob[j];
-          hy -= d_b * ob[j + vol];
-          hz -= d_b * ob[j + 2 * vol];
-        }
-      }
-      if (aux_e != nullptr) {
-        const bool lat = !T.box || (yy >= T.y0 && yy <= T.y1 && zz >= T.z0 && zz <= T.z1);
-        if (lat && p == T.lo) hy -= d_b * aux_e[T.lo - 1] * L.inv_x;
-        else if (lat && p == T.hi + 1) hy += d_b * aux_e[T.hi] * L.inv_x;
-        if (T.box && p >= T.lo && p <= T.hi && zz >= T.z0 && zz <= T.z1) {
-          if (yy == T.y0) hx += d_b * (aux_e[p] * L.inv_y);
-          else if (yy == T.y1 + 1) hx -= d_b * (aux_e[p] * L.inv_y);
-        }
-      }
-      if (m_col >= 0) yee::inject(S, m_col, p, yy, zz, d_b, hx, hy, hz);
+      const float dez_y = (yy > 0 ? ez - yee::load(in.ez, i - L.nz) : 0.f) * L.inv_y;
+      const float dey_z = (zz > 0 ? ey - yee::load(in.ey, i - 1) : 0.f) * L.inv_z;
+      const float dex_z = (zz > 0 ? ex - yee::load(in.ex, i - 1) : 0.f) * L.inv_z;
+      const float dez_x = (p > 0 ? ez - yee::load(in.ez, i - plane) : 0.f) * L.inv_x;
+      const float dey_x = (p > 0 ? ey - yee::load(in.ey, i - plane) : 0.f) * L.inv_x;
+      const float dex_y = (yy > 0 ? ex - yee::load(in.ex, i - L.nz) : 0.f) * L.inv_y;
+      float hx, hy, hz;
+      h_cell<TI, QS, QD, EXT>(in, i, p, yy, zz, keep, dez_y, dey_z, dex_z, dez_x, dey_x,
+                              dex_y, L, M, S, m_col, P, Q, T, aux_e, sh, X, ob, hx, hy, hz);
       sh.hx[ly][lz] = hx;
       sh.hy[ly][lz] = hy;
       sh.hz[ly][lz] = hz;
@@ -274,50 +360,15 @@ __device__ void tile_pass(yee::Fields<const TI> in, yee::Fields<TO> out,
       if (!seed) {
         const long long i = base + (long long)y * L.nz + z;
         const bool y_in = y < L.ny - 1, z_in = z < L.nz - 1, x_in = p < L.nx - 1;
-        float dhz_y = (y_in ? sh.hz[ty + 1][tz] - hz : 0.f) * L.inv_y;
-        float dhy_z = (z_in ? sh.hy[ty][tz + 1] - hy : 0.f) * L.inv_z;
-        float dhx_z = (z_in ? sh.hx[ty][tz + 1] - hx : 0.f) * L.inv_z;
-        float dhz_x = (x_in ? top_hz - hz : 0.f) * L.inv_x;
-        float dhy_x = (x_in ? top_hy - hy : 0.f) * L.inv_x;
-        float dhx_y = (y_in ? sh.hx[ty + 1][tz] - hx : 0.f) * L.inv_y;
-        if constexpr (EXT) {
-          dhz_y = dense_stretch<1, 0, 1, QS, QD>(X.D, true, p, y, z, dhz_y);
-          dhy_z = dense_stretch<1, 0, 2, QS, QD>(X.D, true, p, y, z, dhy_z);
-          dhx_z = dense_stretch<1, 1, 2, QS, QD>(X.D, true, p, y, z, dhx_z);
-          dhz_x = dense_stretch<1, 0, 0, QS, QD>(X.D, true, p, y, z, dhz_x);
-          dhy_x = dense_stretch<1, 1, 0, QS, QD>(X.D, true, p, y, z, dhy_x);
-          dhx_y = dense_stretch<1, 1, 1, QS, QD>(X.D, true, p, y, z, dhx_y);
-        }
-        dhz_y = stretch<1, 0, 1, QS, QD>(P, Q, true, L, p, y, z, dhz_y);
-        dhy_z = stretch<1, 1, 2, QS, QD>(P, Q, true, L, p, y, z, dhy_z);
-        dhx_z = stretch<1, 2, 2, QS, QD>(P, Q, true, L, p, y, z, dhx_z);
-        dhz_x = stretch<1, 3, 0, QS, QD>(P, Q, true, L, p, y, z, dhz_x);
-        dhy_x = stretch<1, 4, 0, QS, QD>(P, Q, true, L, p, y, z, dhy_x);
-        dhx_y = stretch<1, 5, 1, QS, QD>(P, Q, true, L, p, y, z, dhx_y);
-        const int mat = yee::material_at(M, i);
-        const float c_a = sh.table[mat][0], c_b = sh.table[mat][1];
-        float ex = c_a * yee::load(in.ex, i) + c_b * (dhz_y - dhy_z);
-        float ey = c_a * yee::load(in.ey, i) + c_b * (dhx_z - dhz_x);
-        float ez = c_a * yee::load(in.ez, i) + c_b * (dhy_x - dhx_y);
-        if constexpr (EXT) {
-          long long vol = 0;
-          const long long j = ob != nullptr ? oblique_at(X.O, p, y, z, vol) : -1;
-          if (j >= 0) {
-            ex += c_b * ob[j + 3 * vol];
-            ey += c_b * ob[j + 4 * vol];
-            ez += c_b * ob[j + 5 * vol];
-          }
-        }
-        if (aux_h != nullptr) {
-          const bool lat = !T.box || (y >= T.y0 && y <= T.y1 && z >= T.z0 && z <= T.z1);
-          if (lat && p == T.lo - 1) ez -= c_b * aux_h[T.lo] * L.inv_x;
-          else if (lat && p == T.hi) ez += c_b * aux_h[T.hi + 1] * L.inv_x;
-          if (T.box && p >= T.lo && p <= T.hi && y >= T.y0 && y <= T.y1) {
-            if (z == T.z0 - 1) ex += c_b * (aux_h[p] * L.inv_z);
-            else if (z == T.z1) ex -= c_b * (aux_h[p] * L.inv_z);
-          }
-        }
-        if (j_col >= 0) yee::inject(S, j_col, p, y, z, c_b, ex, ey, ez);
+        const float dhz_y = (y_in ? sh.hz[ty + 1][tz] - hz : 0.f) * L.inv_y;
+        const float dhy_z = (z_in ? sh.hy[ty][tz + 1] - hy : 0.f) * L.inv_z;
+        const float dhx_z = (z_in ? sh.hx[ty][tz + 1] - hx : 0.f) * L.inv_z;
+        const float dhz_x = (x_in ? top_hz - hz : 0.f) * L.inv_x;
+        const float dhy_x = (x_in ? top_hy - hy : 0.f) * L.inv_x;
+        const float dhx_y = (y_in ? sh.hx[ty + 1][tz] - hx : 0.f) * L.inv_y;
+        float ex, ey, ez;
+        e_cell<TI, QS, QD, EXT>(in, i, p, y, z, dhz_y, dhy_z, dhx_z, dhz_x, dhy_x, dhx_y,
+                                L, M, S, j_col, P, Q, T, aux_h, sh, X, ob, ex, ey, ez);
         yee::store(out.ex, i, ex);
         yee::store(out.ey, i, ey);
         yee::store(out.ez, i, ez);
@@ -326,6 +377,76 @@ __device__ void tile_pass(yee::Fields<const TI> in, yee::Fields<TO> out,
       top_hz = hz;
     }
     __syncthreads();
+  }
+}
+
+// The H half of an in-place tick over tile (y0, z0) and planes
+// [x_lo, x_hi), as yee::h_half: each thread its own (y, z) column, x
+// ascending, E at plane p-1 carried in registers. Reads E and writes H and
+// its psi (one set, 0) at its own cells; arguments as tile_pass's.
+template <typename TS, bool EXT>
+__device__ void h_half(yee::Fields<TS> f, const yee::Lattice& L, const yee::Material& M,
+                       const yee::Sources& S, int m_col, const Profiles& P, const Psi& Q,
+                       const Tfsf& T, const float* aux_e, int y0, int z0, int x_lo,
+                       int x_hi, const yee::Shared& sh, const Ext& X, const float* ob) {
+  const int y = y0 + (int)threadIdx.y, z = z0 + (int)threadIdx.x;
+  if (y >= L.ny || z >= L.nz) return;
+  const long long plane = (long long)L.ny * L.nz;
+  long long i = (long long)x_lo * plane + (long long)y * L.nz + z;
+  float ey_m = x_lo > 0 ? yee::load(f.ey, i - plane) : 0.f;  // E at plane p-1
+  float ez_m = x_lo > 0 ? yee::load(f.ez, i - plane) : 0.f;
+  for (int p = x_lo; p < x_hi; ++p, i += plane) {
+    const float ex = yee::load(f.ex, i), ey = yee::load(f.ey, i), ez = yee::load(f.ez, i);
+    const float dez_y = (y > 0 ? ez - yee::load(f.ez, i - L.nz) : 0.f) * L.inv_y;
+    const float dey_z = (z > 0 ? ey - yee::load(f.ey, i - 1) : 0.f) * L.inv_z;
+    const float dex_z = (z > 0 ? ex - yee::load(f.ex, i - 1) : 0.f) * L.inv_z;
+    const float dez_x = (p > 0 ? ez - ez_m : 0.f) * L.inv_x;
+    const float dey_x = (p > 0 ? ey - ey_m : 0.f) * L.inv_x;
+    const float dex_y = (y > 0 ? ex - yee::load(f.ex, i - L.nz) : 0.f) * L.inv_y;
+    float hx, hy, hz;
+    h_cell<TS, 0, 0, EXT>(yee::as_const(f), i, p, y, z, true, dez_y, dey_z, dex_z, dez_x,
+                          dey_x, dex_y, L, M, S, m_col, P, Q, T, aux_e, sh, X, ob, hx, hy,
+                          hz);
+    yee::store(f.hx, i, hx);
+    yee::store(f.hy, i, hy);
+    yee::store(f.hz, i, hz);
+    ey_m = ey;
+    ez_m = ez;
+  }
+}
+
+// The E half of an in-place tick: x descending, H at plane p+1 carried in
+// registers. Reads the stored (new) H and writes E and its psi at its own
+// cells.
+template <typename TS, bool EXT>
+__device__ void e_half(yee::Fields<TS> f, const yee::Lattice& L, const yee::Material& M,
+                       const yee::Sources& S, int j_col, const Profiles& P, const Psi& Q,
+                       const Tfsf& T, const float* aux_h, int y0, int z0, int x_lo,
+                       int x_hi, const yee::Shared& sh, const Ext& X, const float* ob) {
+  const int y = y0 + (int)threadIdx.y, z = z0 + (int)threadIdx.x;
+  if (y >= L.ny || z >= L.nz) return;
+  const long long plane = (long long)L.ny * L.nz;
+  long long i = (long long)(x_hi - 1) * plane + (long long)y * L.nz + z;
+  const bool y_in = y < L.ny - 1, z_in = z < L.nz - 1;
+  float top_hy = x_hi < L.nx ? yee::load(f.hy, i + plane) : 0.f;  // H at plane p+1
+  float top_hz = x_hi < L.nx ? yee::load(f.hz, i + plane) : 0.f;
+  for (int p = x_hi - 1; p >= x_lo; --p, i -= plane) {
+    const float hx = yee::load(f.hx, i), hy = yee::load(f.hy, i), hz = yee::load(f.hz, i);
+    const bool x_in = p < L.nx - 1;
+    const float dhz_y = (y_in ? yee::load(f.hz, i + L.nz) - hz : 0.f) * L.inv_y;
+    const float dhy_z = (z_in ? yee::load(f.hy, i + 1) - hy : 0.f) * L.inv_z;
+    const float dhx_z = (z_in ? yee::load(f.hx, i + 1) - hx : 0.f) * L.inv_z;
+    const float dhz_x = (x_in ? top_hz - hz : 0.f) * L.inv_x;
+    const float dhy_x = (x_in ? top_hy - hy : 0.f) * L.inv_x;
+    const float dhx_y = (y_in ? yee::load(f.hx, i + L.nz) - hx : 0.f) * L.inv_y;
+    float ex, ey, ez;
+    e_cell<TS, 0, 0, EXT>(yee::as_const(f), i, p, y, z, dhz_y, dhy_z, dhx_z, dhz_x, dhy_x,
+                          dhx_y, L, M, S, j_col, P, Q, T, aux_h, sh, X, ob, ex, ey, ez);
+    yee::store(f.ex, i, ex);
+    yee::store(f.ey, i, ey);
+    yee::store(f.ez, i, ez);
+    top_hy = hy;
+    top_hz = hz;
   }
 }
 

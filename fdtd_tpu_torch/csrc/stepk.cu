@@ -93,29 +93,6 @@ stepk_inplace_kernel(yee::Fields<T> f, yee::Lattice L, yee::Material M,
   }
 }
 
-// Plan a cooperative launch of `kernel`: every block must be resident at
-// once, and the blocks loop over the work items (x chunks of at most
-// `max_chunk` planes).
-template <typename K>
-cudaError_t cooperative_plan(K kernel, const yee::Lattice& L, yee::Work& w,
-                             int& blocks, int max_chunk = 1 << 30) {
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        yee::THREADS, 0);
-  if (err != cudaSuccess) return err;
-  if (!coop || per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int resident = sms * per_sm;
-  w = yee::plan_work(L, resident, max_chunk);
-  blocks = w.n_items < resident ? w.n_items : resident;
-  return cudaSuccess;
-}
-
 template <typename T>
 int launch_inplace(void** f, const float* table, int n_mat, const float* rows,
                    int n_src, int row_w, int with_m, int k, int nx, int ny,
@@ -127,8 +104,8 @@ int launch_inplace(void** f, const float* table, int n_mat, const float* rows,
   yee::Sources S{rows, n_src, row_w};
   yee::Work w;
   int blocks = 0;
-  cudaError_t err = cooperative_plan(stepk_inplace_kernel<T>, L, w, blocks,
-                                     yee::HALF_CHUNK);
+  cudaError_t err = yee::cooperative_plan(stepk_inplace_kernel<T>, L, w, blocks,
+                                          yee::HALF_CHUNK);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&fields, &L, &M, &S, &k, &with_m, &w};
   err = cudaLaunchCooperativeKernel((const void*)stepk_inplace_kernel<T>,
@@ -155,7 +132,7 @@ int launch(void** f, const float* table, int n_mat, const uint8_t* matid,
   yee::Sources S{rows, n_src, row_w};
   yee::Work w;
   int blocks = 0;
-  cudaError_t err = cooperative_plan(stepk_kernel<T>, L, w, blocks);
+  cudaError_t err = yee::cooperative_plan(stepk_kernel<T>, L, w, blocks);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&in, &w1, &w2, &out, &L, &M, &S, &k, &with_m, &w};
   err = cudaLaunchCooperativeKernel((const void*)stepk_kernel<T>, dim3(blocks),

@@ -6,7 +6,9 @@ the sources in the checkout alone, into ``build/fdtd_tpu_torch/`` next to
 the package; the library's name carries a hash of its sources, so an edited
 source never loads a stale build. A source may hold several entry points
 (K1's and K2's in-place variants beside them), each a ``Kernel`` with its
-own launch count; they share one build. Nothing here runs at import time.
+own launch count; they share one build. K4's in-place variant has a source
+of its own, so that it builds beside K4 and not after it. Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["Kernel", "STEP", "STEPK", "STEP_INPLACE", "STEPK_INPLACE", "CPML",
-           "CPMLK", "KERNELS", "BUILD_DIR"]
+           "CPMLK", "CPMLK_INPLACE", "KERNELS", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fdtd_tpu_torch"
@@ -184,4 +186,9 @@ STEPK_INPLACE = Kernel("K2 io_alias", "stepk.cu", "fdtd_stepk_inplace",
                        [_I, _PP, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                         _F, _P])
 
-KERNELS = (STEP, STEPK, CPML, CPMLK, STEP_INPLACE, STEPK_INPLACE)
+# fdtd_cpmlk_inplace: fdtd_cpmlk's arguments, with the state's 6 fields and
+# one psi set (its own source: cpmlk.cu is the longest build)
+CPMLK_INPLACE = Kernel("K4 io_alias", "cpmlk_inplace.cu", "fdtd_cpmlk_inplace",
+                       CPMLK.argtypes)
+
+KERNELS = (STEP, STEPK, CPML, CPMLK, STEP_INPLACE, STEPK_INPLACE, CPMLK_INPLACE)

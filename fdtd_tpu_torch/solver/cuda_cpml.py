@@ -26,6 +26,10 @@ subgrid; off the shell it is exactly zero (solver/tfsf_oblique.py).
 The wrapper launches the kernel for CUDA tensors and takes the kernel's
 plain PyTorch version (``plain_cpml_step``: the engine step in f32, one
 rounding to the storage dtype) only for CPU tensors.
+
+K4's in-place build (solver/cuda_cpml_k.py, ``io_alias``) shares this
+module's launch (``launch_cpml(..., inplace=True)``), its plain version
+(``plain_cpml_ticks(..., inplace=True)``) and ``check_inplace``.
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ from .sources import SourceSet
 from .state import FIELDS
 from .step import CellCoefficients, field_dtype_time
 
-__all__ = ["cuda_cpml_step_fn", "supports_cpml", "plain_cpml_step",
+__all__ = ["cuda_cpml_step_fn", "supports_cpml", "plain_cpml_step", "check_inplace",
            "launches", "option_launches", "reset_launches"]
 
 
@@ -256,28 +260,74 @@ def check_cpml_inputs(state: EngineState, setup: CpmlSetup, shape, dtype,
                 f"{[(p.dtype, tuple(p.shape)) for p in state.psi_d]}")
 
 
+def _state_tensors(state: EngineState):
+    """The tensors a CPML kernel writes: the six fields, the psi slabs and
+    the region psi."""
+    return (*state.e, *state.h, *psi_tensors(state), *state.psi_d)
+
+
+def check_inplace(state: EngineState) -> None:
+    """Raise on fields, psi slabs or region psi that share storage: the
+    in-place K4 overwrites each of them while reading the others."""
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+                   for t in _state_tensors(state) if t.dim() > 0 and t.numel() > 0)
+    for (_, end), (start, _) in zip(spans, spans[1:]):
+        if start < end:
+            raise ValueError("io_alias: the fields, psi slabs and psi_d must not "
+                             "share storage")
+
+
+def check_kept(state: EngineState, new: EngineState) -> None:
+    """Raise unless every output of an in-place call is its input tensor
+    (fields, psi slabs, region psi)."""
+    if [t.data_ptr() for t in _state_tensors(new)] != \
+            [t.data_ptr() for t in _state_tensors(state)]:
+        raise RuntimeError("io_alias: an output is not its input tensor")
+
+
 # -- the plain version -----------------------------------------------------------
 
 
 def plain_cpml_ticks(state: EngineState, step32, table: torch.Tensor,
                      matid: Optional[torch.Tensor], sources: Optional[SourceSet],
-                     k_steps: int, with_m: bool, on_level=None) -> EngineState:
+                     k_steps: int, with_m: bool, on_level=None,
+                     inplace: bool = False) -> EngineState:
     """What the CPML kernels compute, in plain PyTorch: ``k_steps``
     applications of the engine step in f32 (``step32``; f32 carries, f32
     source and TF/SF times), J and, when ``with_m``, M in f32, and one
     rounding of the fields to the storage dtype at the end.
-    ``on_level(level, state)`` sees each level's f32 state (K4's options)."""
+    ``on_level(level, state)`` sees each level's state (K4's options).
+
+    ``inplace``: what K4's in-place build computes. At bf16 storage each
+    tick's new H is rounded to the storage dtype before the E half reads
+    it, and the new E after it, so ``on_level`` sees the rounded fields;
+    at f32 storage the arithmetic is the out-of-place one exactly. The
+    fields, psi slabs and region psi land in the state's own tensors, and
+    the returned state holds them."""
     dtype = state.dtype
     coeffs = (CellCoefficients(*table[0]) if matid is None
               else CellCoefficients.from_table(table, matid))
     if sources is not None and not with_m:
         sources = dataclasses.replace(sources, m_amp=torch.zeros_like(sources.m_amp))
+    stored = None
+    if inplace and dtype != torch.float32:
+        def stored(t):
+            return t.to(dtype).to(torch.float32)
     s = state.replace(**{f: getattr(state, f).to(torch.float32) for f in FIELDS})
     for lvl in range(k_steps):
-        s = step32(s, coeffs, sources)
+        s = step32(s, coeffs, sources, h_store=stored)
+        if stored is not None:
+            s = s.replace(ex=stored(s.ex), ey=stored(s.ey), ez=stored(s.ez))
         if on_level is not None:
             on_level(lvl, s)
-    return s.replace(**{f: getattr(s, f).to(dtype) for f in FIELDS})
+    s = s.replace(**{f: getattr(s, f).to(dtype) for f in FIELDS})
+    if not inplace:
+        return s
+    for dst, src in zip(_state_tensors(state), _state_tensors(s)):
+        if dst is not src:
+            dst.copy_(src)
+    return s.replace(**{f: getattr(state, f) for f in FIELDS}, psi_h=state.psi_h,
+                     psi_e=state.psi_e, psi_d=state.psi_d)
 
 
 def plain_cpml_step(state: EngineState, table: torch.Tensor,
@@ -297,10 +347,12 @@ def plain_cpml_step(state: EngineState, table: torch.Tensor,
 
 def launch_cpml(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup,
                 k_steps: int, dtype, table, matid, sources, with_m,
-                options=None) -> EngineState:
-    """Launch K3 (``k_steps`` == 1) or K4 on a CUDA state. ``options``:
-    K4's accumulator options as (meta, pointers) C arrays
-    (csrc/cpmlk.cu::make_options), or None."""
+                options=None, inplace: bool = False) -> EngineState:
+    """Launch K3 (``k_steps`` == 1) or K4 on a CUDA state; ``inplace``: K4's
+    in-place build (``kernel`` is ``_build.CPMLK_INPLACE``), which writes
+    the state's own fields, psi slabs and region psi and takes no work set.
+    ``options``: K4's accumulator options as (meta, pointers) C arrays
+    (csrc/cpmlk.cuh::make_options), or None."""
     nx, ny, nz = setup.shape
     prof, aux = setup.on(state.device)
     aux_e, aux_h = state.aux_e, state.aux_h
@@ -310,13 +362,17 @@ def launch_cpml(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup,
         aux_len = pack.shape[1]
     rows = build_src_rows(sources, state.tick, k_steps, with_m, setup.dt)
     fields = (*state.e, *state.h)
-    outs = [torch.empty_like(f) for f in fields]
     psi_in = psi_tensors(state)
     live = [p.dim() > 0 and p.numel() > 0 for p in psi_in]
-    psi_out = [torch.empty_like(p) if ok else p for p, ok in zip(psi_in, live)]
-    field_sets = [*fields, *outs]
-    psi_sets = [psi_in, psi_out]
-    if k_steps > 1:
+    if inplace:
+        outs, psi_out = fields, psi_in
+        field_sets, psi_sets = list(fields), [psi_in]
+    else:
+        outs = [torch.empty_like(f) for f in fields]
+        psi_out = [torch.empty_like(p) if ok else p for p, ok in zip(psi_in, live)]
+        field_sets = [*fields, *outs]
+        psi_sets = [psi_in, psi_out]
+    if k_steps > 1 and not inplace:
         w1 = [torch.empty(f.shape, dtype=torch.float32, device=f.device) for f in fields]
         if dtype == torch.float32:
             w2 = outs  # ping-pong partner of w1 (see csrc/cpmlk.cu)
@@ -332,12 +388,14 @@ def launch_cpml(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup,
     psi_d = state.psi_d
     ext_ptrs = ob_pack = None
     if setup.ext_meta is not None:
-        # the region's psi sets (in, out, and K4's work set) and this call's
-        # corrections; the pack stays referenced until the launch is queued
+        # the region's psi sets (in, out, and K4's work set; in place the
+        # state's own) and this call's corrections; the pack stays
+        # referenced until the launch is queued
         coef, corr = setup.ext_on(state.device)
-        d_sets = [list(state.psi_d), [torch.empty_like(p) for p in state.psi_d]]
-        if k_steps > 1:
-            d_sets.append([torch.empty_like(p) for p in state.psi_d])
+        d_sets = [list(state.psi_d)]
+        if not inplace:
+            d_sets += [[torch.empty_like(p) for p in state.psi_d]
+                       for _ in range(2 if k_steps > 1 else 1)]
         d_ptrs = [d_sets[s][t].data_ptr() if setup.dense is not None else None
                   for s in range(len(d_sets)) for t in range(4)]
         if corr is not None:
@@ -346,7 +404,7 @@ def launch_cpml(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup,
                 None if ob_pack is None else ob_pack.data_ptr()]
         ext_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
         if setup.dense is not None:
-            psi_d = tuple(d_sets[1])
+            psi_d = tuple(d_sets[0 if inplace else 1])
     args = [
         _DTYPE_CODE[dtype], _build.pointers(field_sets),
         (ctypes.c_void_p * len(psi_ptrs))(*psi_ptrs),

@@ -46,6 +46,19 @@ The plain version (``plain_cpml_stepk``) is K applications of K3's plain
 version with one rounding at the end, and computes the options from each
 level's f32 state; CPU states take it, CUDA states launch the kernel or
 raise.
+
+``io_alias=True`` is the TPU kernel's aliased build (``_USE_IO_ALIASES``,
+pallas_cpml_k.py:1605-1611), ported as its own kernel (csrc/
+cpmlk_inplace.cu): the K ticks go into the state's own fields, psi slabs
+and region psi, with no work set, so a call holds the state alone. The
+state passed in is consumed; the returned state holds the same tensors, K
+ticks later (the DFT planes of the ``dft`` option, the aux line and the
+option outputs are new tensors). Each tick is two half passes with a
+grid-wide barrier after each: at f32 storage every output is
+bit-identical to the out-of-place kernel's; at bf16 storage each tick's H
+is rounded to bf16 before E reads it, and E every tick, so the options
+sample the rounded fields (``plain_cpml_stepk_inplace``). As the JAX
+build, it takes a material index.
 """
 
 from __future__ import annotations
@@ -62,6 +75,8 @@ from .boundary import BoundaryConditions
 from .cuda_cpml import (
     CpmlSetup,
     check_cpml_inputs,
+    check_inplace,
+    check_kept,
     launch_cpml,
     plain_cpml_ticks,
     supports_cpml,
@@ -72,7 +87,8 @@ from .engine import EngineState, build_step, check_absorbers, split_tfsf
 from .sources import SourceSet
 
 __all__ = ["cuda_cpml_stepk_fn", "supports_cpml_k", "plain_cpml_stepk",
-           "dft_phases", "launches", "option_launches", "reset_launches"]
+           "plain_cpml_stepk_inplace", "dft_phases", "launches", "option_launches",
+           "reset_launches"]
 
 # csrc/cpmlk.cu's limits on the options and its tile (yee.cuh TY x TZ)
 MAX_FLUX_FACES = 16
@@ -134,25 +150,26 @@ def supports_cpml_k(shape, bc, cpml, k: int, dtype=torch.float32,
     return True
 
 
-#: K4 launches that carried each option (K4a "flux_faces", K4b "dft" and
-#: "dft_rows", K4c "dense", K4d "oblique") since the last reset; the wrapper
-#: adds one per launch.
+#: K4 launches, in place or not, that carried each option (K4a
+#: "flux_faces", K4b "dft" and "dft_rows", K4c "dense", K4d "oblique")
+#: since the last reset; the wrapper adds one per launch.
 OPTION_LAUNCHES = {"flux_faces": 0, "dft": 0, "dft_rows": 0, "dense": 0, "oblique": 0}
 
 
-def launches() -> int:
-    """How many times the K4 kernel has launched since the last reset."""
-    return _build.CPMLK.launches
+def launches(io_alias: bool = False) -> int:
+    """How many times the K4 kernel (``io_alias``: its in-place build) has
+    launched since the last reset."""
+    return (_build.CPMLK_INPLACE if io_alias else _build.CPMLK).launches
 
 
 def option_launches() -> dict:
-    """How many K4 launches carried each accumulator option since the last
-    reset."""
+    """How many K4 launches, in place or not, carried each option since the
+    last reset."""
     return dict(OPTION_LAUNCHES)
 
 
 def reset_launches() -> None:
-    _build.CPMLK.launches = 0
+    _build.CPMLK.launches = _build.CPMLK_INPLACE.launches = 0
     for name in OPTION_LAUNCHES:
         OPTION_LAUNCHES[name] = 0
 
@@ -202,11 +219,11 @@ def dft_update(acc: torch.Tensor, phase_row: torch.Tensor, fld) -> torch.Tensor:
 
 def plain_with_options(state: EngineState, step32, table, matid, sources,
                        k_steps: int, with_m: bool, flux_faces=(), planes=(), freqs=(),
-                       dft_rows=(), dt: float = 0.0):
+                       dft_rows=(), dt: float = 0.0, inplace: bool = False):
     """K4's plain version: ``k_steps`` f32 engine ticks (K3's plain
     version), the options computed from each level's f32 state, one
-    rounding of the fields at the end. Returns what the kernel wrapper
-    returns."""
+    rounding of the fields at the end; ``inplace``: the in-place build's
+    (``plain_cpml_ticks``). Returns what the kernel wrapper returns."""
     accs = list(state.dft)
     phases = dft_phases(freqs, state.tick, k_steps, dt, state.device) if planes else None
     flux, caps = [], [[] for _ in dft_rows]
@@ -220,7 +237,8 @@ def plain_with_options(state: EngineState, step32, table, matid, sources,
             fld = s.e if which == 0 else s.h
             accs[i] = dft_update(accs[i], phases[lvl], tuple(c[x0] for c in fld))
 
-    s = plain_cpml_ticks(state, step32, table, matid, sources, k_steps, with_m, on_level)
+    s = plain_cpml_ticks(state, step32, table, matid, sources, k_steps, with_m, on_level,
+                         inplace)
     if planes:
         s = s.replace(dft=tuple(accs))
     return _result(s, torch.stack(flux) if flux_faces else None,
@@ -241,17 +259,29 @@ def plain_cpml_stepk(state: EngineState, table: torch.Tensor,
                      k_steps: int, *, inv_dx, dt, cpml, tfsf=None,
                      bc=BoundaryConditions(), constants: PhysicalConstants = SI,
                      with_m: bool = False, flux_faces=(), dft=None, dft_rows=(),
-                     dense=None, oblique=None):
+                     dense=None, oblique=None, inplace: bool = False):
     """K4's plain version: K applications of K3's plain version (f32
     carries, one rounding to the storage dtype at the end), with the
     options computed from each level's f32 state; returns what the kernel
-    wrapper returns."""
+    wrapper returns. ``inplace``: the in-place build's
+    (``plain_cpml_stepk_inplace``)."""
     step32 = build_step(state.shape, inv_dx=inv_dx, dt=dt, bc=bc,
                         constants=constants, dtype=torch.float32, cpml=cpml,
                         tfsf=oblique if oblique is not None else tfsf, dense=dense)
     planes, freqs = (_planes(dft[0]), tuple(dft[1])) if dft is not None else ((), ())
     return plain_with_options(state, step32, table, matid, sources, k_steps, with_m,
-                              tuple(flux_faces), planes, freqs, tuple(dft_rows), dt)
+                              tuple(flux_faces), planes, freqs, tuple(dft_rows), dt,
+                              inplace)
+
+
+def plain_cpml_stepk_inplace(state: EngineState, table: torch.Tensor,
+                             matid: Optional[torch.Tensor], sources: Optional[SourceSet],
+                             k_steps: int, **kw):
+    """K4 ``io_alias``'s plain version: K ticks into the state's own fields,
+    psi slabs and region psi, each tick's H and E rounded to the storage
+    dtype (at f32: ``plain_cpml_stepk`` exactly); ``kw`` as
+    ``plain_cpml_stepk``'s."""
+    return plain_cpml_stepk(state, table, matid, sources, k_steps, inplace=True, **kw)
 
 
 # -- the kernel -----------------------------------------------------------------
@@ -328,6 +358,7 @@ def cuda_cpml_stepk_fn(
     dft_rows=(),
     dense=None,
     oblique=None,
+    io_alias: bool = False,
 ):
     """Build stepk(state: EngineState, coeffs, sources) advancing
     ``k_steps`` absorbing ticks.
@@ -340,6 +371,8 @@ def cuda_cpml_stepk_fn(
     with ``dft`` it reads and writes ``state.dft``. ``dense`` (a DensePml;
     the state from ``init_engine_state(dense=...)``) and ``oblique`` (an
     ObliqueTfsf, or given as ``tfsf``) switch on K4c and K4d.
+    ``io_alias`` updates the state's tensors in place (see the module's
+    docstring).
     """
     flux_faces = tuple(tuple(fd) for fd in flux_faces)
     dft_rows = tuple((str(a), int(v)) for a, v in dft_rows)
@@ -364,32 +397,39 @@ def cuda_cpml_stepk_fn(
     options = (_Options(tuple(shape), k_steps, flux_faces, planes, freqs, dft_rows)
                if flux_faces or planes or dft_rows else None)
 
+    kernel = _build.CPMLK_INPLACE if io_alias else _build.CPMLK
+
     def stepk(state: EngineState, coeffs, sources: Optional[SourceSet]):
         table = kernel_table(coeffs, matid, state.device)
         check_cpml_inputs(state, setup, shape, dtype, table, matid)
+        if io_alias:
+            check_inplace(state)
         if options is not None:
             options.check_dft(state)
         if state.device.type == "cpu":
             return plain_with_options(state, step32, table, matid, sources, k_steps,
-                                      with_m, flux_faces, planes, freqs, dft_rows, dt)
+                                      with_m, flux_faces, planes, freqs, dft_rows, dt,
+                                      io_alias)
         if state.device.type != "cuda":
             raise ValueError(f"K4 runs on CUDA or CPU tensors, not {state.device}")
         used = (("flux_faces", flux_faces), ("dft", planes), ("dft_rows", dft_rows),
                 ("dense", dense is not None), ("oblique", oblique is not None))
-        if options is None:
-            new = launch_cpml(_build.CPMLK, state, setup, k_steps, dtype, table,
-                              matid, sources, with_m)
-            for name, on in used:
-                OPTION_LAUNCHES[name] += bool(on)
-            return new
-        # scratch holds the phase pack and the partials until the launch is
-        # queued (freed after it, they stay the stream's until it has run)
-        flux, caps, acc_out, scratch, c_ptrs = options.buffers(state, dt)
-        new = launch_cpml(_build.CPMLK, state, setup, k_steps, dtype, table, matid,
-                          sources, with_m, options=(options.meta, c_ptrs))
+        flux = caps = acc_out = scratch = c_ptrs = None
+        if options is not None:
+            # scratch holds the phase pack and the partials until the launch
+            # is queued (freed after it, they stay the stream's until it has
+            # run)
+            flux, caps, acc_out, scratch, c_ptrs = options.buffers(state, dt)
+        new = launch_cpml(kernel, state, setup, k_steps, dtype, table, matid, sources,
+                          with_m, None if options is None else (options.meta, c_ptrs),
+                          inplace=io_alias)
         for name, on in used:
             OPTION_LAUNCHES[name] += bool(on)
         del scratch
+        if io_alias:
+            check_kept(state, new)
+        if options is None:
+            return new
         if planes:
             new = new.replace(dft=acc_out)
         return _result(new, flux, caps if dft_rows else None)

@@ -345,7 +345,10 @@ def build_step(
         return coef if coef.dim() == 0 else coef[idx]
 
     def step(state: EngineState, coeffs: CellCoefficients,
-             sources: Optional[SourceSet]) -> EngineState:
+             sources: Optional[SourceSet], h_store=None) -> EngineState:
+        """One tick. ``h_store`` maps each new H component before the E
+        half reads it (the in-place kernels' plain versions round it to
+        the storage dtype there); None leaves it as computed."""
         profs, aux_coeffs, region, ob = consts(state.device)
         fdt = state.dtype
         t = field_dtype_time(state.tick, dt, fdt)
@@ -390,6 +393,8 @@ def build_step(
 
         if m_vals is not None:
             h = add_at(h, pts, _cells(coeffs.d_b, pts, len(pts), fdt), m_vals, fdt)
+        if h_store is not None:
+            h = [h_store(c) for c in h]
 
         # --- E half-update (uses the new H) ---------------------------------
         ch, psi_e, psi_d_e = curl_with_psi(tuple(h), state.psi_e, _diff_forward, "e",

@@ -24,6 +24,14 @@ accumulator that fits none drops the run to K3 with a per-tick
 empty absorber. Unlike the TPU kernels, the port's take a region box of
 any extent: no tile padding.
 
+At f32 storage ``run``'s K4 route steps in place (K4's ``io_alias`` build,
+as the JAX package's K4 runs aliased) on one copy of the caller's state,
+made when the run starts: the run holds two states where the out-of-place
+kernel holds four sets of fields, and the caller's state is left as it
+was. At bf16 storage it stays out of place: the in-place build rounds the
+fields to bf16 every tick, the out-of-place one once per call, so in place
+would change what ``run`` returns.
+
 The device defaults to the current CUDA card; without one, construction
 raises unless the caller passes ``device="cpu"``.
 """
@@ -47,7 +55,7 @@ from .cuda_step import cuda_step_fn, supports
 from .cuda_stepk import cuda_stepk_fn, supports_k
 from .engine import build_step, check_absorbers, init_engine_state, split_tfsf
 from .sources import SourceSet
-from .state import DEFAULT_DEVICE, SimState, resolve_device, zero_state
+from .state import DEFAULT_DEVICE, FIELDS, SimState, resolve_device, zero_state
 from .step import CellCoefficients, step_fn
 
 __all__ = ["Simulation", "kernel_flux_spec", "kernel_accumulator_spec",
@@ -246,14 +254,21 @@ class Simulation:
     def _multi_step_cache(self) -> dict:
         return {}
 
+    @property
+    def _in_place(self) -> bool:
+        """Whether ``run``'s K4 route steps in place (f32 storage)."""
+        return self._absorbing and self.dtype == torch.float32
+
     def _multi_step(self, k: int, faces=(), dft=None, rows=()):
         """The K-tick kernel's step at ``k``, with K4's accumulator options
-        (flux faces, DFT (planes, frequencies), row descriptors) when given."""
+        (flux faces, DFT (planes, frequencies), row descriptors) when given;
+        K4 in place at f32 (``_in_place``)."""
         key = (k, faces, dft, rows)
         if key not in self._multi_step_cache:
             if self._absorbing:
                 step = cuda_cpml_stepk_fn(self.grid.shape, k, flux_faces=faces, dft=dft,
-                                          dft_rows=rows, **self._kernel_kwargs())
+                                          dft_rows=rows, io_alias=self._in_place,
+                                          **self._kernel_kwargs())
             else:
                 step = cuda_stepk_fn(self.grid.shape, k, **self._kernel_kwargs())
             self._multi_step_cache[key] = self._bind(step)
@@ -322,7 +337,9 @@ class Simulation:
         probe_stacks is a tuple of (n_steps // probe_every, ...) tensors,
         each sample taken after the step that completes its cadence.
         Accumulators (``init(state, dt)`` / ``update(acc, state, dt)``) see
-        every tick: per tick, or through K4's options (``plan()``).
+        every tick: per tick, or through K4's options (``plan()``). The
+        caller's state is left as it was; at f32 the K4 route steps in place
+        on one copy of it (the module's docstring).
         """
         k, kind = self.plan(n_steps, probes, accumulators, probe_every)
         dt = self.grid.dt
@@ -330,6 +347,8 @@ class Simulation:
         n_calls = n_steps // k
         if n_calls % stride != 0:
             raise ValueError(f"{n_steps=} not divisible by {probe_every=}")
+        if kind == "cuda_cpml_k" and self._in_place:
+            state = _own_copy(state)
         if accumulators and kind == "cuda_cpml_k":
             return self._run_on_kernel(state, k, n_calls, stride, probes,
                                        tuple(accumulators))
@@ -400,6 +419,16 @@ class Simulation:
                 f"Courant number {s:.4f} > 1: dt={self.grid.dt} too large for "
                 f"dx={self.grid.dx} (reduce dt or coarsen the lattice)"
             )
+
+
+def _own_copy(state):
+    """A copy of an EngineState's fields, psi slabs and region psi, which
+    the in-place K4 overwrites (the aux line and the DFT planes it leaves
+    alone)."""
+    return state.replace(**{f: getattr(state, f).clone() for f in FIELDS},
+                         psi_h=tuple(tuple(p.clone() for p in pair) for pair in state.psi_h),
+                         psi_e=tuple(tuple(p.clone() for p in pair) for pair in state.psi_e),
+                         psi_d=tuple(p.clone() for p in state.psi_d))
 
 
 # -- accumulators on the K-tick CPML kernel ------------------------------------

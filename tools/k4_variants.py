@@ -4,21 +4,24 @@
     python3 tools/k4_variants.py [--baseline DIR ...] [--shipped-only]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc. It
-writes copies of ``fdtd_tpu_torch/csrc/cpmlk.cu`` (and its ``cpml.cuh``)
-under ``build/k4_variants/`` that differ only in the kernel's
+writes copies of ``fdtd_tpu_torch/csrc/cpmlk.cu`` (and the headers beside
+it but ``yee.cuh``, which every copy takes from the package) under
+``build/k4_variants/`` that differ only in the kernel's
 ``__launch_bounds__`` (no cap, or room for 3, 4, 5 or 6 resident blocks per
 SM: at most 80, 64, 48 or 40 registers) or in ``tile_pass`` kept out of
-line, adds each ``--baseline`` directory's own ``cpmlk.cu`` and
-``cpml.cuh`` (another version of the kernel with the same C interface, as
-it stands), builds them with one nvcc each, checks each against K4's plain
-version on a ragged lattice (37x29x53, CPML on every axis, a TF/SF box,
-K = 4), and times each with K3 beside it at config 3's 256^3 and at 512^3
-with ``Cpml.uniform(10)`` (f32), with CUDA events, in turns. All runs are
-K4 without its options. A baseline from before the accumulator options
-(no ``opt_meta`` in its C entry) or before the region and oblique options
-(no ``ext_meta``) is called through its own interface.
-``--shipped-only`` keeps the shipped cap (4 blocks per SM) and the
-baselines only.
+line, adds each ``--baseline`` directory's own ``cpmlk.cu`` and headers
+(another version of the kernel with the same C interface, as it stands)
+and its K3 (``cpml.cu``), builds them with one nvcc each and prints each
+kernel's ptxas lines (the package's K3 too), checks each K4 against K4's
+plain version on a ragged lattice (37x29x53, CPML on every axis, a TF/SF
+box, K = 4) and each K4 and K3 against the package's (bit-identical or
+not), and times each with K3 (and each baseline's K3) beside it at config
+3's 256^3 and at 512^3 with ``Cpml.uniform(10)`` (f32), with CUDA events,
+in turns. All runs are K4 without its options. A baseline from before the
+accumulator options (no ``opt_meta`` in its C entry) or before the region
+and oblique options (no ``ext_meta``) is called through its own
+interface. ``--shipped-only`` keeps the shipped cap (4 blocks per SM) and
+the baselines only.
 """
 
 from __future__ import annotations
@@ -47,10 +50,17 @@ BOUNDS = re.compile(r"__launch_bounds__\(yee::THREADS(, \d+)?\)\ncpmlk_kernel")
 
 
 def sources(d: Path):
-    """(cpmlk.cu, cpml.cuh) of directory ``d``, including the package's
-    yee.cuh."""
-    return ((d / "cpmlk.cu").read_text(), (d / "cpml.cuh").read_text().replace(
-        '#include "yee.cuh"', f'#include "{CSRC / "yee.cuh"}"'))
+    """{file name: text} of directory ``d``'s K4 and K3 sources (cpmlk.cu,
+    cpml.cu when there is one, and the headers but yee.cuh), each header
+    including the package's yee.cuh."""
+    out = {"cpmlk.cu": (d / "cpmlk.cu").read_text()}
+    if (d / "cpml.cu").exists():
+        out["cpml.cu"] = (d / "cpml.cu").read_text()
+    for h in sorted(d.glob("*.cuh")):
+        if h.name != "yee.cuh":
+            out[h.name] = h.read_text().replace('#include "yee.cuh"',
+                                                f'#include "{CSRC / "yee.cuh"}"')
+    return out
 
 
 class _OlderEntry(_build.Kernel):
@@ -71,53 +81,64 @@ class _OlderEntry(_build.Kernel):
 
 
 def variants(baselines, shipped_only=False):
-    """name -> (cpmlk.cu, cpml.cuh) source texts."""
-    cu, cuh = sources(CSRC)
+    """name -> {file name: source text}; only the baselines keep cpml.cu."""
+    files = sources(CSRC)
+    del files["cpml.cu"]  # the package's K3 is _build.CPML
+    cu = files["cpmlk.cu"]
     assert BOUNDS.search(cu), "cpmlk_kernel's launch bounds not found"
 
-    def cap(blocks):
+    def cap(blocks, **more):
         arg = "" if blocks is None else f", {blocks}"
-        return BOUNDS.sub(f"__launch_bounds__(yee::THREADS{arg})\ncpmlk_kernel", cu)
+        return dict(files, **more, **{"cpmlk.cu": BOUNDS.sub(
+            f"__launch_bounds__(yee::THREADS{arg})\ncpmlk_kernel", cu)})
 
     if shipped_only:
-        out = {"4 blocks/SM": (cap(4), cuh)}
+        out = {"4 blocks/SM": cap(4)}
     else:
-        out = {"no cap": (cap(None), cuh)}
+        out = {"no cap": cap(None)}
         for blocks in (3, 4, 5, 6):
-            out[f"{blocks} blocks/SM"] = (cap(blocks), cuh)
-        out_of_line = cuh.replace("__device__ void tile_pass",
-                                  "__device__ __noinline__ void tile_pass")
+            out[f"{blocks} blocks/SM"] = cap(blocks)
+        out_of_line = files["cpml.cuh"].replace("__device__ void tile_pass",
+                                                "__device__ __noinline__ void tile_pass")
         for blocks in (None, 4):
             name = "no cap" if blocks is None else f"{blocks} blocks/SM"
-            out[f"{name}, tile_pass out of line"] = (cap(blocks), out_of_line)
+            out[f"{name}, tile_pass out of line"] = cap(blocks, **{"cpml.cuh": out_of_line})
     for d in baselines:
         out[f"baseline {d}"] = sources(Path(d))
     return out
 
 
 def build(baselines, shipped_only=False):
-    kernels = {}
-    for i, (name, (cu, cuh)) in enumerate(variants(baselines, shipped_only).items()):
+    """({variant: K4 kernel}, {name: K3 kernel}): the package's K3 and each
+    baseline's."""
+    kernels, k3s = {}, {"K3": _build.CPML}
+    for i, (name, files) in enumerate(variants(baselines, shipped_only).items()):
         d = OUT / f"v{i}"
         d.mkdir(parents=True, exist_ok=True)
-        (d / "cpml.cuh").write_text(cuh)
-        # named in its source, so that two equal variants still build (and
-        # print their ptxas lines) apart
-        (d / "cpmlk.cu").write_text(f"// variant: {name}\n{cu}")
+        for fname, text in files.items():
+            # named in its source, so that two equal variants still build
+            # (and print their ptxas lines) apart
+            (d / fname).write_text(f"// variant: {name}\n{text}" if fname.endswith(".cu")
+                                   else text)
+        cu = files["cpmlk.cu"]
         argtypes = list(_build.CPMLK.argtypes)
         drop = 0 if "ext_meta" in cu else (2 if "opt_meta" in cu else 4)
         kernels[name] = (_OlderEntry(f"K4 {name}", "cpmlk.cu", "fdtd_cpmlk", argtypes,
                                      drop, d)
                          if drop else _build.Kernel(f"K4 {name}", "cpmlk.cu",
                                                     "fdtd_cpmlk", argtypes, csrc=d))
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        list(pool.map(lambda k: k.build(), kernels.values()))
-    for name, k in kernels.items():
+        if "cpml.cu" in files:
+            k3s[f"K3 {name}"] = _build.Kernel(f"K3 {name}", "cpml.cu", "fdtd_cpml",
+                                              _build.CPML.argtypes, csrc=d)
+    every = [*kernels.values(), *k3s.values()]
+    with ThreadPoolExecutor(len(every)) as pool:
+        list(pool.map(lambda k: k.build(), every))
+    for name, k in [*kernels.items(), *k3s.items()]:
         k.function()
         print(f"{name}: built in {k.build_seconds} s", flush=True)
         for entry, regs in ptxas_entries(k.build_log):
             print(f"  {entry}: {' | '.join(regs)}", flush=True)
-    return kernels
+    return kernels, k3s
 
 
 def ptxas_entries(log):
@@ -126,8 +147,8 @@ def ptxas_entries(log):
     out = []
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
-        if m and "cpmlk_kernel" in m.group(1):
-            args = re.search(r"cpmlk_kernelI(\w+?)EEv", m.group(1))
+        if m and re.search(r"cpmlk?_kernel", m.group(1)):
+            args = re.search(r"cpmlk?_kernelI(\w+?)EEv", m.group(1))
             name = m.group(1) if args is None else "<" + args.group(1).replace(
                 "13__nv_bfloat16", "bf16").replace("Lb1E", ", true").replace(
                 "Lb0E", ", false").replace("f,", "float,") + ">"
@@ -138,7 +159,7 @@ def ptxas_entries(log):
     return out
 
 
-def check(kernels, dev):
+def check(kernels, k3s, dev):
     sim = cs.flagship(ft, cs.LADDER_CHECK_SHAPE, torch.float32, dev)
     dt = sim.grid.dt
     cpml = ft.Cpml(thickness=((4, 3), (3, 5), (5, 4)))
@@ -151,16 +172,32 @@ def check(kernels, dev):
               cpml=cpml, tfsf=tfsf)
     want = plain_cpml_stepk(state, sim._table_f32, sim.matid, None, 4, **kw)
     step = cuda_cpml_stepk_fn(cs.LADDER_CHECK_SHAPE, 4, matid=sim.matid, n_materials=3, **kw)
+    shipped = _build.CPMLK
+    first = None
     for name, k in kernels.items():
         _build.CPMLK = k
         got = step(state, sim._table_f32, None)
         torch.cuda.synchronize()
+        first = got if first is None else first
         err = cs.max_abs_err(got, want)
-        print(f"check {name}: max_abs_err {err:.3e}", flush=True)
+        same = all(torch.equal(a, b) for a, b in zip((*got.e, *got.h), (*first.e, *first.h)))
+        print(f"check {name}: max_abs_err {err:.3e}; fields bit-identical to "
+              f"{next(iter(kernels))}'s {same}", flush=True)
         cs.require(err <= 2e-6 * 4 * cs.field_scale(want), f"{name} disagrees")
+    _build.CPMLK = shipped
+    step3 = cuda_cpml_step_fn(cs.LADDER_CHECK_SHAPE, matid=sim.matid, n_materials=3, **kw)
+    shipped3, first = _build.CPML, None
+    for name, k in k3s.items():
+        _build.CPML = k
+        got = step3(state, sim._table_f32, None)
+        torch.cuda.synchronize()
+        first = got if first is None else first
+        same = all(torch.equal(a, b) for a, b in zip((*got.e, *got.h), (*first.e, *first.h)))
+        print(f"check {name}: fields bit-identical to the package's K3 {same}", flush=True)
+    _build.CPML = shipped3
 
 
-def time_variants(kernels, shape, sim, dev):
+def time_variants(kernels, k3s, shape, sim, dev):
     if sim is not None:
         kw = dict(inv_dx=tuple(1.0 / d for d in sim.grid.dx), dt=sim.grid.dt,
                   constants=ft.REDUCED, cpml=sim.cpml, tfsf=sim.tfsf,
@@ -180,9 +217,17 @@ def time_variants(kernels, shape, sim, dev):
             return k4(s, coeffs, None)
         return call
 
-    named = [("K3", lambda s: k3(s, coeffs, None), 1)]
+    def with_k3(k):
+        def call(s):
+            _build.CPML = k
+            return k3(s, coeffs, None)
+        return call
+
+    shipped = _build.CPML
+    named = [(name, with_k3(k), 1) for name, k in k3s.items()]
     named += [(f"K4 K=8, {name}", with_kernel(k), 8) for name, k in kernels.items()]
-    ms = cs.in_turns(torch, named, state, 6)
+    ms = cs.in_turns(torch, named, state, 20)
+    _build.CPML = shipped
     cells = math.prod(shape)
     for name, _, ticks in named:
         mean = sum(ms[name]) / 2
@@ -202,11 +247,11 @@ def main():
         print("needs a CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    kernels = build(args.baseline, args.shipped_only)
-    check(kernels, dev)
-    time_variants(kernels, cs.ABSORB_SHAPE, cs.config3(ft, cs.ABSORB_SHAPE, torch.float32,
-                                                       dev), dev)
-    time_variants(kernels, cs.SCALE_SHAPE, None, dev)
+    kernels, k3s = build(args.baseline, args.shipped_only)
+    check(kernels, k3s, dev)
+    time_variants(kernels, k3s, cs.ABSORB_SHAPE,
+                  cs.config3(ft, cs.ABSORB_SHAPE, torch.float32, dev), dev)
+    time_variants(kernels, k3s, cs.SCALE_SHAPE, None, dev)
     return 0
 
 

@@ -30,7 +30,12 @@ Run from the root of a checkout. In order it
    ragged case with every option at K = 8, 4, 2, config 3 with its
    accumulators and paths A's and B's options at 256^3, f32 and bf16)
    against its in-place plain version and against K4 (f32: every output
-   bit-identical), every field, psi and psi_d in its input tensor;
+   bit-identical), every field, psi and psi_d in its input tensor; K6
+   (the grid-blocked kernel) at every K its plan takes (2-9) on the
+   37x29x53 case and at 256^3 with config 3's material index and TF/SF box
+   (and a slab TF/SF) and J+M sources beside tile cuts, f32 and bf16,
+   against its plain version and K4 (bit identity or the largest
+   difference);
 4. runs the free-space main path: BASELINE config 2 at 128^3 (a dielectric
    sphere and a lossy slab in a uint8 material index, a Gaussian J dipole),
    built as __graft_entry__._flagship builds it, for 1000 ticks with a
@@ -46,10 +51,17 @@ Run from the root of a checkout. In order it
 6. runs BASELINE config 3's absorbing run at 1024^3 f32 through
    Simulation.run, in place (K4 io_alias) on one copy of the caller's
    state: 128 ticks with its 3-point probe at K = 8 and at K = 2, whose
-   traces and per-x-plane sums must be bit-identical, with the peak memory
-   at most two states plus the material index plus 2 %; then 32 ticks of
-   the largest cubes (multiples of 16) the card holds through run (two
-   states) and through the in-place wrapper (one state);
+   traces and per-x-plane sums of squares must be bit-identical, with the
+   peak memory at most two states plus the material index plus 2 %; then
+   32 ticks of the largest cubes (multiples of 16) the card holds through
+   run (two states) and through the in-place wrapper (one state); then
+   config 3 through K6 (K = 4; Simulation.plan keeps these runs on K4, so
+   K6 is driven through its wrapper): 800 ticks at 512^3 f32 and bf16 and
+   128 at 1024^3 f32, with the probe every 8 ticks, the launch counts, the
+   peak memory (two states, the index, K6's psi scratch), and the trace
+   and each field's per-x-plane sums of squares held to the K4 route's
+   (f32 1e-5, bf16 3 %); at 512^3 one K6 call on config 3's inputs is
+   held to its plain version (at 1024^3 the plain version does not fit);
 7. runs the absorbing main path: BASELINE config 3 at 256^3 (CPML 10 cells
    on every face, a closed TF/SF box with a Gaussian-derivative plane wave,
    a dielectric sphere of radius 32 in a uint8 material index, as
@@ -91,8 +103,10 @@ Run from the root of a checkout. In order it
    paths A and B at 256^3 (K3 and K4 at K = 8 with and without ``oblique``
    or ``dense``, the oblique corrections' evaluation apart from the kernel,
    the plain engine), K4 io_alias beside K4 at 256^3 (config 3) and at
-   256^3 and 512^3 with Cpml.uniform(10) (f32 and bf16), and prints
-   Gcell/s and the byte model's share of the H100's 3.35 TB/s;
+   256^3 and 512^3 with Cpml.uniform(10) (f32 and bf16), K6 at K = 4
+   and 3 against K4 and K4 io_alias at K = 4 and 8 and K6's plain version
+   at 512^3 with Cpml.uniform(10) (f32 and bf16) with each K6 call's bound,
+   and prints Gcell/s and the byte model's share of the H100's 3.35 TB/s;
 13. profiles 64 ticks of each absorbing run, of each accumulator route, of
    paths A and B and of the plain engine at 256^3 (torch.profiler) and
    prints each one's device busy time, idle share and top kernel.
@@ -1075,6 +1089,189 @@ def ext_self_checks(torch, ft, seed):
     return errs
 
 
+# -- K6 ------------------------------------------------------------------------
+
+#: every K that K6's plan takes (its 32 x 32 window's shared memory)
+GB_KS = tuple(range(2, 10))
+
+
+def gb_sources(ft, shape, dt, device):
+    """J+M point sources for K6's 256^3 checks, each a cell away from a tile
+    cut of some K (cuts at multiples of 32 - 2K: 28, 24, 16, ...), so that
+    a halo carries it, and one far from any."""
+    return ft.SourceSet.build([
+        ft.PointSource((64, 23, 24), ft.GaussianPulse(0.0, 6 * dt), j=(0.3, -0.2, 1.0),
+                       m=(0.1, 0.2, -0.3)),
+        ft.PointSource((128, 28, 27), ft.Ricker(0.05, 10 * dt), j=(0.0, 1.0, 0.5)),
+        ft.PointSource((192, 16, 47), ft.ContinuousWave(0.05), m=(0.5, 0.0, 0.2)),
+        ft.PointSource((100, 200, 143), ft.GaussianPulse(0.0, 6 * dt), j=(0.0, 0.0, 1.0),
+                       m=(0.0, 0.3, 0.0))], device=device)
+
+
+def gb_check(torch, label, state, k, table, src, common, kw):
+    """One K6 call at ``k`` on ``state`` (the card) against its plain
+    version and against K4 on the same inputs (``common``: the plain
+    version's arguments; ``kw``: the wrappers', with dtype and material
+    index). Bars are K4's: f32 fields within 2e-5 of max|field| and psi
+    within 2e-5 of max|psi|; bf16 fields (compared in bf16) within 2^-7 of
+    max|field| (one bf16 step), psi (f32) within 2e-5. Against K4 bit
+    identity is the target: the line says whether it holds or prints the
+    largest difference. Raises on a miss; returns (the largest field error
+    against the plain version, bit-identical to K4, the largest difference
+    to K4, the plain version's peak bytes beyond what was allocated before
+    it)."""
+    from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
+    from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn, plain_cpml_gb_stepk
+    from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn
+
+    shape, dtype, matid = state.shape, state.dtype, kw.get("matid")
+    got = cuda_cpml_gb_stepk_fn(shape, k, device=state.device, **kw)(state, table, src)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    want = plain_cpml_gb_stepk(state, table, matid, src, k, **common)
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated() - base
+    require(got.tick == want.tick == state.tick + k, "tick")
+    err, scale = max_abs_err(got, want), field_scale(want)
+    tol = (2e-5 if dtype == torch.float32 else 2.0 ** -7) * scale
+    pairs = [(a, b) for a, b in zip(psi_tensors(got), psi_tensors(want)) if b.numel()]
+    psi_err = max(float((a - b).abs().max()) for a, b in pairs)
+    psi_scale = max(float(b.abs().max()) for _, b in pairs)
+    del want
+    k4 = cuda_cpml_stepk_fn(shape, k, **kw)(state, table, src)
+    outs = list(zip((*got.e, *got.h, *psi_tensors(got)), (*k4.e, *k4.h, *psi_tensors(k4))))
+    same = all(torch.equal(a, b) for a, b in outs)
+    vs_k4 = max(float((a.float() - b.float()).abs().max()) for a, b in outs)
+    ok = err <= tol and psi_err <= 2e-5 * psi_scale and all(
+        bool(torch.isfinite(f).all()) for f in (*got.e, *got.h))
+    log(f"selfcheck K6 {label} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol {tol:.3e}, "
+        f"max|field| {scale:.3f}); psi {psi_err:.3e} (tol {2e-5 * psi_scale:.3e}); vs K4 "
+        + ("bit-identical" if same else f"largest difference {vs_k4:.3e}")
+        + f" {'ok' if ok else 'FAIL'}")
+    require(ok, f"K6 {label} {dtype} disagrees with its plain version")
+    return err, same, vs_k4, plain_peak
+
+
+def gb_self_checks(torch, ft, seed):
+    """K6 against its plain version on the card, and against K4 (the same
+    inputs), at every K its plan takes, f32 and bf16: the ragged 37x29x53
+    case (CPML of unequal thickness on every axis, a TF/SF box whose faces
+    cross tile cuts, the config-2 material index, J+M sources) and config 3
+    at 256^3 (its material index and closed TF/SF box, and once more with a
+    slab TF/SF, with J+M sources beside tile cuts), by gb_check. Returns
+    the largest error against the plain version at 256^3 f32."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    errs, identical, worst_vs_k4 = [], 0, 0.0
+    sim = flagship(ft, LADDER_CHECK_SHAPE, torch.float32, dev)
+    dt = sim.grid.dt
+    ragged = (sim, ft.Cpml(thickness=((4, 3), (3, 5), (5, 4))),
+              ft.Tfsf(span=(8, 27), waveform=ft.GaussianDerivative(6 * dt, 2 * dt),
+                      span_y=(8, 23), span_z=(3, 40)),
+              ragged_sources(ft, LADDER_CHECK_SHAPE, dt, dev))
+    main = config3(ft, ABSORB_SHAPE, torch.float32, dev)
+    src3 = gb_sources(ft, ABSORB_SHAPE, main.grid.dt, dev)
+    slab = dataclasses.replace(main.tfsf, span_y=None, span_z=None)
+    cases = (ragged, (main, main.cpml, main.tfsf, src3), (main, main.cpml, slab, src3))
+    for sim, cpml, tfsf, src in cases:
+        shape = sim.grid.shape
+        matid, table = sim.matid, sim._table_f32
+        common = dict(inv_dx=tuple(1.0 / d for d in sim.grid.dx), dt=sim.grid.dt,
+                      constants=ft.REDUCED, cpml=cpml, tfsf=tfsf, with_m=True)
+        label = "box" if tfsf.is_box else "slab"
+        for dtype in (torch.float32, torch.bfloat16):
+            state = random_engine_state(torch, ft, sim, dtype, cpml, tfsf, gen)
+            kw = dict(common, dtype=dtype, matid=matid, n_materials=table.shape[0])
+            for k in GB_KS:
+                err, same, vs_k4, _ = gb_check(torch, f"K={k} {tuple(shape)} {label} TF/SF",
+                                            state, k, table, src, common, kw)
+                identical += same
+                worst_vs_k4 = max(worst_vs_k4, vs_k4)
+                if shape == ABSORB_SHAPE and dtype == torch.float32:
+                    errs.append(err)
+            del state
+    n = 2 * len(GB_KS) * len(cases)
+    log(f"selfcheck K6: {identical} of {n} checks bit-identical to K4 (fields and psi); "
+        f"largest difference {worst_vs_k4:.3e}")
+    return max(errs)
+
+
+def gb_plan_bytes(shape, plan, itemsize, matid):
+    """Bytes one K6 call moves as it runs, fields and material index only:
+    each tile reads its window (the tile and its halo, clipped at the
+    lattice's faces) of the six input fields and the index and writes its
+    own cells of the six outputs."""
+    nx, ny, nz = shape
+
+    def windows(n):
+        # the clipped window length of each tile along one lateral axis
+        return sum(min(n, t + plan.owned + plan.halo) - max(0, t - plan.halo)
+                   for t in range(0, n, plan.owned))
+
+    read = nx * windows(ny) * windows(nz) * (6 * itemsize + (1 if matid else 0))
+    return read + 6 * itemsize * math.prod(shape)
+
+
+def gb_timings(torch, ft, ks=GB_KS, k4_ks=None, shapes=(SCALE_SHAPE,), n=6):
+    """ms per call of K6 at each K of ``ks``, in turns with K4 and K4
+    io_alias at each K of ``k4_ks`` (default: ``ks``), at each of ``shapes``
+    with Cpml.uniform(10), no TF/SF, uniform coefficients, f32 and bf16
+    (cpml_timings' set-up), and of K6's plain version at ``ks[0]``. Prints
+    Gcell/s, the bytes per cell and tick as K6 runs (fields and index
+    through gb_plan_bytes, psi once) and their share of 3.35 TB/s, and
+    each call's bound (cpml_bytes: each input read once, each output
+    written once)."""
+    from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn, plain_cpml_gb_stepk
+    from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn
+
+    dev = torch.device("cuda")
+    k4_ks = ks if k4_ks is None else k4_ks
+    cpml = ft.Cpml.uniform(10)
+    res = ft.Resolution.courant(1.0, ft.REDUCED, safety=0.99)
+    row = (1.0, res.temporal, 1.0, res.temporal)
+    coeffs1 = ft.CellCoefficients.uniform(row, device=dev)
+    table1 = torch.tensor([row], dtype=torch.float32, device=dev)
+    kw = dict(inv_dx=(1.0, 1.0, 1.0), dt=res.temporal, constants=ft.REDUCED, cpml=cpml)
+    results = {}
+    for shape in shapes:
+        cells = math.prod(shape)
+        for dtype in (torch.float32, torch.bfloat16):
+            b = 4 if dtype == torch.float32 else 2
+            named, models, bounds = [], {}, {}
+            for k in ks:
+                f = cuda_cpml_gb_stepk_fn(shape, k, dtype=dtype, device=dev, **kw)
+                named.append((f"K6 K={k}", lambda s, f=f: f(s, coeffs1, None), k))
+                models[f"K6 K={k}"] = (gb_plan_bytes(shape, f.plan, b, False)
+                                       + 2 * 4 * psi_cells(shape, cpml)) / k
+                bounds[f"K6 K={k}"] = bound(cells, k, cpml_bytes(shape, b, False, cpml),
+                                            psi_cells(shape, cpml))
+            for k in k4_ks:
+                for io in (False, True):
+                    f = cuda_cpml_stepk_fn(shape, k, dtype=dtype, io_alias=io, **kw)
+                    name = f"K4 K={k}" + (" io_alias" if io else "")
+                    named.append((name, lambda s, f=f: f(s, coeffs1, None), k))
+                    models[name] = cpml_bytes(shape, b, False, cpml) / k
+            if shape == SCALE_SHAPE and dtype == torch.float32:
+                k0 = ks[0]
+                named.append((f"K6 K={k0} plain version",
+                              lambda s: plain_cpml_gb_stepk(s, table1, None, None, k0, **kw),
+                              k0))
+            state = ft.init_engine_state(shape, dtype, cpml=cpml, device=dev)
+            state = state.replace(ez=torch.ones_like(state.ez))
+            key = f"gb_{shape[0]}_{str(dtype)[6:]}"
+            group = report_group(key, named, in_turns(torch, named, state, n), shape, models)
+            for name, (b_ms, b_by) in bounds.items():
+                group[name]["bound_ms"], group[name]["bound_by"] = b_ms, b_by
+                log(f"bound {key} {name}: {b_ms:.4f} ms per call ({b_by}); the kernel at "
+                    f"{b_ms / (sum(group[name]['ms_per_call']) / 2):.1%} of it")
+            results[key] = group
+            del state
+            torch.cuda.empty_cache()
+    return results
+
+
 def main_path(torch, ft):
     """Config 2 at 128^3 through Simulation: 1000 ticks through K2 with a
     point probe every K, 1000 through K1 with a DFT accumulator, each held
@@ -1267,12 +1464,24 @@ def config5_path(torch, ft):
     return launches, gcells
 
 
-def plane_sums(torch, s, chunk=32):
-    """(6, nx) f64 sums of each field over every x plane, in chunks of
-    ``chunk`` planes: no lattice-sized temporary."""
+def plane_squares(torch, s, chunk=32):
+    """(6, nx) f64 sums of each field's squares over every x plane, in
+    chunks of ``chunk`` planes: no lattice-sized temporary, and no
+    cancellation between cells of opposite sign."""
     return torch.stack([
-        torch.cat([f[x:x + chunk].double().sum(dim=(1, 2)) for x in range(0, f.shape[0], chunk)])
+        torch.cat([(f[x:x + chunk].double() ** 2).sum(dim=(1, 2))
+                   for x in range(0, f.shape[0], chunk)])
         for f in (*s.e, *s.h)])
+
+
+def squares_rel_err(got, want):
+    """The largest difference of two plane_squares, each field's relative
+    to that field's largest plane value (a field that is zero throughout
+    must stay zero)."""
+    diff = (got - want).abs().amax(dim=1).tolist()
+    scale = want.amax(dim=1).tolist()
+    return max(d / m if m > 0 else (0.0 if d == 0 else math.inf)
+               for d, m in zip(diff, scale))
 
 
 def config3_large_path(torch, ft):
@@ -1286,11 +1495,13 @@ def config3_large_path(torch, ft):
     at most two states (six fields and the psi slabs each: the caller's
     and run's copy) plus the material index plus 2 %; the caller's state
     stays zero. The two runs' probe traces and per-x-plane f64 sums of the
-    six fields must be bit-identical, finite and nonzero. Then one in-place
+    squares of the six fields (plane_squares) must be bit-identical,
+    finite and nonzero. Then one in-place
     wrapper call on the final state must allocate < 2 % of one set of
     fields beyond it. Last, the largest cubes the card holds through run
     and through the wrapper (largest_config3). Returns (launches,
-    numbers)."""
+    numbers, the K = 8 run's trace and plane squares for
+    gb_config3_path)."""
     import gc
 
     from fdtd_tpu_torch.solver import cuda_cpml_k
@@ -1343,12 +1554,12 @@ def config3_large_path(torch, ft):
         untouched = all(int(torch.count_nonzero(t)) == 0
                         for t in (*state.e, *state.h, *psi_tensors(state)))
         del state
-        sums = plane_sums(torch, out)
+        squares = plane_squares(torch, out)
         trace = trace if every == 8 else trace[3::4]
         g = n ** 3 * ticks / secs / 1e9
         runs[k] = {"seconds": secs, "gcells": g, "peak_bytes": peak, "limit_bytes": limit,
                    "state_bytes": state_bytes, "max_probe": float(trace.abs().max()),
-                   "trace": trace, "sums": sums}
+                   "trace": trace, "squares": squares}
         log(f"{label}: {ticks} ticks in {secs * 1e3:.3f} ms, {g:.3f} Gcell/s; launches "
             f"{counts}; peak {peak / 1e9:.4f} GB (limit {limit / 1e9:.4f} GB: two states of "
             f"{state_bytes / 1e9:.4f} GB + the material index + 2 %); caller's state "
@@ -1359,27 +1570,194 @@ def config3_large_path(torch, ft):
         require(untouched, f"{label}: the caller's state changed")
         # in 128 ticks the plane wave reaches x ~ 80 of 1024: the probe's
         # points (the sphere's centre, behind it, the scattered field at
-        # x = 13) see at most the TF/SF box's leakage; the plane sums see
-        # the wave
-        require(bool(torch.isfinite(sums).all()) and float(sums.abs().max()) > 0
+        # x = 13) see at most the TF/SF box's leakage; the plane squares
+        # see the wave
+        require(bool(torch.isfinite(squares).all()) and float(squares.max()) > 0
                 and bool(torch.isfinite(trace).all()), f"{label}: no finite field")
     same_trace = torch.equal(runs[8]["trace"], runs[2]["trace"])
-    same_sums = torch.equal(runs[8]["sums"], runs[2]["sums"])
+    same_squares = torch.equal(runs[8]["squares"], runs[2]["squares"])
     log(f"config 3 {n}^3: K=8 and K=2 probe traces bit-identical {same_trace}, per-x-plane "
-        f"f64 sums of the six fields bit-identical {same_sums}")
-    require(same_trace and same_sums, f"config 3 {n}^3: K = 8 and K = 2 differ")
+        f"f64 sums of squares of the six fields bit-identical {same_squares}")
+    require(same_trace and same_squares, f"config 3 {n}^3: K = 8 and K = 2 differ")
+    reference = {key: runs[8][key] for key in ("trace", "squares")}
     step = sim._multi_step(8)
     call = peak_call_bytes(torch, lambda s: step(s, sim.coeffs, sim.sources), out)
     log(f"config 3 {n}^3: one K4 io_alias call (K=8) allocates {call} B beyond the state "
         f"= {call / set_bytes:.3e} of one set")
     require(call < 0.02 * set_bytes, f"an in-place call allocates {call} B")
     del out, sim, step
-    numbers = {k: {key: v for key, v in r.items() if key not in ("trace", "sums")}
+    numbers = {k: {key: v for key, v in r.items() if key not in ("trace", "squares")}
                for k, r in runs.items()}
     numbers["call_bytes"] = call
     for route, states in (("Simulation.run", 2), ("the in-place wrapper", 1)):
         count, numbers[route] = largest_config3(torch, ft, route, states)
         launches += count
+    return launches, numbers, reference
+
+
+#: K6's ticks per call on config 3's runs: the first K of Simulation's
+#: GB_LADDER, the K its rule would take
+GB_K = 4
+#: config 3 through K6: (n, storage, ticks); 512^3 long enough for the
+#: field scattered by the sphere to reach the probe at x = 13, 1024^3 as
+#: config3_large_path
+GB_CONFIG3_RUNS = ((512, "float32", 800), (512, "bfloat16", 800),
+                   (1024, "float32", CONFIG3_LARGE_TICKS))
+
+
+def gb_config3_path(torch, ft, reference_1024, seed):
+    """BASELINE config 3 (config3: CPML 10, the closed TF/SF box, the
+    sphere's material index) through K6, at 512^3 f32 and bf16 and 1024^3
+    f32: Simulation.plan leaves each run on K4 (the rule K6 takes from the
+    JAX package never engages on the card), so the run is driven through
+    cuda_cpml_gb_stepk_fn at K = GB_K with the 3-point probe every 8 ticks,
+    as bench.py drives the JAX gb tier. The launch counts (set to 0 just
+    before each run, read just after) must show K6 alone; the peak memory
+    must stay within two states (fields and psi slabs), the index and K6's
+    psi scratch, plus 2 %. The run is held to the K4 route on the same
+    set-up (Simulation.run: at 512^3 run here at K = GB_K, with the probe
+    every GB_K ticks; at 1024^3 config3_large_path's K = 8 run,
+    ``reference_1024``): its probe trace within 1e-5 of the K4 trace's
+    largest value at f32, 3 % at bf16 (the bar of a bf16 run against f32),
+    and the plane_squares of its final fields within the same share of
+    each field's largest K4 value (squares_rel_err; the trace stays zero at
+    1024^3, the squares see the wave); each line also says whether trace
+    and squares are bit-identical, which K6 and K4 are at the same K.
+    Trace and squares must be finite, the squares nonzero.
+
+    After each 512^3 run, one K6 call at GB_K on config 3's inputs at that
+    size (a random state, the material index, the TF/SF box, gb_sources'
+    J+M sources) is held to its plain version and to K4 by gb_check. At
+    1024^3 the plain version does not fit the card beside its input state:
+    the line says how much it would need, from its peak at 512^3 f32.
+    Returns (launches, numbers)."""
+    import gc
+
+    from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
+    from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    launches, numbers, plain_sets = 0, {}, None
+    for n, dtype_name, ticks in GB_CONFIG3_RUNS:
+        dtype = getattr(torch, dtype_name)
+        shape = (n, n, n)
+        label = f"config 3 {n}^3 {dtype_name} through K6 K={GB_K}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        sim = config3(ft, shape, dtype, dev)
+        probes, _ = absorbing_probes(shape)
+        plan = sim.plan(ticks, probes, (), 8)
+        require(plan == (8, "cuda_cpml_k"), f"{label}: plan {plan}")
+        kw = sim._kernel_kwargs()
+        kw.pop("dense"), kw.pop("oblique")
+        step = cuda_cpml_gb_stepk_fn(shape, GB_K, device=dev, **kw)
+        table, every = sim._table_f32, 8 // GB_K
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state = sim.init()
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in (*state.e, *state.h, *psi_tensors(state)))
+        samples = []
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(ticks // GB_K):
+            state = step(state, table, sim.sources)
+            if (i + 1) % every == 0:
+                samples.append(probes[0].sample(state, sim.grid.dt))
+        end.record()
+        end.synchronize()
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        secs = start.elapsed_time(end) / 1e3
+        want = {name: 0 for name in counts}
+        want["K6 cpmlk_gb"] = ticks // GB_K
+        require(counts == want, f"{label}: launches {counts}, expected {want}")
+        launches += want["K6 cpmlk_gb"]
+        limit = 1.02 * (2 * state_bytes + sim.matid.numel() + 4 * step.plan.scratch_floats)
+        trace = torch.stack(samples)
+        squares = plane_squares(torch, state)
+        require(state.tick == ticks and bool(torch.isfinite(squares).all())
+                and float(squares.max()) > 0 and bool(torch.isfinite(trace).all()),
+                f"{label}: no finite field")
+        require(peak <= limit, f"{label}: peak {peak} > {limit}")
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        if n == CONFIG3_LARGE:
+            ref, ref_squares, k4_secs = (reference_1024["trace"], reference_1024["squares"],
+                                         None)
+        else:
+            # the K4 route at K6's K: the probe every GB_K ticks, every
+            # other sample compared
+            require(sim.plan(ticks, probes, (), GB_K) == (GB_K, "cuda_cpml_k"),
+                    f"{label}: the K4 route's plan")
+            start.record()
+            out, (ref,), _ = sim.run(sim.init(), ticks, probes=probes, probe_every=GB_K)
+            end.record()
+            end.synchronize()
+            k4_secs = start.elapsed_time(end) / 1e3
+            ref = ref[every - 1::every]
+            ref_squares = plane_squares(torch, out)
+            del out
+        # at 1024^3 the wave has not reached the probe's points in 128
+        # ticks (config3_large_path): an all-zero trace must match exactly
+        scale = float(ref.float().abs().max())
+        err = float((trace.float() - ref.float()).abs().max()) / (scale if scale > 0 else 1.0)
+        same = torch.equal(trace, ref)
+        require(float(ref_squares.max()) > 0, f"{label}: the K4 route's fields are zero")
+        squares_err = squares_rel_err(squares, ref_squares)
+        squares_same = torch.equal(squares, ref_squares)
+        tol = 1e-5 if dtype == torch.float32 else 3e-2
+        g = n ** 3 * ticks / secs / 1e9
+        log(f"{label}: {ticks} ticks in {secs * 1e3:.3f} ms, {g:.3f} Gcell/s (the K4 route "
+            + ("config3_large_path's" if k4_secs is None else
+               f"{n ** 3 * ticks / k4_secs / 1e9:.3f} Gcell/s")
+            + f"); launches {counts}; peak {peak / 1e9:.4f} GB (limit {limit / 1e9:.4f} GB: "
+            f"two states of {state_bytes / 1e9:.4f} GB, the index, the psi scratch, 2 %); "
+            f"probe trace vs the K4 route {err:.3e} of max|probe| {scale:.4e} (tol {tol}), "
+            f"bit-identical {same}; plane squares vs the K4 route {squares_err:.3e} of "
+            f"each field's largest (tol {tol}), bit-identical {squares_same}")
+        require(err <= tol, f"{label}: the probe trace strays from the K4 route's")
+        require(squares_err <= tol, f"{label}: the final fields stray from the K4 route's")
+        numbers[f"{n}_{dtype_name}"] = r = {
+            "ticks": ticks, "seconds": secs, "gcells": g, "k4_route_seconds": k4_secs,
+            "peak_bytes": peak, "limit_bytes": limit, "trace_rel_err": err,
+            "trace_bit_identical": same, "squares_rel_err": squares_err,
+            "squares_bit_identical": squares_same}
+        del trace, ref, squares, ref_squares
+        gc.collect()
+        torch.cuda.empty_cache()
+        set_bytes = 6 * (4 if dtype == torch.float32 else 2) * n ** 3
+        if n < CONFIG3_LARGE:
+            cpml, tfsf = sim.cpml, sim.tfsf
+            common = dict(inv_dx=tuple(1.0 / d for d in sim.grid.dx), dt=sim.grid.dt,
+                          constants=ft.REDUCED, cpml=cpml, tfsf=tfsf, with_m=True)
+            kw = dict(common, dtype=dtype, matid=sim.matid, n_materials=table.shape[0])
+            state = random_engine_state(torch, ft, sim, dtype, cpml, tfsf, gen)
+            r["plain_max_abs_err"], r["plain_vs_k4_bit_identical"], _, plain_peak = gb_check(
+                torch, f"K={GB_K} config 3 {tuple(shape)} box TF/SF, J+M sources", state,
+                GB_K, table, gb_sources(ft, shape, sim.grid.dt, dev), common, kw)
+            r["plain_peak_bytes"] = plain_peak
+            if dtype == torch.float32:
+                plain_sets = plain_peak / set_bytes
+            log(f"{label}: the plain version's peak {plain_peak / 1e9:.4f} GB beyond its "
+                f"input, {plain_peak / set_bytes:.3f} sets of fields")
+            del state
+        else:
+            need = (plain_sets + 1) * set_bytes
+            total = torch.cuda.get_device_properties(dev).total_memory
+            r["plain_need_bytes"] = need
+            log(f"{label}: K6 is not held to its plain version at {n}^3: the plain version "
+                f"took {plain_sets:.3f} sets of fields beyond its input at 512^3 f32, so "
+                f"with its input it needs {need / 1e9:.3f} GB here, more than the card's "
+                f"{total / 1e9:.3f} GB")
+            require(need > total, f"{label}: the plain version would fit; hold K6 to it")
+        del sim
     return launches, numbers
 
 
@@ -1432,7 +1810,7 @@ def largest_config3(torch, ft, route, states):
     secs = start.elapsed_time(end) / 1e3
     limit = 1.02 * config3_bytes(n, states, cpml)
     del state
-    sums = plane_sums(torch, out)
+    squares = plane_squares(torch, out)
     label = f"config 3 {n}^3 f32 through {route}"
     log(f"{label} (the largest multiple of 16 whose {states} state(s) and index fit 99 % of "
         f"{free / 1e9:.3f} GB free): {LARGEST_TICKS} ticks in {secs * 1e3:.3f} ms, "
@@ -1442,9 +1820,9 @@ def largest_config3(torch, ft, route, states):
     want["K4 io_alias"] = LARGEST_TICKS // 8
     require(counts == want, f"{label}: launches {counts}, expected {want}")
     require(peak <= limit, f"{label}: peak {peak} > {limit}")
-    require(out.tick == LARGEST_TICKS and bool(torch.isfinite(sums).all())
-            and float(sums.abs().max()) > 0, f"{label}: no finite field")
-    del out, sim, sums
+    require(out.tick == LARGEST_TICKS and bool(torch.isfinite(squares).all())
+            and float(squares.max()) > 0, f"{label}: no finite field")
+    del out, sim, squares
     gc.collect()
     torch.cuda.empty_cache()
     return want["K4 io_alias"], {"n": n, "seconds": secs, "peak_bytes": peak,
@@ -2292,10 +2670,14 @@ def measure(torch, ft, seed):
     errs.update(cpml_self_checks(torch, ft, seed))
     errs.update(option_self_checks(torch, ft, seed))
     errs.update(ext_self_checks(torch, ft, seed))
+    errs["K6"] = gb_self_checks(torch, ft, seed)
     launches = main_path(torch, ft)
     c5_launches, c5_gcells = config5_path(torch, ft)
     launches.update(c5_launches)
-    c3_launches, c3_large = config3_large_path(torch, ft)
+    c3_launches, c3_large, reference_1024 = config3_large_path(torch, ft)
+    launches["K6"], gb_config3 = gb_config3_path(torch, ft, reference_1024, seed)
+    del reference_1024
+    errs["K6"] = max(errs["K6"], gb_config3["512_float32"]["plain_max_abs_err"])
     launches.update(absorbing_path(torch, ft))
     launches["K4 io_alias"] += c3_launches
     acc_launches, walls = accumulator_path(torch, ft)
@@ -2308,12 +2690,14 @@ def measure(torch, ft, seed):
     times = timings(torch, ft)
     times.update(cpml_timings(torch, ft))
     times.update(ext_timings(torch, ft))
+    times.update(gb_timings(torch, ft, ks=(GB_K, 3), k4_ks=(GB_K, 8)))
     times["accumulators_256_wall_s"] = walls
     times["scattering_256_gcell_per_s"] = {"K4 + flux faces": res_x.gcell_per_s,
                                            "plain engine": ref_x.gcell_per_s}
     times["path_a"], times["path_b"] = path_a, path_b
     times["config5"] = c5_gcells
     times["config3_1024"] = c3_large
+    times["config3_gb"] = gb_config3
 
     top = K_LADDER[0]
     c2, c3 = times["config2_128"], times["config3_256"]
@@ -2397,6 +2781,13 @@ def measure(torch, ft, seed):
          bound(cells3, top, cpml_bytes(ABSORB_SHAPE, 4, True, cpml3, 0, top)
                + top * 6 * 4 * ob_cells, psi3, top * 6 * 2 * ob_cells)),
     ]
+    # K6 at its K, timed at 512^3 with Cpml.uniform(10) (f32), its bound
+    # from gb_timings (each input read once, each output written once)
+    g512 = times["gb_512_float32"]
+    k6 = g512[f"K6 K={GB_K}"]
+    rows.append(("K6 grid-blocked CPML (K ticks on chip)", "cpmlk_gb.cu",
+                 "fdtd_tpu/solver/pallas_cpml_gb.py:201", "K6", g512, f"K6 K={GB_K}",
+                 f"K6 K={GB_K} plain version", (k6["bound_ms"], k6["bound_by"])))
     # no single PyTorch call computes a Yee or CPML tick, or K4's in-kernel
     # reductions, captures, region stretch or oblique correction beside
     # one: library_ms is null

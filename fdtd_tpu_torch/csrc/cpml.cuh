@@ -49,6 +49,12 @@
 //         level's row of precomputed corrections (the wrapper evaluates
 //         the analytic incident wave; solver/tfsf_oblique.py). The H
 //         addition runs for the ring and the seed too.
+//
+// Rounding: each update with two products (psi = b psi + c dF, h = d_a h -
+// d_b curl, e = c_a e + c_b curl) is one explicit fused multiply-add and
+// one rounded product, so every kernel that shares these functions rounds
+// it the same way, whatever code surrounds it. Left to the compiler, the
+// contraction of K6's cells (cpmlk_gb.cu) differed from K4's by an ulp.
 #pragma once
 
 #include "yee.cuh"
@@ -134,7 +140,7 @@ __device__ __forceinline__ float dense_stretch(const Dense& D, bool store, int p
   const long long vol = (long long)(D.x1 - D.x0) * by * bz;
   const long long i = ((long long)(p - D.x0) * by + (y - D.y0)) * bz + (z - D.z0);
   const float* c = D.coef + 3 * HALF * vol + i;
-  const float psi = c[vol] * D.psi[QS][2 * HALF + SLOT][i] + c[2 * vol] * raw;
+  const float psi = __fmaf_rn(c[vol], D.psi[QS][2 * HALF + SLOT][i], __fmul_rn(c[2 * vol], raw));
   if (store) D.psi[QD][2 * HALF + SLOT][i] = psi;
   return c[0] * raw + psi;
 }
@@ -184,8 +190,54 @@ __device__ __forceinline__ float stretch(const Profiles& P, const Psi& Q, bool s
   if (AXIS == 0) i = ((long long)j * L.ny + y) * L.nz + z;
   else if (AXIS == 1) i = ((long long)p * t + j) * L.nz + z;
   else i = ((long long)p * L.ny + y) * t + j;
-  const float psi = prof[n + c] * Q.p[QS][HALF][TERM][end][i] + prof[2 * n + c] * raw;
+  const float psi =
+      __fmaf_rn(prof[n + c], Q.p[QS][HALF][TERM][end][i], __fmul_rn(prof[2 * n + c], raw));
   if (store) Q.p[QD][HALF][TERM][end][i] = psi;
+  return prof[c] * raw + psi;
+}
+
+// K6's psi (cpmlk_gb.cu). A block keeps the psi of every cell of its window
+// (its tile and the halo it recomputes) in a scratch area of its own, one
+// slot per plane in flight: the first level reads the input slabs, the
+// levels in between read and write the cell's slot (only its own thread
+// touches it), the last level writes the output slabs at the cells the
+// block owns and drops the rest. Built per plane and level; `store` is not
+// read (every level but the last keeps every window cell's psi).
+struct SlotPsi {
+  const Psi* g;             // set 0: the input slabs; set 1: the output slabs
+  float* slot;              // this plane's slot: 2 x N_TERMS x wn values
+  int wy0, wz0, wz_n, wn;   // the window's origin, row length and cell count
+  int oy0, oy1, oz0, oz1;   // the cells the block owns: [oy0, oy1) x [oz0, oz1)
+  bool first, last;
+};
+
+template <int HALF, int TERM, int AXIS, int QS, int QD>
+__device__ __forceinline__ float stretch(const Profiles& P, const SlotPsi& G, bool,
+                                         const yee::Lattice& L, int p, int y, int z,
+                                         float raw) {
+  const float* prof = P.p[HALF][AXIS];
+  if (prof == nullptr) return raw;
+  const int n = AXIS == 0 ? L.nx : (AXIS == 1 ? L.ny : L.nz);
+  const int c = AXIS == 0 ? p : (AXIS == 1 ? y : z);
+  const int l1 = P.l1[HALF][AXIS], h0 = P.h0[HALF][AXIS];
+  int end, j, t;
+  if (c < l1) {
+    end = 0; j = c; t = l1;
+  } else if (c >= h0) {
+    end = 1; j = c - h0; t = n - h0;
+  } else {
+    return raw;  // interior: kappa 1, psi identically 0
+  }
+  long long i;
+  if (AXIS == 0) i = ((long long)j * L.ny + y) * L.nz + z;
+  else if (AXIS == 1) i = ((long long)p * t + j) * L.nz + z;
+  else i = ((long long)p * L.ny + y) * t + j;
+  float* s = G.slot + (HALF * N_TERMS + TERM) * G.wn + (y - G.wy0) * G.wz_n + (z - G.wz0);
+  const float old = G.first ? G.g->p[0][HALF][TERM][end][i] : *s;
+  const float psi = __fmaf_rn(prof[n + c], old, __fmul_rn(prof[2 * n + c], raw));
+  if (!G.last) *s = psi;
+  else if (y >= G.oy0 && y < G.oy1 && z >= G.oz0 && z < G.oz1)
+    G.g->p[1][HALF][TERM][end][i] = psi;
   return prof[c] * raw + psi;
 }
 
@@ -196,14 +248,17 @@ __device__ __forceinline__ float stretch(const Profiles& P, const Psi& Q, bool s
 // then the oblique correction of row `ob` (EXT), the TF/SF H corrections
 // from the OLD aux_e row, and the M sources of column m_col (-1: none).
 // T by value, as tile_pass takes it: by reference, ptxas gave K4's core
-// instantiations 44 B more spill stores.
-template <typename TH, int QS, int QD, bool EXT>
-__device__ __forceinline__ void h_cell(yee::Fields<const TH> h, long long i, int p, int yy,
+// instantiations 44 B more spill stores. HF: the fields (yee::Fields, read
+// at i here) or the cell's held values (yee::HeldFields, K6); QT: Psi, or
+// K6's SlotPsi.
+template <typename TH, int QS, int QD, bool EXT, typename HF = yee::Fields<const TH>,
+          typename QT = Psi>
+__device__ __forceinline__ void h_cell(HF h, long long i, int p, int yy,
                                        int zz, bool store, float dez_y, float dey_z,
                                        float dex_z, float dez_x, float dey_x, float dex_y,
                                        const yee::Lattice& L, const yee::Material& M,
                                        const yee::Sources& S, int m_col, const Profiles& P,
-                                       const Psi& Q, const Tfsf T, const float* aux_e,
+                                       const QT& Q, const Tfsf T, const float* aux_e,
                                        const yee::Shared& sh, const Ext& X, const float* ob,
                                        float& hx, float& hy, float& hz) {
   if constexpr (EXT) {
@@ -222,9 +277,9 @@ __device__ __forceinline__ void h_cell(yee::Fields<const TH> h, long long i, int
   dex_y = stretch<0, 5, 1, QS, QD>(P, Q, store, L, p, yy, zz, dex_y);
   const int mat = yee::material_at(M, i);
   const float d_a = sh.table[mat][2], d_b = sh.table[mat][3];
-  hx = d_a * yee::load(h.hx, i) - d_b * (dez_y - dey_z);
-  hy = d_a * yee::load(h.hy, i) - d_b * (dex_z - dez_x);
-  hz = d_a * yee::load(h.hz, i) - d_b * (dey_x - dex_y);
+  hx = __fmaf_rn(d_a, yee::load(h.hx, i), -__fmul_rn(d_b, dez_y - dey_z));
+  hy = __fmaf_rn(d_a, yee::load(h.hy, i), -__fmul_rn(d_b, dex_z - dez_x));
+  hz = __fmaf_rn(d_a, yee::load(h.hz, i), -__fmul_rn(d_b, dey_x - dex_y));
   if constexpr (EXT) {
     long long vol = 0;
     const long long j = ob != nullptr ? oblique_at(X.O, p, yy, zz, vol) : -1;
@@ -251,13 +306,14 @@ __device__ __forceinline__ void h_cell(yee::Fields<const TH> h, long long i, int
 // edge) and the old E at i in `e`, stretched and corrected as h_cell does
 // (psi always stored), with the TF/SF E corrections from the NEW aux_h row
 // and the J sources of column j_col (-1: none).
-template <typename TE, int QS, int QD, bool EXT>
-__device__ __forceinline__ void e_cell(yee::Fields<const TE> e, long long i, int p, int y,
+template <typename TE, int QS, int QD, bool EXT, typename EF = yee::Fields<const TE>,
+          typename QT = Psi>
+__device__ __forceinline__ void e_cell(EF e, long long i, int p, int y,
                                        int z, float dhz_y, float dhy_z, float dhx_z,
                                        float dhz_x, float dhy_x, float dhx_y,
                                        const yee::Lattice& L, const yee::Material& M,
                                        const yee::Sources& S, int j_col, const Profiles& P,
-                                       const Psi& Q, const Tfsf T, const float* aux_h,
+                                       const QT& Q, const Tfsf T, const float* aux_h,
                                        const yee::Shared& sh, const Ext& X, const float* ob,
                                        float& ex, float& ey, float& ez) {
   if constexpr (EXT) {
@@ -276,9 +332,9 @@ __device__ __forceinline__ void e_cell(yee::Fields<const TE> e, long long i, int
   dhx_y = stretch<1, 5, 1, QS, QD>(P, Q, true, L, p, y, z, dhx_y);
   const int mat = yee::material_at(M, i);
   const float c_a = sh.table[mat][0], c_b = sh.table[mat][1];
-  ex = c_a * yee::load(e.ex, i) + c_b * (dhz_y - dhy_z);
-  ey = c_a * yee::load(e.ey, i) + c_b * (dhx_z - dhz_x);
-  ez = c_a * yee::load(e.ez, i) + c_b * (dhy_x - dhx_y);
+  ex = __fmaf_rn(c_a, yee::load(e.ex, i), __fmul_rn(c_b, dhz_y - dhy_z));
+  ey = __fmaf_rn(c_a, yee::load(e.ey, i), __fmul_rn(c_b, dhx_z - dhz_x));
+  ez = __fmaf_rn(c_a, yee::load(e.ez, i), __fmul_rn(c_b, dhy_x - dhx_y));
   if constexpr (EXT) {
     long long vol = 0;
     const long long j = ob != nullptr ? oblique_at(X.O, p, y, z, vol) : -1;

@@ -58,6 +58,19 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, long long i, float v) {
   p[i] = __float2bfloat16(v);  // round to nearest even, as torch and XLA do
 }
 
+// A value already read, handed to code that reads fields with load(f, i):
+// K6 (cpmlk_gb.cu) keeps a level's fields in shared memory and hands the
+// CPML cell updates each cell's old values this way.
+struct Held {
+  float v;
+};
+__device__ __forceinline__ float load(Held h, long long) { return h.v; }
+
+// The six fields of one cell as held values, in the layout of Fields.
+struct HeldFields {
+  Held ex, ey, ez, hx, hy, hz;
+};
+
 template <typename T>
 struct Fields {
   T* ex; T* ey; T* ez; T* hx; T* hy; T* hz;

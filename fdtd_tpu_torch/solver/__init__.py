@@ -1,5 +1,7 @@
 from .boundary import BoundaryConditions, Dirichlet, Neumann, default_boundaries
 from .cpml import Cpml
+from .cuda_cpml_gb import cuda_cpml_gb_stepk_fn, gb_plan
+from .cuda_cpml_k import cuda_cpml_stepk_fn, supports_cpml_k
 from .engine import EngineState, build_step, init_engine_state
 from .pml import GradedPmlSpec
 from .pml_region import DensePml, dense_pml_from_depth, depth_from_contains
@@ -31,6 +33,10 @@ __all__ = [
     "Neumann",
     "default_boundaries",
     "Cpml",
+    "cuda_cpml_stepk_fn",
+    "supports_cpml_k",
+    "cuda_cpml_gb_stepk_fn",
+    "gb_plan",
     "EngineState",
     "build_step",
     "init_engine_state",

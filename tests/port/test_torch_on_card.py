@@ -471,3 +471,67 @@ def test_run_on_k4_leaves_the_callers_state(cuda_device, dtype):
         assert torch.equal(a, b)
     assert out.tick == 16 and tuple(trace.shape) == (2, 2, 3)
     assert bool(torch.isfinite(out.ez).all()) and float(out.ez.abs().max()) > 0
+
+
+# -- K6 (solver/cuda_cpml_gb.py): the cases of tests/port/test_torch_cpml_gb.py
+# on the card. "ragged": CPML on every axis, the TF/SF box whose faces cross
+# the tile cuts (28 at K = 2, 24 at K = 4, 14 at K = 9), matid and J+M sources
+# (_engine_inputs); "slab": the same with a slab TF/SF; "halo": four tiles
+# and more at K = 2, uniform coefficients, bf16-friendly sources one cell
+# either side of the cut at y = z = 28, no TF/SF
+
+GB_HALO_SHAPE = (20, 60, 61)
+
+
+def _gb_inputs(case, dtype, device):
+    if case != "halo":
+        (hs, hc, hsrc, hkw), (ds, dc, dsrc, dkw) = _engine_inputs(dtype, device)
+        if case == "slab":
+            slab = pt.Tfsf(span=TFSF.span, waveform=TFSF.waveform)
+            hkw, dkw = dict(hkw, tfsf=slab), dict(dkw, tfsf=slab)
+            hs = hs.replace(aux_e=torch.zeros_like(hs.aux_e), aux_h=torch.zeros_like(hs.aux_h))
+            ds = ds.replace(aux_e=torch.zeros_like(ds.aux_e), aux_h=torch.zeros_like(ds.aux_h))
+        return SHAPE, (hs, hc, hsrc, hkw), (ds, dc, dsrc, dkw)
+    rng = np.random.default_rng(13)
+    cpml = pt.Cpml(thickness=((3, 3), (5, 4), (4, 5)))
+    s = pt.init_engine_state(GB_HALO_SHAPE, dtype, cpml=cpml, device="cpu")
+    s = s.replace(**{f: torch.from_numpy(rng.standard_normal(GB_HALO_SHAPE)).to(dtype)
+                     for f in ("ex", "ey", "ez", "hx", "hy", "hz")})
+    src = pt.SourceSet.build([
+        pt.PointSource((10, 27, 28), pt.GaussianPulse(2 * DT, DT), j=(0.5, 0, 2.0),
+                       m=(0.1, 0.2, 0.3)),
+        pt.PointSource((5, 28, 27), pt.Ricker(0.3, 2 * DT), j=(0, 1.0, 0), m=(0.5, 0, 0))],
+        device="cpu")
+    coeffs = pt.CellCoefficients.uniform((0.97, 0.21, 0.99, 0.18), device="cpu")
+    kw = dict(inv_dx=INV_DX, dt=DT, constants=pt.REDUCED, cpml=cpml, dtype=dtype,
+              with_m=True)
+    dev = s.replace(**{f: getattr(s, f).to(device) for f in ("ex", "ey", "ez", "hx", "hy",
+                                                             "hz")},
+                    psi_h=tuple((a.to(device), b.to(device)) for a, b in s.psi_h),
+                    psi_e=tuple((a.to(device), b.to(device)) for a, b in s.psi_e))
+    return GB_HALO_SHAPE, (s, coeffs, src, kw), (dev, coeffs.to(device), src.to(device), kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ragged", "slab", "halo"])
+@pytest.mark.parametrize("k", [2, 4, 9])
+def test_k6_matches_plain_and_k4(cuda_device, dtype, case, k):
+    """K6: one launch; fields against its plain version within 2e-5 x
+    max|field| at f32 and one bf16 step (2^-7 x max|field|) at bf16, psi
+    within 2e-5 x max|psi|, as chip_smoke.py holds it; against K4 on the
+    same inputs every field and psi slab bit-identical (f32 on chip, one
+    rounding per call, at both storage types)."""
+    from fdtd_tpu_torch.solver import cuda_cpml_gb
+    from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn
+
+    shape, (hs, hc, hsrc, hkw), (ds, dc, dsrc, dkw) = _gb_inputs(case, dtype, cuda_device)
+    want = cuda_cpml_gb_stepk_fn(shape, k, device="cpu", **hkw)(hs, hc, hsrc)
+    before = cuda_cpml_gb.launches()
+    got = cuda_cpml_gb_stepk_fn(shape, k, device=cuda_device, **dkw)(ds, dc, dsrc)
+    assert cuda_cpml_gb.launches() == before + 1
+    assert got.ex.data_ptr() != ds.ex.data_ptr()
+    _check_engine(got, want, dtype, k, 2e-5)
+    k4 = cuda_cpml_stepk_fn(shape, k, **dkw)(ds, dc, dsrc)
+    for a, b in zip(_written(got), _written(k4)):
+        assert torch.equal(a, b)

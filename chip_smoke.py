@@ -35,7 +35,12 @@ Run from the root of a checkout. In order it
    37x29x53 case and at 256^3 with config 3's material index and TF/SF box
    (and a slab TF/SF) and J+M sources beside tile cuts, f32 and bf16,
    against its plain version and K4 (bit identity or the largest
-   difference);
+   difference); K5 (the x-zoned kernel) at every K its plan takes on the
+   37x29x53 case (CPML on every axis, a box TF/SF, a slab TF/SF across
+   both cuts, single-ended x slabs, J+M sources on and beside the cuts),
+   with the skew oblique frame on a 64x29x53 lattice, and at 256^3 with
+   config 3's set-up, f32 and bf16, against its plain version, K4 and K6
+   (bit identity or the largest difference);
 4. runs the free-space main path: BASELINE config 2 at 128^3 (a dielectric
    sphere and a lossy slab in a uint8 material index, a Gaussian J dipole),
    built as __graft_entry__._flagship builds it, for 1000 ticks with a
@@ -62,6 +67,10 @@ Run from the root of a checkout. In order it
    and each field's per-x-plane sums of squares held to the K4 route's
    (f32 1e-5, bf16 3 %); at 512^3 one K6 call on config 3's inputs is
    held to its plain version (at 1024^3 the plain version does not fit);
+   then config 3 through K5 at 512^3 f32 (K = 2) and bf16 (K = 4), 800
+   ticks, with the same gates; then path A's oblique box on config 3's scene at 256^3
+   through K5 (K = 2), 1000 ticks, against Simulation.run's route (K4
+   io_alias with its oblique option), with the same gates;
 7. runs the absorbing main path: BASELINE config 3 at 256^3 (CPML 10 cells
    on every face, a closed TF/SF box with a Gaussian-derivative plane wave,
    a dielectric sphere of radius 32 in a uint8 material index, as
@@ -104,8 +113,9 @@ Run from the root of a checkout. In order it
    or ``dense``, the oblique corrections' evaluation apart from the kernel,
    the plain engine), K4 io_alias beside K4 at 256^3 (config 3) and at
    256^3 and 512^3 with Cpml.uniform(10) (f32 and bf16), K6 at K = 4
-   and 3 against K4 and K4 io_alias at K = 4 and 8 and K6's plain version
-   at 512^3 with Cpml.uniform(10) (f32 and bf16) with each K6 call's bound,
+   and 3 and K5 at K = 2 and 3 against K4 and K4 io_alias at K = 4 and 8 and
+   their plain version at 512^3 with Cpml.uniform(10) (f32 and bf16) with
+   each K6 and K5 call's bound,
    and prints Gcell/s and the byte model's share of the H100's 3.35 TB/s;
 13. profiles 64 ticks of each absorbing run, of each accumulator route, of
    paths A and B and of the plain engine at 256^3 (torch.profiler) and
@@ -959,15 +969,17 @@ RAGGED_REGION_BOX = ((10, 26), (6, 20), (28, 45))
 RAGGED_OBLIQUE_BOX = ((8, 27), (8, 23), (3, 40))
 
 
-def ragged_sources(ft, shape, dt, device):
+def ragged_points(ft, shape, dt):
     """J+M point sources on the ragged case: one inside, two on corners."""
     nx, ny, nz = shape
-    return ft.SourceSet.build([
-        ft.PointSource((nx // 4, ny // 2, nz // 2), ft.GaussianPulse(0.0, 6 * dt),
-                       j=(0.3, -0.2, 1.0), m=(0.1, 0.2, -0.3)),
-        ft.PointSource((nx - 1, 0, nz - 1), ft.ContinuousWave(0.05), j=(0, 1.0, 0)),
-        ft.PointSource((0, ny - 1, 0), ft.Ricker(0.05, 10 * dt), m=(0.5, 0, 0))],
-        device=device)
+    return [ft.PointSource((nx // 4, ny // 2, nz // 2), ft.GaussianPulse(0.0, 6 * dt),
+                           j=(0.3, -0.2, 1.0), m=(0.1, 0.2, -0.3)),
+            ft.PointSource((nx - 1, 0, nz - 1), ft.ContinuousWave(0.05), j=(0, 1.0, 0)),
+            ft.PointSource((0, ny - 1, 0), ft.Ricker(0.05, 10 * dt), m=(0.5, 0, 0))]
+
+
+def ragged_sources(ft, shape, dt, device):
+    return ft.SourceSet.build(ragged_points(ft, shape, dt), device=device)
 
 
 def ragged_absorbers(ft, dt):
@@ -1108,28 +1120,36 @@ def gb_sources(ft, shape, dt, device):
                        m=(0.0, 0.3, 0.0))], device=device)
 
 
-def gb_check(torch, label, state, k, table, src, common, kw):
-    """One K6 call at ``k`` on ``state`` (the card) against its plain
-    version and against K4 on the same inputs (``common``: the plain
-    version's arguments; ``kw``: the wrappers', with dtype and material
-    index). Bars are K4's: f32 fields within 2e-5 of max|field| and psi
-    within 2e-5 of max|psi|; bf16 fields (compared in bf16) within 2^-7 of
-    max|field| (one bf16 step), psi (f32) within 2e-5. Against K4 bit
+def gb_check(torch, label, state, k, table, src, common, kw, kernel="K6"):
+    """One call of a window kernel (``kernel``: "K6" or "K5") at ``k`` on
+    ``state`` (the card) against its
+    plain version and against K4 on the same inputs (``common``: the plain
+    version's arguments; ``kw``: the wrappers', with dtype, material index
+    and, for K5 and K4, ``oblique``). Bars are K4's: f32 fields within 2e-5
+    of max|field| and psi within 2e-5 of max|psi|; bf16 fields (compared in
+    bf16) within 2^-7 of max|field| (one bf16 step), psi (f32) within 2e-5.
+    Against K4 (and for K5 without an oblique TF/SF, against K6) bit
     identity is the target: the line says whether it holds or prints the
-    largest difference. Raises on a miss; returns (the largest field error
-    against the plain version, bit-identical to K4, the largest difference
-    to K4, the plain version's peak bytes beyond what was allocated before
-    it)."""
+    largest difference. Raises on a miss; returns (the largest field error against the
+    plain version, bit-identical to K4, the largest difference to K4, the
+    plain version's peak bytes beyond what was allocated before it, and
+    for K5 bit-identical to K6, or None)."""
     from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
     from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn, plain_cpml_gb_stepk
     from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn
+    from fdtd_tpu_torch.solver.cuda_cpml_xz import cuda_cpml_xz_stepk_fn
 
     shape, dtype, matid = state.shape, state.dtype, kw.get("matid")
-    got = cuda_cpml_gb_stepk_fn(shape, k, device=state.device, **kw)(state, table, src)
+    gb_kw = {key: v for key, v in kw.items() if key != "oblique"}
+    if kernel == "K6":
+        got = cuda_cpml_gb_stepk_fn(shape, k, device=state.device, **gb_kw)(state, table, src)
+    else:
+        got = cuda_cpml_xz_stepk_fn(shape, k, device=state.device, **kw)(state, table, src)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    want = plain_cpml_gb_stepk(state, table, matid, src, k, **common)
+    want = plain_cpml_gb_stepk(state, table, matid, src, k, oblique=kw.get("oblique"),
+                               **common)
     torch.cuda.synchronize()
     plain_peak = torch.cuda.max_memory_allocated() - base
     require(got.tick == want.tick == state.tick + k, "tick")
@@ -1139,18 +1159,29 @@ def gb_check(torch, label, state, k, table, src, common, kw):
     psi_err = max(float((a - b).abs().max()) for a, b in pairs)
     psi_scale = max(float(b.abs().max()) for _, b in pairs)
     del want
-    k4 = cuda_cpml_stepk_fn(shape, k, **kw)(state, table, src)
-    outs = list(zip((*got.e, *got.h, *psi_tensors(got)), (*k4.e, *k4.h, *psi_tensors(k4))))
-    same = all(torch.equal(a, b) for a, b in outs)
-    vs_k4 = max(float((a.float() - b.float()).abs().max()) for a, b in outs)
+
+    def outputs(s):
+        return (*s.e, *s.h, *psi_tensors(s))
+
+    def compare(other):
+        outs = [(a, b) for a, b in zip(outputs(got), outputs(other)) if b.numel()]
+        return (all(torch.equal(a, b) for a, b in outs),
+                max(float((a.float() - b.float()).abs().max()) for a, b in outs))
+
+    same, vs_k4 = compare(cuda_cpml_stepk_fn(shape, k, **kw)(state, table, src))
+    line = "vs K4 " + ("bit-identical" if same else f"largest difference {vs_k4:.3e}")
+    same_k6 = None
+    if kernel == "K5" and kw.get("oblique") is None:
+        same_k6, vs_k6 = compare(cuda_cpml_gb_stepk_fn(shape, k, device=state.device,
+                                                       **gb_kw)(state, table, src))
+        line += "; vs K6 " + ("bit-identical" if same_k6 else f"largest difference {vs_k6:.3e}")
     ok = err <= tol and psi_err <= 2e-5 * psi_scale and all(
         bool(torch.isfinite(f).all()) for f in (*got.e, *got.h))
-    log(f"selfcheck K6 {label} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol {tol:.3e}, "
-        f"max|field| {scale:.3f}); psi {psi_err:.3e} (tol {2e-5 * psi_scale:.3e}); vs K4 "
-        + ("bit-identical" if same else f"largest difference {vs_k4:.3e}")
-        + f" {'ok' if ok else 'FAIL'}")
-    require(ok, f"K6 {label} {dtype} disagrees with its plain version")
-    return err, same, vs_k4, plain_peak
+    log(f"selfcheck {kernel} {label} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol "
+        f"{tol:.3e}, max|field| {scale:.3f}); psi {psi_err:.3e} (tol {2e-5 * psi_scale:.3e}); "
+        f"{line} {'ok' if ok else 'FAIL'}")
+    require(ok, f"{kernel} {label} {dtype} disagrees with its plain version")
+    return err, same, vs_k4, plain_peak, same_k6
 
 
 def gb_self_checks(torch, ft, seed):
@@ -1185,8 +1216,9 @@ def gb_self_checks(torch, ft, seed):
             state = random_engine_state(torch, ft, sim, dtype, cpml, tfsf, gen)
             kw = dict(common, dtype=dtype, matid=matid, n_materials=table.shape[0])
             for k in GB_KS:
-                err, same, vs_k4, _ = gb_check(torch, f"K={k} {tuple(shape)} {label} TF/SF",
-                                            state, k, table, src, common, kw)
+                err, same, vs_k4, _, _ = gb_check(
+                    torch, f"K={k} {tuple(shape)} {label} TF/SF", state, k, table, src,
+                    common, kw)
                 identical += same
                 worst_vs_k4 = max(worst_vs_k4, vs_k4)
                 if shape == ABSORB_SHAPE and dtype == torch.float32:
@@ -1196,6 +1228,105 @@ def gb_self_checks(torch, ft, seed):
     log(f"selfcheck K6: {identical} of {n} checks bit-identical to K4 (fields and psi); "
         f"largest difference {worst_vs_k4:.3e}")
     return max(errs)
+
+
+# -- K5 ------------------------------------------------------------------------
+
+#: the ragged K5 cases' lattices: 37x29x53 (cuts off the 32-cell window
+#: grid at every K) and a longer one whose interior zone holds an oblique
+#: box at every K
+XZ_OBLIQUE_SHAPE = (64, 29, 53)
+XZ_OBLIQUE_BOX = ((24, 40), (8, 23), (3, 40))
+#: K5's checks at config 3's 256^3 (every K the plan takes on the ragged
+#: lattices)
+XZ_CHECK_KS_256 = (2, 4, 8)
+
+
+def xz_cut_sources(ft, plan, shape, dt, device, base=()):
+    """``base`` plus J+M point sources on planes c0, c0 - 1, c1 - 1 and c1
+    (tests/test_xz_cpml.py:113-124), each at its own (y, z), those of them
+    that lie on the lattice."""
+    nx, ny, nz = shape
+    points = [(x, (3 + 7 * i) % ny, (5 + 11 * i) % nz) for i, x in enumerate(
+        (plan.c0, plan.c0 - 1, plan.c1 - 1, plan.c1)) if 0 <= x < nx]
+    return ft.SourceSet.build(list(base) + [
+        ft.PointSource(pt, ft.GaussianPulse(0.0, 4 * dt), j=(0.2, 0.7, -0.5),
+                       m=(-0.3, 0.1, 0.4)) for pt in points], device=device)
+
+
+def xz_self_checks(torch, ft, seed):
+    """K5 against its plain version on the card, and against K4 and (without
+    an oblique TF/SF) K6 on the same inputs, by gb_check, at every K its
+    plan takes, f32 and bf16. The ragged 37x29x53 lattice (the config-2 material
+    index; its cuts fall off the 32-cell window grid) with CPML on all three
+    axes ((4, 3), (3, 5), (5, 4)) and a box TF/SF, then a slab TF/SF whose
+    span (3, 33) straddles both cuts at every K, then single-ended x slabs
+    (lo (4, 0), hi (0, 3)) with the box; J+M sources on c0, c0 - 1, c1 - 1
+    and c1 beside ragged_sources'; then the skew oblique frame (direction
+    (1, 0.7, -0.4)) on a 64x29x53 lattice whose interior zone holds its box
+    at every K; then config 3 at 256^3 (material index, TF/SF box) at
+    XZ_CHECK_KS_256. Returns (the largest error against the plain version
+    at 256^3 f32, the counts of checks bit-identical to K4 and K6 and of
+    checks made)."""
+    from fdtd_tpu_torch.solver.cuda_cpml_xz import xz_plan
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 5)
+    ragged = flagship(ft, LADDER_CHECK_SHAPE, torch.float32, dev)
+    dt = ragged.grid.dt
+    all3 = ft.Cpml(thickness=((4, 3), (3, 5), (5, 4)))
+    box = ft.Tfsf(span=(8, 27), waveform=ft.GaussianDerivative(6 * dt, 2 * dt),
+                  span_y=(8, 23), span_z=(3, 40))
+    slab = ft.Tfsf(span=(3, 33), waveform=ft.GaussianDerivative(6 * dt, 2 * dt))
+    base = ragged_points(ft, LADDER_CHECK_SHAPE, dt)
+    long_sim = flagship(ft, XZ_OBLIQUE_SHAPE, torch.float32, dev)
+    oblique = ft.ObliqueTfsf(box=XZ_OBLIQUE_BOX, direction=(1.0, 0.7, -0.4),
+                             polarization=(0.0, 0.2, 1.0),
+                             waveform=ft.GaussianPulse(6 * dt, 2 * dt))
+    main = config3(ft, ABSORB_SHAPE, torch.float32, dev)
+    # (label, sim, cpml, slab or box TF/SF, oblique, base sources, Ks)
+    cases = [
+        ("all axes, box TF/SF", ragged, all3, box, None, base, GB_KS),
+        ("all axes, slab TF/SF across the cuts", ragged, all3, slab, None, base, GB_KS),
+        ("lo x slab only", ragged, ft.Cpml(thickness=((4, 0), (3, 5), (5, 4))), box, None,
+         base, GB_KS),
+        ("hi x slab only", ragged, ft.Cpml(thickness=((0, 3), (3, 5), (5, 4))), box, None,
+         base, GB_KS),
+        ("all axes, oblique TF/SF", long_sim, all3, None, oblique,
+         ragged_points(ft, XZ_OBLIQUE_SHAPE, dt), GB_KS),
+        ("config 3, box TF/SF", main, main.cpml, main.tfsf, None, (), XZ_CHECK_KS_256),
+    ]
+    errs, identical_k4, identical_k6, n, n_k6 = [], 0, 0, 0, 0
+    for label, sim, cpml, tfsf, ob, src_base, ks in cases:
+        shape = sim.grid.shape
+        matid, table = sim.matid, sim._table_f32
+        common = dict(inv_dx=tuple(1.0 / d for d in sim.grid.dx), dt=sim.grid.dt,
+                      constants=ft.REDUCED, cpml=cpml, tfsf=tfsf, with_m=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            state = random_engine_state(torch, ft, sim, dtype, cpml, tfsf, gen)
+            kw = dict(common, dtype=dtype, matid=matid, n_materials=table.shape[0],
+                      oblique=ob)
+            for k in ks:
+                plan = xz_plan(shape, ft.BoundaryConditions(), cpml, k, dtype=dtype,
+                               oblique=ob)
+                require(plan is not None, f"K5 {label}: no plan at K = {k}")
+                src = xz_cut_sources(ft, plan, shape, sim.grid.dt, dev, src_base)
+                err, same, _, _, same_k6 = gb_check(
+                    torch, f"K={k} {tuple(shape)} {label} (cuts {plan.c0}, {plan.c1})", state,
+                    k, table, src, common, kw, kernel="K5")
+                n += 1
+                identical_k4 += same
+                if same_k6 is not None:
+                    n_k6 += 1
+                    identical_k6 += same_k6
+                if shape == ABSORB_SHAPE and dtype == torch.float32:
+                    errs.append(err)
+            del state
+    log(f"selfcheck K5: {identical_k4} of {n} checks bit-identical to K4, {identical_k6} of "
+        f"{n_k6} to K6 (fields and psi)")
+    return max(errs), {"k4": identical_k4, "k6": identical_k6, "checks": n,
+                       "k6_checks": n_k6}
 
 
 def gb_plan_bytes(shape, plan, itemsize, matid):
@@ -1214,17 +1345,30 @@ def gb_plan_bytes(shape, plan, itemsize, matid):
     return read + 6 * itemsize * math.prod(shape)
 
 
-def gb_timings(torch, ft, ks=GB_KS, k4_ks=None, shapes=(SCALE_SHAPE,), n=6):
-    """ms per call of K6 at each K of ``ks``, in turns with K4 and K4
-    io_alias at each K of ``k4_ks`` (default: ``ks``), at each of ``shapes``
-    with Cpml.uniform(10), no TF/SF, uniform coefficients, f32 and bf16
-    (cpml_timings' set-up), and of K6's plain version at ``ks[0]``. Prints
-    Gcell/s, the bytes per cell and tick as K6 runs (fields and index
-    through gb_plan_bytes, psi once) and their share of 3.35 TB/s, and
-    each call's bound (cpml_bytes: each input read once, each output
-    written once)."""
+def xz_plan_bytes(shape, step, itemsize, matid):
+    """Bytes one K5 call moves as it runs, fields and material index only:
+    gb_plan_bytes over the planes each zone reads (its own, and K planes of
+    fill and drain beyond it, clipped at the lattice's faces)."""
+    nx = shape[0]
+    k = step.plan.k
+    planes = sum(min(nx, x1 + k) - max(0, x0 - k) for x0, x1, _ in step.zones)
+    write = 6 * itemsize * math.prod(shape)
+    return (gb_plan_bytes(shape, step.plan.gb, itemsize, matid) - write) * planes / nx + write
+
+
+def gb_timings(torch, ft, ks=GB_KS, k4_ks=None, shapes=(SCALE_SHAPE,), n=6, xz_ks=()):
+    """ms per call of K6 at each K of ``ks`` and K5 at each K of ``xz_ks``,
+    in turns with K4 and K4 io_alias at each K of ``k4_ks`` (default:
+    ``ks``), at each of ``shapes`` with Cpml.uniform(10), no TF/SF, uniform
+    coefficients, f32 and bf16 (cpml_timings' set-up), and of their plain
+    version at ``ks[0]`` and ``xz_ks[0]``. Prints Gcell/s, the bytes per
+    cell and tick as K6 and K5 run (fields and index through
+    gb_plan_bytes and xz_plan_bytes, psi once) and their share of 3.35
+    TB/s, and each call's bound (cpml_bytes: each input read once, each
+    output written once)."""
     from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn, plain_cpml_gb_stepk
     from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn
+    from fdtd_tpu_torch.solver.cuda_cpml_xz import cuda_cpml_xz_stepk_fn
 
     dev = torch.device("cuda")
     k4_ks = ks if k4_ks is None else k4_ks
@@ -1247,6 +1391,13 @@ def gb_timings(torch, ft, ks=GB_KS, k4_ks=None, shapes=(SCALE_SHAPE,), n=6):
                                        + 2 * 4 * psi_cells(shape, cpml)) / k
                 bounds[f"K6 K={k}"] = bound(cells, k, cpml_bytes(shape, b, False, cpml),
                                             psi_cells(shape, cpml))
+            for k in xz_ks:
+                f = cuda_cpml_xz_stepk_fn(shape, k, dtype=dtype, device=dev, **kw)
+                named.append((f"K5 K={k}", lambda s, f=f: f(s, coeffs1, None), k))
+                models[f"K5 K={k}"] = (xz_plan_bytes(shape, f, b, False)
+                                       + 2 * 4 * psi_cells(shape, cpml)) / k
+                bounds[f"K5 K={k}"] = bound(cells, k, cpml_bytes(shape, b, False, cpml),
+                                            psi_cells(shape, cpml))
             for k in k4_ks:
                 for io in (False, True):
                     f = cuda_cpml_stepk_fn(shape, k, dtype=dtype, io_alias=io, **kw)
@@ -1254,10 +1405,10 @@ def gb_timings(torch, ft, ks=GB_KS, k4_ks=None, shapes=(SCALE_SHAPE,), n=6):
                     named.append((name, lambda s, f=f: f(s, coeffs1, None), k))
                     models[name] = cpml_bytes(shape, b, False, cpml) / k
             if shape == SCALE_SHAPE and dtype == torch.float32:
-                k0 = ks[0]
-                named.append((f"K6 K={k0} plain version",
-                              lambda s: plain_cpml_gb_stepk(s, table1, None, None, k0, **kw),
-                              k0))
+                for k0 in sorted({ks[0], *xz_ks[:1]}):
+                    named.append((f"plain version K={k0}",
+                                  lambda s, k0=k0: plain_cpml_gb_stepk(s, table1, None, None,
+                                                                       k0, **kw), k0))
             state = ft.init_engine_state(shape, dtype, cpml=cpml, device=dev)
             state = state.replace(ez=torch.ones_like(state.ez))
             key = f"gb_{shape[0]}_{str(dtype)[6:]}"
@@ -1501,7 +1652,7 @@ def config3_large_path(torch, ft):
     fields beyond it. Last, the largest cubes the card holds through run
     and through the wrapper (largest_config3). Returns (launches,
     numbers, the K = 8 run's trace and plane squares for
-    gb_config3_path)."""
+    window_config3_path)."""
     import gc
 
     from fdtd_tpu_torch.solver import cuda_cpml_k
@@ -1595,65 +1746,86 @@ def config3_large_path(torch, ft):
     return launches, numbers, reference
 
 
-#: K6's ticks per call on config 3's runs: the first K of Simulation's
-#: GB_LADDER, the K its rule would take
+#: K6's ticks per call on config 3's runs (the K the JAX package's gb rule
+#: would take first)
 GB_K = 4
-#: config 3 through K6: (n, storage, ticks); 512^3 long enough for the
+#: config 3 through K6: (n, storage, ticks, K); 512^3 long enough for the
 #: field scattered by the sphere to reach the probe at x = 13, 1024^3 as
 #: config3_large_path
-GB_CONFIG3_RUNS = ((512, "float32", 800), (512, "bfloat16", 800),
-                   (1024, "float32", CONFIG3_LARGE_TICKS))
+GB_CONFIG3_RUNS = ((512, "float32", 800, GB_K), (512, "bfloat16", 800, GB_K),
+                   (1024, "float32", CONFIG3_LARGE_TICKS, GB_K))
+#: config 3 through K5, each at the fastest K that divides the probe
+#: cadence of 8 in tools/k6_sweep.py's config-3 groups at 512^3 (PERF.md):
+#: f32 K = 2 (10.17 Gcell/s against 10.01 at K = 4), bf16 K = 4 (9.73
+#: against 9.35 at K = 2)
+XZ_CONFIG3_RUNS = ((512, "float32", 800, 2), (512, "bfloat16", 800, 4))
+#: K5's K in the timings and the kernels line: the f32 run's
+XZ_K = XZ_CONFIG3_RUNS[0][3]
 
 
-def gb_config3_path(torch, ft, reference_1024, seed):
+def window_step(ft, kernel, shape, k, kw, device):
+    """K6's or K5's step at ``k`` with a Simulation's kernel arguments."""
+    from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn
+    from fdtd_tpu_torch.solver.cuda_cpml_xz import cuda_cpml_xz_stepk_fn
+
+    kw = {key: v for key, v in kw.items() if key != "dense"}
+    if kernel == "K6":
+        kw.pop("oblique")
+        return cuda_cpml_gb_stepk_fn(shape, k, device=device, **kw)
+    return cuda_cpml_xz_stepk_fn(shape, k, device=device, **kw)
+
+
+def window_config3_path(torch, ft, kernel, runs, references, seed):
     """BASELINE config 3 (config3: CPML 10, the closed TF/SF box, the
-    sphere's material index) through K6, at 512^3 f32 and bf16 and 1024^3
-    f32: Simulation.plan leaves each run on K4 (the rule K6 takes from the
-    JAX package never engages on the card), so the run is driven through
-    cuda_cpml_gb_stepk_fn at K = GB_K with the 3-point probe every 8 ticks,
-    as bench.py drives the JAX gb tier. The launch counts (set to 0 just
-    before each run, read just after) must show K6 alone; the peak memory
-    must stay within two states (fields and psi slabs), the index and K6's
-    psi scratch, plus 2 %. The run is held to the K4 route on the same
-    set-up (Simulation.run: at 512^3 run here at K = GB_K, with the probe
-    every GB_K ticks; at 1024^3 config3_large_path's K = 8 run,
-    ``reference_1024``): its probe trace within 1e-5 of the K4 trace's
-    largest value at f32, 3 % at bf16 (the bar of a bf16 run against f32),
-    and the plane_squares of its final fields within the same share of
-    each field's largest K4 value (squares_rel_err; the trace stays zero at
-    1024^3, the squares see the wave); each line also says whether trace
-    and squares are bit-identical, which K6 and K4 are at the same K.
-    Trace and squares must be finite, the squares nonzero.
+    sphere's material index) through a window kernel (``kernel``: "K6" or
+    "K5") for each (n, storage, ticks, k ticks per call) of ``runs``:
+    Simulation.plan leaves each run on K4 (PERF.md: neither window kernel is
+    5 % faster than K4 anywhere measured), so the run is driven through the
+    kernel's wrapper with the 3-point probe every 8 ticks, as bench.py
+    drives the JAX gb and xz tiers. The launch counts (set to 0 just before
+    each run, read just after) must show the kernel alone; the peak memory
+    must stay within two states (fields and psi slabs), the index and the
+    kernel's psi scratch, plus 2 %. The run is held to the K4 route on the
+    same set-up (Simulation.run at the kernel's K, with the probe every K
+    ticks, every 8 // K-th sample compared; at 1024^3 config3_large_path's
+    K = 8 run; ``references`` keeps each K4 route's trace and squares by
+    (n, storage, K), so that K6 and K5 at one K share one): its probe
+    trace within 1e-5 of the K4 trace's largest value at f32, 3 % at bf16
+    (the bar of a bf16 run against f32), and the plane_squares of its final
+    fields within the same share of each field's largest K4 value
+    (squares_rel_err; the trace stays zero at 1024^3, the squares see the
+    wave); each line also says whether trace and squares are bit-identical,
+    which the window kernels and K4 are at the same K. Trace and squares
+    must be finite, the squares nonzero.
 
-    After each 512^3 run, one K6 call at GB_K on config 3's inputs at that
+    After each 512^3 run, one call at its K on config 3's inputs at that
     size (a random state, the material index, the TF/SF box, gb_sources'
-    J+M sources) is held to its plain version and to K4 by gb_check. At
-    1024^3 the plain version does not fit the card beside its input state:
-    the line says how much it would need, from its peak at 512^3 f32.
-    Returns (launches, numbers)."""
+    J+M sources) is held to its plain version and to K4 (and K5 to K6) by
+    gb_check. At 1024^3 the plain version does not fit the card beside its
+    input state: the line says how much it would need, from its peak at
+    512^3 f32. Returns (launches, numbers)."""
     import gc
 
     from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
-    from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn
 
+    name = {"K6": "K6 cpmlk_gb", "K5": "K5 cpmlk_xz"}[kernel]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     launches, numbers, plain_sets = 0, {}, None
-    for n, dtype_name, ticks in GB_CONFIG3_RUNS:
+    for n, dtype_name, ticks, k in runs:
         dtype = getattr(torch, dtype_name)
         shape = (n, n, n)
-        label = f"config 3 {n}^3 {dtype_name} through K6 K={GB_K}"
+        label = f"config 3 {n}^3 {dtype_name} through {kernel} K={k}"
         gc.collect()
         torch.cuda.empty_cache()
         sim = config3(ft, shape, dtype, dev)
         probes, _ = absorbing_probes(shape)
         plan = sim.plan(ticks, probes, (), 8)
         require(plan == (8, "cuda_cpml_k"), f"{label}: plan {plan}")
-        kw = sim._kernel_kwargs()
-        kw.pop("dense"), kw.pop("oblique")
-        step = cuda_cpml_gb_stepk_fn(shape, GB_K, device=dev, **kw)
-        table, every = sim._table_f32, 8 // GB_K
+        step = window_step(ft, kernel, shape, k, sim._kernel_kwargs(), dev)
+        scratch = step.plan.scratch_floats if kernel == "K6" else step.scratch_floats
+        table, every = sim._table_f32, 8 // k
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1665,7 +1837,7 @@ def gb_config3_path(torch, ft, reference_1024, seed):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for i in range(ticks // GB_K):
+        for i in range(ticks // k):
             state = step(state, table, sim.sources)
             if (i + 1) % every == 0:
                 samples.append(probes[0].sample(state, sim.grid.dt))
@@ -1675,10 +1847,10 @@ def gb_config3_path(torch, ft, reference_1024, seed):
         peak = torch.cuda.max_memory_allocated() - base
         secs = start.elapsed_time(end) / 1e3
         want = {name: 0 for name in counts}
-        want["K6 cpmlk_gb"] = ticks // GB_K
+        want[name] = ticks // k
         require(counts == want, f"{label}: launches {counts}, expected {want}")
-        launches += want["K6 cpmlk_gb"]
-        limit = 1.02 * (2 * state_bytes + sim.matid.numel() + 4 * step.plan.scratch_floats)
+        launches += want[name]
+        limit = 1.02 * (2 * state_bytes + sim.matid.numel() + 4 * scratch)
         trace = torch.stack(samples)
         squares = plane_squares(torch, state)
         require(state.tick == ticks and bool(torch.isfinite(squares).all())
@@ -1688,22 +1860,20 @@ def gb_config3_path(torch, ft, reference_1024, seed):
         del state, step
         gc.collect()
         torch.cuda.empty_cache()
-        if n == CONFIG3_LARGE:
-            ref, ref_squares, k4_secs = (reference_1024["trace"], reference_1024["squares"],
-                                         None)
-        else:
-            # the K4 route at K6's K: the probe every GB_K ticks, every
-            # other sample compared
-            require(sim.plan(ticks, probes, (), GB_K) == (GB_K, "cuda_cpml_k"),
+        key = (n, dtype_name, 8 if n == CONFIG3_LARGE else k)
+        if key not in references:
+            # the K4 route at the kernel's K: the probe every k ticks
+            require(sim.plan(ticks, probes, (), k) == (k, "cuda_cpml_k"),
                     f"{label}: the K4 route's plan")
             start.record()
-            out, (ref,), _ = sim.run(sim.init(), ticks, probes=probes, probe_every=GB_K)
+            out, (ref,), _ = sim.run(sim.init(), ticks, probes=probes, probe_every=k)
             end.record()
             end.synchronize()
-            k4_secs = start.elapsed_time(end) / 1e3
-            ref = ref[every - 1::every]
-            ref_squares = plane_squares(torch, out)
+            references[key] = (ref, plane_squares(torch, out), start.elapsed_time(end) / 1e3)
             del out
+        ref, ref_squares, k4_secs = references[key]
+        if n != CONFIG3_LARGE:
+            ref = ref[every - 1::every]
         # at 1024^3 the wave has not reached the probe's points in 128
         # ticks (config3_large_path): an all-zero trace must match exactly
         scale = float(ref.float().abs().max())
@@ -1715,7 +1885,7 @@ def gb_config3_path(torch, ft, reference_1024, seed):
         tol = 1e-5 if dtype == torch.float32 else 3e-2
         g = n ** 3 * ticks / secs / 1e9
         log(f"{label}: {ticks} ticks in {secs * 1e3:.3f} ms, {g:.3f} Gcell/s (the K4 route "
-            + ("config3_large_path's" if k4_secs is None else
+            + ("config3_large_path's" if n == CONFIG3_LARGE else
                f"{n ** 3 * ticks / k4_secs / 1e9:.3f} Gcell/s")
             + f"); launches {counts}; peak {peak / 1e9:.4f} GB (limit {limit / 1e9:.4f} GB: "
             f"two states of {state_bytes / 1e9:.4f} GB, the index, the psi scratch, 2 %); "
@@ -1725,7 +1895,8 @@ def gb_config3_path(torch, ft, reference_1024, seed):
         require(err <= tol, f"{label}: the probe trace strays from the K4 route's")
         require(squares_err <= tol, f"{label}: the final fields stray from the K4 route's")
         numbers[f"{n}_{dtype_name}"] = r = {
-            "ticks": ticks, "seconds": secs, "gcells": g, "k4_route_seconds": k4_secs,
+            "ticks": ticks, "seconds": secs, "gcells": g,
+            "k4_route_seconds": None if n == CONFIG3_LARGE else k4_secs,
             "peak_bytes": peak, "limit_bytes": limit, "trace_rel_err": err,
             "trace_bit_identical": same, "squares_rel_err": squares_err,
             "squares_bit_identical": squares_same}
@@ -1739,9 +1910,10 @@ def gb_config3_path(torch, ft, reference_1024, seed):
                           constants=ft.REDUCED, cpml=cpml, tfsf=tfsf, with_m=True)
             kw = dict(common, dtype=dtype, matid=sim.matid, n_materials=table.shape[0])
             state = random_engine_state(torch, ft, sim, dtype, cpml, tfsf, gen)
-            r["plain_max_abs_err"], r["plain_vs_k4_bit_identical"], _, plain_peak = gb_check(
-                torch, f"K={GB_K} config 3 {tuple(shape)} box TF/SF, J+M sources", state,
-                GB_K, table, gb_sources(ft, shape, sim.grid.dt, dev), common, kw)
+            (r["plain_max_abs_err"], r["plain_vs_k4_bit_identical"], _, plain_peak,
+             r["plain_vs_k6_bit_identical"]) = gb_check(
+                torch, f"K={k} config 3 {tuple(shape)} box TF/SF, J+M sources", state,
+                k, table, gb_sources(ft, shape, sim.grid.dt, dev), common, kw, kernel)
             r["plain_peak_bytes"] = plain_peak
             if dtype == torch.float32:
                 plain_sets = plain_peak / set_bytes
@@ -1752,13 +1924,137 @@ def gb_config3_path(torch, ft, reference_1024, seed):
             need = (plain_sets + 1) * set_bytes
             total = torch.cuda.get_device_properties(dev).total_memory
             r["plain_need_bytes"] = need
-            log(f"{label}: K6 is not held to its plain version at {n}^3: the plain version "
+            log(f"{label}: {kernel} is not held to its plain version at {n}^3: the plain version "
                 f"took {plain_sets:.3f} sets of fields beyond its input at 512^3 f32, so "
                 f"with its input it needs {need / 1e9:.3f} GB here, more than the card's "
                 f"{total / 1e9:.3f} GB")
             require(need > total, f"{label}: the plain version would fit; hold K6 to it")
         del sim
     return launches, numbers
+
+
+def xz_oblique_path(torch, ft, seed):
+    """Config 3's scene at 256^3 with path A's ObliqueTfsf (20 degrees, z
+    polarization) on config 3's TF/SF box (path_a_sim, without its flux
+    accumulator), 1000 ticks with the 3-point probe every 8 ticks, through
+    K5 at K = 2 (the one K whose cuts the box's commutator subgrid clears)
+    against Simulation.run's route (K4 io_alias with its oblique option,
+    K = 8), gated as window_config3_path gates config 3: launch counts
+    showing K5 alone, peak memory within two states, the index, K5's psi
+    scratch and what the oblique correction holds beside them (its
+    resident masks and delays, measured apart first, and one call's pack)
+    plus 2 %, the probe trace and each field's plane squares
+    within 1e-5 of the route's largest (and bit identity reported); then
+    one K5 call on a random state with the oblique correction held to its
+    plain version and K4 by gb_check. Returns (launches, numbers)."""
+    import gc
+
+    from fdtd_tpu_torch.solver import cuda_cpml_k
+    from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
+    from fdtd_tpu_torch.solver.tfsf_oblique import ObliqueCorrection, shell_boxes
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 7)
+    k = 2
+    sim = path_a_sim(ft, dev)[0]
+    shape = sim.grid.shape
+    kw = sim._kernel_kwargs()
+    probes, _ = absorbing_probes(shape)
+    label = f"path A's oblique box on config 3's scene {shape[0]}^3 through K5 K={k}"
+    require(sim.plan(MAIN_STEPS, probes, (), 8) == (8, "cuda_cpml_k"), f"{label}: plan")
+    step = window_step(ft, "K5", shape, k, kw, dev)
+    table, every = sim._table_f32, 8 // k
+    # what the correction holds beside the states: its resident tensors
+    # once built, and one call's pack
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    corr = ObliqueCorrection(kw["oblique"], shape, kw["inv_dx"], kw["dt"], kw["constants"],
+                             torch.float32, dev, boxes=shell_boxes(kw["oblique"]))
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - base
+    pack = corr.pack(0, k, kw["dt"])
+    corr_bytes = resident + pack.numel() * pack.element_size()
+    del corr, pack
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = sim.init()
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in (*state.e, *state.h, *psi_tensors(state)))
+    samples = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    start.record()
+    for i in range(MAIN_STEPS // k):
+        state = step(state, table, sim.sources)
+        if (i + 1) % every == 0:
+            samples.append(probes[0].sample(state, sim.grid.dt))
+    end.record()
+    end.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    secs = start.elapsed_time(end) / 1e3
+    want = {name: 0 for name in counts}
+    want["K5 cpmlk_xz"] = MAIN_STEPS // k
+    require(counts == want, f"{label}: launches {counts}, expected {want}")
+    limit = 1.02 * (2 * state_bytes + sim.matid.numel() + 4 * step.scratch_floats + corr_bytes)
+    trace, squares = torch.stack(samples), plane_squares(torch, state)
+    require(peak <= limit, f"{label}: peak {peak} > {limit}")
+    require(state.tick == MAIN_STEPS and bool(torch.isfinite(squares).all())
+            and float(squares.max()) > 0 and bool(torch.isfinite(trace).all()),
+            f"{label}: no finite field")
+    del state
+    reset_counts()
+    start.record()
+    out, (ref,), _ = sim.run(sim.init(), MAIN_STEPS, probes=probes, probe_every=8)
+    end.record()
+    end.synchronize()
+    k4_secs = start.elapsed_time(end) / 1e3
+    route = {"K4 io_alias": cuda_cpml_k.launches(io_alias=True),
+             "oblique": cuda_cpml_k.option_launches()["oblique"]}
+    require(route == {"K4 io_alias": MAIN_STEPS // 8, "oblique": MAIN_STEPS // 8},
+            f"{label}: the route's launches {route}")
+    ref_squares = plane_squares(torch, out)
+    del out
+    scale = float(ref.abs().max())
+    require(scale > 0, f"{label}: the route's probe trace is zero")
+    err = float((trace - ref).abs().max()) / scale
+    squares_err = squares_rel_err(squares, ref_squares)
+    same, squares_same = torch.equal(trace, ref), torch.equal(squares, ref_squares)
+    cells = math.prod(shape) * MAIN_STEPS
+    log(f"{label}: {MAIN_STEPS} ticks in {secs * 1e3:.3f} ms, {cells / secs / 1e9:.3f} Gcell/s "
+        f"(the route {cells / k4_secs / 1e9:.3f} Gcell/s, launches {route}); launches "
+        f"{counts}; peak {peak / 1e9:.4f} GB (limit {limit / 1e9:.4f} GB: two states of "
+        f"{state_bytes / 1e9:.4f} GB, the index, the psi scratch, the correction's "
+        f"{corr_bytes / 1e9:.4f} GB ({resident / 1e9:.4f} resident and one pack), 2 %); "
+        f"probe trace vs the "
+        f"route {err:.3e} of max|probe| {scale:.4e} (tol 1e-05), bit-identical {same}; plane "
+        f"squares {squares_err:.3e} (tol 1e-05), bit-identical {squares_same}")
+    require(err <= 1e-5, f"{label}: the probe trace strays from the route's")
+    require(squares_err <= 1e-5, f"{label}: the final fields stray from the route's")
+    common = dict(inv_dx=kw["inv_dx"], dt=kw["dt"], constants=kw["constants"],
+                  cpml=kw["cpml"], tfsf=None, with_m=True)
+    state = random_engine_state(torch, ft, sim, torch.float32, kw["cpml"], None, gen)
+    src = gb_sources(ft, shape, sim.grid.dt, dev)
+    err1 = gb_check(torch, f"K={k} {tuple(shape)} path A's oblique box, J+M sources", state,
+                    k, table, src, common,
+                    dict(common, dtype=torch.float32, matid=sim.matid,
+                         n_materials=table.shape[0], oblique=kw["oblique"]), "K5")[0]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return MAIN_STEPS // k, {"seconds": secs, "route_seconds": k4_secs, "peak_bytes": peak,
+                             "limit_bytes": limit, "correction_bytes": corr_bytes,
+                             "correction_resident_bytes": resident,
+                             "trace_rel_err": err,
+                             "trace_bit_identical": same, "squares_rel_err": squares_err,
+                             "squares_bit_identical": squares_same, "plain_max_abs_err": err1}
 
 
 def config3_bytes(n, states, cpml):
@@ -2671,13 +2967,24 @@ def measure(torch, ft, seed):
     errs.update(option_self_checks(torch, ft, seed))
     errs.update(ext_self_checks(torch, ft, seed))
     errs["K6"] = gb_self_checks(torch, ft, seed)
+    errs["K5"], xz_identical = xz_self_checks(torch, ft, seed)
     launches = main_path(torch, ft)
     c5_launches, c5_gcells = config5_path(torch, ft)
     launches.update(c5_launches)
     c3_launches, c3_large, reference_1024 = config3_large_path(torch, ft)
-    launches["K6"], gb_config3 = gb_config3_path(torch, ft, reference_1024, seed)
+    # the K4 route's traces and squares, shared by K6 and K5 at one K
+    references = {(CONFIG3_LARGE, "float32", 8): (reference_1024["trace"],
+                                                  reference_1024["squares"], None)}
     del reference_1024
+    launches["K6"], gb_config3 = window_config3_path(torch, ft, "K6", GB_CONFIG3_RUNS,
+                                                     references, seed)
+    launches["K5"], xz_config3 = window_config3_path(torch, ft, "K5", XZ_CONFIG3_RUNS,
+                                                     references, seed)
+    del references
+    xz_launches, xz_oblique = xz_oblique_path(torch, ft, seed)
+    launches["K5"] += xz_launches
     errs["K6"] = max(errs["K6"], gb_config3["512_float32"]["plain_max_abs_err"])
+    errs["K5"] = max(errs["K5"], xz_config3["512_float32"]["plain_max_abs_err"])
     launches.update(absorbing_path(torch, ft))
     launches["K4 io_alias"] += c3_launches
     acc_launches, walls = accumulator_path(torch, ft)
@@ -2690,7 +2997,7 @@ def measure(torch, ft, seed):
     times = timings(torch, ft)
     times.update(cpml_timings(torch, ft))
     times.update(ext_timings(torch, ft))
-    times.update(gb_timings(torch, ft, ks=(GB_K, 3), k4_ks=(GB_K, 8)))
+    times.update(gb_timings(torch, ft, ks=(GB_K, 3), k4_ks=(GB_K, 8), xz_ks=(XZ_K, 3)))
     times["accumulators_256_wall_s"] = walls
     times["scattering_256_gcell_per_s"] = {"K4 + flux faces": res_x.gcell_per_s,
                                            "plain engine": ref_x.gcell_per_s}
@@ -2698,6 +3005,8 @@ def measure(torch, ft, seed):
     times["config5"] = c5_gcells
     times["config3_1024"] = c3_large
     times["config3_gb"] = gb_config3
+    times["config3_xz"], times["xz_oblique_256"] = xz_config3, xz_oblique
+    times["xz_self_checks_bit_identical"] = xz_identical
 
     top = K_LADDER[0]
     c2, c3 = times["config2_128"], times["config3_256"]
@@ -2787,7 +3096,12 @@ def measure(torch, ft, seed):
     k6 = g512[f"K6 K={GB_K}"]
     rows.append(("K6 grid-blocked CPML (K ticks on chip)", "cpmlk_gb.cu",
                  "fdtd_tpu/solver/pallas_cpml_gb.py:201", "K6", g512, f"K6 K={GB_K}",
-                 f"K6 K={GB_K} plain version", (k6["bound_ms"], k6["bound_by"])))
+                 f"plain version K={GB_K}", (k6["bound_ms"], k6["bound_by"])))
+    # K5 likewise, at its K
+    k5 = g512[f"K5 K={XZ_K}"]
+    rows.append(("K5 x-zoned CPML (interior zone without the x terms)", "cpmlk_xz.cu",
+                 "fdtd_tpu/solver/pallas_cpml_xz.py:130", "K5", g512, f"K5 K={XZ_K}",
+                 f"plain version K={XZ_K}", (k5["bound_ms"], k5["bound_by"])))
     # no single PyTorch call computes a Yee or CPML tick, or K4's in-kernel
     # reductions, captures, region stretch or oblique correction beside
     # one: library_ms is null

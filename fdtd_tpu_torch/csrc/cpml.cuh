@@ -196,14 +196,17 @@ __device__ __forceinline__ float stretch(const Profiles& P, const Psi& Q, bool s
   return prof[c] * raw + psi;
 }
 
-// K6's psi (cpmlk_gb.cu). A block keeps the psi of every cell of its window
-// (its tile and the halo it recomputes) in a scratch area of its own, one
-// slot per plane in flight: the first level reads the input slabs, the
-// levels in between read and write the cell's slot (only its own thread
-// touches it), the last level writes the output slabs at the cells the
-// block owns and drops the rest. Built per plane and level; `store` is not
-// read (every level but the last keeps every window cell's psi).
-struct SlotPsi {
+// The psi of K6 and K5 (cpmlk_gb.cuh). A block keeps the psi of every cell
+// of its window (its tile and the halo it recomputes) in a scratch area of
+// its own, one slot per plane in flight: the first level reads the input
+// slabs, the levels in between read and write the cell's slot (only its
+// own thread touches it), the last level writes the output slabs at the
+// cells the block owns and drops the rest. Built per plane and level;
+// `store` is not read (every level but the last keeps every window cell's
+// psi). XPSI = false: the x-axis terms are compiled out (K5's interior
+// zone, where the x profiles are the identity).
+template <bool XPSI>
+struct SlotPsiT {
   const Psi* g;             // set 0: the input slabs; set 1: the output slabs
   float* slot;              // this plane's slot: 2 x N_TERMS x wn values
   int wy0, wz0, wz_n, wn;   // the window's origin, row length and cell count
@@ -211,10 +214,11 @@ struct SlotPsi {
   bool first, last;
 };
 
-template <int HALF, int TERM, int AXIS, int QS, int QD>
-__device__ __forceinline__ float stretch(const Profiles& P, const SlotPsi& G, bool,
+template <int HALF, int TERM, int AXIS, int QS, int QD, bool XPSI>
+__device__ __forceinline__ float stretch(const Profiles& P, const SlotPsiT<XPSI>& G, bool,
                                          const yee::Lattice& L, int p, int y, int z,
                                          float raw) {
+  if constexpr (AXIS == 0 && !XPSI) return raw;
   const float* prof = P.p[HALF][AXIS];
   if (prof == nullptr) return raw;
   const int n = AXIS == 0 ? L.nx : (AXIS == 1 ? L.ny : L.nz);
@@ -249,8 +253,8 @@ __device__ __forceinline__ float stretch(const Profiles& P, const SlotPsi& G, bo
 // from the OLD aux_e row, and the M sources of column m_col (-1: none).
 // T by value, as tile_pass takes it: by reference, ptxas gave K4's core
 // instantiations 44 B more spill stores. HF: the fields (yee::Fields, read
-// at i here) or the cell's held values (yee::HeldFields, K6); QT: Psi, or
-// K6's SlotPsi.
+// at i here) or the cell's held values (yee::HeldFields, K6 and K5); QT: Psi, or
+// their SlotPsiT.
 template <typename TH, int QS, int QD, bool EXT, typename HF = yee::Fields<const TH>,
           typename QT = Psi>
 __device__ __forceinline__ void h_cell(HF h, long long i, int p, int yy,

@@ -2,6 +2,7 @@ from .boundary import BoundaryConditions, Dirichlet, Neumann, default_boundaries
 from .cpml import Cpml
 from .cuda_cpml_gb import cuda_cpml_gb_stepk_fn, gb_plan
 from .cuda_cpml_k import cuda_cpml_stepk_fn, supports_cpml_k
+from .cuda_cpml_xz import XzPlan, cuda_cpml_xz_stepk_fn, xz_plan
 from .engine import EngineState, build_step, init_engine_state
 from .pml import GradedPmlSpec
 from .pml_region import DensePml, dense_pml_from_depth, depth_from_contains
@@ -37,6 +38,9 @@ __all__ = [
     "supports_cpml_k",
     "cuda_cpml_gb_stepk_fn",
     "gb_plan",
+    "cuda_cpml_xz_stepk_fn",
+    "xz_plan",
+    "XzPlan",
     "EngineState",
     "build_step",
     "init_engine_state",

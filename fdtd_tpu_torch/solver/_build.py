@@ -7,9 +7,9 @@ the package; the library's name carries a hash of its sources, so an edited
 source never loads a stale build. A source may hold several entry points
 (K1's and K2's in-place variants beside them), each a ``Kernel`` with its
 own launch count; they share one build. K4's in-place variant has a source
-of its own, so that it builds beside K4 and not after it, and so has K6's
-(``cpmlk_gb.cu``). Nothing here runs
-at import time.
+of its own, so that it builds beside K4 and not after it, and so have K6's
+(``cpmlk_gb.cu``) and K5's (``cpmlk_xz.cu``), which share a header.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["Kernel", "STEP", "STEPK", "STEP_INPLACE", "STEPK_INPLACE", "CPML",
-           "CPMLK", "CPMLK_INPLACE", "CPMLK_GB", "KERNELS", "BUILD_DIR"]
+           "CPMLK", "CPMLK_INPLACE", "CPMLK_GB", "CPMLK_XZ", "KERNELS", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fdtd_tpu_torch"
@@ -199,4 +199,13 @@ CPMLK_GB = Kernel("K6 cpmlk_gb", "cpmlk_gb.cu", "fdtd_cpmlk_gb",
                   [_I, _PP, _PP, _PP, _PI, _P, _I, _P, _P, _I, _I, _I, _P, _I, _PI,
                    _I, _I, _I, _I, _F, _F, _F, _P, _P])
 
-KERNELS = (STEP, STEPK, CPML, CPMLK, STEP_INPLACE, STEPK_INPLACE, CPMLK_INPLACE, CPMLK_GB)
+# fdtd_cpmlk_xz(dtype, fields, psi, prof, ext, table, n_mat, matid, rows,
+#               n_src, row_w, with_m, aux, aux_len, tf, k, nx, ny, nz, inv_x,
+#               inv_y, inv_z, zones, n_zones, ext_meta, ext_ptrs, scratch,
+#               stream); one launch count per call, whatever its zone launches
+CPMLK_XZ = Kernel("K5 cpmlk_xz", "cpmlk_xz.cu", "fdtd_cpmlk_xz",
+                  [_I, _PP, _PP, _PP, _PI, _P, _I, _P, _P, _I, _I, _I, _P, _I, _PI,
+                   _I, _I, _I, _I, _F, _F, _F, _PI, _I, _PI, _PP, _P, _P])
+
+KERNELS = (STEP, STEPK, CPML, CPMLK, STEP_INPLACE, STEPK_INPLACE, CPMLK_INPLACE, CPMLK_GB,
+           CPMLK_XZ)

@@ -17,6 +17,9 @@ It never runs in place: a block's halo reads cells that its neighbours own,
 so every output is a fresh tensor, as the JAX kernel's io-aliasing is off by
 construction (pallas_cpml_gb.py:24-28).
 
+K5 (solver/cuda_cpml_xz.py) runs the same kernel in x zones and shares
+this module's plan and launch (``launch_window``).
+
 Where the port differs from the JAX module, on purpose:
 
 * **The state.** The JAX kernel keeps the y-strip psi in a layout of its
@@ -190,12 +193,22 @@ def cuda_cpml_gb_stepk_fn(
 
 def launch_gb(state: EngineState, setup: CpmlSetup, plan: GbPlan, dtype, table, matid,
               sources, with_m) -> EngineState:
-    """Launch K6 on a CUDA state: fresh fields and psi slabs for the
-    outputs, the source rows and the TF/SF aux pack of the call's K levels,
-    and the psi scratch (freed once the launch is queued: the caching
-    allocator keeps it for the stream)."""
+    """Launch K6 on a CUDA state (``launch_window``)."""
+    return launch_window(_build.CPMLK_GB, state, setup, plan.k, plan.scratch_floats, dtype,
+                         table, matid, sources, with_m)
+
+
+def launch_window(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup, k: int,
+                  scratch_floats: int, dtype, table, matid, sources, with_m,
+                  tail=()) -> EngineState:
+    """Launch a window kernel (K6, or K5: solver/cuda_cpml_xz.py) on a CUDA
+    state: fresh fields and psi slabs for the outputs, the source rows and
+    the TF/SF aux pack of the call's K levels, and ``scratch_floats`` of
+    psi scratch (freed once the launch is queued: the caching allocator
+    keeps it for the stream). ``tail``: the kernel's own arguments between
+    the lattice's spacings and the scratch (K5: its zones and the oblique
+    corrections)."""
     nx, ny, nz = setup.shape
-    k = plan.k
     prof, aux = setup.on(state.device)
     aux_e, aux_h = state.aux_e, state.aux_h
     pack, aux_len = None, 0
@@ -210,8 +223,8 @@ def launch_gb(state: EngineState, setup: CpmlSetup, plan: GbPlan, dtype, table, 
     psi_out = [torch.empty_like(p) if ok else p for p, ok in zip(psi_in, live)]
     psi_ptrs = [p.data_ptr() if ok else None
                 for ps in (psi_in, psi_out) for p, ok in zip(ps, live)]
-    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=state.device)
-    _build.CPMLK_GB.launch(
+    scratch = torch.empty(scratch_floats, dtype=torch.float32, device=state.device)
+    kernel.launch(
         _DTYPE_CODE[dtype], _build.pointers([*fields, *outs]),
         (ctypes.c_void_p * len(psi_ptrs))(*psi_ptrs),
         (ctypes.c_void_p * 6)(*[None if p is None else p.data_ptr() for p in prof]),
@@ -219,7 +232,7 @@ def launch_gb(state: EngineState, setup: CpmlSetup, plan: GbPlan, dtype, table, 
         None if matid is None else matid.data_ptr(),
         rows.data_ptr() if len(rows) else None, len(rows), rows.shape[1], int(with_m),
         None if pack is None else pack.data_ptr(), aux_len, setup.tf, k, nx, ny, nz,
-        *setup.inv_dx, scratch.data_ptr(), _build.stream_handle(state.device))
+        *setup.inv_dx, *tail, scratch.data_ptr(), _build.stream_handle(state.device))
     del pack, scratch
     pairs = list(zip(psi_out[0::2], psi_out[1::2]))
     return EngineState(*outs, tick=state.tick + k, psi_h=tuple(pairs[:6]),

@@ -24,10 +24,13 @@ accumulator that fits none drops the run to K3 with a per-tick
 empty absorber. Unlike the TPU kernels, the port's take a region box of
 any extent: no tile padding.
 
-K6 (``cuda_cpml_gb``), which keeps its K - 1 intermediate ticks on chip,
-takes an absorbing run without accumulators only by the JAX package's
-rule for its gb tier (``_gb_route``): on the card K4 wins everywhere it
-was measured, and the rule never engages.
+The window kernels K6 (``cuda_cpml_gb``) and K5 (``cuda_cpml_xz``), which
+keep their K - 1 intermediate ticks on chip, take no run: the JAX package
+sends an absorbing run without accumulators to its gb and xz tiers by
+Mosaic's calibrations (fdtd_tpu/solver/simulation.py:429-546), and on the
+card neither kernel is 5 % faster than the K4 route at any size and dtype
+measured (tools/k6_sweep.py; PERF.md), so ``plan`` keeps K4 there. Call
+their wrappers to run them.
 
 At f32 storage ``run``'s K4 route steps in place (K4's ``io_alias`` build,
 as the JAX package's K4 runs aliased) on one copy of the caller's state,
@@ -55,7 +58,6 @@ from .best import K_LADDER
 from .boundary import BoundaryConditions
 from .cpml import Cpml
 from .cuda_cpml import cuda_cpml_step_fn, supports_cpml
-from .cuda_cpml_gb import cuda_cpml_gb_stepk_fn, gb_plan
 from .cuda_cpml_k import cuda_cpml_stepk_fn, supports_cpml_k
 from .cuda_step import cuda_step_fn, supports
 from .cuda_stepk import cuda_stepk_fn, supports_k
@@ -68,11 +70,6 @@ __all__ = ["Simulation", "kernel_flux_spec", "kernel_accumulator_spec",
            "extract_dft_acc", "run_scan_flux"]
 
 _BACKENDS = ("auto", "torch", "cuda")
-
-#: K6's ticks per call, most preferred first (``_gb_route``): the fastest
-#: first among those JAX's rule can take (K >= 4), by the times of
-#: tools/k6_sweep.py at 512^3 (PERF.md).
-GB_LADDER = (4, 5, 6, 7, 8, 9)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -270,16 +267,6 @@ class Simulation:
         """Whether ``run``'s K4 route steps in place (f32 storage)."""
         return self._absorbing and self.dtype == torch.float32
 
-    def _gb_step(self, k: int):
-        """K6's step at ``k`` ticks per call (out of place)."""
-        key = ("gb", k)
-        if key not in self._multi_step_cache:
-            kw = self._kernel_kwargs()
-            kw.pop("dense"), kw.pop("oblique")
-            self._multi_step_cache[key] = self._bind(
-                cuda_cpml_gb_stepk_fn(self.grid.shape, k, device=self.device, **kw))
-        return self._multi_step_cache[key]
-
     def _multi_step(self, k: int, faces=(), dft=None, rows=()):
         """The K-tick kernel's step at ``k``, with K4's accumulator options
         (flux faces, DFT (planes, frequencies), row descriptors) when given;
@@ -306,9 +293,8 @@ class Simulation:
              probe_every: int = 1) -> Tuple[int, str]:
         """(k, kind): ticks per step call and the path ``run`` takes for
         these arguments. kind is "cuda_stepk" (K2), "cuda_step" (K1),
-        "cuda_cpml_k" (K4), "cuda_cpml_gb" (K6, by JAX's rule, which the
-        card never meets: ``_gb_route``), "cuda_cpml" (K3) or "torch" (the
-        plain step or engine).
+        "cuda_cpml_k" (K4), "cuda_cpml" (K3) or "torch" (the plain step or
+        engine).
 
         The K-tick kernels run when K divides both ``n_steps`` and the
         probe cadence, and every intermediate state that an accumulator
@@ -316,7 +302,9 @@ class Simulation:
         accumulators, K4 also when ``kernel_accumulator_spec`` places
         every accumulator (the JAX package's rule). K comes from
         ``K_LADDER`` for both (the TPU's CPML ladder is a Mosaic
-        calibration)."""
+        calibration). Where the JAX package takes its gb or xz tier, this
+        plan keeps K4: K6 and K5 ran slower than the K4 route at every
+        size and dtype measured on the card (the module's docstring)."""
         if not self._kernels:
             return 1, "torch"
         one, multi = (("cuda_cpml", "cuda_cpml_k") if self._absorbing
@@ -345,43 +333,7 @@ class Simulation:
             if fits:
                 chosen = (k, multi)
                 break
-        if self._absorbing and not accumulators:
-            k_gb = self._gb_route(n_steps, cadence, chosen[0])
-            if k_gb is not None:
-                return k_gb, "cuda_cpml_gb"
         return chosen
-
-    def _gb_route(self, n_steps: int, cadence: int, k4: int) -> Optional[int]:
-        """K6's ticks per call for an absorbing run without accumulators
-        that K4 would take at ``k4`` (1: K3), or None to leave it there.
-
-        JAX's structural conditions hold (fdtd_tpu/solver/simulation.py:
-        523-529, 544-557): the auto backend, no DensePml region, no oblique
-        TF/SF, K dividing ``n_steps`` and the probe cadence, and the plan.
-        Where it engages is JAX's own rule (:544-546), because K6 loses to
-        K4 everywhere it was measured: K4 capped at K <= 3 on this lattice
-        (in JAX by VMEM: ``supports_cpml_k`` refuses K = 4), and K6 at
-        least twice the K4 runs at. K4 takes every K up to 16 on any
-        lattice, so the card never meets the rule. The measurement
-        (tools/k6_sweep.py, NVIDIA H100 80GB HBM3 at 700.00 W;
-        Gcell/s, Cpml.uniform(10)): at 512^3 f32 K6's best is 11.17 (K =
-        3; 9.58 at K = 4, 3.56 at K = 8) against 26.2 for K4 io_alias and
-        13.5 for K4, bf16 10.33 against 28.8 and 14.0; at 1024^3 f32 15.63
-        against 27.87; config 3 at 256^3 3.52 against 13.75."""
-        if self.backend != "auto" or self.dense_pml is not None \
-                or split_tfsf(self.tfsf)[1] is not None:
-            return None
-        n_mat = self._n_materials if self.matid is not None else 1
-        if supports_cpml_k(self.grid.shape, self.bc, self._cpml_or_empty, 4,
-                           dtype=self.dtype, n_materials=n_mat):
-            return None
-        for k in GB_LADDER:
-            if n_steps % k != 0 or cadence % k != 0 or k < 2 * k4:
-                continue
-            if gb_plan(self.grid.shape, self.bc, self._cpml_or_empty, k,
-                       dtype=self.dtype) is not None:
-                return k
-        return None
 
     def run(
         self,
@@ -412,10 +364,7 @@ class Simulation:
         if accumulators and kind == "cuda_cpml_k":
             return self._run_on_kernel(state, k, n_calls, stride, probes,
                                        tuple(accumulators))
-        if kind == "cuda_cpml_gb":
-            step = self._gb_step(k)
-        else:
-            step = self._step if k == 1 else self._multi_step(k)
+        step = self._step if k == 1 else self._multi_step(k)
 
         accs = [a.init(state, dt) for a in accumulators]
         samples = [[] for _ in probes]

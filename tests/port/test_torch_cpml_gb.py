@@ -9,14 +9,12 @@ in a halo, M sources at bf16, a material index, a slab TF/SF and a box
 TF/SF whose y faces straddle the block cut. Bars are K4's
 (tests/port/test_torch_cpml.py): fields within 2e-5 x max|field| at f32
 (psi within 2e-5 x max|psi|), and one bf16 step, 2^-7 x max|field|, at bf16
-storage. ``Simulation.plan``'s "cuda_cpml_gb" route (the kernels forced
-eligible on the CPU) gives the K4 route's state and probe trace. The CUDA kernel is held
-to the plain version on the card by test_torch_on_card.py and chip_smoke.py.
+storage. The CUDA kernel is held to the plain version on the card by
+test_torch_on_card.py and chip_smoke.py; ``Simulation.plan`` takes no
+window kernel (tests/port/test_torch_cpml_xz.py).
 
 JAX runs at x64 (tests/conftest.py), so every JAX call names its dtype.
 """
-
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,10 +34,7 @@ from fdtd_tpu.solver.pallas_cpml_gb import gb_plan as jax_gb_plan
 from fdtd_tpu.solver.pallas_cpml_gb import make_pallas_cpml_gb_stepk
 from fdtd_tpu.solver.tfsf import Tfsf as JTfsf
 from fdtd_tpu_torch import convert
-from fdtd_tpu_torch.probes import DftProbe, PointProbe
 from fdtd_tpu_torch.solver import cuda_cpml_gb
-from fdtd_tpu_torch.solver import simulation as sim_mod
-from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
 from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn, gb_plan
 from fdtd_tpu_torch.solver.engine import _TERMS
 
@@ -166,11 +161,6 @@ def test_plain_matches_jax_gb(rng, case):
                                    atol=1e-7)
 
 
-RAGGED = (19, 13, 11)
-INV_DX = (1.0, 1.0 / 0.7, 1.0 / 1.3)
-DT = 0.2
-
-
 def test_plan_and_refusals():
     """The plan keeps JAX's structural limits and the card's shared memory,
     takes the deep y slab that JAX's containment rule refuses
@@ -218,73 +208,3 @@ def test_wrapper_refusals(case):
         state = pt.init_engine_state((16, 12, 12), cpml=kw["cpml"], device="cpu")
         step(state, pt.CellCoefficients.uniform((1.0, 0.5, 1.0, 0.5), torch.float32,
                                                 device="cpu"), None)
-
-
-def _route_sim(rng, dtype=torch.float32):
-    """A Simulation on the ragged lattice with CPML, a TF/SF box, a material
-    index and J+M sources, on the CPU with the kernels forced eligible (the
-    wrappers then take their plain versions)."""
-    cpml = pt.Cpml(thickness=((3, 2), (2, 3), (2, 1)))
-    tfsf = pt.Tfsf(span=(6, 12), waveform=pt.GaussianDerivative(6 * DT, 2 * DT),
-                   span_y=(4, 8), span_z=(4, 7))
-    src = pt.SourceSet.build([
-        pt.PointSource((9, 6, 5), pt.GaussianPulse(2 * DT, DT), j=(0.5, 0, 2.0),
-                       m=(0.1, 0.2, 0.3))], device="cpu")
-    grid = pt.Grid(shape=RAGGED, resolution=pt.Resolution(tuple(1.0 / v for v in INV_DX), DT),
-                   constants=pt.REDUCED)
-    table = np.array([[1.0, DT, 1.0, DT], [0.9, 0.1, 0.95, 0.12], [0.5, 0.4, 0.7, 0.3]])
-    return pt.Simulation(grid=grid, sources=src, cpml=cpml, tfsf=tfsf, dtype=dtype,
-                         matid=rng.integers(0, 3, RAGGED).astype(np.uint8), table=table,
-                         device="cpu")
-
-
-def test_run_takes_k6_by_jax_rule(monkeypatch, rng):
-    """With K4 capped at K <= 3 (as VMEM caps it in JAX; the monkeypatch,
-    as tests/test_gb_cpml.py:205-260 forces JAX's), plan() routes the run
-    to K6 at the smallest K of its ladder that is at least twice K4's and
-    divides the cadence, and run() returns the K4 route's state and probe
-    trace bit for bit (f32 storage: a call's rounding is exact), leaving
-    the caller's state as it was."""
-    monkeypatch.setattr(sim_mod.Simulation, "_cuda_eligible", lambda self: True)
-    sim = _route_sim(rng)
-    probes = (PointProbe(points=((9, 6, 5), (2, 2, 2))),)
-    want_state, (want,), _ = sim.run(sim.init(), 16, probes=probes, probe_every=8)
-    assert sim.plan(16, probes, (), 8) == (8, "cuda_cpml_k")
-    real = sim_mod.supports_cpml_k
-    monkeypatch.setattr(sim_mod, "supports_cpml_k",
-                        lambda shape, bc, cpml, k, **kw: k <= 3 and real(shape, bc, cpml, k,
-                                                                         **kw))
-    assert sim.plan(16, probes, (), 8) == (4, "cuda_cpml_gb")
-    assert sim.plan(18, probes, (), 6) == (6, "cuda_cpml_gb")  # K4 at 2: K6 >= 4
-    dft = DftProbe(frequencies=(0.05,), axis=0, index=5)
-    assert sim.plan(16, probes, (dft,), 8)[1] == "cuda_cpml_k"  # accumulators ride K4
-    state = sim.init()
-    before = [t.clone() for t in (*state.e, *state.h, *psi_tensors(state))]
-    launched = cuda_cpml_gb.launches()
-    got_state, (got,), accs = sim.run(state, 16, probes=probes, probe_every=8)
-    assert cuda_cpml_gb.launches() == launched and accs == ()
-    assert ("gb", 4) in sim._multi_step_cache
-    for a, b in zip((*state.e, *state.h, *psi_tensors(state)), before):
-        assert torch.equal(a, b)
-    assert got_state.tick == want_state.tick == 16 and got.shape == want.shape == (2, 2, 3)
-    assert torch.equal(got, want) and float(got.abs().max()) > 0
-    for a, b in zip((*got_state.e, *got_state.h, *psi_tensors(got_state)),
-                    (*want_state.e, *want_state.h, *psi_tensors(want_state))):
-        assert torch.equal(a, b)
-
-
-def test_k6_stays_off_where_k4_is_deep(monkeypatch, rng):
-    """The card's K4 takes every K up to 16, so JAX's rule never routes a
-    run to K6, even where the cadence holds K4 at K = 2 and K6 could take
-    6 (tests/test_gb_cpml.py:323 checks the same of JAX's plain ladder);
-    the other backends never take K6."""
-    monkeypatch.setattr(sim_mod.Simulation, "_cuda_eligible", lambda self: True)
-    sim = _route_sim(rng)
-    assert sim.plan(18, (), (), 6) == (2, "cuda_cpml_k")
-    assert sim.plan(18, (PointProbe(points=((3, 3, 3),)),), (), 6) == (2, "cuda_cpml_k")
-    real = sim_mod.supports_cpml_k
-    monkeypatch.setattr(sim_mod, "supports_cpml_k",
-                        lambda shape, bc, cpml, k, **kw: k <= 3 and real(shape, bc, cpml, k,
-                                                                         **kw))
-    assert dataclasses.replace(sim, backend="cuda").plan(18, (), (), 6) == (2, "cuda_cpml_k")
-    assert dataclasses.replace(sim, backend="torch").plan(18, (), (), 6) == (1, "torch")

@@ -535,3 +535,86 @@ def test_k6_matches_plain_and_k4(cuda_device, dtype, case, k):
     k4 = cuda_cpml_stepk_fn(shape, k, **dkw)(ds, dc, dsrc)
     for a, b in zip(_written(got), _written(k4)):
         assert torch.equal(a, b)
+
+
+# -- K5 (solver/cuda_cpml_xz.py): chip_smoke.xz_self_checks' cases on the
+# card. "ragged", "slab": K6's (the cuts c0 = 3 + K and c1 = 34 - K fall off
+# the 32-cell windows); "lo-only", "hi-only": one x slab; "oblique": the
+# skew frame on a longer lattice whose interior zone holds the box at every K
+
+XZ_OBLIQUE_SHAPE = (64, 29, 53)
+XZ_OBLIQUE = pt.ObliqueTfsf(box=((24, 40), (8, 23), (3, 40)), direction=(1.0, 0.7, -0.4),
+                            polarization=(0.0, 0.2, 1.0),
+                            waveform=pt.GaussianPulse(6 * DT, 2 * DT))
+
+
+def _xz_inputs(case, dtype, device):
+    """(shape, host inputs, card inputs) as _gb_inputs; the one-slab and
+    oblique cases draw a random state, index, psi and J+M sources in each
+    zone."""
+    if case in ("ragged", "slab"):
+        return _gb_inputs(case, dtype, device)
+    shape = XZ_OBLIQUE_SHAPE if case == "oblique" else SHAPE
+    thick = {"lo-only": ((4, 0), (3, 5), (5, 4)), "hi-only": ((0, 3), (3, 5), (5, 4)),
+             "oblique": ((4, 3), (3, 5), (5, 4))}[case]
+    cpml = pt.Cpml(thickness=thick)
+    tfsf = None if case == "oblique" else TFSF
+    rng = np.random.default_rng(19)
+    s = pt.init_engine_state(shape, dtype, cpml=cpml, tfsf=tfsf, device="cpu")
+
+    def rand(t):
+        return torch.from_numpy(rng.standard_normal(t.shape)).to(t.dtype)
+
+    s = s.replace(**{f: rand(getattr(s, f)) for f in ("ex", "ey", "ez", "hx", "hy", "hz")},
+                  psi_h=tuple((rand(a), rand(b)) for a, b in s.psi_h),
+                  psi_e=tuple((rand(a), rand(b)) for a, b in s.psi_e),
+                  aux_e=rand(s.aux_e), aux_h=rand(s.aux_h), tick=2)
+    nx, ny, nz = shape
+    src = pt.SourceSet.build([
+        pt.PointSource((2, 14, 26), pt.GaussianPulse(2 * DT, DT), j=(0.5, 0, 2.0),
+                       m=(0.1, 0.2, 0.3)),
+        pt.PointSource((nx // 2, 3, nz - 2), pt.ContinuousWave(0.3), j=(0, 1.0, 0),
+                       m=(0, 0, 0.4)),
+        pt.PointSource((nx - 2, ny - 1, 0), pt.Ricker(0.3, 2 * DT), m=(0.5, 0, 0))],
+        device="cpu")
+    mid = torch.from_numpy(rng.integers(0, 3, shape).astype(np.uint8))
+    coeffs = torch.tensor(TABLE)
+    kw = dict(inv_dx=INV_DX, dt=DT, constants=pt.REDUCED, cpml=cpml, tfsf=tfsf, dtype=dtype,
+              with_m=True, n_materials=3)
+    if case == "oblique":
+        kw["oblique"] = XZ_OBLIQUE
+    dev = s.replace(**{f: getattr(s, f).to(device) for f in
+                       ("ex", "ey", "ez", "hx", "hy", "hz", "aux_e", "aux_h")},
+                    psi_h=tuple((a.to(device), b.to(device)) for a, b in s.psi_h),
+                    psi_e=tuple((a.to(device), b.to(device)) for a, b in s.psi_e))
+    return shape, (s, coeffs, src, dict(kw, matid=mid)), \
+        (dev, coeffs.to(device), src.to(device), dict(kw, matid=mid.to(device)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ragged", "slab", "lo-only", "hi-only", "oblique"])
+@pytest.mark.parametrize("k", [2, 4, 9])
+def test_k5_matches_plain_k6_and_k4(cuda_device, dtype, case, k):
+    """K5: one launch count per call; fields against its plain version
+    within 2e-5 x max|field| at f32 and one bf16 step at bf16, psi within
+    2e-5 x max|psi|, as chip_smoke.py holds it; against K4 (and, without
+    the oblique TF/SF, K6) on the same inputs every field and psi slab
+    bit-identical."""
+    from fdtd_tpu_torch.solver import cuda_cpml_xz
+    from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn
+    from fdtd_tpu_torch.solver.cuda_cpml_xz import cuda_cpml_xz_stepk_fn
+
+    shape, (hs, hc, hsrc, hkw), (ds, dc, dsrc, dkw) = _xz_inputs(case, dtype, cuda_device)
+    want = cuda_cpml_xz_stepk_fn(shape, k, device="cpu", **hkw)(hs, hc, hsrc)
+    before = cuda_cpml_xz.launches()
+    got = cuda_cpml_xz_stepk_fn(shape, k, device=cuda_device, **dkw)(ds, dc, dsrc)
+    assert cuda_cpml_xz.launches() == before + 1
+    assert got.ex.data_ptr() != ds.ex.data_ptr()
+    _check_engine(got, want, dtype, k, 2e-5)
+    others = [cuda_cpml_stepk_fn(shape, k, **dkw)(ds, dc, dsrc)]
+    if "oblique" not in dkw:
+        others.append(cuda_cpml_gb_stepk_fn(shape, k, device=cuda_device, **dkw)(ds, dc, dsrc))
+    for other in others:
+        for a, b in zip(_written(got), _written(other)):
+            assert torch.equal(a, b)

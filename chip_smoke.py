@@ -40,7 +40,14 @@ Run from the root of a checkout. In order it
    both cuts, single-ended x slabs, J+M sources on and beside the cuts),
    with the skew oblique frame on a 64x29x53 lattice, and at 256^3 with
    config 3's set-up, f32 and bf16, against its plain version, K4 and K6
-   (bit identity or the largest difference);
+   (bit identity or the largest difference); K7 (the lateral-blocked
+   kernel: K4e, K4 on windows of y rows) at K = 2, 4, 8 and n_b = 2, 4 on a
+   37x64x53 lattice (CPML on every axis, a box TF/SF whose y faces
+   straddle the cuts, the config-2 material index, J+M sources on and
+   within h of every cut; then with a DensePml region and K4's options
+   across the cut) and at 256^3 with config 3's options, f32 and bf16,
+   against its plain version, K4 and K4 io_alias (bit-identical but the
+   flux rows), and K4e alone on one window against its plain version;
 4. runs the free-space main path: BASELINE config 2 at 128^3 (a dielectric
    sphere and a lossy slab in a uint8 material index, a Gaussian J dipole),
    built as __graft_entry__._flagship builds it, for 1000 ticks with a
@@ -70,7 +77,18 @@ Run from the root of a checkout. In order it
    then config 3 through K5 at 512^3 f32 (K = 2) and bf16 (K = 4), 800
    ticks, with the same gates; then path A's oblique box on config 3's scene at 256^3
    through K5 (K = 2), 1000 ticks, against Simulation.run's route (K4
-   io_alias with its oblique option), with the same gates;
+   io_alias with its oblique option), with the same gates; then config 3
+   through K7 (K = 4, n_b = 2; plan keeps K4 here too) at 512^3 f32 and
+   bf16, 800 ticks, with the same gates and bit identity to the K4 route
+   required; then at 1024^3, 128 ticks at K = 8: f32 (n_b = 8) bit-identical
+   to the K4 io_alias run above, bf16 (the run whose out-of-place K4 call
+   does not fit inside Simulation.run) at n_b = 8 and 4, the two
+   bit-identical and within 1e-2 rel-L2 of the f32 run, peak memory
+   against the byte model, and one K7 call held bit for bit to one
+   out-of-place K4 call where that fits; then config 3's accumulators (K4's
+   options) and path B (its region) at 256^3 through K7 (K = 8, n_b = 4)
+   in lockstep with Simulation.run's route: DFT planes, captures, probes
+   and final states bit-identical, flux rows within K4a's bar;
 7. runs the absorbing main path: BASELINE config 3 at 256^3 (CPML 10 cells
    on every face, a closed TF/SF box with a Gaussian-derivative plane wave,
    a dielectric sphere of radius 32 in a uint8 material index, as
@@ -115,7 +133,9 @@ Run from the root of a checkout. In order it
    256^3 and 512^3 with Cpml.uniform(10) (f32 and bf16), K6 at K = 4
    and 3 and K5 at K = 2 and 3 against K4 and K4 io_alias at K = 4 and 8 and
    their plain version at 512^3 with Cpml.uniform(10) (f32 and bf16) with
-   each K6 and K5 call's bound,
+   each K6 and K5 call's bound, K7 (K = 4, n_b = 2) and K4e alone (one
+   window) with their plain versions beside K4 and K4 io_alias at 512^3
+   f32, each with its bound (K7's with its gathers' and scatters' bytes),
    and prints Gcell/s and the byte model's share of the H100's 3.35 TB/s;
 13. profiles 64 ticks of each absorbing run, of each accumulator route, of
    paths A and B and of the plain engine at 256^3 (torch.profiler) and
@@ -1763,11 +1783,16 @@ XZ_CONFIG3_RUNS = ((512, "float32", 800, 2), (512, "bfloat16", 800, 4))
 XZ_K = XZ_CONFIG3_RUNS[0][3]
 
 
-def window_step(ft, kernel, shape, k, kw, device):
-    """K6's or K5's step at ``k`` with a Simulation's kernel arguments."""
+def window_step(ft, kernel, shape, k, kw, device, n_b=None):
+    """K6's, K5's or (with its ``n_b``) K7's step at ``k`` with a
+    Simulation's kernel arguments."""
+    from fdtd_tpu_torch.solver.cuda_cpml_blocked import cuda_cpml_blocked_stepk_fn
     from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn
     from fdtd_tpu_torch.solver.cuda_cpml_xz import cuda_cpml_xz_stepk_fn
 
+    if kernel == "K7":
+        kw = {key: v for key, v in kw.items() if key != "oblique"}
+        return cuda_cpml_blocked_stepk_fn(shape, k, n_b, device=device, **kw)
     kw = {key: v for key, v in kw.items() if key != "dense"}
     if kernel == "K6":
         kw.pop("oblique")
@@ -1777,15 +1802,17 @@ def window_step(ft, kernel, shape, k, kw, device):
 
 def window_config3_path(torch, ft, kernel, runs, references, seed):
     """BASELINE config 3 (config3: CPML 10, the closed TF/SF box, the
-    sphere's material index) through a window kernel (``kernel``: "K6" or
-    "K5") for each (n, storage, ticks, k ticks per call) of ``runs``:
+    sphere's material index) through a window kernel (``kernel``: "K6",
+    "K5", or "K7" with an n_b after k) for each (n, storage, ticks, k ticks
+    per call) of ``runs``:
     Simulation.plan leaves each run on K4 (PERF.md: neither window kernel is
     5 % faster than K4 anywhere measured), so the run is driven through the
     kernel's wrapper with the 3-point probe every 8 ticks, as bench.py
     drives the JAX gb and xz tiers. The launch counts (set to 0 just before
     each run, read just after) must show the kernel alone; the peak memory
     must stay within two states (fields and psi slabs), the index and the
-    kernel's psi scratch, plus 2 %. The run is held to the K4 route on the
+    kernel's psi scratch (K7: the index's window slices and the largest
+    window's sets, k7_window_bytes), plus 2 %. The run is held to the K4 route on the
     same set-up (Simulation.run at the kernel's K, with the probe every K
     ticks, every 8 // K-th sample compared; at 1024^3 config3_large_path's
     K = 8 run; ``references`` keeps each K4 route's trace and squares by
@@ -1795,36 +1822,44 @@ def window_config3_path(torch, ft, kernel, runs, references, seed):
     fields within the same share of each field's largest K4 value
     (squares_rel_err; the trace stays zero at 1024^3, the squares see the
     wave); each line also says whether trace and squares are bit-identical,
-    which the window kernels and K4 are at the same K. Trace and squares
-    must be finite, the squares nonzero.
+    which the window kernels and K4 are at the same K (K7 must be: it is
+    K4 on windows). Trace and squares must be finite, the squares nonzero.
 
     After each 512^3 run, one call at its K on config 3's inputs at that
     size (a random state, the material index, the TF/SF box, gb_sources'
     J+M sources) is held to its plain version and to K4 (and K5 to K6) by
-    gb_check. At 1024^3 the plain version does not fit the card beside its
-    input state: the line says how much it would need, from its peak at
-    512^3 f32. Returns (launches, numbers)."""
+    gb_check (K7: k7_check). At 1024^3 the plain version does not fit the
+    card beside its input state: the line says how much it would need, from
+    its peak at 512^3 f32. Returns ({kernel: launches; K7 also its K4e
+    window launches}, numbers)."""
     import gc
 
     from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
 
-    name = {"K6": "K6 cpmlk_gb", "K5": "K5 cpmlk_xz"}[kernel]
+    name = {"K6": "K6 cpmlk_gb", "K5": "K5 cpmlk_xz", "K7": "K7"}[kernel]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    launches, numbers, plain_sets = 0, {}, None
-    for n, dtype_name, ticks, k in runs:
+    launches, numbers, plain_sets = {kernel: 0}, {}, None
+    if kernel == "K7":
+        launches["K4e lateral"] = 0
+    for n, dtype_name, ticks, k, *n_b in runs:
+        n_b = n_b[0] if n_b else None
         dtype = getattr(torch, dtype_name)
         shape = (n, n, n)
-        label = f"config 3 {n}^3 {dtype_name} through {kernel} K={k}"
+        label = (f"config 3 {n}^3 {dtype_name} through {kernel} K={k}"
+                 + (f" n_b={n_b}" if n_b else ""))
         gc.collect()
         torch.cuda.empty_cache()
         sim = config3(ft, shape, dtype, dev)
         probes, _ = absorbing_probes(shape)
         plan = sim.plan(ticks, probes, (), 8)
         require(plan == (8, "cuda_cpml_k"), f"{label}: plan {plan}")
-        step = window_step(ft, kernel, shape, k, sim._kernel_kwargs(), dev)
-        scratch = step.plan.scratch_floats if kernel == "K6" else step.scratch_floats
+        step = window_step(ft, kernel, shape, k, sim._kernel_kwargs(), dev, n_b)
+        if kernel == "K7":
+            extra = sum(k7_window_bytes(torch, step, dtype))
+        else:
+            extra = 4 * (step.plan.scratch_floats if kernel == "K6" else step.scratch_floats)
         table, every = sim._table_f32, 8 // k
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -1848,9 +1883,12 @@ def window_config3_path(torch, ft, kernel, runs, references, seed):
         secs = start.elapsed_time(end) / 1e3
         want = {name: 0 for name in counts}
         want[name] = ticks // k
+        if kernel == "K7":
+            want["K4e lateral"] = ticks // k * n_b
+            launches["K4e lateral"] += want["K4e lateral"]
         require(counts == want, f"{label}: launches {counts}, expected {want}")
-        launches += want[name]
-        limit = 1.02 * (2 * state_bytes + sim.matid.numel() + 4 * scratch)
+        launches[kernel] += want[name]
+        limit = 1.02 * (2 * state_bytes + sim.matid.numel() + extra)
         trace = torch.stack(samples)
         squares = plane_squares(torch, state)
         require(state.tick == ticks and bool(torch.isfinite(squares).all())
@@ -1888,12 +1926,16 @@ def window_config3_path(torch, ft, kernel, runs, references, seed):
             + ("config3_large_path's" if n == CONFIG3_LARGE else
                f"{n ** 3 * ticks / k4_secs / 1e9:.3f} Gcell/s")
             + f"); launches {counts}; peak {peak / 1e9:.4f} GB (limit {limit / 1e9:.4f} GB: "
-            f"two states of {state_bytes / 1e9:.4f} GB, the index, the psi scratch, 2 %); "
+            f"two states of {state_bytes / 1e9:.4f} GB, the index, "
+            f"{'its window slices and the largest window' if kernel == 'K7' else 'the psi scratch'}"
+            ", 2 %); "
             f"probe trace vs the K4 route {err:.3e} of max|probe| {scale:.4e} (tol {tol}), "
             f"bit-identical {same}; plane squares vs the K4 route {squares_err:.3e} of "
             f"each field's largest (tol {tol}), bit-identical {squares_same}")
         require(err <= tol, f"{label}: the probe trace strays from the K4 route's")
         require(squares_err <= tol, f"{label}: the final fields stray from the K4 route's")
+        require(kernel != "K7" or (same and squares_same),
+                f"{label}: K7 is not bit-identical to the K4 route")
         numbers[f"{n}_{dtype_name}"] = r = {
             "ticks": ticks, "seconds": secs, "gcells": g,
             "k4_route_seconds": None if n == CONFIG3_LARGE else k4_secs,
@@ -1910,10 +1952,21 @@ def window_config3_path(torch, ft, kernel, runs, references, seed):
                           constants=ft.REDUCED, cpml=cpml, tfsf=tfsf, with_m=True)
             kw = dict(common, dtype=dtype, matid=sim.matid, n_materials=table.shape[0])
             state = random_engine_state(torch, ft, sim, dtype, cpml, tfsf, gen)
-            (r["plain_max_abs_err"], r["plain_vs_k4_bit_identical"], _, plain_peak,
-             r["plain_vs_k6_bit_identical"]) = gb_check(
-                torch, f"K={k} config 3 {tuple(shape)} box TF/SF, J+M sources", state,
-                k, table, gb_sources(ft, shape, sim.grid.dt, dev), common, kw, kernel)
+            src = gb_sources(ft, shape, sim.grid.dt, dev)
+            if kernel == "K7":
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                (r["plain_max_abs_err"], r["k4e_plain_max_abs_err"],
+                 r["plain_vs_k4_bit_identical"]) = k7_check(
+                    torch, f"config 3 {tuple(shape)} box TF/SF, J+M sources", state, k, n_b,
+                    table, src, dict(common, dense=None), kw, {})
+                plain_peak = torch.cuda.max_memory_allocated() - base
+            else:
+                (r["plain_max_abs_err"], r["plain_vs_k4_bit_identical"], _, plain_peak,
+                 r["plain_vs_k6_bit_identical"]) = gb_check(
+                    torch, f"K={k} config 3 {tuple(shape)} box TF/SF, J+M sources", state,
+                    k, table, src, common, kw, kernel)
             r["plain_peak_bytes"] = plain_peak
             if dtype == torch.float32:
                 plain_sets = plain_peak / set_bytes
@@ -2057,6 +2110,614 @@ def xz_oblique_path(torch, ft, seed):
                              "squares_bit_identical": squares_same, "plain_max_abs_err": err1}
 
 
+# -- K7 ------------------------------------------------------------------------
+
+#: K7's self-check lattice: ragged in x and z, ny divisible by 2 and 4
+#: (cuts at y = 32, and 16, 32, 48)
+K7_CHECK_SHAPE = (37, 64, 53)
+K7_CHECK_KS = (2, 4, 8)
+K7_CHECK_NBS = (2, 4)
+#: the K7 case's region (a ball graded along y) and options, across the
+#: cut at y = 32 (and 16 and 48 for the rows and captures)
+K7_REGION_BOX = ((10, 26), (24, 40), (28, 45))
+K7_OPTIONS = dict(flux_faces=(("x",), ("y", 31), ("y", 32), ("z", 20), ("z", 33)),
+                  dft=(((5, 0), (20, 1), (36, 0)), (0.02, 0.05, 0.11)),
+                  dft_rows=(("y", 15), ("y", 16), ("z", 30), ("y", 47), ("z", 0)))
+#: config 3 through K7: (n, storage, ticks, K, n_b); 512^3 as K6's runs at
+#: its K (the K4 route's traces are shared)
+K7_CONFIG3_RUNS = ((512, "float32", 800, 4, 2), (512, "bfloat16", 800, 4, 2))
+#: K7's K and block counts at 1024^3 bf16 (the run the out-of-place K4
+#: cannot hold inside Simulation.run)
+K7_LARGE_K = 8
+K7_LARGE_NBS = (8, 4)
+#: the bf16 study's bar on rel-L2 against f32 (tests/test_bf16_study.py)
+BF16_REL_L2 = 1e-2
+#: K7's K and n_b in the timings and the kernels line
+K7_K, K7_NB = K7_CONFIG3_RUNS[0][3], K7_CONFIG3_RUNS[0][4]
+
+
+def k7_sources(ft, shape, dt, device):
+    """J+M point sources on and within h = 8 rows of each cut of n_b = 2
+    and 4 (y = 16, 32, 48): rows c - 8, c - 1, c, c + 1, c + 7."""
+    nx, ny, nz = shape
+    pts = [((5 + 3 * i + j) % nx, c + dy, (7 + 11 * j + 5 * i) % nz)
+           for i, c in enumerate((16, 32, 48)) for j, dy in enumerate((-8, -1, 0, 1, 7))]
+    return ft.SourceSet.build([
+        ft.PointSource(p, ft.GaussianPulse(0.0, 4 * dt), j=(0.2, 0.7, -0.5),
+                       m=(-0.3, 0.1, 0.4)) for p in pts], device=device)
+
+
+def k7_region(ft, dt):
+    """A Ball(7) region graded along y on K7_REGION_BOX (across y = 32)."""
+    import numpy as np
+    from fdtd_tpu_torch.scene import Ball
+
+    ball, ctr = Ball(7.0), np.array([[18.0], [32.0], [36.5]])
+    d_h, d_e = ft.depth_from_contains(lambda p: ball.contains(p - ctr), K7_REGION_BOX, 1, 1)
+    return ft.dense_pml_from_depth(1, K7_REGION_BOX, d_h, d_e,
+                                   spec=ft.solver.GradedPmlSpec(), dx=1.0, dt=dt,
+                                   constants=ft.REDUCED)
+
+
+def k7_outputs(out, options):
+    """(state, flux rows or None, captures) of a K4 or K7 step's result."""
+    state, extra = k4_outputs(out)
+    flux = extra[0] if options.get("flux_faces") else None
+    return state, flux, extra[1:] if flux is not None else extra
+
+
+def k7_psi_err(got, want):
+    """The largest difference of two states' psi slabs and region psi,
+    each relative to the largest value of ``want``'s tensor."""
+    from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
+
+    return max(acc_rel_err(a, b) for a, b in zip((*psi_tensors(got), *got.psi_d),
+                                                 (*psi_tensors(want), *want.psi_d))
+               if b.dim() and b.numel() and float(b.abs().max()) > 0)
+
+
+def k7_written(s):
+    """Every tensor a K4 or K7 call writes: fields, psi slabs, region psi,
+    DFT planes."""
+    from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
+
+    return (*s.e, *s.h, *psi_tensors(s), *s.psi_d, *s.dft)
+
+
+def k7_check(torch, label, state, k, n_b, table, src, common, kw, options):
+    """One K7 call at (k, n_b) on ``state`` (the card) against its plain
+    version, against K4 and, at f32, against K4 io_alias on the same inputs;
+    then K4e alone: block 1's window (both of its cuts inside the lattice
+    but for n_b = 2) launched against K4's plain version on the same window
+    set-up, every row of it.
+
+    Bars against the plain versions are K4's (gb_check): fields f32 2e-5,
+    bf16 2^-7 of max|field|; psi, region psi 2e-5 of their max; the
+    options option_self_checks': flux rows 2e-5 of max|row| per
+    descriptor, DFT planes 3e-6, captures 5e-6. Against K4 and K4 io_alias
+    every output is bit-identical but the flux rows, which sum the blocks'
+    partials in another order: K4a's 2e-5 of max|row|. Raises on a miss;
+    returns (K7's largest field error against its plain version, K4e's,
+    bit-identical to K4)."""
+    from fdtd_tpu_torch.solver import cuda_cpml_blocked as blk
+    from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn
+
+    shape, dtype, matid = state.shape, state.dtype, kw.get("matid")
+    step = blk.cuda_cpml_blocked_stepk_fn(shape, k, n_b, device=state.device, **kw, **options)
+    got, flux, caps = k7_outputs(step(state, table, src), options)
+    want, w_flux, w_caps = k7_outputs(blk.plain_cpml_blocked_stepk(
+        state, table, matid, src, k, n_b, **common, **options), options)
+    torch.cuda.synchronize()
+    require(got.tick == want.tick == state.tick + k, f"K7 {label}: tick")
+    err, scale = max_abs_err(got, want), field_scale(want)
+    tol = (2e-5 if dtype == torch.float32 else 2.0 ** -7) * scale
+    psi_err = k7_psi_err(got, want)
+    opt_errs = []
+    if flux is not None:
+        opt_errs.append(("flux", max(acc_rel_err(flux[:, :, q], w_flux[:, :, q])
+                                     for q in range(flux.shape[2])), 2e-5))
+    if got.dft:
+        opt_errs.append(("DFT", max(acc_rel_err(a, b) for a, b in zip(got.dft, want.dft)),
+                         3e-6))
+    if caps:
+        opt_errs.append(("captures", max(acc_rel_err(a, b) for a, b in zip(caps, w_caps)),
+                         5e-6))
+    del want, w_flux, w_caps
+
+    def same_as(other):
+        o_state, o_flux, o_caps = k7_outputs(other, options)
+        same = all(torch.equal(a, b) for a, b in zip(
+            (*k7_written(got), *caps), (*k7_written(o_state), *o_caps)))
+        f_err = 0.0 if flux is None else max(acc_rel_err(flux[:, :, q], o_flux[:, :, q])
+                                            for q in range(flux.shape[2]))
+        return same, f_err
+
+    same_k4, flux_k4 = same_as(cuda_cpml_stepk_fn(shape, k, **kw, **options)(state, table, src))
+    line = f"vs K4 {'bit-identical' if same_k4 else 'DIFFERS'} (flux rows {flux_k4:.3e})"
+    ok = same_k4 and flux_k4 <= 2e-5
+    if dtype == torch.float32:
+        same_io, flux_io = same_as(cuda_cpml_stepk_fn(shape, k, io_alias=True, **kw, **options)(
+            clone_engine(torch, state), table, src))
+        line += f"; vs K4 io_alias {'bit-identical' if same_io else 'DIFFERS'}"
+        ok = ok and same_io and flux_io <= 2e-5
+    ok = (ok and err <= tol and psi_err <= 2e-5 and all(e <= bar for _, e, bar in opt_errs)
+          and all(bool(torch.isfinite(f).all()) for f in (*got.e, *got.h)))
+    # K4e alone: one window, every row, against K4's plain version there
+    b = step.blocks[min(1, n_b - 1)]
+    win = b.gather(state, bool(got.dft))
+    dt, with_m = common["dt"], common["with_m"]
+    levels = blk.block_levels(b, blk.call_levels(b, state, src, k, with_m, dt))
+    w_got = blk.launch_block(b, win, table, k, with_m, dtype, dt, levels)[0]
+    planes = blk._planes(options["dft"][0]) if got.dft else ()
+    phases = blk.dft_phases(options["dft"][1], state.tick, k, dt, state.device) \
+        if got.dft else None
+    w_want = blk.plain_block(b, win, table, blk.source_shift(src, b.a), k, with_m, planes,
+                             phases)[0]
+    torch.cuda.synchronize()
+    w_err = max_abs_err(w_got, w_want)
+    w_psi = k7_psi_err(w_got, w_want)
+    w_tol = (2e-5 if dtype == torch.float32 else 2.0 ** -7) * field_scale(w_want)
+    w_ok = w_err <= w_tol and w_psi <= 2e-5
+    log(f"selfcheck K7 {label} K={k} n_b={n_b} {tuple(shape)} {str(dtype)[6:]}: max_abs_err "
+        f"{err:.3e} (tol {tol:.3e}, max|field| {scale:.3f}); psi {psi_err:.3e} of max (tol "
+        f"2e-5); " + "".join(f"{n} {e:.3e} (tol {bar:g}); " for n, e, bar in opt_errs)
+        + f"{line}; K4e window [{b.a}, {b.b}) owned [{b.o0}, {b.o1}) vs plain {w_err:.3e} "
+        f"(tol {w_tol:.3e}), psi {w_psi:.3e} {'ok' if ok and w_ok else 'FAIL'}")
+    require(ok, f"K7 {label} K={k} n_b={n_b} {dtype} disagrees")
+    require(w_ok, f"K4e {label} K={k} n_b={n_b} {dtype} disagrees with its plain version")
+    return err, w_err, same_k4
+
+
+def k7_self_checks(torch, ft, seed):
+    """K7 (and K4e, its window kernel) against their plain versions on the
+    card, and K7 against K4 and (f32) K4 io_alias, by k7_check, at K = 2,
+    4, 8 and n_b = 2, 4, f32 and bf16, on K7_CHECK_SHAPE (ragged in x and
+    z; windows start at i nly - K, off the lattice's tile rows) with the
+    config-2 material index, CPML on all axes ((4, 3), (3, 5), (5, 4)), a
+    box TF/SF whose y faces (14, 41) straddle the cuts, and J+M sources on
+    and within h of every cut: without options (K4's core kernel in each
+    window), then with a DensePml region across y = 32 and K4's options
+    (flux faces and row captures on both sides of the cuts, DFT planes)
+    (the owned instantiation). Then config 3 at 256^3 with its options
+    (K = 8, n_b = 4, f32). Returns {"K7": K7's largest field error against
+    its plain version, "K4e lateral": K4e's}, at 256^3."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 11)
+    sim = flagship(ft, K7_CHECK_SHAPE, torch.float32, dev)
+    dt = sim.grid.dt
+    cpml = ft.Cpml(thickness=((4, 3), (3, 5), (5, 4)))
+    box = ft.Tfsf(span=(8, 27), waveform=ft.GaussianDerivative(6 * dt, 2 * dt),
+                  span_y=(14, 40), span_z=(3, 40))
+    src = k7_sources(ft, K7_CHECK_SHAPE, dt, dev)
+    main = config3(ft, ABSORB_SHAPE, torch.float32, dev)
+    cases = [("core", sim, cpml, box, None, {}, src, (torch.float32, torch.bfloat16),
+              K7_CHECK_KS, K7_CHECK_NBS),
+             ("region + options", sim, cpml, box, k7_region(ft, dt), K7_OPTIONS, src,
+              (torch.float32, torch.bfloat16), K7_CHECK_KS, K7_CHECK_NBS),
+             ("config 3 + options", main, main.cpml, main.tfsf, None,
+              config3_options(ft, ABSORB_SHAPE, main.grid.dt),
+              gb_sources(ft, ABSORB_SHAPE, main.grid.dt, dev), (torch.float32,), (8,), (4,))]
+    identical = n = 0
+    errs = {"K7": 0.0, "K4e lateral": 0.0}
+    for label, s, cp, tf, dense, options, sr, dtypes, ks, nbs in cases:
+        table = s._table_f32
+        common = dict(inv_dx=tuple(1.0 / d for d in s.grid.dx), dt=s.grid.dt,
+                      constants=ft.REDUCED, cpml=cp, tfsf=tf, with_m=True, dense=dense)
+        for dtype in dtypes:
+            state = random_engine_state(torch, ft, s, dtype, cp, tf, gen, dense=dense)
+            if options:
+                state = with_dft(torch, state, options, gen)
+            kw = dict(common, dtype=dtype, matid=s.matid, n_materials=table.shape[0])
+            for k in ks:
+                for n_b in nbs:
+                    err, w_err, same = k7_check(torch, label, state, k, n_b, table, sr,
+                                                common, kw, options)
+                    identical += same
+                    n += 1
+                    if s is main:
+                        errs = {"K7": max(errs["K7"], err),
+                                "K4e lateral": max(errs["K4e lateral"], w_err)}
+            del state
+    log(f"selfcheck K7: {identical} of {n} checks bit-identical to K4 (fields, psi, region "
+        f"psi, DFT planes, captures; flux rows within K4a's bar)")
+    return errs
+
+
+def k7_window_bytes(torch, step, dtype, options=False):
+    """(the material index's window slices, the largest window's transient
+    bytes) of a K7 step: per window its gathered input fields and its
+    outputs (storage dtype), the f32 work sets (the second one is the
+    output at f32, and absent at bf16 K = 2 without options or a region),
+    and three f32 sets of its psi and region psi."""
+    itemsize = 4 if dtype == torch.float32 else 2
+    slices = sum(0 if b.matid is None else b.matid.numel() for b in step.blocks)
+    k = step.plan.h
+    worst = 0
+    for b in step.blocks:
+        cells = math.prod(b.shape)
+        w2 = 0 if itemsize == 4 or (k == 2 and not options and b.dense is None) else 4
+        region = 0 if b.dense is None else 4 * math.prod(b.dense.box_shape)
+        worst = max(worst, 6 * (2 * itemsize + 4 + w2) * cells
+                    + 3 * 4 * (psi_cells(b.shape, b.cpml) + region))
+    return slices, worst
+
+
+def k7_copy_bytes(step, itemsize):
+    """Bytes one K7 call's gathers and scatters move as they run: each
+    window's fields (storage dtype) and x- and z-slab psi (f32) read and
+    written once by its gather, its owned rows of them read and written
+    once by its scatter, and the region psi's rows likewise (the y slabs
+    go whole: no copy)."""
+    total = 0
+    for b in step.blocks:
+        nx, ny_b, nz = b.shape
+        lateral = dataclasses.replace(b.cpml, thickness=(b.cpml.thickness[0], (0, 0),
+                                                          b.cpml.thickness[2]))
+        per_row = 6 * itemsize * nx * nz + 4 * psi_cells((nx, 1, nz), lateral)
+        total += 2 * per_row * (ny_b + b.o1 - b.o0)
+        if b.dense is not None:
+            bx, by, bz = b.dense.box_shape
+            g0, g1 = b.dense_rows
+            owned = max(0, min(g1, b.a + b.o1) - max(g0, b.a + b.o0))
+            total += 2 * 4 * 4 * bx * bz * (by + owned)
+    return total
+
+
+def k7_copies(step, state):
+    """One K7 call's gathers and scatters alone, as the call runs them
+    (its output tensors made, each block's window gathered and its owned
+    rows scattered), with no launch: what the copies cost. Returns
+    ``state`` (for cuda_ms' chain)."""
+    from fdtd_tpu_torch.solver.cuda_cpml_blocked import call_outputs
+
+    out = call_outputs(state, False)
+    for b in step.blocks:
+        b.scatter(b.gather(state, False), out)
+    return state
+
+
+def k7_run(torch, sim, step, ticks, k, probes, want):
+    """Drive ``step`` (a K7 step) from sim.init() for ``ticks`` with the
+    probe every 8 ticks; the launch counts must equal ``want``'s. Returns
+    (final state, trace, seconds, peak bytes beyond what was live before,
+    the state's bytes)."""
+    from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = sim.init()
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in (*state.e, *state.h, *psi_tensors(state)))
+    samples = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    start.record()
+    for i in range(ticks // k):
+        state = step(state, sim._table_f32, sim.sources)
+        if (i + 1) % (8 // k) == 0:
+            samples.append(probes[0].sample(state, sim.grid.dt))
+    end.record()
+    end.synchronize()
+    counts = launch_counts()
+    full = {name: 0 for name in counts}
+    full.update(want)
+    require(counts == full, f"K7 run: launches {counts}, expected {full}")
+    return (state, torch.stack(samples), start.elapsed_time(end) / 1e3,
+            torch.cuda.max_memory_allocated() - base, state_bytes)
+
+
+def rel_l2_chunked(torch, a, b, chunk=64):
+    """rel_l2 of two states' fields, ``chunk`` x planes at a time."""
+    num = den = 0.0
+    for x, y in zip((*a.e, *a.h), (*b.e, *b.h)):
+        for i in range(0, x.shape[0], chunk):
+            xs, ys = x[i:i + chunk].double(), y[i:i + chunk].double()
+            num += float(((xs - ys) ** 2).sum())
+            den += float((ys ** 2).sum())
+    return math.sqrt(num / den)
+
+
+def k7_large_path(torch, ft, reference):
+    """BASELINE config 3 at 1024^3 through K7 (K = 8), CONFIG3_LARGE_TICKS
+    ticks with the 3-point probe every 8 ticks: at f32 with n_b = 8,
+    against config3_large_path's K4 io_alias run (``reference``: its trace
+    and plane squares, bit-identical); then at bf16, the run whose
+    out-of-place K4 call does not fit inside Simulation.run, with n_b = 8
+    and 4: the two bit-identical (every field and psi: the cut moves no
+    bit), and the bf16 fields within BF16_REL_L2 rel-L2 of the f32 run's.
+    Each run: its launch counts, Gcell/s and peak memory against two states
+    plus the index plus k7_window_bytes plus 2 %. Then, on the bf16 final
+    state, one K7 call against one out-of-place K4 call, every field and
+    psi bit for bit: at K = 8 if K4's call fits beside its input and the
+    index (K7's outputs wait on the host), else at K = 2 (its second work
+    set is its first), else none; the line says which, the K4 call's
+    measured peak beyond its input beside the shape model, and what the
+    K = 8 call would need inside Simulation.run. That check's launches are
+    not the main path's and are left out of the counts. Returns (launches,
+    numbers)."""
+    import gc
+
+    from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
+    from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn
+
+    dev = torch.device("cuda")
+    n, ticks, k = CONFIG3_LARGE, CONFIG3_LARGE_TICKS, K7_LARGE_K
+    shape = (n, n, n)
+    probes, _ = absorbing_probes(shape)
+    launches = {"K7": 0, "K4e lateral": 0}
+    numbers, finals = {}, {}
+    ref_trace, ref_squares = reference[:2]
+    for dtype_name, n_b in (("float32", K7_LARGE_NBS[0]), ("bfloat16", K7_LARGE_NBS[0]),
+                            ("bfloat16", K7_LARGE_NBS[1])):
+        dtype = getattr(torch, dtype_name)
+        label = f"config 3 {n}^3 {dtype_name} through K7 K={k} n_b={n_b}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info()[0]
+        sim = config3(ft, shape, dtype, dev)
+        step = window_step(ft, "K7", shape, k, sim._kernel_kwargs(), dev, n_b)
+        slices, window = k7_window_bytes(torch, step, dtype)
+        want = {"K7": ticks // k, "K4e lateral": ticks // k * n_b}
+        state, trace, secs, peak, state_bytes = k7_run(torch, sim, step, ticks, k, probes, want)
+        for key in launches:
+            launches[key] += want[key]
+        limit = 1.02 * (2 * state_bytes + sim.matid.numel() + slices + window)
+        squares = plane_squares(torch, state)
+        g = n ** 3 * ticks / secs / 1e9
+        r = numbers[f"{dtype_name}_n_b{n_b}"] = {
+            "seconds": secs, "gcells": g, "peak_bytes": peak, "limit_bytes": limit,
+            "state_bytes": state_bytes, "window_bytes": window, "slice_bytes": slices,
+            "free_bytes_before": free}
+        line = (f"{label}: {ticks} ticks in {secs * 1e3:.3f} ms, {g:.3f} Gcell/s; launches "
+                f"{want}; peak {peak / 1e9:.4f} GB (limit {limit / 1e9:.4f} GB: two states of "
+                f"{state_bytes / 1e9:.4f} GB, the index, its window slices "
+                f"{slices / 1e9:.4f} GB, the largest window {window / 1e9:.4f} GB, 2 %; "
+                f"{free / 1e9:.3f} GB free before)")
+        require(state.tick == ticks and bool(torch.isfinite(squares).all())
+                and float(squares.max()) > 0 and bool(torch.isfinite(trace.float()).all()),
+                f"{label}: no finite field")
+        require(peak <= limit, f"{label}: peak {peak} > {limit}")
+        if dtype == torch.float32:
+            r["trace_bit_identical"] = torch.equal(trace, ref_trace)
+            r["squares_bit_identical"] = torch.equal(squares, ref_squares)
+            log(line + f"; vs Simulation.run's K4 io_alias (K=8): probe trace bit-identical "
+                f"{r['trace_bit_identical']}, plane squares bit-identical "
+                f"{r['squares_bit_identical']}")
+            require(r["trace_bit_identical"] and r["squares_bit_identical"],
+                    f"{label}: differs from the K4 route")
+            finals["float32"] = state.replace(psi_h=(), psi_e=())
+        elif n_b == K7_LARGE_NBS[0]:
+            r["rel_l2_vs_float32"] = rel_l2_chunked(torch, state, finals.pop("float32"))
+            log(line + f"; rel-L2 against the f32 run {r['rel_l2_vs_float32']:.4e} (bar "
+                f"{BF16_REL_L2})")
+            require(r["rel_l2_vs_float32"] <= BF16_REL_L2, f"{label}: strays from f32")
+            finals["bfloat16"] = (state, trace)
+        else:
+            other, o_trace = finals["bfloat16"]
+            same = torch.equal(trace, o_trace) and all(
+                torch.equal(a, b) for a, b in zip((*state.e, *state.h, *psi_tensors(state)),
+                                                  (*other.e, *other.h, *psi_tensors(other))))
+            r["bit_identical_to_n_b8"] = same
+            log(line + f"; every field and psi and the trace bit-identical to n_b = "
+                f"{K7_LARGE_NBS[0]}'s: {same}")
+            require(same, f"{label}: the cut moved a bit")
+        del state, step
+        if dtype_name == "bfloat16" and n_b == K7_LARGE_NBS[1]:
+            break
+        del sim
+    # one K7 call against one out-of-place K4 call on the bf16 final state:
+    # K7's outputs wait on the host while K4 runs, so that K4's call has
+    # the card but for its input and the index; at K = 8 where that fits,
+    # else at K = 2 (K4 keeps one work set there)
+    state = finals.pop("bfloat16")[0]
+    del finals
+    kw = sim._kernel_kwargs()
+    kw.pop("oblique")
+    table = sim._table_f32
+    set_bytes = 6 * 2 * n ** 3
+    psi_bytes = sum(t.numel() * 4 for t in psi_tensors(state))
+    # the out-of-place K4 call: outputs, two f32 work sets (one at K = 2
+    # without options), two psi sets beside the input's
+    need = {8: 5 * set_bytes + 2 * psi_bytes, 2: 3 * set_bytes + 2 * psi_bytes}
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    numbers["k4_call"] = {"free_bytes": free, "need_k8_bytes": need[8],
+                          "need_k2_bytes": need[2]}
+    line = (f"config 3 {n}^3 bf16: one out-of-place K4 call needs {need[8] / 1e9:.3f} GB "
+            f"beyond its input at K = 8 by the shape model ({need[2] / 1e9:.3f} GB at K = 2); "
+            f"{free / 1e9:.3f} "
+            f"GB free beside its input and the index (inside Simulation.run the caller's "
+            f"state also stays: {(need[8] + psi_bytes + set_bytes) / 1e9:.3f} GB more than "
+            f"the input)")
+    fits = [kc for kc in (8, 2) if need[kc] + 2e9 < free]
+    if not fits:
+        log(line + "; neither K fits: not compared")
+    else:
+        kc = fits[0]
+        # a check beside the main path: its launches are not the path's
+        k7 = window_step(ft, "K7", shape, kc, dict(kw, oblique=None), dev, K7_LARGE_NBS[0])
+        got = k7(state, table, None)
+        host = [t.cpu() for t in (*got.e, *got.h, *psi_tensors(got))]
+        del got, k7
+        gc.collect()
+        torch.cuda.empty_cache()
+        k4 = cuda_cpml_stepk_fn(shape, kc, **kw)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ref = k4(state, table, None)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        same = all(torch.equal(a, b.cpu()) for a, b in zip(
+            host, (*ref.e, *ref.h, *psi_tensors(ref))))
+        numbers["k4_call"].update(k=kc, bit_identical=same, peak_bytes=peak)
+        log(line + f"; one K7 call (K = {kc}, n_b = {K7_LARGE_NBS[0]}) against one K4 call at "
+            f"K = {kc}: every field and psi bit-identical {same}; the K4 call's measured peak "
+            f"{peak / 1e9:.4f} GB beyond its input (model {need[kc] / 1e9:.4f} GB)")
+        require(same, f"config 3 {n}^3 bf16: K7 differs from K4")
+        del ref, host
+    del state, sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def k7_option_path(torch, ft):
+    """Config 3's four accumulators (their K4 options, config3_options) and
+    path B (path_b_sim: its DensePml region across every cut, the probe
+    every 8 ticks) at 256^3 for MAIN_STEPS ticks through K7 (K = 8, n_b =
+    4), against Simulation.run's route for each, K4 io_alias with the same
+    options or region, in lockstep from rest: after every call the DFT
+    planes and the row captures bit-identical, path B's probe samples
+    bit-identical, and each flux descriptor's rows over the run within
+    K4a's 2e-5 of their largest value;
+    at the end every field, psi slab and region psi bit-identical. The
+    launch counts (set to 0 just before, read just after) show K7 and K4e
+    beside K4 io_alias. Returns (K7's and K4e's launches, numbers)."""
+    from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn
+
+    dev = torch.device("cuda")
+    k, n_b = 8, 4
+    main = config3(ft, ABSORB_SHAPE, torch.float32, dev)
+    options = config3_options(ft, ABSORB_SHAPE, main.grid.dt)
+    probes, _ = absorbing_probes(ABSORB_SHAPE)
+    launches = {"K7": 0, "K4e lateral": 0}
+    numbers = {}
+    for label, sim, opts in (("config 3's accumulators", main, options),
+                             ("path B", path_b_sim(ft, dev), {})):
+        kw = sim._kernel_kwargs()
+        kw.pop("oblique")
+        shape, table = sim.grid.shape, sim._table_f32
+        k7 = window_step(ft, "K7", shape, k, dict(kw, **opts, oblique=None), dev, n_b)
+        k4 = cuda_cpml_stepk_fn(shape, k, io_alias=True, **kw, **opts)
+        a = b = sim.init()
+        if opts:
+            zeros = tuple(torch.zeros((6 * len(opts["dft"][1]), *shape[1:]), device=dev)
+                          for _ in opts["dft"][0])
+            a, b = a.replace(dft=zeros), clone_engine(torch, b).replace(
+                dft=tuple(z.clone() for z in zeros))
+        else:
+            b = clone_engine(torch, b)
+        flux_err, same_opts, same_probe, rows_a, rows_b = 0.0, True, True, [], []
+        reset_counts()
+        for _ in range(MAIN_STEPS // k):
+            ga, fa, ca = k7_outputs(k7(a, table, sim.sources), opts)
+            gb, fb, cb = k7_outputs(k4(b, table, sim.sources), opts)
+            a, b = ga, gb
+            if opts:
+                rows_a.append(fa)
+                rows_b.append(fb)
+                same_opts &= all(torch.equal(x, y) for x, y in zip((*a.dft, *ca),
+                                                                   (*b.dft, *cb)))
+            else:
+                same_probe &= torch.equal(probes[0].sample(a, sim.grid.dt),
+                                          probes[0].sample(b, sim.grid.dt))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if opts:
+            # each descriptor's rows of the whole run, against their largest
+            fa, fb = torch.cat(rows_a), torch.cat(rows_b)
+            flux_err = max(acc_rel_err(fa[:, :, q], fb[:, :, q]) for q in range(fa.shape[2]))
+        calls = MAIN_STEPS // k
+        want = {name: 0 for name in counts}
+        want.update({"K7": calls, "K4e lateral": calls * n_b, "K4 io_alias": calls})
+        require(counts == want, f"K7 {label}: launches {counts}, expected {want}")
+        for key in launches:
+            launches[key] += want[key]
+        same_state = all(torch.equal(x, y) for x, y in zip(k7_written(a), k7_written(b)))
+        finite = all(bool(torch.isfinite(f).all()) for f in (*a.e, *a.h))
+        numbers[label] = {"flux_rel_err": flux_err, "options_bit_identical": same_opts,
+                          "probe_bit_identical": same_probe,
+                          "state_bit_identical": same_state}
+        log(f"K7 {label} {shape[0]}^3 K={k} n_b={n_b}, {MAIN_STEPS} ticks in lockstep with "
+            f"Simulation.run's route (K4 io_alias): launches {want}; final fields, psi, region "
+            f"psi and DFT planes bit-identical {same_state}"
+            + (f"; every call's DFT planes and captures bit-identical {same_opts}, flux rows "
+               f"within {flux_err:.3e} of max|row| (bar 2e-5)" if opts else
+               f"; probe samples bit-identical {same_probe}"))
+        require(finite and same_state and same_opts and same_probe and flux_err <= 2e-5,
+                f"K7 {label} differs from the K4 route")
+        del a, b, k7, k4
+    return launches, numbers
+
+
+def k7_timings(torch, ft, n=6):
+    """ms per call, in turns, at 512^3 with Cpml.uniform(10), no TF/SF,
+    uniform coefficients, f32: K7 at K7_K and K7_NB, its plain version,
+    K4e alone (one launch on block 0's gathered window) and its plain
+    version (K4's on that window), with K4 and K4 io_alias at K7_K beside
+    them, and K7's gathers and scatters alone (no launch); each call's
+    bound from its cpml_bytes (each input read once, each output written
+    once): K7's the whole lattice's, K4e's its window's. The copies' bytes
+    as they run (k7_copy_bytes) and their time are K7's own fields, beside
+    its bound: they are this implementation's choice, not bytes the
+    function must move."""
+    from fdtd_tpu_torch.solver import cuda_cpml_blocked as blk
+    from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn
+
+    dev = torch.device("cuda")
+    shape, k, n_b = SCALE_SHAPE, K7_K, K7_NB
+    cpml = ft.Cpml.uniform(10)
+    res = ft.Resolution.courant(1.0, ft.REDUCED, safety=0.99)
+    row = (1.0, res.temporal, 1.0, res.temporal)
+    coeffs = ft.CellCoefficients.uniform(row, device=dev)
+    table = torch.tensor([row], dtype=torch.float32, device=dev)
+    kw = dict(inv_dx=(1.0, 1.0, 1.0), dt=res.temporal, constants=ft.REDUCED, cpml=cpml)
+    step = blk.cuda_cpml_blocked_stepk_fn(shape, k, n_b, device=dev, **kw)
+    b0 = step.blocks[0]
+    state = ft.init_engine_state(shape, torch.float32, cpml=cpml, device=dev)
+    state = state.replace(ez=torch.ones_like(state.ez))
+    levels = blk.block_levels(b0, blk.call_levels(b0, state, None, k, False, res.temporal))
+    named = [
+        (f"K7 K={k} n_b={n_b}", lambda s: step(s, coeffs, None), k),
+        ("K7 plain version", lambda s: blk.plain_cpml_blocked_stepk(s, table, None, None, k,
+                                                                     n_b, **kw), k),
+        ("K4e window", lambda w: blk.launch_block(b0, w, table, k, False, torch.float32,
+                                                  res.temporal, levels)[0], k),
+        ("K4e window plain version", lambda w: blk.plain_block(b0, w, table, None, k, False,
+                                                               (), None)[0], k),
+        ("K7 gathers and scatters", lambda s: k7_copies(step, s), k),
+    ]
+    for io in (False, True):
+        f = cuda_cpml_stepk_fn(shape, k, io_alias=io, **kw)
+        named.append((f"K4 K={k}" + (" io_alias" if io else ""),
+                      lambda s, f=f: f(s, coeffs, None), k))
+    window = b0.gather(state, False)
+    ms = {name: [] for name, _, _ in named}
+    for order in (named, named[::-1]):
+        for name, fn, _ in order:
+            ms[name].append(cuda_ms(torch, fn, window if name.startswith("K4e") else state, n))
+    whole = {name: ms[name] for name in ms if not name.startswith("K4e")}
+    group = report_group("k7_512_float32", [x for x in named if x[0] in whole], whole, shape,
+                         {})
+    group.update(report_group("k7_window_512_float32", [x for x in named if x[0] not in whole],
+                              {nm: ms[nm] for nm in ms if nm not in whole}, b0.shape, {}))
+    cells, psi = math.prod(shape), psi_cells(shape, cpml)
+    copies = k7_copy_bytes(step, 4)
+    k7 = group[f"K7 K={k} n_b={n_b}"]
+    copy_ms = sum(group["K7 gathers and scatters"]["ms_per_call"]) / 2
+    k7["copy_bytes"], k7["copy_ms"] = copies, copy_ms
+    log(f"k7_512_float32 K7 K={k} n_b={n_b}: its gathers and scatters move {copies / 1e9:.4f} "
+        f"GB per call as they run and take {copy_ms:.4f} ms alone "
+        f"({copy_ms / (sum(k7['ms_per_call']) / 2):.1%} of a call; "
+        f"{copies / (copy_ms * 1e-3) / 1e12:.3f} TB/s)")
+    bounds = {f"K7 K={k} n_b={n_b}": bound(cells, k, cpml_bytes(shape, 4, False, cpml), psi),
+              "K4e window": bound(math.prod(b0.shape), k,
+                                  cpml_bytes(b0.shape, 4, False, b0.cpml),
+                                  psi_cells(b0.shape, b0.cpml))}
+    for name, (b_ms, b_by) in bounds.items():
+        group[name]["bound_ms"], group[name]["bound_by"] = b_ms, b_by
+        log(f"bound k7_512_float32 {name}: {b_ms:.4f} ms per call ({b_by}); the kernel at "
+            f"{b_ms / (sum(group[name]['ms_per_call']) / 2):.1%} of it")
+    del state, window
+    torch.cuda.empty_cache()
+    return {"k7_512_float32": group}
+
+
 def config3_bytes(n, states, cpml):
     """Device bytes of config 3 at n^3 f32 holding ``states`` states (six
     fields and the psi slabs of ``cpml`` each) and the material index."""
@@ -2129,16 +2790,21 @@ def launch_counts():
     """Each kernel's launches since the last reset_counts, by name."""
     from fdtd_tpu_torch.solver import _build
 
-    return {kernel.name: kernel.launches for kernel in _build.KERNELS}
+    from fdtd_tpu_torch.solver import cuda_cpml_blocked
+
+    counts = {kernel.name: kernel.launches for kernel in _build.KERNELS}
+    counts["K7"] = cuda_cpml_blocked.launches()  # calls, n_b K4e launches each
+    return counts
 
 
 def reset_counts():
-    from fdtd_tpu_torch.solver import _build, cuda_cpml, cuda_cpml_k
+    from fdtd_tpu_torch.solver import _build, cuda_cpml, cuda_cpml_blocked, cuda_cpml_k
 
     for kernel in _build.KERNELS:
         kernel.launches = 0
     cuda_cpml.reset_launches()
     cuda_cpml_k.reset_launches()
+    cuda_cpml_blocked.reset_launches()
 
 
 def absorbing_probes(shape):
@@ -2968,6 +3634,7 @@ def measure(torch, ft, seed):
     errs.update(ext_self_checks(torch, ft, seed))
     errs["K6"] = gb_self_checks(torch, ft, seed)
     errs["K5"], xz_identical = xz_self_checks(torch, ft, seed)
+    errs.update(k7_self_checks(torch, ft, seed))
     launches = main_path(torch, ft)
     c5_launches, c5_gcells = config5_path(torch, ft)
     launches.update(c5_launches)
@@ -2976,11 +3643,19 @@ def measure(torch, ft, seed):
     references = {(CONFIG3_LARGE, "float32", 8): (reference_1024["trace"],
                                                   reference_1024["squares"], None)}
     del reference_1024
-    launches["K6"], gb_config3 = window_config3_path(torch, ft, "K6", GB_CONFIG3_RUNS,
-                                                     references, seed)
-    launches["K5"], xz_config3 = window_config3_path(torch, ft, "K5", XZ_CONFIG3_RUNS,
-                                                     references, seed)
+    counts, gb_config3 = window_config3_path(torch, ft, "K6", GB_CONFIG3_RUNS, references,
+                                             seed)
+    launches.update(counts)
+    counts, xz_config3 = window_config3_path(torch, ft, "K5", XZ_CONFIG3_RUNS, references,
+                                             seed)
+    launches.update(counts)
+    counts, k7_config3 = window_config3_path(torch, ft, "K7", K7_CONFIG3_RUNS, references,
+                                             seed)
+    large_counts, k7_large = k7_large_path(torch, ft, references[(CONFIG3_LARGE, "float32", 8)])
     del references
+    counts = {key: counts[key] + large_counts[key] for key in counts}
+    option_counts, k7_options = k7_option_path(torch, ft)
+    launches.update({key: counts[key] + option_counts[key] for key in counts})
     xz_launches, xz_oblique = xz_oblique_path(torch, ft, seed)
     launches["K5"] += xz_launches
     errs["K6"] = max(errs["K6"], gb_config3["512_float32"]["plain_max_abs_err"])
@@ -2998,6 +3673,7 @@ def measure(torch, ft, seed):
     times.update(cpml_timings(torch, ft))
     times.update(ext_timings(torch, ft))
     times.update(gb_timings(torch, ft, ks=(GB_K, 3), k4_ks=(GB_K, 8), xz_ks=(XZ_K, 3)))
+    times.update(k7_timings(torch, ft))
     times["accumulators_256_wall_s"] = walls
     times["scattering_256_gcell_per_s"] = {"K4 + flux faces": res_x.gcell_per_s,
                                            "plain engine": ref_x.gcell_per_s}
@@ -3007,6 +3683,8 @@ def measure(torch, ft, seed):
     times["config3_gb"] = gb_config3
     times["config3_xz"], times["xz_oblique_256"] = xz_config3, xz_oblique
     times["xz_self_checks_bit_identical"] = xz_identical
+    times["config3_k7"], times["config3_k7_1024"] = k7_config3, k7_large
+    times["k7_options_256"] = k7_options
 
     top = K_LADDER[0]
     c2, c3 = times["config2_128"], times["config3_256"]
@@ -3102,6 +3780,18 @@ def measure(torch, ft, seed):
     rows.append(("K5 x-zoned CPML (interior zone without the x terms)", "cpmlk_xz.cu",
                  "fdtd_tpu/solver/pallas_cpml_xz.py:130", "K5", g512, f"K5 K={XZ_K}",
                  f"plain version K={XZ_K}", (k5["bound_ms"], k5["bound_by"])))
+    # K7 and its window kernel K4e at K7's K and n_b, timed at 512^3 with
+    # Cpml.uniform(10) (f32), their bounds from k7_timings (K3's bytes of
+    # the lattice and of the window)
+    t7 = times["k7_512_float32"]
+    for name, key, timed, plain in (
+            ("K7 lateral-blocked CPML (K4e on n_b windows of y rows)", "K7",
+             f"K7 K={K7_K} n_b={K7_NB}", "K7 plain version"),
+            ("K4e lateral (K4 on one window, its options over the owned rows)",
+             "K4e lateral", "K4e window", "K4e window plain version")):
+        rows.append((name, "cpmlk.cu", {"K7": "fdtd_tpu/solver/pallas_cpml_blocked.py:279",
+                                        "K4e lateral": "fdtd_tpu/solver/pallas_cpml_k.py:131"}[
+            key], key, t7, timed, plain, (t7[timed]["bound_ms"], t7[timed]["bound_by"])))
     # no single PyTorch call computes a Yee or CPML tick, or K4's in-kernel
     # reductions, captures, region stretch or oblique correction beside
     # one: library_ms is null

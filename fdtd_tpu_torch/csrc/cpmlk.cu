@@ -35,8 +35,19 @@
 // run time when absent): the DensePml region's per-cell stretch with its
 // psi carried level to level through the same sets as the slab psi, and
 // the oblique TF/SF corrections, one row of the wrapper's (K, level_len)
-// pack per level (cpml.cuh). The TPU kernel's dft_runtime and runtime_*
-// options are not part of this kernel.
+// pack per level (cpml.cuh). The TPU kernel's dft_runtime and its x-side
+// runtime options (x_extra, runtime_xprof, runtime_oblique) are not part of
+// this kernel.
+//
+// K4e lateral (fdtd_cpmlk_blocked, the window entry of K7): the TPU
+// kernel's lateral runtime options (runtime_edges, runtime_tfsf, y_halo,
+// runtime_ystrips, runtime_box_lat, runtime_lat) let one build run on a
+// block of y rows. Here the window is a lattice of its own: the wrapper
+// gathers its rows, shifts the TF/SF box, the sources, the region and the
+// row coordinates into its frame and gives it the y profiles of its own
+// ends (solver/cuda_cpml_blocked.py), so the kernel needs only JAX's y_halo
+// mask: the options count the owned rows alone (cpmlk_owned_kernel, two
+// more instantiations; the windows without options run K4's core kernel).
 //
 // Bound on the H100: device memory, as K3 (cpml.cu). This first version
 // runs each tick as K3's tile pass (cpml.cuh) and does not block in time:
@@ -59,20 +70,16 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// At most 64 registers (4 resident blocks per SM). Uncapped, ptxas gives
-// this kernel 99 registers (2 blocks per SM, against K3's 40 registers and
-// 6 blocks); with the cap and its spills it ran 1.40x faster at 512^3 with
-// Cpml.uniform(10), and caps for 5 or 6 blocks spill more and ran slower
-// there (tools/k4_variants.py; PERF.md).
-template <typename T, bool OPT, bool EXT>
-__global__ void __launch_bounds__(yee::THREADS, 4)
-cpmlk_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
-             yee::Fields<float> w2, yee::Fields<T> out, yee::Lattice L,
-             yee::Material M, yee::Sources S, int k, int with_m, yee::Work w,
-             const __grid_constant__ cpml::Profiles P,
-             const __grid_constant__ cpml::Psi Q, cpml::Tfsf tf,
-             const __grid_constant__ cpmlk::Options A,
-             const __grid_constant__ cpml::Ext X) {
+// The K levels of a call, shared by K4's kernel and K4e's window kernel
+// (OWNED: the options count rows [o0, o1) alone, cpmlk.cuh); inlined into
+// each, so K4's kernel keeps its parameters and its code.
+template <typename T, bool OPT, bool EXT, bool OWNED>
+__device__ __forceinline__ void run_levels(
+    yee::Fields<const T> in, yee::Fields<float> w1, yee::Fields<float> w2,
+    yee::Fields<T> out, const yee::Lattice& L, const yee::Material& M,
+    const yee::Sources& S, int k, int with_m, const yee::Work& w,
+    const cpml::Profiles& P, const cpml::Psi& Q, const cpml::Tfsf& tf,
+    const cpmlk::Options& A, const cpml::Ext& X, int o0, int o1) {
   // with the options at bf16 storage, level K goes to work set 2 in f32
   // (the epilogue rounds it into the output); at f32 storage work set 2
   // is the output
@@ -109,8 +116,9 @@ cpmlk_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
       if constexpr (OPT) {
         // the level's f32 fields: work set 1 when K - lvl is odd, else work
         // set 2 (the output at f32 storage)
-        cpmlk::epilogue<float, T>(yee::as_const(odd ? w1 : w2), out, f32_last && lvl == k,
-                                  L, A, lvl - 1, y0, z0, x_lo, x_hi, item % A.n_tiles);
+        cpmlk::epilogue<float, T, OWNED>(yee::as_const(odd ? w1 : w2), out,
+                                         f32_last && lvl == k, L, A, lvl - 1, y0, z0,
+                                         x_lo, x_hi, item % A.n_tiles, o0, o1);
       }
     }
     if (lvl < k || OPT) grid.sync();
@@ -118,12 +126,50 @@ cpmlk_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
   if constexpr (OPT) cpmlk::reduce_flux(A, k, L.nx);
 }
 
+// At most 64 registers (4 resident blocks per SM). Uncapped, ptxas gives
+// this kernel 99 registers (2 blocks per SM, against K3's 40 registers and
+// 6 blocks); with the cap and its spills it ran 1.40x faster at 512^3 with
+// Cpml.uniform(10), and caps for 5 or 6 blocks spill more and ran slower
+// there (tools/k4_variants.py; PERF.md).
 template <typename T, bool OPT, bool EXT>
+__global__ void __launch_bounds__(yee::THREADS, 4)
+cpmlk_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
+             yee::Fields<float> w2, yee::Fields<T> out, yee::Lattice L,
+             yee::Material M, yee::Sources S, int k, int with_m, yee::Work w,
+             const __grid_constant__ cpml::Profiles P,
+             const __grid_constant__ cpml::Psi Q, cpml::Tfsf tf,
+             const __grid_constant__ cpmlk::Options A,
+             const __grid_constant__ cpml::Ext X) {
+  run_levels<T, OPT, EXT, false>(in, w1, w2, out, L, M, S, k, with_m, w, P, Q, tf, A, X,
+                                 0, 0);
+}
+
+// K4e lateral: K4 on a window of y rows (K7's blocks), its options counted
+// over the owned rows [o0, o1). One instantiation per storage type holds
+// the options and the region (as K4's EXT one); a window without either
+// runs K4's own core kernel.
+template <typename T>
+__global__ void __launch_bounds__(yee::THREADS, 4)
+cpmlk_owned_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
+                   yee::Fields<float> w2, yee::Fields<T> out, yee::Lattice L,
+                   yee::Material M, yee::Sources S, int k, int with_m, yee::Work w,
+                   const __grid_constant__ cpml::Profiles P,
+                   const __grid_constant__ cpml::Psi Q, cpml::Tfsf tf,
+                   const __grid_constant__ cpmlk::Options A,
+                   const __grid_constant__ cpml::Ext X, int o0, int o1) {
+  run_levels<T, true, true, true>(in, w1, w2, out, L, M, S, k, with_m, w, P, Q, tf, A, X,
+                                  o0, o1);
+}
+
+// OWNED: cpmlk_owned_kernel<T> (OPT and EXT) with the owned rows [o0, o1).
+template <typename T, bool OPT, bool EXT, bool OWNED = false>
 int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q,
            const cpml::Tfsf& tf, const float* table, int n_mat,
            const uint8_t* matid, const float* rows, int n_src, int row_w,
            int with_m, int k, int nx, int ny, int nz, float inv_x, float inv_y,
-           float inv_z, const cpmlk::Options& A, const cpml::Ext& X, cudaStream_t stream) {
+           float inv_z, const cpmlk::Options& A, const cpml::Ext& X, cudaStream_t stream,
+           int o0 = 0, int o1 = 0) {
+  static_assert(!OWNED || (OPT && EXT), "the owned kernel holds the options and the region");
   yee::Fields<const T> in{(const T*)f[0], (const T*)f[1], (const T*)f[2],
                           (const T*)f[3], (const T*)f[4], (const T*)f[5]};
   yee::Fields<T> out{(T*)f[6], (T*)f[7], (T*)f[8], (T*)f[9], (T*)f[10], (T*)f[11]};
@@ -137,7 +183,9 @@ int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q,
 
   yee::Work w;
   int blocks = 0;
-  cudaError_t err = yee::cooperative_plan(cpmlk_kernel<T, OPT, EXT>, L, w, blocks);
+  cudaError_t err;
+  if constexpr (OWNED) err = yee::cooperative_plan(cpmlk_owned_kernel<T>, L, w, blocks);
+  else err = yee::cooperative_plan(cpmlk_kernel<T, OPT, EXT>, L, w, blocks);
   if (err != cudaSuccess) return (int)err;
   cpmlk::Options a = A;
   if (EXT && a.n_tiles == 0) a.n_tiles = w.n_ty * w.n_tz;  // no accumulator option
@@ -146,9 +194,13 @@ int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q,
   cpml::Psi q = Q;
   cpml::Tfsf t = tf;
   cpml::Ext x = X;
-  void* args[] = {&in, &w1, &w2, &out, &L, &M, &S, &k, &with_m, &w, &p, &q, &t, &a, &x};
-  err = cudaLaunchCooperativeKernel((const void*)cpmlk_kernel<T, OPT, EXT>, dim3(blocks),
-                                    dim3(yee::TZ, yee::TY), args, 0, stream);
+  void* args[] = {&in, &w1, &w2, &out, &L, &M, &S, &k, &with_m, &w, &p, &q, &t, &a, &x,
+                  &o0, &o1};  // the owned rows: cpmlk_owned_kernel's last two
+  const void* kernel;
+  if constexpr (OWNED) kernel = (const void*)cpmlk_owned_kernel<T>;
+  else kernel = (const void*)cpmlk_kernel<T, OPT, EXT>;
+  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(yee::TZ, yee::TY), args, 0,
+                                    stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -200,6 +252,45 @@ int fdtd_cpmlk(int dtype, void** fields, void** psi, void** prof,
     return has_ext ? CPMLK_LAUNCH(__nv_bfloat16, true, true)
                    : (opt ? CPMLK_LAUNCH(__nv_bfloat16, true, false)
                           : CPMLK_LAUNCH(__nv_bfloat16, false, false));
+#undef CPMLK_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// K4e lateral, for K7 (solver/cuda_cpml_blocked.py): fdtd_cpmlk's
+// arguments on one window of y rows, then the window's owned rows
+// [o0, o1), over which the options count (cpmlk.cuh). A window with
+// options or a region runs cpmlk_owned_kernel; one with neither, K4's own
+// core kernel (the owned rows change nothing there).
+int fdtd_cpmlk_blocked(int dtype, void** fields, void** psi, void** prof,
+                       const int* ext, const float* table, int n_mat,
+                       const uint8_t* matid, const float* rows, int n_src, int row_w,
+                       int with_m, const float* aux, int aux_len, const int* tf, int k,
+                       int nx, int ny, int nz, float inv_x, float inv_y, float inv_z,
+                       const int* opt_meta, void** opt_ptrs, const int* ext_meta,
+                       void** ext_ptrs, int o0, int o1, void* stream) {
+  if (n_mat < 1 || n_mat > yee::MAX_MATERIALS || k < 2 || o0 < 0 || o1 <= o0 || o1 > ny)
+    return (int)cudaErrorInvalidValue;
+  const cpml::Profiles P = cpml::make_profiles(prof, ext);
+  const cpml::Psi Q = cpml::make_psi(psi, 3);
+  const cpml::Tfsf F = cpml::make_tfsf(aux, aux_len, tf);
+  cpmlk::Options A{};
+  const bool opt = opt_meta != nullptr;
+  if (opt && !cpmlk::make_options(opt_meta, opt_ptrs, A)) return (int)cudaErrorInvalidValue;
+  cpml::Ext X{};
+  X.D.axis = -1;
+  const bool has_ext = ext_meta != nullptr;
+  if (has_ext && !cpml::make_ext(ext_meta, ext_ptrs, 3, X)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define CPMLK_LAUNCH(T, O, E, W)                                                 \
+  launch<T, O, E, W>(fields, P, Q, F, table, n_mat, matid, rows, n_src, row_w,   \
+                     with_m, k, nx, ny, nz, inv_x, inv_y, inv_z, A, X, s, o0, o1)
+  const bool owned = opt || has_ext;
+  if (dtype == 0)
+    return owned ? CPMLK_LAUNCH(float, true, true, true)
+                 : CPMLK_LAUNCH(float, false, false, false);
+  if (dtype == 1)
+    return owned ? CPMLK_LAUNCH(__nv_bfloat16, true, true, true)
+                 : CPMLK_LAUNCH(__nv_bfloat16, false, false, false);
 #undef CPMLK_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -2,6 +2,12 @@
 // captures), shared by the out-of-place kernel (cpmlk.cu) and the in-place
 // one (cpmlk_inplace.cu): the per-level epilogue, the flux rows' reduction
 // and the C layout. See cpmlk.cu for what each option computes.
+//
+// OWNED (K4e lateral, cpmlk.cu's window entry for K7): the lattice is a
+// window of y rows of a larger one, and only its owned rows [o0, o1) count:
+// the flux partials sum them alone and the row captures write them alone
+// (JAX's y_halo masks). DFT planes take every row of the window; the
+// wrapper keeps the owned ones.
 #pragma once
 
 #include "yee.cuh"
@@ -38,15 +44,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Level lvl's (0-based) options over tile (y0, z0) and planes [x_lo, x_hi):
 // f holds the level's fields (cpmlk.cu: its f32 work set; in place: the
 // state); with `copy` (cpmlk.cu at bf16 storage, last level) they are also
-// rounded into `out`. Called by every thread of the block.
-template <typename F, typename T>
+// rounded into `out`. OWNED: only rows [o0, o1) count (see above). Called
+// by every thread of the block.
+template <typename F, typename T, bool OWNED = false>
 __device__ void epilogue(yee::Fields<const F> f, yee::Fields<T> out, bool copy,
                          const yee::Lattice& L, const Options& A, int lvl,
-                         int y0, int z0, int x_lo, int x_hi, int tile) {
+                         int y0, int z0, int x_lo, int x_hi, int tile, int o0 = 0,
+                         int o1 = 0) {
   __shared__ float red[2 * MAX_Q * yee::TY];
   const int tz = threadIdx.x, ty = threadIdx.y;
   const int y = y0 + ty, z = z0 + tz;
   const bool own = y < L.ny && z < L.nz;
+  const bool counted = own && (!OWNED || (y >= o0 && y < o1));
   const long long plane = (long long)L.ny * L.nz;
   const long long cell = (long long)y * L.nz + z;
 
@@ -109,7 +118,7 @@ __device__ void epilogue(yee::Fields<const F> f, yee::Fields<T> out, bool copy,
     }
     for (int r = 0; r < A.n_rows; ++r) {
       const bool y_row = A.row_kind[r] == 1;
-      if (!own || (y_row ? y : z) != A.row_at[r]) continue;
+      if (!counted || (y_row ? y : z) != A.row_at[r]) continue;
       const long long lat = y_row ? L.nz : L.ny;
       float* dst = A.cap[r] + ((long long)lvl * L.nx + p) * 6 * lat + (y_row ? z : y);
       dst[0] = ex; dst[lat] = ey; dst[2 * lat] = ez;
@@ -124,6 +133,7 @@ __device__ void epilogue(yee::Fields<const F> f, yee::Fields<T> out, bool copy,
       if (!(live >> q & 1u)) continue;
       const int kind = A.q_kind[q], at = A.q_at[q];
       float v = kind == 0 ? sx : (kind == 1 ? (y == at ? sy : 0.f) : (z == at ? sz : 0.f));
+      if (OWNED && !counted) v = 0.f;
       v = warp_sum(v);  // a warp is one tile row (TZ = 32)
       if (tz == 0) rd[q * yee::TY + ty] = v;
     }

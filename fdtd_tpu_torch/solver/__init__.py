@@ -1,5 +1,6 @@
 from .boundary import BoundaryConditions, Dirichlet, Neumann, default_boundaries
 from .cpml import Cpml
+from .cuda_cpml_blocked import BlockedPlan, blocked_plan, cuda_cpml_blocked_stepk_fn
 from .cuda_cpml_gb import cuda_cpml_gb_stepk_fn, gb_plan
 from .cuda_cpml_k import cuda_cpml_stepk_fn, supports_cpml_k
 from .cuda_cpml_xz import XzPlan, cuda_cpml_xz_stepk_fn, xz_plan
@@ -41,6 +42,9 @@ __all__ = [
     "cuda_cpml_xz_stepk_fn",
     "xz_plan",
     "XzPlan",
+    "cuda_cpml_blocked_stepk_fn",
+    "blocked_plan",
+    "BlockedPlan",
     "EngineState",
     "build_step",
     "init_engine_state",

@@ -8,7 +8,8 @@ source never loads a stale build. A source may hold several entry points
 (K1's and K2's in-place variants beside them), each a ``Kernel`` with its
 own launch count; they share one build. K4's in-place variant has a source
 of its own, so that it builds beside K4 and not after it, and so have K6's
-(``cpmlk_gb.cu``) and K5's (``cpmlk_xz.cu``), which share a header.
+(``cpmlk_gb.cu``) and K5's (``cpmlk_xz.cu``), which share a header. K4e's
+lateral window entry (K7's) is a second entry point of K4's ``cpmlk.cu``.
 Nothing here runs at import time.
 """
 
@@ -27,7 +28,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["Kernel", "STEP", "STEPK", "STEP_INPLACE", "STEPK_INPLACE", "CPML",
-           "CPMLK", "CPMLK_INPLACE", "CPMLK_GB", "CPMLK_XZ", "KERNELS", "BUILD_DIR"]
+           "CPMLK", "CPMLK_INPLACE", "CPMLK_GB", "CPMLK_XZ", "CPMLK_BLOCKED", "KERNELS",
+           "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fdtd_tpu_torch"
@@ -207,5 +209,11 @@ CPMLK_XZ = Kernel("K5 cpmlk_xz", "cpmlk_xz.cu", "fdtd_cpmlk_xz",
                   [_I, _PP, _PP, _PP, _PI, _P, _I, _P, _P, _I, _I, _I, _P, _I, _PI,
                    _I, _I, _I, _I, _F, _F, _F, _PI, _I, _PI, _PP, _P, _P])
 
+# fdtd_cpmlk_blocked: fdtd_cpmlk's arguments on one window of y rows, then
+# its owned rows o0, o1 before the stream (K4e lateral, cpmlk.cu's second
+# entry point: K7's windows, solver/cuda_cpml_blocked.py)
+CPMLK_BLOCKED = Kernel("K4e lateral", "cpmlk.cu", "fdtd_cpmlk_blocked",
+                       CPMLK.argtypes[:-1] + [_I, _I, _P])
+
 KERNELS = (STEP, STEPK, CPML, CPMLK, STEP_INPLACE, STEPK_INPLACE, CPMLK_INPLACE, CPMLK_GB,
-           CPMLK_XZ)
+           CPMLK_XZ, CPMLK_BLOCKED)

@@ -347,20 +347,28 @@ def plain_cpml_step(state: EngineState, table: torch.Tensor,
 
 def launch_cpml(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup,
                 k_steps: int, dtype, table, matid, sources, with_m,
-                options=None, inplace: bool = False) -> EngineState:
+                options=None, inplace: bool = False, *, levels=None,
+                owned=()) -> EngineState:
     """Launch K3 (``k_steps`` == 1) or K4 on a CUDA state; ``inplace``: K4's
     in-place build (``kernel`` is ``_build.CPMLK_INPLACE``), which writes
     the state's own fields, psi slabs and region psi and takes no work set.
     ``options``: K4's accumulator options as (meta, pointers) C arrays
-    (csrc/cpmlk.cuh::make_options), or None."""
+    (csrc/cpmlk.cuh::make_options), or None. K7's windows
+    (solver/cuda_cpml_blocked.py) pass the call's ``levels`` = (source rows,
+    TF/SF pack or None, new aux_e, new aux_h), made once for all blocks
+    (``sources`` is then not read), and their ``owned`` rows (o0, o1)."""
     nx, ny, nz = setup.shape
     prof, aux = setup.on(state.device)
     aux_e, aux_h = state.aux_e, state.aux_h
     pack, aux_len = None, 0
-    if setup.tfsf is not None:
-        pack, aux_e, aux_h = setup.aux_levels(state, aux, k_steps)
+    if levels is not None:
+        rows, pack, aux_e, aux_h = levels
+    else:
+        if setup.tfsf is not None:
+            pack, aux_e, aux_h = setup.aux_levels(state, aux, k_steps)
+        rows = build_src_rows(sources, state.tick, k_steps, with_m, setup.dt)
+    if pack is not None:
         aux_len = pack.shape[1]
-    rows = build_src_rows(sources, state.tick, k_steps, with_m, setup.dt)
     fields = (*state.e, *state.h)
     psi_in = psi_tensors(state)
     live = [p.dim() > 0 and p.numel() > 0 for p in psi_in]
@@ -419,7 +427,7 @@ def launch_cpml(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup,
     args += [nx, ny, nz, *setup.inv_dx]
     if k_steps > 1:
         args += [None, None] if options is None else list(options)
-    args += [setup.ext_meta, ext_ptrs, _build.stream_handle(state.device)]
+    args += [setup.ext_meta, ext_ptrs, *owned, _build.stream_handle(state.device)]
     kernel.launch(*args)
     del pack, ob_pack
     pairs = list(zip(psi_out[0::2], psi_out[1::2]))

@@ -252,9 +252,17 @@ def build_step(
     if tfsf is not None:
         aux_np = aux_coefficients(tfsf, shape[0], inv_dx[0], dt, constants)
         lo, hi = tfsf.span
+        y_faces = ()
         if tfsf.is_box:
             (ylo, yhi), (zlo, zhi) = tfsf.span_y, tfsf.span_z
             xs, ys, zs = slice(lo, hi + 1), slice(ylo, yhi + 1), slice(zlo, zhi + 1)
+            y_faces = ((ylo, 1.0), (yhi + 1, -1.0))
+            if getattr(tfsf, "in_window", False):
+                # a box in the frame of a window of y rows (K7's blocks,
+                # solver/cuda_cpml_blocked.py) may hold part of the box: its
+                # span clamps to the rows, and a y face off them is not applied
+                ys = slice(min(max(ylo, 0), shape[1]), min(max(yhi + 1, 0), shape[1]))
+                y_faces = tuple((y, sign) for y, sign in y_faces if 0 <= y < shape[1])
         else:
             xs, ys, zs = slice(lo, hi + 1), slice(None), slice(None)
     if dense is not None:
@@ -386,9 +394,9 @@ def build_step(
                 # Ez = aux_e[x] across the boundary (varies along x only)
                 ez_inc = aux_e[xs][:, None] * inv_dx[1]
                 hx = h[0]
-                hx[xs, ylo, zs] += _coef_block(coeffs.d_b, xs, ylo, zs) * ez_inc
-                hx[xs, yhi + 1, zs] += -_coef_block(coeffs.d_b, xs, yhi + 1, zs) \
-                    * ez_inc
+                for y, sign in y_faces:
+                    d_b = _coef_block(coeffs.d_b, xs, y, zs)
+                    hx[xs, y, zs] += d_b * ez_inc if sign > 0 else -d_b * ez_inc
             aux_e, aux_h = tfsf.aux_step(aux_e, aux_h, aux_coeffs, t, inv_dx[0])
 
         if m_vals is not None:

@@ -618,3 +618,146 @@ def test_k5_matches_plain_k6_and_k4(cuda_device, dtype, case, k):
     for other in others:
         for a, b in zip(_written(got), _written(other)):
             assert torch.equal(a, b)
+
+
+# -- K7 (solver/cuda_cpml_blocked.py): chip_smoke.k7_self_checks' case on
+# the card. A lattice ragged in x and z whose ny takes n_b = 2 and 4, CPML
+# on every axis, a box TF/SF whose y faces straddle the cuts, a material
+# index, J+M sources on and beside every cut; "options": also a region
+# graded along y across the cut at y = 32 and K4's options with lines on
+# both sides of the cuts (K4e's owned instantiation; "core" runs K4's core
+# kernel in each window)
+
+K7_SHAPE = (37, 64, 53)
+K7_TFSF = pt.Tfsf(span=(8, 27), waveform=pt.GaussianDerivative(6 * DT, 2 * DT),
+                  span_y=(14, 40), span_z=(3, 40))
+K7_OPTIONS = dict(flux_faces=(("x",), ("y", 31), ("y", 32), ("z", 20)),
+                  dft=(((5, 0), (20, 1)), (0.02, 0.05)),
+                  dft_rows=(("y", 15), ("y", 16), ("z", 30), ("y", 47)))
+
+
+def _k7_inputs(dtype, device, options):
+    """(host, device) inputs of the K7 case: (state, coeffs, sources,
+    wrapper arguments, options)."""
+    from fdtd_tpu_torch.scene import Ball
+
+    rng = np.random.default_rng(19)
+    kw = dict(inv_dx=INV_DX, dt=DT, constants=pt.REDUCED, cpml=CPML, tfsf=K7_TFSF,
+              dtype=dtype, with_m=True, n_materials=3)
+    opts = {}
+    if options:
+        box = ((10, 26), (24, 40), (28, 45))
+        ctr = np.array([[18.0], [32.0], [36.5]])
+        d_h, d_e = pt.depth_from_contains(lambda p: Ball(7.0).contains(p - ctr), box, 1, 1)
+        kw["dense"] = pt.dense_pml_from_depth(1, box, d_h, d_e,
+                                              spec=pt.solver.GradedPmlSpec(),
+                                              dx=1.0 / INV_DX[1], dt=DT, constants=pt.REDUCED)
+        opts = K7_OPTIONS
+    s = pt.init_engine_state(K7_SHAPE, dtype, cpml=CPML, tfsf=K7_TFSF, dense=kw.get("dense"),
+                             device="cpu")
+
+    def rand(t):
+        return torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)).to(t.dtype)
+
+    s = s.replace(**{f: rand(getattr(s, f)) for f in ("ex", "ey", "ez", "hx", "hy", "hz")},
+                  psi_h=tuple((rand(a), rand(b)) for a, b in s.psi_h),
+                  psi_e=tuple((rand(a), rand(b)) for a, b in s.psi_e),
+                  aux_e=rand(s.aux_e), aux_h=rand(s.aux_h),
+                  psi_d=tuple(rand(p) for p in s.psi_d), tick=2)
+    if options:
+        n = 6 * len(K7_OPTIONS["dft"][1])
+        s = s.replace(dft=tuple(torch.from_numpy(rng.standard_normal(
+            (n, *K7_SHAPE[1:])).astype(np.float32)) for _ in K7_OPTIONS["dft"][0]))
+    mid = torch.from_numpy(rng.integers(0, 3, K7_SHAPE).astype(np.uint8))
+    src = pt.SourceSet.build([
+        pt.PointSource((5 + i, c + dy, 7 + 11 * i), pt.GaussianPulse(2 * DT, DT),
+                       j=(0.2, 0.7, -0.5), m=(-0.3, 0.1, 0.4))
+        for i, (c, dy) in enumerate((c, dy) for c in (16, 32, 48) for dy in (-8, -1, 0, 1, 7))],
+        device="cpu")
+    coeffs = torch.tensor(TABLE)
+
+    def to(t):
+        return t.to(device) if torch.is_tensor(t) else t
+
+    dev = s.replace(**{f: to(getattr(s, f)) for f in ("ex", "ey", "ez", "hx", "hy", "hz",
+                                                        "aux_e", "aux_h")},
+                    psi_h=tuple((to(a), to(b)) for a, b in s.psi_h),
+                    psi_e=tuple((to(a), to(b)) for a, b in s.psi_e),
+                    psi_d=tuple(to(p) for p in s.psi_d), dft=tuple(to(a) for a in s.dft))
+    return ((s, coeffs, src, dict(kw, matid=mid), opts),
+            (dev, coeffs.to(device), src.to(device), dict(kw, matid=mid.to(device)), opts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("options", [False, True], ids=["core", "options"])
+@pytest.mark.parametrize("k, n_b", [(2, 2), (4, 4), (8, 2), (8, 4)])
+def test_k7_matches_plain_k4_and_k4_inplace(cuda_device, dtype, options, k, n_b):
+    """K7: one call counts once and launches K4e once per block; fields
+    against its plain version within 2e-5 x max|field| at f32 and one bf16
+    step at bf16, psi and region psi within 2e-5 x their max, the options at
+    K4's bars (flux rows 2e-5 of max|row|, DFT planes 3e-6, captures 5e-6);
+    against K4 and, at f32, K4 io_alias on the same inputs every field, psi
+    slab, region psi, DFT plane and capture bit-identical, the flux rows
+    within K4a's 2e-5 (the blocks' partial sums add in another order)."""
+    from fdtd_tpu_torch.solver import cuda_cpml_blocked
+    from fdtd_tpu_torch.solver.cuda_cpml_blocked import cuda_cpml_blocked_stepk_fn
+
+    (hs, hc, hsrc, hkw, opts), (ds, dc, dsrc, dkw, _) = _k7_inputs(dtype, cuda_device,
+                                                                   options)
+    want, w_extra = _outputs(cuda_cpml_blocked_stepk_fn(K7_SHAPE, k, n_b, device="cpu", **hkw,
+                                                        **opts)(hs, hc, hsrc))
+    before = cuda_cpml_blocked.launches(), cuda_cpml_blocked.launches(window=True)
+    step = cuda_cpml_blocked_stepk_fn(K7_SHAPE, k, n_b, device=cuda_device, **dkw, **opts)
+    got, extra = _outputs(step(ds, dc, dsrc))
+    assert (cuda_cpml_blocked.launches(), cuda_cpml_blocked.launches(window=True)) == (
+        before[0] + 1, before[1] + n_b)
+    _check_engine(got, want, dtype, k, 2e-5)
+    flux = 1 if options else 0
+    for j, (a, b) in enumerate(zip(extra, w_extra)):
+        if j < flux:
+            for q in range(a.shape[2]):
+                assert _scaled_err(a[:, :, q], b[:, :, q]) <= 2e-5
+        else:
+            assert _scaled_err(a, b) <= 5e-6
+    for a, b in zip(got.dft, want.dft):
+        assert _scaled_err(a, b) <= 3e-6
+    refs = [cuda_cpml_stepk_fn(K7_SHAPE, k, **dkw, **opts)(ds, dc, dsrc)]
+    if dtype == torch.float32:
+        refs.append(cuda_cpml_stepk_fn(K7_SHAPE, k, io_alias=True, **dkw, **opts)(
+            ds.replace(**{f: getattr(ds, f).clone() for f in ("ex", "ey", "ez", "hx", "hy",
+                                                              "hz")},
+                       psi_h=tuple((a.clone(), b.clone()) for a, b in ds.psi_h),
+                       psi_e=tuple((a.clone(), b.clone()) for a, b in ds.psi_e),
+                       psi_d=tuple(p.clone() for p in ds.psi_d)), dc, dsrc))
+    for ref in refs:
+        r_state, r_extra = _outputs(ref)
+        for a, b in zip((*_written(got), *got.dft), (*_written(r_state), *r_state.dft)):
+            assert torch.equal(a, b)
+        for j, (a, b) in enumerate(zip(extra, r_extra)):
+            if j < flux:
+                for q in range(a.shape[2]):
+                    assert _scaled_err(a[:, :, q], b[:, :, q]) <= 2e-5
+            else:
+                assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k7_refuses_what_it_does_not_take(cuda_device):
+    """An oblique TF/SF, y slabs outside the end blocks, ny not divisible
+    by n_b, and a state on another device than the step's."""
+    from fdtd_tpu_torch.solver.cuda_cpml_blocked import cuda_cpml_blocked_stepk_fn
+
+    kw = dict(inv_dx=INV_DX, dt=DT, constants=pt.REDUCED)
+    with pytest.raises(ValueError, match="oblique"):
+        cuda_cpml_blocked_stepk_fn(SHAPE, 2, 2, cpml=CPML, tfsf=OBLIQUE, device=cuda_device,
+                                   **kw)
+    with pytest.raises(ValueError, match="does not support"):
+        cuda_cpml_blocked_stepk_fn((37, 32, 53), 2, 4, cpml=pt.Cpml(((0, 0), (7, 7), (0, 0))),
+                                   device=cuda_device, **kw)
+    with pytest.raises(ValueError, match="does not support"):
+        cuda_cpml_blocked_stepk_fn(SHAPE, 2, 2, cpml=CPML, device=cuda_device, **kw)
+    step = cuda_cpml_blocked_stepk_fn(K7_SHAPE, 2, 2, cpml=CPML, device=cuda_device, **kw)
+    state = pt.init_engine_state(K7_SHAPE, cpml=CPML, device="cpu")
+    with pytest.raises(ValueError, match="built for"):
+        step(state, pt.CellCoefficients.uniform((1.0, DT, 1.0, DT), device="cpu"), None)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Check K5 and K6 (the window CPML kernels) and time them at every K on one CUDA card.
 
-    python3 tools/k6_sweep.py [--seed N] [--large] [--baseline DIR] [--checks-only]
+    python3 tools/k6_sweep.py [--seed N] [--large] [--checks-only]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc. It
 builds K4, K4 io_alias, K6 and K5 (one nvcc each, in parallel) and prints
@@ -23,17 +23,16 @@ out-of-place K4 at bf16 (K = 8):
 
 Each group ends with a ``route`` line: the fastest K5 and K6 entry against
 the reference, and whether either is at least 5 % faster (Simulation's
-route rule). ``--baseline DIR`` (a csrc directory of another version, e.g.
-the parent's: ``git archive HEAD fdtd_tpu_torch/csrc | tar -x -C
-build/parent``) builds that version's K6 beside these, prints its ptxas
-lines, requires its outputs to equal this K6's bit for bit on the self-check
-states, and times it in turns at 512^3 f32. ``--checks-only`` stops after
-the builds and checks.
+route rule). ``--checks-only`` stops after the builds and checks. To hold
+K4, K4 io_alias, K6 and K5 to another version's build, use
+``tools/k7_sweep.py --baseline DIR``.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -47,12 +46,8 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 import fdtd_tpu_torch as ft  # noqa: E402
 from fdtd_tpu_torch.solver import _build  # noqa: E402
-from fdtd_tpu_torch.solver.cuda_cpml import CpmlSetup, psi_tensors  # noqa: E402
-from fdtd_tpu_torch.solver.cuda_cpml_gb import (  # noqa: E402
-    cuda_cpml_gb_stepk_fn,
-    gb_plan,
-    launch_window,
-)
+from fdtd_tpu_torch.solver.cuda_cpml import CpmlSetup  # noqa: E402
+from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn, gb_plan  # noqa: E402
 from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn  # noqa: E402
 from fdtd_tpu_torch.solver.cuda_cpml_xz import (  # noqa: E402
     XzPlan,
@@ -65,9 +60,27 @@ from fdtd_tpu_torch.solver.cuda_step import kernel_table  # noqa: E402
 ROUTE_MARGIN = 1.05
 
 
-def ptxas_lines(kernel) -> str:
-    return " | ".join(ln.strip() for ln in kernel.build_log.splitlines()
-                      if "registers" in ln or "spill" in ln or "Compiling entry" in ln)
+def entry_name(mangled: str) -> str:
+    """A mangled entry name without its anonymous namespace, whose name
+    carries a hash of the file (``_ZN40_GLOBAL__N__<hash>_8_cpmlk_cu_<hash>``)."""
+    m = re.match(r"_ZN(\d+)_GLOBAL__N_", mangled)
+    if m is None:
+        return mangled
+    return "_ZN" + mangled[3 + len(m.group(1)) + int(m.group(1)):]
+
+
+def ptxas_entries(log: str) -> dict:
+    """{entry function: its ptxas lines (stack, spills, registers)} of an
+    nvcc -Xptxas -v log."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = entry_name(m.group(1))
+            out[name] = []
+        elif name and ("spill" in ln or "registers" in ln):
+            out[name].append(re.sub(r"\s+", " ", ln.split(":", 1)[-1]).strip())
+    return {k: " | ".join(v) for k, v in out.items()}
 
 
 def uniform_setup(shape, dtype, dev):
@@ -117,17 +130,19 @@ def in_turns_fresh(named, shape, kw, dev, n):
     out = {name: [] for name, _, _ in named}
     for order in (named, named[::-1]):
         for name, fn, _ in order:
-            out[name].append(cs.cuda_ms(torch, fn, make_state(shape, kw, dev), n))
+            gc.collect()
             torch.cuda.empty_cache()
+            out[name].append(cs.cuda_ms(torch, fn, make_state(shape, kw, dev), n))
     return out
 
 
-def route_line(key, group, ref):
-    """The fastest K5 and K6 entries against the reference ``ref``."""
+def route_line(key, group, ref, kernels=("K5", "K6")):
+    """The fastest entry of each of ``kernels`` against the reference
+    ``ref`` (timing-only builds, "one zone ...", left out)."""
     ref_g = group[ref]["gcells"]
     line = []
-    for kernel in ("K5", "K6"):
-        names = [nm for nm in group if nm.startswith(f"{kernel} K=") and " " not in nm[5:]]
+    for kernel in kernels:
+        names = [nm for nm in group if nm.startswith(f"{kernel} K=") and "one zone" not in nm]
         best = max(names, key=lambda nm: group[nm]["gcells"])
         ratio = group[best]["gcells"] / ref_g
         line.append(f"{kernel} best {best} {group[best]['gcells']:.3f} Gcell/s = "
@@ -162,9 +177,9 @@ def sweep(key, shape, dtype, setup, ks, dev, n=4, extra=None, fresh=False):
     return group
 
 
-def surgery(baseline_kernel):
+def surgery():
     """The 512^3 f32 Cpml.uniform(10) extras: K5 as one zone with and
-    without the x terms, and the baseline K6."""
+    without the x terms."""
 
     def extra(named, kw, coeffs):
         dev = torch.device("cuda")
@@ -175,69 +190,14 @@ def surgery(baseline_kernel):
                 f = zone_step(shape, k, ((0, nx, xpsi),), kw, coeffs, dev)
                 named.append((f"K5 K={k} one zone {'with' if xpsi else 'without'} x terms",
                               f, k))
-            if baseline_kernel is not None:
-                named.append((f"K6 K={k} baseline", baseline_step(baseline_kernel, shape, k,
-                                                                  kw, coeffs, dev), k))
 
     return extra
-
-
-def baseline_step(kernel, shape, k, kw, coeffs, dev):
-    """Another version's K6 (same C interface) through K6's launch."""
-    plan = gb_plan(shape, ft.BoundaryConditions(), kw["cpml"], k, dtype=kw["dtype"])
-    setup = CpmlSetup(shape, kw["inv_dx"], kw["dt"], kw["constants"], kw["cpml"],
-                      kw.get("tfsf"))
-
-    def step(s, src=None, with_m=False):
-        table = kernel_table(coeffs, kw.get("matid"), dev)
-        return launch_window(kernel, s, setup, k, plan.scratch_floats, kw["dtype"], table,
-                             kw.get("matid"), src, with_m)
-
-    return step
-
-
-def baseline_checks(kernel, seed):
-    """The baseline K6 against this K6 on gb_self_checks' cases (random
-    states, J+M sources), every K, f32 and bf16: bit for bit."""
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    sim = cs.flagship(ft, cs.LADDER_CHECK_SHAPE, torch.float32, dev)
-    dt = sim.grid.dt
-    cpml = ft.Cpml(thickness=((4, 3), (3, 5), (5, 4)))
-    tfsf = ft.Tfsf(span=(8, 27), waveform=ft.GaussianDerivative(6 * dt, 2 * dt),
-                   span_y=(8, 23), span_z=(3, 40))
-    src = cs.ragged_sources(ft, cs.LADDER_CHECK_SHAPE, dt, dev)
-    main = cs.config3(ft, cs.ABSORB_SHAPE, torch.float32, dev)
-    cases = ((sim, cpml, tfsf, src),
-             (main, main.cpml, main.tfsf, cs.gb_sources(ft, cs.ABSORB_SHAPE, main.grid.dt, dev)))
-    same = n = 0
-    for s, cp, tf, sr in cases:
-        shape = s.grid.shape
-        table = s._table_f32
-        for dtype in (torch.float32, torch.bfloat16):
-            state = cs.random_engine_state(torch, ft, s, dtype, cp, tf, gen)
-            kw = dict(inv_dx=tuple(1.0 / d for d in s.grid.dx), dt=s.grid.dt,
-                      constants=ft.REDUCED, cpml=cp, tfsf=tf, matid=s.matid,
-                      n_materials=table.shape[0], dtype=dtype)
-            for k in cs.GB_KS:
-                a = cuda_cpml_gb_stepk_fn(shape, k, device=dev, with_m=True, **kw)(
-                    state, table, sr)
-                b = baseline_step(kernel, shape, k, kw, table, dev)(state, sr, True)
-                ok = all(torch.equal(x, y) for x, y in zip(
-                    (*a.e, *a.h, *psi_tensors(a)), (*b.e, *b.h, *psi_tensors(b))))
-                same += ok
-                n += 1
-            del state
-    cs.log(f"baseline K6: {same} of {n} checks bit-identical to this K6 (fields and psi)")
-    cs.require(same == n, "this K6 differs from the baseline's")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--large", action="store_true", help="add config 3 at 1024^3 f32")
-    ap.add_argument("--baseline", type=Path, help="another version's csrc directory")
     ap.add_argument("--checks-only", action="store_true", help="stop after the checks")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -250,29 +210,22 @@ def main() -> int:
            f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     kernels = [_build.CPMLK, _build.CPMLK_INPLACE, _build.CPMLK_GB, _build.CPMLK_XZ]
-    baseline = None
-    if args.baseline is not None:
-        baseline = _build.Kernel("K6 baseline", "cpmlk_gb.cu", "fdtd_cpmlk_gb",
-                                 _build.CPMLK_GB.argtypes, csrc=args.baseline.resolve(),
-                                 build_dir=_build.BUILD_DIR / "baseline")
-        kernels.append(baseline)
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda kernel: kernel.build(), kernels))
     for kernel in kernels:
         kernel.function()
         cs.log(f"build {kernel.name} ({kernel.source}): {kernel.build_seconds} s; "
-               + ptxas_lines(kernel))
+               + "; ".join(f"{f}: {lines}"
+                           for f, lines in ptxas_entries(kernel.build_log).items()))
     cs.gb_self_checks(torch, ft, args.seed)
     cs.xz_self_checks(torch, ft, args.seed)
-    if baseline is not None:
-        baseline_checks(baseline, args.seed)
     if args.checks_only:
         cs.log(card)
         return 0
     dev = torch.device("cuda")
     scale = cs.SCALE_SHAPE
     group = sweep("xz_512_float32", scale, torch.float32, uniform_setup, cs.GB_KS, dev,
-                  extra=surgery(baseline))
+                  extra=surgery())
     for k in cs.GB_KS:
         with_x = sum(group[f"K5 K={k} one zone with x terms"]["ms_per_call"]) / 2
         without = sum(group[f"K5 K={k} one zone without x terms"]["ms_per_call"]) / 2

@@ -47,7 +47,14 @@ Run from the root of a checkout. In order it
    within h of every cut; then with a DensePml region and K4's options
    across the cut) and at 256^3 with config 3's options, f32 and bf16,
    against its plain version, K4 and K4 io_alias (bit-identical but the
-   flux rows), and K4e alone on one window against its plain version;
+   flux rows), and K4e alone on one window against its plain version; K8
+   (the sharded one-tick kernel) over 2, 4 and 8 shards of the card on a
+   40x29x53 lattice with J sources on and beside every cut, against its
+   plain version (the plain sharded step) and K1 (bit for bit); K2
+   edge_planes (K9's passes) over 2 and 4 shards along x and a 2 x 2
+   (x, y) mesh on 40x32x53 at K = 2, 4, 8, f32 and bf16, J+M sources
+   within K of every cut, against K9's plain version and K2 (two passes,
+   bit for bit), and K2's default edge row against K2;
 4. runs the free-space main path: BASELINE config 2 at 128^3 (a dielectric
    sphere and a lossy slab in a uint8 material index, a Gaussian J dipole),
    built as __graft_entry__._flagship builds it, for 1000 ticks with a
@@ -59,7 +66,21 @@ Run from the root of a checkout. In order it
    io_alias (K = 8; at bf16 also K = 2) and K1 io_alias, with a live z
    slice after every K2 call; the central 256^3 crop must equal a 256^3
    run, every cell outside it must be 0, the peak memory at most one set
-   of fields plus 2 %, and every slice sample must keep its values;
+   of fields plus 2 %, and every slice sample must keep its values; then
+   config 5 split over 4 shards of the one card through
+   fdtd_tpu_torch.parallel.ShardedSimulation (planned "cuda_k" at K = 8:
+   K9, one K2 edge_planes launch per shard and pass): 1024^3 f32, 64 ticks
+   with a z slice through extract_slice after every call, the slices and
+   per-plane sums of squares bit-identical to the in-place K2 run above,
+   the peak at most the extended state plus one shard's call plus 2 %,
+   the exchange timed alone against whole passes; 512^3 bf16 on the same
+   mesh and 512^3 f32 on a 2 x 2 (x, y) mesh, each bit-identical to
+   single-device K2; K8 at 512^3 over 4 shards, 8 ticks, bit-identical to
+   K1; then config 3 at 1024^3 bf16 through the fit-aware
+   Simulation.run (the run whose K4 call at K = 8 does not fit beside its
+   state): the plan's pick on the card's free memory, 128 ticks with the
+   probe every 8, peak memory against the plan's byte model, bit-identical
+   to direct calls of the picked kernel and K;
 6. runs BASELINE config 3's absorbing run at 1024^3 f32 through
    Simulation.run, in place (K4 io_alias) on one copy of the caller's
    state: 128 ticks with its 3-point probe at K = 8 and at K = 2, whose
@@ -136,6 +157,9 @@ Run from the root of a checkout. In order it
    each K6 and K5 call's bound, K7 (K = 4, n_b = 2) and K4e alone (one
    window) with their plain versions beside K4 and K4 io_alias at 512^3
    f32, each with its bound (K7's with its gathers' and scatters' bytes),
+   K8 (a tick over 4 shards, one launch, the exchange) and K9 (a K = 8
+   pass over 4 shards, one K2 edge_planes launch, the exchange) with their
+   plain versions at 512^3 f32, each with its bound,
    and prints Gcell/s and the byte model's share of the H100's 3.35 TB/s;
 13. profiles 64 ticks of each absorbing run, of each accumulator route, of
    paths A and B and of the plain engine at 256^3 (torch.profiler) and
@@ -1569,7 +1593,9 @@ def config5_path(torch, ft):
     (f32: out of place; bf16: in place), every cell outside the crop 0, the
     peak memory at most one set of fields plus 2 %, and each slice sample
     equal to the 256^3 run's at its tick after later calls overwrote the
-    state."""
+    state. Returns (launches, numbers, the 1024^3 f32 K = 8 run's slices
+    (host) and per-plane sums of squares: sharded_config5_path's
+    reference)."""
     import gc
 
     f32 = torch.float32
@@ -1582,6 +1608,7 @@ def config5_path(torch, ft):
         refs[dtype, k] = (ref, ref_samples)
     launches = {"K1 io_alias": 0, "K2 io_alias": 0}
     gcells = {}
+    split_reference = None
     for n, dtype, k in runs:
         gc.collect()
         torch.cuda.empty_cache()
@@ -1628,11 +1655,14 @@ def config5_path(torch, ft):
                 f"{w}^3 run")
         require(outside == 0, f"{label}: {outside} nonzero cells outside the crop")
         require(slices_ok, f"{label}: a live slice lost its values")
+        if (n, dtype, k) == (SHARDED_N, f32, SHARDED_K):
+            # the split run's reference (sharded_config5_path)
+            split_reference = ([s.cpu() for s in samples], plane_squares(torch, state))
         del state, samples
     del refs
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, gcells
+    return launches, gcells, split_reference
 
 
 def plane_squares(torch, s, chunk=32):
@@ -2786,6 +2816,563 @@ def largest_config3(torch, ft, route, states):
                                  "limit_bytes": limit, "free_bytes": free}
 
 
+# -- the split lattice: K8, K2 edge_planes (K9), config 5 over shards ----------
+
+#: K8's self-check lattice and shard counts, K9's lattice and meshes
+#: ((shards, mesh axes)), and the Ks of both
+SHARDED_K8_SHAPE = (40, 29, 53)
+SHARDED_K8_SHARDS = (2, 4, 8)
+SHARDED_K8_TICKS = 4
+SHARDED_K9_SHAPE = (40, 32, 53)
+SHARDED_K9_MESHES = ((2, ("x",)), (4, ("x",)), (4, ("x", "y")))
+SHARDED_KS = (2, 4, 8)
+#: config 5 split over 4 shards of the one card at its top size (K = 8:
+#: nl = 256, nl + 2K = 272), then bf16 and the 2 x 2 (x, y) mesh at 512^3
+SHARDED_N = 1024
+SHARDED_SHARDS = 4
+SHARDED_K = 8
+
+
+def card_mesh(n, axes):
+    """A mesh of ``n`` shards, every one on the one card."""
+    from fdtd_tpu_torch.parallel import make_mesh
+
+    return make_mesh(n, axes, devices=["cuda"] * n)
+
+
+def cut_sources(ft, shape, cuts, k, dt, device, m=True):
+    """J (and, with ``m``, M) point sources on every cut and within ``k``
+    cells of it on both sides, ``cuts`` = (x cuts, y cuts); each with its
+    own waveform amplitude."""
+    nx, ny, nz = shape
+    pts = []
+    for c in cuts[0]:
+        for x in (c - k, c - 1, c, c + k - 1):
+            pts.append((min(max(x, 0), nx - 1), (7 * len(pts)) % ny, (11 * len(pts)) % nz))
+    for c in cuts[1]:
+        for y in (c - k, c - 1, c, c + k - 1):
+            pts.append(((13 * len(pts)) % nx, min(max(y, 0), ny - 1), (5 * len(pts)) % nz))
+    pts += [(0, 0, 0), (nx - 1, ny - 1, nz - 1)]
+    return ft.SourceSet.build([
+        ft.PointSource(p, ft.GaussianPulse((2 + i % 3) * dt, 2 * dt),
+                       j=(0.3 * (i % 3), 1.0, -0.5), m=(0.2, 0.1 * (i % 2), 0.4) if m else
+                       (0.0, 0.0, 0.0))
+        for i, p in enumerate(pts)], device=device)
+
+
+def sharded_inputs(torch, ft, shape, dtype, rng, device):
+    """Random fields (f32 from ``rng``, stored in ``dtype``) at tick 3,
+    config 5's vacuum coefficients and time step."""
+    import numpy as np
+
+    res = ft.Resolution.courant(1.0, ft.REDUCED, safety=0.99)
+    e = rng.standard_normal((3, *shape)).astype(np.float32)
+    h = rng.standard_normal((3, *shape)).astype(np.float32)
+    table = ft.coefficient_table([ft.VACUUM], res, ft.REDUCED)
+    return (ft.state_from_stacked(e, h, tick=3, dtype=dtype, device=device),
+            ft.CellCoefficients.uniform(table[0], device=device), res.temporal)
+
+
+def states_equal(torch, a, b):
+    return all(torch.equal(x, y) for x, y in zip((*a.e, *a.h), (*b.e, *b.h)))
+
+
+def sharded_self_checks(torch, ft, seed):
+    """K8 and K2 edge_planes (K9's passes) on the card, on shards of the one
+    card. K8 on 40x29x53 over 2, 4 and 8 shards along x with J sources on
+    and beside every cut, SHARDED_K8_TICKS ticks: against its plain version
+    (the plain sharded step; K1's bar, 2e-6 of max|field| per tick) and
+    against K1 on the whole lattice, bit for bit (each cell does K1's
+    arithmetic). K9 on 40x32x53 over 2 and 4 shards along x and a 2 x 2
+    (x, y) mesh at K = 2, 4, 8 (where nl, nly >= 2K, the plan's rule), f32
+    and bf16, J+M sources on and within K cells of every cut: one pass
+    against its plain version (K2's bar: 2e-6 per tick at f32, 2^-7 at
+    bf16, of max|field|) and two passes against K2 on the whole lattice at
+    the same K, bit for bit; and K2 with its default edge row (the array's
+    faces) through the edge-plane entry against K2, bit for bit. Returns
+    the largest f32 differences from the plain versions."""
+    import numpy as np
+    from fdtd_tpu_torch.parallel import (collapse_state, extend_state, gather,
+                                         make_cuda_sharded_step, make_cuda_sharded_stepk,
+                                         plain_sharded_step, plain_sharded_stepk,
+                                         shard_state)
+    from fdtd_tpu_torch.solver.cuda_step import cuda_step_fn
+    from fdtd_tpu_torch.solver.cuda_stepk import cuda_stepk_fn
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 11)
+    errs = {"K8 sharded_step": 0.0, "K2 edge_planes": 0.0}
+    inv = (1.0, 1.0, 1.0)
+    shape = SHARDED_K8_SHAPE
+    for n in SHARDED_K8_SHARDS:
+        mesh, dims, nl = card_mesh(n, ("x",)), ("x", None, None), shape[0] // n
+        state, coeffs, dt = sharded_inputs(torch, ft, shape, torch.float32, rng, dev)
+        src = cut_sources(ft, shape, (range(nl, shape[0], nl), ()), 1, dt, dev, m=False)
+        k8 = make_cuda_sharded_step(mesh, inv_dx=inv, dt=dt)
+        k1 = cuda_step_fn(shape, inv_dx=inv, dt=dt)
+        got, plain, ref = shard_state(state, mesh, dims), shard_state(state, mesh, dims), state
+        for _ in range(SHARDED_K8_TICKS):
+            got = k8(got, coeffs, src)
+            plain = plain_sharded_step(plain, coeffs, src, mesh=mesh, inv_dx=inv, dt=dt)
+            ref = k1(ref, coeffs, src)
+        g, p = gather(got, mesh, dims), gather(plain, mesh, dims)
+        torch.cuda.synchronize()
+        err, scale = max_abs_err(g, p), field_scale(p)
+        tol = 2e-6 * SHARDED_K8_TICKS * scale
+        same = states_equal(torch, g, ref)
+        log(f"selfcheck K8 {shape} over {n} shards, {SHARDED_K8_TICKS} ticks: max_abs_err "
+            f"{err:.3e} vs its plain version (tol {tol:.3e}); bit-identical to K1 {same}")
+        require(err <= tol and same, f"K8 over {n} shards disagrees")
+        errs["K8 sharded_step"] = max(errs["K8 sharded_step"], err)
+    shape = SHARDED_K9_SHAPE
+    identical = total = 0
+    for n, axes in SHARDED_K9_MESHES:
+        mesh = card_mesh(n, axes)
+        nl = shape[0] // mesh.shape["x"]
+        nly = shape[1] // mesh.shape["y"] if len(axes) == 2 else None
+        for k in SHARDED_KS:
+            if nl < 2 * k or (nly is not None and nly < 2 * k):
+                continue
+            for dtype in (torch.float32, torch.bfloat16):
+                state, coeffs, dt = sharded_inputs(torch, ft, shape, dtype, rng, dev)
+                src = cut_sources(ft, shape, (range(nl, shape[0], nl),
+                                              () if nly is None else range(nly, shape[1], nly)),
+                                  k, dt, dev)
+                k9 = make_cuda_sharded_stepk(mesh, k, nl, inv_dx=inv, dt=dt, dtype=dtype,
+                                             with_m=True, nl_y=nly)
+                k2 = cuda_stepk_fn(shape, k, inv_dx=inv, dt=dt, dtype=dtype, with_m=True)
+                got = k9(extend_state(state, mesh, k, axes=axes), coeffs, src)
+                plain = plain_sharded_stepk(extend_state(state, mesh, k, axes=axes), coeffs,
+                                            src, mesh=mesh, k_steps=k, inv_dx=inv, dt=dt,
+                                            with_m=True, two_d=nly is not None)
+                ref = k2(state, coeffs, src)
+                g1 = collapse_state(got, mesh, k, axes=axes)
+                p1 = collapse_state(plain, mesh, k, axes=axes)
+                got = k9(got, coeffs, src)
+                ref2 = k2(ref, coeffs, src)
+                g2 = collapse_state(got, mesh, k, axes=axes)
+                torch.cuda.synchronize()
+                err, scale = max_abs_err(g1, p1), field_scale(p1)
+                f32 = dtype == torch.float32
+                tol = (2e-6 * k if f32 else 2.0 ** -7) * scale
+                same = states_equal(torch, g1, ref) and states_equal(torch, g2, ref2)
+                total += 1
+                identical += same
+                log(f"selfcheck K9 {shape} over {n} shards {axes} K={k} {str(dtype)[6:]}: "
+                    f"max_abs_err {err:.3e} vs its plain version (tol {tol:.3e}); two passes "
+                    f"bit-identical to K2 {same}")
+                require(err <= tol and same, f"K9 {n} {axes} K={k} {dtype} disagrees")
+                if f32:
+                    errs["K2 edge_planes"] = max(errs["K2 edge_planes"], err)
+    for dtype in (torch.float32, torch.bfloat16):
+        state, coeffs, dt = sharded_inputs(torch, ft, shape, dtype, rng, dev)
+        src = cut_sources(ft, shape, ((20,), (16,)), 2, dt, dev)
+        for k in SHARDED_KS:
+            kw = dict(inv_dx=inv, dt=dt, dtype=dtype, with_m=True)
+            a = cuda_stepk_fn(shape, k, edge_planes=(0, shape[0] - 1), **kw)(state, coeffs, src)
+            b = cuda_stepk_fn(shape, k, **kw)(state, coeffs, src)
+            torch.cuda.synchronize()
+            same = states_equal(torch, a, b)
+            log(f"selfcheck K2 edge_planes default row {shape} K={k} {str(dtype)[6:]}: "
+                f"bit-identical to K2 {same}")
+            require(same, "K2's edge-plane entry with the default row differs from K2")
+    log(f"selfcheck K9: {identical} of {total} two-pass checks bit-identical to K2")
+    return errs
+
+
+def owned_squares(torch, state_ext, lay):
+    """plane_squares of the owned regions of an extended split state, in x
+    order: the gathered lattice's, without gathering it."""
+    if lay.n[1] > 1:
+        return None  # a lateral cut: gather instead
+    parts = []
+    for s in sorted(range(len(lay)), key=lambda s: lay.blocks[s]):
+        st = state_ext.shards[s]
+        parts.append(plane_squares(torch, st.replace(**{
+            f: getattr(st, f)[lay.owned_slice()] for f in ("ex", "ey", "ez", "hx", "hy", "hz")})))
+    return torch.cat(parts, dim=1)
+
+
+def single_device_k2(torch, ft, n, dtype, k, ticks):
+    """Config 5 at n^3 through K2 (out of place) at ``k``: a z slice at the
+    dipole after every call (on the host) and the final per-plane sums of
+    squares."""
+    from fdtd_tpu_torch.probes import SliceProbe
+    from fdtd_tpu_torch.solver.cuda_stepk import cuda_stepk_fn
+
+    dev = torch.device("cuda")
+    grid, src, coeffs = config5(ft, n, dev)
+    step = cuda_stepk_fn((n,) * 3, k, inv_dx=(1.0, 1.0, 1.0), dt=grid.dt, dtype=dtype)
+    probe = SliceProbe(axis=2, index=n // 2)
+    state, slices = ft.zero_state((n,) * 3, dtype, dev), []
+    for _ in range(ticks // k):
+        state = step(state, coeffs, src)
+        slices.append(probe.sample(state, grid.dt).cpu())
+    squares = plane_squares(torch, state)
+    del state
+    torch.cuda.empty_cache()
+    return slices, squares
+
+
+def sharded_run(torch, ft, n, dtype, axes, reference, label):
+    """Config 5 at n^3 through ShardedSimulation over SHARDED_SHARDS shards
+    of the one card (mesh ``axes``): it must plan "cuda_k" at SHARDED_K;
+    CONFIG5_TICKS ticks, a z slice at the dipole after every run call of
+    SHARDED_K ticks (extract_slice on a 1-D mesh, the gathered lattice's on
+    the 2 x 2 one, where only the last is kept), held bit for bit with the
+    final per-plane sums of squares to ``reference`` (single-device K2 at
+    the same K: its slices and squares). Returns (launch counts, numbers,
+    the final state and its layout)."""
+    from fdtd_tpu_torch.parallel import ShardedSimulation, extract_slice
+    from fdtd_tpu_torch.parallel.cuda_sharded_k import ext_layout
+
+    dev = torch.device("cuda")
+    k = SHARDED_K
+    mesh = card_mesh(SHARDED_SHARDS, axes)
+    grid, src, coeffs = config5(ft, n, dev)
+    sim = ShardedSimulation(grid=grid, coeffs=coeffs, sources=src, mesh=mesh, dtype=dtype)
+    plan = sim.plan()
+    require(plan == (k, "cuda_k"), f"{label}: plans {plan}")
+    lay = ext_layout(mesh, k, (n,) * 3, sim._ext_axes)
+    nl = lay.owned[0]
+    itemsize = 4 if dtype == torch.float32 else 2
+    ext_bytes = 6 * itemsize * math.prod(lay.local) * len(lay)
+    call_bytes = 6 * (itemsize + 4 + (4 if itemsize == 2 else 0)) * math.prod(lay.local)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = sim.init()
+    slices = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    start.record()
+    for _ in range(CONFIG5_TICKS // k):
+        state = sim.run(state, k)
+        if len(axes) == 1:
+            slices.append(extract_slice(state, mesh, k, nl, 2, n // 2, "e"))
+    end.record()
+    end.synchronize()
+    counts = launch_counts()
+    secs = start.elapsed_time(end) / 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    slice_bytes = sum(s.numel() * s.element_size() for s in slices)
+    limit = 1.02 * (ext_bytes + call_bytes + slice_bytes)
+    want = {name: 0 for name in counts}
+    want["K2 edge_planes"] = CONFIG5_TICKS // k * SHARDED_SHARDS
+    require(counts == want, f"{label}: launches {counts}, expected {want}")
+    squares = owned_squares(torch, state, lay)
+    if squares is None:
+        whole = sim.gather(state)
+        squares = plane_squares(torch, whole)
+        slices = [torch.stack([f[:, :, n // 2] for f in whole.e])]
+        del whole
+    ref_slices, ref_squares = reference
+    if len(slices) == 1:
+        ref_slices = ref_slices[-1:]
+    same_slices = len(slices) == len(ref_slices) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(slices, ref_slices))
+    same_squares = torch.equal(squares, ref_squares)
+    g = n ** 3 * CONFIG5_TICKS / secs / 1e9
+    numbers = {"seconds": secs, "gcells": g, "peak_bytes": peak, "limit_bytes": limit,
+               "ext_state_bytes": ext_bytes, "call_bytes": call_bytes,
+               "slices_bit_identical": same_slices, "squares_bit_identical": same_squares,
+               "launches_per_pass": SHARDED_SHARDS}
+    log(f"{label}: plan {plan}, {CONFIG5_TICKS} ticks in {secs * 1e3:.3f} ms, {g:.3f} "
+        f"Gcell/s; launches {want['K2 edge_planes']} ({SHARDED_SHARDS} per pass); peak "
+        f"{peak / 1e9:.4f} GB (limit {limit / 1e9:.4f} GB: the extended state "
+        f"{ext_bytes / 1e9:.4f} GB + one shard's call {call_bytes / 1e9:.4f} GB + the slices "
+        f"+ 2 %); {len(slices)} z slices bit-identical to single-device K2 {same_slices}, "
+        f"per-plane sums of squares bit-identical {same_squares}")
+    require(state.tick == CONFIG5_TICKS and bool(torch.isfinite(squares).all())
+            and float(squares.max()) > 0, f"{label}: no finite field")
+    require(peak <= limit, f"{label}: peak {peak} > {limit}")
+    require(same_slices and same_squares, f"{label}: differs from single-device K2")
+    return counts, numbers, state, lay
+
+
+def sharded_config5_path(torch, ft, reference_1024):
+    """BASELINE config 5 split over SHARDED_SHARDS shards of the one card:
+    1024^3 f32 (held to config5_path's in-place K2 run at K = 8, which is
+    bit-identical to the out-of-place K2 at f32), where the exchange is also
+    timed alone against whole passes; 512^3 bf16 on the same mesh and 512^3
+    f32 on the 2 x 2 (x, y) mesh, each held to single-device K2 at K = 8;
+    and K8 at 512^3 over the 4 shards, 8 ticks from rest, held to K1 bit
+    for bit. Returns (launches, numbers)."""
+    import gc
+
+    from fdtd_tpu_torch.parallel import gather, make_cuda_sharded_step, shard_state
+    from fdtd_tpu_torch.parallel.cuda_sharded_k import _exchange
+    from fdtd_tpu_torch.solver.cuda_step import cuda_step_fn
+
+    dev = torch.device("cuda")
+    launches = {"K8 sharded_step": 0, "K2 edge_planes": 0}
+    numbers = {}
+    label = f"config 5 {SHARDED_N}^3 float32 over {SHARDED_SHARDS} shards (x)"
+    counts, numbers["1024_float32_x4"], state, lay = sharded_run(
+        torch, ft, SHARDED_N, torch.float32, ("x",), reference_1024, label)
+    launches["K2 edge_planes"] += counts["K2 edge_planes"]
+    # the exchange alone against whole passes, on the run's final state
+    from fdtd_tpu_torch.parallel import ShardedSimulation
+
+    grid, src, coeffs = config5(ft, SHARDED_N, dev)
+    sim = ShardedSimulation(grid=grid, coeffs=coeffs, sources=src,
+                            mesh=card_mesh(SHARDED_SHARDS, ("x",)))
+    step = sim._plan[0]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    for _ in range(3):
+        _exchange(state.shards, lay, SHARDED_K)
+    ev[1].record()
+    for _ in range(3):
+        state = step(state, coeffs, src)
+    ev[2].record()
+    ev[2].synchronize()
+    ex_ms, pass_ms = ev[0].elapsed_time(ev[1]) / 3, ev[1].elapsed_time(ev[2]) / 3
+    ex_bytes = 2 * 2 * 6 * SHARDED_K * SHARDED_N ** 2 * 4 * SHARDED_SHARDS
+    numbers["1024_float32_x4"].update(exchange_ms=ex_ms, pass_ms=pass_ms,
+                                      exchange_bytes=ex_bytes)
+    log(f"{label}: the exchange alone {ex_ms:.4f} ms per pass ({ex_bytes / 1e9:.4f} GB read "
+        f"and written; {ex_bytes / (ex_ms * 1e-3) / 1e12:.3f} TB/s), a pass {pass_ms:.4f} ms: "
+        f"{ex_ms / pass_ms:.1%} of a pass")
+    del state, step, sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = SCALE_SHAPE[0]
+    for dtype, axes, key in ((torch.bfloat16, ("x",), "512_bfloat16_x4"),
+                             (torch.float32, ("x", "y"), "512_float32_2x2")):
+        ref = single_device_k2(torch, ft, n, dtype, SHARDED_K, CONFIG5_TICKS)
+        label = f"config 5 {n}^3 {str(dtype)[6:]} over {SHARDED_SHARDS} shards {axes}"
+        counts, numbers[key], state, _ = sharded_run(torch, ft, n, dtype, axes, ref, label)
+        launches["K2 edge_planes"] += counts["K2 edge_planes"]
+        del state, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    # K8 at 512^3 over 4 shards against K1
+    mesh, dims = card_mesh(SHARDED_SHARDS, ("x",)), ("x", None, None)
+    grid, src, coeffs = config5(ft, n, dev)
+    k8 = make_cuda_sharded_step(mesh, inv_dx=(1.0, 1.0, 1.0), dt=grid.dt)
+    k1 = cuda_step_fn((n,) * 3, inv_dx=(1.0, 1.0, 1.0), dt=grid.dt)
+    zero = ft.zero_state((n,) * 3, torch.float32, dev)
+    split, whole = shard_state(zero, mesh, dims), zero
+    ticks = 8
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(ticks):
+        split = k8(split, coeffs, src)
+    end.record()
+    end.synchronize()
+    counts = launch_counts()
+    want = {name: 0 for name in counts}
+    want["K8 sharded_step"] = ticks * SHARDED_SHARDS
+    require(counts == want, f"K8 512^3: launches {counts}, expected {want}")
+    launches["K8 sharded_step"] += counts["K8 sharded_step"]
+    for _ in range(ticks):
+        whole = k1(whole, coeffs, src)
+    got = gather(split, mesh, dims)
+    same = states_equal(torch, got, whole)
+    secs = start.elapsed_time(end) / 1e3
+    numbers["k8_512_float32_x4"] = {"seconds": secs, "gcells": n ** 3 * ticks / secs / 1e9,
+                                    "bit_identical_to_k1": same}
+    log(f"config 5 {n}^3 float32 through K8 over {SHARDED_SHARDS} shards: {ticks} ticks in "
+        f"{secs * 1e3:.3f} ms, {n ** 3 * ticks / secs / 1e9:.3f} Gcell/s; launches "
+        f"{want['K8 sharded_step']}; every field bit-identical to K1's {same}, max|E_z| "
+        f"{float(whole.ez.abs().max()):.4e}")
+    require(same and float(whole.ez.abs().max()) > 0, "K8 at 512^3 differs from K1")
+    del split, whole, got, zero
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def config3_fit_path(torch, ft):
+    """Config 3 at 1024^3 bf16 through Simulation.run, the run whose K4
+    call at K = 8 does not fit beside the state run keeps (the route gap):
+    the fit-aware plan's pick (k, kind, n_b) on the card's free memory,
+    CONFIG3_LARGE_TICKS ticks with the 3-point probe every 8, its launch
+    counts (the picked kernel alone), peak memory against the plan's byte
+    model, Gcell/s; then the same ticks through direct calls of the picked
+    kernel at the picked K from sim.init(), whose trace and per-plane sums
+    of squares must be bit-identical. Returns (launches by kernel, numbers)."""
+    import gc
+
+    from fdtd_tpu_torch.solver import cuda_cpml_blocked
+    from fdtd_tpu_torch.solver import simulation as sim_mod
+
+    dev = torch.device("cuda")
+    n, ticks = CONFIG3_LARGE, CONFIG3_LARGE_TICKS
+    shape = (n, n, n)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sim = config3(ft, shape, torch.bfloat16, dev)
+    probes, _ = absorbing_probes(shape)
+    state = sim.init()
+    free = sim_mod.free_bytes(dev)
+    k, kind, n_b = sim._plan(ticks, probes, (), 8)
+    need = sim_mod.state_bytes(shape, torch.bfloat16, sim.cpml)
+    if kind == "cuda_cpml_blocked":
+        bp = cuda_cpml_blocked.blocked_plan(shape, sim.bc, sim.cpml, k, dtype=torch.bfloat16,
+                                            n_b_candidates=(n_b,))
+        need += cuda_cpml_blocked.call_bytes(shape, bp, sim.cpml, torch.bfloat16, matid=True)
+    elif k > 1 or kind != "torch":
+        need += sim_mod.call_bytes(kind, shape, k, torch.bfloat16, cpml=sim.cpml)
+    label = f"config 3 {n}^3 bf16 through Simulation.run"
+    log(f"{label}: plan k={k} kind={kind} n_b={n_b} with {free / 1e9:.3f} GB free beside the "
+        f"caller's state and the index; the plan's model needs {need / 1e9:.4f} GB")
+    require(kind in ("cuda_cpml_k", "cuda_cpml_blocked", "cuda_cpml"), f"{label}: {kind}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    start.record()
+    out, (trace,), _ = sim.run(state, ticks, probes=probes, probe_every=8)
+    end.record()
+    end.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    secs = start.elapsed_time(end) / 1e3
+    key = {"cuda_cpml_k": "K4 cpmlk", "cuda_cpml": "K3 cpml",
+           "cuda_cpml_blocked": "K7"}[kind]
+    want = {name: 0 for name in counts}
+    want[key] = ticks // k
+    if kind == "cuda_cpml_blocked":
+        want["K4e lateral"] = ticks // k * n_b
+    require(counts == want, f"{label}: launches {counts}, expected {want}")
+    squares, trace = plane_squares(torch, out), trace.cpu()
+    del out, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = sim._multi_step(k, n_b=n_b) if k > 1 else sim._step
+    s, samples = sim.init(), []
+    for i in range(ticks // k):
+        s = step(s, sim.coeffs, sim.sources)
+        if ((i + 1) * k) % 8 == 0:
+            samples.append(probes[0].sample(s, sim.grid.dt))
+    direct_squares = plane_squares(torch, s)
+    same_trace = torch.equal(torch.stack(samples).cpu(), trace)
+    same_squares = torch.equal(direct_squares, squares)
+    g = n ** 3 * ticks / secs / 1e9
+    log(f"{label}: {ticks} ticks in {secs * 1e3:.3f} ms, {g:.3f} Gcell/s; launches {want}; "
+        f"peak {peak / 1e9:.4f} GB beyond the caller's state (model {need / 1e9:.4f} GB); "
+        f"against direct calls of {key} at K={k}: trace bit-identical {same_trace}, per-plane "
+        f"sums of squares bit-identical {same_squares}")
+    require(bool(torch.isfinite(squares).all()) and float(squares.max()) > 0,
+            f"{label}: no finite field")
+    require(peak <= 1.02 * need, f"{label}: peak {peak} > the model {need} + 2 %")
+    require(same_trace and same_squares, f"{label}: run differs from direct calls")
+    del s, sim, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want, {"k": k, "kind": kind, "n_b": n_b, "free_bytes": free, "need_bytes": need,
+                  "peak_bytes": peak, "seconds": secs, "gcells": g}
+
+
+def sharded_timings(torch, ft, n=3):
+    """ms per call at 512^3 f32 over 4 shards of the one card, each on a
+    state of its own, in turns: K8 (one tick: the exchange and 4 launches)
+    and its plain version (the plain sharded step), one K8 launch on an
+    interior shard and the exchange alone; K9 at K = 8 (one pass: the
+    exchange and 4 launches of K2 edge_planes) and its plain version, one
+    K2 edge_planes launch on an interior extended shard and the exchange
+    alone. Bounds: K8's launch K1's bytes on the shard (48 B/cell) plus
+    its 7 halo planes read; K9's launch K2's bytes on the extended shard;
+    a tick or pass 4 launches; the exchanges' bytes reported apart."""
+    import gc
+
+    from fdtd_tpu_torch.parallel import (extend_state, make_cuda_sharded_step,
+                                         make_cuda_sharded_stepk, plain_sharded_step,
+                                         plain_sharded_stepk, shard_state)
+    from fdtd_tpu_torch.parallel.cuda_sharded import exchange_planes
+    from fdtd_tpu_torch.parallel.cuda_sharded_k import _exchange, ext_layout
+    from fdtd_tpu_torch.parallel.sharded import Layout
+    from fdtd_tpu_torch.solver import _build
+    from fdtd_tpu_torch.solver.cuda_step import kernel_table
+    from fdtd_tpu_torch.solver.cuda_stepk import stepk_call
+
+    dev = torch.device("cuda")
+    shape, shards, k = SCALE_SHAPE, SHARDED_SHARDS, SHARDED_K
+    ny, nz = shape[1:]
+    mesh, dims = card_mesh(shards, ("x",)), ("x", None, None)
+    grid, src, coeffs = config5(ft, shape[0], dev)
+    inv, dt = (1.0, 1.0, 1.0), grid.dt
+    nl = shape[0] // shards
+    k8 = make_cuda_sharded_step(mesh, inv_dx=inv, dt=dt)
+    k9 = make_cuda_sharded_stepk(mesh, k, nl, inv_dx=inv, dt=dt)
+    lay8 = Layout(mesh, dims, shape)
+    lay9 = ext_layout(mesh, k, shape, ("x",))
+    table = kernel_table(coeffs, None, dev)
+    halo1 = None
+
+    def fresh(kind):
+        base = ft.zero_state(shape, torch.float32, dev)
+        base = base.replace(ez=torch.ones_like(base.ez))
+        return shard_state(base, mesh, dims) if kind == 8 else extend_state(base, mesh, k)
+
+    def k8_launch(s):
+        nonlocal halo1
+        if halo1 is None:
+            halo1 = exchange_planes(s.shards, lay8)[1]
+        st = s.shards[1]
+        outs = [torch.empty_like(f) for f in (*st.e, *st.h)]
+        _build.SHARDED_STEP.launch(
+            _build.pointers([*st.e, *st.h, *outs]), _build.pointers(list(halo1)), 0, 0,
+            table.data_ptr(), None, 0, 6, nl, ny, nz, *inv, _build.stream_handle(dev))
+        return s
+
+    edges = (-2 ** 30, 2 ** 30, 0, ny - 1, 0, nz - 1)
+
+    def k9_launch(s):
+        stepk_call(s.shards[1], table, None, None, k, inv_dx=inv, dt=dt, edges=edges,
+                   offset=(k - nl, 0))
+        return s
+
+    named = [
+        (8, "K8 tick", lambda s: k8(s, coeffs, src), 1),
+        (8, "K8 tick plain version", lambda s: plain_sharded_step(
+            s, coeffs, src, mesh=mesh, inv_dx=inv, dt=dt), 1),
+        (8, "K8 launch", k8_launch, 1),
+        (8, "K8 exchange", lambda s: (exchange_planes(s.shards, lay8), s)[1], 1),
+        (9, f"K9 pass K={k}", lambda s: k9(s, coeffs, src), k),
+        (9, f"K9 pass K={k} plain version", lambda s: plain_sharded_stepk(
+            s, coeffs, src, mesh=mesh, k_steps=k, inv_dx=inv, dt=dt), k),
+        (9, "K2 edge_planes launch", k9_launch, k),
+        (9, "K9 exchange", lambda s: (_exchange(s.shards, lay9, k), s)[1], k),
+    ]
+    ms = {name: [] for _, name, _, _ in named}
+    for order in (named, named[::-1]):
+        for kind, name, fn, _ in order:
+            state = fresh(kind)
+            ms[name].append(cuda_ms(torch, fn, state, n, warmup=1))
+            del state
+            halo1 = None
+            gc.collect()
+            torch.cuda.empty_cache()
+    group = report_group("sharded_512_float32", [(nm, fn, t) for _, nm, fn, t in named], ms,
+                         shape, {})
+    shard8 = (nl, ny, nz)
+    b8 = bound(math.prod(shard8), 1, yee_bytes(shard8, 4, False) + 7 * ny * nz * 4)
+    b9 = bound(math.prod(lay9.local), k, yee_bytes(lay9.local, 4, False))
+    bounds = {"K8 launch": b8, "K8 tick": (b8[0] * shards, b8[1]),
+              "K2 edge_planes launch": b9, f"K9 pass K={k}": (b9[0] * shards, b9[1])}
+    for name, (b_ms, b_by) in bounds.items():
+        group[name]["bound_ms"], group[name]["bound_by"] = b_ms, b_by
+        log(f"bound sharded_512_float32 {name}: {b_ms:.4f} ms per call ({b_by}); measured at "
+            f"{b_ms / (sum(group[name]['ms_per_call']) / 2):.1%} of it")
+    group["K8 exchange"]["bytes"] = 2 * 7 * ny * nz * 4 * (shards - 1)
+    group["K9 exchange"]["bytes"] = 2 * 2 * 6 * k * ny * nz * 4 * shards
+    for name in ("K8 exchange", "K9 exchange"):
+        whole = "K8 tick" if name.startswith("K8") else f"K9 pass K={k}"
+        share = sum(group[name]["ms_per_call"]) / sum(group[whole]["ms_per_call"])
+        group[name]["share_of_call"] = share
+        log(f"sharded_512_float32 {name}: {group[name]['bytes'] / 1e6:.3f} MB read and "
+            f"written, {share:.1%} of a {whole}")
+    return {"sharded_512_float32": group}
+
+
 def launch_counts():
     """Each kernel's launches since the last reset_counts, by name."""
     from fdtd_tpu_torch.solver import _build
@@ -3635,9 +4222,14 @@ def measure(torch, ft, seed):
     errs["K6"] = gb_self_checks(torch, ft, seed)
     errs["K5"], xz_identical = xz_self_checks(torch, ft, seed)
     errs.update(k7_self_checks(torch, ft, seed))
+    errs.update(sharded_self_checks(torch, ft, seed))
     launches = main_path(torch, ft)
-    c5_launches, c5_gcells = config5_path(torch, ft)
+    c5_launches, c5_gcells, split_reference = config5_path(torch, ft)
     launches.update(c5_launches)
+    s5_launches, s5_numbers = sharded_config5_path(torch, ft, split_reference)
+    del split_reference
+    launches.update(s5_launches)
+    fit_launches, c3_fit = config3_fit_path(torch, ft)
     c3_launches, c3_large, reference_1024 = config3_large_path(torch, ft)
     # the K4 route's traces and squares, shared by K6 and K5 at one K
     references = {(CONFIG3_LARGE, "float32", 8): (reference_1024["trace"],
@@ -3662,6 +4254,10 @@ def measure(torch, ft, seed):
     errs["K5"] = max(errs["K5"], xz_config3["512_float32"]["plain_max_abs_err"])
     launches.update(absorbing_path(torch, ft))
     launches["K4 io_alias"] += c3_launches
+    # the fit-aware run's launches, under the kernels line's names
+    for key, count in fit_launches.items():
+        if count:
+            launches[{"K4 cpmlk": "K4", "K3 cpml": "K3"}.get(key, key)] += count
     acc_launches, walls = accumulator_path(torch, ft)
     launches.update(acc_launches)
     res_x, ref_x = scattering_path(torch, ft)
@@ -3674,6 +4270,7 @@ def measure(torch, ft, seed):
     times.update(ext_timings(torch, ft))
     times.update(gb_timings(torch, ft, ks=(GB_K, 3), k4_ks=(GB_K, 8), xz_ks=(XZ_K, 3)))
     times.update(k7_timings(torch, ft))
+    times.update(sharded_timings(torch, ft))
     times["accumulators_256_wall_s"] = walls
     times["scattering_256_gcell_per_s"] = {"K4 + flux faces": res_x.gcell_per_s,
                                            "plain engine": ref_x.gcell_per_s}
@@ -3685,6 +4282,8 @@ def measure(torch, ft, seed):
     times["xz_self_checks_bit_identical"] = xz_identical
     times["config3_k7"], times["config3_k7_1024"] = k7_config3, k7_large
     times["k7_options_256"] = k7_options
+    times["config5_split"] = s5_numbers
+    times["config3_1024_bfloat16_run"] = c3_fit
 
     top = K_LADDER[0]
     c2, c3 = times["config2_128"], times["config3_256"]
@@ -3792,6 +4391,18 @@ def measure(torch, ft, seed):
         rows.append((name, "cpmlk.cu", {"K7": "fdtd_tpu/solver/pallas_cpml_blocked.py:279",
                                         "K4e lateral": "fdtd_tpu/solver/pallas_cpml_k.py:131"}[
             key], key, t7, timed, plain, (t7[timed]["bound_ms"], t7[timed]["bound_by"])))
+    # K8 and K9 (K2 edge_planes) over 4 shards at 512^3 f32: a tick and a
+    # pass (the exchange and 4 launches), their bounds 4 launches' bytes
+    # (sharded_timings; the exchanges' bytes apart)
+    t9 = times["sharded_512_float32"]
+    for name, src, replaces, key, timed in (
+            ("K8 sharded one-tick step (4 shards, the 7-plane exchange)", "sharded_step.cu",
+             "fdtd_tpu/parallel/pallas_sharded.py:47", "K8 sharded_step", "K8 tick"),
+            ("K2 edge_planes (K9's sharded K-tick pass, 4 shards, the exchange)", "stepk.cu",
+             "fdtd_tpu/solver/pallas_stepk.py:413", "K2 edge_planes",
+             f"K9 pass K={SHARDED_K}")):
+        rows.append((name, src, replaces, key, t9, timed, f"{timed} plain version",
+                     (t9[timed]["bound_ms"], t9[timed]["bound_by"])))
     # no single PyTorch call computes a Yee or CPML tick, or K4's in-kernel
     # reductions, captures, region stretch or oblique correction beside
     # one: library_ms is null

@@ -5,8 +5,9 @@ and public names: grids, materials, coefficient tables, point sources, the
 leapfrog step, CPML absorbers, volumetric DensePml regions and TF/SF plane
 waves, axis-aligned or oblique (the absorbing engine),
 probes and accumulators (DFT planes, the BoxDft near-to-far-field box),
-the ``Simulation`` time loop, scene compilation (``scene``) and the
-scattering workflow (``models.scattering_cross_section``). Its plain path is PyTorch on any
+the ``Simulation`` time loop, scene compilation (``scene``), the
+scattering workflow (``models.scattering_cross_section``) and the
+free-space lattice split over a mesh of devices (``parallel``). Its plain path is PyTorch on any
 device; on a CUDA device the time loop runs hand-written kernels
 (``solver/cuda_step.py``, ``solver/cuda_stepk.py``, ``solver/cuda_cpml.py``,
 ``solver/cuda_cpml_k.py``, sources in ``csrc/``), built with nvcc on first

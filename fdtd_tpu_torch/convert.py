@@ -48,6 +48,7 @@ __all__ = [
     "tfsf_from_numpy",
     "dense_pml_from_numpy",
     "oblique_tfsf_from_numpy",
+    "sharded_state_from_numpy",
 ]
 
 _COEFFS = ("c_a", "c_b", "d_a", "d_b")
@@ -217,3 +218,29 @@ def dense_pml_from_numpy(obj) -> DensePml:
                     coeffs_h=tuple(np.asarray(c) for c in obj.coeffs_h),
                     coeffs_e=tuple(np.asarray(c) for c in obj.coeffs_e),
                     live_box=box(obj.live_box))
+
+
+def sharded_state_from_numpy(obj, mesh, k: int, axes=("x",), dtype=None):
+    """The port's extended ``ShardedState`` (``parallel.extend_state``'s
+    layout) from an object with the JAX package's EXTENDED global arrays,
+    ex..hz of shape (n_x (nl + 2k), ny, nz), or (n_x (nl + 2k),
+    n_y (nly + 2k), nz) with ``axes`` ("x", "y"), and ``tick``: each
+    shard's block, halos included, on its mesh entry's device."""
+    from .parallel.sharded import ShardedState
+
+    names = tuple(axes)
+    counts = [mesh.shape[a] for a in names]
+    shards = []
+    for coords in np.ndindex(mesh.devices.shape):
+        dev = mesh.devices[coords]
+        block = dict(zip(mesh.axis_names, coords))
+        fields = {}
+        for f in FIELDS:
+            a = np.asarray(getattr(obj, f))
+            sl = [slice(None)] * 3
+            for dim, (name, n) in enumerate(zip(names, counts)):
+                size = a.shape[dim] // n
+                sl[dim] = slice(block[name] * size, (block[name] + 1) * size)
+            fields[f] = tensor_from_numpy(a[tuple(sl)], dev, dtype)
+        shards.append(SimState(**fields, tick=int(np.asarray(obj.tick))))
+    return ShardedState(shards)

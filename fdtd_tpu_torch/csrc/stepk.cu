@@ -21,6 +21,13 @@
 // upload for K ticks instead of K. The barrier also orders the writes of
 // one tick before the reads of the next across blocks.
 //
+// With edge planes (fdtd_stepk_edges, the TPU kernel's runtime edge row,
+// pallas_stepk.py:413-441, which the sharded K-tick kernel K9 runs on
+// halo-extended shards): the Neumann(0) closure moves to the global
+// lattice's edge planes inside the array, and stays at the array's faces
+// (yee.cuh, EDGES); its own instantiations, so that K2's compile as they
+// did.
+//
 // In place (fdtd_stepk_inplace, the TPU kernel's io_alias build,
 // pallas_stepk.py:62-68): the outputs are the inputs and there is no work
 // set, so the call holds one set of fields instead of three (f32) or six
@@ -37,13 +44,15 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(yee::THREADS)
-stepk_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
-             yee::Fields<float> w2, yee::Fields<T> out, yee::Lattice L,
-             yee::Material M, yee::Sources S, int k, int with_m, yee::Work w) {
-  __shared__ yee::Shared sh;
-  yee::load_table(sh, M);
+// The K ticks of a call, the body of both out-of-place kernels (EDGES:
+// the edge planes of a halo-extended shard, yee.cuh).
+template <typename T, bool EDGES>
+__device__ __forceinline__ void k_ticks(yee::Fields<const T> in, yee::Fields<float> w1,
+                                        yee::Fields<float> w2, yee::Fields<T> out,
+                                        const yee::Lattice& L, const yee::Material& M,
+                                        const yee::Sources& S, int k, int with_m,
+                                        const yee::Work& w, const yee::Edges& ed,
+                                        yee::Shared& sh) {
   cg::grid_group grid = cg::this_grid();
   for (int lvl = 1; lvl <= k; ++lvl) {
     // row layout: [x, y, z, J levels 1..K, M levels 1..K (with_m)]
@@ -56,17 +65,42 @@ stepk_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
       int y0, z0, x_lo, x_hi;
       yee::decode(w, item, L, y0, z0, x_lo, x_hi);
       if (lvl == 1)
-        yee::tile_pass<T, float>(in, dst, L, M, S, j_col, m_col, y0, z0, x_lo,
-                                 x_hi, sh);
+        yee::tile_pass<T, float, EDGES>(in, dst, L, M, S, j_col, m_col, y0, z0,
+                                        x_lo, x_hi, sh, ed);
       else if (lvl == k)
-        yee::tile_pass<float, T>(yee::as_const(src), out, L, M, S, j_col,
-                                 m_col, y0, z0, x_lo, x_hi, sh);
+        yee::tile_pass<float, T, EDGES>(yee::as_const(src), out, L, M, S, j_col,
+                                        m_col, y0, z0, x_lo, x_hi, sh, ed);
       else
-        yee::tile_pass<float, float>(yee::as_const(src), dst, L, M, S, j_col,
-                                     m_col, y0, z0, x_lo, x_hi, sh);
+        yee::tile_pass<float, float, EDGES>(yee::as_const(src), dst, L, M, S,
+                                            j_col, m_col, y0, z0, x_lo, x_hi, sh,
+                                            ed);
     }
     if (lvl < k) grid.sync();
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(yee::THREADS)
+stepk_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
+             yee::Fields<float> w2, yee::Fields<T> out, yee::Lattice L,
+             yee::Material M, yee::Sources S, int k, int with_m, yee::Work w) {
+  __shared__ yee::Shared sh;
+  yee::load_table(sh, M);
+  k_ticks<T, false>(in, w1, w2, out, L, M, S, k, with_m, w, yee::Edges{}, sh);
+}
+
+// K2 with edge planes (the sharded K-tick kernel's, fdtd_tpu/parallel/
+// pallas_sharded_k.py): the Neumann(0) closure at ``ed`` and at the
+// array's faces.
+template <typename T>
+__global__ void __launch_bounds__(yee::THREADS)
+stepk_edges_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
+                   yee::Fields<float> w2, yee::Fields<T> out, yee::Lattice L,
+                   yee::Material M, yee::Sources S, int k, int with_m, yee::Work w,
+                   yee::Edges ed) {
+  __shared__ yee::Shared sh;
+  yee::load_table(sh, M);
+  k_ticks<T, true>(in, w1, w2, out, L, M, S, k, with_m, w, ed, sh);
 }
 
 template <typename T>
@@ -119,7 +153,7 @@ template <typename T>
 int launch(void** f, const float* table, int n_mat, const uint8_t* matid,
            const float* rows, int n_src, int row_w, int with_m, int k, int nx,
            int ny, int nz, float inv_x, float inv_y, float inv_z,
-           cudaStream_t stream) {
+           const int* edges, cudaStream_t stream) {
   yee::Fields<const T> in{(const T*)f[0], (const T*)f[1], (const T*)f[2],
                           (const T*)f[3], (const T*)f[4], (const T*)f[5]};
   yee::Fields<T> out{(T*)f[6], (T*)f[7], (T*)f[8], (T*)f[9], (T*)f[10], (T*)f[11]};
@@ -132,6 +166,17 @@ int launch(void** f, const float* table, int n_mat, const uint8_t* matid,
   yee::Sources S{rows, n_src, row_w};
   yee::Work w;
   int blocks = 0;
+  if (edges) {
+    yee::Edges ed{edges[0], edges[1], edges[2], edges[3], edges[4], edges[5]};
+    cudaError_t err = yee::cooperative_plan(stepk_edges_kernel<T>, L, w, blocks);
+    if (err != cudaSuccess) return (int)err;
+    void* args[] = {&in, &w1, &w2, &out, &L, &M, &S, &k, &with_m, &w, &ed};
+    err = cudaLaunchCooperativeKernel((const void*)stepk_edges_kernel<T>,
+                                      dim3(blocks), dim3(yee::TZ, yee::TY), args,
+                                      0, stream);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
   cudaError_t err = yee::cooperative_plan(stepk_kernel<T>, L, w, blocks);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&in, &w1, &w2, &out, &L, &M, &S, &k, &with_m, &w};
@@ -145,6 +190,27 @@ int launch(void** f, const float* table, int n_mat, const uint8_t* matid,
 
 extern "C" {
 
+// K2 with edge planes: as fdtd_stepk below, with edges the 6 ints [x_lo,
+// x_hi, y_lo, y_hi, z_lo, z_hi] of yee::Edges (host memory), or null for
+// the array's faces (fdtd_stepk itself).
+int fdtd_stepk_edges(int dtype, void** fields, const float* table, int n_mat,
+                     const uint8_t* matid, const float* rows, int n_src,
+                     int row_w, int with_m, int k, int nx, int ny, int nz,
+                     float inv_x, float inv_y, float inv_z, const int* edges,
+                     void* stream) {
+  if (n_mat < 1 || n_mat > yee::MAX_MATERIALS || k < 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch<float>(fields, table, n_mat, matid, rows, n_src, row_w,
+                         with_m, k, nx, ny, nz, inv_x, inv_y, inv_z, edges, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(fields, table, n_mat, matid, rows, n_src,
+                                 row_w, with_m, k, nx, ny, nz, inv_x, inv_y,
+                                 inv_z, edges, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // fields: 24 device pointers (ex, ey, ez, hx, hy, hz each), in this order:
 // the inputs (storage type), the outputs (storage type), work set 1 (f32)
 // and work set 2 (f32; for f32 storage pass the outputs again). All are
@@ -155,17 +221,9 @@ int fdtd_stepk(int dtype, void** fields, const float* table, int n_mat,
                const uint8_t* matid, const float* rows, int n_src, int row_w,
                int with_m, int k, int nx, int ny, int nz, float inv_x,
                float inv_y, float inv_z, void* stream) {
-  if (n_mat < 1 || n_mat > yee::MAX_MATERIALS || k < 2)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch<float>(fields, table, n_mat, matid, rows, n_src, row_w,
-                         with_m, k, nx, ny, nz, inv_x, inv_y, inv_z, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(fields, table, n_mat, matid, rows, n_src,
-                                 row_w, with_m, k, nx, ny, nz, inv_x, inv_y,
-                                 inv_z, s);
-  return (int)cudaErrorInvalidValue;
+  return fdtd_stepk_edges(dtype, fields, table, n_mat, matid, rows, n_src, row_w,
+                          with_m, k, nx, ny, nz, inv_x, inv_y, inv_z, nullptr,
+                          stream);
 }
 
 // In place: fields are the 6 device pointers (ex, ey, ez, hx, hy, hz),

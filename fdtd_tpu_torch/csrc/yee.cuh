@@ -34,6 +34,16 @@
 // Compute is f32 for every storage type (f32 or bf16), as on the TPU.
 // Edges are the reference's Neumann(0) closure: a difference that would
 // cross the lattice edge is zero. Offsets are 64-bit (1024^3 lattices).
+//
+// Two sharded variants of the tile pass (template flags, so that the
+// plain passes compile as they did): EDGES (K2's edge planes, the sharded
+// K-tick kernel's) closes the lattice at the edge planes of the global
+// lattice inside a halo-extended array, and at the array's faces as well,
+// so that no halo plane reads outside the array; the planes between
+// compute unmasked (halo planes, which the next exchange overwrites).
+// HALO (K8) reads the planes x = -1 and x = nx from halo-plane operands,
+// the neighbouring shards' planes, and seeds the top chunk's carry from
+// x = nx; a missing operand closes that face as the plain pass does.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -84,6 +94,25 @@ __host__ __device__ inline Fields<const T> as_const(Fields<T> f) {
 struct Lattice {
   int nx, ny, nz;
   float inv_x, inv_y, inv_z;
+};
+
+// The edge planes of a halo-extended array (EDGES), in the array's
+// coordinates: a backward difference vanishes at x <= x_lo, y <= y_lo,
+// z <= z_lo, a forward one at x >= x_hi, y >= y_hi, z >= z_hi (the
+// fdtd_tpu.solver.pallas_stepk edge row [x_lo, x_hi, y_lo, y_hi, z_lo,
+// z_hi]; a sentinel beyond the array leaves the array's face).
+struct Edges {
+  int x_lo, x_hi, y_lo, y_hi, z_lo, z_hi;
+};
+
+// K8's halo planes (HALO), each (ny, nz): E_y and E_z at x = -1 (null on
+// the first shard: closed), and E and H at x = nx (null on the last
+// shard). hi.hx only feeds the seed plane's new H_x, which no output reads.
+template <typename T>
+struct Halo {
+  const T* lo_ey;
+  const T* lo_ez;
+  Fields<const T> hi;
 };
 
 // Coefficients: a (n_mat, 4) f32 table [c_a, c_b, d_a, d_b] and a uint8
@@ -180,20 +209,38 @@ __device__ __forceinline__ float e_cell(Fields<const T> e, long long i,
 }
 
 // One tick over tile (y0, z0) and planes [x_lo, x_hi). j_col / m_col: the
-// source-row column of this tick's J / M, or -1 for none.
-template <typename TI, typename TO>
+// source-row column of this tick's J / M, or -1 for none. ``ed`` (EDGES)
+// and ``hl`` (HALO): the sharded variants' edge planes and halo planes.
+template <typename TI, typename TO, bool EDGES = false, bool HALO = false>
 __device__ void tile_pass(Fields<const TI> in, Fields<TO> out, const Lattice& L,
                           const Material& M, const Sources& S, int j_col,
                           int m_col, int y0, int z0, int x_lo, int x_hi,
-                          Shared& sh) {
+                          Shared& sh, const Edges& ed = Edges{},
+                          const Halo<TI>& hl = Halo<TI>{}) {
   const int tz = threadIdx.x, ty = threadIdx.y, tid = ty * TZ + tz;
   const int y = y0 + ty, z = z0 + tz;
   const bool own = y < L.ny && z < L.nz;
   const long long plane = (long long)L.ny * L.nz;
   float top_hy = 0.f, top_hz = 0.f;  // new H at plane p+1 (this thread's cell)
 
-  // x_hi < nx: start one plane above the chunk to seed the carry
-  const int p_start = x_hi < L.nx ? x_hi : x_hi - 1;
+  // the differences taken: backward ones above bx, by, bz, forward ones
+  // below fx, fy, fz (the array's faces unless EDGES or HALO moves them)
+  int bx = 0, by = 0, bz = 0, fx = L.nx - 1, fy = L.ny - 1, fz = L.nz - 1;
+  if constexpr (EDGES) {
+    bx = max(bx, ed.x_lo), by = max(by, ed.y_lo), bz = max(bz, ed.z_lo);
+    fx = min(fx, ed.x_hi), fy = min(fy, ed.y_hi), fz = min(fz, ed.z_hi);
+  }
+  // x_hi < nx (or, with a halo plane at x = nx, <= nx): start one plane
+  // above the chunk to seed the carry
+  int top = L.nx;
+  if constexpr (HALO) {
+    if (hl.lo_ey) bx = -1;
+    if (hl.hi.ey) {
+      fx = L.nx;
+      top = L.nx + 1;
+    }
+  }
+  const int p_start = x_hi < top ? x_hi : x_hi - 1;
   for (int p = p_start; p >= x_lo; --p) {
     const bool seed = p == x_hi;
     const long long base = (long long)p * plane;
@@ -203,16 +250,31 @@ __device__ void tile_pass(Fields<const TI> in, Fields<TO> out, const Lattice& L,
       const int ly = r / RZ, lz = r - ly * RZ;
       const int yy = y0 + ly, zz = z0 + lz;
       if (yy >= L.ny || zz >= L.nz) continue;
-      const long long i = base + (long long)yy * L.nz + zz;
-      const float ex = load(in.ex, i), ey = load(in.ey, i), ez = load(in.ez, i);
-      const float dey_x = p > 0 ? ey - load(in.ey, i - plane) : 0.f;
-      const float dez_x = p > 0 ? ez - load(in.ez, i - plane) : 0.f;
-      const float dez_y = yy > 0 ? ez - load(in.ez, i - L.nz) : 0.f;
-      const float dex_y = yy > 0 ? ex - load(in.ex, i - L.nz) : 0.f;
-      const float dey_z = zz > 0 ? ey - load(in.ey, i - 1) : 0.f;
-      const float dex_z = zz > 0 ? ex - load(in.ex, i - 1) : 0.f;
+      long long i = base + (long long)yy * L.nz + zz;
+      // the plane's fields at i, the plane below's at ip
+      Fields<const TI> cur = in;
+      const TI* below_ey = in.ey;
+      const TI* below_ez = in.ez;
+      long long ip = i - plane;
+      if constexpr (HALO) {
+        if (p == L.nx) {
+          cur = hl.hi;
+          i -= base;
+        } else if (p == 0 && hl.lo_ey) {
+          below_ey = hl.lo_ey;
+          below_ez = hl.lo_ez;
+          ip = i;
+        }
+      }
+      const float ex = load(cur.ex, i), ey = load(cur.ey, i), ez = load(cur.ez, i);
+      const float dey_x = p > bx ? ey - load(below_ey, ip) : 0.f;
+      const float dez_x = p > bx ? ez - load(below_ez, ip) : 0.f;
+      const float dez_y = yy > by ? ez - load(cur.ez, i - L.nz) : 0.f;
+      const float dex_y = yy > by ? ex - load(cur.ex, i - L.nz) : 0.f;
+      const float dey_z = zz > bz ? ey - load(cur.ey, i - 1) : 0.f;
+      const float dex_z = zz > bz ? ex - load(cur.ex, i - 1) : 0.f;
       float hx, hy, hz;
-      const float d_b = h_cell(in, i, L, M, sh, dey_x, dez_x, dez_y, dex_y,
+      const float d_b = h_cell(cur, i, L, M, sh, dey_x, dez_x, dez_y, dex_y,
                                dey_z, dex_z, hx, hy, hz);
       if (m_col >= 0) inject(S, m_col, p, yy, zz, d_b, hx, hy, hz);
       sh.hx[ly][lz] = hx;
@@ -231,9 +293,9 @@ __device__ void tile_pass(Fields<const TI> in, Fields<TO> out, const Lattice& L,
       const float hx = sh.hx[ty][tz], hy = sh.hy[ty][tz], hz = sh.hz[ty][tz];
       if (!seed) {
         const long long i = base + (long long)y * L.nz + z;
-        const bool y_in = y < L.ny - 1, z_in = z < L.nz - 1;
-        const float dhy_x = p < L.nx - 1 ? top_hy - hy : 0.f;
-        const float dhz_x = p < L.nx - 1 ? top_hz - hz : 0.f;
+        const bool y_in = y < fy, z_in = z < fz;
+        const float dhy_x = p < fx ? top_hy - hy : 0.f;
+        const float dhz_x = p < fx ? top_hz - hz : 0.f;
         const float dhz_y = y_in ? sh.hz[ty + 1][tz] - hz : 0.f;
         const float dhx_y = y_in ? sh.hx[ty + 1][tz] - hx : 0.f;
         const float dhy_z = z_in ? sh.hy[ty][tz + 1] - hy : 0.f;

@@ -28,8 +28,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["Kernel", "STEP", "STEPK", "STEP_INPLACE", "STEPK_INPLACE", "CPML",
-           "CPMLK", "CPMLK_INPLACE", "CPMLK_GB", "CPMLK_XZ", "CPMLK_BLOCKED", "KERNELS",
-           "BUILD_DIR"]
+           "CPMLK", "CPMLK_INPLACE", "CPMLK_GB", "CPMLK_XZ", "CPMLK_BLOCKED",
+           "STEPK_EDGES", "SHARDED_STEP", "KERNELS", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fdtd_tpu_torch"
@@ -215,5 +215,17 @@ CPMLK_XZ = Kernel("K5 cpmlk_xz", "cpmlk_xz.cu", "fdtd_cpmlk_xz",
 CPMLK_BLOCKED = Kernel("K4e lateral", "cpmlk.cu", "fdtd_cpmlk_blocked",
                        CPMLK.argtypes[:-1] + [_I, _I, _P])
 
+# fdtd_stepk_edges: fdtd_stepk's arguments, then the 6 edge ints before the
+# stream (K2 edge_planes, stepk.cu's second out-of-place entry point: K9's
+# shards, parallel/cuda_sharded_k.py)
+STEPK_EDGES = Kernel("K2 edge_planes", "stepk.cu", "fdtd_stepk_edges",
+                     STEPK.argtypes[:-1] + [_PI, _P])
+
+# fdtd_sharded_step(fields, halo, first, last, table, rows, n_src, row_w, nx,
+#                   ny, nz, inv_x, inv_y, inv_z, stream) (K8, one launch per
+# shard and tick, parallel/cuda_sharded.py)
+SHARDED_STEP = Kernel("K8 sharded_step", "sharded_step.cu", "fdtd_sharded_step",
+                      [_PP, _PP, _I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P])
+
 KERNELS = (STEP, STEPK, CPML, CPMLK, STEP_INPLACE, STEPK_INPLACE, CPMLK_INPLACE, CPMLK_GB,
-           CPMLK_XZ, CPMLK_BLOCKED)
+           CPMLK_XZ, CPMLK_BLOCKED, STEPK_EDGES, SHARDED_STEP)

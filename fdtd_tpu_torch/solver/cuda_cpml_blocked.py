@@ -72,13 +72,15 @@ gathers, set-ups, owned rows and scatters with K4's plain version
 owned rows) in place of the launch. CPU states take it; CUDA states launch
 the kernel or raise.
 
-The route: ``Simulation.plan`` never takes K7 (PERF.md, the K7 sweep of
-tools/k7_sweep.py); call this wrapper to run it.
+The route: ``Simulation.plan`` takes K7 only where no K4 call fits the
+card's free memory (``call_bytes``; K7 ran slower than the K4 route at
+every size and dtype measured: PERF.md, tools/k7_sweep.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -98,13 +100,14 @@ from .cuda_cpml_k import (
     supports_cpml_k,
 )
 from .cuda_step import build_src_rows, kernel_table
-from .engine import _TERMS, EngineState, _slab_extents, build_step, check_absorbers, split_tfsf
+from .engine import (_TERMS, EngineState, _slab_extents, build_step, check_absorbers,
+                     psi_bytes, split_tfsf)
 from .pml_region import DensePml
 from .sources import SourceSet
 from .state import DEFAULT_DEVICE, FIELDS, resolve_device
 from .tfsf import Tfsf
 
-__all__ = ["BlockedPlan", "blocked_plan", "cuda_cpml_blocked_stepk_fn",
+__all__ = ["BlockedPlan", "blocked_plan", "call_bytes", "cuda_cpml_blocked_stepk_fn",
            "plain_cpml_blocked_stepk", "launches", "reset_launches"]
 
 N_B_CANDIDATES = (2, 4, 8)
@@ -169,6 +172,39 @@ def blocked_plan(shape, bc, cpml, k: int, dtype=torch.float32, *, n_materials: i
             continue
         return BlockedPlan(n_b=n_b, h=k, nly=nly, ny=ny)
     return None
+
+
+def call_bytes(shape, plan: BlockedPlan, cpml, dtype, *, options: bool = False,
+               dense: Optional[DensePml] = None, matid: bool = False) -> int:
+    """Device bytes one K7 call holds beyond its input state, by the shapes:
+    its output fields, x- and z-slab psi and region psi; the material
+    index's window slices (held by the step function); and the largest
+    window's gathered fields, outputs and f32 work sets (the second is the
+    output at f32, and absent at bf16 K = 2 without options or a region)
+    with three f32 sets of its psi and region psi."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nx, ny, nz = shape
+    cells = nx * ny * nz
+    lateral = Cpml(thickness=(cpml.thickness[0], (0, 0), cpml.thickness[2]),
+                   spec=cpml.spec)
+    region = 16 * math.prod(dense.box_shape) if dense is not None else 0
+    total = 6 * itemsize * cells + psi_bytes(shape, lateral) + region
+    worst = 0
+    for i, (a, b, _, _) in enumerate(plan.windows()):
+        win = (nx, b - a, nz)
+        (yl, yh) = cpml.thickness[1]
+        own = Cpml(thickness=(cpml.thickness[0], (yl if i == 0 else 0,
+                                                  yh if i == plan.n_b - 1 else 0),
+                              cpml.thickness[2]), spec=cpml.spec)
+        w_dense = _window_dense(dense, a, b)[0]
+        w_region = 16 * math.prod(w_dense.box_shape) if w_dense is not None else 0
+        w2 = 0 if itemsize == 4 or (plan.h == 2 and not options and w_dense is None) \
+            else 4
+        worst = max(worst, 6 * (2 * itemsize + 4 + w2) * math.prod(win)
+                    + 3 * (psi_bytes(win, own) + w_region))
+        if matid:
+            total += math.prod(win)
+    return total + worst
 
 
 #: K7 calls that launched their windows since the last reset (the K4e

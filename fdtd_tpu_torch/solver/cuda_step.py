@@ -85,12 +85,15 @@ def source_levels(sources: Optional[SourceSet], tick: int, k_steps: int,
 
 
 def build_src_rows(sources: Optional[SourceSet], tick: int, k_steps: int,
-                   with_m: bool, dt: float) -> torch.Tensor:
-    """The kernels' source rows, f32 (n, 3 + 3K [+ 3K]): [x, y, z, J levels
-    1..K (3 each), M levels 1..K (3 each, only when ``with_m``)]. This is
-    ``fdtd_tpu.solver.pallas_stepk.build_src_rows``'s layout, without its
-    padding rows, plus level K's J, which the TPU kernel adds after the
-    call."""
+                   with_m: bool, dt: float, x_offset: int = 0,
+                   y_offset: int = 0) -> torch.Tensor:
+    """The kernels' source rows, f32 (n, 3 + 3K [+ 3K]): [x (+ x_offset),
+    y (+ y_offset), z, J levels 1..K (3 each), M levels 1..K (3 each, only
+    when ``with_m``)]. This is ``fdtd_tpu.solver.pallas_stepk.
+    build_src_rows``'s layout, without its padding rows, plus level K's J,
+    which the TPU kernel adds after the call. The offsets move the points
+    into a shard's frame, unclipped (a row off the array matches no cell:
+    the sharded kernels' halo copies need the rows beside their arrays)."""
     n = 0 if sources is None else sources.num_sources
     width = 3 + 3 * k_steps + (3 * k_steps if with_m else 0)
     device = "cpu" if sources is None else sources.device
@@ -100,7 +103,11 @@ def build_src_rows(sources: Optional[SourceSet], tick: int, k_steps: int,
     cols = [sources.points, j.transpose(0, 1).reshape(n, -1)]
     if with_m:
         cols.append(m.transpose(0, 1).reshape(n, -1))
-    return torch.cat([c.to(torch.float32) for c in cols], dim=1)
+    rows = torch.cat([c.to(torch.float32) for c in cols], dim=1)
+    if x_offset or y_offset:
+        rows[:, 0] += float(x_offset)
+        rows[:, 1] += float(y_offset)
+    return rows
 
 
 def kernel_table(coeffs, matid, device) -> torch.Tensor:
@@ -120,15 +127,19 @@ def kernel_table(coeffs, matid, device) -> torch.Tensor:
 
 
 def _plain_levels(state: SimState, table, matid, sources, k_steps: int,
-                  with_m: bool, dt):
+                  with_m: bool, dt, offset=(0, 0)):
     """The plain versions' coefficients and, per tick, (pts, J, M) in f32
-    (``clip_points`` output; J and M None where absent)."""
+    (``clip_points`` output of the points moved by ``offset`` in x and y;
+    J and M None where absent)."""
     coeffs = (CellCoefficients(*table[0]) if matid is None
               else CellCoefficients.from_table(table, matid))
     levels = source_levels(sources, state.tick, k_steps, dt)
     if levels is None:
         return coeffs, [(None, None, None)] * k_steps
-    pts, j, m = clip_points(sources.points, state.shape,
+    points = sources.points
+    if any(offset):
+        points = points + torch.tensor((*offset, 0), device=points.device)
+    pts, j, m = clip_points(points, state.shape,
                             levels[0].transpose(0, 1), levels[1].transpose(0, 1))
     return coeffs, [(pts, j[:, lvl], m[:, lvl] if with_m else None)
                     for lvl in range(k_steps)]
@@ -136,18 +147,20 @@ def _plain_levels(state: SimState, table, matid, sources, k_steps: int,
 
 def plain_ticks(state: SimState, table: torch.Tensor,
                 matid: Optional[torch.Tensor], sources: Optional[SourceSet],
-                k_steps: int, with_m: bool, inv_dx, dt) -> SimState:
+                k_steps: int, with_m: bool, inv_dx, dt, edges=None,
+                offset=(0, 0)) -> SimState:
     """What the kernels compute, in plain PyTorch: ``k_steps`` applications
     of the plain step in f32 (the kernels' carries are f32) with J and, when
     ``with_m``, M at f32 times, and one rounding to the storage dtype at the
-    end."""
+    end. ``edges``: K2's edge planes (``step.edge_curl``); ``offset``: the
+    source points' shift into the array's frame (``build_src_rows``)."""
     coeffs, levels = _plain_levels(state, table, matid, sources, k_steps,
-                                   with_m, dt)
+                                   with_m, dt, offset)
     e = tuple(c.to(torch.float32) for c in state.e)
     h = tuple(c.to(torch.float32) for c in state.h)
     bc = BoundaryConditions()
     for pts, j_l, m_l in levels:
-        e, h = advance(e, h, coeffs, inv_dx, bc, pts, j_l, m_l)
+        e, h = advance(e, h, coeffs, inv_dx, bc, pts, j_l, m_l, edges)
     return SimState(*(c.to(state.dtype) for c in (*e, *h)),
                     tick=state.tick + k_steps)
 

@@ -27,6 +27,7 @@ kernels do: a bf16-rounded recurrence measurably degrades the absorber).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -95,6 +96,23 @@ def _slab_extents(n, lo, hi, half):
     else:
         hi_range = (n - hi, n)
     return lo_range, hi_range
+
+
+def psi_bytes(shape, cpml) -> int:
+    """Bytes of an ``EngineState``'s psi slabs for ``cpml`` (f32, both
+    halves, every term of its active axes)."""
+    if cpml is None:
+        return 0
+    active = set(cpml.active_axes())
+    cells = 0
+    for _, axis in _TERMS:
+        if axis not in active:
+            continue
+        lo, hi = cpml.thickness[axis]
+        for half in (False, True):
+            (l0, l1), (h0, h1) = _slab_extents(shape[axis], lo, hi, half)
+            cells += (l1 - l0 + h1 - h0) * math.prod(shape) // shape[axis]
+    return 4 * cells
 
 
 def split_tfsf(tfsf):

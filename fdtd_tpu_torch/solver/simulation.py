@@ -32,6 +32,18 @@ card neither kernel is 5 % faster than the K4 route at any size and dtype
 measured (tools/k6_sweep.py; PERF.md), so ``plan`` keeps K4 there. Call
 their wrappers to run them.
 
+``plan`` picks by what fits the card, as the JAX package picks its tier
+by what fits VMEM (fdtd_tpu/solver/simulation.py:600-607): on a CUDA
+device it reads the free memory once (``free_bytes``) and takes, down the
+K ladder, the first K-tick call whose bytes fit beside the state that
+``run`` keeps (``state_bytes`` + ``call_bytes``: an out-of-place call's
+outputs and work sets, the in-place K4's none); else, for an absorbing run
+without an oblique TF/SF, K7 (``cuda_cpml_blocked``, K4 on windows of y
+rows) at the smallest block count that fits; else the one-tick kernel;
+and it raises, with the bytes needed and free, where nothing fits. So
+config 3 at 1024^3 bf16, whose out-of-place K4 call at K = 8 needs 66.5 GB,
+runs K4 at K = 2.
+
 At f32 storage ``run``'s K4 route steps in place (K4's ``io_alias`` build,
 as the JAX package's K4 runs aliased) on one copy of the caller's state,
 made when the run starts: the run holds two states where the out-of-place
@@ -47,6 +59,7 @@ raises unless the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from functools import cached_property
 from typing import Any, Optional, Sequence, Tuple
 
@@ -57,19 +70,69 @@ from ..grid import Grid
 from .best import K_LADDER
 from .boundary import BoundaryConditions
 from .cpml import Cpml
+from . import cuda_cpml_blocked
 from .cuda_cpml import cuda_cpml_step_fn, supports_cpml
+from .cuda_cpml_blocked import blocked_plan, cuda_cpml_blocked_stepk_fn
 from .cuda_cpml_k import cuda_cpml_stepk_fn, supports_cpml_k
 from .cuda_step import cuda_step_fn, supports
 from .cuda_stepk import cuda_stepk_fn, supports_k
-from .engine import build_step, check_absorbers, init_engine_state, split_tfsf
+from .engine import build_step, check_absorbers, init_engine_state, psi_bytes, split_tfsf
 from .sources import SourceSet
 from .state import DEFAULT_DEVICE, FIELDS, SimState, resolve_device, zero_state
 from .step import CellCoefficients, step_fn
 
 __all__ = ["Simulation", "kernel_flux_spec", "kernel_accumulator_spec",
-           "extract_dft_acc", "run_scan_flux"]
+           "extract_dft_acc", "run_scan_flux", "free_bytes", "state_bytes",
+           "call_bytes"]
 
 _BACKENDS = ("auto", "torch", "cuda")
+
+
+def free_bytes(device) -> float:
+    """Device memory a run can still take on ``device``: the card's free
+    memory (``torch.cuda.mem_get_info``) plus what PyTorch's allocator
+    holds unused; no limit off the card. ``Simulation.plan`` reads it once."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return math.inf
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+
+
+def state_bytes(shape, dtype, cpml=None, dense=None) -> int:
+    """Device bytes of a state: six fields, the psi slabs and the region's
+    four psi volumes (f32)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    region = 16 * math.prod(dense.box_shape) if dense is not None else 0
+    return 6 * itemsize * math.prod(shape) + psi_bytes(shape, cpml) + region
+
+
+def call_bytes(kind: str, shape, k: int, dtype, *, cpml=None, dense=None,
+               ext: bool = False, in_place: bool = False) -> int:
+    """Device bytes one call of ``kind`` holds beyond its input state, by
+    the shapes of what its wrapper allocates: the outputs (fields, psi and
+    region psi), and for the out-of-place K-tick kernels an f32 work set,
+    a second one where the output cannot be it (bf16 at K >= 3, or with
+    ``ext``: K4's options, a region or an oblique TF/SF), and K4's psi and
+    region work sets. The in-place K4 holds none. K7's is
+    ``cuda_cpml_blocked.call_bytes``."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    cells = math.prod(shape)
+    fields, f32 = 6 * itemsize * cells, 24 * cells
+    psi = psi_bytes(shape, cpml)
+    region = 16 * math.prod(dense.box_shape) if dense is not None else 0
+    if kind == "cuda_step":
+        return fields
+    if kind == "cuda_stepk":
+        return fields + f32 + (f32 if itemsize == 2 and k >= 3 else 0)
+    if kind == "cuda_cpml":
+        return fields + psi + region
+    if kind == "cuda_cpml_k":
+        if in_place:
+            return 0
+        w2 = f32 if itemsize == 2 and (k >= 3 or ext) else 0
+        return fields + f32 + w2 + 2 * (psi + region)
+    raise ValueError(f"no byte model for {kind!r}")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -267,13 +330,20 @@ class Simulation:
         """Whether ``run``'s K4 route steps in place (f32 storage)."""
         return self._absorbing and self.dtype == torch.float32
 
-    def _multi_step(self, k: int, faces=(), dft=None, rows=()):
+    def _multi_step(self, k: int, faces=(), dft=None, rows=(), n_b=None):
         """The K-tick kernel's step at ``k``, with K4's accumulator options
         (flux faces, DFT (planes, frequencies), row descriptors) when given;
-        K4 in place at f32 (``_in_place``)."""
-        key = (k, faces, dft, rows)
+        K4 in place at f32 (``_in_place``); with ``n_b``, K7 in that many
+        blocks."""
+        key = (k, faces, dft, rows, n_b)
         if key not in self._multi_step_cache:
-            if self._absorbing:
+            if n_b is not None:
+                kw = self._kernel_kwargs()
+                kw.pop("oblique")
+                step = cuda_cpml_blocked_stepk_fn(self.grid.shape, k, n_b, flux_faces=faces,
+                                                  dft=dft, dft_rows=rows,
+                                                  device=self.device, **kw)
+            elif self._absorbing:
                 step = cuda_cpml_stepk_fn(self.grid.shape, k, flux_faces=faces, dft=dft,
                                           dft_rows=rows, io_alias=self._in_place,
                                           **self._kernel_kwargs())
@@ -293,8 +363,8 @@ class Simulation:
              probe_every: int = 1) -> Tuple[int, str]:
         """(k, kind): ticks per step call and the path ``run`` takes for
         these arguments. kind is "cuda_stepk" (K2), "cuda_step" (K1),
-        "cuda_cpml_k" (K4), "cuda_cpml" (K3) or "torch" (the plain step or
-        engine).
+        "cuda_cpml_k" (K4), "cuda_cpml_blocked" (K7), "cuda_cpml" (K3) or
+        "torch" (the plain step or engine).
 
         The K-tick kernels run when K divides both ``n_steps`` and the
         probe cadence, and every intermediate state that an accumulator
@@ -304,36 +374,77 @@ class Simulation:
         ``K_LADDER`` for both (the TPU's CPML ladder is a Mosaic
         calibration). Where the JAX package takes its gb or xz tier, this
         plan keeps K4: K6 and K5 ran slower than the K4 route at every
-        size and dtype measured on the card (the module's docstring)."""
+        size and dtype measured on the card (the module's docstring).
+
+        On a CUDA device the call must fit the card (the module's
+        docstring): the largest K whose call fits, else K7 at the smallest
+        block count that fits (absorbing runs), else the one-tick kernel;
+        raises ValueError where none fits."""
+        k, kind, _ = self._plan(n_steps, probes, accumulators, probe_every)
+        return k, kind
+
+    def _plan(self, n_steps, probes, accumulators, probe_every):
+        """``plan``'s (k, kind) and K7's block count (None for other kinds)."""
         if not self._kernels:
-            return 1, "torch"
+            return 1, "torch", None
         one, multi = (("cuda_cpml", "cuda_cpml_k") if self._absorbing
                       else ("cuda_step", "cuda_stepk"))
+        shape, dtype = self.grid.shape, self.dtype
+        cpml = self._cpml_or_empty if self._absorbing else None
+        oblique = split_tfsf(self.tfsf)[1]
+        free = free_bytes(self.device)
+        need = state_bytes(shape, dtype, cpml, self.dense_pml)
+
+        def fits(kind, k, **kw):
+            return need + call_bytes(kind, shape, k, dtype, cpml=cpml,
+                                     dense=self.dense_pml, **kw) <= free
+
         options = {}
+        ks = ()
         if accumulators:
             faces, _, _, dft_arg, _, rows = kernel_accumulator_spec(tuple(accumulators))
-            if faces is None or not self._absorbing:
-                return 1, one
-            options = dict(flux_faces=faces, dft_rows=rows,
-                           dft=(dft_arg[0], len(dft_arg[1])) if dft_arg else None)
+            if faces is not None and self._absorbing:
+                options = dict(flux_faces=faces, dft_rows=rows,
+                               dft=(dft_arg[0], len(dft_arg[1])) if dft_arg else None)
+                ks = K_LADDER
+        else:
+            ks = K_LADDER
         cadence = probe_every if probes else n_steps
         n_mat = self._n_materials if self.matid is not None else 1
-        chosen = (1, one)
-        for k in K_LADDER:
-            if n_steps % k != 0 or cadence % k != 0:
-                continue
+        ks = [k for k in ks if n_steps % k == 0 and cadence % k == 0]
+        ext = bool(options.get("flux_faces") or options.get("dft_rows")
+                   or options.get("dft")) or self.dense_pml is not None \
+            or oblique is not None
+        supported = []
+        for k in ks:
             if self._absorbing:
-                fits = supports_cpml_k(self.grid.shape, self.bc, self._cpml_or_empty,
-                                       k, dtype=self.dtype, n_materials=n_mat,
-                                       dense=self.dense_pml,
-                                       oblique=split_tfsf(self.tfsf)[1], **options)
+                ok = supports_cpml_k(shape, self.bc, cpml, k, dtype=dtype,
+                                     n_materials=n_mat, dense=self.dense_pml,
+                                     oblique=oblique, **options)
             else:
-                fits = supports_k(self.grid.shape, self.bc, k,
-                                  dtype=self.dtype, n_materials=n_mat)
-            if fits:
-                chosen = (k, multi)
-                break
-        return chosen
+                ok = supports_k(shape, self.bc, k, dtype=dtype, n_materials=n_mat)
+            if ok and fits(multi, k, ext=ext, in_place=self._in_place):
+                return k, multi, None
+            if ok:
+                supported.append(k)
+        # K7: K4's ticks where K4 takes the run but its call does not fit
+        if self._absorbing and oblique is None:
+            for n_b in cuda_cpml_blocked.N_B_CANDIDATES:
+                for k in supported:
+                    bp = blocked_plan(shape, self.bc, cpml, k, dtype=dtype,
+                                      n_materials=n_mat, dense=self.dense_pml,
+                                      n_b_candidates=(n_b,), **options)
+                    if bp is not None and need + cuda_cpml_blocked.call_bytes(
+                            shape, bp, cpml, dtype, options=bool(options) and ext,
+                            dense=self.dense_pml, matid=self.matid is not None) <= free:
+                        return k, "cuda_cpml_blocked", n_b
+        if fits(one, 1):
+            return 1, one, None
+        raise ValueError(
+            f"no kernel call of this run fits the card: {one} needs "
+            f"{need + call_bytes(one, shape, 1, dtype, cpml=cpml, dense=self.dense_pml)} B "
+            f"beside the caller's state (the state run keeps and the call's outputs), "
+            f"{free} B are free on {self.device}")
 
     def run(
         self,
@@ -353,7 +464,7 @@ class Simulation:
         caller's state is left as it was; at f32 the K4 route steps in place
         on one copy of it (the module's docstring).
         """
-        k, kind = self.plan(n_steps, probes, accumulators, probe_every)
+        k, kind, n_b = self._plan(n_steps, probes, accumulators, probe_every)
         dt = self.grid.dt
         stride = max(probe_every // k, 1) if probes else 1
         n_calls = n_steps // k
@@ -361,10 +472,10 @@ class Simulation:
             raise ValueError(f"{n_steps=} not divisible by {probe_every=}")
         if kind == "cuda_cpml_k" and self._in_place:
             state = _own_copy(state)
-        if accumulators and kind == "cuda_cpml_k":
+        if accumulators and kind in ("cuda_cpml_k", "cuda_cpml_blocked"):
             return self._run_on_kernel(state, k, n_calls, stride, probes,
-                                       tuple(accumulators))
-        step = self._step if k == 1 else self._multi_step(k)
+                                       tuple(accumulators), n_b)
+        step = self._step if k == 1 else self._multi_step(k, n_b=n_b)
 
         accs = [a.init(state, dt) for a in accumulators]
         samples = [[] for _ in probes]
@@ -380,13 +491,15 @@ class Simulation:
         )
         return state, stacks, tuple(accs)
 
-    def _run_on_kernel(self, state, k, n_calls, stride, probes, accumulators):
-        """``run`` with every accumulator on K4's options
-        (fdtd_tpu/solver/simulation.py:740-812): the DFT planes' spectra
-        ride ``state.dft`` for the run and are stripped before returning."""
+    def _run_on_kernel(self, state, k, n_calls, stride, probes, accumulators,
+                       n_b=None):
+        """``run`` with every accumulator on K4's options, through K4 or
+        (``n_b``) K7 (fdtd_tpu/solver/simulation.py:740-812): the DFT
+        planes' spectra ride ``state.dft`` for the run and are stripped
+        before returning."""
         faces, flux_items, dft_items, dft_arg, row_items, rows = \
             kernel_accumulator_spec(accumulators)
-        step = self._multi_step(k, faces, dft_arg, rows)
+        step = self._multi_step(k, faces, dft_arg, rows, n_b)
         if dft_arg is not None:
             planes, freqs = dft_arg
             ny, nz = self.grid.shape[1:]

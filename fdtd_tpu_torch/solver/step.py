@@ -136,6 +136,34 @@ def curl_forward(f3, inv_dx, bc: BoundaryConditions):
     return _curl(f3, inv_dx, bc, _diff_forward)
 
 
+def edge_curl(f3, inv_dx, edges, forward: bool):
+    """The Neumann(0) curl (backward differences, or ``forward``) of a
+    halo-extended array whose global lattice's edge planes are ``edges`` =
+    (x_lo, x_hi, y_lo, y_hi, z_lo, z_hi): a backward difference vanishes at
+    index <= max(lo, 0), a forward one at index >= min(hi, n - 1); between
+    the edge planes and the array's faces they are taken unmasked. K2's
+    edge planes (cuda_stepk), as csrc/yee.cuh computes them."""
+    diff = _diff_forward if forward else _diff_backward
+
+    def d(comp: int, axis: int) -> torch.Tensor:
+        f = f3[comp]
+        n = f.shape[axis]
+        idx = torch.arange(n, device=f.device)
+        keep = (idx < min(edges[2 * axis + 1], n - 1)) if forward \
+            else (idx > max(edges[2 * axis], 0))
+        shape = [1, 1, 1]
+        shape[axis] = n
+        raw = diff(f, axis, _NEUMANN, comp)
+        return torch.where(keep.view(shape), raw, torch.zeros((), dtype=raw.dtype,
+                                                                device=raw.device)) \
+            * inv_dx[axis]
+
+    return (d(2, 1) - d(1, 2), d(0, 2) - d(2, 0), d(1, 0) - d(0, 1))
+
+
+_NEUMANN = Neumann()
+
+
 def _cells(coef: torch.Tensor, pts, n: int, dtype) -> torch.Tensor:
     """Per-source-cell coefficient values without a full-lattice broadcast."""
     if coef.dim() == 0:
@@ -166,11 +194,14 @@ def add_at(fields, pts, coef_cells, vals, dtype):
 
 
 def advance_h(e, h, coeffs: CellCoefficients, inv_dx, bc, pts=None,
-              m_vals=None):
+              m_vals=None, edges=None):
     """The H half of a tick: the new H from the backward curl of E, minus
-    M at the source points (``clip_points`` output)."""
+    M at the source points (``clip_points`` output). ``edges``: the edge
+    planes of a halo-extended array (``edge_curl``; ``bc`` is then
+    Neumann(0))."""
     dtype = e[0].dtype
-    ce = curl_backward(e, inv_dx, bc)
+    ce = curl_backward(e, inv_dx, bc) if edges is None else \
+        edge_curl(e, inv_dx, edges, forward=False)
     h = tuple(coeffs.d_a * h[c] - coeffs.d_b * ce[c] for c in range(3))
     if m_vals is not None:
         h = add_at(h, pts, _cells(coeffs.d_b, pts, len(pts), dtype), m_vals,
@@ -179,11 +210,12 @@ def advance_h(e, h, coeffs: CellCoefficients, inv_dx, bc, pts=None,
 
 
 def advance_e(e, h, coeffs: CellCoefficients, inv_dx, bc, pts=None,
-              j_vals=None):
+              j_vals=None, edges=None):
     """The E half of a tick: the new E from the forward curl of the new H,
-    minus J at the source points."""
+    minus J at the source points; ``edges`` as in ``advance_h``."""
     dtype = e[0].dtype
-    ch = curl_forward(h, inv_dx, bc)
+    ch = curl_forward(h, inv_dx, bc) if edges is None else \
+        edge_curl(h, inv_dx, edges, forward=True)
     e = tuple(coeffs.c_a * e[c] + coeffs.c_b * ch[c] for c in range(3))
     if j_vals is not None:
         e = add_at(e, pts, _cells(coeffs.c_b, pts, len(pts), dtype), j_vals,
@@ -192,11 +224,11 @@ def advance_e(e, h, coeffs: CellCoefficients, inv_dx, bc, pts=None,
 
 
 def advance(e, h, coeffs: CellCoefficients, inv_dx, bc, pts=None,
-            j_vals=None, m_vals=None):
+            j_vals=None, m_vals=None, edges=None):
     """One leapfrog tick of (e, h) with per-source J/M values already
-    evaluated (``clip_points`` output)."""
-    h = advance_h(e, h, coeffs, inv_dx, bc, pts, m_vals)
-    return advance_e(e, h, coeffs, inv_dx, bc, pts, j_vals), h
+    evaluated (``clip_points`` output); ``edges`` as in ``advance_h``."""
+    h = advance_h(e, h, coeffs, inv_dx, bc, pts, m_vals, edges)
+    return advance_e(e, h, coeffs, inv_dx, bc, pts, j_vals, edges), h
 
 
 def field_dtype_time(tick: int, dt: float, dtype: torch.dtype) -> float:

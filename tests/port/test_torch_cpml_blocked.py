@@ -456,8 +456,8 @@ def _config3_sim(n, dtype):
 def test_plan_never_takes_k7(monkeypatch, n, dtype):
     """Config 3 plans K4 at K = 8 where K7's plan exists (K7 ran slower than
     the K4 route at every size and dtype measured: PERF.md), at 1024^3 bf16
-    too, where one out-of-place K4 call at K = 8 would need more than the
-    card holds (the memory route is a lead, not taken); and with K4 capped
+    too, on the CPU, where memory sets no limit (on the card the plan takes
+    K7 only where no K4 call fits: test_torch_sharded.py); and with K4 capped
     at K = 1, the condition under which the JAX package takes its blocked
     tier (fdtd_tpu/solver/simulation.py:600-607), the plan takes K3."""
     from fdtd_tpu_torch.solver import simulation as sim_mod

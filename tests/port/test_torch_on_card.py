@@ -761,3 +761,133 @@ def test_k7_refuses_what_it_does_not_take(cuda_device):
     state = pt.init_engine_state(K7_SHAPE, cpml=CPML, device="cpu")
     with pytest.raises(ValueError, match="built for"):
         step(state, pt.CellCoefficients.uniform((1.0, DT, 1.0, DT), device="cpu"), None)
+
+
+# -- the split lattice (K8, K2 edge_planes / K9) and the fit-aware plan ------------
+
+
+def _sharded_inputs(shape, dtype, device, cuts, k, m=True):
+    """Random fields, uniform coefficients, and J (+M) sources on and within
+    k cells of every cut, ``cuts`` = (x cuts, y cuts)."""
+    rng = np.random.default_rng(11)
+    e = rng.standard_normal((3, *shape))
+    h = rng.standard_normal((3, *shape))
+    pts = [(min(max(c + d, 0), shape[0] - 1), 3 + i % 20, 5 + 3 * i) for i, (c, d) in
+           enumerate((c, d) for c in cuts[0] for d in (-k, -1, 0, k - 1))]
+    pts += [(2 + i, min(max(c + d, 0), shape[1] - 1), 7 + 2 * i) for i, (c, d) in
+            enumerate((c, d) for c in cuts[1] for d in (-k, -1, 0, k - 1))]
+    src = pt.SourceSet.build([
+        pt.PointSource(p, pt.GaussianPulse((2 + i % 3) * DT, DT), j=(0.5, 0.1 * i, 2.0),
+                       m=(0.1, 0.2, 0.3) if m else (0.0, 0.0, 0.0))
+        for i, p in enumerate(pts)], device=device)
+    state = pt.state_from_stacked(e, h, tick=2, dtype=dtype, device=device)
+    return state, pt.CellCoefficients.uniform((0.97, 0.21, 0.99, 0.18), device=device), src
+
+
+def _equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip((*a.e, *a.h), (*b.e, *b.h)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_sharded_k8_matches_plain_and_k1(cuda_device, n):
+    """K8 over n shards of the card, 3 ticks: its plain version within 2e-6
+    per tick, K1 on the whole lattice bit for bit."""
+    from fdtd_tpu_torch.parallel import (gather, make_cuda_sharded_step, make_mesh,
+                                         plain_sharded_step, shard_state)
+    from fdtd_tpu_torch.parallel import cuda_sharded
+
+    shape, dims = (40, 29, 53), ("x", None, None)
+    nl = shape[0] // n
+    mesh = make_mesh(n, ("x",), devices=[cuda_device] * n)
+    state, coeffs, src = _sharded_inputs(shape, torch.float32, cuda_device,
+                                         (range(nl, shape[0], nl), ()), 1, m=False)
+    k8 = make_cuda_sharded_step(mesh, inv_dx=INV_DX, dt=DT)
+    k1 = cuda_step_fn(shape, inv_dx=INV_DX, dt=DT)
+    got = plain = shard_state(state, mesh, dims)
+    ref = state
+    before = cuda_sharded.launches()
+    for _ in range(3):
+        got = k8(got, coeffs, src)
+        plain = plain_sharded_step(plain, coeffs, src, mesh=mesh, inv_dx=INV_DX, dt=DT)
+        ref = k1(ref, coeffs, src)
+    assert cuda_sharded.launches() == before + 3 * n
+    g = gather(got, mesh, dims)
+    _check(g, gather(plain, mesh, dims), torch.float32, 3)
+    assert _equal(g, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [2, 4, 8])
+@pytest.mark.parametrize("n, axes", [(2, ("x",)), (4, ("x",)), (4, ("x", "y"))])
+def test_sharded_k9_matches_plain_and_k2(cuda_device, dtype, k, n, axes):
+    """K9 (K2 edge_planes per shard) on 40x32x53: one pass against its plain
+    version, two passes against K2 on the whole lattice bit for bit."""
+    from fdtd_tpu_torch.parallel import (collapse_state, extend_state, make_cuda_sharded_stepk,
+                                         make_mesh, plain_sharded_stepk)
+
+    shape = (40, 32, 53)
+    mesh = make_mesh(n, axes, devices=[cuda_device] * n)
+    nl = shape[0] // mesh.shape["x"]
+    nly = shape[1] // mesh.shape["y"] if len(axes) == 2 else None
+    if nl < 2 * k or (nly is not None and nly < 2 * k):
+        pytest.skip("the plan takes K only where nl, nly >= 2K")
+    state, coeffs, src = _sharded_inputs(
+        shape, dtype, cuda_device,
+        (range(nl, shape[0], nl), () if nly is None else range(nly, shape[1], nly)), k)
+    k9 = make_cuda_sharded_stepk(mesh, k, nl, inv_dx=INV_DX, dt=DT, dtype=dtype,
+                                 with_m=True, nl_y=nly)
+    k2 = cuda_stepk_fn(shape, k, inv_dx=INV_DX, dt=DT, dtype=dtype, with_m=True)
+    before = cuda_stepk.launches(edges=True)
+    got = k9(extend_state(state, mesh, k, axes=axes), coeffs, src)
+    assert cuda_stepk.launches(edges=True) == before + n
+    plain = plain_sharded_stepk(extend_state(state, mesh, k, axes=axes), coeffs, src,
+                                mesh=mesh, k_steps=k, inv_dx=INV_DX, dt=DT, with_m=True,
+                                two_d=nly is not None)
+    ref = k2(state, coeffs, src)
+    g = collapse_state(got, mesh, k, axes=axes)
+    torch.cuda.synchronize()
+    tol = (2e-6 * k if dtype == torch.float32 else 2.0 ** -7) * max(
+        float(f.float().abs().max()) for f in (*ref.e, *ref.h))
+    want = collapse_state(plain, mesh, k, axes=axes)
+    for a, b in zip((*g.e, *g.h), (*want.e, *want.h)):
+        assert float((a.float() - b.float()).abs().max()) <= tol
+    assert _equal(g, ref)
+    assert _equal(collapse_state(k9(got, coeffs, src), mesh, k, axes=axes),
+                  k2(ref, coeffs, src))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sharded_k2_default_edge_row_equals_k2(cuda_device, dtype):
+    """K2's edge-plane entry with the default row (the array's faces) gives
+    K2's outputs bit for bit."""
+    shape = (40, 32, 53)
+    state, coeffs, src = _sharded_inputs(shape, dtype, cuda_device, ((20,), (16,)), 2)
+    for k in (2, 8):
+        kw = dict(inv_dx=INV_DX, dt=DT, dtype=dtype, with_m=True)
+        a = cuda_stepk_fn(shape, k, edge_planes=(0, shape[0] - 1), **kw)(state, coeffs, src)
+        b = cuda_stepk_fn(shape, k, **kw)(state, coeffs, src)
+        assert _equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sharded_slice_fit_aware_plan_on_the_card(cuda_device):
+    """Simulation.plan on the card's real free memory picks what the byte
+    model says fits, and run follows it."""
+    from fdtd_tpu_torch.solver import simulation as sim_mod
+
+    res = pt.Resolution.courant(1.0, pt.REDUCED, safety=0.9)
+    grid = pt.Grid(shape=(64, 64, 64), resolution=res, constants=pt.REDUCED)
+    coeffs = pt.CellCoefficients.uniform((1.0, grid.dt, 1.0, grid.dt), device=cuda_device)
+    sim = pt.Simulation(grid=grid, coeffs=coeffs, cpml=pt.Cpml.uniform(4),
+                        dtype=torch.bfloat16, device=cuda_device)
+    free = sim_mod.free_bytes(cuda_device)
+    assert 0 < free < torch.cuda.get_device_properties(cuda_device).total_memory
+    need = sim_mod.state_bytes(grid.shape, torch.bfloat16, sim.cpml) + sim_mod.call_bytes(
+        "cuda_cpml_k", grid.shape, 8, torch.bfloat16, cpml=sim.cpml)
+    assert need < free
+    assert sim.plan(16, (), (), 1) == (8, "cuda_cpml_k")
+    out, _, _ = sim.run(sim.init(), 16)
+    assert out.tick == 16

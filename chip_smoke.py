@@ -76,7 +76,10 @@ Run from the root of a checkout. In order it
    the exchange timed alone against whole passes; 512^3 bf16 on the same
    mesh and 512^3 f32 on a 2 x 2 (x, y) mesh, each bit-identical to
    single-device K2; K8 at 512^3 over 4 shards, 8 ticks, bit-identical to
-   K1; then config 3 at 1024^3 bf16 through the fit-aware
+   K1; K2 edge_planes on each 272 x 1024^2 shard of the split 1024^3 run
+   and K8 on the 4 shards at 512^3, on random fields with sources on and
+   beside every cut, against their plain versions (the kernels line's
+   max_abs_err of both); then config 3 at 1024^3 bf16 through the fit-aware
    Simulation.run (the run whose K4 call at K = 8 does not fit beside its
    state): the plan's pick on the card's free memory, 128 ticks with the
    probe every 8, peak memory against the plan's byte model, bit-identical
@@ -3091,17 +3094,66 @@ def sharded_run(torch, ft, n, dtype, axes, reference, label):
     return counts, numbers, state, lay
 
 
-def sharded_config5_path(torch, ft, reference_1024):
+def random_fields(torch, shards, gen, tick=3):
+    """``shards`` (SimStates) with every field filled with standard normal
+    values from ``gen`` in place, at ``tick`` (where cut_sources' pulses
+    are on)."""
+    for st in shards:
+        for f in (*st.e, *st.h):
+            f.normal_(generator=gen)
+    return [st.replace(tick=tick) for st in shards]
+
+
+def k9_shard_check(torch, ft, state, lay, coeffs, dt, label):
+    """K2 edge_planes against its plain version at the split run's shapes:
+    one K9 pass shard by shard on ``state`` (an extended split state in
+    ``lay`` at SHARDED_K): the exchange, then each shard's call through the
+    kernel's wrapper (stepk_call) and through K2's plain version with the
+    shard's edge row, source offset and halos (shard_frame), J sources on
+    and within K planes of every cut; the owned cells held at K2's bar, 2e-6
+    per tick of max|field|. Returns the largest difference."""
+    from fdtd_tpu_torch.parallel.cuda_sharded_k import _exchange, shard_frame
+    from fdtd_tpu_torch.solver.cuda_step import kernel_table
+    from fdtd_tpu_torch.solver.cuda_stepk import plain_stepk, stepk_call
+
+    k, inv, nl, n = SHARDED_K, (1.0, 1.0, 1.0), lay.owned[0], lay.shape[0]
+    dev = state.shards[0].device
+    src = cut_sources(ft, lay.shape, (range(nl, n, nl), ()), k, dt, dev, m=False)
+    _exchange(state.shards, lay, k)
+    own, err, scale = lay.owned_slice(), 0.0, 0.0
+    for s, st in enumerate(state.shards):
+        edges, offset = shard_frame(lay, s, k)
+        table = kernel_table(coeffs, None, st.device)
+        kw = dict(inv_dx=inv, dt=dt, edges=edges, offset=offset)
+        got = stepk_call(st, table, None, src, k, **kw)
+        plain = plain_stepk(st, table, None, src, k, **kw)
+        for a, b in zip((*got.e, *got.h), (*plain.e, *plain.h)):
+            err = max(err, float((a[own] - b[own]).abs().max()))
+            scale = max(scale, float(b[own].abs().max()))
+        del got, plain
+    tol = 2e-6 * k * scale
+    log(f"{label}: K2 edge_planes on each {lay.local} shard, one K={k} pass from random "
+        f"fields: max_abs_err {err:.3e} vs its plain version (tol {tol:.3e})")
+    require(err <= tol, f"{label}: K2 edge_planes differs from its plain version")
+    return err
+
+
+def sharded_config5_path(torch, ft, reference_1024, seed=0):
     """BASELINE config 5 split over SHARDED_SHARDS shards of the one card:
     1024^3 f32 (held to config5_path's in-place K2 run at K = 8, which is
     bit-identical to the out-of-place K2 at f32), where the exchange is also
     timed alone against whole passes; 512^3 bf16 on the same mesh and 512^3
     f32 on the 2 x 2 (x, y) mesh, each held to single-device K2 at K = 8;
     and K8 at 512^3 over the 4 shards, 8 ticks from rest, held to K1 bit
-    for bit. Returns (launches, numbers)."""
+    for bit. After each kernel's run, its kernel against its plain version
+    on the run's shards (random fields, sources on and beside every cut):
+    K2 edge_planes on the 1024^3 run's (k9_shard_check), K8 one tick on the
+    512^3 one's at K1's bar. Returns (launches, numbers, those two
+    differences by kernel)."""
     import gc
 
-    from fdtd_tpu_torch.parallel import gather, make_cuda_sharded_step, shard_state
+    from fdtd_tpu_torch.parallel import (gather, make_cuda_sharded_step, plain_sharded_step,
+                                         shard_state)
     from fdtd_tpu_torch.parallel.cuda_sharded_k import _exchange
     from fdtd_tpu_torch.solver.cuda_step import cuda_step_fn
 
@@ -3113,7 +3165,7 @@ def sharded_config5_path(torch, ft, reference_1024):
         torch, ft, SHARDED_N, torch.float32, ("x",), reference_1024, label)
     launches["K2 edge_planes"] += counts["K2 edge_planes"]
     # the exchange alone against whole passes, on the run's final state
-    from fdtd_tpu_torch.parallel import ShardedSimulation
+    from fdtd_tpu_torch.parallel import ShardedSimulation, ShardedState
 
     grid, src, coeffs = config5(ft, SHARDED_N, dev)
     sim = ShardedSimulation(grid=grid, coeffs=coeffs, sources=src,
@@ -3135,6 +3187,10 @@ def sharded_config5_path(torch, ft, reference_1024):
     log(f"{label}: the exchange alone {ex_ms:.4f} ms per pass ({ex_bytes / 1e9:.4f} GB read "
         f"and written; {ex_bytes / (ex_ms * 1e-3) / 1e12:.3f} TB/s), a pass {pass_ms:.4f} ms: "
         f"{ex_ms / pass_ms:.1%} of a pass")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 17)
+    state = ShardedState(random_fields(torch, state.shards, gen))
+    errs = {"K2 edge_planes": k9_shard_check(torch, ft, state, lay, coeffs, grid.dt, label)}
     del state, step, sim
     gc.collect()
     torch.cuda.empty_cache()
@@ -3181,10 +3237,25 @@ def sharded_config5_path(torch, ft, reference_1024):
         f"{want['K8 sharded_step']}; every field bit-identical to K1's {same}, max|E_z| "
         f"{float(whole.ez.abs().max()):.4e}")
     require(same and float(whole.ez.abs().max()) > 0, "K8 at 512^3 differs from K1")
-    del split, whole, got, zero
+    del whole, got, zero
+    # K8 against its plain version on the run's shards: one tick from random
+    # fields, J sources on and beside every cut
+    nl = n // SHARDED_SHARDS
+    split = ShardedState(random_fields(torch, split.shards, gen))
+    cut = cut_sources(ft, (n,) * 3, (range(nl, n, nl), ()), 1, grid.dt, dev, m=False)
+    got = k8(split, coeffs, cut)
+    plain = plain_sharded_step(split, coeffs, cut, mesh=mesh, inv_dx=(1.0, 1.0, 1.0),
+                               dt=grid.dt)
+    err = max(max_abs_err(a, b) for a, b in zip(got.shards, plain.shards))
+    tol = 2e-6 * max(field_scale(b) for b in plain.shards)
+    errs["K8 sharded_step"] = err
+    log(f"K8 on each {split.shards[0].shape} shard at {n}^3, one tick from random fields: "
+        f"max_abs_err {err:.3e} vs its plain version (tol {tol:.3e})")
+    require(err <= tol, "K8 at 512^3 differs from its plain version")
+    del split, got, plain
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, numbers
+    return launches, numbers, errs
 
 
 def config3_fit_path(torch, ft):
@@ -3287,7 +3358,7 @@ def sharded_timings(torch, ft, n=3):
                                          make_cuda_sharded_stepk, plain_sharded_step,
                                          plain_sharded_stepk, shard_state)
     from fdtd_tpu_torch.parallel.cuda_sharded import exchange_planes
-    from fdtd_tpu_torch.parallel.cuda_sharded_k import _exchange, ext_layout
+    from fdtd_tpu_torch.parallel.cuda_sharded_k import _exchange, ext_layout, shard_frame
     from fdtd_tpu_torch.parallel.sharded import Layout
     from fdtd_tpu_torch.solver import _build
     from fdtd_tpu_torch.solver.cuda_step import kernel_table
@@ -3323,11 +3394,11 @@ def sharded_timings(torch, ft, n=3):
             table.data_ptr(), None, 0, 6, nl, ny, nz, *inv, _build.stream_handle(dev))
         return s
 
-    edges = (-2 ** 30, 2 ** 30, 0, ny - 1, 0, nz - 1)
+    edges, offset = shard_frame(lay9, 1, k)
 
     def k9_launch(s):
         stepk_call(s.shards[1], table, None, None, k, inv_dx=inv, dt=dt, edges=edges,
-                   offset=(k - nl, 0))
+                   offset=offset)
         return s
 
     named = [
@@ -4226,8 +4297,11 @@ def measure(torch, ft, seed):
     launches = main_path(torch, ft)
     c5_launches, c5_gcells, split_reference = config5_path(torch, ft)
     launches.update(c5_launches)
-    s5_launches, s5_numbers = sharded_config5_path(torch, ft, split_reference)
+    s5_launches, s5_numbers, s5_errs = sharded_config5_path(torch, ft, split_reference, seed)
     del split_reference
+    # the kernels line's differences for K8 and K2 edge_planes: at the main
+    # path's shapes (the small lattices' stay in the log)
+    errs.update(s5_errs)
     launches.update(s5_launches)
     fit_launches, c3_fit = config3_fit_path(torch, ft)
     c3_launches, c3_large, reference_1024 = config3_large_path(torch, ft)

@@ -34,7 +34,8 @@ The pass CONSUMES its input: the exchange writes the input's halos, and
 each shard's input tensors are released once its launch is queued, so a
 pass holds one extended state and one shard's call (outputs and K2's work
 sets), where keeping the input would hold two states. The step returns a
-new ``ShardedState`` and empties the input's ``shards``.
+new ``ShardedState`` and empties the input's ``shards``: the emptied state
+raises ValueError wherever it is used again.
 
 CPU shards take the plain version (``plain_sharded_stepk``: the same
 exchange, K2's plain version with the edge planes per shard), CUDA shards
@@ -58,7 +59,7 @@ from .sharded import Layout, ShardedState
 from .topology import Mesh
 
 __all__ = ["make_cuda_sharded_stepk", "plain_sharded_stepk", "extend_state",
-           "collapse_state", "extract_slice", "ext_layout"]
+           "collapse_state", "extract_slice", "ext_layout", "shard_frame"]
 
 #: the edge row's sentinel: an edge plane beyond any array disables it
 _BIG = 2 ** 30
@@ -160,11 +161,27 @@ def _exchange(shards, lay: Layout, k: int) -> None:
                     dst_hi.copy_(getattr(shards[hi], name).narrow(axis, k, k))
 
 
+def shard_frame(lay: Layout, s: int, k: int):
+    """Shard ``s``'s K2 arguments in an extended layout: its edge row (the
+    global edge planes in the shard's frame, sentinels beyond the array
+    on interior shards) and its sources' (x, y) offset."""
+    nl, nly = lay.owned[0], lay.owned[1]
+    two_d = bool(lay.halo[1])
+    ix, iy = lay.blocks[s][0], lay.blocks[s][1]
+    edges = (k if ix == 0 else -_BIG, nl + k - 1 if ix == lay.n[0] - 1 else _BIG,
+             (k if iy == 0 else -_BIG) if two_d else 0,
+             (nly + k - 1 if iy == lay.n[1] - 1 else _BIG) if two_d else nly - 1,
+             0, lay.local[2] - 1)
+    return edges, (k - ix * nl, k - iy * nly if two_d else 0)
+
+
 def _pass(state: ShardedState, coeffs, sources: Optional[SourceSet], mesh: Mesh, k: int,
           axes, inv_dx, dt, bc, with_m: bool, kernel: bool) -> ShardedState:
+    # no local name may hold a shard: each input goes once its launch is
+    # queued (below)
+    lay = _ext_layout_of(mesh, k, state._first().shape, axes)
     shards = state.shards
     dtype = state.dtype
-    lay = _ext_layout_of(mesh, k, shards[0].shape, axes)
     if not supports_k(lay.local, bc, k, dtype=dtype):
         raise ValueError(f"K9: K2 does not take {k=} on {lay.local} {bc=} {dtype}")
     if not coeffs.is_uniform():
@@ -174,19 +191,11 @@ def _pass(state: ShardedState, coeffs, sources: Optional[SourceSet], mesh: Mesh,
             for f in (*st.e, *st.h)) for st in shards):
         raise ValueError(f"K9: every shard needs six contiguous {dtype} {lay.local} "
                          f"fields on its device")
-    nl, nly = lay.owned[0], lay.owned[1]
-    two_d = bool(lay.halo[1])
     _exchange(shards, lay, k)
     out = []
     for s in range(len(shards)):
         st = shards[s]
-        ix, iy = lay.blocks[s][0], lay.blocks[s][1]
-        # the global edge planes in the shard's frame; sentinels inside
-        edges = (k if ix == 0 else -_BIG, nl + k - 1 if ix == lay.n[0] - 1 else _BIG,
-                 (k if iy == 0 else -_BIG) if two_d else 0,
-                 (nly + k - 1 if iy == lay.n[1] - 1 else _BIG) if two_d else nly - 1,
-                 0, lay.local[2] - 1)
-        offset = (k - ix * nl, k - iy * nly if two_d else 0)
+        edges, offset = shard_frame(lay, s, k)
         table = kernel_table(coeffs, None, st.device)
         src = None if sources is None else sources.to(st.device)
         if kernel:

@@ -52,7 +52,8 @@ class ShardedState:
 
     def _first(self) -> SimState:
         if not self.shards:
-            raise ValueError("this sharded state was consumed by a step")
+            raise ValueError("this sharded state was consumed (by a K9 pass or "
+                             "ShardedSimulation.run): use the state they returned")
         return self.shards[0]
 
     @property

@@ -26,10 +26,15 @@ slice of the port, and refused with NotImplementedError: absorbing runs
 accumulators, meshes that cut lattice z (the JAX package rotates them
 onto its kernel tier), and ``save``/``restore``.
 
-On the "cuda_k" path ``run`` consumes the state it is given (K9's pass
-does: the run holds one extended state and one shard's call); pass
-``init()`` or a state not needed again. ``gather`` returns the plain
-global state on the first shard's device.
+``run`` consumes the state it is given on either path (K9's pass does,
+so that the run holds one extended state and one shard's call; on the
+"torch" path ``run`` empties it after its first step), and the emptied
+state raises ValueError if used again: pass ``init()`` or a state not
+needed again. Probes sample the owned cells of the shards that hold their
+points, lines and planes, without gathering the lattice (an energy probe
+sums the shards' parts); only a probe of another kind sees the gathered
+lattice. ``gather`` returns the plain global state on the first shard's
+device.
 """
 
 from __future__ import annotations
@@ -44,11 +49,16 @@ import torch
 from ..grid import Grid
 from ..solver.boundary import BoundaryConditions
 from ..solver.sources import SourceSet
-from ..solver.state import zero_state
+from ..solver.state import SimState, zero_state
 from ..solver.step import CellCoefficients
 from .best import kernel_lateral_axis
 
 __all__ = ["ShardedSimulation"]
+
+
+def _wrap(index, shape):
+    """Lattice indices with Python's negative indexing resolved."""
+    return tuple(int(v) + n if int(v) < 0 else int(v) for v, n in zip(index, shape))
 
 _BACKENDS = ("auto", "torch")
 _NEXT_SLICE = ("comes with the next slice of the port (the sharded CPML kernel K10, "
@@ -154,7 +164,7 @@ class ShardedSimulation:
         uniform = self.coeffs is not None and self.coeffs.is_uniform()
         if ((one_d or y_axis is not None) and n_dev * n_dy > 1 and self._kernel_backend()
                 and nx % n_dev == 0 and ny % n_dy == 0 and self.matid is None and uniform):
-            from .cuda_sharded_k import ext_layout, make_cuda_sharded_stepk
+            from .cuda_sharded_k import make_cuda_sharded_stepk
 
             nl = nx // n_dev
             nly = ny // n_dy if y_axis is not None else None
@@ -166,15 +176,25 @@ class ShardedSimulation:
                     step = make_cuda_sharded_stepk(
                         mesh, k, nl, inv_dx=inv_dx, dt=self.grid.dt, bc=self.bc,
                         dtype=self.dtype, with_m=self._has_m_sources(), nl_y=nly)
-                    lay = ext_layout(mesh, k, self.grid.shape, self._ext_axes)
-                    return step, lambda: self._zeros(lay), k, "cuda_k"
+                    return step, lambda: self._zeros(self._layout), k, "cuda_k"
 
-        from .sharded import Layout, make_sharded_step
+        from .sharded import make_sharded_step
 
-        dims = self._dims
-        step = make_sharded_step(mesh, dims, inv_dx=inv_dx, dt=self.grid.dt, bc=self.bc)
-        lay = Layout(mesh, dims, self.grid.shape)
-        return step, lambda: self._zeros(lay), 1, "torch"
+        step = make_sharded_step(mesh, self._dims, inv_dx=inv_dx, dt=self.grid.dt,
+                                 bc=self.bc)
+        return step, lambda: self._zeros(self._layout), 1, "torch"
+
+    @cached_property
+    def _layout(self):
+        """The plan's ``Layout``: where each shard's owned cells lie."""
+        _, _, k, kind = self._plan
+        if kind == "cuda_k":
+            from .cuda_sharded_k import ext_layout
+
+            return ext_layout(self._mesh, k, self.grid.shape, self._ext_axes)
+        from .sharded import Layout
+
+        return Layout(self._mesh, self._dims, self.grid.shape)
 
     def _zeros(self, lay):
         """A zero ``ShardedState`` of ``lay``, made on each shard's device."""
@@ -210,30 +230,90 @@ class ShardedSimulation:
         """Advance ``n_steps`` ticks (a multiple of plan()'s k).
 
         With ``probes`` (the probes classes), samples every ``probe_every``
-        ticks (a multiple of k) from a global view of the owned regions on
-        the first shard's device and returns (state, probe_stacks); else
-        the state. On the "cuda_k" path the state given is consumed."""
+        ticks (a multiple of k) from the owned cells of the shards, onto the
+        first shard's device, and returns (state, probe_stacks); else the
+        state. The state given is consumed (the module's docstring)."""
         if accumulators:
             raise NotImplementedError(f"accumulators on a split lattice {_NEXT_SLICE}")
-        step, _, k, kind = self._plan
+        step, _, k, _ = self._plan
         if n_steps % k != 0:
             raise ValueError(f"{n_steps=} not divisible by plan k={k}")
-        coeffs = self._step_coeffs
-        if not probes:
-            for _ in range(n_steps // k):
-                state = step(state, coeffs, self.sources)
-            return state
-        if probe_every % k != 0 or n_steps % probe_every != 0:
+        if probes and (probe_every % k != 0 or n_steps % probe_every != 0):
             raise ValueError(
                 f"{probe_every=} must be a multiple of plan k={k} and divide {n_steps=}")
-        outs = [[] for _ in probes]
+        coeffs = self._step_coeffs
+        given, outs = state, [[] for _ in probes]
         for i in range(n_steps // k):
             state = step(state, coeffs, self.sources)
-            if ((i + 1) * k) % probe_every == 0:
-                view = self.gather(state)
-                for j, p in enumerate(probes):
-                    outs[j].append(p.sample(view, self.grid.dt))
+            if i == 0:
+                given.shards.clear()  # the "torch" step leaves it; K9 emptied it
+            if probes and ((i + 1) * k) % probe_every == 0:
+                for j, sample in enumerate(self._sample(state, probes)):
+                    outs[j].append(sample)
+        if not probes:
+            return state
         return state, tuple(torch.stack(o) for o in outs)
+
+    def _sample(self, state, probes):
+        """Each probe's sample of ``state``: points, lines and planes (and
+        the Poynting flux through a plane) from a state of just the cells
+        they read, gathered from the shards that own them; an energy probe
+        as the sum of its value on each shard's owned cells; any other
+        probe from the gathered lattice."""
+        from ..probes.probes import (EnergyProbe, LineProbe, PointProbe,
+                                     PoyntingFluxProbe, SliceProbe)
+
+        shape, dt, view = self.grid.shape, self.grid.dt, None
+        out = []
+        for p in probes:
+            if isinstance(p, PointProbe):
+                got = torch.cat([dataclasses.replace(p, points=((0, 0, 0),)).sample(
+                    self._cells(state, [(v, v + 1) for v in _wrap(pt, shape)]), dt)
+                    for pt in p.points])
+            elif isinstance(p, LineProbe):
+                start = _wrap(p.start, shape)
+                box = [(v, v + 1) for v in start]
+                box[p.axis] = (start[p.axis], min(start[p.axis] + p.length, shape[p.axis]))
+                got = dataclasses.replace(p, start=(0, 0, 0)).sample(
+                    self._cells(state, box), dt)
+            elif isinstance(p, (SliceProbe, PoyntingFluxProbe)):
+                box = [(0, n) for n in shape]
+                i = _wrap((p.index,), (shape[p.axis],))[0]
+                box[p.axis] = (i, i + 1)
+                got = dataclasses.replace(p, index=0).sample(self._cells(state, box), dt)
+            elif isinstance(p, EnergyProbe):
+                dev = state._first().device
+                got = sum(p.sample(part, dt).to(dev) for part in self._owned(state))
+            else:
+                view = self.gather(state) if view is None else view
+                got = p.sample(view, dt)
+            out.append(got)
+        return out
+
+    def _owned(self, state):
+        """Each shard's owned cells, as a ``SimState`` of views."""
+        own = self._layout.owned_slice()
+        return [SimState(*(f[own] for f in (*st.e, *st.h)), tick=st.tick)
+                for st in state.shards]
+
+    def _cells(self, state, box):
+        """The global cells ``box`` ((start, stop) per axis) of every field,
+        copied from the shards that own them onto the first shard's device."""
+        lay, first = self._layout, state._first()
+        out = [torch.empty([b - a for a, b in box], dtype=first.dtype, device=first.device)
+               for _ in range(6)]
+        for s, st in enumerate(state.shards):
+            off = lay.offset(s)
+            lo = [max(a, o) for (a, _), o in zip(box, off)]
+            hi = [min(b, o + n) for (_, b), o, n in zip(box, off, lay.owned)]
+            if any(a >= b for a, b in zip(lo, hi)):
+                continue
+            src = tuple(slice(a - o + h, b - o + h)
+                        for a, b, o, h in zip(lo, hi, off, lay.halo))
+            dst = tuple(slice(a - c, b - c) for a, b, (c, _) in zip(lo, hi, box))
+            for d, f in zip(out, (*st.e, *st.h)):
+                d[dst].copy_(f[src])
+        return SimState(*out, tick=first.tick)
 
     def gather(self, state, device=None):
         """The plain global ``SimState`` of any state of this plan, on

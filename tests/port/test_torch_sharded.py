@@ -346,6 +346,76 @@ def test_run_gather_and_probes_match_jax(backend, axes):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **tol)
 
 
+class _SumEx:
+    """A probe of a kind run does not place on the shards."""
+
+    def sample(self, state, dt):
+        return state.ex.sum()
+
+
+@pytest.mark.parametrize("backend, n, axes", [("auto", 4, ("x",)), ("auto", 4, ("x", "y")),
+                                              ("torch", 8, ("x", "y", "z"))])
+def test_run_probes_read_the_owning_shards(monkeypatch, backend, n, axes):
+    """run samples points, lines, planes and the flux through a plane from
+    the shards that own their cells, and the energy as a sum over the
+    shards' owned cells, without gathering the lattice: each sample equals
+    the probe on the gathered final state, bit for bit (the energy, summed
+    in another order, to 1e-6); a probe of another kind samples the
+    gathered lattice."""
+    from fdtd_tpu_torch.probes import EnergyProbe, LineProbe, PoyntingFluxProbe
+
+    shape = (16, 16, 16)
+    pg, pc, ps = _sim_parts(pt, shape, torch.float32, (7, 8, 8))
+    sim = ShardedSimulation(grid=pg, coeffs=pc, sources=ps, mesh=_cpu_mesh(n, axes),
+                            backend=backend, max_k=2)
+    k, kind = sim.plan()
+    assert kind == ("torch" if backend == "torch" else "cuda_k")
+    probes = (PointProbe(points=((7, 8, 8), (8, 7, 9), (-1, 0, 15))),
+              LineProbe(axis=0, start=(0, 7, 8), length=16),
+              LineProbe(axis=1, start=(8, 2, -8), length=12),
+              SliceProbe(axis=0, index=8), SliceProbe(axis=1, index=-9),
+              SliceProbe(axis=2, index=8), PoyntingFluxProbe(axis=0, index=7), EnergyProbe())
+    with monkeypatch.context() as m:
+        m.setattr(ShardedSimulation, "gather", lambda *a, **kw: pytest.fail("gathered"))
+        out, stacks = sim.run(sim.init(), 4 * k, probes=probes, probe_every=4 * k)
+    whole = sim.gather(out)
+    for p, got in zip(probes, stacks):
+        want = p.sample(whole, pg.dt)
+        assert tuple(got.shape) == (1, *want.shape)
+        if isinstance(p, EnergyProbe):
+            torch.testing.assert_close(got[0], want, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(got[0], want)
+    original, calls = ShardedSimulation.gather, []
+    monkeypatch.setattr(ShardedSimulation, "gather", lambda self, st, device=None: (
+        calls.append(st.tick), original(self, st, device))[1])
+    out, (a, _) = sim.run(sim.init(), 4 * k, probes=(_SumEx(), SliceProbe(axis=2, index=8)),
+                          probe_every=2 * k)
+    assert calls == [2 * k, 4 * k]
+    assert torch.equal(a[-1], _SumEx().sample(original(sim, out), pg.dt))
+
+
+@pytest.mark.parametrize("backend", ["auto", "torch"])
+def test_run_consumes_its_state_on_either_plan(backend):
+    """run empties the state it is given on both plans (K9's pass consumes
+    it on the kernel route); the emptied state raises a ValueError that
+    says so wherever it is used again."""
+    shape = (16, 16, 16)
+    pg, pc, ps = _sim_parts(pt, shape, torch.float32, (7, 8, 8))
+    mesh = _cpu_mesh(4, ("x",))
+    sim = ShardedSimulation(grid=pg, coeffs=pc, sources=ps, mesh=mesh, backend=backend,
+                            max_k=2)
+    k, kind = sim.plan()
+    state = sim.init()
+    out = sim.run(state, 2 * k)
+    assert not state.shards and out.tick == 2 * k and len(out.shards) == 4
+    for use in (lambda: sim.run(state, k), lambda: sim.gather(state),
+                lambda: sim._plan[0](state, pc, ps), lambda: state.tick):
+        with pytest.raises(ValueError, match="consumed"):
+            use()
+    assert sim.run(out, 0) is out and len(out.shards) == 4  # no step, nothing consumed
+
+
 def test_refusals():
     shape = (16, 16, 128)
     pg, pc, ps = _sim_parts(pt, shape, torch.float32, (7, 8, 64))

@@ -54,7 +54,17 @@ Run from the root of a checkout. In order it
    edge_planes (K9's passes) over 2 and 4 shards along x and a 2 x 2
    (x, y) mesh on 40x32x53 at K = 2, 4, 8, f32 and bf16, J+M sources
    within K of every cut, against K9's plain version and K2 (two passes,
-   bit for bit), and K2's default edge row against K2;
+   bit for bit), and K2's default edge row against K2; K10 (the sharded
+   K-tick CPML: K4e x-side per shard) over 2 and 4 shards along x and a
+   2 x 2 (x, y) mesh on 64x32x53 at K = 2, 4, 8, f32 and bf16, CPML
+   (4,3)/(3,5)/(5,4), config 2's material index, J+M sources on and
+   within K of every cut, a box TF/SF across every cut with K4's options
+   (flux faces and captures on and beside the y cut, DFT planes on a cut
+   and in a halo), and on 1-D meshes a slab TF/SF with a DensePml region
+   across a cut and the skew oblique frame: one pass against its plain
+   version, two against single-device K4 bit for bit (the non-owners'
+   K4b' accumulators exactly 0), and K4e x-side with the default frame
+   against K4 bit for bit;
 4. runs the free-space main path: BASELINE config 2 at 128^3 (a dielectric
    sphere and a lossy slab in a uint8 material index, a Gaussian J dipole),
    built as __graft_entry__._flagship builds it, for 1000 ticks with a
@@ -102,6 +112,13 @@ Run from the root of a checkout. In order it
    ticks, with the same gates; then path A's oblique box on config 3's scene at 256^3
    through K5 (K = 2), 1000 ticks, against Simulation.run's route (K4
    io_alias with its oblique option), with the same gates; then config 3
+   split over 4 shards of the card through ShardedSimulation (K10 at
+   K = 8, 128 ticks, the probe every 8): 1024^3 f32, its trace and
+   per-x-plane squares bit-identical to the K4 route's run above, its
+   peak against the extended state, index and one shard's call, and K4e
+   x-side on two of its 272 x 1024^2 shards against its plain version;
+   512^3 bf16 and a 2 x 2 mesh at 512^3 f32, each bit-identical to the
+   single-device route on the same set-up; then config 3
    through K7 (K = 4, n_b = 2; plan keeps K4 here too) at 512^3 f32 and
    bf16, 800 ticks, with the same gates and bit identity to the K4 route
    required; then at 1024^3, 128 ticks at K = 8: f32 (n_b = 8) bit-identical
@@ -143,6 +160,11 @@ Run from the root of a checkout. In order it
    K4 with its dense option (probes every 8 ticks), through K3 (probes
    every tick) and through the plain engine, fields and probes within
    rel 1e-5, and once more without the region for the energy behind it;
+   then config 3's accumulators, path A's oblique box and path B's region
+   split over 4 shards at 256^3 (K10, 1000 ticks, the probe every 8), each
+   held to the same run on the single device (spectra bit for bit, the
+   flux within K4a's bar, traces and squares bit for bit), and K4b' on the
+   shard that owns the x = 13 plane against its plain version;
    each of phases 4-11 sets the launch counts to 0 just before each run
    and reads them just after, and each of its kernels must have launched
    (at f32 Simulation.run steps K4 in place);
@@ -162,7 +184,10 @@ Run from the root of a checkout. In order it
    f32, each with its bound (K7's with its gathers' and scatters' bytes),
    K8 (a tick over 4 shards, one launch, the exchange) and K9 (a K = 8
    pass over 4 shards, one K2 edge_planes launch, the exchange) with their
-   plain versions at 512^3 f32, each with its bound,
+   plain versions at 512^3 f32, each with its bound, K10 on config 3 at
+   512^3 f32 over 4 shards (a K = 8 pass, one K4e x-side launch with and
+   without the K4b' plane, the exchange whole and its fields alone) with
+   their plain versions and bounds,
    and prints Gcell/s and the byte model's share of the H100's 3.35 TB/s;
 13. profiles 64 ticks of each absorbing run, of each accumulator route, of
    paths A and B and of the plain engine at 256^3 (torch.profiler) and
@@ -457,6 +482,14 @@ def psi_cells(shape, cpml) -> int:
         planes = (lo + hi) + (lo + hi + (1 if hi > 0 else 0))
         total += 2 * planes * math.prod(shape) // shape[axis]
     return total
+
+
+def window_psi_cells(b) -> int:
+    """psi_cells of a K7 window (a solver/cuda_cpml_blocked.py block): the
+    lattice's x and z slabs and the y slab of the window's own end."""
+    from fdtd_tpu_torch.solver.engine import psi_bytes
+
+    return psi_bytes(b.shape, b.setup.cpml, b.frame) // 4
 
 
 def bound(cells, ticks, nbytes, psi=0, extra_flop=0):
@@ -2279,13 +2312,10 @@ def k7_check(torch, label, state, k, n_b, table, src, common, kw, options):
     b = step.blocks[min(1, n_b - 1)]
     win = b.gather(state, bool(got.dft))
     dt, with_m = common["dt"], common["with_m"]
-    levels = blk.block_levels(b, blk.call_levels(b, state, src, k, with_m, dt))
-    w_got = blk.launch_block(b, win, table, k, with_m, dtype, dt, levels)[0]
-    planes = blk._planes(options["dft"][0]) if got.dft else ()
-    phases = blk.dft_phases(options["dft"][1], state.tick, k, dt, state.device) \
-        if got.dft else None
-    w_want = blk.plain_block(b, win, table, blk.source_shift(src, b.a), k, with_m, planes,
-                             phases)[0]
+    w_got = blk.launch_block(b, win, table, src, k, with_m, dtype, dt,
+                             blk.call_levels(b, state, k))[0]
+    freqs = tuple(options["dft"][1]) if got.dft else ()
+    w_want = blk.plain_block(b, win, table, src, k, with_m, freqs, dt)[0]
     torch.cuda.synchronize()
     w_err = max_abs_err(w_got, w_want)
     w_psi = k7_psi_err(w_got, w_want)
@@ -2369,10 +2399,11 @@ def k7_window_bytes(torch, step, dtype, options=False):
     worst = 0
     for b in step.blocks:
         cells = math.prod(b.shape)
-        w2 = 0 if itemsize == 4 or (k == 2 and not options and b.dense is None) else 4
-        region = 0 if b.dense is None else 4 * math.prod(b.dense.box_shape)
+        dense = b.setup.dense
+        w2 = 0 if itemsize == 4 or (k == 2 and not options and dense is None) else 4
+        region = 0 if dense is None else 4 * math.prod(dense.box_shape)
         worst = max(worst, 6 * (2 * itemsize + 4 + w2) * cells
-                    + 3 * 4 * (psi_cells(b.shape, b.cpml) + region))
+                    + 3 * 4 * (window_psi_cells(b) + region))
     return slices, worst
 
 
@@ -2385,12 +2416,13 @@ def k7_copy_bytes(step, itemsize):
     total = 0
     for b in step.blocks:
         nx, ny_b, nz = b.shape
-        lateral = dataclasses.replace(b.cpml, thickness=(b.cpml.thickness[0], (0, 0),
-                                                          b.cpml.thickness[2]))
+        cpml = b.setup.cpml
+        lateral = dataclasses.replace(cpml, thickness=(cpml.thickness[0], (0, 0),
+                                                       cpml.thickness[2]))
         per_row = 6 * itemsize * nx * nz + 4 * psi_cells((nx, 1, nz), lateral)
         total += 2 * per_row * (ny_b + b.o1 - b.o0)
-        if b.dense is not None:
-            bx, by, bz = b.dense.box_shape
+        if b.setup.dense is not None:
+            bx, by, bz = b.setup.dense.box_shape
             g0, g1 = b.dense_rows
             owned = max(0, min(g1, b.a + b.o1) - max(g0, b.a + b.o0))
             total += 2 * 4 * 4 * bx * bz * (by + owned)
@@ -2704,15 +2736,15 @@ def k7_timings(torch, ft, n=6):
     b0 = step.blocks[0]
     state = ft.init_engine_state(shape, torch.float32, cpml=cpml, device=dev)
     state = state.replace(ez=torch.ones_like(state.ez))
-    levels = blk.block_levels(b0, blk.call_levels(b0, state, None, k, False, res.temporal))
+    levels = blk.call_levels(b0, state, k)
     named = [
         (f"K7 K={k} n_b={n_b}", lambda s: step(s, coeffs, None), k),
         ("K7 plain version", lambda s: blk.plain_cpml_blocked_stepk(s, table, None, None, k,
                                                                      n_b, **kw), k),
-        ("K4e window", lambda w: blk.launch_block(b0, w, table, k, False, torch.float32,
+        ("K4e window", lambda w: blk.launch_block(b0, w, table, None, k, False, torch.float32,
                                                   res.temporal, levels)[0], k),
         ("K4e window plain version", lambda w: blk.plain_block(b0, w, table, None, k, False,
-                                                               (), None)[0], k),
+                                                               (), res.temporal)[0], k),
         ("K7 gathers and scatters", lambda s: k7_copies(step, s), k),
     ]
     for io in (False, True):
@@ -2740,8 +2772,8 @@ def k7_timings(torch, ft, n=6):
         f"{copies / (copy_ms * 1e-3) / 1e12:.3f} TB/s)")
     bounds = {f"K7 K={k} n_b={n_b}": bound(cells, k, cpml_bytes(shape, 4, False, cpml), psi),
               "K4e window": bound(math.prod(b0.shape), k,
-                                  cpml_bytes(b0.shape, 4, False, b0.cpml),
-                                  psi_cells(b0.shape, b0.cpml))}
+                                  yee_bytes(b0.shape, 4, False) + 2 * 4 * window_psi_cells(b0),
+                                  window_psi_cells(b0))}
     for name, (b_ms, b_by) in bounds.items():
         group[name]["bound_ms"], group[name]["bound_by"] = b_ms, b_by
         log(f"bound k7_512_float32 {name}: {b_ms:.4f} ms per call ({b_by}); the kernel at "
@@ -2981,6 +3013,772 @@ def sharded_self_checks(torch, ft, seed):
             require(same, "K2's edge-plane entry with the default row differs from K2")
     log(f"selfcheck K9: {identical} of {total} two-pass checks bit-identical to K2")
     return errs
+
+
+# -- K10: the sharded K-tick CPML (K4e x-side on each shard) -------------------
+
+#: the self-checks' ragged lattice, split over 2 and 4 x shards and a 2 x 2
+#: (x, y) mesh at K = 2, 4, 8 (4 shards at K = 8: nl = 16 = 2K, so the x
+#: slabs stay within nl - K = 8 planes)
+K10_SHAPE = (64, 32, 53)
+K10_MESHES = ((2, ("x",)), (4, ("x",)), (4, ("x", "y")))
+K10_KS = (2, 4, 8)
+K10_CPML = ((4, 3), (3, 5), (5, 4))
+#: flux faces and captures on and beside the y cut (16) and DFT planes on a
+#: cut (32), in a neighbour's halo (30: shard 1's, in shard 2's halo at 4
+#: shards) and on another cut (16)
+K10_OPTIONS = dict(flux_faces=(("x",), ("y", 15), ("y", 16), ("z", 20), ("z", 21)),
+                   dft=(((32, 0), (30, 1), (16, 0)), (0.02, 0.11)),
+                   dft_rows=(("y", 16), ("z", 20), ("y", 17)))
+K10_REGION_BOX = ((24, 40), (6, 20), (28, 45))  # across the cut at x = 32
+K10_OBLIQUE_BOX = ((20, 44), (8, 23), (3, 40))  # the subgrid across x = 16, 32 and 48
+
+
+def k10_setups(ft, shape, dt, two_d):
+    """The K10 self-checks' set-ups (name, tfsf, region, options): a box
+    TF/SF whose faces straddle every cut with K4's options; on 1-D meshes
+    also a slab TF/SF with a DensePml region across a cut (graded along y)
+    and the options, and the skew oblique frame."""
+    import numpy as np
+    from fdtd_tpu_torch.scene import Ball
+
+    box = ft.Tfsf(span=(14, 47), waveform=ft.GaussianDerivative(6 * dt, 2 * dt),
+                  span_y=(6, 25), span_z=(5, 45))
+    out = [("box", box, None, K10_OPTIONS)]
+    if two_d:
+        return out
+    slab = ft.Tfsf(span=(14, 47), waveform=ft.GaussianDerivative(6 * dt, 2 * dt))
+    ball, ctr = Ball(7.0), np.array([[32.0], [13.0], [36.5]])
+    d_h, d_e = ft.depth_from_contains(lambda p: ball.contains(p - ctr), K10_REGION_BOX, 1, 1)
+    region = ft.dense_pml_from_depth(1, K10_REGION_BOX, d_h, d_e,
+                                     spec=ft.solver.GradedPmlSpec(), dx=1.0, dt=dt,
+                                     constants=ft.REDUCED)
+    oblique = ft.ObliqueTfsf(box=K10_OBLIQUE_BOX, direction=(1.0, 0.7, -0.4),
+                             polarization=(0.0, 0.2, 1.0),
+                             waveform=ft.GaussianPulse(6 * dt, 2 * dt))
+    return out + [("slab+region", slab, region, K10_OPTIONS), ("oblique", oblique, None, {})]
+
+
+def k10_state(torch, ft, sim, dtype, cpml, tfsf, region, gen, options):
+    """A random global EngineState on the card (fields, psi, aux, region
+    psi), with zero DFT accumulators for ``options``' planes."""
+    from fdtd_tpu_torch.solver.engine import split_tfsf
+
+    state = random_engine_state(torch, ft, sim, dtype, cpml, split_tfsf(tfsf)[0], gen,
+                                dense=region)
+    if options.get("dft"):
+        n = 6 * len(options["dft"][1])
+        state = state.replace(dft=tuple(torch.zeros((n, *sim.grid.shape[1:]),
+                                                    device=sim.device)
+                                        for _ in options["dft"][0]))
+    return state
+
+
+def k10_extended(torch, pk, state, mesh, k, cpml, axes, tfsf, region, options):
+    """``state`` in K10's layout, with zero DFT accumulators per shard."""
+    from fdtd_tpu_torch.solver.engine import split_tfsf
+
+    ext = pk.extend_pml_state(state, mesh, k, cpml=cpml, axes=axes,
+                              tfsf=split_tfsf(tfsf)[0], dense=region)
+    if options.get("dft"):
+        n = 6 * len(options["dft"][1])
+        ext = type(ext)([st.replace(dft=tuple(torch.zeros((n, *st.shape[1:]),
+                                                          device=st.device)
+                                              for _ in options["dft"][0]))
+                         for st in ext.shards])
+    return ext
+
+
+def k10_outputs(out, options):
+    """(state, flux rows or None, captures) of a K10 or K4 step's result."""
+    if not options:
+        return out, None, ()
+    state, i = out[0], 1
+    flux = out[i] if options.get("flux_faces") else None
+    i += bool(options.get("flux_faces"))
+    return state, flux, tuple(out[i]) if options.get("dft_rows") else ()
+
+
+def k10_psi_err(torch, got, want):
+    from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
+
+    pairs = [(a, b) for a, b in zip((*psi_tensors(got), *got.psi_d),
+                                    (*psi_tensors(want), *want.psi_d)) if b.numel()]
+    return (max((float((a - b).abs().max()) for a, b in pairs), default=0.0),
+            max((float(b.abs().max()) for _, b in pairs), default=0.0),
+            all(torch.equal(a, b) for a, b in pairs))
+
+
+def sharded_cpml_self_checks(torch, ft, seed):
+    """K10 (K4e x-side per shard) on the card, over shards of the one card:
+    K10_SHAPE over 2 and 4 x shards and a 2 x 2 (x, y) mesh at K = 2, 4, 8,
+    f32 and bf16, CPML (4, 3)/(3, 5)/(5, 4), config 2's material index,
+    J+M sources on and within K cells of every cut, and each of k10_setups'
+    set-ups. One pass against K10's plain version at K4's bars (fields 2e-6
+    per tick at f32 and 2^-7 at bf16 of max|field|, psi and region psi 2e-6
+    per tick of their largest, flux rows 2e-5 of max|row| per descriptor,
+    DFT planes 3e-6, captures 5e-6); two passes against single-device K4
+    on the same global inputs: f32 fields, psi, region psi, DFT planes and
+    captures bit for bit on the owned cells, the flux rows at K4a's bar
+    (bit-identical on 1-D meshes, where each plane's sum runs over K4's
+    tiles), and the K4b' accumulators of the shards that do not own their
+    plane still exactly 0. Then K4e x-side with the default frame (the
+    lattice itself) against K4, every output bit for bit, f32 and bf16,
+    with and without the options. Returns the largest f32 field difference
+    from the plain version ({"K10": ..., "K4e x-side": ...})."""
+    from fdtd_tpu_torch import parallel as pk
+    from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn
+    from fdtd_tpu_torch.solver.engine import split_tfsf
+    from fdtd_tpu_torch.solver.frame import Frame
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 23)
+    shape = K10_SHAPE
+    sim = flagship(ft, shape, torch.float32, dev, backend="auto")
+    dt, matid, table = sim.grid.dt, sim.matid, sim._table_f32
+    cpml = ft.Cpml(thickness=K10_CPML)
+    common = dict(inv_dx=(1.0, 1.0, 1.0), dt=dt, constants=ft.REDUCED, cpml=cpml,
+                  with_m=True)
+    errs = {"K10": 0.0, "K4e x-side": 0.0}
+    identical = total = 0
+    for n, axes in K10_MESHES:
+        mesh = pk.make_mesh(n, axes, devices=[dev] * n)
+        n_x = mesh.shape["x"]
+        n_y = mesh.shape["y"] if len(axes) == 2 else 1
+        nl, nly = shape[0] // n_x, shape[1] // n_y
+        for k in K10_KS:
+            if nl < 2 * k or (n_y > 1 and nly < 2 * k):
+                continue
+            src = cut_sources(ft, shape, (range(nl, shape[0], nl),
+                                          range(nly, shape[1], nly) if n_y > 1 else ()),
+                              k, dt, dev)
+            for name, tfsf, region, options in k10_setups(ft, shape, dt, n_y > 1):
+                for dtype in (torch.float32, torch.bfloat16):
+                    f32 = dtype == torch.float32
+                    kw = dict(common, tfsf=tfsf, dense=region, **options)
+                    state = k10_state(torch, ft, sim, dtype, cpml, tfsf, region, gen, options)
+                    step = pk.make_cuda_sharded_cpml_stepk(
+                        mesh, shape, k, matid=matid, n_materials=table.shape[0],
+                        dtype=dtype, axes=axes, **kw)
+                    got1 = step(k10_extended(torch, pk, state, mesh, k, cpml, axes, tfsf,
+                                             region, options), table, src)
+                    plain = pk.plain_sharded_cpml_stepk(
+                        k10_extended(torch, pk, state, mesh, k, cpml, axes, tfsf, region,
+                                     options), table, src, mesh=mesh, shape=shape,
+                        k_steps=k, matid=matid, n_materials=table.shape[0], axes=axes, **kw)
+                    g1, g1_flux, g1_caps = k10_outputs(got1, options)
+                    p1, p1_flux, p1_caps = k10_outputs(plain, options)
+                    collapse = dict(cpml=cpml, axes=axes, tfsf=split_tfsf(tfsf)[0],
+                                    dense=region)
+                    cg1 = pk.collapse_pml_state(g1, mesh, k, shape, **collapse)
+                    cp1 = pk.collapse_pml_state(p1, mesh, k, shape, **collapse)
+                    lay = step.layout
+                    n_planes = len(options["dft"][0]) if options else 0
+                    g1_dft, p1_dft = ([torch.stack(pk.extract_sharded_dft_acc(
+                        x, lay, k, options["dft"], slot)) for slot in range(n_planes)]
+                        for x in (g1, p1))
+                    # the second pass, and K4 twice on the whole lattice
+                    got2 = step(g1, table, src)
+                    g2, g2_flux, g2_caps = k10_outputs(got2, options)
+                    k4 = cuda_cpml_stepk_fn(shape, k, matid=matid, n_materials=table.shape[0],
+                                            dtype=dtype, **kw)
+                    r1, r1_flux, r1_caps = k10_outputs(k4(state, table, src), options)
+                    r2, r2_flux, r2_caps = k10_outputs(k4(r1, table, src), options)
+                    cg2 = pk.collapse_pml_state(g2, mesh, k, shape, **collapse)
+                    torch.cuda.synchronize()
+                    err, scale = max_abs_err(cg1, cp1), field_scale(cp1)
+                    tol = (2e-6 * k if f32 else 2.0 ** -7) * scale
+                    psi_err, psi_scale, _ = k10_psi_err(torch, cg1, cp1)
+                    ok = err <= tol and psi_err <= 2e-6 * k * psi_scale
+                    opt_note = ""
+                    if options:
+                        f_rel = max(acc_rel_err(g1_flux[:, :, q], p1_flux[:, :, q])
+                                    for q in range(p1_flux.shape[2]))
+                        c_rel = max(acc_rel_err(a, b) for a, b in zip(g1_caps, p1_caps))
+                        d_rel = max(acc_rel_err(a, b) for a, b in zip(g1_dft, p1_dft))
+                        ok = ok and f_rel <= 2e-5 and c_rel <= 5e-6 and d_rel <= 3e-6
+                        opt_note = (f"; flux {f_rel:.3e} (2e-5), DFT {d_rel:.3e} (3e-6), "
+                                    f"captures {c_rel:.3e} (5e-6)")
+                    # against K4, two passes
+                    same_f = states_equal(torch, cg2, r2)
+                    _, _, same_psi = k10_psi_err(torch, cg2, r2)
+                    same = same_f and same_psi
+                    k4_note = ""
+                    if options:
+                        planes = options["dft"][0]
+                        same_d = all(torch.equal(
+                            torch.stack(pk.extract_sharded_dft_acc(g2, lay, k, options["dft"], s)),
+                            torch.stack(ft.solver.simulation.extract_dft_acc(
+                                r2, options["dft"], s))) for s in range(len(planes)))
+                        same_c = all(torch.equal(a, b) for a, b in zip(g2_caps, r2_caps))
+                        f_k4 = max(acc_rel_err(g2_flux[:, :, q], r2_flux[:, :, q])
+                                   for q in range(r2_flux.shape[2]))
+                        same_fl = torch.equal(g1_flux, r1_flux) and torch.equal(g2_flux, r2_flux)
+                        # K4b': the shards that do not own a plane keep 0
+                        zero = True
+                        for s, f in enumerate(step.frames):
+                            for slot, (x, _) in enumerate(planes):
+                                if f.plane(x) < 0:
+                                    zero &= int(torch.count_nonzero(g2.shards[s].dft[slot])) == 0
+                        same = same and same_d and same_c
+                        ok = ok and zero and f_k4 <= 2e-5
+                        k4_note = (f", DFT {same_d}, captures {same_c}, flux rows {same_fl} "
+                                   f"({f_k4:.3e} of max|row|, 2e-5); non-owner K4b' "
+                                   f"accumulators 0 {zero}")
+                    ok = ok and (same or not f32)
+                    total += 1
+                    identical += same
+                    log(f"selfcheck K10 {name} {shape} over {n} shards {axes} K={k} "
+                        f"{str(dtype)[6:]}: max_abs_err {err:.3e} vs its plain version "
+                        f"(tol {tol:.3e}), psi {psi_err:.3e}{opt_note}; two passes vs K4: "
+                        f"fields+psi bit-identical {same_f and same_psi}{k4_note} "
+                        f"{'ok' if ok else 'FAIL'}")
+                    require(ok, f"K10 {name} {n} {axes} K={k} {dtype} disagrees")
+                    if f32:
+                        errs["K10"] = max(errs["K10"], err)
+                    del got1, plain, got2, g1, g2, p1, r1, r2, cg1, cp1, cg2, state
+    log(f"selfcheck K10: {identical} of {total} two-pass checks bit-identical to K4 "
+        f"(every f32 one required)")
+    # K4e x-side with the default frame: K4 itself
+    tfsf = k10_setups(ft, shape, dt, True)[0][1]
+    unit = Frame(lattice=shape, origin=(0, 0), shape=shape)
+    src = ragged_sources(ft, shape, dt, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        for options in ({}, K10_OPTIONS):
+            kw = dict(common, tfsf=tfsf, matid=matid, n_materials=table.shape[0], dtype=dtype,
+                      **options)
+            state = k10_state(torch, ft, sim, dtype, cpml, tfsf, None, gen, options)
+            for k in K10_KS:
+                a = k10_outputs(cuda_cpml_stepk_fn(shape, k, frame=unit, **kw)(
+                    state, table, src), options)
+                b = k10_outputs(cuda_cpml_stepk_fn(shape, k, **kw)(state, table, src), options)
+                torch.cuda.synchronize()
+                same = states_equal(torch, a[0], b[0]) and k10_psi_err(torch, a[0], b[0])[2]
+                same = same and all(torch.equal(x, y) for x, y in zip(a[0].dft, b[0].dft))
+                if options:
+                    same = same and torch.equal(a[1], b[1]) and all(
+                        torch.equal(x, y) for x, y in zip(a[2], b[2]))
+                log(f"selfcheck K4e x-side default frame {shape} K={k} {str(dtype)[6:]}"
+                    f"{' + options' if options else ''}: every output bit-identical to K4 "
+                    f"{same}")
+                require(same, "K4e x-side with the default frame differs from K4")
+    return errs
+
+
+def sharded_from(ft, sim, mesh):
+    """The ShardedSimulation of a single-device absorbing Simulation's run
+    on ``mesh``: its grid, coefficients, sources, absorbers, material index
+    and table."""
+    from fdtd_tpu_torch.parallel import ShardedSimulation
+
+    return ShardedSimulation(
+        grid=sim.grid, coeffs=sim.coeffs, sources=sim.sources, dtype=sim.dtype, cpml=sim.cpml,
+        tfsf=sim.tfsf, dense_pml=sim.dense_pml, matid=sim.matid,
+        table=None if sim.table is None else sim._table_f32, mesh=mesh)
+
+
+def k10_state_bytes(state):
+    """Device bytes of a K10 state: every tensor of every shard."""
+    from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
+
+    return sum(t.numel() * t.element_size() for st in state.shards
+               for t in (*st.e, *st.h, *psi_tensors(st), *st.psi_d, st.aux_e, st.aux_h)
+               if t is not None)
+
+
+def k10_call_bytes(state, dtype, k, options=False):
+    """The largest bytes one shard's K4e x-side call allocates beyond its
+    input (solver/cuda_cpml.py::launch_cpml): the output fields, an f32
+    work set, a second one at bf16 (K >= 3 or options), and the psi and
+    region psi twice (output and work set)."""
+    from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
+
+    worst = 0
+    for st in state.shards:
+        cells = math.prod(st.shape)
+        item = st.ex.element_size()
+        psi = sum(t.numel() * 4 for t in (*psi_tensors(st), *st.psi_d) if t.dim())
+        w2 = 24 * cells if item == 2 and (k >= 3 or options) else 0
+        worst = max(worst, 6 * item * cells + 24 * cells + w2 + 2 * psi)
+    return worst
+
+
+def k10_run(torch, label, sim, ticks, probes, every, want_plan, accumulators=(),
+            hold_peak=True):
+    """One ShardedSimulation.run of K10 with its launch counts (set to 0 just
+    before, read just after: K4e x-side alone, one launch per shard and
+    pass), its peak memory against the model (the extended state, the
+    extended material index, one shard's call, 2 %; required with
+    ``hold_peak``, logged without: the model leaves out the options'
+    outputs and folds, the region's coefficients and the oblique
+    correction's tables and packs), its time and Gcell/s. Returns (the
+    run's result, numbers)."""
+    import gc
+
+    from fdtd_tpu_torch.solver import cuda_cpml_k
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # the plan builds the step, which extends the material index per shard
+    require(sim.plan() == want_plan, f"{label}: plan {sim.plan()} != {want_plan}")
+    k = want_plan[0]
+    state = sim.init()
+    state_b = k10_state_bytes(state)
+    shards = len(state.shards)
+    # the extended uint8 index, one byte per cell of every shard's array
+    mid_b = shards * math.prod(state.shards[0].shape) if sim.matid is not None else 0
+    model = 1.02 * (state_b + mid_b + k10_call_bytes(state, sim.dtype, k, bool(accumulators)))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    start.record()
+    out = sim.run(state, ticks, probes=probes, probe_every=every,
+                  accumulators=accumulators) if accumulators else \
+        sim.run(state, ticks, probes=probes, probe_every=every)
+    end.record()
+    end.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    secs = start.elapsed_time(end) / 1e3
+    passes = ticks // k
+    want = {name: 0 for name in counts}
+    want["K4e x-side"] = passes * shards
+    want["K10"] = passes
+    want[K4B] = counts[K4B]
+    options = cuda_cpml_k.option_launches()
+    require(counts == want, f"{label}: launches {counts}, expected {want}")
+    n = math.prod(sim.grid.shape)
+    g = n * ticks / secs / 1e9
+    log(f"{label}: {ticks} ticks in {secs * 1e3:.3f} ms, {g:.3f} Gcell/s; launches K4e x-side "
+        f"{counts['K4e x-side']} ({shards} per pass), K10 passes {counts['K10']}, K4b' "
+        f"{counts[K4B]}, options {options}; peak {peak / 1e9:.4f} GB against the model "
+        f"{model / 1e9:.4f} GB (state {state_b / 1e9:.4f} GB + material index "
+        f"{mid_b / 1e9:.4f} GB + one shard's call + 2 %)")
+    require(peak <= model or not hold_peak, f"{label}: peak {peak} > model {model}")
+    numbers = {"seconds": secs, "gcells": g, "peak_bytes": peak, "model_bytes": model,
+               "state_bytes": state_b, "launches": counts["K4e x-side"],
+               "passes": counts["K10"], "k4b_launches": counts[K4B]}
+    return out, numbers
+
+
+#: config 3 split over K10_SHARDS shards of the one card at its top size
+#: (K = 8: nl = 256, 272 planes a shard), then bf16 and a 2 x 2 mesh at 512^3
+K10_N = 1024
+K10_SMALL = 512
+K4B = "K4b'"
+K10_SHARDS = 4
+K10_K = 8
+
+
+def config3_host(ft, shape, dtype):
+    """Config 3's grid, (Cpml, Tfsf), host material index and table, as
+    config3() builds them, for a ShardedSimulation (the index stays on the
+    host; K10 extends it per shard onto the card)."""
+    import numpy as np
+
+    res = ft.Resolution.courant(1.0, ft.REDUCED, safety=0.9)
+    grid = ft.Grid(shape=shape, resolution=res, constants=ft.REDUCED)
+    table = ft.MaterialTable()
+    diel = table.register(ft.Material(relative_permittivity=3.9))
+    matid = sphere_matid(shape, min(shape) // 8, diel)
+    ctable = ft.coefficient_table(table.materials, res, ft.REDUCED, dtype=np.float32)
+    return grid, config3_absorbers(ft, shape, grid.dt), matid, ctable
+
+
+def split_squares(torch, sim, state):
+    """plane_squares of a K10 state's owned cells: per shard on a 1-D mesh,
+    of the gathered lattice on an (x, y) mesh."""
+    lay = sim._layout
+    if lay.n[1] == 1:
+        return owned_squares(torch, state, lay)
+    return plane_squares(torch, sim.gather(state))
+
+
+def k4e_shard_error(torch, ft, sim, state_shape, seed):
+    """One K4e x-side launch against its plain version on shards 0 and 1 of
+    ``sim``'s K10 plan (random fields and psi on their halo-extended arrays,
+    the run's set-up, frames and extended material index): the largest
+    field difference (the kernels line's max_abs_err of K4e x-side and K10,
+    at the main path's shapes) and the bar's verdict (K4's: 2e-6 per tick
+    of max|field|)."""
+    import gc
+
+    from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn, plain_cpml_stepk
+    from fdtd_tpu_torch.solver.engine import split_tfsf
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 31)
+    step, _, k, _ = sim._plan
+    table = sim._step_coeffs
+    slab, oblique = split_tfsf(sim.tfsf)
+    kw = dict(inv_dx=tuple(1.0 / d for d in sim.grid.dx), dt=sim.grid.dt,
+              constants=ft.REDUCED, cpml=sim._cpml_pad, tfsf=sim.tfsf, dense=sim.dense_pml)
+    worst = 0.0
+    for s in (0, 1):
+        frame, matid = step.frames[s], step.matids[s]
+        st = ft.init_engine_state(frame.shape, sim.dtype, cpml=sim._cpml_pad, tfsf=slab,
+                                  device=dev, frame=frame)
+
+        def rand(t):
+            return torch.randn(t.shape, generator=gen, device=dev).to(t.dtype)
+
+        st = st.replace(**{f: rand(getattr(st, f)) for f in ("ex", "ey", "ez", "hx", "hy", "hz")},
+                        psi_h=tuple((rand(a), rand(b)) for a, b in st.psi_h),
+                        psi_e=tuple((rand(a), rand(b)) for a, b in st.psi_e), tick=3)
+        got = cuda_cpml_stepk_fn(frame.shape, k, frame=frame, matid=matid,
+                                 n_materials=table.shape[0], dtype=sim.dtype, **kw)(
+            st, table, None)
+        torch.cuda.synchronize()
+        got_f = [f.clone() for f in (*got.e, *got.h)]
+        del got
+        gc.collect()
+        want = plain_cpml_stepk(st, table.to(dev), matid, None, k, frame=frame, **kw)
+        torch.cuda.synchronize()
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got_f, (*want.e, *want.h)))
+        scale = field_scale(want)
+        tol = 2e-6 * k * scale
+        log(f"K4e x-side on shard {s} of config 3 {state_shape} ({frame.shape}, origin "
+            f"{frame.origin}), random fields, K={k}: max_abs_err {err:.3e} vs its plain "
+            f"version (tol {tol:.3e}, max|field| {scale:.3f})")
+        require(err <= tol, f"K4e x-side on shard {s} disagrees with its plain version")
+        worst = max(worst, err)
+        del st, want, got_f
+        gc.collect()
+        torch.cuda.empty_cache()
+    return worst
+
+
+def sharded_cpml_config3_path(torch, ft, reference, single_gcells, seed):
+    """BASELINE config 3 split over K10_SHARDS shards of the one card through
+    ShardedSimulation (K10: a K4e x-side launch per shard and pass). At
+    1024^3 f32 (config3_large_path's set-up, the material index built plane
+    by plane on the host): planned "cuda_cpml_k" at K = 8, 128 ticks with
+    the 3-point probe every 8, the probe trace and each field's per-x-plane
+    sums of squares bit-identical to the single-device route's
+    (``reference``, Simulation.run through K4 io_alias at K = 8), peak
+    memory against k10_run's model; then K4e x-side on two of its shards
+    against its plain version (k4e_shard_error). At 512^3: bf16 on the same
+    mesh and f32 on a 2 x 2 (x, y) mesh, each with the single-device route
+    on the same set-up run first (its trace and squares kept on the card,
+    its state freed), bit-identical. Returns (launches, numbers, the
+    K4e x-side error)."""
+    import gc
+
+    from fdtd_tpu_torch.parallel import ShardedSimulation
+
+    dev = torch.device("cuda")
+    n, ticks = K10_N, CONFIG3_LARGE_TICKS
+    shape = (n, n, n)
+    t0 = time.perf_counter()
+    grid, (cpml, tfsf), matid, table = config3_host(ft, shape, torch.float32)
+    sim = ShardedSimulation(grid=grid, dtype=torch.float32, cpml=cpml, tfsf=tfsf,
+                            matid=matid, table=table, mesh=card_mesh(K10_SHARDS, ("x",)))
+    log(f"config 3 {n}^3 f32 split over {K10_SHARDS} shards: scene built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    probes, _ = absorbing_probes(shape)
+    label = f"config 3 {n}^3 f32 over {K10_SHARDS} shards"
+    (out, (trace,)), run = k10_run(torch, label, sim, ticks, probes, 8, (K10_K, "cuda_cpml_k"))
+    del matid
+    squares = split_squares(torch, sim, out)
+    same_t = torch.equal(trace, reference["trace"])
+    same_s = torch.equal(squares, reference["squares"])
+    log(f"{label}: probe trace bit-identical to the single-device route {same_t}, "
+        f"per-x-plane sums of squares bit-identical {same_s}; {run['gcells']:.3f} Gcell/s "
+        f"against the route's {single_gcells:.3f} ({run['gcells'] / single_gcells:.3f}x)")
+    require(same_t and same_s, f"{label} differs from the single-device route")
+    require(bool(torch.isfinite(squares).all()) and float(squares.max()) > 0, f"{label}: no field")
+    run["single_gcells"] = single_gcells
+    numbers = {f"{n}_float32_x{K10_SHARDS}": run}
+    launches = {"K4e x-side": run["launches"], "K10": run["passes"]}
+    del out, trace, squares
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = k4e_shard_error(torch, ft, sim, shape, seed)
+    del sim
+    m = K10_SMALL
+    small = (m, m, m)
+    probes, _ = absorbing_probes(small)
+    for dtype, axes in ((torch.bfloat16, ("x",)), (torch.float32, ("x", "y"))):
+        name = str(dtype)[6:]
+        gc.collect()
+        torch.cuda.empty_cache()
+        single = config3(ft, small, dtype, dev)
+        require(single.plan(ticks, probes, (), 8) == (K10_K, "cuda_cpml_k"), "single plan")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rs, (rtrace,), _ = single.run(single.init(), ticks, probes=probes, probe_every=8)
+        end.record()
+        end.synchronize()
+        r_g = m ** 3 * ticks / (start.elapsed_time(end) / 1e3) / 1e9
+        rsq = plane_squares(torch, rs)
+        del rs
+        gc.collect()
+        torch.cuda.empty_cache()
+        split = sharded_from(ft, single, card_mesh(K10_SHARDS, axes))
+        label = f"config 3 {m}^3 {name} over {K10_SHARDS} shards {axes}"
+        (out, (trace,)), run = k10_run(torch, label, split, ticks, probes, 8,
+                                       (K10_K, "cuda_cpml_k"))
+        sq = split_squares(torch, split, out)
+        same = torch.equal(trace, rtrace) and torch.equal(sq, rsq)
+        log(f"{label}: trace and squares bit-identical to the single-device route {same}; "
+            f"{run['gcells']:.3f} Gcell/s against the route's {r_g:.3f} "
+            f"({run['gcells'] / r_g:.3f}x)")
+        require(same, f"{label} differs from the single-device route")
+        run["single_gcells"] = r_g
+        numbers[f"{m}_{name}_{'x'.join(str(v) for v in split._mesh.devices.shape)}"] = run
+        for key in launches:
+            launches[key] += run["launches" if key == "K4e x-side" else "passes"]
+        del out, split, single, trace, rtrace, sq, rsq
+    return launches, numbers, err
+
+
+def sharded_cpml_option_path(torch, ft):
+    """Config 3's accumulators, path A and path B at 256^3 split over
+    K10_SHARDS shards (K = 8, 1000 ticks), each held to the same run on the
+    single device (Simulation.run: K4 io_alias with its options), run
+    first: config3_accumulators through run (the x = 13 DftProbe on K4b',
+    the lateral DftProbe on the row captures, the BoxDft on both, the box
+    flux on the flux faces: spectra bit for bit, the flux within K4a's bar,
+    2e-5 of its largest value); path A's oblique box and path B's region
+    with the 3-point probe every 8 ticks (K10 takes no option beside an
+    oblique TF/SF, the JAX package's rule): traces and final per-x-plane
+    squares bit for bit. Then K4b' on the accumulators' set-up: one K4e
+    x-side launch with the x = 13 plane on shard 0 (its owner), from random
+    fields and psi, against its plain version (the DFT accumulator within
+    3e-6 of its largest value, K4b's bar). Returns (launches, numbers, the
+    accumulator's max abs error)."""
+    import gc
+
+    from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn, plain_cpml_stepk
+
+    dev = torch.device("cuda")
+    shape, ticks = ABSORB_SHAPE, MAIN_STEPS
+    probes, _ = absorbing_probes(shape)
+    mesh = card_mesh(K10_SHARDS, ("x",))
+    launches = {"K4e x-side": 0, "K10": 0, "K4b'": 0}
+    numbers = {}
+    for name in ("accumulators", "path A", "path B"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        if name == "path A":
+            single = path_a_sim(ft, dev)[0]
+        elif name == "path B":
+            single = path_b_sim(ft, dev)
+        else:
+            single = config3(ft, shape, torch.float32, dev)
+        accs = config3_accumulators(ft, shape, single.grid.dt) if name == "accumulators" else ()
+        t0 = time.perf_counter()
+        rs, (rtrace,), rfin = single.run(single.init(), ticks, probes=probes, probe_every=8,
+                                         accumulators=accs)
+        torch.cuda.synchronize()
+        r_secs = time.perf_counter() - t0
+        rsq = plane_squares(torch, rs)
+        del rs
+        split = sharded_from(ft, single, mesh)
+        label = f"{name} 256^3 over {K10_SHARDS} shards"
+        out, run = k10_run(torch, label, split, ticks, probes, 8, (K10_K, "cuda_cpml_k"),
+                           accumulators=accs, hold_peak=False)
+        state, (trace,) = out[0], out[1]
+        sq = split_squares(torch, split, state)
+        same = torch.equal(trace, rtrace) and torch.equal(sq, rsq)
+        note = ""
+        if accs:
+            fin = out[2]
+            flux_err = acc_rel_err(fin[3], rfin[3])
+            spectra = all(torch.equal(a, b) for a, b in zip(_leaves(fin[:3]), _leaves(rfin[:3])))
+            same = same and spectra
+            require(flux_err <= 2e-5, f"{label}: flux {flux_err} of its largest value")
+            note = (f"; DftProbes and BoxDft bit-identical {spectra}, box flux "
+                    f"{flux_err:.3e} of its largest value (2e-5)")
+            run["flux_rel_err"] = flux_err
+        log(f"{label}: trace and squares bit-identical to the single-device run {same}{note}; "
+            f"{run['seconds']:.3f} s against {r_secs:.3f} s (host clock)")
+        require(same, f"{label} differs from the single-device run")
+        run["single_seconds_host"] = r_secs
+        numbers[name] = run
+        launches["K4e x-side"] += run["launches"]
+        launches["K10"] += run["passes"]
+        launches["K4b'"] += run["k4b_launches"]
+        if accs:
+            step = split._plan[0]
+            frame, table = step.frames[0], split._step_coeffs
+            dft = ((13,), CONFIG3_FREQS)
+            kw = dict(inv_dx=(1.0, 1.0, 1.0), dt=split.grid.dt, constants=ft.REDUCED,
+                      cpml=split.cpml, tfsf=split.tfsf, dft=dft)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(37)
+            st = ft.init_engine_state(frame.shape, torch.float32, cpml=split.cpml,
+                                      tfsf=split.tfsf, device=dev, frame=frame)
+
+            def rand(t):
+                return torch.randn(t.shape, generator=gen, device=dev)
+
+            st = st.replace(**{f: rand(getattr(st, f)) for f in ("ex", "ey", "ez", "hx", "hy",
+                                                                  "hz")},
+                            psi_h=tuple((rand(a), rand(b)) for a, b in st.psi_h),
+                            psi_e=tuple((rand(a), rand(b)) for a, b in st.psi_e),
+                            dft=(torch.zeros((6 * len(CONFIG3_FREQS), *frame.shape[1:]),
+                                             device=dev),), tick=3)
+            got = cuda_cpml_stepk_fn(frame.shape, K10_K, frame=frame, matid=step.matids[0],
+                                     n_materials=table.shape[0], **kw)(st, table, None)
+            want = plain_cpml_stepk(st, table, step.matids[0], None, K10_K, frame=frame, **kw)
+            torch.cuda.synchronize()
+            k4b_err = float((got.dft[0] - want.dft[0]).abs().max())
+            k4b_rel = acc_rel_err(got.dft[0], want.dft[0])
+            log(f"K4b' on shard 0 {frame.shape} (owner of x = 13), K={K10_K}: the DFT "
+                f"accumulator's max_abs_err {k4b_err:.3e}, {k4b_rel:.3e} of its largest value "
+                f"(tol 3e-6)")
+            require(k4b_rel <= 3e-6, "K4b' disagrees with its plain version")
+            del st, got, want
+        del out, state, split, single
+    require(launches["K4b'"] > 0, "no K4e x-side launch carried an owned DFT plane")
+    return launches, numbers, k4b_err
+
+
+def _leaves(x):
+    """The tensors of nested tuples, lists and dicts, in order."""
+    if isinstance(x, dict):
+        return [t for key in sorted(x) for t in _leaves(x[key])]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _leaves(v)]
+    return [x]
+
+
+def sharded_cpml_timings(torch, ft, n=3):
+    """ms per call of K10 at 512^3 f32 over K10_SHARDS shards of the card
+    (config 3's set-up: CPML 10, the TF/SF box, the material index), each
+    on a state of its own, in turns: a K = 8 pass (the exchange and one K4e
+    x-side launch per shard) and its plain version, one K4e x-side launch on
+    an interior shard (1), the whole exchange and the fields' exchange alone
+    (psi's share is the difference). Bounds: a launch K3's bytes on the
+    extended shard at K ticks (each field and psi read and written once,
+    the index, the TF/SF rows), a pass its launches'; the exchanges' bytes
+    and the per-shard profile tables' bytes reported apart."""
+    import gc
+
+    from fdtd_tpu_torch.parallel import cuda_sharded_cpml as k10m
+    from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
+    from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn, plain_cpml_stepk
+
+    dev = torch.device("cuda")
+    m, k = K10_SMALL, K10_K
+    shape = (m, m, m)
+    single = config3(ft, shape, torch.float32, dev)
+    sim = sharded_from(ft, single, card_mesh(K10_SHARDS, ("x",)))
+    step, _, _, _ = sim._plan
+    lay, frames = step.layout, step.frames
+    table = sim._step_coeffs
+    kw = dict(inv_dx=(1.0, 1.0, 1.0), dt=sim.grid.dt, constants=ft.REDUCED, cpml=sim.cpml,
+              tfsf=sim.tfsf)
+    one = cuda_cpml_stepk_fn(lay.local, k, frame=frames[1], matid=step.matids[1],
+                             n_materials=table.shape[0], **kw)
+    # K4b': shard 0 owns config 3's scattered-field plane x = 13
+    dft = ((13,), CONFIG3_FREQS)
+    owner = cuda_cpml_stepk_fn(lay.local, k, frame=frames[0], matid=step.matids[0],
+                               n_materials=table.shape[0], dft=dft, **kw)
+    acc = (torch.zeros((6 * len(CONFIG3_FREQS), *lay.local[1:]), device=dev),)
+
+    def fresh():
+        st = sim.init()
+        for sh in st.shards:
+            sh.ez.fill_(1.0)
+        return st
+
+    def launch(s):
+        one(s.shards[1], table, None)
+        return s
+
+    def launch_plain(s):
+        plain_cpml_stepk(s.shards[1], table, step.matids[1], None, k, frame=frames[1], **kw)
+        return s
+
+    def launch_dft(s, plain=False):
+        st = s.shards[0].replace(dft=acc)
+        if plain:
+            plain_cpml_stepk(st, table, step.matids[0], None, k, frame=frames[0], dft=dft, **kw)
+        else:
+            owner(st, table, None)
+        return s
+
+    def exchange(s, fields_only=False):
+        k10m._exchange(s.shards, frames, lay, k, None if fields_only else sim._cpml_pad,
+                       None)
+        return s
+
+    def plain(s):
+        return k10m.plain_sharded_cpml_stepk(
+            s, table, None, mesh=sim._mesh, shape=shape, k_steps=k, matid=sim._matid_u8,
+            n_materials=table.shape[0], **kw)
+
+    named = [
+        (f"K10 pass K={k}", lambda s: step(s, table, None), k),
+        (f"K10 pass K={k} plain version", plain, k),
+        ("K4e x-side launch", launch, k),
+        ("K4e x-side launch plain version", launch_plain, k),
+        ("K4e x-side launch + K4b' plane", launch_dft, k),
+        ("K4e x-side launch + K4b' plane plain version", lambda s: launch_dft(s, True), k),
+        ("K10 exchange", exchange, k),
+        ("K10 exchange (fields)", lambda s: exchange(s, True), k),
+    ]
+    ms = {name: [] for name, _, _ in named}
+    for order in (named, named[::-1]):
+        for name, fn, _ in order:
+            state = fresh()
+            ms[name].append(cuda_ms(torch, fn, state, n, warmup=1))
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+    group = report_group(f"k10_{m}_float32", named, ms, shape, {})
+    aux = sim.tfsf.aux_length(m)
+    state = fresh()
+    bounds, work = [], []
+    for s, st in enumerate(state.shards):
+        cells = math.prod(st.shape)
+        psi = sum(t.numel() for t in psi_tensors(st) if t.dim())
+        nbytes = yee_bytes(st.shape, 4, True) + 2 * 4 * psi + 2 * 4 * aux * k
+        bounds.append(bound(cells, k, nbytes, psi))
+        work.append((cells, nbytes, psi))
+    ex_bytes = 0
+    field_bytes = 0
+    for s, st in enumerate(state.shards):
+        plane = st.shape[1] * st.shape[2] * 4
+        sides = (s > 0) + (s < len(state.shards) - 1)
+        field_bytes += 2 * 6 * k * plane * sides  # read and written
+        psi_planes = sum(t.numel() // t.shape[0] for t in psi_tensors(st)
+                         if t.dim() and t.shape[0] == st.shape[0])
+        ex_bytes += 2 * k * psi_planes * 4 * sides
+    ex_bytes += field_bytes
+    prof_bytes = sum(2 * 3 * f.shape[0] * 4 for f in frames)
+    del state
+    b_launch = bounds[1]
+    b_pass = (sum(b for b, _ in bounds), bounds[0][1])
+    cells0, bytes0, psi0 = work[0]
+    b_dft = bound(cells0, k, bytes0 + option_bytes(lay.local, k, dft=dft), psi0,
+                  option_flop(lay.local, k, dft=dft))
+    for name, (b_ms, b_by) in ((f"K10 pass K={k}", b_pass), ("K4e x-side launch", b_launch),
+                               ("K4e x-side launch + K4b' plane", b_dft)):
+        group[name]["bound_ms"], group[name]["bound_by"] = b_ms, b_by
+        log(f"bound k10_{m}_float32 {name}: {b_ms:.4f} ms per call ({b_by}); measured at "
+            f"{b_ms / (sum(group[name]['ms_per_call']) / 2):.1%} of it")
+    whole = sum(group[f"K10 pass K={k}"]["ms_per_call"])
+    for name, nbytes in (("K10 exchange", ex_bytes), ("K10 exchange (fields)", field_bytes)):
+        group[name]["bytes"] = nbytes
+        group[name]["share_of_call"] = sum(group[name]["ms_per_call"]) / whole
+        log(f"k10_{m}_float32 {name}: {nbytes / 1e6:.3f} MB read and written, "
+            f"{group[name]['share_of_call']:.1%} of a pass")
+    group["profile_table_bytes"] = prof_bytes
+    group["launches_per_pass"] = len(frames)
+    log(f"k10_{m}_float32: {len(frames)} K4e x-side launches per pass; the shards' x profile "
+        f"tables {prof_bytes} B (uploaded once per step function)")
+    del sim, single, step, one
+    return {f"k10_{m}_float32": group}
 
 
 def owned_squares(torch, state_ext, lay):
@@ -3450,12 +4248,18 @@ def launch_counts():
 
     from fdtd_tpu_torch.solver import cuda_cpml_blocked
 
+    from fdtd_tpu_torch.parallel import cuda_sharded_cpml
+    from fdtd_tpu_torch.solver import cuda_cpml_k
+
     counts = {kernel.name: kernel.launches for kernel in _build.KERNELS}
     counts["K7"] = cuda_cpml_blocked.launches()  # calls, n_b K4e launches each
+    counts["K10"] = cuda_sharded_cpml.launches()  # passes, a K4e x-side launch per shard
+    counts["K4b'"] = cuda_cpml_k.option_launches()["dft_runtime"]
     return counts
 
 
 def reset_counts():
+    from fdtd_tpu_torch.parallel import cuda_sharded_cpml
     from fdtd_tpu_torch.solver import _build, cuda_cpml, cuda_cpml_blocked, cuda_cpml_k
 
     for kernel in _build.KERNELS:
@@ -3463,6 +4267,7 @@ def reset_counts():
     cuda_cpml.reset_launches()
     cuda_cpml_k.reset_launches()
     cuda_cpml_blocked.reset_launches()
+    cuda_sharded_cpml.reset_launches()
 
 
 def absorbing_probes(shape):
@@ -4294,6 +5099,7 @@ def measure(torch, ft, seed):
     errs["K5"], xz_identical = xz_self_checks(torch, ft, seed)
     errs.update(k7_self_checks(torch, ft, seed))
     errs.update(sharded_self_checks(torch, ft, seed))
+    errs.update(sharded_cpml_self_checks(torch, ft, seed))
     launches = main_path(torch, ft)
     c5_launches, c5_gcells, split_reference = config5_path(torch, ft)
     launches.update(c5_launches)
@@ -4305,6 +5111,12 @@ def measure(torch, ft, seed):
     launches.update(s5_launches)
     fit_launches, c3_fit = config3_fit_path(torch, ft)
     c3_launches, c3_large, reference_1024 = config3_large_path(torch, ft)
+    # config 3 split over shards (K10), held to the single-device route's
+    # 1024^3 run; the kernels line's K10 and K4e x-side differences are
+    # those of its 272 x 1024^2 shards
+    k10_launches, k10_config3, k10_err = sharded_cpml_config3_path(
+        torch, ft, reference_1024, c3_large[8]["gcells"], seed)
+    errs["K10"] = errs["K4e x-side"] = k10_err
     # the K4 route's traces and squares, shared by K6 and K5 at one K
     references = {(CONFIG3_LARGE, "float32", 8): (reference_1024["trace"],
                                                   reference_1024["squares"], None)}
@@ -4339,12 +5151,17 @@ def measure(torch, ft, seed):
     b_launches, path_b = region_path(torch, ft)
     launches.update(a_launches)
     launches.update(b_launches)
+    k10_opt_launches, k10_options, errs["K4b'"] = sharded_cpml_option_path(torch, ft)
+    for key, count in k10_opt_launches.items():
+        launches[key] = k10_launches.get(key, 0) + count
     times = timings(torch, ft)
     times.update(cpml_timings(torch, ft))
     times.update(ext_timings(torch, ft))
     times.update(gb_timings(torch, ft, ks=(GB_K, 3), k4_ks=(GB_K, 8), xz_ks=(XZ_K, 3)))
     times.update(k7_timings(torch, ft))
     times.update(sharded_timings(torch, ft))
+    times.update(sharded_cpml_timings(torch, ft))
+    times["config3_split"], times["k10_options_256"] = k10_config3, k10_options
     times["accumulators_256_wall_s"] = walls
     times["scattering_256_gcell_per_s"] = {"K4 + flux faces": res_x.gcell_per_s,
                                            "plain engine": ref_x.gcell_per_s}
@@ -4477,6 +5294,23 @@ def measure(torch, ft, seed):
              f"K9 pass K={SHARDED_K}")):
         rows.append((name, src, replaces, key, t9, timed, f"{timed} plain version",
                      (t9[timed]["bound_ms"], t9[timed]["bound_by"])))
+    # K10 (a pass over 4 shards: the exchange and 4 K4e x-side launches), one
+    # K4e x-side launch on an interior shard and one with the K4b' plane on
+    # the shard that owns it, timed at 512^3 f32 (config 3), their bounds
+    # K3's bytes on the extended shards (sharded_cpml_timings; the
+    # exchange's bytes apart)
+    t10 = times[f"k10_{K10_SMALL}_float32"]
+    for name, replaces, key, timed in (
+            ("K10 sharded K-tick CPML (4 shards of the card: the exchange, a K4e x-side "
+             "launch per shard)", "fdtd_tpu/parallel/pallas_sharded_cpml.py:577", "K10",
+             f"K10 pass K={K10_K}"),
+            ("K4e x-side (K4 on a shard's halo-extended array: edge planes, aux origin)",
+             "fdtd_tpu/solver/pallas_cpml_k.py:1104", "K4e x-side", "K4e x-side launch"),
+            ("K4b' runtime DFT plane (K4e x-side on the shard that owns the plane)",
+             "fdtd_tpu/solver/pallas_cpml_k.py:1761", "K4b'",
+             "K4e x-side launch + K4b' plane")):
+        rows.append((name, "cpmlk.cu", replaces, key, t10, timed, f"{timed} plain version",
+                     (t10[timed]["bound_ms"], t10[timed]["bound_by"])))
     # no single PyTorch call computes a Yee or CPML tick, or K4's in-kernel
     # reductions, captures, region stretch or oblique correction beside
     # one: library_ms is null

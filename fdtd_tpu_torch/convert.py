@@ -49,6 +49,7 @@ __all__ = [
     "dense_pml_from_numpy",
     "oblique_tfsf_from_numpy",
     "sharded_state_from_numpy",
+    "sharded_pml_state_from_numpy",
 ]
 
 _COEFFS = ("c_a", "c_b", "d_a", "d_b")
@@ -244,3 +245,18 @@ def sharded_state_from_numpy(obj, mesh, k: int, axes=("x",), dtype=None):
             fields[f] = tensor_from_numpy(a[tuple(sl)], dev, dtype)
         shards.append(SimState(**fields, tick=int(np.asarray(obj.tick))))
     return ShardedState(shards)
+
+
+def sharded_pml_state_from_numpy(obj, mesh, k: int, *, cpml, axes=("x",), tfsf=None,
+                                 dense=None, dtype=None):
+    """The port's K10 state (``parallel.cuda_sharded_cpml``'s extended
+    ``EngineState`` shards) from an object with the JAX package's GLOBAL
+    EngineState fields (ex..hz, tick, psi_h/psi_e slab pairs, aux_e, aux_h,
+    psi_d; a JAX ``PmlKernelState`` after ``collapse_pml_state`` once its
+    psi strips are read as slabs): each shard's owned cells on its mesh
+    entry's device, its halos zero (the first pass fills them). ``cpml``,
+    ``tfsf`` and ``dense`` are the port's objects of the run."""
+    from .parallel.cuda_sharded_cpml import extend_pml_state
+
+    state = engine_state_from_numpy(obj, device="cpu", dtype=dtype)
+    return extend_pml_state(state, mesh, k, cpml=cpml, axes=axes, tfsf=tfsf, dense=dense)

@@ -128,6 +128,17 @@ struct Ext {
   Oblique O;
 };
 
+// K4e x-side (FRAME: cpmlk.cu's sharded entry, K10's shards): the lattice
+// is one shard's halo-extended array of a larger one. `ed` holds the larger
+// lattice's edge planes in the array's coordinates (yee::Edges: a backward
+// difference vanishes at index <= lo, a forward one at index >= hi, and at
+// the array's faces as well); `x0` is the larger lattice's x at the
+// array's plane 0, which turns an array plane into the aux line's index.
+struct Frame {
+  yee::Edges ed;
+  int x0;
+};
+
 // The DensePml stretch of one term (SLOT 0/1 of the two along AXIS) of half
 // HALF at (p, y, z): psi from set QS, the new psi to set QD when `store`.
 template <int HALF, int SLOT, int AXIS, int QS, int QD>
@@ -251,6 +262,7 @@ __device__ __forceinline__ float stretch(const Profiles& P, const SlotPsiT<XPSI>
 // then the slabs, psi from set QS and, when `store`, the new psi to set QD;
 // then the oblique correction of row `ob` (EXT), the TF/SF H corrections
 // from the OLD aux_e row, and the M sources of column m_col (-1: none).
+// ax0: the aux line's index of lattice plane 0 (FRAME; else 0).
 // T by value, as tile_pass takes it: by reference, ptxas gave K4's core
 // instantiations 44 B more spill stores. HF: the fields (yee::Fields, read
 // at i here) or the cell's held values (yee::HeldFields, K6 and K5); QT: Psi, or
@@ -264,7 +276,7 @@ __device__ __forceinline__ void h_cell(HF h, long long i, int p, int yy,
                                        const yee::Sources& S, int m_col, const Profiles& P,
                                        const QT& Q, const Tfsf T, const float* aux_e,
                                        const yee::Shared& sh, const Ext& X, const float* ob,
-                                       float& hx, float& hy, float& hz) {
+                                       float& hx, float& hy, float& hz, int ax0 = 0) {
   if constexpr (EXT) {
     dez_y = dense_stretch<0, 0, 1, QS, QD>(X.D, store, p, yy, zz, dez_y);
     dey_z = dense_stretch<0, 0, 2, QS, QD>(X.D, store, p, yy, zz, dey_z);
@@ -295,11 +307,11 @@ __device__ __forceinline__ void h_cell(HF h, long long i, int p, int yy,
   }
   if (aux_e != nullptr) {
     const bool lat = !T.box || (yy >= T.y0 && yy <= T.y1 && zz >= T.z0 && zz <= T.z1);
-    if (lat && p == T.lo) hy -= d_b * aux_e[T.lo - 1] * L.inv_x;
-    else if (lat && p == T.hi + 1) hy += d_b * aux_e[T.hi] * L.inv_x;
+    if (lat && p == T.lo) hy -= d_b * aux_e[T.lo - 1 + ax0] * L.inv_x;
+    else if (lat && p == T.hi + 1) hy += d_b * aux_e[T.hi + ax0] * L.inv_x;
     if (T.box && p >= T.lo && p <= T.hi && zz >= T.z0 && zz <= T.z1) {
-      if (yy == T.y0) hx += d_b * (aux_e[p] * L.inv_y);
-      else if (yy == T.y1 + 1) hx -= d_b * (aux_e[p] * L.inv_y);
+      if (yy == T.y0) hx += d_b * (aux_e[p + ax0] * L.inv_y);
+      else if (yy == T.y1 + 1) hx -= d_b * (aux_e[p + ax0] * L.inv_y);
     }
   }
   if (m_col >= 0) yee::inject(S, m_col, p, yy, zz, d_b, hx, hy, hz);
@@ -319,7 +331,7 @@ __device__ __forceinline__ void e_cell(EF e, long long i, int p, int y,
                                        const yee::Sources& S, int j_col, const Profiles& P,
                                        const QT& Q, const Tfsf T, const float* aux_h,
                                        const yee::Shared& sh, const Ext& X, const float* ob,
-                                       float& ex, float& ey, float& ez) {
+                                       float& ex, float& ey, float& ez, int ax0 = 0) {
   if constexpr (EXT) {
     dhz_y = dense_stretch<1, 0, 1, QS, QD>(X.D, true, p, y, z, dhz_y);
     dhy_z = dense_stretch<1, 0, 2, QS, QD>(X.D, true, p, y, z, dhy_z);
@@ -350,11 +362,11 @@ __device__ __forceinline__ void e_cell(EF e, long long i, int p, int y,
   }
   if (aux_h != nullptr) {
     const bool lat = !T.box || (y >= T.y0 && y <= T.y1 && z >= T.z0 && z <= T.z1);
-    if (lat && p == T.lo - 1) ez -= c_b * aux_h[T.lo] * L.inv_x;
-    else if (lat && p == T.hi) ez += c_b * aux_h[T.hi + 1] * L.inv_x;
+    if (lat && p == T.lo - 1) ez -= c_b * aux_h[T.lo + ax0] * L.inv_x;
+    else if (lat && p == T.hi) ez += c_b * aux_h[T.hi + 1 + ax0] * L.inv_x;
     if (T.box && p >= T.lo && p <= T.hi && y >= T.y0 && y <= T.y1) {
-      if (z == T.z0 - 1) ex += c_b * (aux_h[p] * L.inv_z);
-      else if (z == T.z1) ex -= c_b * (aux_h[p] * L.inv_z);
+      if (z == T.z0 - 1) ex += c_b * (aux_h[p + ax0] * L.inv_z);
+      else if (z == T.z1) ex -= c_b * (aux_h[p + ax0] * L.inv_z);
     }
   }
   if (j_col >= 0) yee::inject(S, j_col, p, y, z, c_b, ex, ey, ez);
@@ -365,19 +377,28 @@ __device__ __forceinline__ void e_cell(EF e, long long i, int p, int y,
 // aux_e / aux_h (null without TF/SF). j_col / m_col: the source-row column
 // of this tick's J / M, or -1 for none. With EXT: the region of X.D (its
 // psi sets QS/QD too) and the oblique corrections of row `ob` (null: none).
-template <typename TI, typename TO, int QS, int QD, bool EXT = false>
+// FRAME: the edge planes and aux origin of *F (K4e x-side; see Frame).
+template <typename TI, typename TO, int QS, int QD, bool EXT = false, bool FRAME = false>
 __device__ void tile_pass(yee::Fields<const TI> in, yee::Fields<TO> out,
                           const yee::Lattice& L, const yee::Material& M,
                           const yee::Sources& S, int j_col, int m_col,
                           const Profiles& P, const Psi& Q,
                           const Tfsf T, const float* aux_e, const float* aux_h,
                           int y0, int z0, int x_lo, int x_hi, yee::Shared& sh,
-                          const Ext& X, const float* ob) {
+                          const Ext& X, const float* ob, const Frame* F = nullptr) {
   const int tz = threadIdx.x, ty = threadIdx.y, tid = ty * TZ + tz;
   const int y = y0 + ty, z = z0 + tz;
   const bool own = y < L.ny && z < L.nz;
   const long long plane = (long long)L.ny * L.nz;
   float top_hy = 0.f, top_hz = 0.f;  // new H at plane p+1 (this thread's cell)
+  // the differences taken: backward ones above bx, by, bz, forward ones
+  // below fx, fy, fz (the lattice's faces unless FRAME moves them inward)
+  int bx = 0, by = 0, bz = 0, fx = L.nx - 1, fy = L.ny - 1, fz = L.nz - 1, ax0 = 0;
+  if constexpr (FRAME) {
+    bx = max(bx, F->ed.x_lo), by = max(by, F->ed.y_lo), bz = max(bz, F->ed.z_lo);
+    fx = min(fx, F->ed.x_hi), fy = min(fy, F->ed.y_hi), fz = min(fz, F->ed.z_hi);
+    ax0 = F->x0;
+  }
 
   // x_hi < nx: start one plane above the chunk to seed the carry
   const int p_start = x_hi < L.nx ? x_hi : x_hi - 1;
@@ -394,15 +415,16 @@ __device__ void tile_pass(yee::Fields<const TI> in, yee::Fields<TO> out,
       const long long i = base + (long long)yy * L.nz + zz;
       const float ex = yee::load(in.ex, i), ey = yee::load(in.ey, i),
                   ez = yee::load(in.ez, i);
-      const float dez_y = (yy > 0 ? ez - yee::load(in.ez, i - L.nz) : 0.f) * L.inv_y;
-      const float dey_z = (zz > 0 ? ey - yee::load(in.ey, i - 1) : 0.f) * L.inv_z;
-      const float dex_z = (zz > 0 ? ex - yee::load(in.ex, i - 1) : 0.f) * L.inv_z;
-      const float dez_x = (p > 0 ? ez - yee::load(in.ez, i - plane) : 0.f) * L.inv_x;
-      const float dey_x = (p > 0 ? ey - yee::load(in.ey, i - plane) : 0.f) * L.inv_x;
-      const float dex_y = (yy > 0 ? ex - yee::load(in.ex, i - L.nz) : 0.f) * L.inv_y;
+      const float dez_y = (yy > by ? ez - yee::load(in.ez, i - L.nz) : 0.f) * L.inv_y;
+      const float dey_z = (zz > bz ? ey - yee::load(in.ey, i - 1) : 0.f) * L.inv_z;
+      const float dex_z = (zz > bz ? ex - yee::load(in.ex, i - 1) : 0.f) * L.inv_z;
+      const float dez_x = (p > bx ? ez - yee::load(in.ez, i - plane) : 0.f) * L.inv_x;
+      const float dey_x = (p > bx ? ey - yee::load(in.ey, i - plane) : 0.f) * L.inv_x;
+      const float dex_y = (yy > by ? ex - yee::load(in.ex, i - L.nz) : 0.f) * L.inv_y;
       float hx, hy, hz;
       h_cell<TI, QS, QD, EXT>(in, i, p, yy, zz, keep, dez_y, dey_z, dex_z, dez_x, dey_x,
-                              dex_y, L, M, S, m_col, P, Q, T, aux_e, sh, X, ob, hx, hy, hz);
+                              dex_y, L, M, S, m_col, P, Q, T, aux_e, sh, X, ob, hx, hy, hz,
+                              ax0);
       sh.hx[ly][lz] = hx;
       sh.hy[ly][lz] = hy;
       sh.hz[ly][lz] = hz;
@@ -419,7 +441,7 @@ __device__ void tile_pass(yee::Fields<const TI> in, yee::Fields<TO> out,
       const float hx = sh.hx[ty][tz], hy = sh.hy[ty][tz], hz = sh.hz[ty][tz];
       if (!seed) {
         const long long i = base + (long long)y * L.nz + z;
-        const bool y_in = y < L.ny - 1, z_in = z < L.nz - 1, x_in = p < L.nx - 1;
+        const bool y_in = y < fy, z_in = z < fz, x_in = p < fx;
         const float dhz_y = (y_in ? sh.hz[ty + 1][tz] - hz : 0.f) * L.inv_y;
         const float dhy_z = (z_in ? sh.hy[ty][tz + 1] - hy : 0.f) * L.inv_z;
         const float dhx_z = (z_in ? sh.hx[ty][tz + 1] - hx : 0.f) * L.inv_z;
@@ -428,7 +450,7 @@ __device__ void tile_pass(yee::Fields<const TI> in, yee::Fields<TO> out,
         const float dhx_y = (y_in ? sh.hx[ty + 1][tz] - hx : 0.f) * L.inv_y;
         float ex, ey, ez;
         e_cell<TI, QS, QD, EXT>(in, i, p, y, z, dhz_y, dhy_z, dhx_z, dhz_x, dhy_x, dhx_y,
-                                L, M, S, j_col, P, Q, T, aux_h, sh, X, ob, ex, ey, ez);
+                                L, M, S, j_col, P, Q, T, aux_h, sh, X, ob, ex, ey, ez, ax0);
         yee::store(out.ex, i, ex);
         yee::store(out.ey, i, ey);
         yee::store(out.ez, i, ez);

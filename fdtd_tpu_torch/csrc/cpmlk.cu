@@ -35,9 +35,7 @@
 // run time when absent): the DensePml region's per-cell stretch with its
 // psi carried level to level through the same sets as the slab psi, and
 // the oblique TF/SF corrections, one row of the wrapper's (K, level_len)
-// pack per level (cpml.cuh). The TPU kernel's dft_runtime and its x-side
-// runtime options (x_extra, runtime_xprof, runtime_oblique) are not part of
-// this kernel.
+// pack per level (cpml.cuh).
 //
 // K4e lateral (fdtd_cpmlk_blocked, the window entry of K7): the TPU
 // kernel's lateral runtime options (runtime_edges, runtime_tfsf, y_halo,
@@ -48,6 +46,27 @@
 // ends (solver/cuda_cpml_blocked.py), so the kernel needs only JAX's y_halo
 // mask: the options count the owned rows alone (cpmlk_owned_kernel, two
 // more instantiations; the windows without options run K4's core kernel).
+//
+// K4e x-side and K4b' (fdtd_cpmlk_sharded, the shard entry of K10,
+// parallel/cuda_sharded_cpml.py): the TPU kernel's x-side runtime options
+// (x_extra, runtime_edges, runtime_xprof, runtime_tfsf, runtime_oblique,
+// pallas_cpml_k.py:1104-1111, :1290, :1371-1399) and its runtime DFT plane
+// coordinates (dft_runtime, K4b', :1761-1783, :920-939) let one build run
+// on each shard's halo-extended array. Most of them are per-call data here
+// already: the profiles (the shard's x profiles in its frame, identity rows
+// outside its live slabs, through the Profiles pointers and extents), the
+// TF/SF spans, the region box, the oblique boxes (the wrapper cuts its pack
+// to the shard's frame) and the DFT planes (a plane off the array is never
+// matched, so its accumulator is not written: the wrapper keeps the input
+// one). What the shard needs beyond K4 is the FRAME of cpml.cuh: the global
+// lattice's edge planes inside the array (the masks sit there and at the
+// array's faces) and the aux line's index of the array's plane 0 for the
+// TF/SF faces (the box's lateral faces read aux at every plane of its x
+// span). Its options count the owned rows [o0, o1) of a shard cut along y
+// as well (OWNED); x planes are counted by the wrapper, which keeps the
+// owned planes of the per-plane outputs. Two instantiations per storage
+// type of their own (core, and the options with the region and the oblique
+// TF/SF), so that K4's and K4e lateral's keep their code.
 //
 // Bound on the H100: device memory, as K3 (cpml.cu). This first version
 // runs each tick as K3's tile pass (cpml.cuh) and does not block in time:
@@ -73,13 +92,15 @@ namespace {
 // The K levels of a call, shared by K4's kernel and K4e's window kernel
 // (OWNED: the options count rows [o0, o1) alone, cpmlk.cuh); inlined into
 // each, so K4's kernel keeps its parameters and its code.
-template <typename T, bool OPT, bool EXT, bool OWNED>
+// FRAME: K4e x-side's edge planes and aux origin (*F).
+template <typename T, bool OPT, bool EXT, bool OWNED, bool FRAME = false>
 __device__ __forceinline__ void run_levels(
     yee::Fields<const T> in, yee::Fields<float> w1, yee::Fields<float> w2,
     yee::Fields<T> out, const yee::Lattice& L, const yee::Material& M,
     const yee::Sources& S, int k, int with_m, const yee::Work& w,
     const cpml::Profiles& P, const cpml::Psi& Q, const cpml::Tfsf& tf,
-    const cpmlk::Options& A, const cpml::Ext& X, int o0, int o1) {
+    const cpmlk::Options& A, const cpml::Ext& X, int o0, int o1,
+    const cpml::Frame* F = nullptr) {
   // with the options at bf16 storage, level K goes to work set 2 in f32
   // (the epilogue rounds it into the output); at f32 storage work set 2
   // is the output
@@ -103,9 +124,9 @@ __device__ __forceinline__ void run_levels(
       yee::decode(w, item, L, y0, z0, x_lo, x_hi);
       // one branch per (psi sets, field buffers), with the sets as
       // template parameters and the buffers named directly
-#define CPMLK_PASS(TI, TO, QS, QD, SRC, DST)                                       \
-  cpml::tile_pass<TI, TO, QS, QD, EXT>(SRC, DST, L, M, S, j_col, m_col, P, Q, tf, \
-                                       aux_e, aux_h, y0, z0, x_lo, x_hi, sh, X, ob)
+#define CPMLK_PASS(TI, TO, QS, QD, SRC, DST)                                              \
+  cpml::tile_pass<TI, TO, QS, QD, EXT, FRAME>(SRC, DST, L, M, S, j_col, m_col, P, Q, tf, \
+                                              aux_e, aux_h, y0, z0, x_lo, x_hi, sh, X, ob, F)
       if (lvl == 1 && odd) CPMLK_PASS(T, float, 0, 2, in, w1);
       else if (lvl == 1) CPMLK_PASS(T, float, 0, 1, in, w2);
       else if (lvl == k && !f32_last) CPMLK_PASS(float, T, 2, 1, yee::as_const(w1), out);
@@ -161,15 +182,34 @@ cpmlk_owned_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
                                   o0, o1);
 }
 
+// K4e x-side: K4 on one shard's halo-extended array (K10), with the frame
+// F (cpml.cuh); FULL: the options (their rows counted over [o0, o1)), the
+// region and the oblique TF/SF, else K4's core. The register cap is K4's.
+template <typename T, bool FULL>
+__global__ void __launch_bounds__(yee::THREADS, 4)
+cpmlk_frame_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
+                   yee::Fields<float> w2, yee::Fields<T> out, yee::Lattice L,
+                   yee::Material M, yee::Sources S, int k, int with_m, yee::Work w,
+                   const __grid_constant__ cpml::Profiles P,
+                   const __grid_constant__ cpml::Psi Q, cpml::Tfsf tf,
+                   const __grid_constant__ cpmlk::Options A,
+                   const __grid_constant__ cpml::Ext X,
+                   const __grid_constant__ cpml::Frame F, int o0, int o1) {
+  run_levels<T, FULL, FULL, FULL, true>(in, w1, w2, out, L, M, S, k, with_m, w, P, Q, tf,
+                                        A, X, o0, o1, &F);
+}
+
 // OWNED: cpmlk_owned_kernel<T> (OPT and EXT) with the owned rows [o0, o1).
-template <typename T, bool OPT, bool EXT, bool OWNED = false>
+// FRAME: cpmlk_frame_kernel<T, OPT> (OWNED = OPT = EXT) with the frame *F.
+template <typename T, bool OPT, bool EXT, bool OWNED = false, bool FRAME = false>
 int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q,
            const cpml::Tfsf& tf, const float* table, int n_mat,
            const uint8_t* matid, const float* rows, int n_src, int row_w,
            int with_m, int k, int nx, int ny, int nz, float inv_x, float inv_y,
            float inv_z, const cpmlk::Options& A, const cpml::Ext& X, cudaStream_t stream,
-           int o0 = 0, int o1 = 0) {
+           int o0 = 0, int o1 = 0, const cpml::Frame* F = nullptr) {
   static_assert(!OWNED || (OPT && EXT), "the owned kernel holds the options and the region");
+  static_assert(!FRAME || (OPT == EXT && EXT == OWNED), "the frame kernels: core or full");
   yee::Fields<const T> in{(const T*)f[0], (const T*)f[1], (const T*)f[2],
                           (const T*)f[3], (const T*)f[4], (const T*)f[5]};
   yee::Fields<T> out{(T*)f[6], (T*)f[7], (T*)f[8], (T*)f[9], (T*)f[10], (T*)f[11]};
@@ -184,7 +224,8 @@ int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q,
   yee::Work w;
   int blocks = 0;
   cudaError_t err;
-  if constexpr (OWNED) err = yee::cooperative_plan(cpmlk_owned_kernel<T>, L, w, blocks);
+  if constexpr (FRAME) err = yee::cooperative_plan(cpmlk_frame_kernel<T, OPT>, L, w, blocks);
+  else if constexpr (OWNED) err = yee::cooperative_plan(cpmlk_owned_kernel<T>, L, w, blocks);
   else err = yee::cooperative_plan(cpmlk_kernel<T, OPT, EXT>, L, w, blocks);
   if (err != cudaSuccess) return (int)err;
   cpmlk::Options a = A;
@@ -197,10 +238,19 @@ int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q,
   void* args[] = {&in, &w1, &w2, &out, &L, &M, &S, &k, &with_m, &w, &p, &q, &t, &a, &x,
                   &o0, &o1};  // the owned rows: cpmlk_owned_kernel's last two
   const void* kernel;
-  if constexpr (OWNED) kernel = (const void*)cpmlk_owned_kernel<T>;
+  if constexpr (FRAME) kernel = (const void*)cpmlk_frame_kernel<T, OPT>;
+  else if constexpr (OWNED) kernel = (const void*)cpmlk_owned_kernel<T>;
   else kernel = (const void*)cpmlk_kernel<T, OPT, EXT>;
-  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(yee::TZ, yee::TY), args, 0,
-                                    stream);
+  if constexpr (FRAME) {
+    cpml::Frame fr = *F;
+    void* frame_args[] = {&in, &w1, &w2, &out, &L, &M, &S, &k, &with_m, &w, &p, &q, &t,
+                          &a, &x, &fr, &o0, &o1};
+    err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(yee::TZ, yee::TY),
+                                      frame_args, 0, stream);
+  } else {
+    err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(yee::TZ, yee::TY), args, 0,
+                                      stream);
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -291,6 +341,48 @@ int fdtd_cpmlk_blocked(int dtype, void** fields, void** psi, void** prof,
   if (dtype == 1)
     return owned ? CPMLK_LAUNCH(__nv_bfloat16, true, true, true)
                  : CPMLK_LAUNCH(__nv_bfloat16, false, false, false);
+#undef CPMLK_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// K4e x-side and K4b', for K10 (parallel/cuda_sharded_cpml.py): fdtd_cpmlk's
+// arguments on one shard's halo-extended array, then its frame (7 ints: the
+// edge planes x_lo, x_hi, y_lo, y_hi, z_lo, z_hi in the array's coordinates
+// and the aux line's index of plane 0, cpml.cuh Frame) and the owned rows
+// [o0, o1) over which the options count. A DFT plane off the array is a
+// no-op: its acc_out is not written. With options, a region or an oblique
+// TF/SF it runs cpmlk_frame_kernel<T, true>, else cpmlk_frame_kernel<T,
+// false>.
+int fdtd_cpmlk_sharded(int dtype, void** fields, void** psi, void** prof,
+                       const int* ext, const float* table, int n_mat,
+                       const uint8_t* matid, const float* rows, int n_src, int row_w,
+                       int with_m, const float* aux, int aux_len, const int* tf, int k,
+                       int nx, int ny, int nz, float inv_x, float inv_y, float inv_z,
+                       const int* opt_meta, void** opt_ptrs, const int* ext_meta,
+                       void** ext_ptrs, const int* frame, int o0, int o1, void* stream) {
+  if (n_mat < 1 || n_mat > yee::MAX_MATERIALS || k < 2 || frame == nullptr || o0 < 0 ||
+      o1 <= o0 || o1 > ny)
+    return (int)cudaErrorInvalidValue;
+  const cpml::Profiles P = cpml::make_profiles(prof, ext);
+  const cpml::Psi Q = cpml::make_psi(psi, 3);
+  const cpml::Tfsf F = cpml::make_tfsf(aux, aux_len, tf);
+  const cpml::Frame W{yee::Edges{frame[0], frame[1], frame[2], frame[3], frame[4], frame[5]},
+                      frame[6]};
+  cpmlk::Options A{};
+  const bool opt = opt_meta != nullptr;
+  if (opt && !cpmlk::make_options(opt_meta, opt_ptrs, A)) return (int)cudaErrorInvalidValue;
+  cpml::Ext X{};
+  X.D.axis = -1;
+  const bool has_ext = ext_meta != nullptr;
+  if (has_ext && !cpml::make_ext(ext_meta, ext_ptrs, 3, X)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define CPMLK_LAUNCH(T, O)                                                          \
+  launch<T, O, O, O, true>(fields, P, Q, F, table, n_mat, matid, rows, n_src, row_w, \
+                           with_m, k, nx, ny, nz, inv_x, inv_y, inv_z, A, X, s, o0, o1, &W)
+  const bool full = opt || has_ext;
+  if (dtype == 0) return full ? CPMLK_LAUNCH(float, true) : CPMLK_LAUNCH(float, false);
+  if (dtype == 1)
+    return full ? CPMLK_LAUNCH(__nv_bfloat16, true) : CPMLK_LAUNCH(__nv_bfloat16, false);
 #undef CPMLK_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -1,16 +1,28 @@
 """The lattice split over a mesh of devices: the port of ``fdtd_tpu.parallel``
-(its free-space part: BASELINE config 5).
+(free space, BASELINE config 5, and absorbing runs, config 3 split).
 
 One process drives a ``Mesh`` of ``torch.device``s, which may name one
 card several times (``make_mesh(devices=["cuda:0"] * 4)``): the shards run
 one after another, and the halo exchange is ``copy_`` of planes between
 their tensors. ``ShardedSimulation`` plans the sharded K-tick kernel (K9,
 ``cuda_sharded_k``, on K2's edge planes) or the plain sharded step
-(``sharded``); K8 (``cuda_sharded``) is the one-tick kernel.
+(``sharded``); K8 (``cuda_sharded``) is the one-tick kernel. Absorbing
+runs plan the sharded K-tick CPML kernel (K10, ``cuda_sharded_cpml``, on
+K4e x-side) through ``best_sharded_absorbing_step``.
 """
 
-from .best import kernel_lateral_axis
+from .best import best_sharded_absorbing_step, kernel_dense, kernel_lateral_axis
 from .cuda_sharded import make_cuda_sharded_step, plain_sharded_step
+from .cuda_sharded_cpml import (
+    collapse_pml_state,
+    extend_matid,
+    extend_pml_state,
+    extract_sharded_dft_acc,
+    init_sharded_pml_state,
+    make_cuda_sharded_cpml_stepk,
+    plain_sharded_cpml_stepk,
+    supports_sharded_cpml,
+)
 from .cuda_sharded_k import (
     collapse_state,
     extend_state,
@@ -23,7 +35,17 @@ from .simulation import ShardedSimulation
 from .topology import Mesh, choose_mesh_shape, make_mesh
 
 __all__ = [
+    "best_sharded_absorbing_step",
+    "kernel_dense",
     "kernel_lateral_axis",
+    "collapse_pml_state",
+    "extend_matid",
+    "extend_pml_state",
+    "extract_sharded_dft_acc",
+    "init_sharded_pml_state",
+    "make_cuda_sharded_cpml_stepk",
+    "plain_sharded_cpml_stepk",
+    "supports_sharded_cpml",
     "make_cuda_sharded_step",
     "plain_sharded_step",
     "collapse_state",

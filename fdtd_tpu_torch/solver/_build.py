@@ -9,7 +9,8 @@ source never loads a stale build. A source may hold several entry points
 own launch count; they share one build. K4's in-place variant has a source
 of its own, so that it builds beside K4 and not after it, and so have K6's
 (``cpmlk_gb.cu``) and K5's (``cpmlk_xz.cu``), which share a header. K4e's
-lateral window entry (K7's) is a second entry point of K4's ``cpmlk.cu``.
+lateral window entry (K7's) and its x-side shard entry (K10's) are a
+second and a third entry point of K4's ``cpmlk.cu``.
 Nothing here runs at import time.
 """
 
@@ -29,7 +30,7 @@ import torch
 
 __all__ = ["Kernel", "STEP", "STEPK", "STEP_INPLACE", "STEPK_INPLACE", "CPML",
            "CPMLK", "CPMLK_INPLACE", "CPMLK_GB", "CPMLK_XZ", "CPMLK_BLOCKED",
-           "STEPK_EDGES", "SHARDED_STEP", "KERNELS", "BUILD_DIR"]
+           "CPMLK_SHARDED", "STEPK_EDGES", "SHARDED_STEP", "KERNELS", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fdtd_tpu_torch"
@@ -215,6 +216,13 @@ CPMLK_XZ = Kernel("K5 cpmlk_xz", "cpmlk_xz.cu", "fdtd_cpmlk_xz",
 CPMLK_BLOCKED = Kernel("K4e lateral", "cpmlk.cu", "fdtd_cpmlk_blocked",
                        CPMLK.argtypes[:-1] + [_I, _I, _P])
 
+# fdtd_cpmlk_sharded: fdtd_cpmlk's arguments on one shard's halo-extended
+# array, then its frame row (the 6 edge ints and the aux index of plane 0)
+# and its owned rows o0, o1 before the stream (K4e x-side and K4b',
+# cpmlk.cu's third entry point: K10's shards, parallel/cuda_sharded_cpml.py)
+CPMLK_SHARDED = Kernel("K4e x-side", "cpmlk.cu", "fdtd_cpmlk_sharded",
+                       CPMLK.argtypes[:-1] + [_PI, _I, _I, _P])
+
 # fdtd_stepk_edges: fdtd_stepk's arguments, then the 6 edge ints before the
 # stream (K2 edge_planes, stepk.cu's second out-of-place entry point: K9's
 # shards, parallel/cuda_sharded_k.py)
@@ -228,4 +236,4 @@ SHARDED_STEP = Kernel("K8 sharded_step", "sharded_step.cu", "fdtd_sharded_step",
                       [_PP, _PP, _I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P])
 
 KERNELS = (STEP, STEPK, CPML, CPMLK, STEP_INPLACE, STEPK_INPLACE, CPMLK_INPLACE, CPMLK_GB,
-           CPMLK_XZ, CPMLK_BLOCKED, STEPK_EDGES, SHARDED_STEP)
+           CPMLK_XZ, CPMLK_BLOCKED, CPMLK_SHARDED, STEPK_EDGES, SHARDED_STEP)

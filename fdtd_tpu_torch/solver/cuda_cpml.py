@@ -110,22 +110,34 @@ class CpmlSetup:
     (half, axis) as (3, n) f32 [ik, b, c] tensors, the slab extents, the
     TF/SF spans and the aux grid's coefficients, a DensePml region's
     (6, bx, by, bz) f32 coefficients and an ObliqueTfsf's correction on the
-    shell's boxes, made once per device."""
+    shell's boxes, made once per device.
+
+    ``frame`` (solver/frame.py): the set-up of a frame's array (``shape``)
+    of its global lattice, which ``cpml``, ``tfsf``, ``dense`` and
+    ``oblique`` describe: the array's profiles and slabs, the TF/SF spans in
+    its coordinates with the global aux line, the region clipped to it, the
+    shell's boxes clipped to it (the correction evaluated at their global
+    cells, the kernel given their array coordinates), and ``frame_c``, K4e
+    x-side's frame row (edge planes, then the aux index of plane 0)."""
 
     def __init__(self, shape, inv_dx, dt, constants, cpml, tfsf, dense=None,
-                 oblique=None):
+                 oblique=None, frame=None):
         from .cpml import _profiles_1d
         from .tfsf_oblique import shell_boxes
 
         self.shape = tuple(shape)
+        self.lattice = self.shape if frame is None else frame.lattice
+        self.frame = frame
         self.inv_dx = inv_dx
         self.dt = dt
         self.constants = constants
         self.cpml = cpml
         self.tfsf = tfsf
-        self.dense = dense
+        self.dense = dense if frame is None else frame.region(dense)
         self.oblique = oblique
         self.profiles = {}
+        #: (half, axis) -> the psi slabs' (lo, hi) widths (None: no slab pair)
+        self.slabs = {}
         ext = []
         active = set(cpml.active_axes())
         for half in (False, True):
@@ -135,31 +147,53 @@ class CpmlSetup:
                     ext += [0, n]
                     continue
                 lo, hi = cpml.thickness[axis]
-                ik, b, c = _profiles_1d(n, lo, hi, cpml.spec, 1.0 / inv_dx[axis],
+                n_g = self.lattice[axis]
+
+                def prof(n_g=n_g, lo=lo, hi=hi, axis=axis, half=half):
+                    return _profiles_1d(n_g, lo, hi, cpml.spec, 1.0 / inv_dx[axis],
                                         dt, constants, half)
-                self.profiles[(half, axis)] = np.stack([ik, b, c]).astype(np.float32)
-                (_, l1), (h0, _) = _slab_extents(n, lo, hi, half)
+
+                if frame is None:
+                    arrays, ((l0, l1), (h0, h1)) = prof(), _slab_extents(n, lo, hi, half)
+                else:
+                    arrays, ((l0, l1), (h0, h1)) = frame.profiles(n_g, axis, lo, hi, half,
+                                                                  prof)
+                self.profiles[(half, axis)] = np.stack(arrays).astype(np.float32)
+                self.slabs[(half, axis)] = (l1 - l0, h1 - h0)
                 ext += [l1, h0]
         self.ext = (ctypes.c_int * 12)(*ext)
+        self.aux_len = 0
         if tfsf is not None:
-            lo, hi = tfsf.span
-            (y0, y1), (z0, z1) = (tfsf.span_y, tfsf.span_z) if tfsf.is_box \
-                else ((0, 0), (0, 0))
+            if frame is None:
+                lo, hi = tfsf.span
+                (y0, y1), (z0, z1) = (tfsf.span_y, tfsf.span_z) if tfsf.is_box \
+                    else ((0, 0), (0, 0))
+            else:
+                lo, hi, ys, zs = frame.tfsf_spans(tfsf)
+                (y0, y1), (z0, z1) = (ys, zs) if tfsf.is_box else ((0, 0), (0, 0))
             self.tf = (ctypes.c_int * 7)(lo, hi, int(tfsf.is_box), y0, y1, z0, z1)
-            self.aux_np = aux_coefficients(tfsf, shape[0], inv_dx[0], dt, constants)
+            self.aux_np = aux_coefficients(tfsf, self.lattice[0], inv_dx[0], dt, constants)
+            self.aux_len = tfsf.aux_length(self.lattice[0])
         else:
             self.tf = (ctypes.c_int * 7)(*[0] * 7)
             self.aux_np = None
+        self.frame_c = None
+        if frame is not None:
+            self.frame_c = (ctypes.c_int * 7)(*frame.edges, frame.origin[0])
         # the extensions' C layout (csrc/cpml.cuh make_ext), or None
         self.ext_meta = None
-        self.ob_boxes = ()
-        if dense is not None or oblique is not None:
+        self.ob_boxes = boxes = ()
+        if oblique is not None:
+            self.ob_boxes = boxes = shell_boxes(oblique)
+            if frame is not None:
+                cuts = [c for c in (frame.clip_box(b) for b in boxes) if c is not None]
+                self.ob_boxes = tuple(c[0] for c in cuts)
+                boxes = tuple(c[1] for c in cuts)
+        if self.dense is not None or boxes:
             meta = [-1] + [0] * 6
-            if dense is not None:
-                meta = [dense.axis] + [v for r in dense.box for v in r]
-            if oblique is not None:
-                self.ob_boxes = shell_boxes(oblique)
-            meta += [len(self.ob_boxes)] + [v for b in self.ob_boxes for r in b for v in r]
+            if self.dense is not None:
+                meta = [self.dense.axis] + [v for r in self.dense.box for v in r]
+            meta += [len(boxes)] + [v for b in boxes for r in b for v in r]
             self.ext_meta = (ctypes.c_int * len(meta))(*meta)
         self._device = {}
         self._ext_device = {}
@@ -189,8 +223,8 @@ class CpmlSetup:
             coef = None if self.dense is None else torch.from_numpy(np.stack(
                 [np.asarray(c, np.float32) for c in (*self.dense.coeffs_h,
                                                      *self.dense.coeffs_e)])).to(device)
-            corr = None if self.oblique is None else ObliqueCorrection(
-                self.oblique, self.shape, self.inv_dx, self.dt, self.constants,
+            corr = None if self.oblique is None or not self.ob_boxes else ObliqueCorrection(
+                self.oblique, self.lattice, self.inv_dx, self.dt, self.constants,
                 torch.float32, device, boxes=self.ob_boxes)
             self._ext_device[device] = (coef, corr)
         return self._ext_device[device]
@@ -222,15 +256,9 @@ def check_cpml_inputs(state: EngineState, setup: CpmlSetup, shape, dtype,
     check_launch_inputs(state, shape, dtype, table, matid)
     if not isinstance(state, EngineState):
         raise ValueError("the CPML kernels step an EngineState (init_engine_state)")
-    active = set(setup.cpml.active_axes())
     for half, pairs in ((False, state.psi_h), (True, state.psi_e)):
         for (_, axis), pair in zip(_TERMS, pairs):
-            if axis in active:
-                lo, hi = setup.cpml.thickness[axis]
-                (l0, l1), (h0, h1) = _slab_extents(shape[axis], lo, hi, half)
-                want = [l1 - l0, h1 - h0]
-            else:
-                want = [None, None]
+            want = list(setup.slabs.get((half, axis), (None, None)))
             for p, t in zip(pair, want):
                 s = list(shape)
                 if t is not None:
@@ -244,13 +272,13 @@ def check_cpml_inputs(state: EngineState, setup: CpmlSetup, shape, dtype,
                         f"{tuple(s) if t is not None else '0-d'} tensor on "
                         f"{state.device}, got {p.dtype} {tuple(p.shape)} on {p.device}")
     if setup.tfsf is not None:
-        n = setup.tfsf.aux_length(shape[0])
+        n = setup.aux_len
         for a in (state.aux_e, state.aux_h):
             if a is None or a.dtype != torch.float32 or tuple(a.shape) != (n,) \
                     or a.device != state.device:
                 raise ValueError(f"TF/SF aux line: need float32 ({n},) on {state.device}")
     if setup.dense is not None:
-        box = tuple(setup.dense.box_shape)
+        box = tuple(setup.dense.box_shape)  # the frame's clipped region
         if len(state.psi_d) != 4 or any(
                 p.dtype != torch.float32 or tuple(p.shape) != box or p.device != state.device
                 or not p.is_contiguous() for p in state.psi_d):
@@ -353,20 +381,23 @@ def launch_cpml(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup,
     in-place build (``kernel`` is ``_build.CPMLK_INPLACE``), which writes
     the state's own fields, psi slabs and region psi and takes no work set.
     ``options``: K4's accumulator options as (meta, pointers) C arrays
-    (csrc/cpmlk.cuh::make_options), or None. K7's windows
-    (solver/cuda_cpml_blocked.py) pass the call's ``levels`` = (source rows,
-    TF/SF pack or None, new aux_e, new aux_h), made once for all blocks
-    (``sources`` is then not read), and their ``owned`` rows (o0, o1)."""
+    (csrc/cpmlk.cuh::make_options), or None. A ``setup`` with a frame
+    (solver/frame.py) takes the source rows into the frame's array; K4e
+    x-side (``_build.CPMLK_SHARDED``) also takes the frame row, and both K4e
+    entries the ``owned`` rows (o0, o1). K7's windows
+    (solver/cuda_cpml_blocked.py) pass the call's ``levels`` = (TF/SF pack
+    or None, new aux_e, new aux_h), made once for all blocks."""
     nx, ny, nz = setup.shape
     prof, aux = setup.on(state.device)
     aux_e, aux_h = state.aux_e, state.aux_h
     pack, aux_len = None, 0
     if levels is not None:
-        rows, pack, aux_e, aux_h = levels
-    else:
-        if setup.tfsf is not None:
-            pack, aux_e, aux_h = setup.aux_levels(state, aux, k_steps)
-        rows = build_src_rows(sources, state.tick, k_steps, with_m, setup.dt)
+        pack, aux_e, aux_h = levels
+    elif setup.tfsf is not None:
+        pack, aux_e, aux_h = setup.aux_levels(state, aux, k_steps)
+    x0, y0 = (0, 0) if setup.frame is None else setup.frame.origin
+    rows = build_src_rows(sources, state.tick, k_steps, with_m, setup.dt,
+                          x_offset=-x0, y_offset=-y0)
     if pack is not None:
         aux_len = pack.shape[1]
     fields = (*state.e, *state.h)
@@ -427,7 +458,12 @@ def launch_cpml(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup,
     args += [nx, ny, nz, *setup.inv_dx]
     if k_steps > 1:
         args += [None, None] if options is None else list(options)
-    args += [setup.ext_meta, ext_ptrs, *owned, _build.stream_handle(state.device)]
+    args += [setup.ext_meta, ext_ptrs]
+    if kernel is _build.CPMLK_SHARDED:
+        # a K7 window's frame needs no row: its edges are the window's own
+        # faces, and its x origin is 0
+        args.append(setup.frame_c)
+    args += [*owned, _build.stream_handle(state.device)]
     kernel.launch(*args)
     del pack, ob_pack
     pairs = list(zip(psi_out[0::2], psi_out[1::2]))

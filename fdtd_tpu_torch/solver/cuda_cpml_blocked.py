@@ -18,13 +18,14 @@ n_b, halo h = K), in stream order:
    DFT planes into tensors of their own (plain copies, as the JAX tier's
    halo refresh is plain slicing outside its kernel);
 2. launch K4e (csrc/cpmlk.cu ``fdtd_cpmlk_blocked``) on the window lattice
-   (nx, ny_b, nz) with the block's set-up: the TF/SF box's y faces, the
-   sources' y coordinates (unclipped: a source within h rows of a cut also
-   lands in the neighbour's halo copy), the DensePml box (clipped to the
-   window) and the "y" coordinates of the options, all in the window's
-   frame; a ``Cpml`` whose y thickness is the block's own end ((yl, 0) for
-   block 0, (0, yh) for the last, (0, 0) between), whose profiles equal the
-   global ones there; and the owned rows, over which the options count;
+   (nx, ny_b, nz), a ``Frame`` of the lattice (solver/frame.py, as K10's
+   shard arrays are), which moves the set-up into the window: the TF/SF
+   box's y faces, the sources' y coordinates (unclipped: a source within h
+   rows of a cut also lands in the neighbour's halo copy), the DensePml
+   box (clipped to the window) and the "y" coordinates of the options; the
+   y profiles are the global ones on the window's rows, and its y slabs
+   those of its own end (the lo slab for block 0, the hi slab for the
+   last, none between); the owned rows are where the options count;
 3. scatter the owned rows of the window's outputs into the call's output
    state.
 
@@ -67,10 +68,10 @@ Where the port differs from the JAX module, on purpose:
   change nothing, so the two agree.
 
 The plain version (``plain_cpml_blocked_stepk``) runs the same windows,
-gathers, set-ups, owned rows and scatters with K4's plain version
-(``cuda_cpml.plain_cpml_ticks``, the options computed per level on the
-owned rows) in place of the launch. CPU states take it; CUDA states launch
-the kernel or raise.
+gathers, set-ups, owned rows and scatters with K4's plain version on the
+window's frame (``cuda_cpml_k.plain_with_options``, the options computed
+per level on the owned rows) in place of the launch. CPU states take it;
+CUDA states launch the kernel or raise.
 
 The route: ``Simulation.plan`` takes K7 only where no K4 call fits the
 card's free memory (``call_bytes``; K7 ran slower than the K4 route at
@@ -83,29 +84,21 @@ import dataclasses
 import math
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..constants import SI, PhysicalConstants
 from . import _build
 from .boundary import BoundaryConditions
 from .cpml import Cpml
-from .cuda_cpml import CpmlSetup, check_cpml_inputs, launch_cpml, plain_cpml_ticks
-from .cuda_cpml_k import (
-    _Options,
-    _planes,
-    dft_phases,
-    dft_update,
-    row_capture,
-    supports_cpml_k,
-)
-from .cuda_step import build_src_rows, kernel_table
+from .cuda_cpml import CpmlSetup, check_cpml_inputs, launch_cpml
+from .cuda_cpml_k import _Options, _planes, frame_options, plain_with_options, supports_cpml_k
+from .cuda_step import kernel_table
 from .engine import (_TERMS, EngineState, _slab_extents, build_step, check_absorbers,
                      psi_bytes, split_tfsf)
+from .frame import Frame
 from .pml_region import DensePml
 from .sources import SourceSet
 from .state import DEFAULT_DEVICE, FIELDS, resolve_device
-from .tfsf import Tfsf
 
 __all__ = ["BlockedPlan", "blocked_plan", "call_bytes", "cuda_cpml_blocked_stepk_fn",
            "plain_cpml_blocked_stepk", "launches", "reset_launches"]
@@ -133,6 +126,13 @@ class BlockedPlan:
             b = min((i + 1) * self.nly + self.h, self.ny)
             out.append((a, b, i * self.nly - a, (i + 1) * self.nly - a))
         return tuple(out)
+
+    def frames(self, shape):
+        """Per block, its window of a ``shape`` lattice as a Frame
+        (solver/frame.py): rows [a, b) from (0, a), owned rows [o0, o1)."""
+        nx, _, nz = shape
+        return tuple(Frame(lattice=shape, origin=(0, a), shape=(nx, b - a, nz), rows=(o0, o1))
+                     for a, b, o0, o1 in self.windows())
 
 
 def _contained(ny: int, nly: int, k: int, cpml) -> bool:
@@ -190,18 +190,14 @@ def call_bytes(shape, plan: BlockedPlan, cpml, dtype, *, options: bool = False,
     region = 16 * math.prod(dense.box_shape) if dense is not None else 0
     total = 6 * itemsize * cells + psi_bytes(shape, lateral) + region
     worst = 0
-    for i, (a, b, _, _) in enumerate(plan.windows()):
-        win = (nx, b - a, nz)
-        (yl, yh) = cpml.thickness[1]
-        own = Cpml(thickness=(cpml.thickness[0], (yl if i == 0 else 0,
-                                                  yh if i == plan.n_b - 1 else 0),
-                              cpml.thickness[2]), spec=cpml.spec)
-        w_dense = _window_dense(dense, a, b)[0]
+    for frame in plan.frames(shape):
+        win = frame.shape
+        w_dense = frame.region(dense)
         w_region = 16 * math.prod(w_dense.box_shape) if w_dense is not None else 0
         w2 = 0 if itemsize == 4 or (plan.h == 2 and not options and w_dense is None) \
             else 4
         worst = max(worst, 6 * (2 * itemsize + 4 + w2) * math.prod(win)
-                    + 3 * (psi_bytes(win, own) + w_region))
+                    + 3 * (psi_bytes(win, cpml, frame) + w_region))
         if matid:
             total += math.prod(win)
     return total + worst
@@ -223,93 +219,38 @@ def reset_launches() -> None:
     _build.CPMLK_BLOCKED.launches = 0
 
 
-@dataclasses.dataclass(frozen=True)
-class _WindowTfsf(Tfsf):
-    """A box TF/SF in a window's frame: its y faces may lie off the
-    window's rows (``in_window``: the engine clamps the span and skips such
-    a face; the kernel compares rows), so only the x and z spans are
-    checked."""
-
-    in_window = True
-
-    def validate(self, shape) -> None:
-        lo, hi = self.span
-        (z0, z1) = self.span_z
-        if not (0 < lo <= hi < shape[0] - 1 and 0 < z0 <= z1 < shape[2] - 1):
-            raise ValueError(f"TF/SF spans {self.span}, {self.span_z} off {shape}")
-
-
-def _window_tfsf(tfsf, a: int):
-    if tfsf is None or not tfsf.is_box:
-        return tfsf  # a slab is the same in every window: x is not cut
-    kw = {f.name: getattr(tfsf, f.name) for f in dataclasses.fields(tfsf)}
-    y0, y1 = tfsf.span_y
-    kw["span_y"] = (y0 - a, y1 - a)
-    return _WindowTfsf(**kw)
-
-
-def _window_dense(dense: Optional[DensePml], a: int, b: int):
-    """(the region clipped to rows [a, b) in the window's frame, its global
-    rows [g0, g1)), or (None, None) when it misses the window."""
-    if dense is None:
-        return None, None
-    (x0, x1), (y0, y1), (z0, z1) = dense.box
-    g0, g1 = max(y0, a), min(y1, b)
-    if g0 >= g1:
-        return None, None
-    rows = slice(g0 - y0, g1 - y0)
-
-    def cut(cofs):
-        return tuple(np.ascontiguousarray(np.asarray(c, np.float32)[:, rows]) for c in cofs)
-
-    live = None
-    if dense.live_box is not None:
-        (lx, (l0, l1), lz) = dense.live_box
-        if max(l0, a) < min(l1, b):
-            live = (lx, (max(l0, a) - a, min(l1, b) - a), lz)
-    region = DensePml(axis=dense.axis, box=((x0, x1), (g0 - a, g1 - a), (z0, z1)),
-                      coeffs_h=cut(dense.coeffs_h), coeffs_e=cut(dense.coeffs_e),
-                      live_box=live)
-    return region, (g0, g1)
-
-
 class _Block:
-    """One block's set-up, made once per step function: its window, its
-    ``Cpml``, TF/SF, region, option descriptors and index slice, the
-    kernel's set-up and the plain version's engine step."""
+    """One block's set-up, made once per step function: its window as a
+    Frame of the lattice (the TF/SF box's y faces, the region, the y slabs
+    of its own ends, the sources and the option rows moved into it), its
+    option descriptors and index slice, the kernel's set-up and the plain
+    version's engine step."""
 
-    def __init__(self, i, plan, shape, inv_dx, dt, bc, constants, cpml, tfsf, dense,
-                 k, flux_faces, planes, freqs, dft_rows, matid):
-        nx, ny, nz = shape
-        self.a, self.b, self.o0, self.o1 = plan.windows()[i]
-        self.shape = (nx, self.b - self.a, nz)
-        (yl, yh) = cpml.thickness[1]
-        self.cpml = Cpml(thickness=(cpml.thickness[0],
-                                    (yl if i == 0 else 0, yh if i == plan.n_b - 1 else 0),
-                                    cpml.thickness[2]), spec=cpml.spec)
-        self.tfsf = _window_tfsf(tfsf, self.a)
-        # the region clipped to the window, its global rows and the global
-        # box's first row
-        self.dense, self.dense_rows = _window_dense(dense, self.a, self.b)
-        self.dense_y0 = None if dense is None else dense.box[1][0]
+    def __init__(self, frame, k, flux_faces, planes, freqs, dft_rows, matid, **setup):
+        self.frame = frame
+        self.a = frame.origin[1]
+        self.b = self.a + frame.shape[1]
+        self.o0, self.o1 = frame.rows
+        self.shape = frame.shape
+        self.setup = CpmlSetup(self.shape, setup["inv_dx"], setup["dt"], setup["constants"],
+                               setup["cpml"], setup["tfsf"], setup["dense"], frame=frame)
+        self.step32 = build_step(self.shape, dtype=torch.float32, frame=frame, **setup)
+        # the region's global rows and its global box's first row
+        self.dense_rows = self.dense_y0 = None
+        if self.setup.dense is not None:
+            box = setup["dense"].box
+            self.dense_rows = frame.clip_box(box)[0][1]
+            self.dense_y0 = box[1][0]
         # the options in the window's frame: every flux face (a "y" face off
         # the owned rows adds 0), the "y" captures of the rows this block
         # owns and every "z" capture, with their global indices
-        self.faces = tuple(("y", fd[1] - self.a) if fd[0] == "y" else fd
-                           for fd in flux_faces)
-        lo, hi = self.a + self.o0, self.a + self.o1
-        self.rows = tuple((j, (ax, v - self.a if ax == "y" else v))
-                          for j, (ax, v) in enumerate(dft_rows)
-                          if ax == "z" or lo <= v < hi)
-        self.options = (_Options(self.shape, k, self.faces, planes, freqs,
-                                 tuple(d for _, d in self.rows))
+        self.faces, self.planes, descs = frame_options(frame, flux_faces, planes, dft_rows)
+        self.rows = tuple((j, d) for j, d in enumerate(descs)
+                          if d[0] == "z" or self.o0 <= d[1] < self.o1)
+        self.descs = tuple(d for _, d in self.rows)
+        self.options = (_Options(self.shape, k, self.faces, self.planes, freqs, self.descs)
                         if flux_faces or planes or dft_rows else None)
         self.matid = None if matid is None else matid[:, self.a:self.b].contiguous()
-        self.setup = CpmlSetup(self.shape, inv_dx, dt, constants, self.cpml, self.tfsf,
-                               self.dense)
-        self.step32 = build_step(self.shape, inv_dx=inv_dx, dt=dt, bc=bc,
-                                 constants=constants, dtype=torch.float32, cpml=self.cpml,
-                                 tfsf=self.tfsf, dense=self.dense)
 
     # -- gather and scatter ------------------------------------------------------
 
@@ -320,23 +261,21 @@ class _Block:
         """The window's state: its rows of the fields, the x- and z-slab
         psi, the region psi and (``dft``) the DFT planes, as fresh tensors;
         the y slabs of its own ends whole; the aux line shared."""
-        zero = torch.zeros((), dtype=torch.float32, device=state.device)
-        y_on = self.cpml.thickness[1] != (0, 0)
 
-        def pair(p, axis):
+        def pair(p, axis, half):
             if axis != 1:
                 return tuple(self._rows(t) if t.dim() > 0 else t for t in p)
-            if not y_on:
-                return zero, zero
+            if (half, 1) not in self.setup.slabs:
+                return p
             nx, _, nz = self.shape
             empty = torch.zeros((nx, 0, nz), dtype=torch.float32, device=state.device)
-            return (p[0] if self.cpml.thickness[1][0] else empty,
-                    p[1] if self.cpml.thickness[1][1] else empty)
+            return tuple(t if width else empty
+                         for t, width in zip(p, self.setup.slabs[(half, 1)]))
 
-        psi = [tuple(pair(p, axis) for p, (_, axis) in zip(half, _TERMS))
-               for half in (state.psi_h, state.psi_e)]
+        psi = [tuple(pair(p, axis, half) for p, (_, axis) in zip(pairs, _TERMS))
+               for half, pairs in ((False, state.psi_h), (True, state.psi_e))]
         psi_d = ()
-        if self.dense is not None:
+        if self.dense_rows is not None:
             rows = slice(self.dense_rows[0] - self.dense_y0, self.dense_rows[1] - self.dense_y0)
             psi_d = tuple(p[:, rows].contiguous() for p in state.psi_d)
         return EngineState(*[self._rows(getattr(state, f)) for f in FIELDS],
@@ -362,7 +301,7 @@ class _Block:
                             out["psi"][h][t][end] = p[end]
                     else:
                         dst[:, rows].copy_(p[end][:, own])
-        if self.dense is not None:
+        if self.dense_rows is not None:
             y0 = self.dense_y0
             g0, g1 = max(self.dense_rows[0], rows.start), min(self.dense_rows[1], rows.stop)
             if g0 < g1:
@@ -371,37 +310,6 @@ class _Block:
                     dst[:, g0 - y0:g1 - y0].copy_(src[:, g0 - w0:g1 - w0])
         for dst, src in zip(out["dft"], win.dft):
             dst[:, rows].copy_(src[:, own])
-
-    # -- the plain version's options on the owned rows ----------------------------
-
-    def plain_flux(self, e, h) -> torch.Tensor:
-        """(nx, n_q): one level's flux rows over the owned rows."""
-        own = slice(self.o0, self.o1)
-        cols = []
-        for fd in self.faces:
-            if fd[0] == "x":
-                cols.append((e[1][:, own] * h[2][:, own]
-                             - e[2][:, own] * h[1][:, own]).sum(dim=(1, 2)))
-            elif fd[0] == "y":
-                v = fd[1]
-                if self.o0 <= v < self.o1:
-                    cols.append((e[2][:, v] * h[0][:, v] - e[0][:, v] * h[2][:, v]).sum(-1))
-                else:
-                    cols.append(torch.zeros(e[0].shape[0], dtype=e[0].dtype,
-                                            device=e[0].device))
-            else:
-                v = fd[1]
-                cols.append((e[0][:, own, v] * h[1][:, own, v]
-                             - e[1][:, own, v] * h[0][:, own, v]).sum(-1))
-        return torch.stack(cols, dim=1)
-
-
-def source_shift(sources: Optional[SourceSet], a: int):
-    """The sources in a window's frame (rows a on): y shifted, unclipped."""
-    if sources is None or a == 0:
-        return sources
-    shift = torch.tensor([0, a, 0], dtype=sources.points.dtype, device=sources.points.device)
-    return dataclasses.replace(sources, points=sources.points - shift)
 
 
 def call_outputs(state: EngineState, dft: bool) -> dict:
@@ -422,24 +330,21 @@ def _run(blocks, state: EngineState, table, sources, k, with_m, dtype, dt, plane
          freqs, flux_faces, dft_rows, dense, kernel: bool):
     """One call over every block: gather, K4e (``kernel``) or K4's plain
     version, scatter. Returns what the wrapper returns."""
-    dev = state.device
     out = call_outputs(state, bool(planes))
     aux_e = aux_h = levels = None
     if kernel:
-        levels = call_levels(blocks[0], state, sources, k, with_m, dt)
-        aux_e, aux_h = levels[2:]
-    phases = dft_phases(freqs, state.tick, k, dt, dev) if planes else None
+        levels = call_levels(blocks[0], state, k)
+        aux_e, aux_h = levels[1:]
     flux = None
     caps = [None] * len(dft_rows)
     z_parts = {j: [] for j, (ax, _) in enumerate(dft_rows) if ax == "z"}
     for blk in blocks:
         win = blk.gather(state, bool(planes))
         if kernel:
-            new, flux_b, caps_b = launch_block(blk, win, table, k, with_m, dtype, dt,
-                                               block_levels(blk, levels))
+            new, flux_b, caps_b = launch_block(blk, win, table, sources, k, with_m, dtype,
+                                               dt, levels)
         else:
-            new, flux_b, caps_b = plain_block(blk, win, table, source_shift(sources, blk.a),
-                                              k, with_m, planes, phases)
+            new, flux_b, caps_b = plain_block(blk, win, table, sources, k, with_m, freqs, dt)
         blk.scatter(new, out)
         if flux_faces:
             flux = flux_b if flux is None else flux + flux_b
@@ -468,33 +373,25 @@ def _run(blocks, state: EngineState, table, sources, k, with_m, dtype, dt, plane
     return res[0] if len(res) == 1 else tuple(res)
 
 
-def call_levels(blk: "_Block", state: EngineState, sources, k, with_m, dt):
-    """(source rows, TF/SF pack or None, new aux_e, new aux_h) of a call,
-    made once for every block: the aux line ticks K times (solver/
-    cuda_cpml.py::CpmlSetup.aux_levels), the rows at global coordinates."""
-    pack, aux_e, aux_h = None, state.aux_e, state.aux_h
-    if blk.setup.tfsf is not None:
-        pack, aux_e, aux_h = blk.setup.aux_levels(state, blk.setup.on(state.device)[1], k)
-    return build_src_rows(sources, state.tick, k, with_m, dt), pack, aux_e, aux_h
+def call_levels(blk: "_Block", state: EngineState, k):
+    """(TF/SF pack or None, new aux_e, new aux_h) of a call, made once for
+    every block: the aux line ticks K times (solver/cuda_cpml.py::
+    CpmlSetup.aux_levels)."""
+    if blk.setup.tfsf is None:
+        return None, state.aux_e, state.aux_h
+    return blk.setup.aux_levels(state, blk.setup.on(state.device)[1], k)
 
 
-def block_levels(blk: "_Block", levels):
-    """``levels`` in block ``blk``'s frame: the rows' y shifted, unclipped."""
-    rows = levels[0]
-    if len(rows) and blk.a:
-        rows = rows.clone()
-        rows[:, 1] -= blk.a
-    return (rows, *levels[1:])
-
-
-def launch_block(blk: "_Block", win: EngineState, table, k, with_m, dtype, dt, levels):
-    """K4e on one window (``levels``: block_levels'): (its output state,
-    its flux rows or None, its captures)."""
+def launch_block(blk: "_Block", win: EngineState, table, sources, k, with_m, dtype, dt,
+                 levels):
+    """K4e on one window (``levels``: call_levels'; the source rows move
+    into the window): (its output state, its flux rows or None, its
+    captures)."""
     flux = caps = acc_out = scratch = c_ptrs = None
     if blk.options is not None:
         flux, caps, acc_out, scratch, c_ptrs = blk.options.buffers(win, dt)
     new = launch_cpml(_build.CPMLK_BLOCKED, win, blk.setup, k, dtype, table, blk.matid,
-                      None, with_m,
+                      sources, with_m,
                       None if blk.options is None else (blk.options.meta, c_ptrs),
                       levels=levels, owned=(blk.o0, blk.o1))
     del scratch
@@ -503,35 +400,22 @@ def launch_block(blk: "_Block", win: EngineState, table, k, with_m, dtype, dt, l
     return new, flux, caps or ()
 
 
-def plain_block(blk: "_Block", win: EngineState, table, sources, k, with_m, planes,
-                phases):
-    """K4's plain version on one window (``sources`` in its frame:
-    source_shift), the options on its owned rows: what launch_block
-    returns."""
-    accs = list(win.dft)
-    flux, caps = [], [[] for _ in blk.rows]
-
-    def on_level(lvl, s):
-        if blk.faces:
-            flux.append(blk.plain_flux(s.e, s.h))
-        for out, (_, desc) in zip(caps, blk.rows):
-            out.append(row_capture(s.e, s.h, desc))
-        for i, (x0, which) in enumerate(planes):
-            fld = s.e if which == 0 else s.h
-            accs[i] = dft_update(accs[i], phases[lvl], tuple(c[x0] for c in fld))
-
-    new = plain_cpml_ticks(win, blk.step32, table, blk.matid, sources, k, with_m, on_level)
-    if planes:
-        new = new.replace(dft=tuple(accs))
-    return (new, torch.stack(flux) if blk.faces else None,
-            tuple(torch.stack(c) for c in caps))
+def plain_block(blk: "_Block", win: EngineState, table, sources, k, with_m, freqs, dt):
+    """K4's plain version on one window (the engine moves the sources into
+    it), the options on its owned rows: what launch_block returns."""
+    res = plain_with_options(win, blk.step32, table, blk.matid, sources, k, with_m,
+                             blk.faces, blk.planes, freqs, blk.descs, dt,
+                             rows=(blk.o0, blk.o1))
+    res = res if isinstance(res, tuple) else (res,)
+    flux = res[1] if blk.faces else None
+    return res[0], flux, res[-1] if blk.descs else ()
 
 
 def _blocks(shape, k, plan, inv_dx, dt, bc, constants, cpml, tfsf, dense, flux_faces,
             planes, freqs, dft_rows, matid):
-    return tuple(_Block(i, plan, shape, inv_dx, dt, bc, constants, cpml, tfsf, dense, k,
-                        flux_faces, planes, freqs, dft_rows, matid)
-                 for i in range(plan.n_b))
+    return tuple(_Block(frame, k, flux_faces, planes, freqs, dft_rows, matid, inv_dx=inv_dx,
+                        dt=dt, bc=bc, constants=constants, cpml=cpml, tfsf=tfsf, dense=dense)
+                 for frame in plan.frames(tuple(shape)))
 
 
 def cuda_cpml_blocked_stepk_fn(

@@ -39,8 +39,24 @@ The region and oblique options, as K3's (solver/cuda_cpml.py):
   (tick + l) dt and corr_e half a tick later (pallas_cpml_k.py:1936-1947),
   on the shell's disjoint boxes.
 
-They combine with each other and with K4a and K4b. Not part of this
-kernel: the TPU kernel's ``dft_runtime`` and runtime coordinates.
+They combine with each other and with K4a and K4b.
+
+``frame`` (a solver/frame.py Frame) runs K4e x-side and K4b' (csrc/cpmlk.cu
+``fdtd_cpmlk_sharded``, the TPU kernel's runtime edges, x profiles, TF/SF,
+oblique offset and ``dft_runtime``, pallas_cpml_k.py:1104-1111, :1290,
+:1371-1399, :1761-1783): the state is the frame's array of its global
+lattice, whose set-up the other arguments give in global coordinates. The
+wrapper moves it into the array (solver/frame.py: edge planes, profiles
+and slabs, TF/SF spans with the aux line read at global x, the region, the
+oblique boxes and pack, the source rows, the options' coordinates), and:
+
+* K4b' (``dft``): a plane accumulates on the array that owns it
+  (``Frame.planes``); on every other array its coordinate is off the array,
+  the kernel writes nothing, and the step returns the input accumulator;
+* the options count the owned rows ``Frame.rows`` alone (a "y" face or
+  capture off them adds 0 or stays 0), and cover every x plane of the
+  array: the caller keeps the owned planes;
+* out of place only.
 
 The plain version (``plain_cpml_stepk``) is K applications of K3's plain
 version with one rounding at the end, and computes the options from each
@@ -81,7 +97,7 @@ from .cuda_cpml import (
     plain_cpml_ticks,
     supports_cpml,
 )
-from .cuda_step import kernel_table
+from .cuda_step import kernel_table, supports
 from .cuda_stepk import MAX_K
 from .engine import EngineState, build_step, check_absorbers, split_tfsf
 from .sources import SourceSet
@@ -151,14 +167,19 @@ def supports_cpml_k(shape, bc, cpml, k: int, dtype=torch.float32,
 
 
 #: K4 launches, in place or not, that carried each option (K4a
-#: "flux_faces", K4b "dft" and "dft_rows", K4c "dense", K4d "oblique")
-#: since the last reset; the wrapper adds one per launch.
-OPTION_LAUNCHES = {"flux_faces": 0, "dft": 0, "dft_rows": 0, "dense": 0, "oblique": 0}
+#: "flux_faces", K4b "dft" and "dft_rows", K4c "dense", K4d "oblique";
+#: K4b' "dft_runtime": K4e x-side launches on the array that owns a DFT
+#: plane) since the last reset; the wrapper adds one per launch.
+OPTION_LAUNCHES = {"flux_faces": 0, "dft": 0, "dft_rows": 0, "dense": 0, "oblique": 0,
+                   "dft_runtime": 0}
 
 
-def launches(io_alias: bool = False) -> int:
-    """How many times the K4 kernel (``io_alias``: its in-place build) has
-    launched since the last reset."""
+def launches(io_alias: bool = False, frame: bool = False) -> int:
+    """How many times the K4 kernel (``io_alias``: its in-place build;
+    ``frame``: K4e x-side, its shard entry) has launched since the last
+    reset."""
+    if frame:
+        return _build.CPMLK_SHARDED.launches
     return (_build.CPMLK_INPLACE if io_alias else _build.CPMLK).launches
 
 
@@ -170,6 +191,7 @@ def option_launches() -> dict:
 
 def reset_launches() -> None:
     _build.CPMLK.launches = _build.CPMLK_INPLACE.launches = 0
+    _build.CPMLK_SHARDED.launches = 0
     for name in OPTION_LAUNCHES:
         OPTION_LAUNCHES[name] = 0
 
@@ -186,27 +208,44 @@ def dft_phases(frequencies, tick: int, k_steps: int, dt: float, device) -> torch
 # -- the options on f32 fields (the plain version's arithmetic) ------------------
 
 
-def flux_row(e, h, flux_faces) -> torch.Tensor:
-    """(nx, n_q) per-plane Poynting sums of one level's f32 fields."""
+def flux_row(e, h, flux_faces, rows=None) -> torch.Tensor:
+    """(nx, n_q) per-plane Poynting sums of one level's f32 fields;
+    ``rows`` = (r0, r1): over those y rows alone (a "y" face off them
+    adds 0)."""
     cols = []
+    r0, r1 = (0, e[0].shape[1]) if rows is None else rows
     for fd in flux_faces:
         if fd[0] == "x":
-            s = e[1] * h[2] - e[2] * h[1]
+            s = e[1][:, r0:r1] * h[2][:, r0:r1] - e[2][:, r0:r1] * h[1][:, r0:r1]
             cols.append(s.sum(dim=(1, 2)))
         elif fd[0] == "y":
             v = fd[1]
-            cols.append((e[2][:, v] * h[0][:, v] - e[0][:, v] * h[2][:, v]).sum(-1))
+            if r0 <= v < r1:
+                cols.append((e[2][:, v] * h[0][:, v] - e[0][:, v] * h[2][:, v]).sum(-1))
+            else:
+                cols.append(torch.zeros(e[0].shape[0], dtype=e[0].dtype, device=e[0].device))
         else:
             v = fd[1]
-            cols.append((e[0][:, :, v] * h[1][:, :, v]
-                         - e[1][:, :, v] * h[0][:, :, v]).sum(-1))
+            cols.append((e[0][:, r0:r1, v] * h[1][:, r0:r1, v]
+                         - e[1][:, r0:r1, v] * h[0][:, r0:r1, v]).sum(-1))
     return torch.stack(cols, dim=1)
 
 
-def row_capture(e, h, desc) -> torch.Tensor:
-    """(nx, 6, lat) raw E and H along one lateral line of every x plane."""
+def row_capture(e, h, desc, rows=None) -> torch.Tensor:
+    """(nx, 6, lat) raw E and H along one lateral line of every x plane;
+    ``rows`` = (r0, r1): those y rows alone (the rest 0)."""
     a, v = desc
-    return torch.stack([f[:, v, :] if a == "y" else f[:, :, v] for f in (*e, *h)], dim=1)
+    ny = e[0].shape[1]
+    r0, r1 = (0, ny) if rows is None else rows
+    if a == "y" and not r0 <= v < r1:
+        return torch.zeros((e[0].shape[0], 6, e[0].shape[2]), dtype=e[0].dtype,
+                           device=e[0].device)
+    cap = torch.stack([f[:, v, :] if a == "y" else f[:, :, v] for f in (*e, *h)], dim=1)
+    if a == "z" and (r0, r1) != (0, ny):
+        keep = torch.zeros(ny, dtype=torch.bool, device=cap.device)
+        keep[r0:r1] = True
+        cap = torch.where(keep, cap, torch.zeros((), dtype=cap.dtype, device=cap.device))
+    return cap
 
 
 def dft_update(acc: torch.Tensor, phase_row: torch.Tensor, fld) -> torch.Tensor:
@@ -219,21 +258,25 @@ def dft_update(acc: torch.Tensor, phase_row: torch.Tensor, fld) -> torch.Tensor:
 
 def plain_with_options(state: EngineState, step32, table, matid, sources,
                        k_steps: int, with_m: bool, flux_faces=(), planes=(), freqs=(),
-                       dft_rows=(), dt: float = 0.0, inplace: bool = False):
+                       dft_rows=(), dt: float = 0.0, inplace: bool = False, rows=None):
     """K4's plain version: ``k_steps`` f32 engine ticks (K3's plain
     version), the options computed from each level's f32 state, one
     rounding of the fields at the end; ``inplace``: the in-place build's
-    (``plain_cpml_ticks``). Returns what the kernel wrapper returns."""
+    (``plain_cpml_ticks``); ``rows``: the options over those y rows alone,
+    and a DFT plane off the lattice left as it was (K4e x-side). Returns
+    what the kernel wrapper returns."""
     accs = list(state.dft)
     phases = dft_phases(freqs, state.tick, k_steps, dt, state.device) if planes else None
     flux, caps = [], [[] for _ in dft_rows]
 
     def on_level(lvl, s):
         if flux_faces:
-            flux.append(flux_row(s.e, s.h, flux_faces))
+            flux.append(flux_row(s.e, s.h, flux_faces, rows))
         for out, desc in zip(caps, dft_rows):
-            out.append(row_capture(s.e, s.h, desc))
+            out.append(row_capture(s.e, s.h, desc, rows))
         for i, (x0, which) in enumerate(planes):
+            if not 0 <= x0 < s.shape[0]:
+                continue  # K4b': another array owns the plane
             fld = s.e if which == 0 else s.h
             accs[i] = dft_update(accs[i], phases[lvl], tuple(c[x0] for c in fld))
 
@@ -259,19 +302,34 @@ def plain_cpml_stepk(state: EngineState, table: torch.Tensor,
                      k_steps: int, *, inv_dx, dt, cpml, tfsf=None,
                      bc=BoundaryConditions(), constants: PhysicalConstants = SI,
                      with_m: bool = False, flux_faces=(), dft=None, dft_rows=(),
-                     dense=None, oblique=None, inplace: bool = False):
+                     dense=None, oblique=None, inplace: bool = False, frame=None):
     """K4's plain version: K applications of K3's plain version (f32
     carries, one rounding to the storage dtype at the end), with the
     options computed from each level's f32 state; returns what the kernel
     wrapper returns. ``inplace``: the in-place build's
-    (``plain_cpml_stepk_inplace``)."""
+    (``plain_cpml_stepk_inplace``); ``frame``: K4e x-side's (the module's
+    docstring; the set-up and the options in global coordinates)."""
     step32 = build_step(state.shape, inv_dx=inv_dx, dt=dt, bc=bc,
                         constants=constants, dtype=torch.float32, cpml=cpml,
-                        tfsf=oblique if oblique is not None else tfsf, dense=dense)
+                        tfsf=oblique if oblique is not None else tfsf, dense=dense,
+                        frame=frame)
     planes, freqs = (_planes(dft[0]), tuple(dft[1])) if dft is not None else ((), ())
+    flux_faces, dft_rows = tuple(tuple(fd) for fd in flux_faces), tuple(dft_rows)
+    if frame is not None:
+        flux_faces, planes, dft_rows = frame_options(frame, flux_faces, planes, dft_rows)
     return plain_with_options(state, step32, table, matid, sources, k_steps, with_m,
-                              tuple(flux_faces), planes, freqs, tuple(dft_rows), dt,
-                              inplace)
+                              flux_faces, planes, freqs, dft_rows, dt, inplace,
+                              None if frame is None else frame.rows)
+
+
+def frame_options(frame, flux_faces, planes, dft_rows):
+    """K4's option descriptors in a frame's array: "y" coordinates moved
+    into it, a DFT plane to its array coordinate where the array owns it,
+    else off every array (K4b')."""
+    y0 = frame.origin[1]
+    faces = tuple(("y", fd[1] - y0) if fd[0] == "y" else fd for fd in flux_faces)
+    rows = tuple((a, v - y0 if a == "y" else v) for a, v in dft_rows)
+    return faces, tuple((frame.plane(x), w) for x, w in planes), rows
 
 
 def plain_cpml_stepk_inplace(state: EngineState, table: torch.Tensor,
@@ -303,9 +361,12 @@ class _Options:
         meta += [_KIND[a] for a, _ in dft_rows] + [v for _, v in dft_rows]
         self.meta = (ctypes.c_int * len(meta))(*meta)
 
-    def buffers(self, state: EngineState, dt: float):
+    def buffers(self, state: EngineState, dt: float, zero_caps: bool = False):
         """(flux rows, partials, captures, DFT outputs, phase pack, C pointer
-        array) for one call on ``state``."""
+        array) for one call on ``state``. A DFT plane off the lattice (K4b':
+        K4e x-side's array that does not own it) keeps its input
+        accumulator, which the kernel does not write; ``zero_caps``: the
+        captures start zero (K4e x-side counting some rows alone)."""
         nx, ny, nz = self.shape
         dev = state.device
 
@@ -315,9 +376,12 @@ class _Options:
         n_q = len(self.faces)
         flux = empty(self.k, nx, n_q) if n_q else None
         partial = empty(self.k, nx, n_q, self.n_tiles) if n_q else None
-        caps = tuple(empty(self.k, nx, 6, nz if a == "y" else ny) for a, _ in self.rows)
+        caps = tuple((torch.zeros if zero_caps else torch.empty)(
+            (self.k, nx, 6, nz if a == "y" else ny), dtype=torch.float32, device=dev)
+            for a, _ in self.rows)
         acc_in = state.dft if self.planes else ()
-        acc_out = tuple(torch.empty_like(a) for a in acc_in)
+        acc_out = tuple(torch.empty_like(a) if 0 <= x0 < nx else a
+                        for a, (x0, _) in zip(acc_in, self.planes))
         phase = dft_phases(self.freqs, state.tick, self.k, dt, dev) if self.planes else None
         ptrs = [partial, flux, phase, *acc_in, *acc_out, *caps]
         c_ptrs = (ctypes.c_void_p * len(ptrs))(
@@ -359,6 +423,7 @@ def cuda_cpml_stepk_fn(
     dense=None,
     oblique=None,
     io_alias: bool = False,
+    frame=None,
 ):
     """Build stepk(state: EngineState, coeffs, sources) advancing
     ``k_steps`` absorbing ticks.
@@ -372,32 +437,47 @@ def cuda_cpml_stepk_fn(
     the state from ``init_engine_state(dense=...)``) and ``oblique`` (an
     ObliqueTfsf, or given as ``tfsf``) switch on K4c and K4d.
     ``io_alias`` updates the state's tensors in place (see the module's
-    docstring).
+    docstring). ``frame`` (a solver/frame.py Frame of ``shape``): K4e
+    x-side on the frame's array, the rest of the set-up and the options in
+    its lattice's coordinates (the module's docstring).
     """
     flux_faces = tuple(tuple(fd) for fd in flux_faces)
     dft_rows = tuple((str(a), int(v)) for a, v in dft_rows)
     planes, freqs = (_planes(dft[0]), tuple(float(f) for f in dft[1])) \
         if dft is not None else ((), ())
     n_mat = n_materials if matid is not None else 1
-    check_absorbers(shape, cpml, tfsf, dense, oblique)
+    lattice = tuple(shape) if frame is None else frame.lattice
+    check_absorbers(lattice, cpml, tfsf, dense, oblique)
     tfsf, ob = split_tfsf(tfsf)
     oblique = oblique if oblique is not None else ob
-    if not supports_cpml_k(shape, bc, cpml, k_steps, dtype=dtype, n_materials=n_mat,
-                           flux_faces=flux_faces,
-                           dft=(planes, len(freqs)) if dft is not None else None,
-                           dft_rows=dft_rows, dense=dense, oblique=oblique):
+    # the set-up and the options are checked on the lattice, the array
+    # against K1's limits (csrc/cpmlk.cu takes any shape)
+    if not (supports_cpml_k(lattice, bc, cpml, k_steps, dtype=dtype, n_materials=n_mat,
+                            flux_faces=flux_faces,
+                            dft=(planes, len(freqs)) if dft is not None else None,
+                            dft_rows=dft_rows, dense=dense, oblique=oblique)
+            and (frame is None or (supports(shape, bc, dtype=dtype) and not io_alias
+                                   and tuple(frame.shape) == tuple(shape)))):
         raise ValueError(
             f"K4 does not support {k_steps=} {shape=} {bc=} {cpml=} {dtype=} "
-            f"{flux_faces=} {dft=} {dft_rows=}")
+            f"{flux_faces=} {dft=} {dft_rows=} {io_alias=} {frame=}")
     inv_dx = tuple(float(v) for v in inv_dx)
-    setup = CpmlSetup(shape, inv_dx, dt, constants, cpml, tfsf, dense, oblique)
+    setup = CpmlSetup(shape, inv_dx, dt, constants, cpml, tfsf, dense, oblique, frame)
     step32 = build_step(shape, inv_dx=inv_dx, dt=dt, bc=bc, constants=constants,
                         dtype=torch.float32, cpml=cpml,
-                        tfsf=oblique if oblique is not None else tfsf, dense=dense)
+                        tfsf=oblique if oblique is not None else tfsf, dense=dense,
+                        frame=frame)
+    owned = ()
+    if frame is not None:
+        flux_faces, planes, dft_rows = frame_options(frame, flux_faces, planes, dft_rows)
+        owned = frame.rows
     options = (_Options(tuple(shape), k_steps, flux_faces, planes, freqs, dft_rows)
                if flux_faces or planes or dft_rows else None)
+    owner = any(0 <= x0 < shape[0] for x0, _ in planes)
 
     kernel = _build.CPMLK_INPLACE if io_alias else _build.CPMLK
+    if frame is not None:
+        kernel = _build.CPMLK_SHARDED
 
     def stepk(state: EngineState, coeffs, sources: Optional[SourceSet]):
         table = kernel_table(coeffs, matid, state.device)
@@ -409,20 +489,22 @@ def cuda_cpml_stepk_fn(
         if state.device.type == "cpu":
             return plain_with_options(state, step32, table, matid, sources, k_steps,
                                       with_m, flux_faces, planes, freqs, dft_rows, dt,
-                                      io_alias)
+                                      io_alias, owned or None)
         if state.device.type != "cuda":
             raise ValueError(f"K4 runs on CUDA or CPU tensors, not {state.device}")
-        used = (("flux_faces", flux_faces), ("dft", planes), ("dft_rows", dft_rows),
-                ("dense", dense is not None), ("oblique", oblique is not None))
+        used = (("flux_faces", flux_faces), ("dft", planes and frame is None),
+                ("dft_runtime", owner and frame is not None), ("dft_rows", dft_rows),
+                ("dense", setup.dense is not None), ("oblique", bool(setup.ob_boxes)))
         flux = caps = acc_out = scratch = c_ptrs = None
         if options is not None:
             # scratch holds the phase pack and the partials until the launch
             # is queued (freed after it, they stay the stream's until it has
             # run)
-            flux, caps, acc_out, scratch, c_ptrs = options.buffers(state, dt)
+            flux, caps, acc_out, scratch, c_ptrs = options.buffers(
+                state, dt, zero_caps=frame is not None and frame.cuts_rows)
         new = launch_cpml(kernel, state, setup, k_steps, dtype, table, matid, sources,
                           with_m, None if options is None else (options.meta, c_ptrs),
-                          inplace=io_alias)
+                          inplace=io_alias, owned=owned)
         for name, on in used:
             OPTION_LAUNCHES[name] += bool(on)
         del scratch

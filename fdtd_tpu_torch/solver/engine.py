@@ -16,6 +16,12 @@ Counterpart of ``fdtd_tpu.solver.engine``, in its order:
 
 It runs on any device and float dtype and is the CPU twin that the CUDA
 CPML kernels (solver/cuda_cpml.py, solver/cuda_cpml_k.py) are held to;
+with a ``frame`` (solver/frame.py) it steps one shard's halo-extended
+array of a larger lattice, as K10's plain version does per shard: the
+global lattice's edge planes inside the array (``step.edge_diff``), the
+array's profiles and slabs, the TF/SF faces at the array's planes with
+the aux line read at global x, the region and the oblique correction
+clipped to the array, and the sources moved into it;
 their plain versions run this step in f32. The state layout is the JAX
 package's: psi lives in slabs, one (lo, hi) pair per ``_TERMS`` entry, a
 DensePml region's psi in four volumes of its box (``psi_d``), and the
@@ -44,11 +50,12 @@ from .step import (
     _diff_forward,
     add_at,
     clip_points,
+    edge_diff,
     field_dtype_time,
 )
 
 __all__ = ["EngineState", "build_step", "init_engine_state", "carry_dtype",
-           "check_absorbers", "split_tfsf"]
+           "check_absorbers", "split_tfsf", "slab_extents"]
 
 # the 6 (component, axis) derivative terms entering a curl
 _TERMS = ((2, 1), (1, 2), (0, 2), (2, 0), (1, 0), (0, 1))
@@ -98,9 +105,10 @@ def _slab_extents(n, lo, hi, half):
     return lo_range, hi_range
 
 
-def psi_bytes(shape, cpml) -> int:
+def psi_bytes(shape, cpml, frame=None) -> int:
     """Bytes of an ``EngineState``'s psi slabs for ``cpml`` (f32, both
-    halves, every term of its active axes)."""
+    halves, every term of its active axes), of a lattice of ``shape`` or of
+    a ``frame``'s array of that shape."""
     if cpml is None:
         return 0
     active = set(cpml.active_axes())
@@ -108,9 +116,8 @@ def psi_bytes(shape, cpml) -> int:
     for _, axis in _TERMS:
         if axis not in active:
             continue
-        lo, hi = cpml.thickness[axis]
         for half in (False, True):
-            (l0, l1), (h0, h1) = _slab_extents(shape[axis], lo, hi, half)
+            (l0, l1), (h0, h1) = slab_extents(shape, cpml, axis, half, frame)
             cells += (l1 - l0 + h1 - h0) * math.prod(shape) // shape[axis]
     return 4 * cells
 
@@ -174,9 +181,24 @@ def check_absorbers(shape, cpml=None, tfsf=None, dense=None, oblique=None) -> No
                     f"[0, {lo}) / [{n - hi}, {n})")
 
 
+def slab_extents(shape, cpml, axis, half, frame=None):
+    """((l0, l1), (h0, h1)): the psi slabs of ``cpml`` along ``axis`` of a
+    lattice of ``shape``, or of a ``frame``'s array of that shape."""
+    lo, hi = cpml.thickness[axis]
+    if frame is None:
+        return _slab_extents(shape[axis], lo, hi, half)
+    return frame.slabs(frame.lattice[axis], axis, lo, hi, half)
+
+
 def init_engine_state(shape, dtype=torch.float32, cpml=None, tfsf=None,
-                      dense=None, device=DEFAULT_DEVICE) -> EngineState:
-    check_absorbers(shape, cpml, tfsf, dense)
+                      dense=None, device=DEFAULT_DEVICE, frame=None) -> EngineState:
+    """The zero state; with a ``frame`` (solver/frame.py), of its array:
+    its slabs, the global aux line and the region clipped to it."""
+    if frame is None:
+        check_absorbers(shape, cpml, tfsf, dense)
+    else:
+        check_absorbers(frame.lattice, cpml, tfsf, dense)
+        dense = frame.region(dense)
     device = resolve_device(device)
     cdt = carry_dtype(dtype)
 
@@ -186,8 +208,7 @@ def init_engine_state(shape, dtype=torch.float32, cpml=None, tfsf=None,
     active = set(cpml.active_axes()) if cpml is not None else set()
 
     def slab_pair(axis, half):
-        lo, hi = cpml.thickness[axis]
-        (l0, l1), (h0, h1) = _slab_extents(shape[axis], lo, hi, half)
+        (l0, l1), (h0, h1) = slab_extents(shape, cpml, axis, half, frame)
         shp_lo = list(shape)
         shp_lo[axis] = l1 - l0
         shp_hi = list(shape)
@@ -204,7 +225,8 @@ def init_engine_state(shape, dtype=torch.float32, cpml=None, tfsf=None,
     )
     slab_tfsf, _ = split_tfsf(tfsf)
     if slab_tfsf is not None:
-        aux_e, aux_h = slab_tfsf.init_aux(shape[0], cdt, device)
+        nx = shape[0] if frame is None else frame.lattice[0]
+        aux_e, aux_h = slab_tfsf.init_aux(nx, cdt, device)
     else:
         # no TF/SF, or an ObliqueTfsf (analytic incident: no aux grid)
         aux_e, aux_h = zeros(), zeros()
@@ -239,6 +261,7 @@ def build_step(
     cpml=None,
     tfsf=None,
     dense=None,
+    frame=None,
 ):
     """Build step(state: EngineState, coeffs, sources) -> EngineState.
 
@@ -249,8 +272,22 @@ def build_step(
 
     Profiles, region coefficients, aux coefficients and the oblique
     correction's tables move to the state's device on its first step there,
-    in the carry dtype of ``dtype``."""
-    check_absorbers(shape, cpml, tfsf, dense)
+    in the carry dtype of ``dtype``.
+
+    ``frame`` (solver/frame.py): step the frame's array (of ``shape``) of
+    its global lattice, whose set-up ``cpml``, ``tfsf``, ``dense`` and the
+    sources are (the module's docstring); ``bc`` must be Neumann(0)."""
+    lattice = shape if frame is None else frame.lattice
+    check_absorbers(lattice, cpml, tfsf, dense)
+    if frame is not None:
+        if bc != BoundaryConditions() or tuple(frame.shape) != tuple(shape):
+            raise ValueError(f"a frame of {frame.shape} takes Neumann(0) edges and "
+                             f"a lattice of its shape, not {shape} {bc}")
+        dense = frame.region(dense)
+    x0, y0 = (0, 0) if frame is None else frame.origin
+    # the edge masks where a global face lies inside the array (a K10
+    # shard's); a K7 window's edges are its own faces
+    edges = frame.edges if frame is not None and frame.masks_edges else None
     tfsf, oblique = split_tfsf(tfsf)
     inv_dx = tuple(float(v) for v in inv_dx)
     cdt = carry_dtype(dtype)
@@ -261,32 +298,57 @@ def build_step(
 
         for axis in active:
             lo, hi = cpml.thickness[axis]
-            n = shape[axis]
+            n = lattice[axis]
             dx = 1.0 / inv_dx[axis]
             for half, key in ((False, "h"), (True, "e")):
-                ik, b, c = _profiles_1d(n, lo, hi, cpml.spec, dx, dt, constants, half)
-                profs_np[(key, axis)] = ((ik, b, c), _slab_extents(n, lo, hi, half))
+                def prof(n=n, lo=lo, hi=hi, dx=dx, half=half):
+                    return _profiles_1d(n, lo, hi, cpml.spec, dx, dt, constants, half)
+
+                if frame is None:
+                    profs_np[(key, axis)] = (prof(), _slab_extents(n, lo, hi, half))
+                else:
+                    profs_np[(key, axis)] = frame.profiles(n, axis, lo, hi, half, prof)
     aux_np = None
     if tfsf is not None:
-        aux_np = aux_coefficients(tfsf, shape[0], inv_dx[0], dt, constants)
-        lo, hi = tfsf.span
+        aux_np = aux_coefficients(tfsf, lattice[0], inv_dx[0], dt, constants)
+        lo, hi = tfsf.span  # global: the aux line's indices
+        # the array's planes of the faces (x0 = 0 without a frame), each
+        # applied where it lies on the array
+        h_faces = tuple(f for f in ((lo - x0, lo - 1, -1.0), (hi + 1 - x0, hi, 1.0))
+                        if 0 <= f[0] < shape[0])
+        e_faces = tuple(f for f in ((lo - 1 - x0, lo, -1.0), (hi - x0, hi + 1, 1.0))
+                        if 0 <= f[0] < shape[0])
+        # the box's x span on the array, and where its lateral faces read aux
+        xa, xb = min(max(lo - x0, 0), shape[0]), min(max(hi + 1 - x0, 0), shape[0])
+        xs, axs = slice(xa, xb), slice(xa + x0, xb + x0)
         y_faces = ()
         if tfsf.is_box:
             (ylo, yhi), (zlo, zhi) = tfsf.span_y, tfsf.span_z
-            xs, ys, zs = slice(lo, hi + 1), slice(ylo, yhi + 1), slice(zlo, zhi + 1)
+            ylo, yhi = ylo - y0, yhi - y0
+            ys, zs = slice(ylo, yhi + 1), slice(zlo, zhi + 1)
             y_faces = ((ylo, 1.0), (yhi + 1, -1.0))
-            if getattr(tfsf, "in_window", False):
-                # a box in the frame of a window of y rows (K7's blocks,
-                # solver/cuda_cpml_blocked.py) may hold part of the box: its
-                # span clamps to the rows, and a y face off them is not applied
+            if frame is not None:
+                # a frame's array (a K7 window of y rows, solver/
+                # cuda_cpml_blocked.py, or a K10 shard's array) may hold
+                # part of the box: its span clamps to the rows, and a y
+                # face off them is not applied
                 ys = slice(min(max(ylo, 0), shape[1]), min(max(yhi + 1, 0), shape[1]))
                 y_faces = tuple((y, sign) for y, sign in y_faces if 0 <= y < shape[1])
         else:
-            xs, ys, zs = slice(lo, hi + 1), slice(None), slice(None)
+            ys, zs = slice(None), slice(None)
     if dense is not None:
         dbox = tuple(slice(b0, b1) for b0, b1 in dense.box)
+    ob_boxes = None
     if oblique is not None:
-        ob_sub = tuple(slice(b0, b1) for b0, b1 in oblique.subgrid())
+        if frame is None:
+            ob_sub = tuple(slice(b0, b1) for b0, b1 in oblique.subgrid())
+        else:
+            cut = frame.clip_box(oblique.subgrid())
+            if cut is None:
+                oblique = None  # the array misses the correction's subgrid
+            else:
+                ob_boxes = (cut[0],)
+                ob_sub = tuple(slice(b0, b1) for b0, b1 in cut[1])
 
     per_device = {}
 
@@ -319,7 +381,7 @@ def build_step(
                            for c in cofs)
                 for key, cofs in (("h", dense.coeffs_h), ("e", dense.coeffs_e))}
             ob = None if oblique is None else ObliqueCorrection(
-                oblique, shape, inv_dx, dt, constants, cdt, device)
+                oblique, lattice, inv_dx, dt, constants, cdt, device, boxes=ob_boxes)
             per_device[device] = (profs, aux, region, ob)
         return per_device[device]
 
@@ -334,7 +396,11 @@ def build_step(
         new_psi_d = list(psi_d)
         n_dense = 0
         for idx, (comp, axis) in enumerate(_TERMS):
-            raw = diff(f3[comp], axis, bc.axis(axis), comp) * inv_dx[axis]
+            if edges is None:
+                raw = diff(f3[comp], axis, bc.axis(axis), comp) * inv_dx[axis]
+            else:
+                raw = edge_diff(f3[comp], axis, comp, edges,
+                                diff is _diff_forward) * inv_dx[axis]
             if region is not None and axis == dense.axis:
                 ik, b, c = region[key]
                 sub = raw[dbox]
@@ -381,8 +447,11 @@ def build_step(
         pts = j_vals = m_vals = None
         if sources is not None and sources.num_sources > 0:
             j_vals, m_vals = sources.values(t)
-            pts, j_vals, m_vals = clip_points(sources.points, state.shape,
-                                              j_vals, m_vals)
+            points = sources.points
+            if x0 or y0:  # into the frame's array, unclipped
+                points = points - torch.tensor([x0, y0, 0], dtype=points.dtype,
+                                               device=points.device)
+            pts, j_vals, m_vals = clip_points(points, state.shape, j_vals, m_vals)
 
         # --- H half-update -------------------------------------------------
         ce, psi_h, psi_d_h = curl_with_psi(state.e, state.psi_h, _diff_backward, "h",
@@ -403,14 +472,13 @@ def build_step(
             # x faces: the Hy update's +d_b*dEz/dx reads the cross-boundary
             # incident Ez (restricted to the box's lateral extent).
             hy = h[1]
-            hy[lo, ys, zs] += -_coef_block(coeffs.d_b, lo, ys, zs) \
-                * aux_e[lo - 1] * inv_dx[0]
-            hy[hi + 1, ys, zs] += _coef_block(coeffs.d_b, hi + 1, ys, zs) \
-                * aux_e[hi] * inv_dx[0]
+            for x, a, sign in h_faces:
+                d_b = _coef_block(coeffs.d_b, x, ys, zs)
+                hy[x, ys, zs] += (-d_b if sign < 0 else d_b) * aux_e[a] * inv_dx[0]
             if tfsf.is_box:
                 # y faces: the Hx update's -d_b*dEz/dy reads incident
                 # Ez = aux_e[x] across the boundary (varies along x only)
-                ez_inc = aux_e[xs][:, None] * inv_dx[1]
+                ez_inc = aux_e[axs][:, None] * inv_dx[1]
                 hx = h[0]
                 for y, sign in y_faces:
                     d_b = _coef_block(coeffs.d_b, xs, y, zs)
@@ -438,14 +506,13 @@ def build_step(
             # incident H at the new time level (aux just stepped).
             # x faces: the Ez update's +c_b*dHy/dx reads incident Hy.
             ez = e[2]
-            ez[lo - 1, ys, zs] += -_coef_block(coeffs.c_b, lo - 1, ys, zs) \
-                * aux_h[lo] * inv_dx[0]
-            ez[hi, ys, zs] += _coef_block(coeffs.c_b, hi, ys, zs) \
-                * aux_h[hi + 1] * inv_dx[0]
+            for x, a, sign in e_faces:
+                c_b = _coef_block(coeffs.c_b, x, ys, zs)
+                ez[x, ys, zs] += (-c_b if sign < 0 else c_b) * aux_h[a] * inv_dx[0]
             if tfsf.is_box:
                 # z faces: the Ex update's -c_b*dHy/dz reads incident
                 # Hy = aux_h[x] across the boundary
-                hy_inc = aux_h[xs][:, None] * inv_dx[2]
+                hy_inc = aux_h[axs][:, None] * inv_dx[2]
                 ex = e[0]
                 ex[xs, ys, zlo - 1] += _coef_block(coeffs.c_b, xs, ys, zlo - 1) \
                     * hy_inc

@@ -143,22 +143,27 @@ def edge_curl(f3, inv_dx, edges, forward: bool):
     index <= max(lo, 0), a forward one at index >= min(hi, n - 1); between
     the edge planes and the array's faces they are taken unmasked. K2's
     edge planes (cuda_stepk), as csrc/yee.cuh computes them."""
-    diff = _diff_forward if forward else _diff_backward
 
     def d(comp: int, axis: int) -> torch.Tensor:
-        f = f3[comp]
-        n = f.shape[axis]
-        idx = torch.arange(n, device=f.device)
-        keep = (idx < min(edges[2 * axis + 1], n - 1)) if forward \
-            else (idx > max(edges[2 * axis], 0))
-        shape = [1, 1, 1]
-        shape[axis] = n
-        raw = diff(f, axis, _NEUMANN, comp)
-        return torch.where(keep.view(shape), raw, torch.zeros((), dtype=raw.dtype,
-                                                                device=raw.device)) \
-            * inv_dx[axis]
+        return edge_diff(f3[comp], axis, comp, edges, forward) * inv_dx[axis]
 
     return (d(2, 1) - d(1, 2), d(0, 2) - d(2, 0), d(1, 0) - d(0, 1))
+
+
+def edge_diff(f: torch.Tensor, axis: int, comp: int, edges, forward: bool) -> torch.Tensor:
+    """The raw Neumann(0) difference (backward, or ``forward``) of ``f``
+    along ``axis`` with ``edges``' masks (``edge_curl``'s; the caller
+    applies 1/dx)."""
+    diff = _diff_forward if forward else _diff_backward
+    n = f.shape[axis]
+    idx = torch.arange(n, device=f.device)
+    keep = (idx < min(edges[2 * axis + 1], n - 1)) if forward \
+        else (idx > max(edges[2 * axis], 0))
+    shape = [1, 1, 1]
+    shape[axis] = n
+    raw = diff(f, axis, _NEUMANN, comp)
+    return torch.where(keep.view(shape), raw, torch.zeros((), dtype=raw.dtype,
+                                                            device=raw.device))
 
 
 _NEUMANN = Neumann()

@@ -411,10 +411,11 @@ def test_state_checks():
 
 def test_only_a_window_box_leaves_the_lattice():
     """The engine clamps a box's y span to the rows, and skips a y face off
-    them, only for a window's box: an ordinary box off the lattice is
-    refused, and a window's box on every row steps bit for bit as the
-    ordinary box does."""
+    them, only for a window's box (a Frame of the lattice): an ordinary box
+    off the lattice is refused, and a window's box on every row steps bit
+    for bit as the ordinary box does."""
     from fdtd_tpu_torch.solver.engine import build_step
+    from fdtd_tpu_torch.solver.frame import Frame
 
     shape = (16, 32, 24)
     kw = dict(inv_dx=(1.0, 1.0, 1.0), dt=0.5, constants=pt.REDUCED)
@@ -422,14 +423,14 @@ def test_only_a_window_box_leaves_the_lattice():
     with pytest.raises(ValueError):
         build_step(shape, tfsf=pt.Tfsf(span_y=(-3, 20), **box), **kw)
     # block 1's frame of a box over rows 13-40: rows -3 to 24, lo face off it
-    build_step(shape, tfsf=cuda_cpml_blocked._window_tfsf(pt.Tfsf(span_y=(13, 40), **box),
-                                                          16), **kw)
+    build_step(shape, tfsf=pt.Tfsf(span_y=(13, 40), **box),
+               frame=Frame(lattice=(16, 64, 24), origin=(0, 16), shape=shape), **kw)
     plain = pt.Tfsf(span_y=(5, 26), **box)
     coeffs = pt.CellCoefficients.uniform((1.0, 0.5, 1.0, 0.5), device="cpu")
     outs = []
-    for tfsf in (plain, cuda_cpml_blocked._window_tfsf(plain, 0)):
-        step = build_step(shape, tfsf=tfsf, **kw)
-        state = pt.init_engine_state(shape, tfsf=tfsf, device="cpu")
+    for frame in (None, Frame(lattice=shape, origin=(0, 0), shape=shape)):
+        step = build_step(shape, tfsf=plain, frame=frame, **kw)
+        state = pt.init_engine_state(shape, tfsf=plain, device="cpu")
         for _ in range(6):
             state = step(state, coeffs, None)
         outs.append(state)

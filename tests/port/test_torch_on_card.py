@@ -891,3 +891,173 @@ def test_sharded_slice_fit_aware_plan_on_the_card(cuda_device):
     assert sim.plan(16, (), (), 1) == (8, "cuda_cpml_k")
     out, _, _ = sim.run(sim.init(), 16)
     assert out.tick == 16
+
+
+# -- K10: the sharded K-tick CPML (K4e x-side per shard) -------------------------
+
+K10_SHAPE = (64, 32, 53)
+K10_OPTIONS = dict(flux_faces=(("x",), ("y", 15), ("y", 16), ("z", 20)),
+                   dft=(((32, 0), (30, 1)), (0.02, 0.11)),
+                   dft_rows=(("y", 16), ("z", 20)))
+
+
+def _k10_inputs(dtype, device, cuts, k):
+    """A random global EngineState (fields, psi, aux line; zero DFT
+    accumulators for K10_OPTIONS' planes) on K10_SHAPE with CPML of unequal
+    thickness, a box TF/SF across every cut, a material index, J+M sources
+    on and within k cells of every cut, and the step keywords."""
+    rng = np.random.default_rng(13)
+    shape = K10_SHAPE
+    cpml = pt.Cpml(thickness=((4, 3), (3, 5), (5, 4)))
+    tfsf = pt.Tfsf(span=(14, 47), waveform=pt.GaussianDerivative(6 * DT, 2 * DT),
+                   span_y=(6, 25), span_z=(5, 45))
+    state, _, src = _sharded_inputs(shape, dtype, device, cuts, k)
+    s = pt.init_engine_state(shape, dtype, cpml=cpml, tfsf=tfsf, device=device)
+
+    def rand(t):
+        return torch.from_numpy(rng.standard_normal(t.shape)).to(device=device, dtype=t.dtype)
+
+    n = 6 * len(K10_OPTIONS["dft"][1])
+    state = s.replace(**{f: getattr(state, f) for f in ("ex", "ey", "ez", "hx", "hy", "hz")},
+                      psi_h=tuple((rand(a), rand(b)) for a, b in s.psi_h),
+                      psi_e=tuple((rand(a), rand(b)) for a, b in s.psi_e),
+                      aux_e=rand(s.aux_e), aux_h=rand(s.aux_h), tick=2,
+                      dft=tuple(torch.zeros((n, *shape[1:]), device=device)
+                                for _ in K10_OPTIONS["dft"][0]))
+    mid = torch.from_numpy(rng.integers(0, 3, shape).astype(np.uint8)).to(device)
+    kw = dict(inv_dx=INV_DX, dt=DT, constants=pt.REDUCED, cpml=cpml, tfsf=tfsf, with_m=True,
+              matid=mid, n_materials=3, dtype=dtype, **K10_OPTIONS)
+    return state, torch.tensor(TABLE, device=device), src, kw
+
+
+def _k10_extended(state, mesh, k, axes, kw):
+    from fdtd_tpu_torch.parallel import extend_pml_state
+
+    ext = extend_pml_state(state, mesh, k, cpml=kw["cpml"], axes=axes, tfsf=kw["tfsf"])
+    n = 6 * len(K10_OPTIONS["dft"][1])
+    return type(ext)([st.replace(dft=tuple(torch.zeros((n, *st.shape[1:]), device=st.device)
+                                           for _ in K10_OPTIONS["dft"][0]))
+                      for st in ext.shards])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [2, 8])
+@pytest.mark.parametrize("n, axes", [(2, ("x",)), (4, ("x",)), (4, ("x", "y"))])
+def test_sharded_cpml_k10_matches_plain_and_k4(cuda_device, dtype, k, n, axes):
+    """K10 (a K4e x-side launch per shard) with K4's options: one pass
+    against its plain version (K4's bars), two passes against single-device
+    K4 bit for bit at f32 (fields, psi, DFT planes, captures; flux rows
+    within 2e-5 of max|row|)."""
+    from fdtd_tpu_torch.parallel import (collapse_pml_state, extract_sharded_dft_acc,
+                                         make_cuda_sharded_cpml_stepk, make_mesh,
+                                         plain_sharded_cpml_stepk)
+    from fdtd_tpu_torch.solver.simulation import extract_dft_acc
+
+    shape = K10_SHAPE
+    mesh = make_mesh(n, axes, devices=[cuda_device] * n)
+    nl = shape[0] // mesh.shape["x"]
+    nly = shape[1] // mesh.shape["y"] if len(axes) == 2 else None
+    state, table, src, kw = _k10_inputs(
+        dtype, cuda_device, (range(nl, shape[0], nl),
+                             () if nly is None else range(nly, shape[1], nly)), k)
+    step = make_cuda_sharded_cpml_stepk(mesh, shape, k, axes=axes, **kw)
+    plain_kw = {key: v for key, v in kw.items() if key != "dtype"}
+    before = cuda_cpml_k.launches(frame=True)
+    got, g_flux, g_caps = step(_k10_extended(state, mesh, k, axes, kw), table, src)
+    assert cuda_cpml_k.launches(frame=True) == before + n
+    plain, p_flux, p_caps = plain_sharded_cpml_stepk(
+        _k10_extended(state, mesh, k, axes, kw), table, src, mesh=mesh, shape=shape,
+        k_steps=k, axes=axes, **plain_kw)
+    ckw = dict(cpml=kw["cpml"], axes=axes, tfsf=kw["tfsf"])
+    g1 = collapse_pml_state(got, mesh, k, shape, **ckw)
+    p1 = collapse_pml_state(plain, mesh, k, shape, **ckw)
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    scale = max(float(f.float().abs().max()) for f in (*p1.e, *p1.h))
+    tol = (2e-6 * k if f32 else 2.0 ** -7) * scale
+    for a, b in zip((*g1.e, *g1.h), (*p1.e, *p1.h)):
+        assert float((a.float() - b.float()).abs().max()) <= tol
+    psi_scale = max(float(p.abs().max()) for p in psi_tensors(p1) if p.numel())
+    for a, b in zip(psi_tensors(g1), psi_tensors(p1)):
+        if b.numel():
+            assert float((a - b).abs().max()) <= 2e-6 * k * psi_scale
+    for q in range(p_flux.shape[2]):
+        assert float((g_flux[..., q] - p_flux[..., q]).abs().max()) <= 2e-5 * max(
+            float(p_flux[..., q].abs().max()), 1e-30)
+    for a, b in zip(g_caps, p_caps):
+        assert float((a - b).abs().max()) <= 5e-6 * float(b.abs().max())
+    k4 = cuda_cpml_stepk_fn(shape, k, **kw)
+    r1, _, _ = k4(state, table, src)
+    r2, r_flux, r_caps = k4(r1, table, src)
+    g2, g_flux, g_caps = step(got, table, src)
+    c2 = collapse_pml_state(g2, mesh, k, shape, **ckw)
+    torch.cuda.synchronize()
+    if f32:
+        assert _equal(c2, r2)
+        assert all(torch.equal(a, b) for a, b in zip(psi_tensors(c2), psi_tensors(r2)))
+        assert all(torch.equal(a, b) for a, b in zip(g_caps, r_caps))
+        for slot in range(2):
+            want = extract_dft_acc(r2, K10_OPTIONS["dft"], slot)
+            got_d = extract_sharded_dft_acc(g2, step.layout, k, K10_OPTIONS["dft"], slot)
+            assert all(torch.equal(a, b) for a, b in zip(got_d, want))
+        for q in range(r_flux.shape[2]):
+            assert float((g_flux[..., q] - r_flux[..., q]).abs().max()) <= 2e-5 * float(
+                r_flux[..., q].abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("options", [False, True])
+def test_sharded_cpml_default_frame_equals_k4(cuda_device, dtype, options):
+    """K4e x-side with the default frame (the lattice itself) gives K4's
+    outputs bit for bit, in its core and its options' instantiations."""
+    from fdtd_tpu_torch.solver.frame import Frame
+
+    state, table, src, kw = _k10_inputs(dtype, cuda_device, ((32,), ()), 2)
+    if not options:
+        kw = {key: v for key, v in kw.items() if key not in K10_OPTIONS}
+        state = state.replace(dft=())
+    unit = Frame(lattice=K10_SHAPE, origin=(0, 0), shape=K10_SHAPE)
+    for k in (2, 8):
+        a = cuda_cpml_stepk_fn(K10_SHAPE, k, frame=unit, **kw)(state, table, src)
+        b = cuda_cpml_stepk_fn(K10_SHAPE, k, **kw)(state, table, src)
+        torch.cuda.synchronize()
+        a, b = (a if options else (a,)), (b if options else (b,))
+        assert _equal(a[0], b[0])
+        assert all(torch.equal(x, y) for x, y in zip(
+            (*psi_tensors(a[0]), *a[0].dft), (*psi_tensors(b[0]), *b[0].dft)))
+        if options:
+            assert torch.equal(a[1], b[1])
+            assert all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
+
+
+@pytest.mark.cuda
+def test_sharded_cpml_k4b_plane_off_the_array_is_kept(cuda_device):
+    """K4b': on a shard that does not own the DFT plane the kernel writes
+    no accumulator; the step returns the input's, bit for bit (zero stays
+    zero), and counts no K4b' launch; the owner's accumulates."""
+    from fdtd_tpu_torch.parallel import extend_pml_state, make_cuda_sharded_cpml_stepk, make_mesh
+
+    mesh = make_mesh(2, ("x",), devices=[cuda_device] * 2)
+    state, table, src, kw = _k10_inputs(torch.float32, cuda_device, ((32,), ()), 2)
+    kw = {key: v for key, v in kw.items() if key not in ("flux_faces", "dft_rows")}
+    frames = make_cuda_sharded_cpml_stepk(mesh, K10_SHAPE, 2, **kw).frames
+    ext = extend_pml_state(state, mesh, 2, cpml=kw["cpml"], tfsf=kw["tfsf"])
+    kw["dft"] = (((40, 0),), (0.02, 0.11))  # shard 1's plane
+    for s, owns in ((0, False), (1, True)):
+        st = ext.shards[s]
+        acc = torch.zeros((12, *st.shape[1:]), device=cuda_device)
+        st = st.replace(dft=(acc,))
+        step = cuda_cpml_stepk_fn(st.shape, 2, frame=frames[s],
+                                  matid=make_cuda_sharded_cpml_stepk(
+                                      mesh, K10_SHAPE, 2, **kw).matids[s],
+                                  **{key: v for key, v in kw.items() if key != "matid"})
+        before = cuda_cpml_k.option_launches()["dft_runtime"]
+        out = step(st, table, src)
+        torch.cuda.synchronize()
+        assert cuda_cpml_k.option_launches()["dft_runtime"] == before + owns
+        if owns:
+            assert int(torch.count_nonzero(out.dft[0])) > 0
+        else:
+            assert out.dft[0] is acc and int(torch.count_nonzero(acc)) == 0

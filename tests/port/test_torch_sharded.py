@@ -21,7 +21,7 @@ planes per shard. They are held to
   plan says "pallas_k", "torch" where its plain one says "xla") and its
   run, gather and probe stacks against the JAX ``ShardedSimulation``'s
   XLA path (f64 1e-12 on the plain path, f32 2e-6 on the kernel route);
-  and its refusals (absorbing runs, z-cut meshes, accumulators).
+  and its refusals (z-cut meshes, accumulators of a free-space run).
 
 The fit-aware ``Simulation.plan`` is held to each of its branches with the
 free memory stubbed (``simulation.free_bytes``). JAX runs at x64, so every
@@ -420,10 +420,15 @@ def test_refusals():
     shape = (16, 16, 128)
     pg, pc, ps = _sim_parts(pt, shape, torch.float32, (7, 8, 64))
     mesh = _cpu_mesh(2, ("x",))
+    # absorbing runs, refused before K10 was ported, plan K10 now (its
+    # refusals: tests/port/test_torch_sharded_cpml.py); a region that is no
+    # DensePml is refused as on one device
     for kw in (dict(cpml=pt.Cpml.uniform(2)), dict(tfsf=pt.Tfsf(
-            span=(4, 11), waveform=pt.GaussianPulse(1.0, 1.0))), dict(dense_pml=object())):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            ShardedSimulation(grid=pg, coeffs=pc, mesh=mesh, **kw)
+            span=(4, 11), waveform=pt.GaussianPulse(1.0, 1.0)))):
+        assert ShardedSimulation(grid=pg, coeffs=pc, mesh=mesh, **kw).plan()[1] == \
+            "cuda_cpml_k"
+    with pytest.raises(TypeError, match="DensePml"):
+        ShardedSimulation(grid=pg, coeffs=pc, mesh=mesh, dense_pml=object())
     # a z cut, which the JAX package rotates onto its kernel tier
     zmesh = make_mesh(2, ("x", "y", "z"), devices=["cpu"] * 2)
     assert zmesh.shape == {"x": 2, "y": 1, "z": 1}

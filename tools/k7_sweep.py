@@ -26,7 +26,7 @@ Each group ends with a ``route`` line: the fastest K7 entry against the
 route, and whether it is at least 5 % faster (Simulation's route rule).
 ``--baseline DIR`` (a csrc directory of another version, e.g. the
 parent's: ``git archive HEAD fdtd_tpu_torch/csrc | tar -x -C
-build/parent``) builds that version's K4, K4 io_alias, K6 and K5 beside
+build/parent``) builds that version's K4, K4 io_alias, K6, K5 and K3 beside
 these, requires every ptxas line of theirs to be this build's too, and
 their outputs to equal these kernels' bit for bit on the self-check
 cases (K4 and K4 io_alias with and without their options, region and
@@ -70,7 +70,7 @@ KS = (2, 4, 8)
 NBS = (2, 4, 8)
 #: the kernels a baseline directory is built for: _build's name -> its source
 BASELINE_OF = {"CPMLK": "cpmlk.cu", "CPMLK_INPLACE": "cpmlk_inplace.cu",
-               "CPMLK_GB": "cpmlk_gb.cu", "CPMLK_XZ": "cpmlk_xz.cu"}
+               "CPMLK_GB": "cpmlk_gb.cu", "CPMLK_XZ": "cpmlk_xz.cu", "CPML": "cpml.cu"}
 
 
 def compare_ptxas(ours, base) -> bool:
@@ -238,12 +238,12 @@ def large_bf16_memory_and_share(dev):
         full = cs.cuda_ms(torch, lambda s: step(s, coeffs, None), state, 2, warmup=1)
         wins = [b.gather(state, False) for b in step.blocks]
         table = coeffs
-        levels = blk.call_levels(step.blocks[0], state, None, cs.K7_LARGE_K, False, kw["dt"])
+        levels = blk.call_levels(step.blocks[0], state, cs.K7_LARGE_K)
 
         def windows_only(s):
             for b, w in zip(step.blocks, wins):
-                blk.launch_block(b, w, table, cs.K7_LARGE_K, False, torch.bfloat16, kw["dt"],
-                                 blk.block_levels(b, levels))
+                blk.launch_block(b, w, table, None, cs.K7_LARGE_K, False, torch.bfloat16,
+                                 kw["dt"], levels)
             return s
 
         launched = cs.cuda_ms(torch, windows_only, state, 2, warmup=1)
@@ -272,7 +272,7 @@ def main() -> int:
     cs.log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; torch "
            f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    ours = [_build.CPMLK, _build.CPMLK_INPLACE, _build.CPMLK_GB, _build.CPMLK_XZ]
+    ours = [_build.CPMLK, _build.CPMLK_INPLACE, _build.CPMLK_GB, _build.CPMLK_XZ, _build.CPML]
     base = {}
     if args.baseline is not None:
         for name, source in BASELINE_OF.items():
@@ -281,6 +281,11 @@ def main() -> int:
                                        csrc=args.baseline.resolve(),
                                        build_dir=_build.BUILD_DIR / "baseline")
     kernels = ours + list(base.values())
+    if base:
+        # a library built earlier loads without compiling, and leaves no
+        # ptxas lines to compare: build these afresh
+        for kernel in ours:
+            kernel.library_path().unlink(missing_ok=True)
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda kernel: kernel.build(), kernels))
     for kernel in kernels + [_build.CPMLK_BLOCKED]:

@@ -64,7 +64,12 @@ Run from the root of a checkout. In order it
    across a cut and the skew oblique frame: one pass against its plain
    version, two against single-device K4 bit for bit (the non-owners'
    K4b' accumulators exactly 0), and K4e x-side with the default frame
-   against K4 bit for bit;
+   against K4 bit for bit; K10 blocks (K6 x-side per shard) over 2 and 4
+   shards along x on 64x32x53 at K = 2, 4, 6, 8, f32 and bf16, the same
+   CPML, material index and sources, a box and a slab TF/SF across the
+   cuts: one pass against its plain version, two against K10 at the same K
+   and single-device K4 bit for bit, and K6 x-side with the default frame
+   against K6 bit for bit;
 4. runs the free-space main path: BASELINE config 2 at 128^3 (a dielectric
    sphere and a lossy slab in a uint8 material index, a Gaussian J dipole),
    built as __graft_entry__._flagship builds it, for 1000 ticks with a
@@ -85,8 +90,11 @@ Run from the root of a checkout. In order it
    the peak at most the extended state plus one shard's call plus 2 %,
    the exchange timed alone against whole passes; 512^3 bf16 on the same
    mesh and 512^3 f32 on a 2 x 2 (x, y) mesh, each bit-identical to
-   single-device K2; K8 at 512^3 over 4 shards, 8 ticks, bit-identical to
-   K1; K2 edge_planes on each 272 x 1024^2 shard of the split 1024^3 run
+   single-device K2; config 5 at 1024^3 f32 on a 1 x 1 x 4 z-cut mesh,
+   which ShardedSimulation rotates onto K9 (K = 8): its z slices (sampled
+   in the lattice frame) and the lattice frame's per-plane sums of squares
+   bit-identical to the x-cut run's; K8 at 512^3 over 4 shards, 8 ticks,
+   bit-identical to K1; K2 edge_planes on each 272 x 1024^2 shard of the split 1024^3 run
    and K8 on the 4 shards at 512^3, on random fields with sources on and
    beside every cut, against their plain versions (the kernels line's
    max_abs_err of both); then config 3 at 1024^3 bf16 through the fit-aware
@@ -118,7 +126,14 @@ Run from the root of a checkout. In order it
    peak against the extended state, index and one shard's call, and K4e
    x-side on two of its 272 x 1024^2 shards against its plain version;
    512^3 bf16 and a 2 x 2 mesh at 512^3 f32, each bit-identical to the
-   single-device route on the same set-up; then config 3
+   single-device route on the same set-up; then the same 1024^3 run through
+   K10 blocks (K = 4: a K6 x-side launch per shard and pass, driven through
+   make_cuda_sharded_cpml_stepk(blocks=), since the plan has no gb upgrade:
+   JAX's has no trigger on the card): trace and squares bit-identical to the route's, its
+   Gcell/s against the route's and K10's, its peak against the extended
+   state and one K6 x-side call, and K6 x-side on two of its 264 x 1024^2
+   shards against its plain version; 512^3 bf16 and f32 on the same mesh
+   against the single-device route at K = 4, bit for bit; then config 3
    through K7 (K = 4, n_b = 2; plan keeps K4 here too) at 512^3 f32 and
    bf16, 800 ticks, with the same gates and bit identity to the K4 route
    required; then at 1024^3, 128 ticks at K = 8: f32 (n_b = 8) bit-identical
@@ -164,7 +179,12 @@ Run from the root of a checkout. In order it
    split over 4 shards at 256^3 (K10, 1000 ticks, the probe every 8), each
    held to the same run on the single device (spectra bit for bit, the
    flux within K4a's bar, traces and squares bit for bit), and K4b' on the
-   shard that owns the x = 13 plane against its plain version;
+   shard that owns the x = 13 plane against its plain version; then
+   config 3 at 512^3 f32 on a 1 x 1 x 4 z-cut mesh (its TF/SF does not
+   rotate, so ShardedSimulation plans the sharded engine, "torch_engine"),
+   64 ticks, against the single-device plain engine at 2e-5 of max|field|,
+   and config 3's x = 13 DftProbe and box flux per tick at 256^3 on the
+   same mesh against the plain engine's;
    each of phases 4-11 sets the launch counts to 0 just before each run
    and reads them just after, and each of its kernels must have launched
    (at f32 Simulation.run steps K4 in place);
@@ -187,7 +207,9 @@ Run from the root of a checkout. In order it
    plain versions at 512^3 f32, each with its bound, K10 on config 3 at
    512^3 f32 over 4 shards (a K = 8 pass, one K4e x-side launch with and
    without the K4b' plane, the exchange whole and its fields alone) with
-   their plain versions and bounds,
+   their plain versions and bounds, K10 blocks at 512^3 f32 over 4 shards
+   (a K = 4 pass and one K6 x-side launch) with their plain versions and
+   bounds,
    and prints Gcell/s and the byte model's share of the H100's 3.35 TB/s;
 13. profiles 64 ticks of each absorbing run, of each accumulator route, of
    paths A and B and of the plain engine at 256^3 (torch.profiler) and
@@ -3266,6 +3288,117 @@ def sharded_cpml_self_checks(torch, ft, seed):
     return errs
 
 
+#: K10 blocks' self-checks: K10_SHAPE over 2 and 4 x shards at these K
+#: (4 shards at K = 8: nl = 16 = 2K, the x slabs within nl - K planes)
+GB_SHARDED_MESHES = (2, 4)
+GB_SHARDED_KS = (2, 4, 6, 8)
+
+
+def gb_sharded_self_checks(torch, ft, seed):
+    """K10 blocks (K6 x-side per shard) on the card, over shards of the one
+    card: K10_SHAPE over 2 and 4 x shards at K = 2, 4, 6, 8, f32 and bf16,
+    CPML (4, 3)/(3, 5)/(5, 4), config 2's material index, J+M sources on and
+    within K cells of every cut, a box TF/SF (k10_setups' box: every face
+    across or beside a cut) and a slab TF/SF on the same span. One pass
+    against its plain version (K10's plain version at the same K; K4's bars:
+    fields 2e-6 per tick at f32 and 2^-7 at bf16 of max|field|, psi 2e-6
+    per tick of its largest); two passes against K10 at the same K and
+    against single-device K4 on the same global inputs, fields and psi bit
+    for bit, f32 and bf16 (each cell does K4's arithmetic in K6's order,
+    with one rounding a call). Then K6 x-side with the default frame (the
+    lattice itself) against K6, bit for bit. Returns the largest f32 field
+    difference from the plain version ({"K10 blocks": ..., "K6 x-side":
+    ...})."""
+    from fdtd_tpu_torch import parallel as pk
+    from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn
+    from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn
+    from fdtd_tpu_torch.solver.frame import Frame
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 41)
+    shape = K10_SHAPE
+    sim = flagship(ft, shape, torch.float32, dev, backend="auto")
+    dt, matid, table = sim.grid.dt, sim.matid, sim._table_f32
+    cpml = ft.Cpml(thickness=K10_CPML)
+    bc = ft.BoundaryConditions()
+    common = dict(inv_dx=(1.0, 1.0, 1.0), dt=dt, constants=ft.REDUCED, cpml=cpml,
+                  with_m=True, matid=matid, n_materials=table.shape[0])
+    setups = k10_setups(ft, shape, dt, False)
+    tfsfs = (("box", setups[0][1]), ("slab", setups[1][1]))
+    errs = 0.0
+    identical = total = 0
+    for n in GB_SHARDED_MESHES:
+        mesh = pk.make_mesh(n, ("x",), devices=[dev] * n)
+        nl = shape[0] // n
+        for k in GB_SHARDED_KS:
+            src = cut_sources(ft, shape, (range(nl, shape[0], nl), ()), k, dt, dev)
+            for name, tfsf in tfsfs:
+                for dtype in (torch.float32, torch.bfloat16):
+                    f32 = dtype == torch.float32
+                    kw = dict(common, tfsf=tfsf, dtype=dtype)
+                    plan = pk.sharded_gb_plan(shape, n, bc, cpml, k, dtype)
+                    require(plan is not None, f"K10 blocks plan {n} shards K={k}")
+                    state = k10_state(torch, ft, sim, dtype, cpml, tfsf, None, gen, {})
+                    blocks = pk.make_cuda_sharded_cpml_stepk(mesh, shape, k, blocks=plan, **kw)
+                    k10 = pk.make_cuda_sharded_cpml_stepk(mesh, shape, k, **kw)
+
+                    def ext():
+                        return k10_extended(torch, pk, state, mesh, k, cpml, ("x",), tfsf,
+                                            None, {})
+
+                    collapse = dict(cpml=cpml, axes=("x",), tfsf=tfsf)
+                    g1 = blocks(ext(), table, src)
+                    plain_kw = {x: v for x, v in kw.items() if x != "dtype"}
+                    p1 = pk.plain_sharded_cpml_stepk(ext(), table, src, mesh=mesh, shape=shape,
+                                                     k_steps=k, **plain_kw)
+                    cg1 = pk.collapse_pml_state(g1, mesh, k, shape, **collapse)
+                    cp1 = pk.collapse_pml_state(p1, mesh, k, shape, **collapse)
+                    g2 = pk.collapse_pml_state(blocks(g1, table, src), mesh, k, shape,
+                                               **collapse)
+                    t2 = pk.collapse_pml_state(k10(k10(ext(), table, src), table, src), mesh,
+                                               k, shape, **collapse)
+                    k4 = cuda_cpml_stepk_fn(shape, k, **kw)
+                    r2 = k4(k4(state, table, src), table, src)
+                    torch.cuda.synchronize()
+                    err, scale = max_abs_err(cg1, cp1), field_scale(cp1)
+                    tol = (2e-6 * k if f32 else 2.0 ** -7) * scale
+                    psi_err, psi_scale, _ = k10_psi_err(torch, cg1, cp1)
+                    same_k10 = states_equal(torch, g2, t2) and k10_psi_err(torch, g2, t2)[2]
+                    same_k4 = states_equal(torch, g2, r2) and k10_psi_err(torch, g2, r2)[2]
+                    ok = (err <= tol and psi_err <= 2e-6 * k * psi_scale and same_k10
+                          and same_k4)
+                    total += 1
+                    identical += same_k10 and same_k4
+                    log(f"selfcheck K10 blocks {name} {shape} over {n} shards K={k} "
+                        f"{str(dtype)[6:]} ({plan.n_tiles} tiles a shard): max_abs_err "
+                        f"{err:.3e} vs its plain version (tol {tol:.3e}), psi {psi_err:.3e}; "
+                        f"two passes: fields+psi bit-identical to K10 {same_k10}, to K4 "
+                        f"{same_k4} {'ok' if ok else 'FAIL'}")
+                    require(ok, f"K10 blocks {name} {n} shards K={k} {dtype} disagrees")
+                    if f32:
+                        errs = max(errs, err)
+                    del g1, p1, cg1, cp1, g2, t2, r2, state
+    log(f"selfcheck K10 blocks: {identical} of {total} two-pass checks bit-identical to K10 "
+        f"and K4 (every one required)")
+    # K6 x-side with the default frame: K6 itself
+    tfsf = tfsfs[0][1]
+    unit = Frame(lattice=shape, origin=(0, 0), shape=shape)
+    src = ragged_sources(ft, shape, dt, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        kw = dict(common, tfsf=tfsf, dtype=dtype)
+        state = k10_state(torch, ft, sim, dtype, cpml, tfsf, None, gen, {})
+        for k in GB_SHARDED_KS:
+            a = cuda_cpml_gb_stepk_fn(shape, k, frame=unit, **kw)(state, table, src)
+            b = cuda_cpml_gb_stepk_fn(shape, k, **kw)(state, table, src)
+            torch.cuda.synchronize()
+            same = states_equal(torch, a, b) and k10_psi_err(torch, a, b)[2]
+            log(f"selfcheck K6 x-side default frame {shape} K={k} {str(dtype)[6:]}: every "
+                f"output bit-identical to K6 {same}")
+            require(same, "K6 x-side with the default frame differs from K6")
+    return {"K10 blocks": errs, "K6 x-side": errs}
+
+
 def sharded_from(ft, sim, mesh):
     """The ShardedSimulation of a single-device absorbing Simulation's run
     on ``mesh``: its grid, coefficients, sources, absorbers, material index
@@ -3398,22 +3531,27 @@ def split_squares(torch, sim, state):
     return plane_squares(torch, sim.gather(state))
 
 
-def k4e_shard_error(torch, ft, sim, state_shape, seed):
-    """One K4e x-side launch against its plain version on shards 0 and 1 of
-    ``sim``'s K10 plan (random fields and psi on their halo-extended arrays,
+def k4e_shard_error(torch, ft, sim, state_shape, seed, step=None):
+    """One K4e x-side launch (K6 x-side where ``step`` is a K10 blocks
+    step) against its plain version on shards 0 and 1 of ``sim``'s K10 plan
+    (or of ``step``: random fields and psi on their halo-extended arrays,
     the run's set-up, frames and extended material index): the largest
     field difference (the kernels line's max_abs_err of K4e x-side and K10,
-    at the main path's shapes) and the bar's verdict (K4's: 2e-6 per tick
-    of max|field|)."""
+    or of K6 x-side and K10 blocks, at the main path's shapes) and the
+    bar's verdict (K4's: 2e-6 per tick of max|field|)."""
     import gc
 
+    from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn
     from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn, plain_cpml_stepk
     from fdtd_tpu_torch.solver.engine import split_tfsf
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 31)
-    step, _, k, _ = sim._plan
+    step = sim._plan[0] if step is None else step
+    k = step.layout.halo[0]
+    kernel, wrapper = (("K4e x-side", cuda_cpml_stepk_fn) if step.blocks is None
+                       else ("K6 x-side", cuda_cpml_gb_stepk_fn))
     table = sim._step_coeffs
     slab, oblique = split_tfsf(sim.tfsf)
     kw = dict(inv_dx=tuple(1.0 / d for d in sim.grid.dx), dt=sim.grid.dt,
@@ -3430,9 +3568,9 @@ def k4e_shard_error(torch, ft, sim, state_shape, seed):
         st = st.replace(**{f: rand(getattr(st, f)) for f in ("ex", "ey", "ez", "hx", "hy", "hz")},
                         psi_h=tuple((rand(a), rand(b)) for a, b in st.psi_h),
                         psi_e=tuple((rand(a), rand(b)) for a, b in st.psi_e), tick=3)
-        got = cuda_cpml_stepk_fn(frame.shape, k, frame=frame, matid=matid,
-                                 n_materials=table.shape[0], dtype=sim.dtype, **kw)(
-            st, table, None)
+        wkw = kw if step.blocks is None else {x: v for x, v in kw.items() if x != "dense"}
+        got = wrapper(frame.shape, k, frame=frame, matid=matid, n_materials=table.shape[0],
+                      dtype=sim.dtype, **wkw)(st, table, None)
         torch.cuda.synchronize()
         got_f = [f.clone() for f in (*got.e, *got.h)]
         del got
@@ -3443,10 +3581,10 @@ def k4e_shard_error(torch, ft, sim, state_shape, seed):
                   for a, b in zip(got_f, (*want.e, *want.h)))
         scale = field_scale(want)
         tol = 2e-6 * k * scale
-        log(f"K4e x-side on shard {s} of config 3 {state_shape} ({frame.shape}, origin "
+        log(f"{kernel} on shard {s} of config 3 {state_shape} ({frame.shape}, origin "
             f"{frame.origin}), random fields, K={k}: max_abs_err {err:.3e} vs its plain "
             f"version (tol {tol:.3e}, max|field| {scale:.3f})")
-        require(err <= tol, f"K4e x-side on shard {s} disagrees with its plain version")
+        require(err <= tol, f"{kernel} on shard {s} disagrees with its plain version")
         worst = max(worst, err)
         del st, want, got_f
         gc.collect()
@@ -3537,6 +3675,471 @@ def sharded_cpml_config3_path(torch, ft, reference, single_gcells, seed):
             launches[key] += run["launches" if key == "K4e x-side" else "passes"]
         del out, split, single, trace, rtrace, sq, rsq
     return launches, numbers, err
+
+
+# -- K10 blocks (K6 x-side per shard), the sharded engine, the rotation -------
+
+
+def gb_sharded_run(torch, label, sim, ticks, probes, every, seed=None):
+    """Config 3 through K10 blocks at GB_K on ``sim``'s mesh: ``sim`` (a
+    ShardedSimulation at max_k = GB_K, so that its K10 plan has the blocks'
+    layout) supplies the layout, the set-up, the extended material index
+    (shared), the probes' sampling and the state; the blocks step is built
+    by the entry point (make_cuda_sharded_cpml_stepk(blocks=sharded_gb_plan
+    (...))), since best.py does not port JAX's gb upgrade (its trigger, a
+    ladder held at K <= 3 by TPU VMEM, has no counterpart on the card). Launch counts set to 0
+    just before the run and read just after (K6 x-side alone, one launch a
+    shard and pass), peak memory against the extended state, index and one
+    K6 x-side call (outputs, psi, scratch) + 2 %, Gcell/s. Returns (trace,
+    squares, numbers, the step)."""
+    import gc
+
+    from fdtd_tpu_torch import parallel as pk
+    from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
+
+    k = GB_K
+    require(sim.plan() == (k, "cuda_cpml_k"), f"{label}: the layout plan {sim.plan()}")
+    plan = pk.sharded_gb_plan(sim.grid.shape, sim._mesh.shape["x"], sim.bc, sim._cpml_pad, k,
+                              sim.dtype)
+    require(plan is not None, f"{label}: no K10 blocks plan")
+    kw = dict(inv_dx=tuple(1.0 / d for d in sim.grid.dx), dt=sim.grid.dt,
+              constants=sim.grid.constants, cpml=sim._cpml_pad, tfsf=sim.tfsf,
+              matid=sim._matid_u8, n_materials=sim._step_coeffs.shape[0],
+              with_m=sim._has_m_sources(), dtype=sim.dtype)
+    step = pk.make_cuda_sharded_cpml_stepk(sim._mesh, sim.grid.shape, k, blocks=plan,
+                                           matids=sim._plan[0].matids, **kw)
+    table = sim._step_coeffs
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = sim.init()
+    state_b = k10_state_bytes(state)
+    shards = len(state.shards)
+    cells = math.prod(state.shards[0].shape)
+    item = state.shards[0].ex.element_size()
+    psi = sum(t.numel() * 4 for t in psi_tensors(state.shards[0]) if t.dim())
+    call_b = 6 * item * cells + psi + 4 * plan.scratch_floats
+    model = 1.02 * (state_b + call_b)
+    samples = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    start.record()
+    for i in range(ticks // k):
+        state = step(state, table, sim.sources)
+        if ((i + 1) * k) % every == 0:
+            samples.append(sim._sample(state, probes)[0])
+    end.record()
+    end.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    secs = start.elapsed_time(end) / 1e3
+    passes = ticks // k
+    want = {name: 0 for name in counts}
+    want["K6 x-side"] = passes * shards
+    want["K10 blocks"] = passes
+    require(counts == want, f"{label}: launches {counts}, expected {want}")
+    g = math.prod(sim.grid.shape) * ticks / secs / 1e9
+    trace = torch.stack(samples)
+    squares = split_squares(torch, sim, state)
+    log(f"{label}: {ticks} ticks in {secs * 1e3:.3f} ms, {g:.3f} Gcell/s; launches K6 x-side "
+        f"{want['K6 x-side']} ({shards} per pass, {plan.n_tiles} tiles a shard), K10 blocks "
+        f"passes {passes}; peak {peak / 1e9:.4f} GB against the model {model / 1e9:.4f} GB "
+        f"(state {state_b / 1e9:.4f} GB + one K6 x-side call {call_b / 1e9:.4f} GB + 2 %; the "
+        f"extended index, shared with the layout plan, is held before the run)")
+    require(state.tick == ticks and bool(torch.isfinite(squares).all())
+            and float(squares.max()) > 0 and bool(torch.isfinite(trace).all()),
+            f"{label}: no finite field")
+    require(peak <= model, f"{label}: peak {peak} > model {model}")
+    numbers = {"seconds": secs, "gcells": g, "peak_bytes": peak, "model_bytes": model,
+               "state_bytes": state_b, "call_bytes": call_b, "launches": want["K6 x-side"],
+               "passes": passes, "tiles_per_shard": plan.n_tiles}
+    del state
+    return trace, squares, numbers, step
+
+
+def gb_sharded_config3_path(torch, ft, reference, route_gcells, k10_gcells, seed):
+    """BASELINE config 3 split over K10_SHARDS shards of the one card through
+    K10 blocks (gb_sharded_run, K = GB_K): at 1024^3 f32
+    (config3_large_path's set-up), 128 ticks with the 3-point probe every 8,
+    trace and each field's per-x-plane sums of squares bit-identical to the
+    single-device route's (``reference``: Simulation.run through K4 io_alias
+    at K = 8; f32 carries make every K agree), Gcell/s against the route's
+    and K10's 1024^3 runs; then K6 x-side on two of its shards against its
+    plain version (k4e_shard_error). At 512^3, bf16 and f32 on the same
+    mesh, each against the single-device route at K = GB_K (probe every
+    GB_K ticks, every other sample compared), bit for bit. Returns
+    (launches, numbers, the K6 x-side error)."""
+    import gc
+
+    from fdtd_tpu_torch.parallel import ShardedSimulation
+
+    dev = torch.device("cuda")
+    n, ticks = K10_N, CONFIG3_LARGE_TICKS
+    shape = (n, n, n)
+    grid, (cpml, tfsf), matid, table = config3_host(ft, shape, torch.float32)
+    sim = ShardedSimulation(grid=grid, dtype=torch.float32, cpml=cpml, tfsf=tfsf, matid=matid,
+                            table=table, mesh=card_mesh(K10_SHARDS, ("x",)), max_k=GB_K)
+    probes, _ = absorbing_probes(shape)
+    label = f"config 3 {n}^3 f32 over {K10_SHARDS} shards through K10 blocks K={GB_K}"
+    trace, squares, run, step = gb_sharded_run(torch, label, sim, ticks, probes, 8)
+    del matid
+    same_t = torch.equal(trace, reference["trace"])
+    same_s = torch.equal(squares, reference["squares"])
+    log(f"{label}: probe trace bit-identical to the single-device route {same_t}, per-x-plane "
+        f"sums of squares bit-identical {same_s}; {run['gcells']:.3f} Gcell/s against the "
+        f"route's {route_gcells:.3f} ({run['gcells'] / route_gcells:.3f}x) and K10's "
+        f"{k10_gcells:.3f} ({run['gcells'] / k10_gcells:.3f}x)")
+    require(same_t and same_s, f"{label} differs from the single-device route")
+    run.update(route_gcells=route_gcells, k10_gcells=k10_gcells)
+    numbers = {f"{n}_float32_x{K10_SHARDS}": run}
+    launches = {"K6 x-side": run["launches"], "K10 blocks": run["passes"]}
+    del trace, squares
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = k4e_shard_error(torch, ft, sim, shape, seed, step=step)
+    del sim, step
+    m = K10_SMALL
+    small = (m, m, m)
+    probes, _ = absorbing_probes(small)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        gc.collect()
+        torch.cuda.empty_cache()
+        single = config3(ft, small, dtype, dev)
+        require(single.plan(ticks, probes, (), GB_K) == (GB_K, "cuda_cpml_k"), "single plan")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rs, (rtrace,), _ = single.run(single.init(), ticks, probes=probes, probe_every=GB_K)
+        end.record()
+        end.synchronize()
+        r_g = m ** 3 * ticks / (start.elapsed_time(end) / 1e3) / 1e9
+        rsq = plane_squares(torch, rs)
+        del rs
+        gc.collect()
+        torch.cuda.empty_cache()
+        split = dataclasses.replace(sharded_from(ft, single, card_mesh(K10_SHARDS, ("x",))),
+                                    max_k=GB_K)
+        label = f"config 3 {m}^3 {name} over {K10_SHARDS} shards through K10 blocks K={GB_K}"
+        trace, sq, run, step = gb_sharded_run(torch, label, split, ticks, probes, 8)
+        every = 8 // GB_K
+        same = torch.equal(trace, rtrace[every - 1::every]) and torch.equal(sq, rsq)
+        log(f"{label}: trace and squares bit-identical to the single-device route at K={GB_K} "
+            f"{same}; {run['gcells']:.3f} Gcell/s against the route's {r_g:.3f} "
+            f"({run['gcells'] / r_g:.3f}x)")
+        require(same, f"{label} differs from the single-device route")
+        run["route_gcells"] = r_g
+        numbers[f"{m}_{name}_x{K10_SHARDS}"] = run
+        launches["K6 x-side"] += run["launches"]
+        launches["K10 blocks"] += run["passes"]
+        del split, single, trace, rtrace, sq, rsq, step
+    return launches, numbers, err
+
+
+#: config 3 on a mesh that cuts lattice z (1 x 1 x ENGINE_SHARDS, one card):
+#: TF/SF does not rotate, so it plans the sharded engine
+ENGINE_N = 512
+ENGINE_TICKS = 64
+ENGINE_SHARDS = 4
+ENGINE_ACC_N = 256
+ENGINE_ACC_TICKS = 400
+
+
+def zcut_mesh(torch, n):
+    """A 1 x 1 x ``n`` mesh of the one card: it cuts lattice z alone."""
+    import numpy as np
+
+    from fdtd_tpu_torch.parallel import Mesh
+
+    return Mesh(np.array([torch.device("cuda")] * n, dtype=object).reshape(1, 1, n),
+                ("x", "y", "z"))
+
+
+def engine_zcut_path(torch, ft):
+    """BASELINE config 3 at ENGINE_N^3 f32 on a 1 x 1 x ENGINE_SHARDS z-cut
+    mesh of the card through ShardedSimulation: it must plan (1,
+    "torch_engine") (its TF/SF does not rotate). ENGINE_TICKS ticks with the
+    3-point probe every 8, held to the single-device plain engine
+    (Simulation with backend="torch", run first, its state kept) at 2e-5 of
+    max|field| (the largest difference reported; the engine's per-cell
+    arithmetic is the single device's), its trace likewise; Gcell/s and the
+    peak against both states. Then config 3's axis-0 DftProbe (x = 13) and
+    the scattering box flux at ENGINE_ACC_N^3 over ENGINE_ACC_TICKS ticks
+    per tick on the same mesh, against the single-device plain engine with
+    the same accumulators (K4a's bar for the flux, K4b's for the spectrum).
+    Returns numbers."""
+    import gc
+
+    from fdtd_tpu_torch.parallel import ShardedSimulation
+
+    dev = torch.device("cuda")
+    numbers = {}
+    n, ticks = ENGINE_N, ENGINE_TICKS
+    shape = (n, n, n)
+    probes, _ = absorbing_probes(shape)
+    single = config3(ft, shape, torch.float32, dev, backend="torch")
+    require(single.plan(ticks, probes, (), 8) == (1, "torch"), "the plain engine's plan")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref, (rtrace,), _ = single.run(single.init(), ticks, probes=probes, probe_every=8)
+    end.record()
+    end.synchronize()
+    r_g = n ** 3 * ticks / (start.elapsed_time(end) / 1e3) / 1e9
+    grid, (cpml, tfsf), matid, table = config3_host(ft, shape, torch.float32)
+    sim = ShardedSimulation(grid=grid, dtype=torch.float32, cpml=cpml, tfsf=tfsf, matid=matid,
+                            table=table, mesh=zcut_mesh(torch, ENGINE_SHARDS))
+    label = f"config 3 {n}^3 f32 on a 1 x 1 x {ENGINE_SHARDS} z-cut mesh (sharded engine)"
+    require(sim.plan() == (1, "torch_engine") and sim._rotation is None,
+            f"{label}: plan {sim.plan()}")
+    coeffs = sim._step_coeffs  # the expanded material index, cut per shard
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start.record()
+    out, (trace,) = sim.run(sim.init(), ticks, probes=probes, probe_every=8)
+    end.record()
+    end.synchronize()
+    counts = launch_counts()
+    require(not any(counts.values()), f"{label}: a kernel launched: {counts}")
+    peak = torch.cuda.max_memory_allocated() - base
+    secs = start.elapsed_time(end) / 1e3
+    g = n ** 3 * ticks / secs / 1e9
+    lay = sim._layout
+    err = 0.0
+    for s, st in enumerate(out.shards):
+        sl = lay.global_slice(s)
+        err = max(err, max(float((a - b[sl]).abs().max()) for a, b in
+                           zip((*st.e, *st.h), (*ref.e, *ref.h))))
+    scale = field_scale(ref)
+    t_err = float((trace - rtrace).abs().max())
+    t_scale = float(rtrace.abs().max())
+    same = err == 0 and t_err == 0
+    log(f"{label}: plan {sim.plan()}, {ticks} ticks in {secs * 1e3:.3f} ms, {g:.3f} Gcell/s "
+        f"(the single-device plain engine {r_g:.3f}); no kernel launched; peak "
+        f"{peak / 1e9:.4f} GB beyond the coefficients and the reference state; largest field "
+        f"difference from the single-device plain engine {err:.3e} (bar {2e-5 * scale:.3e}, "
+        f"max|field| {scale:.3f}), trace {t_err:.3e} (max {t_scale:.3e}); bit-identical {same}")
+    require(err <= 2e-5 * scale and t_err <= 2e-5 * max(t_scale, 1e-30)
+            and bool(torch.isfinite(trace).all()) and scale > 0,
+            f"{label} differs from the single-device plain engine")
+    numbers[f"{n}_float32_zcut{ENGINE_SHARDS}"] = {
+        "seconds": secs, "gcells": g, "plain_engine_gcells": r_g, "peak_bytes": peak,
+        "max_abs_err": err, "field_scale": scale, "bit_identical": same}
+    del out, ref, single, sim, coeffs, trace, rtrace, matid
+    gc.collect()
+    torch.cuda.empty_cache()
+    # per-tick accumulators on the engine
+    n, ticks = ENGINE_ACC_N, ENGINE_ACC_TICKS
+    shape = (n, n, n)
+    single = config3(ft, shape, torch.float32, dev, backend="torch")
+    accs = config3_accumulators(ft, shape, single.grid.dt)
+    accs = (accs[0], accs[3])  # the x = 13 DftProbe and the box flux
+    start.record()
+    _, _, want = single.run(single.init(), ticks, accumulators=accs)
+    end.record()
+    end.synchronize()
+    r_secs = start.elapsed_time(end) / 1e3
+    grid, (cpml, tfsf), matid, table = config3_host(ft, shape, torch.float32)
+    sim = ShardedSimulation(grid=grid, dtype=torch.float32, cpml=cpml, tfsf=tfsf, matid=matid,
+                            table=table, mesh=zcut_mesh(torch, ENGINE_SHARDS))
+    label = (f"config 3 {n}^3 f32 accumulators on a 1 x 1 x {ENGINE_SHARDS} z-cut mesh "
+             f"(sharded engine, per tick)")
+    reset_counts()
+    start.record()
+    _, _, got = sim.run(sim.init(), ticks, accumulators=accs)
+    end.record()
+    end.synchronize()
+    counts = launch_counts()
+    require(sim.plan() == (1, "torch_engine") and not any(counts.values()),
+            f"{label}: plan {sim.plan()}, launches {counts}")
+    secs = start.elapsed_time(end) / 1e3
+    d_rel, f_rel = acc_rel_err(got[0], want[0]), acc_rel_err(got[1], want[1])
+    same = all(torch.equal(a, b) for a, b in zip(_leaves(got), _leaves(want)))
+    log(f"{label}: {ticks} ticks in {secs:.3f} s (the single-device plain engine "
+        f"{r_secs:.3f} s); DFT plane {d_rel:.3e} of its largest value (3e-6), box flux "
+        f"{f_rel:.3e} (2e-5); bit-identical {same}")
+    require(d_rel <= 3e-6 and f_rel <= 2e-5, f"{label} differs from the single-device engine")
+    numbers[f"{n}_float32_zcut{ENGINE_SHARDS}_accumulators"] = {
+        "seconds": secs, "plain_engine_seconds": r_secs, "dft_rel_err": d_rel,
+        "flux_rel_err": f_rel, "bit_identical": same}
+    del sim, single
+    gc.collect()
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def rotated_squares(torch, state, lay, perm, chunk=32):
+    """plane_squares of the lattice frame's fields of a rotated 1-D split
+    state (lattice x = rotated axis ``perm.index(0)``, uncut), chunk by
+    chunk: each chunk of lattice x planes assembled from the shards' owned
+    planes and rotated back into a contiguous lattice-frame block, so that
+    its sums run as plane_squares' on the lattice's own tensors."""
+    inv = tuple(perm.index(i) for i in range(3))
+    a0 = inv[0]
+    order = sorted(range(len(lay)), key=lambda s: lay.blocks[s])
+    own = lay.owned_slice()
+    out = []
+    for f in "eh":
+        for c in range(3):
+            name = f + "xyz"[inv[c]]
+            n = lay.shape[a0]
+            rows = []
+            for x in range(0, n, chunk):
+                parts = []
+                for s in order:
+                    t = getattr(state.shards[s], name)[own]
+                    parts.append(t.narrow(a0, x, min(chunk, n - x)))
+                block = torch.cat(parts, dim=0).permute(inv).contiguous()
+                rows.append((block.double() ** 2).sum(dim=(1, 2)))
+            out.append(torch.cat(rows))
+    return torch.stack(out)
+
+
+def rotated_config5_run(torch, ft, reference):
+    """BASELINE config 5 at SHARDED_N^3 f32 on a 1 x 1 x SHARDED_SHARDS
+    z-cut mesh of the card: ShardedSimulation rotates it (perm (2, 0, 1))
+    onto K9 at SHARDED_K (it must plan (8, "cuda_k")); CONFIG5_TICKS ticks
+    with the dipole's z slice as a SliceProbe after every call (sampled in
+    the lattice frame), the slices and the lattice frame's per-x-plane sums
+    of squares (rotated_squares) bit-identical to ``reference`` (the x-cut
+    split run's, which equal the in-place K2 run's). Returns (K2
+    edge_planes launches, numbers)."""
+    from fdtd_tpu_torch.parallel import ShardedSimulation
+    from fdtd_tpu_torch.probes import SliceProbe
+
+    dev = torch.device("cuda")
+    n, k = SHARDED_N, SHARDED_K
+    grid, src, coeffs = config5(ft, n, dev)
+    sim = ShardedSimulation(grid=grid, coeffs=coeffs, sources=src,
+                            mesh=zcut_mesh(torch, SHARDED_SHARDS))
+    label = f"config 5 {n}^3 float32 on a 1 x 1 x {SHARDED_SHARDS} z-cut mesh (rotated)"
+    require(sim.plan() == (k, "cuda_k") and sim._rotation is not None
+            and sim._rotation[0] == (2, 0, 1), f"{label}: plan {sim.plan()}")
+    probe = SliceProbe(axis=2, index=n // 2)
+    torch.cuda.synchronize()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, (slices,) = sim.run(sim.init(), CONFIG5_TICKS, probes=(probe,), probe_every=k)
+    end.record()
+    end.synchronize()
+    counts = launch_counts()
+    secs = start.elapsed_time(end) / 1e3
+    want = {name: 0 for name in counts}
+    want["K2 edge_planes"] = CONFIG5_TICKS // k * SHARDED_SHARDS
+    require(counts == want, f"{label}: launches {counts}, expected {want}")
+    inner = sim._rotation[1]
+    squares = rotated_squares(torch, state, inner._layout, sim._rotation[0])
+    ref_slices, ref_squares = reference
+    same_slices = len(slices) == len(ref_slices) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(slices, ref_slices))
+    same_squares = torch.equal(squares, ref_squares)
+    g = n ** 3 * CONFIG5_TICKS / secs / 1e9
+    log(f"{label}: plan {sim.plan()} (perm {sim._rotation[0]}), {CONFIG5_TICKS} ticks in "
+        f"{secs * 1e3:.3f} ms, {g:.3f} Gcell/s; launches K2 edge_planes "
+        f"{want['K2 edge_planes']}; {len(slices)} z slices bit-identical to the x-cut run "
+        f"{same_slices}, lattice-frame per-plane sums of squares bit-identical {same_squares}")
+    require(bool(torch.isfinite(squares).all()) and float(squares.max()) > 0,
+            f"{label}: no finite field")
+    require(same_slices and same_squares, f"{label} differs from the x-cut run")
+    del state
+    return want["K2 edge_planes"], {"seconds": secs, "gcells": g,
+                                    "slices_bit_identical": same_slices,
+                                    "squares_bit_identical": same_squares}
+
+
+def gb_sharded_timings(torch, ft, n=3):
+    """ms per call of K10 blocks at 512^3 f32 over K10_SHARDS shards of the
+    card (config 3's set-up), each on a state of its own, in turns: a pass
+    at GB_K (the exchange and one K6 x-side launch per shard) and its plain
+    version (K10's plain version at GB_K), one K6 x-side launch on an
+    interior shard (1) and its plain version. Bounds: a launch K3's bytes
+    on the extended shard at GB_K ticks, a pass its launches' (the
+    exchange's bytes apart, as K10's)."""
+    import gc
+
+    from fdtd_tpu_torch import parallel as pk
+    from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
+    from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn
+    from fdtd_tpu_torch.solver.cuda_cpml_k import plain_cpml_stepk
+
+    dev = torch.device("cuda")
+    m, k = K10_SMALL, GB_K
+    shape = (m, m, m)
+    single = config3(ft, shape, torch.float32, dev)
+    sim = dataclasses.replace(sharded_from(ft, single, card_mesh(K10_SHARDS, ("x",))),
+                              max_k=k)
+    base, _, _, _ = sim._plan
+    lay, frames = base.layout, base.frames
+    table = sim._step_coeffs
+    kw = dict(inv_dx=(1.0, 1.0, 1.0), dt=sim.grid.dt, constants=ft.REDUCED, cpml=sim.cpml,
+              tfsf=sim.tfsf)
+    plan = pk.sharded_gb_plan(shape, K10_SHARDS, sim.bc, sim.cpml, k)
+    step = pk.make_cuda_sharded_cpml_stepk(sim._mesh, shape, k, matid=sim._matid_u8,
+                                           n_materials=table.shape[0], blocks=plan,
+                                           matids=base.matids, **kw)
+    one = cuda_cpml_gb_stepk_fn(lay.local, k, frame=frames[1], matid=base.matids[1],
+                                n_materials=table.shape[0], **kw)
+
+    def fresh():
+        st = sim.init()
+        for sh in st.shards:
+            sh.ez.fill_(1.0)
+        return st
+
+    def launch(s):
+        one(s.shards[1], table, None)
+        return s
+
+    def launch_plain(s):
+        plain_cpml_stepk(s.shards[1], table, base.matids[1], None, k, frame=frames[1], **kw)
+        return s
+
+    def plain(s):
+        return pk.plain_sharded_cpml_stepk(
+            s, table, None, mesh=sim._mesh, shape=shape, k_steps=k, matid=sim._matid_u8,
+            n_materials=table.shape[0], **kw)
+
+    named = [
+        (f"K10 blocks pass K={k}", lambda s: step(s, table, None), k),
+        (f"K10 blocks pass K={k} plain version", plain, k),
+        ("K6 x-side launch", launch, k),
+        ("K6 x-side launch plain version", launch_plain, k),
+    ]
+    ms = {name: [] for name, _, _ in named}
+    for order in (named, named[::-1]):
+        for name, fn, _ in order:
+            state = fresh()
+            ms[name].append(cuda_ms(torch, fn, state, n, warmup=1))
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+    group = report_group(f"k10_blocks_{m}_float32", named, ms, shape, {})
+    aux = sim.tfsf.aux_length(m)
+    state = fresh()
+    bounds = []
+    for st in state.shards:
+        cells = math.prod(st.shape)
+        psi = sum(t.numel() for t in psi_tensors(st) if t.dim())
+        nbytes = yee_bytes(st.shape, 4, True) + 2 * 4 * psi + 2 * 4 * aux * k
+        bounds.append(bound(cells, k, nbytes, psi))
+    del state
+    b_pass = (sum(b for b, _ in bounds), bounds[0][1])
+    for name, (b_ms, b_by) in ((f"K10 blocks pass K={k}", b_pass),
+                               ("K6 x-side launch", bounds[1])):
+        group[name]["bound_ms"], group[name]["bound_by"] = b_ms, b_by
+        log(f"bound k10_blocks_{m}_float32 {name}: {b_ms:.4f} ms per call ({b_by}); measured "
+            f"at {b_ms / (sum(group[name]['ms_per_call']) / 2):.1%} of it")
+    group["tiles_per_shard"] = plan.n_tiles
+    del sim, single, step, one, base
+    return {f"k10_blocks_{m}_float32": group}
 
 
 def sharded_cpml_option_path(torch, ft):
@@ -3992,6 +4595,11 @@ def sharded_config5_path(torch, ft, reference_1024, seed=0):
     del state, step, sim
     gc.collect()
     torch.cuda.empty_cache()
+    # the same run on a z-cut mesh, rotated onto K9
+    count, numbers["1024_float32_zcut4"] = rotated_config5_run(torch, ft, reference_1024)
+    launches["K2 edge_planes"] += count
+    gc.collect()
+    torch.cuda.empty_cache()
     n = SCALE_SHAPE[0]
     for dtype, axes, key in ((torch.bfloat16, ("x",), "512_bfloat16_x4"),
                              (torch.float32, ("x", "y"), "512_float32_2x2")):
@@ -4254,6 +4862,7 @@ def launch_counts():
     counts = {kernel.name: kernel.launches for kernel in _build.KERNELS}
     counts["K7"] = cuda_cpml_blocked.launches()  # calls, n_b K4e launches each
     counts["K10"] = cuda_sharded_cpml.launches()  # passes, a K4e x-side launch per shard
+    counts["K10 blocks"] = cuda_sharded_cpml.launches(blocks=True)  # a K6 x-side each
     counts["K4b'"] = cuda_cpml_k.option_launches()["dft_runtime"]
     return counts
 
@@ -5100,6 +5709,7 @@ def measure(torch, ft, seed):
     errs.update(k7_self_checks(torch, ft, seed))
     errs.update(sharded_self_checks(torch, ft, seed))
     errs.update(sharded_cpml_self_checks(torch, ft, seed))
+    errs.update(gb_sharded_self_checks(torch, ft, seed))
     launches = main_path(torch, ft)
     c5_launches, c5_gcells, split_reference = config5_path(torch, ft)
     launches.update(c5_launches)
@@ -5117,6 +5727,13 @@ def measure(torch, ft, seed):
     k10_launches, k10_config3, k10_err = sharded_cpml_config3_path(
         torch, ft, reference_1024, c3_large[8]["gcells"], seed)
     errs["K10"] = errs["K4e x-side"] = k10_err
+    # the same run through K10 blocks (K6 x-side per shard) at GB_K; the
+    # kernels line's K10 blocks and K6 x-side differences are its shards'
+    gb_launches, gb_split, errs["K10 blocks"] = gb_sharded_config3_path(
+        torch, ft, reference_1024, c3_large[8]["gcells"],
+        k10_config3[f"{K10_N}_float32_x{K10_SHARDS}"]["gcells"], seed)
+    errs["K6 x-side"] = errs["K10 blocks"]
+    launches.update(gb_launches)
     # the K4 route's traces and squares, shared by K6 and K5 at one K
     references = {(CONFIG3_LARGE, "float32", 8): (reference_1024["trace"],
                                                   reference_1024["squares"], None)}
@@ -5154,6 +5771,7 @@ def measure(torch, ft, seed):
     k10_opt_launches, k10_options, errs["K4b'"] = sharded_cpml_option_path(torch, ft)
     for key, count in k10_opt_launches.items():
         launches[key] = k10_launches.get(key, 0) + count
+    engine_zcut = engine_zcut_path(torch, ft)
     times = timings(torch, ft)
     times.update(cpml_timings(torch, ft))
     times.update(ext_timings(torch, ft))
@@ -5161,6 +5779,8 @@ def measure(torch, ft, seed):
     times.update(k7_timings(torch, ft))
     times.update(sharded_timings(torch, ft))
     times.update(sharded_cpml_timings(torch, ft))
+    times.update(gb_sharded_timings(torch, ft))
+    times["config3_split_blocks"], times["engine_zcut"] = gb_split, engine_zcut
     times["config3_split"], times["k10_options_256"] = k10_config3, k10_options
     times["accumulators_256_wall_s"] = walls
     times["scattering_256_gcell_per_s"] = {"K4 + flux faces": res_x.gcell_per_s,
@@ -5311,6 +5931,19 @@ def measure(torch, ft, seed):
              "K4e x-side launch + K4b' plane")):
         rows.append((name, "cpmlk.cu", replaces, key, t10, timed, f"{timed} plain version",
                      (t10[timed]["bound_ms"], t10[timed]["bound_by"])))
+    # K10 blocks (a pass over 4 shards: the exchange and 4 K6 x-side
+    # launches) and one K6 x-side launch on an interior shard, at 512^3 f32
+    # (config 3) and K = GB_K, their bounds K3's bytes on the extended
+    # shards (gb_sharded_timings)
+    t10b = times[f"k10_blocks_{K10_SMALL}_float32"]
+    for name, replaces, key, timed in (
+            ("K10 blocks (4 shards of the card: the exchange, a K6 x-side launch per shard)",
+             "fdtd_tpu/parallel/pallas_sharded_cpml.py:601", "K10 blocks",
+             f"K10 blocks pass K={GB_K}"),
+            ("K6 x-side (K6 on a shard's halo-extended array: edge planes, aux origin)",
+             "fdtd_tpu/parallel/pallas_sharded_cpml.py:942", "K6 x-side", "K6 x-side launch")):
+        rows.append((name, "cpmlk_gb.cu", replaces, key, t10b, timed, f"{timed} plain version",
+                     (t10b[timed]["bound_ms"], t10b[timed]["bound_by"])))
     # no single PyTorch call computes a Yee or CPML tick, or K4's in-kernel
     # reductions, captures, region stretch or oblique correction beside
     # one: library_ms is null

@@ -50,6 +50,7 @@ __all__ = [
     "oblique_tfsf_from_numpy",
     "sharded_state_from_numpy",
     "sharded_pml_state_from_numpy",
+    "sharded_engine_state_from_numpy",
 ]
 
 _COEFFS = ("c_a", "c_b", "d_a", "d_b")
@@ -260,3 +261,23 @@ def sharded_pml_state_from_numpy(obj, mesh, k: int, *, cpml, axes=("x",), tfsf=N
 
     state = engine_state_from_numpy(obj, device="cpu", dtype=dtype)
     return extend_pml_state(state, mesh, k, cpml=cpml, axes=axes, tfsf=tfsf, dense=dense)
+
+
+def sharded_engine_state_from_numpy(obj, mesh, dims=("x", None, None), dtype=None):
+    """The port's sharded engine state (``parallel.sharded_engine``) from an
+    object with the JAX package's ShardedEngineState fields (ex..hz, tick,
+    the six full-domain psi of each half or their 0-d placeholders, aux_e,
+    aux_h; its sharded arrays read whole through ``np.asarray``), split over
+    ``mesh`` (``dims[a]``: the mesh axis that cuts lattice axis a), each
+    shard on its mesh entry's device. psi and the aux line keep their
+    dtype; ``dtype`` casts the fields."""
+    from .parallel.sharded_engine import EngineShard, shard_engine_state
+
+    def t(a, dt=None):
+        return tensor_from_numpy(a, device="cpu", dtype=dt)
+
+    state = EngineShard(*(t(getattr(obj, f), dtype) for f in FIELDS), tick=int(obj.tick),
+                        psi_h=tuple(t(p) for p in obj.psi_h),
+                        psi_e=tuple(t(p) for p in obj.psi_e),
+                        aux_e=t(obj.aux_e), aux_h=t(obj.aux_h))
+    return shard_engine_state(state, mesh, dims)

@@ -47,6 +47,44 @@ int fdtd_cpmlk_gb(int dtype, void** fields, void** psi, void** prof, const int* 
   return (int)cudaErrorInvalidValue;
 }
 
+// K6 x-side, for K10 blocks (parallel/cuda_sharded_cpml.py, blocks=):
+// fdtd_cpmlk_gb's arguments on one shard's halo-extended array, then its
+// frame (7 ints: the larger lattice's edge planes x_lo, x_hi, y_lo, y_hi,
+// z_lo, z_hi in the array's coordinates and the aux line's index of plane
+// 0, cpml.cuh Frame), as fdtd_cpmlk_sharded (cpmlk.cu) takes it. Replaces
+// the TPU kernel fdtd_tpu/parallel/pallas_sharded_cpml.py::
+// make_pallas_sharded_cpml_stepk with blocks= (K4's builder in blocks mode
+// with x_extra, runtime_edges, runtime_xprof and runtime_tfsf, :942-958):
+// the wavefront of cpmlk_gb.cuh (wavefront_frame_kernel), its own
+// instantiation per storage type, so that K6's keep their code. Bound as
+// K6 is: by its instructions and barriers, not bytes (PERF.md).
+int fdtd_cpmlk_gb_sharded(int dtype, void** fields, void** psi, void** prof,
+                          const int* ext, const float* table, int n_mat,
+                          const uint8_t* matid, const float* rows, int n_src, int row_w,
+                          int with_m, const float* aux, int aux_len, const int* tf, int k,
+                          int nx, int ny, int nz, float inv_x, float inv_y, float inv_z,
+                          float* scratch, const int* frame, void* stream) {
+  if (n_mat < 1 || n_mat > yee::MAX_MATERIALS || k < 2 || scratch == nullptr ||
+      frame == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const cpml::Profiles P = cpml::make_profiles(prof, ext);
+  const cpml::Psi Q = cpml::make_psi(psi, 2);
+  const cpml::Tfsf F = cpml::make_tfsf(aux, aux_len, tf);
+  const cpml::Frame W{yee::Edges{frame[0], frame[1], frame[2], frame[3], frame[4], frame[5]},
+                      frame[6]};
+  cudaStream_t s = (cudaStream_t)stream;
+  const gbk::Zones Z{};
+  const cpml::Ext X{};
+#define CPMLK_GB_FRAME_LAUNCH(T)                                                          \
+  gbk::launch<T, false, true, false, true>(fields, P, Q, F, table, n_mat, matid, rows,  \
+                                           n_src, row_w, with_m, k, nx, ny, nz, inv_x,  \
+                                           inv_y, inv_z, scratch, Z, 1, X, s, &W)
+  if (dtype == 0) return CPMLK_GB_FRAME_LAUNCH(float);
+  if (dtype == 1) return CPMLK_GB_FRAME_LAUNCH(__nv_bfloat16);
+#undef CPMLK_GB_FRAME_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
 const char* fdtd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

@@ -90,16 +90,20 @@ __device__ __forceinline__ int cell_of(int j) {
   return ((int)threadIdx.y + j * yee::TY) * WZ + (int)threadIdx.x;
 }
 
-// At most 128 registers: two blocks per SM, which the shared memory of
-// K <= 4 allows.
-template <typename T, bool ZONED, bool XPSI, bool EXT>
-__global__ void __launch_bounds__(yee::THREADS, 2)
-wavefront_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
-                 yee::Material M, yee::Sources S, int k, int with_m, int owned,
-                 int n_tz, float* scratch, const __grid_constant__ cpml::Profiles P,
-                 const __grid_constant__ cpml::Psi Q, cpml::Tfsf tf,
-                 const __grid_constant__ Zones Z,
-                 const __grid_constant__ cpml::Ext X) {
+// The wavefront of one block (the kernels below). FRAME (K10 blocks'
+// shards: wavefront_frame_kernel) steps one shard's halo-extended array of a
+// larger lattice, as K4e x-side does (cpml.cuh Frame): a backward
+// difference vanishes at index <= the frame's low edge planes and a forward
+// one at index >= its high ones (and at the array's faces as well), and the
+// TF/SF faces read the aux line at the larger lattice's x. Without FRAME the
+// edges are the array's faces and the code is K6's and K5's.
+template <typename T, bool ZONED, bool XPSI, bool EXT, bool FRAME>
+__device__ __forceinline__ void wavefront(yee::Fields<const T> in, yee::Fields<T> out,
+                                          yee::Lattice L, yee::Material M, yee::Sources S,
+                                          int k, int with_m, int owned, int n_tz,
+                                          float* scratch, const cpml::Profiles& P,
+                                          const cpml::Psi& Q, cpml::Tfsf tf, const Zones& Z,
+                                          const cpml::Ext& X, const cpml::Frame& F) {
   extern __shared__ float smem[];
   // hn: the current level's new H; ep: E of levels 1..K-1 from the step
   // before; hp: H of levels 1..K from the step before; 3 planes each
@@ -123,6 +127,14 @@ wavefront_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
   float* const slots = scratch + block * k * N_PSI * WIN;
   const long long plane = (long long)L.ny * L.nz;
   const int tz = threadIdx.x;
+  // the differences taken: backward ones above bx, by, bz, forward ones
+  // below fx, fy, fz (the array's faces unless FRAME moves them inward)
+  int bx = 0, by = 0, bz = 0, fx = L.nx - 1, fy = L.ny - 1, fz = L.nz - 1, ax0 = 0;
+  if constexpr (FRAME) {
+    bx = max(bx, F.ed.x_lo), by = max(by, F.ed.y_lo), bz = max(bz, F.ed.z_lo);
+    fx = min(fx, F.ed.x_hi), fy = min(fy, F.ed.y_hi), fz = min(fz, F.ed.z_hi);
+    ax0 = F.x0;
+  }
 
   // this step's E and H of the level just updated, at this thread's cells
   float ecur[CELLS][3] = {}, hcur[CELLS][3] = {};
@@ -185,16 +197,16 @@ wavefront_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
             ez_m = ecur[j][2];
             old.hx.v = h_lo[c]; old.hy.v = h_lo[WIN + c]; old.hz.v = h_lo[2 * WIN + c];
           }
-          const float dez_y = (y > 0 ? ez - ez_y : 0.f) * L.inv_y;
-          const float dey_z = (z > 0 ? ey - ey_z : 0.f) * L.inv_z;
-          const float dex_z = (z > 0 ? ex - ex_z : 0.f) * L.inv_z;
-          const float dez_x = (q > 0 ? ez - ez_m : 0.f) * L.inv_x;
-          const float dey_x = (q > 0 ? ey - ey_m : 0.f) * L.inv_x;
-          const float dex_y = (y > 0 ? ex - ex_y : 0.f) * L.inv_y;
+          const float dez_y = (y > by ? ez - ez_y : 0.f) * L.inv_y;
+          const float dey_z = (z > bz ? ey - ey_z : 0.f) * L.inv_z;
+          const float dex_z = (z > bz ? ex - ex_z : 0.f) * L.inv_z;
+          const float dez_x = (q > bx ? ez - ez_m : 0.f) * L.inv_x;
+          const float dey_x = (q > bx ? ey - ey_m : 0.f) * L.inv_x;
+          const float dex_y = (y > by ? ex - ex_y : 0.f) * L.inv_y;
           float hx, hy, hz;
           cpml::h_cell<float, 0, 0, EXT>(old, i, q, y, z, true, dez_y, dey_z, dex_z, dez_x,
                                          dey_x, dex_y, L, M, S, m_col, P, G, tf, aux_e, sh,
-                                         X, ob, hx, hy, hz);
+                                         X, ob, hx, hy, hz, ax0);
           hn[c] = hx;
           hn[WIN + c] = hy;
           hn[2 * WIN + c] = hz;
@@ -236,7 +248,7 @@ wavefront_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
         }
         const float hx = hn[c], hy = hn[WIN + c], hz = hn[2 * WIN + c];
         const float top_hy = h_top[WIN + c], top_hz = h_top[2 * WIN + c];
-        const bool y_in = y < L.ny - 1, z_in = z < L.nz - 1, x_in = q < L.nx - 1;
+        const bool y_in = y < fy, z_in = z < fz, x_in = q < fx;
         const float hz_y = wy + 1 < WY ? hn[2 * WIN + c + WZ] : hz;
         const float hx_y = wy + 1 < WY ? hn[c + WZ] : hx;
         const float hy_z = tz + 1 < WZ ? hn[WIN + c + 1] : hy;
@@ -250,7 +262,7 @@ wavefront_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
         float ex, ey, ez;
         cpml::e_cell<float, 0, 0, EXT>(old, i, q, y, z, dhz_y, dhy_z, dhx_z, dhz_x, dhy_x,
                                        dhx_y, L, M, S, j_col, P, G, tf, aux_h, sh, X, ob,
-                                       ex, ey, ez);
+                                       ex, ey, ez, ax0);
         if (last) {
           // the top level has no level above to wait for
           h_top[c] = hx; h_top[WIN + c] = hy; h_top[2 * WIN + c] = hz;
@@ -269,17 +281,48 @@ wavefront_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
   }
 }
 
+// At most 128 registers: two blocks per SM, which the shared memory of
+// K <= 4 allows.
+template <typename T, bool ZONED, bool XPSI, bool EXT>
+__global__ void __launch_bounds__(yee::THREADS, 2)
+wavefront_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
+                 yee::Material M, yee::Sources S, int k, int with_m, int owned,
+                 int n_tz, float* scratch, const __grid_constant__ cpml::Profiles P,
+                 const __grid_constant__ cpml::Psi Q, cpml::Tfsf tf,
+                 const __grid_constant__ Zones Z,
+                 const __grid_constant__ cpml::Ext X) {
+  wavefront<T, ZONED, XPSI, EXT, false>(in, out, L, M, S, k, with_m, owned, n_tz, scratch,
+                                        P, Q, tf, Z, X, cpml::Frame{});
+}
+
+// K6 on one shard's halo-extended array (K10 blocks, cpmlk_gb.cu's sharded
+// entry): the whole array, every x term, with the frame F. A kernel of its
+// own, so that K6's and K5's instantiations keep their code.
+template <typename T>
+__global__ void __launch_bounds__(yee::THREADS, 2)
+wavefront_frame_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
+                       yee::Material M, yee::Sources S, int k, int with_m, int owned,
+                       int n_tz, float* scratch, const __grid_constant__ cpml::Profiles P,
+                       const __grid_constant__ cpml::Psi Q, cpml::Tfsf tf,
+                       const __grid_constant__ cpml::Frame F) {
+  wavefront<T, false, true, false, true>(in, out, L, M, S, k, with_m, owned, n_tz, scratch,
+                                         P, Q, tf, Zones{}, cpml::Ext{}, F);
+}
+
 // Dynamic shared memory of a launch at k: 6k planes of the window, f32.
 inline size_t smem_bytes(int k) { return (size_t)6 * k * WIN * sizeof(float); }
 
 // One launch of the kernel over every tile and n_zones zones (blockIdx.y;
 // 1 and ignored without ZONED), fields from f[0..5] to fresh f[6..11].
-template <typename T, bool ZONED, bool XPSI, bool EXT>
+// FRAME: wavefront_frame_kernel with the frame *F (ZONED and EXT false,
+// XPSI true).
+template <typename T, bool ZONED, bool XPSI, bool EXT, bool FRAME = false>
 int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q, const cpml::Tfsf& tf,
            const float* table, int n_mat, const uint8_t* matid, const float* rows,
            int n_src, int row_w, int with_m, int k, int nx, int ny, int nz, float inv_x,
            float inv_y, float inv_z, float* scratch, const Zones& Z, int n_zones,
-           const cpml::Ext& X, cudaStream_t stream) {
+           const cpml::Ext& X, cudaStream_t stream, const cpml::Frame* F = nullptr) {
+  static_assert(!FRAME || (!ZONED && XPSI && !EXT), "the frame kernel: K6's whole array");
   yee::Fields<const T> in{(const T*)f[0], (const T*)f[1], (const T*)f[2],
                           (const T*)f[3], (const T*)f[4], (const T*)f[5]};
   yee::Fields<T> out{(T*)f[6], (T*)f[7], (T*)f[8], (T*)f[9], (T*)f[10], (T*)f[11]};
@@ -290,13 +333,24 @@ int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q, const cpml::Tf
   if (owned < 1 || n_zones < 1 || n_zones > MAX_ZONES) return (int)cudaErrorInvalidValue;
   const int n_ty = (ny + owned - 1) / owned, n_tz = (nz + owned - 1) / owned;
   const size_t bytes = smem_bytes(k);
-  cudaError_t err = cudaFuncSetAttribute(wavefront_kernel<T, ZONED, XPSI, EXT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  wavefront_kernel<T, ZONED, XPSI, EXT>
-      <<<dim3(n_ty * n_tz, n_zones), dim3(yee::TZ, yee::TY), bytes, stream>>>(
-          in, out, L, M, S, k, with_m, owned, n_tz, scratch, P, Q, tf, Z, X);
+  if constexpr (FRAME) {
+    if (F == nullptr || n_zones != 1) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(wavefront_frame_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    wavefront_frame_kernel<T><<<dim3(n_ty * n_tz, 1), dim3(yee::TZ, yee::TY), bytes,
+                                stream>>>(in, out, L, M, S, k, with_m, owned, n_tz, scratch,
+                                          P, Q, tf, *F);
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(wavefront_kernel<T, ZONED, XPSI, EXT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    wavefront_kernel<T, ZONED, XPSI, EXT>
+        <<<dim3(n_ty * n_tz, n_zones), dim3(yee::TZ, yee::TY), bytes, stream>>>(
+            in, out, L, M, S, k, with_m, owned, n_tz, scratch, P, Q, tf, Z, X);
+  }
   return (int)cudaGetLastError();
 }
 

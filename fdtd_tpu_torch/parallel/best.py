@@ -2,7 +2,7 @@
 
 Counterpart of ``fdtd_tpu.parallel.best``: ``kernel_lateral_axis`` (a
 copy), ``kernel_dense`` and ``best_sharded_absorbing_step``, with the JAX
-package's rules (fdtd_tpu/parallel/best.py:79-272) and these changes:
+package's rules (fdtd_tpu/parallel/best.py:79-301) and these changes:
 
 * "kernel backend" means the mesh's devices are all CUDA (K10 launches)
   or all CPU (K10's plain versions run, so that the CPU tests follow the
@@ -11,13 +11,19 @@ package's rules (fdtd_tpu/parallel/best.py:79-272) and these changes:
   only checks that the region's live extent clears the boundary slabs on
   its axis;
 * the K ladder runs from ``max_k`` down to 2 with nl >= 2K (and nly >= 2K),
-  as JAX's does; its gb upgrade (K10 ``blocks``, :201-254) engages only
-  where TPU VMEM caps that ladder at K <= 3, which the card does not, so it
-  is not ported (ROADMAP.md queues it);
-* what the JAX package sends to its sharded engine (sharded_engine.py:
-  dense per-cell coefficients, x slabs too deep for the shards, meshes the
-  kernel cannot take) raises NotImplementedError, naming the slice of the
-  port that brings that engine.
+  as JAX's does. JAX's gb upgrade (K10 ``blocks`` where its ladder stops
+  at K <= 3, :201-254) is not ported: its ladder stops there because TPU
+  VMEM caps K, and the card has no such cap. The port's ladder is held
+  only by nl >= 2K, the x slabs' containment (l1 <= nl - K) and K <= MAX_K,
+  each monotone in K, and ``sharded_gb_plan`` asks the same of its gk, so
+  wherever the ladder stops at K <= 3 every gk >= 2K is refused too: the
+  upgrade has no trigger on the card. K10 ``blocks`` is built through
+  ``make_cuda_sharded_cpml_stepk(blocks=sharded_gb_plan(...))``;
+* what the JAX package sends to its sharded engine (dense per-cell
+  coefficients, x slabs too deep for the shards, more than 256 materials,
+  meshes the kernel cannot take, ``backend="torch"``) takes the port's
+  sharded engine (sharded_engine.py), kind "torch_engine" (JAX's
+  "xla_engine"); an oblique TF/SF that K10 does not take raises, as in JAX.
 """
 
 from __future__ import annotations
@@ -29,13 +35,7 @@ import torch
 from ..constants import SI, PhysicalConstants
 from ..solver.boundary import BoundaryConditions
 
-__all__ = ["best_sharded_absorbing_step", "kernel_dense", "kernel_lateral_axis",
-           "ENGINE_SLICE"]
-
-#: what a run the sharded kernel cannot take waits for
-ENGINE_SLICE = ("comes with the slice of the port that brings the sharded engine "
-                "(fdtd_tpu/parallel/sharded_engine.py) and the z-cut rotation "
-                "(rotation.py)")
+__all__ = ["best_sharded_absorbing_step", "kernel_dense", "kernel_lateral_axis"]
 
 
 def kernel_dense(dense, shape, cpml):
@@ -96,7 +96,9 @@ def best_sharded_absorbing_step(
     matids=None,
 ):
     """(step, init_state, k, kind) for a sharded absorbing run; kind is
-    "cuda_cpml_k" (K10; the JAX package's "pallas_cpml_k").
+    "cuda_cpml_k" (K10; the JAX package's "pallas_cpml_k") or
+    "torch_engine" (the sharded engine, one tick a call; JAX's
+    "xla_engine").
 
     The kernel path needs a mesh cut along ``axis`` alone or along
     (``axis``, y) (``kernel_lateral_axis``), a kernel backend, uniform
@@ -106,8 +108,10 @@ def best_sharded_absorbing_step(
     region-only runs ride it with an empty absorber (JAX's ``_cpml_pad``).
     An ObliqueTfsf needs a 1-D mesh, as in the JAX package; with the
     options, or on a mesh the kernel cannot take, it raises as JAX does.
-    Everything else the kernel does not take raises NotImplementedError
-    (``ENGINE_SLICE``). ``matids``: the extended material index of a K10
+    Everything else the kernel does not take rides the sharded engine, on
+    the mesh's positional cuts, with ``coeffs`` given to its step as they
+    are (uniform, dense, or the expanded material index: ShardedSimulation
+    expands it). ``matids``: the extended material index of a K10
     step at K = ``max_k`` on this mesh (its ``step.matids``), which the
     step shares instead of extending ``matid`` anew; the ladder then tries
     ``max_k`` alone."""
@@ -118,6 +122,8 @@ def best_sharded_absorbing_step(
         make_cuda_sharded_cpml_stepk,
         supports_sharded_cpml,
     )
+    from .rotation import mesh_dims
+    from .sharded_engine import init_sharded_engine_state, make_sharded_engine_step
 
     n_dev = mesh.shape.get(axis, 1)
     y_axis = kernel_lateral_axis(mesh, axis)
@@ -165,6 +171,13 @@ def best_sharded_absorbing_step(
             "this ObliqueTfsf configuration does not fit the sharded CPML kernel "
             "(supports_sharded_cpml), and no sharded engine hosts oblique corrections "
             "(the JAX package's rule): use Simulation or another decomposition")
-    raise NotImplementedError(
-        f"this sharded absorbing run (mesh {mesh.shape}, {shape=}, {cpml=}, "
-        f"{backend=}) is not one K10 takes; it {ENGINE_SLICE}")
+    dims = mesh_dims(mesh)
+    step = make_sharded_engine_step(mesh, shape, dims, inv_dx=inv_dx, dt=dt, bc=bc,
+                                    constants=constants, dtype=dtype, cpml=cpml, tfsf=tfsf,
+                                    dense=dense)
+
+    def init_state():
+        return init_sharded_engine_state(shape, mesh, dims, dtype, cpml=cpml, tfsf=tfsf,
+                                         dense=dense)
+
+    return step, init_state, 1, "torch_engine"

@@ -1,4 +1,4 @@
-"""K10: K absorbing ticks per pass on a split lattice, through K4e x-side.
+"""K10: K absorbing ticks per pass on a split lattice, through K4e x-side or K6 x-side.
 
 Counterpart of ``fdtd_tpu.parallel.pallas_sharded_cpml``
 (``make_pallas_sharded_cpml_stepk``, ``supports_sharded_cpml``,
@@ -7,6 +7,11 @@ Counterpart of ``fdtd_tpu.parallel.pallas_sharded_cpml``
 K4's ``_build_call`` (pallas_sharded_cpml.py:942): each pass launches K4's shard
 entry (K4e x-side and K4b', csrc/cpmlk.cu ``fdtd_cpmlk_sharded``, through
 ``cuda_cpml_stepk_fn(frame=...)``) once per shard, one shard after another.
+With ``blocks`` (K10 ``blocks``, the JAX module's sharded grid-blocked mode,
+:601, :697-747, :942-984) it launches K6's shard entry instead (K6 x-side,
+csrc/cpmlk_gb.cu ``fdtd_cpmlk_gb_sharded``, through
+``cuda_cpml_gb_stepk_fn(frame=...)``): the same exchange at halo K, then K6's
+wavefront on each shard's whole array, with the same frame.
 
 The layout is K9's (parallel/cuda_sharded_k.py): each shard holds the
 port's single-device ``EngineState`` (fields, psi slabs, region psi, the
@@ -66,8 +71,12 @@ Where the port differs from the JAX module, on purpose:
 * **The oblique pack** is cut to each shard's boxes (their global cells,
   evaluated per shard) where JAX addresses one global stack through a
   runtime x offset.
-* **No gb ``blocks``**: the JAX tier exists because TPU VMEM caps the plain
-  K ladder; the card has no such cap (ROADMAP.md queues K10 ``blocks``).
+* **``blocks`` is K6's ``GbPlan``** (``sharded_gb_plan``) where JAX takes
+  (n_b, h): K6 tiles a shard's (y, z) planes in 32 x 32 windows with a
+  halo of K, not in n_b slabs of y rows, so a shard's y slabs may reach any
+  depth and need no per-block strip layout: the state stays K10's, and
+  JAX's per-call strip conversion has no counterpart. No ``.step2``: a
+  Python loop of passes makes no loop-slot copy (as K6's and K5's).
 * **Out of place per shard**: one card runs the shards one after another
   (ROADMAP.md queues an in-place K10).
 
@@ -85,6 +94,7 @@ import numpy as np
 import torch
 
 from ..solver.boundary import BoundaryConditions
+from ..solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn
 from ..solver.cuda_cpml_k import (
     _planes,
     cuda_cpml_stepk_fn,
@@ -102,24 +112,27 @@ from .cuda_sharded_k import ext_layout
 from .sharded import Layout, ShardedState
 from .topology import Mesh
 
-__all__ = ["supports_sharded_cpml", "shard_frames", "init_sharded_pml_state",
+__all__ = ["supports_sharded_cpml", "sharded_gb_plan", "shard_frames",
+           "init_sharded_pml_state",
            "extend_pml_state", "collapse_pml_state", "extend_matid",
            "extract_sharded_dft_acc", "make_cuda_sharded_cpml_stepk",
            "plain_sharded_cpml_stepk", "launches", "reset_launches"]
 
-#: K10 passes whose shards all launched K4e x-side, since the last reset
-_PASSES = {"k10": 0}
+#: K10 passes whose shards all launched K4e x-side (``k10``) or K6 x-side
+#: (``blocks``), since the last reset
+_PASSES = {"k10": 0, "blocks": 0}
 
 
-def launches() -> int:
-    """How many K10 passes launched their shards since the last reset (the
-    K4e x-side launches, one per shard and pass, count on
-    ``cuda_cpml_k.launches(frame=True)``)."""
-    return _PASSES["k10"]
+def launches(blocks: bool = False) -> int:
+    """How many K10 passes (``blocks``: K10 ``blocks`` passes) launched their
+    shards since the last reset (the K4e x-side launches, one per shard and
+    pass, count on ``cuda_cpml_k.launches(frame=True)``, K6 x-side's on
+    ``cuda_cpml_gb.launches(frame=True)``)."""
+    return _PASSES["blocks" if blocks else "k10"]
 
 
 def reset_launches() -> None:
-    _PASSES["k10"] = 0
+    _PASSES["k10"] = _PASSES["blocks"] = 0
 
 
 def supports_sharded_cpml(shape, n_dev: int, bc, cpml, k: int, dtype=torch.float32,
@@ -161,6 +174,35 @@ def supports_sharded_cpml(shape, n_dev: int, bc, cpml, k: int, dtype=torch.float
             if l1 > own - k or (h1 > h0 and n - h0 > own - k):
                 return False
     return True
+
+
+def sharded_gb_plan(shape, n_dev: int, bc, cpml, k: int, dtype=torch.float32):
+    """K6's ``GbPlan`` of a shard's halo-extended array when K10 ``blocks``
+    takes this configuration at ``k`` ticks per pass on ``n_dev`` x shards,
+    else None: JAX's rule (fdtd_tpu/parallel/pallas_sharded_cpml.py:144-167)
+    with the port's K6 plan. The lattice splits evenly, the x slabs of
+    either half end at least k planes inside the first or last shard's
+    owned planes, and K6's ``gb_plan`` takes the extended shape (nl + 2k,
+    ny, nz) (2 <= k <= 9 on the card; no Mosaic tile, VMEM or y-strip
+    rule). Each shard owns at least 2k planes, the port's K10 rule (the
+    exchange reads k owned planes of each neighbour), which JAX's plan
+    leaves to its callers."""
+    from ..solver.cuda_cpml_gb import gb_plan
+
+    nx, ny, nz = shape
+    k = int(k)
+    if n_dev < 2 or nx % n_dev or not 2 <= k:
+        return None
+    nl = nx // n_dev
+    if nl < 2 * k:
+        return None
+    if 0 in set(cpml.active_axes()):
+        lo, hi = cpml.thickness[0]
+        for half in (False, True):
+            (_, l1), (h0, h1) = _slab_extents(nx, lo, hi, half)
+            if l1 > nl - k or (h1 > h0 and nx - h0 > nl - k):
+                return None
+    return gb_plan((nl + 2 * k, ny, nz), bc, cpml, k, dtype=dtype)
 
 
 def shard_frames(lay: Layout, k: int) -> List[Frame]:
@@ -401,6 +443,10 @@ def extract_sharded_dft_acc(state_ext: ShardedState, lay: Layout, k: int, dft_ar
 # -- the pass --------------------------------------------------------------------
 
 
+#: the K4 options and extensions K6 x-side does not take
+_OPTIONS = ("flux_faces", "dft", "dft_rows", "dense", "oblique")
+
+
 @dataclasses.dataclass
 class _Shard:
     """One shard's frame, material index and (built once) K4e x-side step."""
@@ -440,7 +486,8 @@ def _assemble(outs, lay: Layout, frames, k: int, flux_faces, dft_rows):
 
 
 def _pass(state: ShardedState, coeffs, sources: Optional[SourceSet], lay: Layout, k: int,
-          shards: List[_Shard], cpml, dense, flux_faces, dft_rows, kernel: bool):
+          shards: List[_Shard], cpml, dense, flux_faces, dft_rows, kernel: bool,
+          blocks=None):
     # no local name may hold a shard's input past its launch (below)
     states = state.shards
     frames = [sh.frame for sh in shards]
@@ -449,7 +496,14 @@ def _pass(state: ShardedState, coeffs, sources: Optional[SourceSet], lay: Layout
     for s in range(len(states)):
         st, sh = states[s], shards[s]
         src = None if sources is None else sources.to(st.device)
-        if kernel:
+        if blocks is not None:
+            # K6 x-side; on CPU shards its wrapper takes the plain version
+            if sh.step is None:
+                kw = {name: v for name, v in sh.kw.items() if name not in _OPTIONS}
+                sh.step = cuda_cpml_gb_stepk_fn(lay.local, k, matid=sh.matid,
+                                                frame=sh.frame, device=st.device, **kw)
+            res = sh.step(st, coeffs, src)
+        elif kernel:
             if sh.step is None:
                 sh.step = cuda_cpml_stepk_fn(lay.local, k, matid=sh.matid, frame=sh.frame,
                                              **sh.kw)
@@ -473,7 +527,7 @@ def _pass(state: ShardedState, coeffs, sources: Optional[SourceSet], lay: Layout
         states[s] = st = new = res = None
     states.clear()
     if kernel:
-        _PASSES["k10"] += 1
+        _PASSES["k10" if blocks is None else "blocks"] += 1
     out_state = ShardedState([o[0] for o in outs])
     if not (flux_faces or dft_rows):
         return out_state
@@ -524,6 +578,7 @@ def make_cuda_sharded_cpml_stepk(
     dft_rows=(),
     dense=None,
     matids=None,
+    blocks=None,
 ):
     """Build step(state_ext, coeffs, sources) advancing ``k_steps`` absorbing
     ticks of the global ``shape`` lattice on its K10 state
@@ -542,7 +597,12 @@ def make_cuda_sharded_cpml_stepk(
     consumes its input (the module's docstring); CPU shards take the plain
     version, CUDA shards launch the kernel or raise. ``matids``: another
     K10 step's extended index at this K and mesh (its ``matids``), shared
-    instead of extending ``matid`` anew."""
+    instead of extending ``matid`` anew.
+
+    ``blocks`` (``sharded_gb_plan``'s ``GbPlan`` at this shape, mesh and
+    K): K10 ``blocks``, a K6 x-side launch per shard and pass. As in the JAX
+    package (pallas_sharded_cpml.py:733-747), it takes 1-D x meshes without
+    a region, options or an oblique TF/SF."""
     from ..constants import SI
 
     constants = SI if constants is None else constants
@@ -554,10 +614,19 @@ def make_cuda_sharded_cpml_stepk(
     dft = None if dft is None else (_planes(dft[0]), tuple(float(f) for f in dft[1]))
     _, oblique = split_tfsf(tfsf)
     n_mat = n_materials if matid is not None else 1
-    if not supports_sharded_cpml(shape, n_dev, bc, cpml, k_steps, dtype, n_dy,
-                                 n_materials=n_mat, flux_faces=flux_faces,
-                                 dft=None if dft is None else (dft[0], len(dft[1])),
-                                 dft_rows=dft_rows, dense=dense, oblique=oblique):
+    if blocks is not None:
+        if n_dy > 1 or dense is not None or flux_faces or dft is not None or dft_rows \
+                or oblique is not None:
+            raise ValueError("K10 blocks takes 1-D x meshes without a region, options or "
+                             "an oblique TF/SF (the JAX package's rule)")
+        if blocks != sharded_gb_plan(shape, n_dev, bc, cpml, k_steps, dtype) \
+                or n_mat > 256:
+            raise ValueError(f"K10 blocks does not support {shape=} {n_dev=} {k_steps=} "
+                             f"{blocks=} {cpml=} {dtype=}")
+    elif not supports_sharded_cpml(shape, n_dev, bc, cpml, k_steps, dtype, n_dy,
+                                   n_materials=n_mat, flux_faces=flux_faces,
+                                   dft=None if dft is None else (dft[0], len(dft[1])),
+                                   dft_rows=dft_rows, dense=dense, oblique=oblique):
         raise ValueError(f"K10 does not support {shape=} {n_dev=} {n_dy=} {k_steps=} "
                          f"{cpml=} {dtype=}")
     inv_dx = tuple(float(v) for v in inv_dx)
@@ -577,9 +646,10 @@ def make_cuda_sharded_cpml_stepk(
         if len(kinds) != 1 or kinds - {"cpu", "cuda"}:
             raise ValueError(f"K10 runs on CUDA or CPU shards, not {sorted(kinds)}")
         return _pass(state, coeffs, sources, lay, k_steps, shards, cpml, dense, flux_faces,
-                     dft_rows, kernel=kinds == {"cuda"})
+                     dft_rows, kernel=kinds == {"cuda"}, blocks=blocks)
 
     step.layout = lay
+    step.blocks = blocks
     step.frames = [sh.frame for sh in shards]
     step.matids = [sh.matid for sh in shards]
     return step

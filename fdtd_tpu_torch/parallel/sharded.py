@@ -193,24 +193,29 @@ def _halo_diff_forward(f, axis, bc, comp, upper):
     return torch.cat([interior, edge], dim=axis)
 
 
+def halo_diff(lay: Layout, fields, s: int, comp: int, axis: int, bc, forward: bool):
+    """The forward (backward) difference of component ``comp`` of shard
+    ``s``'s field triple ``fields[s]`` along ``axis``, with the upper
+    (lower) neighbour's first (last) plane, or the global face's closure
+    (``fields`` holds every shard's triple)."""
+    f = fields[s][comp]
+    dev = f.device
+    if forward:
+        nb = lay.neighbour(s, axis, +1)
+        plane = None if nb is None else fields[nb][comp].narrow(axis, 0, 1).to(dev)
+        return _halo_diff_forward(f, axis, bc.axis(axis), comp, plane)
+    nb = lay.neighbour(s, axis, -1)
+    g = None if nb is None else fields[nb][comp]
+    plane = None if g is None else g.narrow(axis, g.shape[axis] - 1, 1).to(dev)
+    return _halo_diff_backward(f, axis, bc.axis(axis), comp, plane)
+
+
 def _halo_curl(lay: Layout, fields, s: int, inv_dx, bc, forward: bool):
     """The curl of shard ``s``'s field triple ``fields[s]`` with the
     neighbours' planes (``fields`` holds every shard's triple)."""
-    f3 = fields[s]
-    dev = f3[0].device
 
     def d(comp: int, axis: int):
-        f = f3[comp]
-        if forward:
-            nb = lay.neighbour(s, axis, +1)
-            plane = None if nb is None else fields[nb][comp].narrow(axis, 0, 1).to(dev)
-            raw = _halo_diff_forward(f, axis, bc.axis(axis), comp, plane)
-        else:
-            nb = lay.neighbour(s, axis, -1)
-            g = None if nb is None else fields[nb][comp]
-            plane = None if g is None else g.narrow(axis, g.shape[axis] - 1, 1).to(dev)
-            raw = _halo_diff_backward(f, axis, bc.axis(axis), comp, plane)
-        return raw * inv_dx[axis]
+        return halo_diff(lay, fields, s, comp, axis, bc, forward) * inv_dx[axis]
 
     return (d(2, 1) - d(1, 2), d(0, 2) - d(2, 0), d(1, 0) - d(0, 1))
 

@@ -13,44 +13,58 @@ split over shards). ``plan()`` reports the path:
     region, on the same extended layout of ``EngineState`` shards; a
     TF/SF-only or region-only run rides it with an empty absorber (JAX's
     ``_cpml_pad``). best.py's ``best_sharded_absorbing_step`` plans it,
-    with the JAX package's rules;
+    with the JAX package's rules but its gb upgrade to K10 ``blocks``,
+    which has no trigger on the card (best.py);
+  - "torch_engine": the sharded engine (sharded_engine.py; JAX's
+    "xla_engine"), one tick a call, for the absorbing runs K10 does not
+    take: dense per-cell coefficients, x slabs too deep for the shards,
+    more than 256 materials (the material index expanded to dense
+    coefficients), meshes the kernel cannot take, ``backend="torch"``;
   - "torch": the plain sharded step (sharded.py; the JAX package's "xla").
 
-The plan's conditions are the JAX package's (fdtd_tpu/parallel/
+The free-space plan's conditions are the JAX package's (fdtd_tpu/parallel/
 simulation.py:215-283): a kernel backend, a 1-D x mesh or an (x, y) mesh
 (``kernel_lateral_axis``), nx and ny dividing over the shards, no material
 index, and the largest K of ``max_k`` down to 2 with nl >= 2K (nly >= 2K)
 that K2 takes on the extended shard. "Kernel backend" means the mesh's
 devices are all CUDA (K9 launches) or all CPU (K9's plain versions run,
 so that the CPU tests follow the kernel route's layout and dispatch);
-``backend="torch"`` forces the plain sharded step, as a JAX run off the TPU
-without ``interpret`` takes its XLA step. The kernel route also needs
-uniform scalar coefficients.
+``backend="torch"`` forces the plain sharded step and the sharded engine,
+as a JAX run off the TPU without ``interpret`` takes its XLA paths. The
+kernel route also needs uniform scalar coefficients.
+
+A mesh that cuts lattice z (with at most one other axis) runs in a
+cyclically rotated lattice frame (rotation.py, JAX's ``_rotation``
+:108-170) where that buys a kernel plan: no TF/SF, default edges, uniform
+coefficients or a material index, ``rotate_zcut`` set; the rotated run's
+plan is K9's or K10's, ``plan()`` reports it, the state stays in the
+rotated frame, probes and ``gather`` answer in the lattice frame, and
+accumulators raise ValueError (JAX's rule). Anything else on such a mesh
+plans the engine (or the plain sharded step), unrotated.
 
 The mesh (``parallel.make_mesh``) may name one card several times, so the
-path runs on one card with its shards one after another. Left for the next
-slice of the port, and refused with NotImplementedError: absorbing runs
-that K10 does not take (the JAX package's sharded engine: dense per-cell
-coefficients, x slabs too deep for the shards, meshes the kernel cannot
-take, ``backend="torch"``), meshes that cut lattice z (the JAX package
-rotates them onto its kernel tier), and ``save``/``restore``.
+paths run on one card with their shards one after another. ``save`` and
+``restore`` raise NotImplementedError (the sharded checkpoint is a later
+slice of the port).
 
-Accumulators ride K10's options on an absorbing run, as the JAX package's
-do (fdtd_tpu/parallel/simulation.py:338-475): flux faces, row captures,
-axis-0 ``DftProbe``s and ``BoxDft`` x faces (K4b': each plane accumulated
-on the shard that owns it), placed by ``kernel_accumulator_spec``; an
-accumulator that fits none of them raises (JAX's per-tick engine is the
-next slice).
+Accumulators ride K10's options on an absorbing K10 run, as the JAX
+package's do (fdtd_tpu/parallel/simulation.py:338-475): flux faces, row
+captures, axis-0 ``DftProbe``s and ``BoxDft`` x faces (K4b': each plane
+accumulated on the shard that owns it), placed by
+``kernel_accumulator_spec``. On a plan of one tick a call (the engine, the
+plain sharded step) every accumulator updates each tick from the gathered
+fields. An accumulator that fits no option on a K10 run raises
+ValueError, as does any accumulator on a rotated plan.
 
-``run`` consumes the state it is given on either path (K9's pass does,
+``run`` consumes the state it is given on every path (K9's pass does,
 so that the run holds one extended state and one shard's call; on the
-"torch" path ``run`` empties it after its first step), and the emptied
+one-tick paths ``run`` empties it after its first step), and the emptied
 state raises ValueError if used again: pass ``init()`` or a state not
 needed again. Probes sample the owned cells of the shards that hold their
 points, lines and planes, without gathering the lattice (an energy probe
 sums the shards' parts); only a probe of another kind sees the gathered
 lattice. ``gather`` returns the plain global state on the first shard's
-device.
+device (the engine's: its full-domain psi too).
 """
 
 from __future__ import annotations
@@ -67,7 +81,7 @@ from ..solver.boundary import BoundaryConditions
 from ..solver.sources import SourceSet
 from ..solver.state import SimState, zero_state
 from ..solver.step import CellCoefficients
-from .best import ENGINE_SLICE, kernel_lateral_axis
+from .best import kernel_lateral_axis
 
 __all__ = ["ShardedSimulation"]
 
@@ -77,13 +91,15 @@ def _wrap(index, shape):
     return tuple(int(v) + n if int(v) < 0 else int(v) for v, n in zip(index, shape))
 
 _BACKENDS = ("auto", "torch")
+#: the plans whose state is K9's or K10's extended layout
+_KERNEL_KINDS = ("cuda_k", "cuda_cpml_k")
 _CHECKPOINT_SLICE = ("comes with a later slice of the port (the sharded checkpoint, "
                      "fdtd_tpu/parallel/simulation.py:699)")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ShardedSimulation:
-    """Immutable split-lattice simulation setup (free space)."""
+    """Immutable split-lattice simulation setup (the module's docstring)."""
 
     grid: Grid
     coeffs: Optional[CellCoefficients] = None
@@ -103,6 +119,9 @@ class ShardedSimulation:
     y_axis: Optional[str] = None
     max_k: int = 8
     backend: str = "auto"
+    # a mesh that cuts lattice z runs the kernel paths in a rotated lattice
+    # frame where that buys one (rotation.py); False keeps it unrotated
+    rotate_zcut: bool = True
 
     def __post_init__(self):
         if self.backend not in _BACKENDS:
@@ -111,17 +130,14 @@ class ShardedSimulation:
             from ..solver.engine import check_absorbers
 
             check_absorbers(self.grid.shape, self.cpml, self.tfsf, self.dense_pml)
-            if 2 in [i for i, d in enumerate(self._dims) if d is not None]:
-                raise NotImplementedError(f"a sharded absorbing run on a mesh that cuts "
-                                          f"lattice z {ENGINE_SLICE}")
         if (self.matid is None) != (self.table is None):
             raise ValueError("matid and table come together")
         if self.matid is None and self.coeffs is None:
             raise ValueError("ShardedSimulation needs uniform `coeffs` or matid+table")
-        if self.backend != "torch" and self._zcut():
-            raise NotImplementedError(
-                f"a mesh that cuts lattice z {ENGINE_SLICE}; backend='torch' runs the "
-                "plain sharded step on it")
+        if self.matid is not None:
+            m = self.matid if torch.is_tensor(self.matid) else np.asarray(self.matid)
+            if int(m.min()) < 0 or int(m.max()) >= int(np.shape(self.table)[0]):
+                raise ValueError("matid holds an index outside the table")
 
     # -- planning -----------------------------------------------------------
 
@@ -142,20 +158,44 @@ class ShardedSimulation:
     @property
     def _dims(self):
         """Lattice dim -> cutting mesh axis, positionally (the JAX
-        package's convention for its XLA step)."""
-        names = list(self._mesh.shape)
-        return tuple(names[i] if i < len(names) and self._mesh.shape[names[i]] > 1
-                     else None for i in range(3))
+        package's convention for its XLA paths)."""
+        from .rotation import mesh_dims
 
-    def _zcut(self) -> bool:
-        """Whether the JAX package would rotate this mesh onto its kernel
-        tier: it cuts z, and at most one other axis, in a configuration
-        the rotation takes (fdtd_tpu/parallel/simulation.py:110-150)."""
-        cut = [i for i, d in enumerate(self._dims) if d is not None]
-        if 2 not in cut or len(cut) > 2:
-            return False
-        uniform = self.coeffs is not None and self.coeffs.is_uniform()
-        return self.bc == BoundaryConditions() and self.matid is None and uniform
+        return mesh_dims(self._mesh)
+
+    @cached_property
+    def _rotation(self):
+        """(perm, the rotated ShardedSimulation) when this mesh cuts lattice
+        z and the rotated run plans a kernel (K9 or K10), else None (JAX's
+        ``_rotation``, fdtd_tpu/parallel/simulation.py:108-170): only with
+        ``rotate_zcut`` and no explicit ``y_axis``, no TF/SF (the aux line
+        propagates along lattice x, which a z cut's rotation moves off the
+        kernel's x), default edges and uniform coefficients or a material
+        index (the index and a DensePml region rotate with the lattice)."""
+        if not self.rotate_zcut or self.y_axis is not None:
+            return None
+        from .rotation import (rotate_cpml, rotate_dense, rotate_grid, rotate_mesh,
+                               rotate_sources, zcut_rotation)
+
+        perm = zcut_rotation(self._mesh)
+        if perm is None or self.tfsf is not None or self.bc != BoundaryConditions():
+            return None
+        if self.coeffs is not None and not self.coeffs.is_uniform():
+            return None  # dense per-cell coefficients ride the engine
+        rmesh, y_cut = rotate_mesh(self._mesh, perm)
+        matid = None
+        if self.matid is not None:
+            m = self.matid if torch.is_tensor(self.matid) else torch.as_tensor(
+                np.asarray(self.matid))
+            matid = m.permute(perm).contiguous()
+        inner = dataclasses.replace(
+            self, grid=rotate_grid(self.grid, perm), sources=rotate_sources(self.sources, perm),
+            cpml=rotate_cpml(self.cpml, perm), dense_pml=rotate_dense(self.dense_pml, perm),
+            matid=matid, mesh=rmesh, axis="x", y_axis="y" if y_cut else None,
+            rotate_zcut=False)
+        if inner.plan()[1] not in _KERNEL_KINDS:
+            return None  # the rotation buys no kernel: plan unrotated
+        return perm, inner
 
     @property
     def _ext_axes(self):
@@ -180,17 +220,13 @@ class ShardedSimulation:
 
     @cached_property
     def _matid_u8(self):
-        """The material index as a uint8 tensor (K10's), or None."""
-        if self.matid is None:
+        """The material index as a uint8 tensor (K10's), or None: also for a
+        table of more than 256 materials (the run then takes the engine)."""
+        if self.matid is None or int(np.shape(self.table)[0]) > 256:
             return None
         m = self.matid if torch.is_tensor(self.matid) else torch.as_tensor(
             np.asarray(self.matid))
-        if m.dtype != torch.uint8:
-            if int(m.max()) > 255:
-                raise NotImplementedError(f"a sharded run over more than 256 materials "
-                                          f"{ENGINE_SLICE}")
-            m = m.to(torch.uint8)
-        return m
+        return m if m.dtype == torch.uint8 else m.to(torch.uint8)
 
     def _absorbing_plan(self, faces=(), rows=(), dft=None, k=None, matids=None):
         """best_sharded_absorbing_step's (step, init_state, k, kind) for
@@ -256,7 +292,7 @@ class ShardedSimulation:
     def _layout(self):
         """The plan's ``Layout``: where each shard's owned cells lie."""
         _, _, k, kind = self._plan
-        if kind in ("cuda_k", "cuda_cpml_k"):
+        if kind in _KERNEL_KINDS:
             from .cuda_sharded_k import ext_layout
 
             return ext_layout(self._mesh, k, self.grid.shape, self._ext_axes)
@@ -271,31 +307,44 @@ class ShardedSimulation:
         return ShardedState([zero_state(lay.local, self.dtype, dev) for dev in lay.devices])
 
     def plan(self):
-        """(k, kind): ticks per step call and the path's name."""
+        """(k, kind): ticks per step call and the path's name; on a rotated
+        mesh the rotated run's (rotation.py)."""
+        if self._rotation is not None:
+            return self._rotation[1].plan()
         _, _, k, kind = self._plan
         return k, kind
 
     # -- lifecycle ----------------------------------------------------------
 
     def init(self):
-        """The zero state in the plan's layout (``ShardedState``)."""
+        """The zero state in the plan's layout (``ShardedState``; on a
+        rotated mesh the rotated run's)."""
+        if self._rotation is not None:
+            return self._rotation[1].init()
         _, init_state, _, _ = self._plan
         return init_state()
 
     @cached_property
     def _step_coeffs(self):
-        if self.matid is None:
-            return self.coeffs
-        if self._absorbing:  # K10 takes the table (its matid is its own)
+        """What the plan's step takes: K10 the material table (its index is
+        its own), the one-tick paths each shard's coefficients (a material
+        index expanded to dense coefficients in the run's dtype, as JAX's
+        ``_step_coeffs``), K9 the uniform coefficients."""
+        _, _, _, kind = self._plan
+        if kind == "cuda_cpml_k" and self.matid is not None:
             return torch.as_tensor(np.asarray(self.table, np.float32)
                                    if not torch.is_tensor(self.table)
                                    else self.table).to(torch.float32)
-        from .sharded import Layout, shard_coeffs
+        if kind not in ("torch", "torch_engine"):
+            return self.coeffs
+        from .sharded import shard_coeffs
 
-        dense = CellCoefficients.from_table(
-            torch.as_tensor(np.asarray(self.table)).to(self.dtype),
-            torch.as_tensor(np.asarray(self.matid)))
-        return shard_coeffs(dense, Layout(self._mesh, self._dims, self.grid.shape))
+        coeffs = self.coeffs
+        if self.matid is not None:
+            coeffs = CellCoefficients.from_table(
+                torch.as_tensor(np.asarray(self.table)).to(self.dtype),
+                torch.as_tensor(np.asarray(self.matid)))
+        return shard_coeffs(coeffs, self._layout)
 
     def run(self, state, n_steps: int, probes=(), probe_every: int = 1,
             accumulators=()):
@@ -304,12 +353,23 @@ class ShardedSimulation:
         With ``probes`` (the probes classes), samples every ``probe_every``
         ticks (a multiple of k) from the owned cells of the shards, onto the
         first shard's device, and returns (state, probe_stacks); else the
-        state. With ``accumulators`` (an absorbing run: K10's options, the
-        module's docstring) it returns (state, probe_stacks,
-        accumulator_finals). The state given is consumed (the module's
-        docstring)."""
+        state. With ``accumulators`` (K10's options, or every tick on a
+        one-tick plan: the module's docstring) it returns (state,
+        probe_stacks, accumulator_finals). The state given is consumed (the
+        module's docstring). On a rotated mesh the rotated run steps, and
+        the probes sample in the lattice frame."""
+        if self._rotation is not None:
+            perm, inner = self._rotation
+            if accumulators:
+                raise ValueError(
+                    "accumulators do not ride the rotated z-cut kernel plan: construct "
+                    "with rotate_zcut=False to keep this mesh on a one-tick path (per "
+                    "tick, accumulator-safe)")
+            return inner.run(state, n_steps, probes=tuple(_RotatedProbe(p, perm)
+                                                          for p in probes),
+                             probe_every=probe_every)
         step, _, k, _ = self._plan
-        accs = _Accumulators(self, tuple(accumulators)) if accumulators else None
+        accs = _accumulators(self, tuple(accumulators)) if accumulators else None
         if n_steps % k != 0:
             raise ValueError(f"{n_steps=} not divisible by plan k={k}")
         if probes and (probe_every % k != 0 or n_steps % probe_every != 0):
@@ -323,7 +383,7 @@ class ShardedSimulation:
             tick0 = state.tick
             state = step(state, coeffs, self.sources)
             if i == 0:
-                given.shards.clear()  # the "torch" step leaves it; K9 and K10 emptied it
+                given.shards.clear()  # the one-tick steps leave it; K9 and K10 emptied it
             if accs is not None:
                 state = accs.update(state, tick0)
             if probes and ((i + 1) * k) % probe_every == 0:
@@ -337,49 +397,49 @@ class ShardedSimulation:
 
     def _option_step(self, faces, rows, dft):
         """K10's step with the options ``faces``, ``rows`` and ``dft`` at
-        the plan's K, built once per set of options. It shares the plan's
-        extended material index, so that one copy of it is on the card."""
+        the plan's K, built once per set of options, or None where K10 does
+        not take them at that K. It shares the plan's extended material
+        index, so that one copy of it is on the card."""
         step, _, k, _ = self._plan
         cache = self.__dict__.setdefault("_option_steps", {})
         key = (faces, rows, dft)
         if key not in cache:
-            cache[key] = self._absorbing_plan(faces, rows, dft, k=k, matids=step.matids)[0]
+            o_step, _, o_k, o_kind = self._absorbing_plan(faces, rows, dft, k=k,
+                                                          matids=step.matids)
+            cache[key] = o_step if (o_k, o_kind) == (k, "cuda_cpml_k") else None
         return cache[key]
 
     def _sample(self, state, probes):
-        """Each probe's sample of ``state``: points, lines and planes (and
-        the Poynting flux through a plane) from a state of just the cells
-        they read, gathered from the shards that own them; an energy probe
-        as the sum of its value on each shard's owned cells; any other
-        probe from the gathered lattice."""
-        from ..probes.probes import (EnergyProbe, LineProbe, PointProbe,
-                                     PoyntingFluxProbe, SliceProbe)
+        """Each probe's sample of ``state`` (``_sample_probe``); a
+        ``_RotatedProbe`` (a rotated run's) samples the cells it reads
+        rotated back into the lattice frame."""
+        from .rotation import _inverse, unrotate_fields
 
-        shape, dt, view = self.grid.shape, self.grid.dt, None
+        gathered = {}
+
+        def whole(perm=None):
+            if perm not in gathered:
+                g = self.gather(state)
+                gathered[perm] = g if perm is None else unrotate_fields(g, perm)
+            return gathered[perm]
+
         out = []
         for p in probes:
-            if isinstance(p, PointProbe):
-                got = torch.cat([dataclasses.replace(p, points=((0, 0, 0),)).sample(
-                    self._cells(state, [(v, v + 1) for v in _wrap(pt, shape)]), dt)
-                    for pt in p.points])
-            elif isinstance(p, LineProbe):
-                start = _wrap(p.start, shape)
-                box = [(v, v + 1) for v in start]
-                box[p.axis] = (start[p.axis], min(start[p.axis] + p.length, shape[p.axis]))
-                got = dataclasses.replace(p, start=(0, 0, 0)).sample(
-                    self._cells(state, box), dt)
-            elif isinstance(p, (SliceProbe, PoyntingFluxProbe)):
-                box = [(0, n) for n in shape]
-                i = _wrap((p.index,), (shape[p.axis],))[0]
-                box[p.axis] = (i, i + 1)
-                got = dataclasses.replace(p, index=0).sample(self._cells(state, box), dt)
-            elif isinstance(p, EnergyProbe):
-                dev = state._first().device
-                got = sum(p.sample(part, dt).to(dev) for part in self._owned(state))
+            if isinstance(p, _RotatedProbe):
+                perm = p.perm
+                inv = _inverse(perm)
+                shape = tuple(self.grid.shape[inv[a]] for a in range(3))
+                out.append(_sample_probe(
+                    p.probe, shape, self.grid.dt,
+                    lambda box, perm=perm: unrotate_fields(
+                        self._cells(state, [box[perm[j]] for j in range(3)]), perm),
+                    lambda perm=perm: [unrotate_fields(part, perm)
+                                       for part in self._owned(state)],
+                    lambda perm=perm: whole(perm)))
             else:
-                view = self.gather(state) if view is None else view
-                got = p.sample(view, dt)
-            out.append(got)
+                out.append(_sample_probe(p, self.grid.shape, self.grid.dt,
+                                         lambda box: self._cells(state, box),
+                                         lambda: self._owned(state), whole))
         return out
 
     def _owned(self, state):
@@ -408,10 +468,17 @@ class ShardedSimulation:
         return SimState(*out, tick=first.tick)
 
     def gather(self, state, device=None):
-        """The plain global ``SimState`` of any state of this plan, on
-        ``device`` (default: the first shard's): for an absorbing run the
+        """The plain global state of any state of this plan, on ``device``
+        (default: the first shard's): a ``SimState``; for a K10 run the
         global ``EngineState``, its psi slabs, region psi and aux line
-        collapsed too."""
+        collapsed too; for the engine its global ``EngineShard`` (the
+        full-domain psi too). A rotated run's fields come back in the
+        lattice frame, without the rotated frame's psi (JAX's rule)."""
+        if self._rotation is not None:
+            from .rotation import unrotate_fields
+
+            perm, inner = self._rotation
+            return unrotate_fields(inner.gather(state, device=device), perm)
         _, _, k, kind = self._plan
         if kind == "cuda_k":
             from .cuda_sharded_k import collapse_state
@@ -428,6 +495,10 @@ class ShardedSimulation:
                 axes=self._ext_axes, tfsf=split_tfsf(self.tfsf)[0],
                 dense=kernel_dense(self.dense_pml, self.grid.shape, self._cpml_pad),
                 device=device)
+        if kind == "torch_engine":
+            from .sharded_engine import gather_engine_state
+
+            return gather_engine_state(state, self._mesh, self._dims, device=device)
         from .sharded import gather
 
         return gather(state, self._mesh, self._dims, device=device)
@@ -452,26 +523,111 @@ class _GlobalShape:
         return torch.empty(self.shape, device="meta")
 
 
+def _accumulators(sim: ShardedSimulation, accumulators):
+    """A run's accumulators (JAX's rules, fdtd_tpu/parallel/simulation.py:
+    338-497): on K10's options when the plan is K10 and every accumulator
+    fits one (``_Accumulators``), each tick on a one-tick plan
+    (``_TickAccumulators``); otherwise ValueError."""
+    from ..solver.simulation import kernel_accumulator_spec
+
+    _, _, k, kind = sim._plan
+    if kind == "cuda_cpml_k":
+        spec = kernel_accumulator_spec(accumulators)
+        step = None if spec[0] is None else sim._option_step(spec[0], spec[5], spec[3])
+        if step is not None:
+            return _Accumulators(sim, accumulators, spec, step)
+    if k != 1:
+        raise ValueError(
+            f"accumulators need every tick; this configuration planned a K={k} kernel "
+            "path and the accumulators do not all map to the sharded kernel's options "
+            "(flux faces and DFT row captures on any kernel mesh, x-plane spectra): use "
+            "those, or a run that plans a one-tick path (e.g. backend='torch')")
+    return _TickAccumulators(sim, accumulators)
+
+
+class _TickAccumulators:
+    """A one-tick plan's accumulators: each updated every tick from the
+    gathered fields (JAX's per-tick loop, fdtd_tpu/parallel/simulation.py:
+    486-497, whose state is a global sharded array)."""
+
+    def __init__(self, sim: ShardedSimulation, accumulators):
+        self.sim, self.accumulators = sim, accumulators
+        self.step, self.dt = sim._plan[0], sim.grid.dt
+
+    def _view(self, state):
+        from .sharded import gather
+
+        return gather(state, self.sim._mesh, self.sim._dims)
+
+    def start(self, state):
+        view = self._view(state)
+        self.accs = tuple(a.init(view, self.dt) for a in self.accumulators)
+        return state
+
+    def update(self, state, tick0: int):
+        view = self._view(state)
+        self.accs = tuple(a.update(acc, view, self.dt)
+                          for a, acc in zip(self.accumulators, self.accs))
+        return state
+
+    def finish(self, state):
+        return state, self.accs
+
+
+@dataclasses.dataclass(frozen=True)
+class _RotatedProbe:
+    """A probe of a rotated run (JAX's ``_RotatedProbe``,
+    fdtd_tpu/parallel/simulation.py:796): ``ShardedSimulation._sample``
+    reads the cells it samples in the rotated frame and rotates them back,
+    so that its coordinates and components stay the caller's."""
+
+    probe: Any
+    perm: Any
+
+
+def _sample_probe(p, shape, dt, cells, owned, whole):
+    """One probe's sample on a split lattice of global ``shape``: points,
+    lines and planes (and the Poynting flux through a plane) from a state of
+    just the cells they read (``cells(box)``, box = (start, stop) per
+    axis); an energy probe as the sum of its value on each shard's owned
+    cells (``owned()``); any other probe from the gathered lattice
+    (``whole()``)."""
+    from ..probes.probes import (EnergyProbe, LineProbe, PointProbe, PoyntingFluxProbe,
+                                 SliceProbe)
+
+    if isinstance(p, PointProbe):
+        return torch.cat([dataclasses.replace(p, points=((0, 0, 0),)).sample(
+            cells([(v, v + 1) for v in _wrap(pt, shape)]), dt) for pt in p.points])
+    if isinstance(p, LineProbe):
+        start = _wrap(p.start, shape)
+        box = [(v, v + 1) for v in start]
+        box[p.axis] = (start[p.axis], min(start[p.axis] + p.length, shape[p.axis]))
+        return dataclasses.replace(p, start=(0, 0, 0)).sample(cells(box), dt)
+    if isinstance(p, (SliceProbe, PoyntingFluxProbe)):
+        box = [(0, n) for n in shape]
+        i = _wrap((p.index,), (shape[p.axis],))[0]
+        box[p.axis] = (i, i + 1)
+        return dataclasses.replace(p, index=0).sample(cells(box), dt)
+    if isinstance(p, EnergyProbe):
+        parts = owned()
+        dev = parts[0].ex.device
+        return sum(p.sample(part, dt).to(dev) for part in parts)
+    return p.sample(whole(), dt)
+
+
 class _Accumulators:
     """A run's accumulators on K10's options (fdtd_tpu/parallel/
     simulation.py:338-475): placed by ``kernel_accumulator_spec``, folded
     from each pass's flux rows and captures, the DFT planes' spectra riding
     each shard's ``state.dft`` for the run."""
 
-    def __init__(self, sim: ShardedSimulation, accumulators):
-        from ..solver.simulation import kernel_accumulator_spec
-
-        _, _, k, kind = sim._plan
+    def __init__(self, sim: ShardedSimulation, accumulators, spec, step):
+        _, _, k, _ = sim._plan
         (self.faces, self.flux_items, self.dft_items, self.dft_arg, self.row_items,
-         self.rows) = kernel_accumulator_spec(accumulators)
-        if kind != "cuda_cpml_k" or self.faces is None:
-            raise NotImplementedError(
-                f"accumulators on a split lattice ride K10's options (flux faces, row "
-                f"captures, x-plane DFTs) on an absorbing run; this run ({kind}) or "
-                f"accumulator needs a per-tick step, which {ENGINE_SLICE}")
+         self.rows) = spec
         self.n, self.k, self.lay, self.dt = len(accumulators), k, sim._layout, sim.grid.dt
         self.shape = sim.grid.shape
-        self.step = sim._option_step(self.faces, self.rows, self.dft_arg)
+        self.step = step
 
     def start(self, state):
         """The state the first pass takes: with x-plane DFTs, each shard's

@@ -10,7 +10,8 @@ own launch count; they share one build. K4's in-place variant has a source
 of its own, so that it builds beside K4 and not after it, and so have K6's
 (``cpmlk_gb.cu``) and K5's (``cpmlk_xz.cu``), which share a header. K4e's
 lateral window entry (K7's) and its x-side shard entry (K10's) are a
-second and a third entry point of K4's ``cpmlk.cu``.
+second and a third entry point of K4's ``cpmlk.cu``; K6 x-side, K6's shard
+entry (K10 blocks'), a second entry point of ``cpmlk_gb.cu``.
 Nothing here runs at import time.
 """
 
@@ -30,7 +31,8 @@ import torch
 
 __all__ = ["Kernel", "STEP", "STEPK", "STEP_INPLACE", "STEPK_INPLACE", "CPML",
            "CPMLK", "CPMLK_INPLACE", "CPMLK_GB", "CPMLK_XZ", "CPMLK_BLOCKED",
-           "CPMLK_SHARDED", "STEPK_EDGES", "SHARDED_STEP", "KERNELS", "BUILD_DIR"]
+           "CPMLK_SHARDED", "CPMLK_GB_SHARDED", "STEPK_EDGES", "SHARDED_STEP", "KERNELS",
+           "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fdtd_tpu_torch"
@@ -202,6 +204,13 @@ CPMLK_GB = Kernel("K6 cpmlk_gb", "cpmlk_gb.cu", "fdtd_cpmlk_gb",
                   [_I, _PP, _PP, _PP, _PI, _P, _I, _P, _P, _I, _I, _I, _P, _I, _PI,
                    _I, _I, _I, _I, _F, _F, _F, _P, _P])
 
+# fdtd_cpmlk_gb_sharded: fdtd_cpmlk_gb's arguments on one shard's
+# halo-extended array, then its frame row (the 6 edge ints and the aux index
+# of plane 0) before the stream (K6 x-side, cpmlk_gb.cu's second entry
+# point: K10 blocks' shards, parallel/cuda_sharded_cpml.py)
+CPMLK_GB_SHARDED = Kernel("K6 x-side", "cpmlk_gb.cu", "fdtd_cpmlk_gb_sharded",
+                          CPMLK_GB.argtypes[:-1] + [_PI, _P])
+
 # fdtd_cpmlk_xz(dtype, fields, psi, prof, ext, table, n_mat, matid, rows,
 #               n_src, row_w, with_m, aux, aux_len, tf, k, nx, ny, nz, inv_x,
 #               inv_y, inv_z, zones, n_zones, ext_meta, ext_ptrs, scratch,
@@ -236,4 +245,5 @@ SHARDED_STEP = Kernel("K8 sharded_step", "sharded_step.cu", "fdtd_sharded_step",
                       [_PP, _PP, _I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P])
 
 KERNELS = (STEP, STEPK, CPML, CPMLK, STEP_INPLACE, STEPK_INPLACE, CPMLK_INPLACE, CPMLK_GB,
-           CPMLK_XZ, CPMLK_BLOCKED, CPMLK_SHARDED, STEPK_EDGES, SHARDED_STEP)
+           CPMLK_XZ, CPMLK_BLOCKED, CPMLK_SHARDED, CPMLK_GB_SHARDED, STEPK_EDGES,
+           SHARDED_STEP)

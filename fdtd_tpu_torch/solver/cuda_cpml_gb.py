@@ -20,6 +20,15 @@ construction (pallas_cpml_gb.py:24-28).
 K5 (solver/cuda_cpml_xz.py) runs the same kernel in x zones and shares
 this module's plan and launch (``launch_window``).
 
+``frame`` (a solver/frame.py Frame) runs K6 x-side, the kernel's shard entry
+(csrc/cpmlk_gb.cu ``fdtd_cpmlk_gb_sharded``): K6 on one shard's
+halo-extended array of a larger lattice, with the frame's edge planes and
+aux origin as K4e x-side takes them (solver/cuda_cpml_k.py), the rest of
+the set-up moved into the array by the frame. K10 ``blocks``
+(parallel/cuda_sharded_cpml.py) launches it once per shard and pass, as the
+JAX package's sharded gb tier runs K4's builder in blocks mode on each
+shard (fdtd_tpu/parallel/pallas_sharded_cpml.py:942-958).
+
 Where the port differs from the JAX module, on purpose:
 
 * **The state.** The JAX kernel keeps the y-strip psi in a layout of its
@@ -119,13 +128,14 @@ def gb_plan(shape, bc, cpml, k: int, dtype=torch.float32) -> Optional[GbPlan]:
                   scratch_floats=n_tiles * k * _N_PSI * WINDOW * WINDOW)
 
 
-def launches() -> int:
-    """How many times K6 has launched since the last reset."""
-    return _build.CPMLK_GB.launches
+def launches(frame: bool = False) -> int:
+    """How many times K6 (``frame``: K6 x-side, its shard entry) has
+    launched since the last reset."""
+    return (_build.CPMLK_GB_SHARDED if frame else _build.CPMLK_GB).launches
 
 
 def reset_launches() -> None:
-    _build.CPMLK_GB.launches = 0
+    _build.CPMLK_GB.launches = _build.CPMLK_GB_SHARDED.launches = 0
 
 
 #: K6's plain version: K4's (no options, out of place)
@@ -147,6 +157,7 @@ def cuda_cpml_gb_stepk_fn(
     matid: Optional[torch.Tensor] = None,
     n_materials: int = 1,
     dtype=torch.float32,
+    frame=None,
     device=DEFAULT_DEVICE,
 ):
     """Build stepk(state: EngineState, coeffs, sources) -> EngineState
@@ -158,22 +169,30 @@ def cuda_cpml_gb_stepk_fn(
     ``device`` (default: the CUDA card; raises without one) is where the
     states live: "cpu" takes the plain version. As the JAX builder, it
     takes no DensePml region and no accumulator option, and it refuses an
-    oblique TF/SF (K4 carries them)."""
+    oblique TF/SF (K4 carries them). ``frame`` (a solver/frame.py Frame of
+    ``shape``): K6 x-side on the frame's array, ``tfsf``, ``cpml``, the
+    sources and ``matid``'s coordinates as K4e x-side takes them (the
+    module's docstring)."""
     if split_tfsf(tfsf)[1] is not None:
         raise ValueError("K6 takes no oblique TF/SF (K4's oblique option does)")
     device = resolve_device(device)
     n_mat = n_materials if matid is not None else 1
     plan = gb_plan(shape, bc, cpml, k, dtype=dtype)
+    if frame is not None and (tuple(frame.shape) != tuple(shape)
+                              or not supports_cpml(frame.lattice, bc, cpml, dtype=dtype)):
+        plan = None
     if plan is None:
-        raise ValueError(f"K6 does not support {k=} {shape=} {bc=} {cpml=} {dtype=}")
+        raise ValueError(f"K6 does not support {k=} {shape=} {bc=} {cpml=} {dtype=} "
+                         f"{frame=}")
     if not 1 <= n_mat <= 256:
         raise ValueError(f"K6 takes 1..256 materials, got {n_mat}")
     if with_m and max_sources == 0:
         raise ValueError("with_m requires sources (max_sources > 0)")
     inv_dx = tuple(float(v) for v in inv_dx)
-    setup = CpmlSetup(shape, inv_dx, dt, constants, cpml, tfsf)
+    setup = CpmlSetup(shape, inv_dx, dt, constants, cpml, tfsf, frame=frame)
     step32 = build_step(shape, inv_dx=inv_dx, dt=dt, bc=bc, constants=constants,
-                        dtype=torch.float32, cpml=cpml, tfsf=tfsf)
+                        dtype=torch.float32, cpml=cpml, tfsf=tfsf, frame=frame)
+    kernel = _build.CPMLK_GB if frame is None else _build.CPMLK_GB_SHARDED
 
     def stepk(state: EngineState, coeffs, sources: Optional[SourceSet]) -> EngineState:
         if state.device != device:
@@ -185,17 +204,13 @@ def cuda_cpml_gb_stepk_fn(
         check_cpml_inputs(state, setup, shape, dtype, table, matid)
         if state.device.type == "cpu":
             return plain_cpml_ticks(state, step32, table, matid, sources, k, with_m)
-        return launch_gb(state, setup, plan, dtype, table, matid, sources, with_m)
+        if state.device.type != "cuda":
+            raise ValueError(f"K6 runs on CUDA or CPU tensors, not {state.device}")
+        return launch_window(kernel, state, setup, plan.k, plan.scratch_floats, dtype, table,
+                             matid, sources, with_m)
 
     stepk.plan = plan
     return stepk
-
-
-def launch_gb(state: EngineState, setup: CpmlSetup, plan: GbPlan, dtype, table, matid,
-              sources, with_m) -> EngineState:
-    """Launch K6 on a CUDA state (``launch_window``)."""
-    return launch_window(_build.CPMLK_GB, state, setup, plan.k, plan.scratch_floats, dtype,
-                         table, matid, sources, with_m)
 
 
 def launch_window(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup, k: int,
@@ -207,7 +222,9 @@ def launch_window(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup,
     psi scratch (freed once the launch is queued: the caching allocator
     keeps it for the stream). ``tail``: the kernel's own arguments between
     the lattice's spacings and the scratch (K5: its zones and the oblique
-    corrections)."""
+    corrections). A ``setup`` with a frame (K6 x-side,
+    ``_build.CPMLK_GB_SHARDED``) takes the source rows into the frame's
+    array and passes the frame row after the scratch."""
     nx, ny, nz = setup.shape
     prof, aux = setup.on(state.device)
     aux_e, aux_h = state.aux_e, state.aux_h
@@ -215,7 +232,9 @@ def launch_window(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup,
     if setup.tfsf is not None:
         pack, aux_e, aux_h = setup.aux_levels(state, aux, k)
         aux_len = pack.shape[1]
-    rows = build_src_rows(sources, state.tick, k, with_m, setup.dt)
+    x0, y0 = (0, 0) if setup.frame is None else setup.frame.origin
+    rows = build_src_rows(sources, state.tick, k, with_m, setup.dt, x_offset=-x0,
+                          y_offset=-y0)
     fields = (*state.e, *state.h)
     outs = [torch.empty_like(f) for f in fields]
     psi_in = psi_tensors(state)
@@ -232,7 +251,9 @@ def launch_window(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup,
         None if matid is None else matid.data_ptr(),
         rows.data_ptr() if len(rows) else None, len(rows), rows.shape[1], int(with_m),
         None if pack is None else pack.data_ptr(), aux_len, setup.tf, k, nx, ny, nz,
-        *setup.inv_dx, *tail, scratch.data_ptr(), _build.stream_handle(state.device))
+        *setup.inv_dx, *tail, scratch.data_ptr(),
+        *(() if kernel is not _build.CPMLK_GB_SHARDED else (setup.frame_c,)),
+        _build.stream_handle(state.device))
     del pack, scratch
     pairs = list(zip(psi_out[0::2], psi_out[1::2]))
     return EngineState(*outs, tick=state.tick + k, psi_h=tuple(pairs[:6]),

@@ -1061,3 +1061,100 @@ def test_sharded_cpml_k4b_plane_off_the_array_is_kept(cuda_device):
             assert int(torch.count_nonzero(out.dft[0])) > 0
         else:
             assert out.dft[0] is acc and int(torch.count_nonzero(acc)) == 0
+
+
+# -- K10 blocks (K6 x-side per shard) ------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [2, 4, 8])
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_gb_k10_blocks_matches_plain_and_k10(cuda_device, dtype, k, n):
+    """K10 blocks (a K6 x-side launch per shard): one pass against its
+    plain version (K4's bars), two passes against K10 at the same K and
+    against single-device K4, fields and psi bit for bit, f32 and bf16."""
+    from fdtd_tpu_torch.parallel import (collapse_pml_state, extend_pml_state,
+                                         make_cuda_sharded_cpml_stepk, make_mesh,
+                                         plain_sharded_cpml_stepk, sharded_gb_plan)
+    from fdtd_tpu_torch.solver import cuda_cpml_gb
+
+    shape = K10_SHAPE
+    mesh = make_mesh(n, ("x",), devices=[cuda_device] * n)
+    nl = shape[0] // n
+    state, table, src, kw = _k10_inputs(dtype, cuda_device, (range(nl, shape[0], nl), ()), k)
+    kw = {key: v for key, v in kw.items() if key not in K10_OPTIONS}
+    state = state.replace(dft=())
+    plan = sharded_gb_plan(shape, n, pt.BoundaryConditions(), kw["cpml"], k, dtype)
+    blocks = make_cuda_sharded_cpml_stepk(mesh, shape, k, blocks=plan, **kw)
+    k10 = make_cuda_sharded_cpml_stepk(mesh, shape, k, **kw)
+    ckw = dict(cpml=kw["cpml"], axes=("x",), tfsf=kw["tfsf"])
+
+    def ext():
+        return extend_pml_state(state, mesh, k, cpml=kw["cpml"], tfsf=kw["tfsf"])
+
+    before = cuda_cpml_gb.launches(frame=True)
+    g1 = blocks(ext(), table, src)
+    assert cuda_cpml_gb.launches(frame=True) == before + n
+    p1 = plain_sharded_cpml_stepk(ext(), table, src, mesh=mesh, shape=shape, k_steps=k,
+                                  **{key: v for key, v in kw.items() if key != "dtype"})
+    c1 = collapse_pml_state(g1, mesh, k, shape, **ckw)
+    cp = collapse_pml_state(p1, mesh, k, shape, **ckw)
+    torch.cuda.synchronize()
+    scale = max(float(f.float().abs().max()) for f in (*cp.e, *cp.h))
+    tol = (2e-6 * k if dtype == torch.float32 else 2.0 ** -7) * scale
+    for a, b in zip((*c1.e, *c1.h), (*cp.e, *cp.h)):
+        assert float((a.float() - b.float()).abs().max()) <= tol
+    psi_scale = max(float(p.abs().max()) for p in psi_tensors(cp) if p.numel())
+    for a, b in zip(psi_tensors(c1), psi_tensors(cp)):
+        if b.numel():
+            assert float((a - b).abs().max()) <= 2e-6 * k * psi_scale
+    c2 = collapse_pml_state(blocks(g1, table, src), mesh, k, shape, **ckw)
+    t2 = collapse_pml_state(k10(k10(ext(), table, src), table, src), mesh, k, shape, **ckw)
+    k4 = cuda_cpml_stepk_fn(shape, k, **kw)
+    r2 = k4(k4(state, table, src), table, src)
+    torch.cuda.synchronize()
+    for want in (t2, r2):
+        assert _equal(c2, want)
+        assert all(torch.equal(a, b) for a, b in zip(psi_tensors(c2), psi_tensors(want)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sharded_gb_k6_x_side_matches_plain_and_default_frame(cuda_device, dtype):
+    """K6 x-side on one shard's array (the frame of a 4-shard K10 step)
+    against its plain version (K4's bars), and with the default frame (the
+    lattice itself) K6's outputs bit for bit."""
+    from fdtd_tpu_torch.parallel import extend_pml_state, make_cuda_sharded_cpml_stepk, make_mesh
+    from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn
+    from fdtd_tpu_torch.solver.cuda_cpml_k import plain_cpml_stepk
+    from fdtd_tpu_torch.solver.frame import Frame
+
+    k = 4
+    state, table, src, kw = _k10_inputs(dtype, cuda_device, ((16, 32, 48), ()), k)
+    kw = {key: v for key, v in kw.items() if key not in K10_OPTIONS}
+    state = state.replace(dft=())
+    mesh = make_mesh(4, ("x",), devices=[cuda_device] * 4)
+    step = make_cuda_sharded_cpml_stepk(mesh, K10_SHAPE, k, **kw)
+    ext = extend_pml_state(state, mesh, k, cpml=kw["cpml"], tfsf=kw["tfsf"])
+    base = {key: v for key, v in kw.items() if key != "matid"}
+    for s in (0, 1, 3):
+        frame, st = step.frames[s], ext.shards[s]
+        got = cuda_cpml_gb_stepk_fn(st.shape, k, frame=frame, matid=step.matids[s],
+                                    device=cuda_device, **base)(st, table, src)
+        want = plain_cpml_stepk(st, table, step.matids[s], src, k, frame=frame,
+                                **{key: v for key, v in base.items()
+                                   if key not in ("dtype", "n_materials")})
+        torch.cuda.synchronize()
+        scale = max(float(f.float().abs().max()) for f in (*want.e, *want.h))
+        tol = (2e-6 * k if dtype == torch.float32 else 2.0 ** -7) * scale
+        for a, b in zip((*got.e, *got.h), (*want.e, *want.h)):
+            assert float((a.float() - b.float()).abs().max()) <= tol
+    unit = Frame(lattice=K10_SHAPE, origin=(0, 0), shape=K10_SHAPE)
+    for k in (2, 8):
+        a = cuda_cpml_gb_stepk_fn(K10_SHAPE, k, frame=unit, device=cuda_device, **kw)(
+            state, table, src)
+        b = cuda_cpml_gb_stepk_fn(K10_SHAPE, k, device=cuda_device, **kw)(state, table, src)
+        torch.cuda.synchronize()
+        assert _equal(a, b)
+        assert all(torch.equal(x, y) for x, y in zip(psi_tensors(a), psi_tensors(b)))

@@ -21,7 +21,7 @@ planes per shard. They are held to
   plan says "pallas_k", "torch" where its plain one says "xla") and its
   run, gather and probe stacks against the JAX ``ShardedSimulation``'s
   XLA path (f64 1e-12 on the plain path, f32 2e-6 on the kernel route);
-  and its refusals (z-cut meshes, accumulators of a free-space run).
+  and its refusals (accumulators of a K-tick free-space run, checkpoints).
 
 The fit-aware ``Simulation.plan`` is held to each of its branches with the
 free memory stubbed (``simulation.free_bytes``). JAX runs at x64, so every
@@ -429,17 +429,19 @@ def test_refusals():
             "cuda_cpml_k"
     with pytest.raises(TypeError, match="DensePml"):
         ShardedSimulation(grid=pg, coeffs=pc, mesh=mesh, dense_pml=object())
-    # a z cut, which the JAX package rotates onto its kernel tier
+    # a z cut, which the port rotates onto K9 as the JAX package rotates it
+    # onto its kernel tier (tests/port/test_torch_rotation.py)
     zmesh = make_mesh(2, ("x", "y", "z"), devices=["cpu"] * 2)
     assert zmesh.shape == {"x": 2, "y": 1, "z": 1}
     zmesh = pt.parallel.Mesh(np.array(["cpu"] * 2, dtype=object).reshape(1, 1, 2),
                              ("x", "y", "z"))
-    with pytest.raises(NotImplementedError, match="cuts lattice z"):
-        ShardedSimulation(grid=pg, coeffs=pc, mesh=zmesh)
+    assert ShardedSimulation(grid=pg, coeffs=pc, mesh=zmesh).plan() == (8, "cuda_k")
     plain = ShardedSimulation(grid=pg, coeffs=pc, mesh=zmesh, backend="torch")
     assert plain.plan() == (1, "torch")
+    # accumulators on a K-tick free-space plan: JAX's ValueError (they need
+    # every tick)
     sim = ShardedSimulation(grid=pg, coeffs=pc, sources=ps, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="accumulators"):
+    with pytest.raises(ValueError, match="accumulators need every tick"):
         sim.run(sim.init(), 8, accumulators=(object(),))
     with pytest.raises(NotImplementedError, match="checkpointing"):
         sim.save("x.npz", sim.init())

@@ -30,8 +30,9 @@ references on the same global inputs:
   ``ny_ext`` JAX's ``_pad8`` rule refuses and the port takes.
 * ``extend_matid`` and the fields' extend/collapse bit for bit against the
   JAX host functions; psi extend -> collapse is the identity.
-* The refusals that remain: a z-cut mesh, ``save``/``restore``, the
-  engine fallback and an oblique TF/SF on a 2-D mesh.
+* The refusals that remain (``save``/``restore``, an oblique TF/SF on a
+  2-D mesh, an accumulator that fits no option), and the runs that now
+  rotate or take the sharded engine.
 
 The CUDA kernel (K4e x-side per shard) is held to this plain version on
 the card by test_torch_on_card.py (``-k sharded_cpml``) and chip_smoke.py.
@@ -416,7 +417,7 @@ XY = ((3, 3), (3, 3), (0, 0))  # the TPU kernel's z strips need nz = 256: none h
 def test_supports_and_plan_match_jax(n, axes, thick, ny, want):
     """supports_sharded_cpml at every K of the ladder and the plan's (K,
     kind) against JAX's (interpret-mode plan built, not run); JAX's deep
-    x-PML goes to its engine, which the port refuses. On the 2 x 2 mesh
+    x-PML goes to its engine, the port's to its own. On the 2 x 2 mesh
     JAX also needs nly + 2K to be a multiple of 8 (``_pad8``), which the
     port does not: there the two agree where JAX's tile rule holds."""
     jcpml = JCpml(thickness=thick)
@@ -437,10 +438,8 @@ def test_supports_and_plan_match_jax(n, axes, thick, ny, want):
                          interpret=True).plan()
     pg, pc, _, _ = _acc_parts(pt, shape)
     sim = ShardedSimulation(grid=pg, coeffs=pc, cpml=cpml, mesh=_mesh(n_x, n_dev_y)[0])
-    if want is None:
-        assert jkind == "xla_engine"
-        with pytest.raises(NotImplementedError, match="sharded engine"):
-            sim.plan()
+    if want is None:  # both take their sharded engines
+        assert (jk, jkind, sim.plan()) == (1, "xla_engine", (1, "torch_engine"))
         return
     assert (jk, {"pallas_cpml_k": "cuda_cpml_k"}[jkind]) == want == sim.plan()
 
@@ -505,27 +504,34 @@ def test_extend_and_collapse_match_jax(rng):
 
 
 def test_refusals():
-    """What the port's K10 route still refuses, each naming its slice."""
+    """What the port's K10 route still refuses, and what it now sends
+    elsewhere: a z-cut mesh rotates (CPML alone) or takes the sharded engine
+    (with TF/SF), as do dense per-cell coefficients and backend="torch"
+    (tests/port/test_torch_sharded_engine.py); checkpoints and a 2-D
+    oblique TF/SF raise; an accumulator that fits no K10 option raises
+    JAX's ValueError."""
     shape = SHAPE
     pg, pc, cpml, tfsf = _acc_parts(pt, shape)
     mesh, _ = _mesh(2, 1)
     zmesh = pt.parallel.Mesh(np.array(["cpu"] * 2, dtype=object).reshape(1, 1, 2),
                              ("x", "y", "z"))
-    with pytest.raises(NotImplementedError, match="cuts lattice z"):
-        ShardedSimulation(grid=pg, coeffs=pc, cpml=cpml, mesh=zmesh)
+    zsim = ShardedSimulation(grid=pg, coeffs=pc, cpml=cpml, mesh=zmesh)
+    assert zsim._rotation is not None and zsim.plan()[1] == "cuda_cpml_k"
+    zsim = ShardedSimulation(grid=pg, coeffs=pc, cpml=cpml, tfsf=tfsf, mesh=zmesh)
+    assert zsim._rotation is None and zsim.plan() == (1, "torch_engine")
     sim = ShardedSimulation(grid=pg, coeffs=pc, cpml=cpml, tfsf=tfsf, mesh=mesh)
     assert sim.plan()[1] == "cuda_cpml_k"
     for call in (lambda: sim.save("x.npz", sim.init()), lambda: sim.restore("x.npz")):
         with pytest.raises(NotImplementedError, match="checkpoint"):
             call()
-    # the engine fallback: dense per-cell coefficients, backend="torch"
+    # the engine: dense per-cell coefficients, backend="torch"
     dense_c = pt.CellCoefficients(*(torch.full(shape, float(v)) for v in TABLE[0]))
     for kw in (dict(coeffs=dense_c), dict(coeffs=pc, backend="torch")):
-        with pytest.raises(NotImplementedError, match="sharded engine"):
-            ShardedSimulation(grid=pg, cpml=cpml, mesh=mesh, **kw).plan()
+        assert ShardedSimulation(grid=pg, cpml=cpml, mesh=mesh, **kw).plan() == (
+            1, "torch_engine")
     oblique = convert.oblique_tfsf_from_numpy(_jax_tfsf("oblique", SHAPE_2D))
     with pytest.raises(NotImplementedError, match="1-D x mesh"):
         ShardedSimulation(grid=_acc_parts(pt, SHAPE_2D)[0], coeffs=pc, tfsf=oblique,
                           mesh=_mesh(2, 2)[0]).plan()
-    with pytest.raises(NotImplementedError, match="per-tick"):
+    with pytest.raises(ValueError, match="accumulators need every tick"):
         sim.run(sim.init(), 8, accumulators=(object(),))

@@ -2800,6 +2800,12 @@ def k7_timings(torch, ft, n=6):
         group[name]["bound_ms"], group[name]["bound_by"] = b_ms, b_by
         log(f"bound k7_512_float32 {name}: {b_ms:.4f} ms per call ({b_by}); the kernel at "
             f"{b_ms / (sum(group[name]['ms_per_call']) / 2):.1%} of it")
+    # the window without options runs K4's core kernel; with them, K4e's
+    # owned instantiations
+    log_ptxas("k7_window_512_float32", group, "cpmlk_kernel")
+    group["ptxas_owned"] = cpmlk_ptxas("cpmlk_owned_kernel")
+    for name, lines in group["ptxas_owned"].items():
+        log(f"ptxas k7_window_512_float32 {name}: {lines}")
     del state, window
     torch.cuda.empty_cache()
     return {"k7_512_float32": group}
@@ -4378,6 +4384,7 @@ def sharded_cpml_timings(torch, ft, n=3):
             f"{group[name]['share_of_call']:.1%} of a pass")
     group["profile_table_bytes"] = prof_bytes
     group["launches_per_pass"] = len(frames)
+    log_ptxas(f"k10_{m}_float32", group, "cpmlk_frame_kernel")
     log(f"k10_{m}_float32: {len(frames)} K4e x-side launches per pass; the shards' x profile "
         f"tables {prof_bytes} B (uploaded once per step function)")
     del sim, single, step, one
@@ -5304,6 +5311,38 @@ def report_group(key, named, ms, shape, models):
     return out
 
 
+def cpmlk_ptxas(entry):
+    """{instantiation: its ptxas lines (stack, spills, registers, shared
+    memory per block)} of cpmlk.cu's kernel ``entry`` (K4's cpmlk_kernel,
+    K4e lateral's cpmlk_owned_kernel, K4e x-side's cpmlk_frame_kernel),
+    from this run's build log."""
+    import re
+
+    from fdtd_tpu_torch.solver import _build
+
+    out, name = {}, None
+    for ln in _build.CPMLK.build_log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d+(cpmlk\w*?_kernel)I(\w+?)EEv", ln)
+        if m:
+            args = m.group(2).replace("13__nv_bfloat16", "bf16,").replace("Lb1E", " true,")
+            args = args.replace("Lb0E", " false,")
+            args = ("float," + args[1:] if args.startswith("f") else args).rstrip(",")
+            name = f"{m.group(1)}<{args}>" if m.group(1) == entry else None
+            if name:
+                out[name] = []
+        elif name and ("spill" in ln or "registers" in ln):
+            out[name].append(" ".join(ln.split(":", 1)[-1].split()))
+    return {k: " | ".join(v) for k, v in out.items()}
+
+
+def log_ptxas(key, group, entry):
+    """Log and keep in ``group`` the ptxas lines of cpmlk.cu's ``entry``."""
+    group["ptxas"] = cpmlk_ptxas(entry)
+    require(group["ptxas"], f"no ptxas lines of {entry} in cpmlk.cu's build log")
+    for name, lines in group["ptxas"].items():
+        log(f"ptxas {key} {name}: {lines}")
+
+
 def region_bytes(region):
     """What a call adds for a DensePml region: its six (bx, by, bz) f32
     coefficient volumes read once, its four psi volumes read and written."""
@@ -5490,6 +5529,7 @@ def cpml_timings(torch, ft):
     gen.manual_seed(5)
     state = with_dft(torch, sim.init(), options, gen)
     report("config3_256", named, in_turns(torch, named, state, 8), ABSORB_SHAPE, models)
+    log_ptxas("config3_256", results["config3_256"], "cpmlk_kernel")
     del state
 
     # 256^3 and 512^3 with Cpml.uniform(10), no TF/SF, uniform coefficients;
@@ -5517,8 +5557,9 @@ def cpml_timings(torch, ft):
             models[f"K4 K={top} io_alias"] = models[f"K4 K={top}"]
             state = ft.init_engine_state(shape, dtype, cpml=cpml, device=dev)
             state = state.replace(ez=torch.ones_like(state.ez))
-            report(f"cpml_{shape[0]}_{str(dtype)[6:]}", named,
-                   in_turns(torch, named, state, 6), shape, models)
+            key = f"cpml_{shape[0]}_{str(dtype)[6:]}"
+            report(key, named, in_turns(torch, named, state, 6), shape, models)
+            log_ptxas(key, results[key], "cpmlk_kernel")
             del state
             torch.cuda.empty_cache()
     return results

@@ -32,7 +32,9 @@
 // cells, with one psi set read and written by the cell's owner. All three
 // passes share the per-cell arithmetic (h_cell, e_cell, in the tile pass's
 // order), so at f32 storage the halves are bit-identical to the tile pass;
-// at bf16 storage H is rounded to bf16 before E reads it.
+// at bf16 storage H is rounded to bf16 before E reads it. K4's out-of-place
+// half passes (cpmlk.cu) call h_cell and e_cell in the same way, between
+// its buffer sets.
 //
 // The extensions (EXT = true: instantiations of K3 and K4 of their own, so
 // the kernels without them compile as they were), each switched on at run
@@ -377,28 +379,22 @@ __device__ __forceinline__ void e_cell(EF e, long long i, int p, int y,
 // aux_e / aux_h (null without TF/SF). j_col / m_col: the source-row column
 // of this tick's J / M, or -1 for none. With EXT: the region of X.D (its
 // psi sets QS/QD too) and the oblique corrections of row `ob` (null: none).
-// FRAME: the edge planes and aux origin of *F (K4e x-side; see Frame).
-template <typename TI, typename TO, int QS, int QD, bool EXT = false, bool FRAME = false>
+template <typename TI, typename TO, int QS, int QD, bool EXT = false>
 __device__ void tile_pass(yee::Fields<const TI> in, yee::Fields<TO> out,
                           const yee::Lattice& L, const yee::Material& M,
                           const yee::Sources& S, int j_col, int m_col,
                           const Profiles& P, const Psi& Q,
                           const Tfsf T, const float* aux_e, const float* aux_h,
                           int y0, int z0, int x_lo, int x_hi, yee::Shared& sh,
-                          const Ext& X, const float* ob, const Frame* F = nullptr) {
+                          const Ext& X, const float* ob) {
   const int tz = threadIdx.x, ty = threadIdx.y, tid = ty * TZ + tz;
   const int y = y0 + ty, z = z0 + tz;
   const bool own = y < L.ny && z < L.nz;
   const long long plane = (long long)L.ny * L.nz;
   float top_hy = 0.f, top_hz = 0.f;  // new H at plane p+1 (this thread's cell)
   // the differences taken: backward ones above bx, by, bz, forward ones
-  // below fx, fy, fz (the lattice's faces unless FRAME moves them inward)
-  int bx = 0, by = 0, bz = 0, fx = L.nx - 1, fy = L.ny - 1, fz = L.nz - 1, ax0 = 0;
-  if constexpr (FRAME) {
-    bx = max(bx, F->ed.x_lo), by = max(by, F->ed.y_lo), bz = max(bz, F->ed.z_lo);
-    fx = min(fx, F->ed.x_hi), fy = min(fy, F->ed.y_hi), fz = min(fz, F->ed.z_hi);
-    ax0 = F->x0;
-  }
+  // below fx, fy, fz (the lattice's faces)
+  const int bx = 0, by = 0, bz = 0, fx = L.nx - 1, fy = L.ny - 1, fz = L.nz - 1;
 
   // x_hi < nx: start one plane above the chunk to seed the carry
   const int p_start = x_hi < L.nx ? x_hi : x_hi - 1;
@@ -423,8 +419,7 @@ __device__ void tile_pass(yee::Fields<const TI> in, yee::Fields<TO> out,
       const float dex_y = (yy > by ? ex - yee::load(in.ex, i - L.nz) : 0.f) * L.inv_y;
       float hx, hy, hz;
       h_cell<TI, QS, QD, EXT>(in, i, p, yy, zz, keep, dez_y, dey_z, dex_z, dez_x, dey_x,
-                              dex_y, L, M, S, m_col, P, Q, T, aux_e, sh, X, ob, hx, hy, hz,
-                              ax0);
+                              dex_y, L, M, S, m_col, P, Q, T, aux_e, sh, X, ob, hx, hy, hz);
       sh.hx[ly][lz] = hx;
       sh.hy[ly][lz] = hy;
       sh.hz[ly][lz] = hz;
@@ -450,7 +445,7 @@ __device__ void tile_pass(yee::Fields<const TI> in, yee::Fields<TO> out,
         const float dhx_y = (y_in ? sh.hx[ty + 1][tz] - hx : 0.f) * L.inv_y;
         float ex, ey, ez;
         e_cell<TI, QS, QD, EXT>(in, i, p, y, z, dhz_y, dhy_z, dhx_z, dhz_x, dhy_x, dhx_y,
-                                L, M, S, j_col, P, Q, T, aux_h, sh, X, ob, ex, ey, ez, ax0);
+                                L, M, S, j_col, P, Q, T, aux_h, sh, X, ob, ex, ey, ez);
         yee::store(out.ex, i, ex);
         yee::store(out.ey, i, ey);
         yee::store(out.ez, i, ez);

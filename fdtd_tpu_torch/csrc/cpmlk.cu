@@ -22,9 +22,9 @@
 // Every value is sampled after the level's source injection, from the
 // level's f32 fields (with bf16 storage the last level goes to an f32
 // work set and the epilogue rounds it into the output). Each level ends
-// with an epilogue per work item, after the tile pass and before the grid
+// with an epilogue per work item, after the E half and before the grid
 // barrier: the block re-reads the cells of its own tile and chunk that it
-// has just written, so the tile pass keeps its registers. Plane sums are
+// has just written, so the halves keep their registers. Plane sums are
 // per-tile partials (a fixed shuffle tree inside the block), summed over
 // the tiles in a fixed order after one more grid barrier at the end: two
 // launches on the same input give bit-identical flux rows. DFT planes and
@@ -68,16 +68,40 @@
 // type of their own (core, and the options with the region and the oblique
 // TF/SF), so that K4's and K4e lateral's keep their code.
 //
-// Bound on the H100: device memory, as K3 (cpml.cu). This first version
-// runs each tick as K3's tile pass (cpml.cuh) and does not block in time:
-// the blocks stay resident across the K ticks and a grid-wide barrier
-// (grid.sync) separates them, so a call costs one launch and one upload of
-// rows for K ticks, and moves K3's bytes per tick.
+// Bound on the H100: device memory, as K3 (cpml.cu): a call's bound is K3's
+// bytes (each input read once, each output written once). The blocks stay
+// resident across the K ticks (one cooperative launch), and each level is
+// two half passes between the sets with a grid-wide barrier after each, as
+// in K4 io_alias (cpmlk_inplace.cu): the H half reads the level's E and H
+// and writes new H and psi_H, the E half reads the new H and the level's E
+// and writes new E and psi_E, each thread at its own cells. So no block
+// recomputes a cell that another owns (K3's tile pass recomputes a +1 ring
+// and a seed plane per chunk), and the per-cell arithmetic is cpml.cuh's
+// h_cell and e_cell, called as the tile pass calls them: at f32 storage
+// every output is bit-identical to K3's ticks and to K4 io_alias. As it
+// runs, a tick moves K4 io_alias's 18 fields (72 B/cell at f32) plus psi.
+//
+// Each half marches its tile's x chunk plane by plane, each thread at its
+// own (y, z) column with no barrier inside a half: it reads every value
+// from device memory where it uses it (the neighbours' from L1 and L2) and
+// carries the x neighbour, E at plane p-1 or new H at plane p+1, in
+// registers. Staging the differenced rows and the old values in shared
+// memory by cp.async, per warp and STAGES planes ahead
+// (tools/cpmlk_staged.cuh), ran 1.9x slower (NVIDIA H100 80GB HBM3,
+// 700.00 W; tools/k4_variants.py, PERF.md). The work items are the 8 x 32
+// tiles times x chunks of one length, chosen so that the items fill whole
+// rounds of the resident blocks (plan_levels); the options' epilogue keeps
+// its tiles.
 //
 // Buffers: fields ping-pong between two f32 work sets (the output doubles
 // as one at f32 storage), as in stepk.cu; psi between the output set and
 // one f32 work set. Level l writes the work set when K-l is odd and the
-// output when it is even, so level K always lands in the output.
+// output when it is even, so level K always lands in the output. At bf16
+// storage without options the last level's H half writes its new H in
+// place into work set 1 (each thread reads only its own cell's old H
+// there), and the E half reads it in f32 and rounds it into the output
+// beside the new E: one rounding per call, and no set beyond the two (at
+// K = 2 the wrapper passes work set 1 as work set 2).
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -89,10 +113,110 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// The K levels of a call, shared by K4's kernel and K4e's window kernel
-// (OWNED: the options count rows [o0, o1) alone, cpmlk.cuh); inlined into
-// each, so K4's kernel keeps its parameters and its code.
-// FRAME: K4e x-side's edge planes and aux origin (*F).
+using yee::THREADS;
+using yee::TY;
+using yee::TZ;
+
+// ---- the half passes (tools/k4_variants.py swaps in tools/cpmlk_staged.cuh) ----
+
+// The H half of one level over tile (y0, z0) and planes [x_lo, x_hi), as
+// cpml.cuh's in-place h_half: each thread its own (y, z) column, x
+// ascending, E at plane p-1 carried in registers; new H and psi_H (set QS
+// to set QD) from E and old H in `src`, written to `dst`. The differences
+// vanish at the lattice's faces, or (FRAME) at the edge planes of *F;
+// m_col, aux_e, ob as tile_pass's.
+template <typename TI, typename TO, int QS, int QD, bool EXT, bool FRAME>
+__device__ void h_pass(yee::Fields<const TI> src, yee::Fields<TO> dst, const yee::Lattice& L,
+                       const yee::Material& M, const yee::Sources& S, int m_col,
+                       const cpml::Profiles& P, const cpml::Psi& Q, const cpml::Tfsf& T,
+                       const float* aux_e, int y0, int z0, int x_lo, int x_hi,
+                       const yee::Shared& sh, const cpml::Ext& X, const float* ob,
+                       const cpml::Frame* F) {
+  const int y = y0 + (int)threadIdx.y, z = z0 + (int)threadIdx.x;
+  if (y >= L.ny || z >= L.nz) return;
+  int bx = 0, by = 0, bz = 0, ax0 = 0;
+  if constexpr (FRAME) {
+    bx = max(bx, F->ed.x_lo), by = max(by, F->ed.y_lo), bz = max(bz, F->ed.z_lo);
+    ax0 = F->x0;
+  }
+  const long long plane = (long long)L.ny * L.nz;
+  long long i = (long long)x_lo * plane + (long long)y * L.nz + z;
+  float ey_m = x_lo > 0 ? yee::load(src.ey, i - plane) : 0.f;  // E at plane p-1
+  float ez_m = x_lo > 0 ? yee::load(src.ez, i - plane) : 0.f;
+  for (int p = x_lo; p < x_hi; ++p, i += plane) {
+    const float ex = yee::load(src.ex, i), ey = yee::load(src.ey, i), ez = yee::load(src.ez, i);
+    const float dez_y = (y > by ? ez - yee::load(src.ez, i - L.nz) : 0.f) * L.inv_y;
+    const float dey_z = (z > bz ? ey - yee::load(src.ey, i - 1) : 0.f) * L.inv_z;
+    const float dex_z = (z > bz ? ex - yee::load(src.ex, i - 1) : 0.f) * L.inv_z;
+    const float dez_x = (p > bx ? ez - ez_m : 0.f) * L.inv_x;
+    const float dey_x = (p > bx ? ey - ey_m : 0.f) * L.inv_x;
+    const float dex_y = (y > by ? ex - yee::load(src.ex, i - L.nz) : 0.f) * L.inv_y;
+    float hx, hy, hz;
+    cpml::h_cell<TI, QS, QD, EXT>(src, i, p, y, z, true, dez_y, dey_z, dex_z, dez_x, dey_x,
+                                  dex_y, L, M, S, m_col, P, Q, T, aux_e, sh, X, ob, hx, hy, hz,
+                                  ax0);
+    yee::store(dst.hx, i, hx);
+    yee::store(dst.hy, i, hy);
+    yee::store(dst.hz, i, hz);
+    ey_m = ey;
+    ez_m = ez;
+  }
+}
+
+// The E half of one level over tile (y0, z0) and planes [x_lo, x_hi), as
+// cpml.cuh's in-place e_half: x descending, H at plane p+1 carried in
+// registers; new E and psi_E (set QS to set QD) from the new H in `hn`
+// (f32) and the old E in `src`, written to `dst`; COPY_H: `hn`'s values at
+// the thread's cells rounded into dst's H as well.
+template <typename TI, typename TO, int QS, int QD, bool EXT, bool FRAME, bool COPY_H>
+__device__ void e_pass(yee::Fields<const TI> src, yee::Fields<const float> hn,
+                       yee::Fields<TO> dst, const yee::Lattice& L, const yee::Material& M,
+                       const yee::Sources& S, int j_col, const cpml::Profiles& P,
+                       const cpml::Psi& Q, const cpml::Tfsf& T, const float* aux_h, int y0,
+                       int z0, int x_lo, int x_hi, const yee::Shared& sh, const cpml::Ext& X,
+                       const float* ob, const cpml::Frame* F) {
+  const int y = y0 + (int)threadIdx.y, z = z0 + (int)threadIdx.x;
+  if (y >= L.ny || z >= L.nz) return;
+  int fx = L.nx - 1, fy = L.ny - 1, fz = L.nz - 1, ax0 = 0;
+  if constexpr (FRAME) {
+    fx = min(fx, F->ed.x_hi), fy = min(fy, F->ed.y_hi), fz = min(fz, F->ed.z_hi);
+    ax0 = F->x0;
+  }
+  const long long plane = (long long)L.ny * L.nz;
+  long long i = (long long)(x_hi - 1) * plane + (long long)y * L.nz + z;
+  const bool y_in = y < fy, z_in = z < fz;
+  float top_hy = x_hi < L.nx ? hn.hy[i + plane] : 0.f;  // new H at plane p+1
+  float top_hz = x_hi < L.nx ? hn.hz[i + plane] : 0.f;
+  for (int p = x_hi - 1; p >= x_lo; --p, i -= plane) {
+    const float hx = hn.hx[i], hy = hn.hy[i], hz = hn.hz[i];
+    const bool x_in = p < fx;
+    const float dhz_y = (y_in ? hn.hz[i + L.nz] - hz : 0.f) * L.inv_y;
+    const float dhy_z = (z_in ? hn.hy[i + 1] - hy : 0.f) * L.inv_z;
+    const float dhx_z = (z_in ? hn.hx[i + 1] - hx : 0.f) * L.inv_z;
+    const float dhz_x = (x_in ? top_hz - hz : 0.f) * L.inv_x;
+    const float dhy_x = (x_in ? top_hy - hy : 0.f) * L.inv_x;
+    const float dhx_y = (y_in ? hn.hx[i + L.nz] - hx : 0.f) * L.inv_y;
+    float ex, ey, ez;
+    cpml::e_cell<TI, QS, QD, EXT>(src, i, p, y, z, dhz_y, dhy_z, dhx_z, dhz_x, dhy_x, dhx_y,
+                                  L, M, S, j_col, P, Q, T, aux_h, sh, X, ob, ex, ey, ez, ax0);
+    yee::store(dst.ex, i, ex);
+    yee::store(dst.ey, i, ey);
+    yee::store(dst.ez, i, ez);
+    if constexpr (COPY_H) {
+      yee::store(dst.hx, i, hx);
+      yee::store(dst.hy, i, hy);
+      yee::store(dst.hz, i, hz);
+    }
+    top_hy = hy;
+    top_hz = hz;
+  }
+}
+
+// ---- end of the half passes ----
+
+// The K levels of a call, shared by K4's kernel and K4e's window and shard
+// kernels (OWNED: the options count rows [o0, o1) alone, cpmlk.cuh);
+// inlined into each. FRAME: K4e x-side's edge planes and aux origin (*F).
 template <typename T, bool OPT, bool EXT, bool OWNED, bool FRAME = false>
 __device__ __forceinline__ void run_levels(
     yee::Fields<const T> in, yee::Fields<float> w1, yee::Fields<float> w2,
@@ -101,12 +225,14 @@ __device__ __forceinline__ void run_levels(
     const cpml::Profiles& P, const cpml::Psi& Q, const cpml::Tfsf& tf,
     const cpmlk::Options& A, const cpml::Ext& X, int o0, int o1,
     const cpml::Frame* F = nullptr) {
+  constexpr bool f32 = std::is_same<T, float>::value;
   // with the options at bf16 storage, level K goes to work set 2 in f32
   // (the epilogue rounds it into the output); at f32 storage work set 2
   // is the output
-  constexpr bool f32_last = OPT && !std::is_same<T, float>::value;
+  constexpr bool f32_last = OPT && !f32;
   __shared__ yee::Shared sh;
   yee::load_table(sh, M);
+  const yee::Fields<const float> c1 = yee::as_const(w1), c2 = yee::as_const(w2);
   cg::grid_group grid = cg::this_grid();
   for (int lvl = 1; lvl <= k; ++lvl) {
     // row layout: [x, y, z, J levels 1..K, M levels 1..K (with_m)]
@@ -117,43 +243,60 @@ __device__ __forceinline__ void run_levels(
     const float* ob = EXT && X.O.n_box > 0 ? X.O.corr + (lvl - 1) * X.O.level_len : nullptr;
     // K - lvl odd: write work set 1 of the fields and psi set 2 (the work
     // set); even: work set 2 (the output at f32 storage) and psi set 1 (the
-    // output). Psi set 0 is the input.
+    // output). Psi set 0 is the input. One branch per (psi sets, field
+    // buffers), with the sets as template parameters.
     const bool odd = (k - lvl) & 1;
+    int y0, z0, x_lo, x_hi;
+#define CPMLK_H(TI, TO, QS, QD, SRC, DST)                                                \
+  h_pass<TI, TO, QS, QD, EXT, FRAME>(SRC, DST, L, M, S, m_col, P, Q, tf, aux_e, y0, z0, \
+                                     x_lo, x_hi, sh, X, ob, F)
     for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
-      int y0, z0, x_lo, x_hi;
       yee::decode(w, item, L, y0, z0, x_lo, x_hi);
-      // one branch per (psi sets, field buffers), with the sets as
-      // template parameters and the buffers named directly
-#define CPMLK_PASS(TI, TO, QS, QD, SRC, DST)                                              \
-  cpml::tile_pass<TI, TO, QS, QD, EXT, FRAME>(SRC, DST, L, M, S, j_col, m_col, P, Q, tf, \
-                                              aux_e, aux_h, y0, z0, x_lo, x_hi, sh, X, ob, F)
-      if (lvl == 1 && odd) CPMLK_PASS(T, float, 0, 2, in, w1);
-      else if (lvl == 1) CPMLK_PASS(T, float, 0, 1, in, w2);
-      else if (lvl == k && !f32_last) CPMLK_PASS(float, T, 2, 1, yee::as_const(w1), out);
-      else if (lvl == k) CPMLK_PASS(float, float, 2, 1, yee::as_const(w1), w2);
-      else if (odd) CPMLK_PASS(float, float, 1, 2, yee::as_const(w2), w1);
-      else CPMLK_PASS(float, float, 2, 1, yee::as_const(w1), w2);
-#undef CPMLK_PASS
+      if (lvl == 1 && odd) CPMLK_H(T, float, 0, 2, in, w1);
+      else if (lvl == 1) CPMLK_H(T, float, 0, 1, in, w2);
+      else if (lvl == k) {
+        if constexpr (f32) CPMLK_H(float, T, 2, 1, c1, out);
+        else if constexpr (f32_last) CPMLK_H(float, float, 2, 1, c1, w2);
+        else CPMLK_H(float, float, 2, 1, c1, w1);  // in place: E reads it in f32
+      } else if (odd) CPMLK_H(float, float, 1, 2, c2, w1);
+      else CPMLK_H(float, float, 2, 1, c1, w2);
+    }
+#undef CPMLK_H
+    grid.sync();
+#define CPMLK_E(TI, TO, QS, QD, COPY, SRC, HN, DST)                                     \
+  e_pass<TI, TO, QS, QD, EXT, FRAME, COPY>(SRC, HN, DST, L, M, S, j_col, P, Q, tf, aux_h, \
+                                           y0, z0, x_lo, x_hi, sh, X, ob, F)
+    for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
+      yee::decode(w, item, L, y0, z0, x_lo, x_hi);
+      if (lvl == 1 && odd) CPMLK_E(T, float, 0, 2, false, in, c1, w1);
+      else if (lvl == 1) CPMLK_E(T, float, 0, 1, false, in, c2, w2);
+      else if (lvl == k) {
+        if constexpr (f32) CPMLK_E(float, T, 2, 1, false, c1, yee::as_const(out), out);
+        else if constexpr (f32_last) CPMLK_E(float, float, 2, 1, false, c1, c2, w2);
+        else CPMLK_E(float, T, 2, 1, true, c1, c1, out);  // rounds H into out too
+      } else if (odd) CPMLK_E(float, float, 1, 2, false, c2, c1, w1);
+      else CPMLK_E(float, float, 2, 1, false, c1, c2, w2);
       if constexpr (OPT) {
-        // the level's f32 fields: work set 1 when K - lvl is odd, else work
-        // set 2 (the output at f32 storage)
-        cpmlk::epilogue<float, T, OWNED>(yee::as_const(odd ? w1 : w2), out,
-                                         f32_last && lvl == k, L, A, lvl - 1, y0, z0,
-                                         x_lo, x_hi, item % A.n_tiles, o0, o1);
+        // the level's f32 fields at the block's own cells (this thread
+        // wrote E there just now, and H before the barrier): work set 1
+        // when K - lvl is odd, else work set 2 (the output at f32 storage)
+        cpmlk::epilogue<float, T, OWNED>(odd ? c1 : c2, out, f32_last && lvl == k, L, A,
+                                         lvl - 1, y0, z0, x_lo, x_hi, item % A.n_tiles, o0,
+                                         o1);
       }
     }
+#undef CPMLK_E
     if (lvl < k || OPT) grid.sync();
   }
   if constexpr (OPT) cpmlk::reduce_flux(A, k, L.nx);
 }
 
-// At most 64 registers (4 resident blocks per SM). Uncapped, ptxas gives
-// this kernel 99 registers (2 blocks per SM, against K3's 40 registers and
-// 6 blocks); with the cap and its spills it ran 1.40x faster at 512^3 with
-// Cpml.uniform(10), and caps for 5 or 6 blocks spill more and ran slower
-// there (tools/k4_variants.py; PERF.md).
+// The register cap of the three kernels below: none (tools/k4_variants.py
+// sweeps caps on the card; PERF.md).
+#define CPMLK_BOUNDS __launch_bounds__(yee::THREADS)
+
 template <typename T, bool OPT, bool EXT>
-__global__ void __launch_bounds__(yee::THREADS, 4)
+__global__ void CPMLK_BOUNDS
 cpmlk_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
              yee::Fields<float> w2, yee::Fields<T> out, yee::Lattice L,
              yee::Material M, yee::Sources S, int k, int with_m, yee::Work w,
@@ -170,7 +313,7 @@ cpmlk_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
 // the options and the region (as K4's EXT one); a window without either
 // runs K4's own core kernel.
 template <typename T>
-__global__ void __launch_bounds__(yee::THREADS, 4)
+__global__ void CPMLK_BOUNDS
 cpmlk_owned_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
                    yee::Fields<float> w2, yee::Fields<T> out, yee::Lattice L,
                    yee::Material M, yee::Sources S, int k, int with_m, yee::Work w,
@@ -184,9 +327,9 @@ cpmlk_owned_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
 
 // K4e x-side: K4 on one shard's halo-extended array (K10), with the frame
 // F (cpml.cuh); FULL: the options (their rows counted over [o0, o1)), the
-// region and the oblique TF/SF, else K4's core. The register cap is K4's.
+// region and the oblique TF/SF, else K4's core.
 template <typename T, bool FULL>
-__global__ void __launch_bounds__(yee::THREADS, 4)
+__global__ void CPMLK_BOUNDS
 cpmlk_frame_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
                    yee::Fields<float> w2, yee::Fields<T> out, yee::Lattice L,
                    yee::Material M, yee::Sources S, int k, int with_m, yee::Work w,
@@ -197,6 +340,44 @@ cpmlk_frame_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
                    const __grid_constant__ cpml::Frame F, int o0, int o1) {
   run_levels<T, FULL, FULL, FULL, true>(in, w1, w2, out, L, M, S, k, with_m, w, P, Q, tf,
                                         A, X, o0, o1, &F);
+}
+
+// Plan a cooperative launch of `kernel` (every block resident at once):
+// the items are the tiles times x chunks of one length, the length with
+// the fewest planes per block, rounds x (chunk + 1) (a chunk's edge costs
+// each half one plane more, the carry it seeds), the longer at a tie. So
+// the items fill whole rounds of the resident blocks where the tiles alone
+// would leave a round nearly empty (yee::plan_work, which K1-K3 and the
+// in-place kernels keep, fills one wave and no more).
+template <typename K>
+cudaError_t plan_levels(K kernel, const yee::Lattice& L, yee::Work& w, int& blocks) {
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
+  if (err != cudaSuccess) return err;
+  if (!coop || per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const long long resident = (long long)sms * per_sm;
+  w.n_ty = (L.ny + TY - 1) / TY;
+  w.n_tz = (L.nz + TZ - 1) / TZ;
+  const long long tiles = (long long)w.n_ty * w.n_tz;
+  long long best = -1;
+  const int longest = L.nx;  // tools/k4_variants.py sweeps shorter limits
+  for (int chunk = 1; chunk <= longest; ++chunk) {
+    const long long items = tiles * ((L.nx + chunk - 1) / chunk);
+    const long long cost = (items + resident - 1) / resident * (chunk + 1);
+    if (best < 0 || cost <= best) {
+      best = cost;
+      w.chunk = chunk;
+      w.n_items = (int)items;
+    }
+  }
+  blocks = (int)(w.n_items < resident ? w.n_items : resident);
+  return cudaSuccess;
 }
 
 // OWNED: cpmlk_owned_kernel<T> (OPT and EXT) with the owned rows [o0, o1).
@@ -224,9 +405,9 @@ int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q,
   yee::Work w;
   int blocks = 0;
   cudaError_t err;
-  if constexpr (FRAME) err = yee::cooperative_plan(cpmlk_frame_kernel<T, OPT>, L, w, blocks);
-  else if constexpr (OWNED) err = yee::cooperative_plan(cpmlk_owned_kernel<T>, L, w, blocks);
-  else err = yee::cooperative_plan(cpmlk_kernel<T, OPT, EXT>, L, w, blocks);
+  if constexpr (FRAME) err = plan_levels(cpmlk_frame_kernel<T, OPT>, L, w, blocks);
+  else if constexpr (OWNED) err = plan_levels(cpmlk_owned_kernel<T>, L, w, blocks);
+  else err = plan_levels(cpmlk_kernel<T, OPT, EXT>, L, w, blocks);
   if (err != cudaSuccess) return (int)err;
   cpmlk::Options a = A;
   if (EXT && a.n_tiles == 0) a.n_tiles = w.n_ty * w.n_tz;  // no accumulator option

@@ -1158,3 +1158,166 @@ def test_sharded_gb_k6_x_side_matches_plain_and_default_frame(cuda_device, dtype
         torch.cuda.synchronize()
         assert _equal(a, b)
         assert all(torch.equal(x, y) for x, y in zip(psi_tensors(a), psi_tensors(b)))
+
+
+# -- K4's half passes (csrc/cpmlk.cu) at x chunk and tile edges -----------------
+
+HALF_SHAPE = (70, 64, 77)  # x chunks of a few planes; z ragged against the tiles
+HALF_CPML = pt.Cpml(thickness=((4, 3), (3, 5), (5, 4)))
+HALF_TFSF = pt.Tfsf(span=(9, 60), waveform=pt.GaussianDerivative(6 * DT, 2 * DT),
+                    span_y=(7, 56), span_z=(8, 64))
+FIELDS = ("ex", "ey", "ez", "hx", "hy", "hz")
+
+
+def _on(s, device):
+    """An EngineState's tensors moved to ``device``."""
+    return s.replace(**{f: getattr(s, f).to(device) for f in (*FIELDS, "aux_e", "aux_h")},
+                     psi_h=tuple((a.to(device), b.to(device)) for a, b in s.psi_h),
+                     psi_e=tuple((a.to(device), b.to(device)) for a, b in s.psi_e))
+
+
+def _half_pass_inputs(dtype, device):
+    """(host, device) inputs on HALF_SHAPE: a random EngineState (fields,
+    psi, aux line), the coefficient table, J+M sources, the wrapper's
+    keywords with a material index. A source sits on every x plane, beside
+    the tile edges (y 7, 8, 31, 32; z 31, 32, 63, 64): the kernel cuts x
+    into chunks of a few planes here (as many as the resident blocks
+    take), so every chunk edge, where a half seeds its carry, has a source
+    on it and on the planes beside it."""
+    rng = np.random.default_rng(23)
+    s = pt.init_engine_state(HALF_SHAPE, dtype, cpml=HALF_CPML, tfsf=HALF_TFSF, device="cpu")
+
+    def rand(t):
+        return torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)).to(t.dtype)
+
+    s = s.replace(**{f: rand(getattr(s, f)) for f in FIELDS},
+                  psi_h=tuple((rand(a), rand(b)) for a, b in s.psi_h),
+                  psi_e=tuple((rand(a), rand(b)) for a, b in s.psi_e),
+                  aux_e=rand(s.aux_e), aux_h=rand(s.aux_h), tick=2)
+    ys, zs = (7, 8, 31, 32), (31, 32, 63, 64)
+    src = pt.SourceSet.build([
+        pt.PointSource((x, ys[x % 4], zs[x // 4 % 4]), pt.GaussianPulse((2 + x % 3) * DT, DT),
+                       j=(0.3, -0.2, 0.5), m=(0.1, 0.4, -0.2))
+        for x in range(HALF_SHAPE[0])], device="cpu")
+    mid = torch.from_numpy(rng.integers(0, 3, HALF_SHAPE).astype(np.uint8))
+    kw = dict(inv_dx=INV_DX, dt=DT, constants=pt.REDUCED, cpml=HALF_CPML, tfsf=HALF_TFSF,
+              dtype=dtype, with_m=True, n_materials=3)
+    return ((s, torch.tensor(TABLE), src, dict(kw, matid=mid)),
+            (_on(s, device), torch.tensor(TABLE, device=device), src.to(device),
+             dict(kw, matid=mid.to(device))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [2, 3, 5])
+def test_k4_half_passes_match_plain_at_chunk_edges(cuda_device, dtype, k):
+    """K4 on HALF_SHAPE against its plain version (K4's bars) and, at f32,
+    K4 io_alias (the same halves in place) bit for bit."""
+    (hs, hc, hsrc, hkw), (ds, dc, dsrc, dkw) = _half_pass_inputs(dtype, cuda_device)
+    want = cuda_cpml_stepk_fn(HALF_SHAPE, k, **hkw)(hs, hc, hsrc)
+    before = cuda_cpml_k.launches()
+    got = cuda_cpml_stepk_fn(HALF_SHAPE, k, **dkw)(ds, dc, dsrc)
+    assert cuda_cpml_k.launches() == before + 1
+    _check_engine(got, want, dtype, k)
+    if dtype == torch.float32:
+        own = ds.replace(**{f: getattr(ds, f).clone() for f in FIELDS},
+                         psi_h=tuple((a.clone(), b.clone()) for a, b in ds.psi_h),
+                         psi_e=tuple((a.clone(), b.clone()) for a, b in ds.psi_e))
+        ref = cuda_cpml_stepk_fn(HALF_SHAPE, k, io_alias=True, **dkw)(own, dc, dsrc)
+        assert all(torch.equal(a, b) for a, b in zip(_written(got), _written(ref)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 3])
+def test_k4_bf16_rounds_once_per_call(cuda_device, k):
+    """At bf16 storage without options K4's last level keeps its new H in
+    f32 (in place in work set 1, which is also work set 2 at K = 2) until
+    the E half rounds it into the output beside E: every output equals the
+    f32 kernel's on the same values, rounded once, bit for bit."""
+    _, (ds, dc, dsrc, dkw) = _half_pass_inputs(torch.bfloat16, cuda_device)
+    got = cuda_cpml_stepk_fn(HALF_SHAPE, k, **dkw)(ds, dc, dsrc)
+    up = ds.replace(**{f: getattr(ds, f).float() for f in FIELDS})
+    ref = cuda_cpml_stepk_fn(HALF_SHAPE, k, **dict(dkw, dtype=torch.float32))(up, dc, dsrc)
+    torch.cuda.synchronize()
+    for a, b in zip((*got.e, *got.h), (*ref.e, *ref.h)):
+        assert torch.equal(a, b.to(torch.bfloat16))
+    assert all(torch.equal(a, b) for a, b in zip(psi_tensors(got), psi_tensors(ref)))
+
+
+@pytest.mark.cuda
+def test_k4_bf16_k2_call_holds_one_work_set(cuda_device):
+    """One K4 call at K = 2 in bf16 without options allocates its outputs,
+    one f32 work set (work set 2 is work set 1) and two psi sets beyond its
+    input, and no more: its peak within 1 % + 1 MiB of that."""
+    shape, cpml = (96, 128, 128), pt.Cpml.uniform(6)
+    state = pt.init_engine_state(shape, torch.bfloat16, cpml=cpml, device=cuda_device)
+    state = state.replace(ez=torch.ones_like(state.ez))
+    coeffs = pt.CellCoefficients.uniform((1.0, 0.5, 1.0, 0.5), device=cuda_device)
+    step = cuda_cpml_stepk_fn(shape, 2, inv_dx=(1.0, 1.0, 1.0), dt=0.5, constants=pt.REDUCED,
+                              cpml=cpml, dtype=torch.bfloat16)
+    step(state, coeffs, None)  # builds the kernel and uploads the profiles
+    torch.cuda.synchronize()
+    cells = int(np.prod(shape))
+    psi = sum(t.numel() * 4 for t in psi_tensors(state) if t.dim() and t.numel())
+    model = 6 * cells * 2 + 6 * cells * 4 + 2 * psi
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = step(state, coeffs, None)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert model <= peak <= model * 1.01 + 2 ** 20
+    del out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [2, 3])
+def test_k4e_lateral_half_passes_match_plain_and_k4(cuda_device, dtype, k):
+    """K7 over two windows of HALF_SHAPE (a K4e lateral launch each, x
+    chunks of a few planes) against its plain version (the K7 test's bars)
+    and K4 bit for bit."""
+    from fdtd_tpu_torch.solver.cuda_cpml_blocked import cuda_cpml_blocked_stepk_fn
+
+    (hs, hc, hsrc, hkw), (ds, dc, dsrc, dkw) = _half_pass_inputs(dtype, cuda_device)
+    want = cuda_cpml_blocked_stepk_fn(HALF_SHAPE, k, 2, device="cpu", **hkw)(hs, hc, hsrc)
+    got = cuda_cpml_blocked_stepk_fn(HALF_SHAPE, k, 2, device=cuda_device, **dkw)(
+        ds, dc, dsrc)
+    _check_engine(got, want, dtype, k, 2e-5)
+    ref = cuda_cpml_stepk_fn(HALF_SHAPE, k, **dkw)(ds, dc, dsrc)
+    assert all(torch.equal(a, b) for a, b in zip(_written(got), _written(ref)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [3, 5])
+def test_k4e_x_side_half_passes_match_plain_and_k4(cuda_device, dtype, k):
+    """K4e x-side on each shard of a 2-shard K10 step over HALF_SHAPE (its
+    edge planes K planes in from the arrays' cut faces, among x chunks of a
+    few planes) against its plain version (K4's bars); two K10 passes
+    against two K4 calls bit for bit."""
+    from fdtd_tpu_torch.parallel import (collapse_pml_state, extend_pml_state,
+                                         make_cuda_sharded_cpml_stepk, make_mesh)
+    from fdtd_tpu_torch.solver.cuda_cpml_k import plain_cpml_stepk
+
+    _, (ds, dc, dsrc, dkw) = _half_pass_inputs(dtype, cuda_device)
+    mesh = make_mesh(2, ("x",), devices=[cuda_device] * 2)
+    step = make_cuda_sharded_cpml_stepk(mesh, HALF_SHAPE, k, **dkw)
+    ext = extend_pml_state(ds, mesh, k, cpml=HALF_CPML, tfsf=HALF_TFSF)
+    base = {key: v for key, v in dkw.items() if key != "matid"}
+    plain_kw = {key: v for key, v in base.items() if key not in ("dtype", "n_materials")}
+    for s, st in enumerate(ext.shards):
+        frame = step.frames[s]
+        got = cuda_cpml_stepk_fn(st.shape, k, frame=frame, matid=step.matids[s], **base)(
+            st, dc, dsrc)
+        want = plain_cpml_stepk(st, dc, step.matids[s], dsrc, k, frame=frame, **plain_kw)
+        torch.cuda.synchronize()
+        scale = max(float(f.float().abs().max()) for f in (*want.e, *want.h))
+        tol = (2e-6 * k if dtype == torch.float32 else 2.0 ** -7) * scale
+        for a, b in zip((*got.e, *got.h), (*want.e, *want.h)):
+            assert float((a.float() - b.float()).abs().max()) <= tol
+    two = collapse_pml_state(step(step(ext, dc, dsrc), dc, dsrc), mesh, k, HALF_SHAPE,
+                             cpml=HALF_CPML, tfsf=HALF_TFSF)
+    k4 = cuda_cpml_stepk_fn(HALF_SHAPE, k, **dkw)
+    ref = k4(k4(ds, dc, dsrc), dc, dsrc)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(_written(two), _written(ref)))

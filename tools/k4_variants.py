@@ -1,34 +1,46 @@
 #!/usr/bin/env python3
-"""Time register-cap variants of the K4 CPML kernel on one CUDA card.
+"""Time variants of K4's half passes (cpmlk.cu) on one CUDA card.
 
-    python3 tools/k4_variants.py [--baseline DIR ...] [--shipped-only]
+    python3 tools/k4_variants.py [--baseline DIR ...] [--shipped-only] [--n N]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc. It
-writes copies of ``fdtd_tpu_torch/csrc/cpmlk.cu`` (and the headers beside
-it but ``yee.cuh``, which every copy takes from the package) under
-``build/k4_variants/`` that differ only in the kernel's
-``__launch_bounds__`` (no cap, or room for 3, 4, 5 or 6 resident blocks per
-SM: at most 80, 64, 48 or 40 registers) or in ``tile_pass`` kept out of
-line, adds each ``--baseline`` directory's own ``cpmlk.cu`` and headers
-(another version of the kernel with the same C interface, as it stands)
-and its K3 (``cpml.cu``), builds them with one nvcc each and prints each
-kernel's ptxas lines (the package's K3 too), checks each K4 against K4's
-plain version on a ragged lattice (37x29x53, CPML on every axis, a TF/SF
-box, K = 4) and each K4 and K3 against the package's (bit-identical or
-not), and times each with K3 (and each baseline's K3) beside it at config
-3's 256^3 and at 512^3 with ``Cpml.uniform(10)`` (f32), with CUDA events,
-in turns. All runs are K4 without its options. A baseline from before the
-accumulator options (no ``opt_meta`` in its C entry) or before the region
-and oblique options (no ``ext_meta``) is called through its own
-interface. ``--shipped-only`` keeps the shipped cap (4 blocks per SM) and
-the baselines only.
+copies ``fdtd_tpu_torch/csrc`` under ``build/k4_variants/`` once per
+variant of ``cpmlk.cu``'s half passes, which differ from the shipped
+source in one of: the longest x chunk of a work item (8, 16, 32 or 64
+planes; the shipped ``plan_levels`` takes any length), the register cap
+(``CPMLK_BOUNDS``: room for 3 or 4 resident blocks per SM), the staging
+(the half passes of ``tools/cpmlk_staged.cuh`` in place of the shipped
+ones: each warp stages the rows it differences and its cells' old values
+in shared memory by cp.async, in a ring of 2 or 3 planes) or the tile's
+rows (``yee::TY`` 4 in the copy's own ``yee.cuh``: the kernels without
+options take any tile; the options' flux partials, and K1-K3, keep the
+package's 8), adds each ``--baseline`` directory (another
+version's ``csrc`` with the same C entries, e.g. the parent's: ``git
+archive HEAD fdtd_tpu_torch/csrc | tar -x -C build/parent``), builds them
+with one nvcc each, and prints each build's ptxas lines (registers, spills,
+shared memory per block). Then, for every variant and baseline, it checks
+K4 against its plain version on a ragged lattice (37x29x53, CPML on every
+axis, a TF/SF box, J+M sources, K = 4, f32 and bf16) and bit for bit
+against the shipped build, and times, with CUDA events and in turns
+(the order given, then reversed):
+
+* K4 at K = 8 on 512^3 with Cpml.uniform(10), f32, and at K = 2 in bf16,
+  with K4 io_alias (the package's) beside them;
+* K4e lateral: one launch on the first 260-row window of K7 at 512^3
+  (Cpml.uniform(10), f32, K = 4, n_b = 2);
+* K4e x-side: one launch on an interior 144 x 512^2 shard of config 3 at
+  512^3 f32 over 4 shards (K = 8).
+
+``--shipped-only`` builds the shipped source and the baselines only.
 """
 
 from __future__ import annotations
 
 import argparse
-import math
+import contextlib
 import re
+import shutil
+import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -41,217 +53,255 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 import fdtd_tpu_torch as ft  # noqa: E402
 from fdtd_tpu_torch.solver import _build  # noqa: E402
-from fdtd_tpu_torch.solver.cuda_cpml import cuda_cpml_step_fn  # noqa: E402
+from fdtd_tpu_torch.solver import cuda_cpml_blocked as blk  # noqa: E402
 from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn, plain_cpml_stepk  # noqa: E402
 
 CSRC = ROOT / "fdtd_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "k4_variants"
-BOUNDS = re.compile(r"__launch_bounds__\(yee::THREADS(, \d+)?\)\ncpmlk_kernel")
+STAGES = re.compile(r"constexpr int STAGES = \d+;")
+BOUNDS = re.compile(r"#define CPMLK_BOUNDS __launch_bounds__\(yee::THREADS(, \d+)?\)")
+TILE_ROWS = re.compile(r"constexpr int TY = \d+;")
+#: _build's names of cpmlk.cu's three entries
+ENTRIES = ("CPMLK", "CPMLK_BLOCKED", "CPMLK_SHARDED")
 
 
-def sources(d: Path):
-    """{file name: text} of directory ``d``'s K4 and K3 sources (cpmlk.cu,
-    cpml.cu when there is one, and the headers but yee.cuh), each header
-    including the package's yee.cuh."""
-    out = {"cpmlk.cu": (d / "cpmlk.cu").read_text()}
-    if (d / "cpml.cu").exists():
-        out["cpml.cu"] = (d / "cpml.cu").read_text()
-    for h in sorted(d.glob("*.cuh")):
-        if h.name != "yee.cuh":
-            out[h.name] = h.read_text().replace('#include "yee.cuh"',
-                                                f'#include "{CSRC / "yee.cuh"}"')
-    return out
+#: the half passes of cpmlk.cu, and the staged variant that can take their
+#: place (the same signatures; a ring of STAGES planes of its own)
+HALVES = re.compile(r"// ---- the half passes .*?// ---- end of the half passes ----\n", re.S)
+STAGED = ROOT / "tools" / "cpmlk_staged.cuh"
+LONGEST = re.compile(r"const int longest = L\.nx;")
 
 
-class _OlderEntry(_build.Kernel):
-    """A K4 source whose C entry predates its last ``drop`` arguments before
-    the stream (the accumulator options, then the region and oblique
-    extensions): the wrapper's values for them, null when a run does not
-    use them, are dropped."""
-
-    def __init__(self, name, source, entry, argtypes, drop, csrc):
-        super().__init__(name, source, entry, argtypes[:-1 - drop] + argtypes[-1:],
-                         csrc=csrc)
-        self.drop = drop
-
-    def launch(self, *args):
-        if any(a is not None for a in args[-1 - self.drop:-1]):
-            raise ValueError("this K4 version lacks an option this run uses")
-        super().launch(*args[:-1 - self.drop], args[-1])
-
-
-def variants(baselines, shipped_only=False):
-    """name -> {file name: source text}; only the baselines keep cpml.cu."""
-    files = sources(CSRC)
-    del files["cpml.cu"]  # the package's K3 is _build.CPML
-    cu = files["cpmlk.cu"]
-    assert BOUNDS.search(cu), "cpmlk_kernel's launch bounds not found"
-
-    def cap(blocks, **more):
-        arg = "" if blocks is None else f", {blocks}"
-        return dict(files, **more, **{"cpmlk.cu": BOUNDS.sub(
-            f"__launch_bounds__(yee::THREADS{arg})\ncpmlk_kernel", cu)})
-
+def variants(shipped_only: bool):
+    """name -> (cpmlk.cu text, yee.cuh text) of the shipped sources' variants."""
+    cu, yee = (CSRC / "cpmlk.cu").read_text(), (CSRC / "yee.cuh").read_text()
+    staged = STAGED.read_text()
+    for pattern, text in ((BOUNDS, cu), (HALVES, cu), (LONGEST, cu), (STAGES, staged),
+                          (TILE_ROWS, yee)):
+        assert pattern.search(text), f"{pattern.pattern} not found"
+    out = {"shipped": (cu, yee)}
     if shipped_only:
-        out = {"4 blocks/SM": cap(4)}
-    else:
-        out = {"no cap": cap(None)}
-        for blocks in (3, 4, 5, 6):
-            out[f"{blocks} blocks/SM"] = cap(blocks)
-        out_of_line = files["cpml.cuh"].replace("__device__ void tile_pass",
-                                                "__device__ __noinline__ void tile_pass")
-        for blocks in (None, 4):
-            name = "no cap" if blocks is None else f"{blocks} blocks/SM"
-            out[f"{name}, tile_pass out of line"] = cap(blocks, **{"cpml.cuh": out_of_line})
-    for d in baselines:
-        out[f"baseline {d}"] = sources(Path(d))
+        return out
+
+    def edit(text, stages=None, blocks=None, chunk=None):
+        if blocks is not None:
+            text = BOUNDS.sub(f"#define CPMLK_BOUNDS __launch_bounds__(yee::THREADS, {blocks})",
+                              text)
+        if stages is not None:
+            ring = STAGES.sub(f"constexpr int STAGES = {stages};", staged)
+            text = HALVES.sub(lambda _: ring, text).replace(
+                '#include "cpml.cuh"', '#include <cuda_pipeline.h>\n\n#include "cpml.cuh"')
+        if chunk is not None:
+            text = LONGEST.sub(f"const int longest = L.nx < {chunk} ? L.nx : {chunk};", text)
+        return text
+
+    for chunk in (8, 16, 32, 64):
+        out[f"chunks <= {chunk}"] = (edit(cu, chunk=chunk), yee)
+    for blocks in (3, 4):
+        out[f"{blocks} blocks/SM"] = (edit(cu, blocks=blocks), yee)
+    for stages in (2, 3):
+        out[f"staged, ring of {stages}"] = (edit(cu, stages=stages), yee)
+    out["tile 4 x 32"] = (cu, TILE_ROWS.sub("constexpr int TY = 4;", yee))
     return out
 
 
-def build(baselines, shipped_only=False):
-    """({variant: K4 kernel}, {name: K3 kernel}): the package's K3 and each
-    baseline's."""
-    kernels, k3s = {}, {"K3": _build.CPML}
-    for i, (name, files) in enumerate(variants(baselines, shipped_only).items()):
+def kernels_in(csrc: Path, tag: str, build_dir: Path):
+    """{_build name: Kernel} of cpmlk.cu's three entries built from ``csrc``."""
+    return {name: _build.Kernel(f"{getattr(_build, name).name} {tag}", "cpmlk.cu",
+                                getattr(_build, name).entry, getattr(_build, name).argtypes,
+                                csrc=csrc, build_dir=build_dir)
+            for name in ENTRIES}
+
+
+def build(baselines, shipped_only: bool):
+    """{variant: {_build name: Kernel}}, every library built and loaded."""
+    if OUT.exists():
+        shutil.rmtree(OUT)
+    sets = {}
+    for i, (name, (cu, yee)) in enumerate(variants(shipped_only).items()):
         d = OUT / f"v{i}"
-        d.mkdir(parents=True, exist_ok=True)
-        for fname, text in files.items():
-            # named in its source, so that two equal variants still build
-            # (and print their ptxas lines) apart
-            (d / fname).write_text(f"// variant: {name}\n{text}" if fname.endswith(".cu")
-                                   else text)
-        cu = files["cpmlk.cu"]
-        argtypes = list(_build.CPMLK.argtypes)
-        drop = 0 if "ext_meta" in cu else (2 if "opt_meta" in cu else 4)
-        kernels[name] = (_OlderEntry(f"K4 {name}", "cpmlk.cu", "fdtd_cpmlk", argtypes,
-                                     drop, d)
-                         if drop else _build.Kernel(f"K4 {name}", "cpmlk.cu",
-                                                    "fdtd_cpmlk", argtypes, csrc=d))
-        if "cpml.cu" in files:
-            k3s[f"K3 {name}"] = _build.Kernel(f"K3 {name}", "cpml.cu", "fdtd_cpml",
-                                              _build.CPML.argtypes, csrc=d)
-    every = [*kernels.values(), *k3s.values()]
-    with ThreadPoolExecutor(len(every)) as pool:
-        list(pool.map(lambda k: k.build(), every))
-    for name, k in [*kernels.items(), *k3s.items()]:
-        k.function()
-        print(f"{name}: built in {k.build_seconds} s", flush=True)
-        for entry, regs in ptxas_entries(k.build_log):
-            print(f"  {entry}: {' | '.join(regs)}", flush=True)
-    return kernels, k3s
+        shutil.copytree(CSRC, d)
+        # named in its source, so that two equal variants still build (and
+        # print their ptxas lines) apart
+        (d / "cpmlk.cu").write_text(f"// variant: {name}\n{cu}")
+        (d / "yee.cuh").write_text(yee)
+        sets[name] = kernels_in(d, name, d)
+    for j, b in enumerate(baselines):
+        sets[f"baseline {b}"] = kernels_in(Path(b).resolve(), f"baseline {j}",
+                                           OUT / f"baseline{j}")
+    first = [ks["CPMLK"] for ks in sets.values()]
+    with ThreadPoolExecutor(len(first)) as pool:
+        list(pool.map(lambda k: k.build(), first))
+    for name, ks in sets.items():
+        for k in ks.values():
+            k.function()
+        k = ks["CPMLK"]
+        cs.log(f"{name}: built in {k.build_seconds} s")
+        for entry, lines in ptxas_entries(k.build_log):
+            cs.log(f"  {entry}: {lines}")
+    return sets
 
 
-def ptxas_entries(log):
-    """[(kernel instantiation, its ptxas spill and register lines)] of a
-    build log, the instantiation named by its template arguments."""
+def ptxas_entries(log: str):
+    """[(kernel instantiation, its ptxas lines)] of cpmlk.cu's build log."""
     out = []
     for ln in log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
-        if m and re.search(r"cpmlk?_kernel", m.group(1)):
-            args = re.search(r"cpmlk?_kernelI(\w+?)EEv", m.group(1))
-            name = m.group(1) if args is None else "<" + args.group(1).replace(
-                "13__nv_bfloat16", "bf16").replace("Lb1E", ", true").replace(
-                "Lb0E", ", false").replace("f,", "float,") + ">"
-            if not out or out[-1][0] != name:
-                out.append((name, []))
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            out.append((m.group(1), []))
         elif out and ("registers" in ln or "spill" in ln):
-            out[-1][1].append(ln.split(":", 1)[-1].strip())
-    return out
+            out[-1][1].append(re.sub(r"\s+", " ", ln.split(":", 1)[-1]).strip())
+    return [(name, " | ".join(lines)) for name, lines in out]
 
 
-def check(kernels, k3s, dev):
+@contextlib.contextmanager
+def swapped(kernels: dict):
+    """_build's cpmlk.cu entries replaced by ``kernels`` while a step
+    function is made and called (K4 and K4e x-side take theirs when made,
+    K4e lateral when called)."""
+    saved = {name: getattr(_build, name) for name in kernels}
+    for name, kernel in kernels.items():
+        setattr(_build, name, kernel)
+    try:
+        yield
+    finally:
+        for name, kernel in saved.items():
+            setattr(_build, name, kernel)
+
+
+def through(kernels: dict, make, *args):
+    """``s -> make()(s, *args)``, the step made and called with ``kernels``
+    in _build."""
+    with swapped(kernels):
+        fn = make()
+
+    def call(s):
+        with swapped(kernels):
+            return fn(s, *args)
+    return call
+
+
+def check(sets, dev):
+    """Each variant's K4 against K4's plain version and the shipped build."""
     sim = cs.flagship(ft, cs.LADDER_CHECK_SHAPE, torch.float32, dev)
     dt = sim.grid.dt
     cpml = ft.Cpml(thickness=((4, 3), (3, 5), (5, 4)))
     tfsf = ft.Tfsf(span=(8, 27), waveform=ft.GaussianDerivative(6 * dt, 2 * dt),
                    span_y=(8, 23), span_z=(3, 40))
+    src = cs.ragged_sources(ft, cs.LADDER_CHECK_SHAPE, dt, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    state = cs.random_engine_state(torch, ft, sim, torch.float32, cpml, tfsf, gen)
-    kw = dict(inv_dx=tuple(1.0 / d for d in sim.grid.dx), dt=dt, constants=ft.REDUCED,
-              cpml=cpml, tfsf=tfsf)
-    want = plain_cpml_stepk(state, sim._table_f32, sim.matid, None, 4, **kw)
-    step = cuda_cpml_stepk_fn(cs.LADDER_CHECK_SHAPE, 4, matid=sim.matid, n_materials=3, **kw)
-    shipped = _build.CPMLK
-    first = None
-    for name, k in kernels.items():
-        _build.CPMLK = k
-        got = step(state, sim._table_f32, None)
-        torch.cuda.synchronize()
-        first = got if first is None else first
-        err = cs.max_abs_err(got, want)
-        same = all(torch.equal(a, b) for a, b in zip((*got.e, *got.h), (*first.e, *first.h)))
-        print(f"check {name}: max_abs_err {err:.3e}; fields bit-identical to "
-              f"{next(iter(kernels))}'s {same}", flush=True)
-        cs.require(err <= 2e-6 * 4 * cs.field_scale(want), f"{name} disagrees")
-    _build.CPMLK = shipped
-    step3 = cuda_cpml_step_fn(cs.LADDER_CHECK_SHAPE, matid=sim.matid, n_materials=3, **kw)
-    shipped3, first = _build.CPML, None
-    for name, k in k3s.items():
-        _build.CPML = k
-        got = step3(state, sim._table_f32, None)
-        torch.cuda.synchronize()
-        first = got if first is None else first
-        same = all(torch.equal(a, b) for a, b in zip((*got.e, *got.h), (*first.e, *first.h)))
-        print(f"check {name}: fields bit-identical to the package's K3 {same}", flush=True)
-    _build.CPML = shipped3
+    for dtype in (torch.float32, torch.bfloat16):
+        state = cs.random_engine_state(torch, ft, sim, dtype, cpml, tfsf, gen)
+        kw = dict(inv_dx=tuple(1.0 / d for d in sim.grid.dx), dt=dt, constants=ft.REDUCED,
+                  cpml=cpml, tfsf=tfsf, with_m=True)
+        want = plain_cpml_stepk(state, sim._table_f32, sim.matid, src, 4, **kw)
+        first = None
+        for name, ks in sets.items():
+            step = through(ks, lambda: cuda_cpml_stepk_fn(
+                cs.LADDER_CHECK_SHAPE, 4, dtype=dtype, matid=sim.matid, n_materials=3, **kw),
+                sim._table_f32, src)
+            got = step(cs.clone_engine(torch, state))
+            torch.cuda.synchronize()
+            first = got if first is None else first
+            err = cs.max_abs_err(got, want)
+            same = all(torch.equal(a, b) for a, b in zip((*got.e, *got.h),
+                                                          (*first.e, *first.h)))
+            cs.log(f"check {name} {str(dtype)[6:]}: max_abs_err {err:.3e} against the plain "
+                   f"version; fields bit-identical to the shipped build's {same}")
+            bar = (2e-6 if dtype == torch.float32 else 2 ** -7) * 4 * cs.field_scale(want)
+            cs.require(err <= bar, f"{name} disagrees with K4's plain version")
 
 
-def time_variants(kernels, k3s, shape, sim, dev):
-    if sim is not None:
-        kw = dict(inv_dx=tuple(1.0 / d for d in sim.grid.dx), dt=sim.grid.dt,
-                  constants=ft.REDUCED, cpml=sim.cpml, tfsf=sim.tfsf,
-                  matid=sim.matid, n_materials=sim._table_f32.shape[0])
-        coeffs, state = sim._table_f32, sim.init()
-    else:
-        cpml = ft.Cpml.uniform(10)
-        kw = dict(inv_dx=(1.0,) * 3, dt=0.5, constants=ft.REDUCED, cpml=cpml)
-        coeffs = ft.CellCoefficients.uniform((1.0, 0.5, 1.0, 0.5), device=dev)
-        state = ft.init_engine_state(shape, torch.float32, cpml=cpml, device=dev)
-    k3 = cuda_cpml_step_fn(shape, **kw)
-    k4 = cuda_cpml_stepk_fn(shape, 8, **kw)
+def time_all(sets, dev, n):
+    """The three groups, each variant in turns with the others."""
+    shape = cs.SCALE_SHAPE
+    cpml = ft.Cpml.uniform(10)
+    res = ft.Resolution.courant(1.0, ft.REDUCED, safety=0.99)
+    row = (1.0, res.temporal, 1.0, res.temporal)
+    coeffs = ft.CellCoefficients.uniform(row, device=dev)
+    table = torch.tensor([row], dtype=torch.float32, device=dev)
+    kw = dict(inv_dx=(1.0, 1.0, 1.0), dt=res.temporal, constants=ft.REDUCED, cpml=cpml)
+    out = {}
+    for dtype, k in ((torch.float32, 8), (torch.bfloat16, 2)):
+        named = [(f"K4 K={k} {name}",
+                  through(ks, lambda: cuda_cpml_stepk_fn(shape, k, dtype=dtype, **kw),
+                          coeffs, None), k)
+                 for name, ks in sets.items()]
+        if dtype == torch.float32:
+            f = cuda_cpml_stepk_fn(shape, k, io_alias=True, **kw)
+            named.append((f"K4 K={k} io_alias", lambda s, f=f: f(s, coeffs, None), k))
+        state = ft.init_engine_state(shape, dtype, cpml=cpml, device=dev)
+        state = state.replace(ez=torch.ones_like(state.ez))
+        key = f"k4_512_{str(dtype)[6:]}"
+        out[key] = cs.report_group(key, named, cs.in_turns(torch, named, state, n), shape, {})
+        del state, named
+        torch.cuda.empty_cache()
 
-    def with_kernel(k):
-        def call(s):
-            _build.CPMLK = k
-            return k4(s, coeffs, None)
-        return call
+    # K4e lateral: one launch on K7's first window (K = 4, n_b = 2)
+    k, n_b = cs.K7_K, cs.K7_NB
+    step = blk.cuda_cpml_blocked_stepk_fn(shape, k, n_b, device=dev, **kw)
+    b0 = step.blocks[0]
+    state = ft.init_engine_state(shape, torch.float32, cpml=cpml, device=dev)
+    state = state.replace(ez=torch.ones_like(state.ez))
+    levels = blk.call_levels(b0, state, k)
+    window = b0.gather(state, False)
+    del state
+    named = []
+    for name, ks in sets.items():
+        def launch(w, ks=ks):
+            with swapped(ks):
+                return blk.launch_block(b0, w, table, None, k, False, torch.float32,
+                                        res.temporal, levels)[0]
+        named.append((f"K4e window {name}", launch, k))
+    key = "k4e_window_512_float32"
+    out[key] = cs.report_group(key, named, cs.in_turns(torch, named, window, n), b0.shape, {})
+    del window, named, step
+    torch.cuda.empty_cache()
 
-    def with_k3(k):
-        def call(s):
-            _build.CPML = k
-            return k3(s, coeffs, None)
-        return call
-
-    shipped = _build.CPML
-    named = [(name, with_k3(k), 1) for name, k in k3s.items()]
-    named += [(f"K4 K=8, {name}", with_kernel(k), 8) for name, k in kernels.items()]
-    ms = cs.in_turns(torch, named, state, 20)
-    _build.CPML = shipped
-    cells = math.prod(shape)
-    for name, _, ticks in named:
-        mean = sum(ms[name]) / 2
-        print(f"{shape} {name}: {ms[name][0]:.3f} / {ms[name][1]:.3f} ms per call, "
-              f"{mean / ticks:.3f} ms per tick, {cells * ticks / mean / 1e6:.2f} Gcell/s",
-              flush=True)
+    # K4e x-side: one launch on an interior shard of config 3 split over 4
+    m, k = cs.K10_SMALL, cs.K10_K
+    single = cs.config3(ft, (m, m, m), torch.float32, dev)
+    sim = cs.sharded_from(ft, single, cs.card_mesh(cs.K10_SHARDS, ("x",)))
+    sstep = sim._plan[0]
+    lay, frames, stable = sstep.layout, sstep.frames, sim._step_coeffs
+    skw = dict(inv_dx=(1.0, 1.0, 1.0), dt=sim.grid.dt, constants=ft.REDUCED, cpml=sim.cpml,
+               tfsf=sim.tfsf)
+    named = []
+    for name, ks in sets.items():
+        one = through(ks, lambda: cuda_cpml_stepk_fn(
+            lay.local, k, frame=frames[1], matid=sstep.matids[1],
+            n_materials=stable.shape[0], **skw), stable, None)
+        named.append((f"K4e x-side launch {name}", one, k))
+    state = sim.init()
+    for sh in state.shards:
+        sh.ez.fill_(1.0)
+    key = f"k4e_x_side_{m}_float32"
+    out[key] = cs.report_group(key, named, cs.in_turns(torch, named, state.shards[1], n),
+                               lay.local, {})
+    return out
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", action="append", default=[],
-                    help="a directory with another cpmlk.cu and cpml.cuh to time")
+                    help="another version's csrc directory (the same C entries)")
     ap.add_argument("--shipped-only", action="store_true",
-                    help="time only the shipped cap beside the baselines")
+                    help="build the shipped source and the baselines only")
+    ap.add_argument("--n", type=int, default=6, help="calls per timing")
     args = ap.parse_args()
     if not torch.cuda.is_available():
-        print("needs a CUDA card", file=sys.stderr)
+        print("k4_variants.py needs a CUDA card", file=sys.stderr)
         return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    cs.log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
     dev = torch.device("cuda")
-    kernels, k3s = build(args.baseline, args.shipped_only)
-    check(kernels, k3s, dev)
-    time_variants(kernels, k3s, cs.ABSORB_SHAPE,
-                  cs.config3(ft, cs.ABSORB_SHAPE, torch.float32, dev), dev)
-    time_variants(kernels, k3s, cs.SCALE_SHAPE, None, dev)
+    sets = build(args.baseline, args.shipped_only)
+    check(sets, dev)
+    time_all(sets, dev, args.n)
+    cs.log(card)
     return 0
 
 

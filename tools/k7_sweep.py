@@ -27,7 +27,8 @@ route, and whether it is at least 5 % faster (Simulation's route rule).
 ``--baseline DIR`` (a csrc directory of another version, e.g. the
 parent's: ``git archive HEAD fdtd_tpu_torch/csrc | tar -x -C
 build/parent``) builds that version's K4, K4 io_alias, K6, K5 and K3 beside
-these, requires every ptxas line of theirs to be this build's too, and
+these, requires every ptxas line of theirs but K4's (``cpmlk.cu``, whose
+schedule was redesigned; its lines are logged) to be this build's too, and
 their outputs to equal these kernels' bit for bit on the self-check
 cases (K4 and K4 io_alias with and without their options, region and
 oblique TF/SF; K6; K5 with and without the oblique TF/SF; f32 and bf16).
@@ -71,6 +72,9 @@ NBS = (2, 4, 8)
 #: the kernels a baseline directory is built for: _build's name -> its source
 BASELINE_OF = {"CPMLK": "cpmlk.cu", "CPMLK_INPLACE": "cpmlk_inplace.cu",
                "CPMLK_GB": "cpmlk_gb.cu", "CPMLK_XZ": "cpmlk_xz.cu", "CPML": "cpml.cu"}
+#: the kernels whose ptxas lines may differ from the baseline's (their
+#: outputs may not)
+REDESIGNED = ("CPMLK",)
 
 
 def compare_ptxas(ours, base) -> bool:
@@ -294,7 +298,10 @@ def main() -> int:
         cs.log(f"build {kernel.name} ({kernel.source}): {kernel.build_seconds} s")
     kept = True
     for name, b in base.items():
-        kept &= compare_ptxas(getattr(_build, name), b)
+        same = compare_ptxas(getattr(_build, name), b)
+        # cpmlk.cu's schedule is redesigned on purpose: its lines are logged,
+        # and its outputs held to the baseline's bit for bit below
+        kept &= same or name in REDESIGNED
     if not base:
         for kernel in ours:
             for f, lines in ptxas_entries(kernel.build_log).items():

@@ -33,8 +33,8 @@
 // passes share the per-cell arithmetic (h_cell, e_cell, in the tile pass's
 // order), so at f32 storage the halves are bit-identical to the tile pass;
 // at bf16 storage H is rounded to bf16 before E reads it. K4's out-of-place
-// half passes (cpmlk.cu) call h_cell and e_cell in the same way, between
-// its buffer sets.
+// level loop (cpmlk.cu) runs the same halves (h_pass, e_pass) between its
+// buffer sets.
 //
 // The extensions (EXT = true: instantiations of K3 and K4 of their own, so
 // the kernels without them compile as they were), each switched on at run
@@ -457,74 +457,115 @@ __device__ void tile_pass(yee::Fields<const TI> in, yee::Fields<TO> out,
   }
 }
 
-// The H half of an in-place tick over tile (y0, z0) and planes
-// [x_lo, x_hi), as yee::h_half: each thread its own (y, z) column, x
-// ascending, E at plane p-1 carried in registers. Reads E and writes H and
-// its psi (one set, 0) at its own cells; arguments as tile_pass's.
-template <typename TS, bool EXT>
-__device__ void h_half(yee::Fields<TS> f, const yee::Lattice& L, const yee::Material& M,
-                       const yee::Sources& S, int m_col, const Profiles& P, const Psi& Q,
-                       const Tfsf& T, const float* aux_e, int y0, int z0, int x_lo,
-                       int x_hi, const yee::Shared& sh, const Ext& X, const float* ob) {
+// The H half of one tick over tile (y0, z0) and planes [x_lo, x_hi), as
+// yee::h_half: each thread its own (y, z) column, x ascending, E at plane
+// p-1 carried in registers. New H and psi_H (psi set QS to set QD) from E
+// and the old H in `src`, written to `dst` at the thread's own cells (in
+// place: the same set twice). The differences vanish at the lattice's
+// faces, or (FRAME) at the edge planes of *F; arguments as tile_pass's.
+template <typename TI, typename TO, int QS, int QD, bool EXT, bool FRAME = false>
+__device__ void h_pass(yee::Fields<const TI> src, yee::Fields<TO> dst, const yee::Lattice& L,
+                       const yee::Material& M, const yee::Sources& S, int m_col,
+                       const Profiles& P, const Psi& Q, const Tfsf& T, const float* aux_e,
+                       int y0, int z0, int x_lo, int x_hi, const yee::Shared& sh,
+                       const Ext& X, const float* ob, const Frame* F = nullptr) {
   const int y = y0 + (int)threadIdx.y, z = z0 + (int)threadIdx.x;
   if (y >= L.ny || z >= L.nz) return;
+  int bx = 0, by = 0, bz = 0, ax0 = 0;
+  if constexpr (FRAME) {
+    bx = max(bx, F->ed.x_lo), by = max(by, F->ed.y_lo), bz = max(bz, F->ed.z_lo);
+    ax0 = F->x0;
+  }
   const long long plane = (long long)L.ny * L.nz;
   long long i = (long long)x_lo * plane + (long long)y * L.nz + z;
-  float ey_m = x_lo > 0 ? yee::load(f.ey, i - plane) : 0.f;  // E at plane p-1
-  float ez_m = x_lo > 0 ? yee::load(f.ez, i - plane) : 0.f;
+  float ey_m = x_lo > 0 ? yee::load(src.ey, i - plane) : 0.f;  // E at plane p-1
+  float ez_m = x_lo > 0 ? yee::load(src.ez, i - plane) : 0.f;
   for (int p = x_lo; p < x_hi; ++p, i += plane) {
-    const float ex = yee::load(f.ex, i), ey = yee::load(f.ey, i), ez = yee::load(f.ez, i);
-    const float dez_y = (y > 0 ? ez - yee::load(f.ez, i - L.nz) : 0.f) * L.inv_y;
-    const float dey_z = (z > 0 ? ey - yee::load(f.ey, i - 1) : 0.f) * L.inv_z;
-    const float dex_z = (z > 0 ? ex - yee::load(f.ex, i - 1) : 0.f) * L.inv_z;
-    const float dez_x = (p > 0 ? ez - ez_m : 0.f) * L.inv_x;
-    const float dey_x = (p > 0 ? ey - ey_m : 0.f) * L.inv_x;
-    const float dex_y = (y > 0 ? ex - yee::load(f.ex, i - L.nz) : 0.f) * L.inv_y;
+    const float ex = yee::load(src.ex, i), ey = yee::load(src.ey, i), ez = yee::load(src.ez, i);
+    const float dez_y = (y > by ? ez - yee::load(src.ez, i - L.nz) : 0.f) * L.inv_y;
+    const float dey_z = (z > bz ? ey - yee::load(src.ey, i - 1) : 0.f) * L.inv_z;
+    const float dex_z = (z > bz ? ex - yee::load(src.ex, i - 1) : 0.f) * L.inv_z;
+    const float dez_x = (p > bx ? ez - ez_m : 0.f) * L.inv_x;
+    const float dey_x = (p > bx ? ey - ey_m : 0.f) * L.inv_x;
+    const float dex_y = (y > by ? ex - yee::load(src.ex, i - L.nz) : 0.f) * L.inv_y;
     float hx, hy, hz;
-    h_cell<TS, 0, 0, EXT>(yee::as_const(f), i, p, y, z, true, dez_y, dey_z, dex_z, dez_x,
-                          dey_x, dex_y, L, M, S, m_col, P, Q, T, aux_e, sh, X, ob, hx, hy,
-                          hz);
-    yee::store(f.hx, i, hx);
-    yee::store(f.hy, i, hy);
-    yee::store(f.hz, i, hz);
+    h_cell<TI, QS, QD, EXT>(src, i, p, y, z, true, dez_y, dey_z, dex_z, dez_x, dey_x, dex_y,
+                            L, M, S, m_col, P, Q, T, aux_e, sh, X, ob, hx, hy, hz, ax0);
+    yee::store(dst.hx, i, hx);
+    yee::store(dst.hy, i, hy);
+    yee::store(dst.hz, i, hz);
     ey_m = ey;
     ez_m = ez;
   }
 }
 
-// The E half of an in-place tick: x descending, H at plane p+1 carried in
-// registers. Reads the stored (new) H and writes E and its psi at its own
-// cells.
+// The E half of one tick: x descending, H at plane p+1 carried in
+// registers. New E and psi_E (psi set QS to set QD) from the new H in `hn`
+// and the old E in `src`, written to `dst` at the thread's own cells (in
+// place: the same set three times); COPY_H: `hn`'s values at those cells
+// stored into dst's H as well (rounded to TO).
+template <typename TI, typename TH, typename TO, int QS, int QD, bool EXT, bool FRAME = false,
+          bool COPY_H = false>
+__device__ void e_pass(yee::Fields<const TI> src, yee::Fields<const TH> hn,
+                       yee::Fields<TO> dst, const yee::Lattice& L, const yee::Material& M,
+                       const yee::Sources& S, int j_col, const Profiles& P, const Psi& Q,
+                       const Tfsf& T, const float* aux_h, int y0, int z0, int x_lo,
+                       int x_hi, const yee::Shared& sh, const Ext& X, const float* ob,
+                       const Frame* F = nullptr) {
+  const int y = y0 + (int)threadIdx.y, z = z0 + (int)threadIdx.x;
+  if (y >= L.ny || z >= L.nz) return;
+  int fx = L.nx - 1, fy = L.ny - 1, fz = L.nz - 1, ax0 = 0;
+  if constexpr (FRAME) {
+    fx = min(fx, F->ed.x_hi), fy = min(fy, F->ed.y_hi), fz = min(fz, F->ed.z_hi);
+    ax0 = F->x0;
+  }
+  const long long plane = (long long)L.ny * L.nz;
+  long long i = (long long)(x_hi - 1) * plane + (long long)y * L.nz + z;
+  const bool y_in = y < fy, z_in = z < fz;
+  float top_hy = x_hi < L.nx ? yee::load(hn.hy, i + plane) : 0.f;  // H at plane p+1
+  float top_hz = x_hi < L.nx ? yee::load(hn.hz, i + plane) : 0.f;
+  for (int p = x_hi - 1; p >= x_lo; --p, i -= plane) {
+    const float hx = yee::load(hn.hx, i), hy = yee::load(hn.hy, i), hz = yee::load(hn.hz, i);
+    const bool x_in = p < fx;
+    const float dhz_y = (y_in ? yee::load(hn.hz, i + L.nz) - hz : 0.f) * L.inv_y;
+    const float dhy_z = (z_in ? yee::load(hn.hy, i + 1) - hy : 0.f) * L.inv_z;
+    const float dhx_z = (z_in ? yee::load(hn.hx, i + 1) - hx : 0.f) * L.inv_z;
+    const float dhz_x = (x_in ? top_hz - hz : 0.f) * L.inv_x;
+    const float dhy_x = (x_in ? top_hy - hy : 0.f) * L.inv_x;
+    const float dhx_y = (y_in ? yee::load(hn.hx, i + L.nz) - hx : 0.f) * L.inv_y;
+    float ex, ey, ez;
+    e_cell<TI, QS, QD, EXT>(src, i, p, y, z, dhz_y, dhy_z, dhx_z, dhz_x, dhy_x, dhx_y, L, M,
+                            S, j_col, P, Q, T, aux_h, sh, X, ob, ex, ey, ez, ax0);
+    yee::store(dst.ex, i, ex);
+    yee::store(dst.ey, i, ey);
+    yee::store(dst.ez, i, ez);
+    if constexpr (COPY_H) {
+      yee::store(dst.hx, i, hx);
+      yee::store(dst.hy, i, hy);
+      yee::store(dst.hz, i, hz);
+    }
+    top_hy = hy;
+    top_hz = hz;
+  }
+}
+
+// The in-place tick's halves (K4 io_alias): one set, psi set 0.
+template <typename TS, bool EXT>
+__device__ void h_half(yee::Fields<TS> f, const yee::Lattice& L, const yee::Material& M,
+                       const yee::Sources& S, int m_col, const Profiles& P, const Psi& Q,
+                       const Tfsf& T, const float* aux_e, int y0, int z0, int x_lo,
+                       int x_hi, const yee::Shared& sh, const Ext& X, const float* ob) {
+  h_pass<TS, TS, 0, 0, EXT>(yee::as_const(f), f, L, M, S, m_col, P, Q, T, aux_e, y0, z0, x_lo,
+                            x_hi, sh, X, ob);
+}
+
 template <typename TS, bool EXT>
 __device__ void e_half(yee::Fields<TS> f, const yee::Lattice& L, const yee::Material& M,
                        const yee::Sources& S, int j_col, const Profiles& P, const Psi& Q,
                        const Tfsf& T, const float* aux_h, int y0, int z0, int x_lo,
                        int x_hi, const yee::Shared& sh, const Ext& X, const float* ob) {
-  const int y = y0 + (int)threadIdx.y, z = z0 + (int)threadIdx.x;
-  if (y >= L.ny || z >= L.nz) return;
-  const long long plane = (long long)L.ny * L.nz;
-  long long i = (long long)(x_hi - 1) * plane + (long long)y * L.nz + z;
-  const bool y_in = y < L.ny - 1, z_in = z < L.nz - 1;
-  float top_hy = x_hi < L.nx ? yee::load(f.hy, i + plane) : 0.f;  // H at plane p+1
-  float top_hz = x_hi < L.nx ? yee::load(f.hz, i + plane) : 0.f;
-  for (int p = x_hi - 1; p >= x_lo; --p, i -= plane) {
-    const float hx = yee::load(f.hx, i), hy = yee::load(f.hy, i), hz = yee::load(f.hz, i);
-    const bool x_in = p < L.nx - 1;
-    const float dhz_y = (y_in ? yee::load(f.hz, i + L.nz) - hz : 0.f) * L.inv_y;
-    const float dhy_z = (z_in ? yee::load(f.hy, i + 1) - hy : 0.f) * L.inv_z;
-    const float dhx_z = (z_in ? yee::load(f.hx, i + 1) - hx : 0.f) * L.inv_z;
-    const float dhz_x = (x_in ? top_hz - hz : 0.f) * L.inv_x;
-    const float dhy_x = (x_in ? top_hy - hy : 0.f) * L.inv_x;
-    const float dhx_y = (y_in ? yee::load(f.hx, i + L.nz) - hx : 0.f) * L.inv_y;
-    float ex, ey, ez;
-    e_cell<TS, 0, 0, EXT>(yee::as_const(f), i, p, y, z, dhz_y, dhy_z, dhx_z, dhz_x, dhy_x,
-                          dhx_y, L, M, S, j_col, P, Q, T, aux_h, sh, X, ob, ex, ey, ez);
-    yee::store(f.ex, i, ex);
-    yee::store(f.ey, i, ey);
-    yee::store(f.ez, i, ez);
-    top_hy = hy;
-    top_hz = hz;
-  }
+  e_pass<TS, TS, TS, 0, 0, EXT>(yee::as_const(f), yee::as_const(f), f, L, M, S, j_col, P, Q,
+                                T, aux_h, y0, z0, x_lo, x_hi, sh, X, ob);
 }
 
 // ---- host side: the C arguments into the kernel structs ----

@@ -76,22 +76,21 @@
 // and writes new H and psi_H, the E half reads the new H and the level's E
 // and writes new E and psi_E, each thread at its own cells. So no block
 // recomputes a cell that another owns (K3's tile pass recomputes a +1 ring
-// and a seed plane per chunk), and the per-cell arithmetic is cpml.cuh's
-// h_cell and e_cell, called as the tile pass calls them: at f32 storage
-// every output is bit-identical to K3's ticks and to K4 io_alias. As it
-// runs, a tick moves K4 io_alias's 18 fields (72 B/cell at f32) plus psi.
+// and a seed plane per chunk). The halves are cpml.cuh's h_pass and
+// e_pass, which K4 io_alias runs in place: at f32 storage every output is
+// bit-identical to K3's ticks and to K4 io_alias. As it runs, a tick moves
+// K4 io_alias's 18 fields (72 B/cell at f32) plus psi.
 //
 // Each half marches its tile's x chunk plane by plane, each thread at its
 // own (y, z) column with no barrier inside a half: it reads every value
 // from device memory where it uses it (the neighbours' from L1 and L2) and
 // carries the x neighbour, E at plane p-1 or new H at plane p+1, in
 // registers. Staging the differenced rows and the old values in shared
-// memory by cp.async, per warp and STAGES planes ahead
-// (tools/cpmlk_staged.cuh), ran 1.9x slower (NVIDIA H100 80GB HBM3,
-// 700.00 W; tools/k4_variants.py, PERF.md). The work items are the 8 x 32
-// tiles times x chunks of one length, chosen so that the items fill whole
-// rounds of the resident blocks (plan_levels); the options' epilogue keeps
-// its tiles.
+// memory by cp.async, per warp and two or three planes ahead, ran 1.9x
+// slower (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md). The work items are
+// the 8 x 32 tiles times x chunks of one length, chosen so that the items
+// fill whole rounds of the resident blocks (whole_rounds); the options'
+// epilogue keeps its tiles.
 //
 // Buffers: fields ping-pong between two f32 work sets (the output doubles
 // as one at f32 storage), as in stepk.cu; psi between the output set and
@@ -113,106 +112,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-using yee::THREADS;
 using yee::TY;
 using yee::TZ;
-
-// ---- the half passes (tools/k4_variants.py swaps in tools/cpmlk_staged.cuh) ----
-
-// The H half of one level over tile (y0, z0) and planes [x_lo, x_hi), as
-// cpml.cuh's in-place h_half: each thread its own (y, z) column, x
-// ascending, E at plane p-1 carried in registers; new H and psi_H (set QS
-// to set QD) from E and old H in `src`, written to `dst`. The differences
-// vanish at the lattice's faces, or (FRAME) at the edge planes of *F;
-// m_col, aux_e, ob as tile_pass's.
-template <typename TI, typename TO, int QS, int QD, bool EXT, bool FRAME>
-__device__ void h_pass(yee::Fields<const TI> src, yee::Fields<TO> dst, const yee::Lattice& L,
-                       const yee::Material& M, const yee::Sources& S, int m_col,
-                       const cpml::Profiles& P, const cpml::Psi& Q, const cpml::Tfsf& T,
-                       const float* aux_e, int y0, int z0, int x_lo, int x_hi,
-                       const yee::Shared& sh, const cpml::Ext& X, const float* ob,
-                       const cpml::Frame* F) {
-  const int y = y0 + (int)threadIdx.y, z = z0 + (int)threadIdx.x;
-  if (y >= L.ny || z >= L.nz) return;
-  int bx = 0, by = 0, bz = 0, ax0 = 0;
-  if constexpr (FRAME) {
-    bx = max(bx, F->ed.x_lo), by = max(by, F->ed.y_lo), bz = max(bz, F->ed.z_lo);
-    ax0 = F->x0;
-  }
-  const long long plane = (long long)L.ny * L.nz;
-  long long i = (long long)x_lo * plane + (long long)y * L.nz + z;
-  float ey_m = x_lo > 0 ? yee::load(src.ey, i - plane) : 0.f;  // E at plane p-1
-  float ez_m = x_lo > 0 ? yee::load(src.ez, i - plane) : 0.f;
-  for (int p = x_lo; p < x_hi; ++p, i += plane) {
-    const float ex = yee::load(src.ex, i), ey = yee::load(src.ey, i), ez = yee::load(src.ez, i);
-    const float dez_y = (y > by ? ez - yee::load(src.ez, i - L.nz) : 0.f) * L.inv_y;
-    const float dey_z = (z > bz ? ey - yee::load(src.ey, i - 1) : 0.f) * L.inv_z;
-    const float dex_z = (z > bz ? ex - yee::load(src.ex, i - 1) : 0.f) * L.inv_z;
-    const float dez_x = (p > bx ? ez - ez_m : 0.f) * L.inv_x;
-    const float dey_x = (p > bx ? ey - ey_m : 0.f) * L.inv_x;
-    const float dex_y = (y > by ? ex - yee::load(src.ex, i - L.nz) : 0.f) * L.inv_y;
-    float hx, hy, hz;
-    cpml::h_cell<TI, QS, QD, EXT>(src, i, p, y, z, true, dez_y, dey_z, dex_z, dez_x, dey_x,
-                                  dex_y, L, M, S, m_col, P, Q, T, aux_e, sh, X, ob, hx, hy, hz,
-                                  ax0);
-    yee::store(dst.hx, i, hx);
-    yee::store(dst.hy, i, hy);
-    yee::store(dst.hz, i, hz);
-    ey_m = ey;
-    ez_m = ez;
-  }
-}
-
-// The E half of one level over tile (y0, z0) and planes [x_lo, x_hi), as
-// cpml.cuh's in-place e_half: x descending, H at plane p+1 carried in
-// registers; new E and psi_E (set QS to set QD) from the new H in `hn`
-// (f32) and the old E in `src`, written to `dst`; COPY_H: `hn`'s values at
-// the thread's cells rounded into dst's H as well.
-template <typename TI, typename TO, int QS, int QD, bool EXT, bool FRAME, bool COPY_H>
-__device__ void e_pass(yee::Fields<const TI> src, yee::Fields<const float> hn,
-                       yee::Fields<TO> dst, const yee::Lattice& L, const yee::Material& M,
-                       const yee::Sources& S, int j_col, const cpml::Profiles& P,
-                       const cpml::Psi& Q, const cpml::Tfsf& T, const float* aux_h, int y0,
-                       int z0, int x_lo, int x_hi, const yee::Shared& sh, const cpml::Ext& X,
-                       const float* ob, const cpml::Frame* F) {
-  const int y = y0 + (int)threadIdx.y, z = z0 + (int)threadIdx.x;
-  if (y >= L.ny || z >= L.nz) return;
-  int fx = L.nx - 1, fy = L.ny - 1, fz = L.nz - 1, ax0 = 0;
-  if constexpr (FRAME) {
-    fx = min(fx, F->ed.x_hi), fy = min(fy, F->ed.y_hi), fz = min(fz, F->ed.z_hi);
-    ax0 = F->x0;
-  }
-  const long long plane = (long long)L.ny * L.nz;
-  long long i = (long long)(x_hi - 1) * plane + (long long)y * L.nz + z;
-  const bool y_in = y < fy, z_in = z < fz;
-  float top_hy = x_hi < L.nx ? hn.hy[i + plane] : 0.f;  // new H at plane p+1
-  float top_hz = x_hi < L.nx ? hn.hz[i + plane] : 0.f;
-  for (int p = x_hi - 1; p >= x_lo; --p, i -= plane) {
-    const float hx = hn.hx[i], hy = hn.hy[i], hz = hn.hz[i];
-    const bool x_in = p < fx;
-    const float dhz_y = (y_in ? hn.hz[i + L.nz] - hz : 0.f) * L.inv_y;
-    const float dhy_z = (z_in ? hn.hy[i + 1] - hy : 0.f) * L.inv_z;
-    const float dhx_z = (z_in ? hn.hx[i + 1] - hx : 0.f) * L.inv_z;
-    const float dhz_x = (x_in ? top_hz - hz : 0.f) * L.inv_x;
-    const float dhy_x = (x_in ? top_hy - hy : 0.f) * L.inv_x;
-    const float dhx_y = (y_in ? hn.hx[i + L.nz] - hx : 0.f) * L.inv_y;
-    float ex, ey, ez;
-    cpml::e_cell<TI, QS, QD, EXT>(src, i, p, y, z, dhz_y, dhy_z, dhx_z, dhz_x, dhy_x, dhx_y,
-                                  L, M, S, j_col, P, Q, T, aux_h, sh, X, ob, ex, ey, ez, ax0);
-    yee::store(dst.ex, i, ex);
-    yee::store(dst.ey, i, ey);
-    yee::store(dst.ez, i, ez);
-    if constexpr (COPY_H) {
-      yee::store(dst.hx, i, hx);
-      yee::store(dst.hy, i, hy);
-      yee::store(dst.hz, i, hz);
-    }
-    top_hy = hy;
-    top_hz = hz;
-  }
-}
-
-// ---- end of the half passes ----
 
 // The K levels of a call, shared by K4's kernel and K4e's window and shard
 // kernels (OWNED: the options count rows [o0, o1) alone, cpmlk.cuh);
@@ -248,8 +149,8 @@ __device__ __forceinline__ void run_levels(
     const bool odd = (k - lvl) & 1;
     int y0, z0, x_lo, x_hi;
 #define CPMLK_H(TI, TO, QS, QD, SRC, DST)                                                \
-  h_pass<TI, TO, QS, QD, EXT, FRAME>(SRC, DST, L, M, S, m_col, P, Q, tf, aux_e, y0, z0, \
-                                     x_lo, x_hi, sh, X, ob, F)
+  cpml::h_pass<TI, TO, QS, QD, EXT, FRAME>(SRC, DST, L, M, S, m_col, P, Q, tf, aux_e, y0, \
+                                           z0, x_lo, x_hi, sh, X, ob, F)
     for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
       yee::decode(w, item, L, y0, z0, x_lo, x_hi);
       if (lvl == 1 && odd) CPMLK_H(T, float, 0, 2, in, w1);
@@ -264,8 +165,9 @@ __device__ __forceinline__ void run_levels(
 #undef CPMLK_H
     grid.sync();
 #define CPMLK_E(TI, TO, QS, QD, COPY, SRC, HN, DST)                                     \
-  e_pass<TI, TO, QS, QD, EXT, FRAME, COPY>(SRC, HN, DST, L, M, S, j_col, P, Q, tf, aux_h, \
-                                           y0, z0, x_lo, x_hi, sh, X, ob, F)
+  cpml::e_pass<TI, float, TO, QS, QD, EXT, FRAME, COPY>(SRC, HN, DST, L, M, S, j_col, P, Q, \
+                                                        tf, aux_h, y0, z0, x_lo, x_hi, sh, X, \
+                                                        ob, F)
     for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
       yee::decode(w, item, L, y0, z0, x_lo, x_hi);
       if (lvl == 1 && odd) CPMLK_E(T, float, 0, 2, false, in, c1, w1);
@@ -292,7 +194,7 @@ __device__ __forceinline__ void run_levels(
 }
 
 // The register cap of the three kernels below: none (tools/k4_variants.py
-// sweeps caps on the card; PERF.md).
+// rebuilds copies with caps; PERF.md).
 #define CPMLK_BOUNDS __launch_bounds__(yee::THREADS)
 
 template <typename T, bool OPT, bool EXT>
@@ -342,32 +244,21 @@ cpmlk_frame_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
                                         A, X, o0, o1, &F);
 }
 
-// Plan a cooperative launch of `kernel` (every block resident at once):
-// the items are the tiles times x chunks of one length, the length with
-// the fewest planes per block, rounds x (chunk + 1) (a chunk's edge costs
-// each half one plane more, the carry it seeds), the longer at a tie. So
-// the items fill whole rounds of the resident blocks where the tiles alone
-// would leave a round nearly empty (yee::plan_work, which K1-K3 and the
-// in-place kernels keep, fills one wave and no more).
-template <typename K>
-cudaError_t plan_levels(K kernel, const yee::Lattice& L, yee::Work& w, int& blocks) {
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
-  if (err != cudaSuccess) return err;
-  if (!coop || per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const long long resident = (long long)sms * per_sm;
+// The work plan of a cooperative launch (yee::cooperative_plan's rule):
+// the items are the tiles times x chunks of one length, of at most
+// `max_chunk` planes, the length with the fewest planes per block, rounds
+// x (chunk + 1) (a chunk's edge costs each half one plane more, the carry
+// it seeds), the longer at a tie. So the items fill whole rounds of the
+// `resident` blocks where the tiles alone would leave a round nearly empty
+// (yee::plan_work, which K1-K3 and the in-place kernels keep, fills one
+// wave and no more).
+yee::Work whole_rounds(const yee::Lattice& L, int resident, int max_chunk) {
+  yee::Work w;
   w.n_ty = (L.ny + TY - 1) / TY;
   w.n_tz = (L.nz + TZ - 1) / TZ;
   const long long tiles = (long long)w.n_ty * w.n_tz;
   long long best = -1;
-  const int longest = L.nx;  // tools/k4_variants.py sweeps shorter limits
-  for (int chunk = 1; chunk <= longest; ++chunk) {
+  for (int chunk = 1; chunk <= L.nx && chunk <= max_chunk; ++chunk) {
     const long long items = tiles * ((L.nx + chunk - 1) / chunk);
     const long long cost = (items + resident - 1) / resident * (chunk + 1);
     if (best < 0 || cost <= best) {
@@ -376,8 +267,7 @@ cudaError_t plan_levels(K kernel, const yee::Lattice& L, yee::Work& w, int& bloc
       w.n_items = (int)items;
     }
   }
-  blocks = (int)(w.n_items < resident ? w.n_items : resident);
-  return cudaSuccess;
+  return w;
 }
 
 // OWNED: cpmlk_owned_kernel<T> (OPT and EXT) with the owned rows [o0, o1).
@@ -405,9 +295,13 @@ int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q,
   yee::Work w;
   int blocks = 0;
   cudaError_t err;
-  if constexpr (FRAME) err = plan_levels(cpmlk_frame_kernel<T, OPT>, L, w, blocks);
-  else if constexpr (OWNED) err = plan_levels(cpmlk_owned_kernel<T>, L, w, blocks);
-  else err = plan_levels(cpmlk_kernel<T, OPT, EXT>, L, w, blocks);
+  constexpr int any = 1 << 30;  // no limit on the chunk length
+  if constexpr (FRAME)
+    err = yee::cooperative_plan(cpmlk_frame_kernel<T, OPT>, L, w, blocks, any, whole_rounds);
+  else if constexpr (OWNED)
+    err = yee::cooperative_plan(cpmlk_owned_kernel<T>, L, w, blocks, any, whole_rounds);
+  else
+    err = yee::cooperative_plan(cpmlk_kernel<T, OPT, EXT>, L, w, blocks, any, whole_rounds);
   if (err != cudaSuccess) return (int)err;
   cpmlk::Options a = A;
   if (EXT && a.n_tiles == 0) a.n_tiles = w.n_ty * w.n_tz;  // no accumulator option

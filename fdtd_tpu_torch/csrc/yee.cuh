@@ -427,10 +427,11 @@ inline Work plan_work(const Lattice& L, int target, int max_chunk = 1 << 30) {
 
 // Plan a cooperative launch of `kernel`: every block must be resident at
 // once, and the blocks loop over the work items (x chunks of at most
-// `max_chunk` planes).
+// `max_chunk` planes) that `rule` makes for the resident blocks.
 template <typename K>
 inline cudaError_t cooperative_plan(K kernel, const Lattice& L, Work& w, int& blocks,
-                                    int max_chunk = 1 << 30) {
+                                    int max_chunk = 1 << 30,
+                                    Work (*rule)(const Lattice&, int, int) = plan_work) {
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -442,7 +443,7 @@ inline cudaError_t cooperative_plan(K kernel, const Lattice& L, Work& w, int& bl
   if (err != cudaSuccess) return err;
   if (!coop || per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   const int resident = sms * per_sm;
-  w = plan_work(L, resident, max_chunk);
+  w = rule(L, resident, max_chunk);
   blocks = w.n_items < resident ? w.n_items : resident;
   return cudaSuccess;
 }

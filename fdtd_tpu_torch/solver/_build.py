@@ -99,12 +99,18 @@ class Kernel:
         return self.build_dir / f"lib{Path(self.source).stem}_{digest.hexdigest()[:16]}.so"
 
     def build(self) -> Path:
-        """Compile the library unless this exact source was built before."""
+        """Compile the library unless this exact source was built before.
+
+        nvcc's output (the ptxas lines) is kept beside the library, so
+        ``build_log`` holds it whether this call compiled or not."""
         lib = self.library_path()
+        log = lib.with_suffix(".log")
         with _BUILD_LOCKS_GUARD:
             lock = _BUILD_LOCKS.setdefault(lib, threading.Lock())
         with lock:
-            if not lib.exists():
+            if lib.exists() and log.exists():
+                self.build_log = log.read_text()
+            else:
                 self._compile(lib)
         return lib
 
@@ -123,6 +129,7 @@ class Kernel:
             raise RuntimeError(
                 f"nvcc failed for {self.source} ({proc.returncode}):\n"
                 f"{' '.join(cmd)}\n{self.build_log}")
+        lib.with_suffix(".log").write_text(self.build_log)
         os.replace(tmp, lib)
         self.build_seconds = time.perf_counter() - start
 

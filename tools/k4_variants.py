@@ -1,20 +1,16 @@
 #!/usr/bin/env python3
-"""Time variants of K4's half passes (cpmlk.cu) on one CUDA card.
+"""Time variants of K4's level loop (cpmlk.cu) on one CUDA card.
 
     python3 tools/k4_variants.py [--baseline DIR ...] [--shipped-only] [--n N]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc. It
 copies ``fdtd_tpu_torch/csrc`` under ``build/k4_variants/`` once per
-variant of ``cpmlk.cu``'s half passes, which differ from the shipped
-source in one of: the longest x chunk of a work item (8, 16, 32 or 64
-planes; the shipped ``plan_levels`` takes any length), the register cap
-(``CPMLK_BOUNDS``: room for 3 or 4 resident blocks per SM), the staging
-(the half passes of ``tools/cpmlk_staged.cuh`` in place of the shipped
-ones: each warp stages the rows it differences and its cells' old values
-in shared memory by cp.async, in a ring of 2 or 3 planes) or the tile's
-rows (``yee::TY`` 4 in the copy's own ``yee.cuh``: the kernels without
-options take any tile; the options' flux partials, and K1-K3, keep the
-package's 8), adds each ``--baseline`` directory (another
+variant, which differs from the shipped sources in one of: the register
+cap of ``cpmlk.cu``'s kernels (``CPMLK_BOUNDS``: room for 3 or 4 resident
+blocks per SM; the shipped build has none) or the tile's rows (``yee::TY``
+4 in the copy's own ``yee.cuh``: the kernels without options take any
+tile; the options' flux partials, and K1-K3, keep the package's 8), adds
+each ``--baseline`` directory (another
 version's ``csrc`` with the same C entries, e.g. the parent's: ``git
 archive HEAD fdtd_tpu_torch/csrc | tar -x -C build/parent``), builds them
 with one nvcc each, and prints each build's ptxas lines (registers, spills,
@@ -58,49 +54,23 @@ from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn, plain_cpml_ste
 
 CSRC = ROOT / "fdtd_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "k4_variants"
-STAGES = re.compile(r"constexpr int STAGES = \d+;")
 BOUNDS = re.compile(r"#define CPMLK_BOUNDS __launch_bounds__\(yee::THREADS(, \d+)?\)")
 TILE_ROWS = re.compile(r"constexpr int TY = \d+;")
 #: _build's names of cpmlk.cu's three entries
 ENTRIES = ("CPMLK", "CPMLK_BLOCKED", "CPMLK_SHARDED")
 
 
-#: the half passes of cpmlk.cu, and the staged variant that can take their
-#: place (the same signatures; a ring of STAGES planes of its own)
-HALVES = re.compile(r"// ---- the half passes .*?// ---- end of the half passes ----\n", re.S)
-STAGED = ROOT / "tools" / "cpmlk_staged.cuh"
-LONGEST = re.compile(r"const int longest = L\.nx;")
-
-
 def variants(shipped_only: bool):
     """name -> (cpmlk.cu text, yee.cuh text) of the shipped sources' variants."""
     cu, yee = (CSRC / "cpmlk.cu").read_text(), (CSRC / "yee.cuh").read_text()
-    staged = STAGED.read_text()
-    for pattern, text in ((BOUNDS, cu), (HALVES, cu), (LONGEST, cu), (STAGES, staged),
-                          (TILE_ROWS, yee)):
+    for pattern, text in ((BOUNDS, cu), (TILE_ROWS, yee)):
         assert pattern.search(text), f"{pattern.pattern} not found"
     out = {"shipped": (cu, yee)}
     if shipped_only:
         return out
-
-    def edit(text, stages=None, blocks=None, chunk=None):
-        if blocks is not None:
-            text = BOUNDS.sub(f"#define CPMLK_BOUNDS __launch_bounds__(yee::THREADS, {blocks})",
-                              text)
-        if stages is not None:
-            ring = STAGES.sub(f"constexpr int STAGES = {stages};", staged)
-            text = HALVES.sub(lambda _: ring, text).replace(
-                '#include "cpml.cuh"', '#include <cuda_pipeline.h>\n\n#include "cpml.cuh"')
-        if chunk is not None:
-            text = LONGEST.sub(f"const int longest = L.nx < {chunk} ? L.nx : {chunk};", text)
-        return text
-
-    for chunk in (8, 16, 32, 64):
-        out[f"chunks <= {chunk}"] = (edit(cu, chunk=chunk), yee)
     for blocks in (3, 4):
-        out[f"{blocks} blocks/SM"] = (edit(cu, blocks=blocks), yee)
-    for stages in (2, 3):
-        out[f"staged, ring of {stages}"] = (edit(cu, stages=stages), yee)
+        out[f"{blocks} blocks/SM"] = (BOUNDS.sub(
+            f"#define CPMLK_BOUNDS __launch_bounds__(yee::THREADS, {blocks})", cu), yee)
     out["tile 4 x 32"] = (cu, TILE_ROWS.sub("constexpr int TY = 4;", yee))
     return out
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Check K7 (the lateral-blocked CPML) and time it at each K and n_b on one CUDA card.
 
-    python3 tools/k7_sweep.py [--seed N] [--large] [--baseline DIR] [--checks-only]
+    python3 tools/k7_sweep.py [--seed N] [--large] [--baseline DIR]
+        [--allow-ptxas SOURCE ...] [--checks-only]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc. It
 builds K4 (with K4e's window entry), K4 io_alias, K6 and K5 (one nvcc
@@ -27,11 +28,13 @@ route, and whether it is at least 5 % faster (Simulation's route rule).
 ``--baseline DIR`` (a csrc directory of another version, e.g. the
 parent's: ``git archive HEAD fdtd_tpu_torch/csrc | tar -x -C
 build/parent``) builds that version's K4, K4 io_alias, K6, K5 and K3 beside
-these, requires every ptxas line of theirs but K4's (``cpmlk.cu``, whose
-schedule was redesigned; its lines are logged) to be this build's too, and
+these, requires every ptxas line of theirs to be this build's too, and
 their outputs to equal these kernels' bit for bit on the self-check
 cases (K4 and K4 io_alias with and without their options, region and
 oblique TF/SF; K6; K5 with and without the oblique TF/SF; f32 and bf16).
+``--allow-ptxas SOURCE`` (e.g. ``cpmlk.cu``, for a change that redesigns
+its schedule on purpose) lets that source's ptxas lines differ; they are
+still logged, and its outputs are still held bit for bit.
 ``--checks-only`` stops after the builds and checks.
 """
 
@@ -72,9 +75,6 @@ NBS = (2, 4, 8)
 #: the kernels a baseline directory is built for: _build's name -> its source
 BASELINE_OF = {"CPMLK": "cpmlk.cu", "CPMLK_INPLACE": "cpmlk_inplace.cu",
                "CPMLK_GB": "cpmlk_gb.cu", "CPMLK_XZ": "cpmlk_xz.cu", "CPML": "cpml.cu"}
-#: the kernels whose ptxas lines may differ from the baseline's (their
-#: outputs may not)
-REDESIGNED = ("CPMLK",)
 
 
 def compare_ptxas(ours, base) -> bool:
@@ -265,6 +265,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--large", action="store_true", help="add config 3 at 1024^3")
     ap.add_argument("--baseline", type=Path, help="another version's csrc directory")
+    ap.add_argument("--allow-ptxas", action="append", default=[], metavar="SOURCE",
+                    choices=sorted(set(BASELINE_OF.values())),
+                    help="a source whose ptxas lines may differ from the baseline's")
     ap.add_argument("--checks-only", action="store_true", help="stop after the checks")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -285,11 +288,6 @@ def main() -> int:
                                        csrc=args.baseline.resolve(),
                                        build_dir=_build.BUILD_DIR / "baseline")
     kernels = ours + list(base.values())
-    if base:
-        # a library built earlier loads without compiling, and leaves no
-        # ptxas lines to compare: build these afresh
-        for kernel in ours:
-            kernel.library_path().unlink(missing_ok=True)
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda kernel: kernel.build(), kernels))
     for kernel in kernels + [_build.CPMLK_BLOCKED]:
@@ -298,10 +296,7 @@ def main() -> int:
         cs.log(f"build {kernel.name} ({kernel.source}): {kernel.build_seconds} s")
     kept = True
     for name, b in base.items():
-        same = compare_ptxas(getattr(_build, name), b)
-        # cpmlk.cu's schedule is redesigned on purpose: its lines are logged,
-        # and its outputs held to the baseline's bit for bit below
-        kept &= same or name in REDESIGNED
+        kept &= compare_ptxas(getattr(_build, name), b) or b.source in args.allow_ptxas
     if not base:
         for kernel in ours:
             for f, lines in ptxas_entries(kernel.build_log).items():

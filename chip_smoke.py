@@ -1447,15 +1447,20 @@ def gb_plan_bytes(shape, plan, itemsize, matid):
     return read + 6 * itemsize * math.prod(shape)
 
 
-def xz_plan_bytes(shape, step, itemsize, matid):
-    """Bytes one K5 call moves as it runs, fields and material index only:
-    gb_plan_bytes over the planes each zone reads (its own, and K planes of
-    fill and drain beyond it, clipped at the lattice's faces)."""
+def window_plan_bytes(shape, step, itemsize, matid):
+    """Bytes one K6 or K5 call moves as it runs, fields and material index
+    only: gb_plan_bytes over the planes each x chunk of its launches reads
+    (its own, and K planes of fill and drain beyond it, clipped at the
+    lattice's faces), for the blocks the card holds at once."""
     nx = shape[0]
-    k = step.plan.k
-    planes = sum(min(nx, x1 + k) - max(0, x0 - k) for x0, x1, _ in step.zones)
+    launches = step.schedule()
+    launches = launches if isinstance(launches, tuple) else (launches,)
+    gb = getattr(step.plan, "gb", step.plan)
+    k = gb.k
+    planes = sum(min(nx, x1 + k) - max(0, x0 - k) for launch in launches
+                 for x0, x1 in launch.chunks())
     write = 6 * itemsize * math.prod(shape)
-    return (gb_plan_bytes(shape, step.plan.gb, itemsize, matid) - write) * planes / nx + write
+    return (gb_plan_bytes(shape, gb, itemsize, matid) - write) * planes / nx + write
 
 
 def gb_timings(torch, ft, ks=GB_KS, k4_ks=None, shapes=(SCALE_SHAPE,), n=6, xz_ks=()):
@@ -1465,7 +1470,7 @@ def gb_timings(torch, ft, ks=GB_KS, k4_ks=None, shapes=(SCALE_SHAPE,), n=6, xz_k
     coefficients, f32 and bf16 (cpml_timings' set-up), and of their plain
     version at ``ks[0]`` and ``xz_ks[0]``. Prints Gcell/s, the bytes per
     cell and tick as K6 and K5 run (fields and index through
-    gb_plan_bytes and xz_plan_bytes, psi once) and their share of 3.35
+    window_plan_bytes, psi once) and their share of 3.35
     TB/s, and each call's bound (cpml_bytes: each input read once, each
     output written once)."""
     from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn, plain_cpml_gb_stepk
@@ -1489,14 +1494,14 @@ def gb_timings(torch, ft, ks=GB_KS, k4_ks=None, shapes=(SCALE_SHAPE,), n=6, xz_k
             for k in ks:
                 f = cuda_cpml_gb_stepk_fn(shape, k, dtype=dtype, device=dev, **kw)
                 named.append((f"K6 K={k}", lambda s, f=f: f(s, coeffs1, None), k))
-                models[f"K6 K={k}"] = (gb_plan_bytes(shape, f.plan, b, False)
+                models[f"K6 K={k}"] = (window_plan_bytes(shape, f, b, False)
                                        + 2 * 4 * psi_cells(shape, cpml)) / k
                 bounds[f"K6 K={k}"] = bound(cells, k, cpml_bytes(shape, b, False, cpml),
                                             psi_cells(shape, cpml))
             for k in xz_ks:
                 f = cuda_cpml_xz_stepk_fn(shape, k, dtype=dtype, device=dev, **kw)
                 named.append((f"K5 K={k}", lambda s, f=f: f(s, coeffs1, None), k))
-                models[f"K5 K={k}"] = (xz_plan_bytes(shape, f, b, False)
+                models[f"K5 K={k}"] = (window_plan_bytes(shape, f, b, False)
                                        + 2 * 4 * psi_cells(shape, cpml)) / k
                 bounds[f"K5 K={k}"] = bound(cells, k, cpml_bytes(shape, b, False, cpml),
                                             psi_cells(shape, cpml))
@@ -1519,6 +1524,7 @@ def gb_timings(torch, ft, ks=GB_KS, k4_ks=None, shapes=(SCALE_SHAPE,), n=6, xz_k
                 group[name]["bound_ms"], group[name]["bound_by"] = b_ms, b_by
                 log(f"bound {key} {name}: {b_ms:.4f} ms per call ({b_by}); the kernel at "
                     f"{b_ms / (sum(group[name]['ms_per_call']) / 2):.1%} of it")
+            log_window_ptxas(key, group)
             results[key] = group
             del state
             torch.cuda.empty_cache()
@@ -1947,7 +1953,7 @@ def window_config3_path(torch, ft, kernel, runs, references, seed):
         if kernel == "K7":
             extra = sum(k7_window_bytes(torch, step, dtype))
         else:
-            extra = 4 * (step.plan.scratch_floats if kernel == "K6" else step.scratch_floats)
+            extra = 4 * step.scratch_floats()
         table, every = sim._table_f32, 8 // k
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -2144,7 +2150,8 @@ def xz_oblique_path(torch, ft, seed):
     want = {name: 0 for name in counts}
     want["K5 cpmlk_xz"] = MAIN_STEPS // k
     require(counts == want, f"{label}: launches {counts}, expected {want}")
-    limit = 1.02 * (2 * state_bytes + sim.matid.numel() + 4 * step.scratch_floats + corr_bytes)
+    limit = 1.02 * (2 * state_bytes + sim.matid.numel() + 4 * step.scratch_floats()
+                    + corr_bytes)
     trace, squares = torch.stack(samples), plane_squares(torch, state)
     require(peak <= limit, f"{label}: peak {peak} > {limit}")
     require(state.tick == MAIN_STEPS and bool(torch.isfinite(squares).all())
@@ -3701,9 +3708,13 @@ def gb_sharded_run(torch, label, sim, ticks, probes, every, seed=None):
     import gc
 
     from fdtd_tpu_torch import parallel as pk
+    from fdtd_tpu_torch.solver import _build
     from fdtd_tpu_torch.solver.cuda_cpml import psi_tensors
+    from fdtd_tpu_torch.solver.cuda_cpml_gb import resident_blocks
 
     k = GB_K
+    dev = torch.device("cuda")
+    dtype = sim.dtype
     require(sim.plan() == (k, "cuda_cpml_k"), f"{label}: the layout plan {sim.plan()}")
     plan = pk.sharded_gb_plan(sim.grid.shape, sim._mesh.shape["x"], sim.bc, sim._cpml_pad, k,
                               sim.dtype)
@@ -3726,7 +3737,9 @@ def gb_sharded_run(torch, label, sim, ticks, probes, every, seed=None):
     cells = math.prod(state.shards[0].shape)
     item = state.shards[0].ex.element_size()
     psi = sum(t.numel() * 4 for t in psi_tensors(state.shards[0]) if t.dim())
-    call_b = 6 * item * cells + psi + 4 * plan.scratch_floats
+    resident = resident_blocks(_build.CPMLK_GB_SHARDED, dtype, k, dev, frame=True)
+    scratch = plan.launch(((0, state.shards[0].shape[0]),), resident).blocks * plan.window_floats
+    call_b = 6 * item * cells + psi + 4 * scratch
     model = 1.02 * (state_b + call_b)
     samples = []
     start = torch.cuda.Event(enable_timing=True)
@@ -5333,6 +5346,43 @@ def cpmlk_ptxas(entry):
         elif name and ("spill" in ln or "registers" in ln):
             out[name].append(" ".join(ln.split(":", 1)[-1].split()))
     return {k: " | ".join(v) for k, v in out.items()}
+
+
+def window_ptxas():
+    """{source: {instantiation: its ptxas lines}} of the wavefront's entries
+    (wavefront_kernel, wavefront_frame_kernel) in cpmlk_gb.cu's and
+    cpmlk_xz.cu's build logs, from this run's build."""
+    import re
+
+    from fdtd_tpu_torch.solver import _build
+
+    out = {}
+    for kernel in (_build.CPMLK_GB, _build.CPMLK_XZ):
+        found, name = {}, None
+        for ln in kernel.build_log.splitlines():
+            if "Compiling entry function" in ln:
+                m = re.search(r"'\w*?\d+(wavefront\w*?_kernel)I(\w+?)EEv", ln)
+                name = None
+                if m:
+                    args = m.group(2).replace("13__nv_bfloat16", "bf16,")
+                    args = args.replace("Lb1E", " true,").replace("Lb0E", " false,")
+                    args = ("float," + args[1:] if args.startswith("f") else args).rstrip(",")
+                    name = f"{m.group(1)}<{args}>"
+                    found[name] = []
+            elif name and ("spill" in ln or "registers" in ln):
+                found[name].append(" ".join(ln.split(":", 1)[-1].split()))
+        out[kernel.source] = {k: " | ".join(v) for k, v in found.items()}
+    return out
+
+
+def log_window_ptxas(key, group):
+    """Log and keep in ``group`` the ptxas lines of cpmlk_gb.cu's and
+    cpmlk_xz.cu's wavefront entries; fail if a source has none."""
+    group["ptxas"] = window_ptxas()
+    for source, entries in group["ptxas"].items():
+        require(entries, f"no ptxas lines of the wavefront in {source}'s build log")
+        for name, lines in entries.items():
+            log(f"ptxas {key} {source} {name}: {lines}")
 
 
 def log_ptxas(key, group, entry):

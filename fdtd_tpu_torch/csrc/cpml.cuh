@@ -217,8 +217,9 @@ __device__ __forceinline__ float stretch(const Profiles& P, const Psi& Q, bool s
 // cells the block owns and drops the rest. Built per plane and level;
 // `store` is not read (every level but the last keeps every window cell's
 // psi). XPSI = false: the x-axis terms are compiled out (K5's interior
-// zone, where the x profiles are the identity).
-template <bool XPSI>
+// zone, where the x profiles are the identity); YZPSI = false: the y- and
+// z-axis terms (a window inside the y and z profiles' identity).
+template <bool XPSI, bool YZPSI = true>
 struct SlotPsiT {
   const Psi* g;             // set 0: the input slabs; set 1: the output slabs
   float* slot;              // this plane's slot: 2 x N_TERMS x wn values
@@ -227,11 +228,11 @@ struct SlotPsiT {
   bool first, last;
 };
 
-template <int HALF, int TERM, int AXIS, int QS, int QD, bool XPSI>
-__device__ __forceinline__ float stretch(const Profiles& P, const SlotPsiT<XPSI>& G, bool,
+template <int HALF, int TERM, int AXIS, int QS, int QD, bool XPSI, bool YZPSI>
+__device__ __forceinline__ float stretch(const Profiles& P, const SlotPsiT<XPSI, YZPSI>& G, bool,
                                          const yee::Lattice& L, int p, int y, int z,
                                          float raw) {
-  if constexpr (AXIS == 0 && !XPSI) return raw;
+  if constexpr ((AXIS == 0 && !XPSI) || (AXIS != 0 && !YZPSI)) return raw;
   const float* prof = P.p[HALF][AXIS];
   if (prof == nullptr) return raw;
   const int n = AXIS == 0 ? L.nx : (AXIS == 1 ? L.ny : L.nz);

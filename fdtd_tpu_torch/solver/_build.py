@@ -84,6 +84,7 @@ class Kernel:
         self.build_seconds = None
         self.build_log = ""
         self._fn = None
+        self._lib = None
         self._error_string = None
         self._lock = threading.Lock()
 
@@ -139,6 +140,7 @@ class Kernel:
             if self._fn is None:
                 lib = ctypes.CDLL(str(self.build()))
                 fn = getattr(lib, self.entry)
+                self._lib = lib
                 fn.argtypes = list(self.argtypes)
                 fn.restype = _I
                 err = lib.fdtd_error_string
@@ -155,6 +157,19 @@ class Kernel:
             msg = self._error_string(rc).decode()
             raise RuntimeError(f"{self.name} kernel failed: CUDA error {rc} ({msg})")
         self.launches += 1
+
+    def call(self, name: str, argtypes, *args) -> None:
+        """Call another C function of this kernel's library (a query, such as
+        the window kernels' ``fdtd_window_resident``): no launch is counted;
+        raise on any CUDA error it returns."""
+        self.function()
+        fn = getattr(self._lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = _I
+        rc = fn(*args)
+        if rc != 0:
+            msg = self._error_string(rc).decode()
+            raise RuntimeError(f"{self.name} {name} failed: CUDA error {rc} ({msg})")
 
 
 def pointers(tensors) -> ctypes.Array:
@@ -206,10 +221,11 @@ CPMLK_INPLACE = Kernel("K4 io_alias", "cpmlk_inplace.cu", "fdtd_cpmlk_inplace",
 
 # fdtd_cpmlk_gb(dtype, fields, psi, prof, ext, table, n_mat, matid, rows,
 #               n_src, row_w, with_m, aux, aux_len, tf, k, nx, ny, nz, inv_x,
-#               inv_y, inv_z, scratch, stream)
+#               inv_y, inv_z, chunk, scratch, scratch_blocks, stream); its
+# library's fdtd_window_resident sizes the scratch (cuda_cpml_gb.py)
 CPMLK_GB = Kernel("K6 cpmlk_gb", "cpmlk_gb.cu", "fdtd_cpmlk_gb",
                   [_I, _PP, _PP, _PP, _PI, _P, _I, _P, _P, _I, _I, _I, _P, _I, _PI,
-                   _I, _I, _I, _I, _F, _F, _F, _P, _P])
+                   _I, _I, _I, _I, _F, _F, _F, _I, _P, _I, _P])
 
 # fdtd_cpmlk_gb_sharded: fdtd_cpmlk_gb's arguments on one shard's
 # halo-extended array, then its frame row (the 6 edge ints and the aux index
@@ -221,10 +237,11 @@ CPMLK_GB_SHARDED = Kernel("K6 x-side", "cpmlk_gb.cu", "fdtd_cpmlk_gb_sharded",
 # fdtd_cpmlk_xz(dtype, fields, psi, prof, ext, table, n_mat, matid, rows,
 #               n_src, row_w, with_m, aux, aux_len, tf, k, nx, ny, nz, inv_x,
 #               inv_y, inv_z, zones, n_zones, ext_meta, ext_ptrs, scratch,
-#               stream); one launch count per call, whatever its zone launches
+#               scratch_blocks, stream); one launch count per call, whatever
+# its zone launches
 CPMLK_XZ = Kernel("K5 cpmlk_xz", "cpmlk_xz.cu", "fdtd_cpmlk_xz",
                   [_I, _PP, _PP, _PP, _PI, _P, _I, _P, _P, _I, _I, _I, _P, _I, _PI,
-                   _I, _I, _I, _I, _F, _F, _F, _PI, _I, _PI, _PP, _P, _P])
+                   _I, _I, _I, _I, _F, _F, _F, _PI, _I, _PI, _PP, _P, _I, _P])
 
 # fdtd_cpmlk_blocked: fdtd_cpmlk's arguments on one window of y rows, then
 # its owned rows o0, o1 before the stream (K4e lateral, cpmlk.cu's second

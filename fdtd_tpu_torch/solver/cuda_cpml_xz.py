@@ -11,9 +11,12 @@ solver/cuda_cpml_gb.py) with the x range cut into up to three zones:
 * mid = [c0, c1): a build without the x-axis CPML terms, where the x
   profiles are the identity; it alone takes the oblique TF/SF corrections.
 
-Each zone reads the intact inputs, K - 1 planes beyond its ends, and writes
-its own planes of the fresh outputs, so the zones of a call need nothing
-from each other. What it takes, as the JAX kernel does: J and (``with_m``)
+Each zone is cut into x chunks (K6's work items, solver/cuda_cpml_gb.py:
+the interior's chunks in one launch, both ends' in another, each launch's
+chunk length chosen to fill whole rounds of the blocks the card holds at
+once); each chunk reads the intact inputs, K - 1 planes beyond its ends,
+and writes its own planes of the fresh outputs, so the chunks of a call
+need nothing from each other. What it takes, as the JAX kernel does: J and (``with_m``)
 M point sources, a uint8 material index with its (K_mat, 4) table, f32 or
 bf16 storage, a slab or box TF/SF, or an ObliqueTfsf. What it refuses, as
 the JAX kernel does: a DensePml region, the accumulator options, and an
@@ -30,6 +33,7 @@ Where the port differs from the JAX module, on purpose:
   K6's ``gb_plan`` (2 <= K <= 9 on an H100). Mosaic's ``n_b``/``h`` and
   the oblique stack's 512 MB guard are the TPU's placement costs: the port
   reads the corrections at absolute coordinates from K4d's per-call pack.
+  The zones' x chunks are K6's (``GbPlan.launch``).
 * **No ``.step2``.** The JAX double pass lands its second pass in the
   donated input buffers to avoid a ``lax.scan`` loop-slot copy; a Python
   loop of kernel calls makes no such copy.
@@ -60,7 +64,7 @@ from ..constants import SI, PhysicalConstants
 from . import _build
 from .boundary import BoundaryConditions
 from .cuda_cpml import CpmlSetup, check_cpml_inputs, plain_cpml_ticks
-from .cuda_cpml_gb import GbPlan, gb_plan, launch_window
+from .cuda_cpml_gb import GbPlan, gb_plan, launch_window, resident_blocks
 from .cuda_cpml_k import plain_cpml_stepk
 from .cuda_step import kernel_table
 from .engine import EngineState, build_step, check_absorbers, split_tfsf
@@ -88,6 +92,16 @@ class XzPlan:
         one grid (PERF.md: 0.5 % faster than a grid each)."""
         ends = tuple((x0, x1, 1) for x0, x1 in ((0, self.c0), (self.c1, nx)) if x1 > x0)
         return ((self.c0, self.c1, 0),) + ends
+
+    def launches(self, nx: int, resident) -> tuple:
+        """The call's launches (K6's ``WindowLaunch``): the interior's, then
+        the slab ends' when there are any; ``resident(xpsi)`` is the number
+        of blocks the card holds at once of the build with (1) or without (0)
+        the x terms."""
+        zones = self.zones(nx)
+        return tuple(self.gb.launch([z[:2] for z in zones if z[2] == xpsi], resident(xpsi),
+                                    xpsi=bool(xpsi))
+                     for xpsi in (0, 1) if any(z[2] == xpsi for z in zones))
 
 
 def xz_plan(shape, bc, cpml, k: int, dtype=torch.float32, oblique=None) -> Optional[XzPlan]:
@@ -163,8 +177,10 @@ def cuda_cpml_xz_stepk_fn(
     parameter). ``device`` (default: the CUDA card; raises without one) is
     where the states live: "cpu" takes the plain version. As the JAX
     builder, it takes no DensePml region and no accumulator option. The
-    step's ``plan`` is its XzPlan, ``zones`` the kernel's zone list and
-    ``scratch_floats`` the psi scratch of a call."""
+    step's ``plan`` is its XzPlan, ``zones`` the kernel's zone list,
+    ``schedule(on=None, resident=None)`` a call's launches (its chunks and
+    grids) and ``scratch_floats(resident=None)`` the psi scratch of a call,
+    for the blocks the card holds at once or for ``resident``."""
     check_absorbers(shape, cpml, tfsf, None, oblique)
     tfsf, ob = split_tfsf(tfsf)
     oblique = oblique if oblique is not None else ob
@@ -195,37 +211,53 @@ def cuda_cpml_xz_stepk_fn(
         check_cpml_inputs(state, setup, shape, dtype, table, matid)
         if state.device.type == "cpu":
             return plain_cpml_ticks(state, step32, table, matid, sources, k, with_m)
-        return launch_xz(state, setup, plan, zones, dtype, table, matid, sources, with_m)
+        return launch_xz(state, setup, plan, schedule(state.device), dtype, table, matid,
+                         sources, with_m)
+
+    def schedule(on=None, resident=None) -> tuple:
+        """The call's launches (``XzPlan.launches``) for ``resident`` blocks
+        (an int, or a function of xpsi), or for those the card of ``on``
+        (default: the step's device) holds."""
+        if resident is None:
+            on = device if on is None else on
+            return plan.launches(shape[0], lambda xpsi: resident_blocks(
+                _build.CPMLK_XZ, dtype, plan.k, on, xpsi=bool(xpsi),
+                ext=not xpsi and oblique is not None))
+        return plan.launches(shape[0], resident if callable(resident) else lambda _: resident)
 
     stepk.plan = plan
     stepk.zones = zones
-    stepk.scratch_floats = scratch_floats(plan, zones)
+    stepk.schedule = schedule
+    stepk.scratch_floats = lambda resident=None: scratch_floats(plan, schedule(
+        resident=resident))
     return stepk
 
 
-def scratch_floats(plan: XzPlan, zones) -> int:
-    """The psi scratch of a call (f32 values): one window set per tile and
-    zone of its largest launch (the zones of one xpsi share a launch)."""
-    per_launch = max(sum(1 for z in zones if z[2] == xpsi) for xpsi in (0, 1))
-    return per_launch * plan.gb.scratch_floats
+def scratch_floats(plan: XzPlan, launches) -> int:
+    """The psi scratch of a call (f32 values): one window set per block of
+    its larger grid (the launches run one after the other on one stream)."""
+    return max(launch.blocks for launch in launches) * plan.gb.window_floats
 
 
-def launch_xz(state: EngineState, setup: CpmlSetup, plan: XzPlan, zones, dtype, table,
+def launch_xz(state: EngineState, setup: CpmlSetup, plan: XzPlan, launches, dtype, table,
               matid, sources, with_m) -> EngineState:
-    """Launch K5 on a CUDA state with ``zones`` ((x0, x1, xpsi) per zone,
-    XzPlan.zones): K6's launch (``launch_window``) with the zone list
-    and this call's oblique corrections, a (K, level_len) pack at absolute
-    coordinates (K4d's), which the interior zone reads. The psi scratch
-    holds one window set per zone of the largest launch."""
+    """Launch K5 on a CUDA state with ``launches`` (``XzPlan.launches``):
+    K6's launch (``launch_window``) with the zone list, each zone's chunk
+    length, and this call's oblique corrections, a (K, level_len) pack at
+    absolute coordinates (K4d's), which the interior's launch reads. The
+    psi scratch holds one window set per block of the larger grid."""
     ext_ptrs = pack = None
     if setup.oblique is not None:
         _, corr = setup.ext_on(state.device)
         pack = corr.pack(state.tick, plan.k, setup.dt)
         # no region (its coefficients and two psi sets), then the pack
         ext_ptrs = (ctypes.c_void_p * 10)(*[None] * 9, pack.data_ptr())
-    flat = [v for zone in zones for v in zone]
-    tail = ((ctypes.c_int * len(flat))(*flat), len(zones), setup.ext_meta, ext_ptrs)
-    new = launch_window(_build.CPMLK_XZ, state, setup, plan.k, scratch_floats(plan, zones),
-                        dtype, table, matid, sources, with_m, tail)
+    flat = [v for launch in launches for x0, x1 in launch.segments
+            for v in (x0, x1, int(launch.xpsi), launch.chunk)]
+    n_zones = len(flat) // 4
+    tail = ((ctypes.c_int * len(flat))(*flat), n_zones, setup.ext_meta, ext_ptrs)
+    blocks = max(launch.blocks for launch in launches)
+    new = launch_window(_build.CPMLK_XZ, state, setup, plan.gb, tail, blocks, dtype, table,
+                        matid, sources, with_m)
     del pack
     return new

@@ -35,7 +35,12 @@ from fdtd_tpu.solver.pallas_cpml_gb import make_pallas_cpml_gb_stepk
 from fdtd_tpu.solver.tfsf import Tfsf as JTfsf
 from fdtd_tpu_torch import convert
 from fdtd_tpu_torch.solver import cuda_cpml_gb
-from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn, gb_plan
+from fdtd_tpu_torch.solver.cuda_cpml_gb import (
+    WindowLaunch,
+    chunk_length,
+    cuda_cpml_gb_stepk_fn,
+    gb_plan,
+)
 from fdtd_tpu_torch.solver.engine import _TERMS
 
 FIELDS = ("ex", "ey", "ez", "hx", "hy", "hz")
@@ -171,7 +176,12 @@ def test_plan_and_refusals():
     shape = (512, 512, 512)
     plan = gb_plan(shape, bc, cpml, 4)
     assert (plan.halo, plan.owned, plan.n_tiles) == (4, 24, 22 * 22)
-    assert plan.smem_bytes == 6 * 4 * 32 * 32 * 4
+    # the table, then the planes: two sets of new-H planes up to K = 8
+    assert plan.smem_bytes == 256 * 4 * 4 + (6 * 4 + 3) * 32 * 32 * 4
+    assert gb_plan(shape, bc, cpml, 9).smem_bytes == 256 * 4 * 4 + 6 * 9 * 32 * 32 * 4
+    assert plan.window_floats == 4 * 12 * 32 * 32
+    # two blocks an SM on 132 SMs: 6 chunks of 86 planes, 11 whole rounds
+    assert plan.launch(((0, 512),), 264) == WindowLaunch(((0, 512),), 86, True, 2904, 264)
     assert [k for k in range(1, 12) if gb_plan(shape, bc, cpml, k)] == list(range(2, 10))
     assert gb_plan((7, 64, 64), bc, pt.Cpml.uniform(2), 4) is None  # nx < 2K
     assert gb_plan(shape, bc, cpml, 4, dtype=torch.float64) is None
@@ -208,3 +218,80 @@ def test_wrapper_refusals(case):
         state = pt.init_engine_state((16, 12, 12), cpml=kw["cpml"], device="cpu")
         step(state, pt.CellCoefficients.uniform((1.0, 0.5, 1.0, 0.5), torch.float32,
                                                 device="cpu"), None)
+
+
+# the chunk plan: (shape, K, resident blocks)
+CHUNK_CASES = [((512, 512, 512), 2, 264), ((512, 512, 512), 3, 264), ((512, 512, 512), 4, 264),
+               ((512, 512, 512), 8, 132), ((136, 512, 512), 4, 264), ((37, 29, 53), 2, 528),
+               ((37, 29, 53), 9, 132), ((264, 1024, 1024), 4, 264)]
+
+
+def _k6_schedule(shape, k, resident):
+    step = cuda_cpml_gb_stepk_fn(shape, k, inv_dx=(1.0, 1.0, 1.0), dt=0.5,
+                                 cpml=pt.Cpml.uniform(2), device="cpu")
+    return step, step.schedule(resident=resident)
+
+
+@pytest.mark.parametrize("shape, k, resident", CHUNK_CASES)
+def test_chunks_cover_the_lattice_once(shape, k, resident):
+    """K6's x chunks cover [0, nx) once, in order, none longer than the
+    launch's chunk length, and the items are every tile times every
+    chunk."""
+    step, launch = _k6_schedule(shape, k, resident)
+    chunks = launch.chunks()
+    assert [p for x0, x1 in chunks for p in range(x0, x1)] == list(range(shape[0]))
+    assert all(0 < x1 - x0 <= launch.chunk for x0, x1 in chunks)
+    assert launch.items == step.plan.n_tiles * len(chunks)
+    assert launch.segments == ((0, shape[0]),) and launch.xpsi
+
+
+@pytest.mark.parametrize("shape, k, resident", CHUNK_CASES)
+def test_fill_and_drain_clip_at_the_faces(shape, k, resident):
+    """Each chunk's first level marches k - 1 planes of fill below it and of
+    drain above it, clipped at the lattice's faces."""
+    nx = shape[0]
+    _, launch = _k6_schedule(shape, k, resident)
+    for (x0, x1), (lo, hi) in zip(launch.chunks(), launch.marched(k, nx)):
+        assert lo == (0 if x0 < k - 1 else x0 - k + 1)
+        assert hi == (nx - 1 if x1 + k - 1 > nx - 1 else x1 + k - 1)
+        assert 0 <= lo <= x0 < x1 <= hi + 1 <= nx
+
+
+@pytest.mark.parametrize("shape, k, resident", CHUNK_CASES)
+def test_items_fill_whole_rounds(shape, k, resident):
+    """The chunk length is the one whose rounds cost the busiest block the
+    fewest plane steps (rounds x (length + 2k - 1)), never more than the
+    tiles alone (one chunk) would, and the grid is min(items, resident)."""
+    nx = shape[0]
+    step, launch = _k6_schedule(shape, k, resident)
+    n_tiles = step.plan.n_tiles
+
+    def cost(length):
+        items = n_tiles * -(-nx // length)
+        return -(-items // resident) * (length + 2 * k - 1)
+
+    assert cost(launch.chunk) == min(cost(n) for n in range(1, nx + 1))
+    assert cost(launch.chunk) <= cost(nx)
+    assert launch.blocks == min(launch.items, resident)
+    assert launch.rounds == -(-launch.items // launch.blocks)
+    assert chunk_length((nx,), n_tiles, k, resident) == (launch.chunk, launch.items)
+
+
+# (K, resident): the rounds at 512^3 (Cpml.uniform(10)), whole where the
+# tiles alone leave the last round part-empty (484 tiles on 264 blocks: 1.83)
+@pytest.mark.parametrize("k, resident, chunk, items", [(2, 264, 64, 2888), (3, 264, 103, 2000),
+                                                       (4, 264, 86, 2904), (4, 132, 171, 1452)])
+def test_rounds_at_512(k, resident, chunk, items):
+    plan = gb_plan((512,) * 3, pt.BoundaryConditions(), pt.Cpml.uniform(10), k)
+    launch = plan.launch(((0, 512),), resident)
+    assert (launch.chunk, launch.items) == (chunk, items)
+    assert launch.items / (launch.rounds * launch.blocks) > 0.94
+
+
+@pytest.mark.parametrize("resident", (1, 7, 132, 264, 10 ** 6))
+def test_scratch_holds_one_window_set_per_resident_block(resident):
+    """The psi scratch of a call is one window set (K slots of 12 terms per
+    window cell) per block of the grid: min(items, resident)."""
+    step, launch = _k6_schedule((40, 29, 53), 3, resident)
+    assert launch.blocks == min(resident, launch.items)
+    assert step.scratch_floats(resident) == launch.blocks * 3 * 12 * 32 * 32

@@ -36,6 +36,7 @@ from fdtd_tpu.solver.tfsf import Tfsf as JTfsf
 from fdtd_tpu.solver.tfsf_oblique import ObliqueTfsf as JObliqueTfsf
 from fdtd_tpu_torch import convert
 from fdtd_tpu_torch.solver import cuda_cpml_xz
+from fdtd_tpu_torch.solver.cuda_cpml_gb import chunk_length
 from fdtd_tpu_torch.solver.cuda_cpml_xz import cuda_cpml_xz_stepk_fn, xz_plan
 from test_torch_cpml_gb import _scaled_close, _slab_psi
 
@@ -223,12 +224,54 @@ def test_plan_rejections_and_zones():
 
 @pytest.mark.parametrize("thick, ends", ((ALL4, 2), (((6, 0), (4, 4), (4, 4)), 1)))
 def test_scratch_holds_the_largest_launch(thick, ends):
-    """The kernel launches the interior zone alone and the slab ends in one
-    grid, so a call's psi scratch holds one window set per end zone."""
+    """The kernel launches the interior zone's chunks alone and the slab
+    ends' in one grid, so a call's psi scratch holds one window set per
+    block of the larger grid: min(items, resident) of each launch."""
     step = cuda_cpml_xz_stepk_fn((48, 32, 256), 2, inv_dx=(1.0, 1.0, 1.0), dt=0.5,
                                  cpml=pt.Cpml(thickness=thick), device="cpu")
     assert sum(z[2] for z in step.zones) == ends
-    assert step.scratch_floats == ends * step.plan.gb.scratch_floats
+    window = step.plan.gb.window_floats
+    assert window == 2 * 12 * 32 * 32
+    # 20 tiles; ALL4: the interior (5, 42) in 13 chunks of 3, the ends (0, 5)
+    # and (42, 48) in 11 of 1; a lo slab alone: (7, 48) in 11 of 4, (0, 7) in 7
+    interior, end = step.schedule(resident=264)
+    want = (((5, 42),), 3, 260, 220) if ends == 2 else (((7, 48),), 4, 220, 140)
+    assert (interior.segments, interior.chunk, interior.items, end.blocks) == want
+    assert len(end.segments) == ends and end.chunk == 1
+    assert step.scratch_floats(264) == max(interior.blocks, end.blocks) * window
+    assert step.scratch_floats(100) == 100 * window
+
+
+# (shape, thickness, K, resident)
+XZ_CHUNK_CASES = [((512, 512, 512), ((10, 10), (10, 10), (10, 10)), 2, 264),
+                  ((512, 512, 512), ((10, 10), (10, 10), (10, 10)), 4, 264),
+                  ((48, 32, 256), ALL4, 2, 264), ((48, 32, 256), ALL4, 3, 7),
+                  ((24, 32, 128), ((6, 0), (4, 4), (0, 0)), 2, 132),
+                  ((37, 29, 53), ((0, 3), (3, 5), (5, 4)), 4, 528)]
+
+
+@pytest.mark.parametrize("shape, thick, k, resident", XZ_CHUNK_CASES)
+def test_interior_chunks_lie_inside_the_cuts(shape, thick, k, resident):
+    """K5's launches: the interior's chunks, without the x terms, lie inside
+    [c0, c1); the slab ends' chunks, with them, outside; together they cover
+    [0, nx) once, and each launch's items fill its rounds as K6's do."""
+    nx = shape[0]
+    step = cuda_cpml_xz_stepk_fn(shape, k, inv_dx=(1.0, 1.0, 1.0), dt=0.5,
+                                 cpml=pt.Cpml(thickness=thick), device="cpu")
+    plan = step.plan
+    launches = step.schedule(resident=resident)
+    assert [launch.xpsi for launch in launches] == [False, True][:len(launches)]
+    inner = launches[0].chunks()
+    assert all(plan.c0 <= x0 < x1 <= plan.c1 for x0, x1 in inner)
+    outer = [c for launch in launches[1:] for c in launch.chunks()]
+    assert all(x1 <= plan.c0 or x0 >= plan.c1 for x0, x1 in outer)
+    planes = sorted(p for x0, x1 in (*inner, *outer) for p in range(x0, x1))
+    assert planes == list(range(nx))
+    for launch in launches:
+        lengths = tuple(b - a for a, b in launch.segments)
+        assert chunk_length(lengths, plan.gb.n_tiles, k, resident) == (launch.chunk,
+                                                                       launch.items)
+        assert launch.blocks == min(launch.items, resident)
 
 
 _SLAB = pt.Tfsf(span=(6, 12), waveform=pt.GaussianPulse(2.0, 1.0))

@@ -1321,3 +1321,142 @@ def test_k4e_x_side_half_passes_match_plain_and_k4(cuda_device, dtype, k):
     ref = k4(k4(ds, dc, dsrc), dc, dsrc)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(_written(two), _written(ref)))
+
+
+# -- K6, K5 and K6 x-side over x chunks (csrc/cpmlk_gb.cuh's work items) -------
+# A lattice ragged against every window, CPML of unequal thickness on every
+# axis, a box TF/SF whose x faces straddle chunk cuts, a material index and
+# J+M sources on and within K planes of the cuts; the chunk length forced
+# (None: the plan's) so that cuts fall on the x slabs' ends (4, 56; the E
+# half's hi slab starts at 55) and K5's zone cuts, and, at 1, so that
+# blocks walk several items each (9 tiles x 61 chunks beyond the resident
+# blocks at K <= 4)
+
+CHUNK_SHAPE = (61, 60, 61)
+CHUNK_CPML = pt.Cpml(thickness=((4, 5), (3, 5), (5, 4)))
+CHUNK_TFSF = pt.Tfsf(span=(20, 35), waveform=pt.GaussianDerivative(6 * DT, 2 * DT),
+                     span_y=(9, 50), span_z=(6, 52))
+CHUNK_PLANES = (0, 3, 4, 5, 9, 19, 20, 21, 27, 28, 29, 35, 36, 50, 54, 55, 56, 57, 60)
+
+
+def _chunk_inputs(dtype, device):
+    rng = np.random.default_rng(23)
+    shape = CHUNK_SHAPE
+    s = pt.init_engine_state(shape, dtype, cpml=CHUNK_CPML, tfsf=CHUNK_TFSF, device=device)
+
+    def rand(t):
+        return torch.from_numpy(rng.standard_normal(t.shape)).to(device=device, dtype=t.dtype)
+
+    s = s.replace(**{f: rand(getattr(s, f)) for f in ("ex", "ey", "ez", "hx", "hy", "hz")},
+                  psi_h=tuple((rand(a), rand(b)) for a, b in s.psi_h),
+                  psi_e=tuple((rand(a), rand(b)) for a, b in s.psi_e),
+                  aux_e=rand(s.aux_e), aux_h=rand(s.aux_h), tick=2)
+    src = pt.SourceSet.build([
+        pt.PointSource((x, (7 * i + 3) % shape[1], (11 * i + 5) % shape[2]),
+                       pt.GaussianPulse(2 * DT, DT), j=(0.5, -0.2, 1.0), m=(0.1, 0.3, -0.2))
+        for i, x in enumerate(CHUNK_PLANES)], device=device)
+    mid = torch.from_numpy(rng.integers(0, 3, shape).astype(np.uint8)).to(device)
+    kw = dict(inv_dx=INV_DX, dt=DT, constants=pt.REDUCED, cpml=CHUNK_CPML, tfsf=CHUNK_TFSF,
+              dtype=dtype, with_m=True, matid=mid, n_materials=3)
+    return s, torch.tensor(TABLE, device=device), src, kw
+
+
+def _force_chunk(monkeypatch, chunk):
+    from fdtd_tpu_torch.solver import cuda_cpml_gb
+
+    if chunk is not None:
+        monkeypatch.setattr(cuda_cpml_gb, "chunk_length", lambda lengths, n_tiles, k, res: (
+            chunk, n_tiles * sum(-(-n // chunk) for n in lengths)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [2, 3, 4, 9])
+@pytest.mark.parametrize("chunk", [None, 1, 4, 5, 7])
+def test_k6_k5_chunks_match_k4(cuda_device, monkeypatch, dtype, k, chunk):
+    """K6 and K5 with chunk cuts on the x slabs' ends, K5's zone cuts and
+    the TF/SF box's x faces: every field and psi slab bit-identical to K4;
+    at chunk 4, K6 against its plain version (K4's bars)."""
+    from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn
+    from fdtd_tpu_torch.solver.cuda_cpml_xz import cuda_cpml_xz_stepk_fn
+
+    _force_chunk(monkeypatch, chunk)
+    state, table, src, kw = _chunk_inputs(dtype, cuda_device)
+    k6 = cuda_cpml_gb_stepk_fn(CHUNK_SHAPE, k, device=cuda_device, **kw)
+    k5 = cuda_cpml_xz_stepk_fn(CHUNK_SHAPE, k, device=cuda_device, **kw)
+    if chunk is not None:
+        assert k6.schedule().chunk == chunk
+        assert all(launch.chunk == chunk for launch in k5.schedule())
+    want = cuda_cpml_stepk_fn(CHUNK_SHAPE, k, **kw)(state, table, src)
+    for got in (k6(state, table, src), k5(state, table, src)):
+        torch.cuda.synchronize()
+        for a, b in zip(_written(got), _written(want)):
+            assert torch.equal(a, b)
+    if chunk == 4:
+        host = {key: v.cpu() if torch.is_tensor(v) else v for key, v in kw.items()}
+        cpu = state.replace(**{f: getattr(state, f).cpu() for f in
+                               ("ex", "ey", "ez", "hx", "hy", "hz", "aux_e", "aux_h")},
+                            psi_h=tuple((a.cpu(), b.cpu()) for a, b in state.psi_h),
+                            psi_e=tuple((a.cpu(), b.cpu()) for a, b in state.psi_e))
+        plain = cuda_cpml_gb_stepk_fn(CHUNK_SHAPE, k, device="cpu", **host)(
+            cpu, table.cpu(), src.to("cpu"))
+        _check_engine(k6(state, table, src), plain, dtype, k, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k, chunk", [(2, None), (4, None), (4, 1), (4, 5), (8, 3)])
+def test_k6_x_side_chunks_match_k4e_x_side(cuda_device, monkeypatch, dtype, k, chunk):
+    """K6 x-side on each shard's array of a 4-shard K10 step, chunks forced
+    across the shards' edge planes: every field and psi slab bit-identical
+    to K4e x-side on the same frame."""
+    from fdtd_tpu_torch.parallel import extend_pml_state, make_cuda_sharded_cpml_stepk, make_mesh
+    from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn
+
+    _force_chunk(monkeypatch, chunk)
+    state, table, src, kw = _k10_inputs(dtype, cuda_device, ((16, 32, 48), ()), k)
+    kw = {key: v for key, v in kw.items() if key not in K10_OPTIONS}
+    state = state.replace(dft=())
+    mesh = make_mesh(4, ("x",), devices=[cuda_device] * 4)
+    step = make_cuda_sharded_cpml_stepk(mesh, K10_SHAPE, k, **kw)
+    ext = extend_pml_state(state, mesh, k, cpml=kw["cpml"], tfsf=kw["tfsf"])
+    base = {key: v for key, v in kw.items() if key != "matid"}
+    for s in range(4):
+        frame, st = step.frames[s], ext.shards[s]
+        got = cuda_cpml_gb_stepk_fn(st.shape, k, frame=frame, matid=step.matids[s],
+                                    device=cuda_device, **base)(st, table, src)
+        want = cuda_cpml_stepk_fn(st.shape, k, frame=frame, matid=step.matids[s], **base)(
+            st, table, src)
+        torch.cuda.synchronize()
+        for a, b in zip(_written(got), _written(want)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K6", "K5"])
+def test_window_call_peak_holds_one_scratch_per_block(cuda_device, kernel):
+    """A call's peak beyond its input: the fresh outputs (fields and psi),
+    the TF/SF aux pack, the source rows, and one window set of psi scratch
+    per block of its grid (min(items, resident)), within 1 MB; the grid's
+    scratch no larger than one window set per tile and chunk."""
+    from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn
+    from fdtd_tpu_torch.solver.cuda_cpml_xz import cuda_cpml_xz_stepk_fn
+
+    state, table, src, kw = _chunk_inputs(torch.float32, cuda_device)
+    make = cuda_cpml_gb_stepk_fn if kernel == "K6" else cuda_cpml_xz_stepk_fn
+    step = make(CHUNK_SHAPE, 4, device=cuda_device, **kw)
+    launches = step.schedule()
+    launches = launches if isinstance(launches, tuple) else (launches,)
+    gb = getattr(step.plan, "gb", step.plan)
+    assert step.scratch_floats() == max(x.blocks for x in launches) * gb.window_floats
+    assert all(x.blocks <= x.items for x in launches)
+    out_bytes = sum(t.numel() * t.element_size() for t in _written(state))
+    step(state, table, src)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = step(state, table, src)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak <= out_bytes + 4 * step.scratch_floats() + (1 << 20)
+    del out

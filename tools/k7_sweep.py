@@ -34,7 +34,8 @@ cases (K4 and K4 io_alias with and without their options, region and
 oblique TF/SF; K6; K5 with and without the oblique TF/SF; f32 and bf16).
 ``--allow-ptxas SOURCE`` (e.g. ``cpmlk.cu``, for a change that redesigns
 its schedule on purpose) lets that source's ptxas lines differ; they are
-still logged, and its outputs are still held bit for bit.
+still logged, and its outputs are still held bit for bit. A baseline whose
+K6 and K5 take no x chunks runs through k6_sweep.ParentWindow.
 ``--checks-only`` stops after the builds and checks.
 """
 
@@ -62,6 +63,7 @@ from fdtd_tpu_torch.solver.cuda_cpml_gb import cuda_cpml_gb_stepk_fn  # noqa: E4
 from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn  # noqa: E402
 from fdtd_tpu_torch.solver.cuda_cpml_xz import cuda_cpml_xz_stepk_fn  # noqa: E402
 from k6_sweep import (  # noqa: E402
+    baseline_kernels,
     config3_setup,
     in_turns_fresh,
     make_state,
@@ -282,11 +284,12 @@ def main() -> int:
     ours = [_build.CPMLK, _build.CPMLK_INPLACE, _build.CPMLK_GB, _build.CPMLK_XZ, _build.CPML]
     base = {}
     if args.baseline is not None:
+        window = baseline_kernels(args.baseline, _build.BUILD_DIR / "baseline")
         for name, source in BASELINE_OF.items():
             k = getattr(_build, name)
-            base[name] = _build.Kernel(f"{k.name} baseline", source, k.entry, k.argtypes,
-                                       csrc=args.baseline.resolve(),
-                                       build_dir=_build.BUILD_DIR / "baseline")
+            base[name] = window[name] if name in window else _build.Kernel(
+                f"{k.name} baseline", source, k.entry, k.argtypes,
+                csrc=args.baseline.resolve(), build_dir=_build.BUILD_DIR / "baseline")
     kernels = ours + list(base.values())
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda kernel: kernel.build(), kernels))

@@ -95,30 +95,6 @@
 
 #include "cpml.cuh"
 
-// Resident blocks an SM that the register cap of the kernels leaves room
-// for: two, at most 64 registers (they spill; one block, uncapped at ~120
-// registers, loses: PERF.md). The shared memory of K <= 4 allows two.
-#ifndef GB_MIN_BLOCKS
-#define GB_MIN_BLOCKS 2
-#endif
-// L2 prefetches of level 1's next plane (1), and variants that
-// tools/k6_sweep.py times (the wavefront's comment): 1 for z neighbours by
-// warp shuffles, for two barriers per level with one new-H plane set.
-#ifndef GB_PREFETCH
-#define GB_PREFETCH 1
-#endif
-#ifndef GB_SHFL
-#define GB_SHFL 0
-#endif
-#ifndef GB_TWO_BARRIERS
-#define GB_TWO_BARRIERS 0
-#endif
-// 1: windows inside the y and z profiles' identity take a build without
-// the y- and z-axis terms (the wavefront's comment)
-#ifndef GB_YZ_SPLIT
-#define GB_YZ_SPLIT 1
-#endif
-
 namespace gbk {
 
 constexpr int WY = 32;                     // window rows (y)
@@ -129,6 +105,7 @@ constexpr int THREADS = TY * WZ;
 constexpr int CELLS = WIN / THREADS;       // window cells per thread
 constexpr int N_PSI = 2 * cpml::N_TERMS;   // psi values per cell and level
 constexpr int MAX_SEGMENTS = 2;            // x segments per launch: K5's two ends
+constexpr int MIN_BLOCKS = 2;              // resident blocks an SM: a cap of 64 registers
 constexpr int SMEM_PER_BLOCK = 232448;     // what an H100 block may hold (227 KB)
 constexpr int TABLE = yee::MAX_MATERIALS * 4;  // the material table's floats
 static_assert(WZ == 32 && WIN % THREADS == 0, "window and block shape");
@@ -136,7 +113,7 @@ static_assert(WZ == 32 && WIN % THREADS == 0, "window and block shape");
 // Whether a launch at k keeps two sets of the new-H planes (and one
 // barrier per level): the table and 6k + 3 planes of the window fit.
 __host__ __device__ constexpr bool two_hn(int k) {
-  return !GB_TWO_BARRIERS && (TABLE + (6 * k + 3) * WIN) * (int)sizeof(float) <= SMEM_PER_BLOCK;
+  return (TABLE + (6 * k + 3) * WIN) * (int)sizeof(float) <= SMEM_PER_BLOCK;
 }
 
 // The work items of one launch: segment s, [x0[s], x1[s]), cut into n[s]
@@ -208,9 +185,7 @@ __device__ inline void load_window_table(float* flat, const yee::Material& m) {
 // Frame): a backward difference vanishes at index <= the frame's low edge
 // planes and a forward one at index >= its high ones (and at the array's
 // faces as well), and the TF/SF faces read the aux line at the larger
-// lattice's x. Without FRAME the edges are the array's faces. GB_SHFL (a
-// variant that tools/k6_sweep.py times) takes the z neighbours of a
-// level's E and new H from the neighbouring lane in place of shared memory.
+// lattice's x. Without FRAME the edges are the array's faces.
 template <typename T, bool XPSI, bool EXT, bool FRAME>
 __device__ __forceinline__ void wavefront(yee::Fields<const T> in, yee::Fields<T> out,
                                           yee::Lattice L, yee::Material M, yee::Sources S,
@@ -315,7 +290,6 @@ __device__ __forceinline__ void wavefront(yee::Fields<const T> in, yee::Fields<T
                 old.hx.v = yee::load(in.hx, i);
                 old.hy.v = yee::load(in.hy, i);
                 old.hz.v = yee::load(in.hz, i);
-#if GB_PREFETCH
                 // level 1's plane of the next step into L2, by a row's end lanes
                 if (q > 0 && (tz == 0 || tz + 1 == WZ)) {
                   const void* next[6] = {in.ex + i - plane, in.ey + i - plane, in.ez + i - plane,
@@ -324,23 +298,15 @@ __device__ __forceinline__ void wavefront(yee::Fields<const T> in, yee::Fields<T
                   for (int f = 0; f < 6; ++f)
                     asm volatile("prefetch.global.L2 [%0];" ::"l"(next[f]));
                 }
-#endif
               } else {
                 ex = e_lo[c]; ey = e_lo[WIN + c]; ez = e_lo[2 * WIN + c];
                 // beyond the window's cut edge: a zero difference (the cell is
                 // in the halo's outer ring, which no owned cell depends on)
                 ez_y = wy > 0 ? e_lo[2 * WIN + c - WZ] : ez;
                 ex_y = wy > 0 ? e_lo[c - WZ] : ex;
-#if GB_SHFL
-                ey_z = __shfl_up_sync(0xffffffffu, ey, 1);
-                ex_z = __shfl_up_sync(0xffffffffu, ex, 1);
-                if (tz == 0) ey_z = ey, ex_z = ex;
-                if (!in_z) continue;
-#else
                 if (!in_z) continue;
                 ey_z = tz > 0 ? e_lo[WIN + c - 1] : ey;
                 ex_z = tz > 0 ? e_lo[c - 1] : ex;
-#endif
                 ey_m = ecur[j][1];
                 ez_m = ecur[j][2];
                 old.hx.v = h_lo[c]; old.hy.v = h_lo[WIN + c]; old.hz.v = h_lo[2 * WIN + c];
@@ -394,16 +360,9 @@ __device__ __forceinline__ void wavefront(yee::Fields<const T> in, yee::Fields<T
             const int y = wy0 + wy, z = wz0 + tz;
             if (y < 0 || y >= L.ny) continue;
             const float hx = hn[c], hy = hn[WIN + c], hz = hn[2 * WIN + c];
-#if GB_SHFL
-            float hy_z = __shfl_down_sync(0xffffffffu, hy, 1);
-            float hx_z = __shfl_down_sync(0xffffffffu, hx, 1);
-            if (tz + 1 == WZ) hy_z = hy, hx_z = hx;
-#endif
             if (z < 0 || z >= L.nz) continue;
-#if !GB_SHFL
             const float hy_z = tz + 1 < WZ ? hn[WIN + c + 1] : hy;
             const float hx_z = tz + 1 < WZ ? hn[c + 1] : hx;
-#endif
             const long long i = q * plane + (long long)y * L.nz + z;
             yee::HeldFields old;
             if (first) {
@@ -446,14 +405,14 @@ __device__ __forceinline__ void wavefront(yee::Fields<const T> in, yee::Fields<T
         }
       }
     };
-    if (GB_YZ_SPLIT && yz_identity(P, L, wy0, wz0)) march(std::false_type{});
+    if (yz_identity(P, L, wy0, wz0)) march(std::false_type{});
     else march(std::true_type{});
   }
 }
 
 // K6, K5: every chunk of the launch with (XPSI) or without the x terms.
 template <typename T, bool XPSI, bool EXT>
-__global__ void __launch_bounds__(THREADS, GB_MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 wavefront_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
                  yee::Material M, yee::Sources S, int k, int with_m,
                  const __grid_constant__ Chunks C, float* scratch,
@@ -467,7 +426,7 @@ wavefront_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
 // K6 on one shard's halo-extended array (K10 blocks, cpmlk_gb.cu's sharded
 // entry): every x term, with the frame F.
 template <typename T>
-__global__ void __launch_bounds__(THREADS, GB_MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 wavefront_frame_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
                        yee::Material M, yee::Sources S, int k, int with_m,
                        const __grid_constant__ Chunks C, float* scratch,

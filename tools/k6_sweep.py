@@ -2,8 +2,7 @@
 """Check K5 and K6 (the window CPML kernels) and time them at every K on one CUDA card.
 
     python3 tools/k6_sweep.py [--seed N] [--large] [--checks-only]
-        [--baseline DIR] [--variants | --variant NAME ...] [--ks K,K,...] [--n N]
-        [--no-route]
+        [--baseline DIR] [--chunks] [--ks K,K,...] [--n N] [--no-route]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc. It
 builds K4, K4 io_alias, K6 and K5 (one nvcc each, in parallel) and prints
@@ -37,15 +36,13 @@ given, then reversed) at every K of ``--ks`` (default: every K the plans
 take), f32 and bf16: K6 and K5 at 512^3 Cpml.uniform(10), K6 x-side on an
 interior 136 x 512^2 shard of config 3 at 512^3 over 4 shards. Every
 output (fields and psi) of each pair's first call must equal the
-baseline's bit for bit. ``--variants`` adds builds of this version
-(``VARIANTS``: one and three resident blocks an SM, ``GB_MIN_BLOCKS``,
-register caps of 128 and 42; two barriers per level with one set of new-H
-planes,
-``GB_TWO_BARRIERS 1``; L2 prefetches of level 1's next plane,
-``GB_PREFETCH 1``; the z neighbours by warp shuffles, ``GB_SHFL 1``), and
-this build at other chunk lengths (half and twice the plan's, and one
-chunk of the whole lattice), to the same turns. Each kernel's best K is
-the one with the fewest ms per tick. To hold K4, K4 io_alias, K6 and K5
+baseline's bit for bit. ``--chunks`` adds this build at other chunk
+lengths (half and twice the plan's, and one chunk of the whole lattice) to
+the same turns. Each kernel's best K is the one with the fewest ms per
+tick. The builds that lost to this one (one and three resident blocks an
+SM, two barriers a level, no L2 prefetch, z neighbours by warp shuffles,
+one march with the y and z terms for every window: PERF.md) are this
+script's ``--variants`` at commit 3dcc3c4. To hold K4, K4 io_alias, K6 and K5
 to another version's build on the self-check cases, use
 ``tools/k7_sweep.py --baseline DIR``.
 """
@@ -58,7 +55,6 @@ import ctypes
 import dataclasses
 import gc
 import re
-import shutil
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -226,7 +222,7 @@ def surgery():
     return extra
 
 
-# -- another version's build, variants, the baseline turns ---------------------
+# -- another version's build, the baseline turns -------------------------------
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PP, _PI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
@@ -305,32 +301,6 @@ def baseline_kernels(csrc: Path, build_dir: Path) -> dict:
     return window_kernels(Path(csrc).resolve(), "baseline", build_dir)
 
 
-#: the variants of this version's sources: name -> a line put first in
-#: cpmlk_gb.cu and cpmlk_xz.cu
-VARIANTS = {"1 block/SM": "#define GB_MIN_BLOCKS 1", "3 blocks/SM": "#define GB_MIN_BLOCKS 3",
-            "two barriers": "#define GB_TWO_BARRIERS 1", "no prefetch": "#define GB_PREFETCH 0",
-            "shfl": "#define GB_SHFL 1", "no yz split": "#define GB_YZ_SPLIT 0"}
-
-
-def variant_kernels(root: Path, names=None) -> dict:
-    """{variant: its window entries}, each built from a copy of this
-    version's csrc under ``root`` with its define (``names``: those of
-    VARIANTS; default all)."""
-    csrc = ROOT / "fdtd_tpu_torch" / "csrc"
-    out = {}
-    for i, (name, line) in enumerate(VARIANTS.items()):
-        if names and name not in names:
-            continue
-        d = root / f"v{i}"
-        if d.exists():
-            shutil.rmtree(d)
-        shutil.copytree(csrc, d)
-        for source in ("cpmlk_gb.cu", "cpmlk_xz.cu"):
-            (d / source).write_text(f"// variant: {name}\n{line}\n" + (d / source).read_text())
-        out[name] = window_kernels(d, name, d)
-    return out
-
-
 @contextlib.contextmanager
 def swapped(kernels: dict):
     """``_build``'s kernels replaced by ``kernels`` (name -> Kernel) while a
@@ -384,9 +354,12 @@ def state_outputs(s):
 
 def turns_group(key, named, state, shape, n):
     """chip_smoke.in_turns over ``named`` on ``state`` (each entry's first
-    call checked bit for bit against the first entry's), reported."""
+    call checked bit for bit against the first entry's, its peak beyond
+    its input logged), reported."""
     first = None
     for name, fn, _ in named:
+        peak = cs.peak_call_bytes(torch, fn, state)
+        cs.log(f"peak {key} {name}: one call {peak / 1e9:.4f} GB beyond its input")
         out = state_outputs(fn(cs.clone_engine(torch, state)))
         torch.cuda.synchronize()
         if first is None:
@@ -407,14 +380,15 @@ def mean_ms(group, name):
     return sum(group[name]["ms_per_call"]) / len(group[name]["ms_per_call"])
 
 
-def baseline_turns(base: dict, variants: dict, ks, dev, n):
-    """This build against the baseline's (and the variants'), in turns: K6
+def baseline_turns(base: dict, chunks: bool, ks, dev, n):
+    """This build against the baseline's (and, with ``chunks``, itself at
+    other chunk lengths: chunk_variants), in turns: K6
     and K5 at each K of ``ks`` at 512^3 Cpml.uniform(10), f32 and bf16,
     K6 x-side on an interior shard of config 3 at 512^3 over 4 shards at
     each K of ``ks`` that K10 blocks takes; each group's outputs held to
     this build's bit for bit. Logs each K's speed-up and the best K's."""
     shape = cs.SCALE_SHAPE
-    sets = {"this": {}, "baseline": base, **variants}
+    sets = {"this": {}, "baseline": base}
     best = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
@@ -424,7 +398,7 @@ def baseline_turns(base: dict, variants: dict, ks, dev, n):
                 named = [(f"{kernel} K={k} {tag}",
                           through(ks_, lambda k=k: make(shape, k, device=dev, **kw), coeffs,
                                   None), k) for tag, ks_ in sets.items()]
-                if variants:
+                if chunks:
                     for label, chunk in chunk_variants(make, shape, k, kw, dev):
                         named.append((f"{kernel} K={k} this, {label}",
                                       through({}, lambda k=k: make(shape, k, device=dev, **kw),
@@ -514,10 +488,8 @@ def main() -> int:
     ap.add_argument("--large", action="store_true", help="add config 3 at 1024^3 f32")
     ap.add_argument("--checks-only", action="store_true", help="stop after the checks")
     ap.add_argument("--baseline", type=Path, help="another version's csrc directory")
-    ap.add_argument("--variants", action="store_true",
-                    help="add this version's variants to the baseline turns")
-    ap.add_argument("--variant", action="append", default=[], choices=sorted(VARIANTS),
-                    help="add one of the variants (and the chunk lengths)")
+    ap.add_argument("--chunks", action="store_true",
+                    help="add this build at other chunk lengths to the baseline turns")
     ap.add_argument("--ks", default=",".join(str(k) for k in cs.GB_KS),
                     help="the K of the baseline turns")
     ap.add_argument("--n", type=int, default=4, help="calls per timing")
@@ -535,9 +507,7 @@ def main() -> int:
     kernels = [_build.CPMLK, _build.CPMLK_INPLACE, _build.CPMLK_GB, _build.CPMLK_XZ]
     base = {} if args.baseline is None else baseline_kernels(
         args.baseline, _build.BUILD_DIR / "k6_baseline")
-    variants = (variant_kernels(ROOT / "build" / "k6_variants", args.variant)
-                if args.variants or args.variant else {})
-    extra = [kk for ks_ in (base, *variants.values()) for kk in ks_.values()]
+    extra = list(base.values())
     with ThreadPoolExecutor(len(kernels) + len(extra)) as pool:
         list(pool.map(lambda kernel: kernel.build(), kernels + extra))
     for kernel in kernels + extra:
@@ -554,7 +524,7 @@ def main() -> int:
         return 0
     dev = torch.device("cuda")
     if base:
-        baseline_turns(base, variants, [int(k) for k in args.ks.split(",")], dev, args.n)
+        baseline_turns(base, args.chunks, [int(k) for k in args.ks.split(",")], dev, args.n)
     if args.no_route:
         cs.log(card)
         return 0

@@ -1692,7 +1692,11 @@ def config5_path(torch, ft):
         g = n ** 3 * CONFIG5_TICKS / secs / 1e9
         gcells[label] = {"seconds": secs, "gcells": g, "peak_bytes": peak,
                          "set_bytes": set_bytes}
-        log(f"{label}: {CONFIG5_TICKS} ticks in {secs * 1e3:.3f} ms, {g:.3f} Gcell/s; "
+        # the bound: one read and one write of the state a call
+        bound_s = CONFIG5_TICKS // k * 2 * set_bytes / HBM_BYTES_PER_S
+        gcells[label]["bound_share"] = bound_s / secs
+        log(f"{label}: {CONFIG5_TICKS} ticks in {secs * 1e3:.3f} ms, {g:.3f} Gcell/s, bound "
+            f"{bound_s * 1e3:.3f} ms -> bound share {bound_s / secs:.1%}; "
             f"launches {counts}; peak {peak / 1e9:.4f} GB = "
             f"{peak / set_bytes:.5f} sets")
         require(peak <= 1.02 * set_bytes, f"{label}: peak {peak} > one set + 2 %")
@@ -1822,10 +1826,14 @@ def config3_large_path(torch, ft):
         squares = plane_squares(torch, out)
         trace = trace if every == 8 else trace[3::4]
         g = n ** 3 * ticks / secs / 1e9
+        # the bound: each call reads and writes the state once (K3's bytes)
+        bound_s = ticks // k * cpml_bytes(shape, 4, True, sim.cpml,
+                                          sim.tfsf.aux_length(n), k) / HBM_BYTES_PER_S
         runs[k] = {"seconds": secs, "gcells": g, "peak_bytes": peak, "limit_bytes": limit,
                    "state_bytes": state_bytes, "max_probe": float(trace.abs().max()),
-                   "trace": trace, "squares": squares}
-        log(f"{label}: {ticks} ticks in {secs * 1e3:.3f} ms, {g:.3f} Gcell/s; launches "
+                   "bound_share": bound_s / secs, "trace": trace, "squares": squares}
+        log(f"{label}: {ticks} ticks in {secs * 1e3:.3f} ms, {g:.3f} Gcell/s, bound "
+            f"{bound_s * 1e3:.3f} ms -> bound share {bound_s / secs:.1%}; launches "
             f"{counts}; peak {peak / 1e9:.4f} GB (limit {limit / 1e9:.4f} GB: two states of "
             f"{state_bytes / 1e9:.4f} GB + the material index + 2 %); caller's state "
             f"untouched {untouched}; max|E| {float(max(f.abs().max() for f in out.e)):.4e}, "
@@ -5307,7 +5315,9 @@ def profile_absorbing(torch, ft, ticks=64):
 def report_group(key, named, ms, shape, models):
     """Log and return one group of in_turns timings: per name, ms per call,
     Gcell/s and, where ``models`` gives its bytes per tick, the share of
-    3.35 TB/s."""
+    3.35 TB/s. The in-place kernels' models are their bounds (one read and
+    one write of the state a call): their lines say so, with the bound's
+    time."""
     cells = math.prod(shape)
     out = {}
     for name, _, ticks in named:
@@ -5317,10 +5327,16 @@ def report_group(key, named, ms, shape, models):
         share = None if model is None else model * ticks / (mean * 1e-3) / HBM_BYTES_PER_S
         out[name] = {"ms_per_call": ms[name], "ticks_per_call": ticks, "gcells": g,
                      "bytes_per_call": model, "hbm_share": share}
+        bound = ""
+        if model is not None and "io_alias" in name:
+            bound_ms = model * ticks / HBM_BYTES_PER_S * 1e3
+            out[name]["bound_ms"] = bound_ms
+            bound = f"; bound {bound_ms:.4f} ms per call -> bound share {share:.1%}"
         log(f"timing {key} {name}: {ms[name][0]:.4f} / {ms[name][1]:.4f} ms per call "
             f"({ticks} ticks), {g:.2f} Gcell/s"
             + ("" if model is None else
-               f", {model / cells:.1f} B/cell/tick model -> {share:.1%} of 3.35 TB/s"))
+               f", {model / cells:.1f} B/cell/tick model -> {share:.1%} of 3.35 TB/s")
+            + bound)
     return out
 
 
@@ -5711,10 +5727,16 @@ def timings(torch, ft):
             results[key][name] = {"ms_per_call": ms[name], "ticks_per_call": ticks,
                                   "gcells": g, "bytes_per_cell_tick": model,
                                   "hbm_share": share}
+            bound = ""
+            if name.endswith("io_alias"):
+                # one read and one write of the state a call
+                bound_ms = 2 * set_bytes / HBM_BYTES_PER_S * 1e3
+                results[key][name]["bound_ms"] = bound_ms
+                bound = f"; bound {bound_ms:.4f} ms per call -> bound share {bound_ms / mean:.1%}"
             log(f"timing 512^3 free {str(dtype)[6:]} {name}: {ms[name][0]:.3f} / "
                 f"{ms[name][1]:.3f} ms per call ({ticks} ticks), {g:.2f} Gcell/s"
                 + ("" if model is None else
-                   f", {model:.1f} B/cell/tick model -> {share:.1%} of 3.35 TB/s"))
+                   f", {model:.1f} B/cell/tick model -> {share:.1%} of 3.35 TB/s") + bound)
         del state
         torch.cuda.empty_cache()
     return results

@@ -29,12 +29,14 @@
 // overwrite. So the in-place tick is two half passes with every block
 // finished between them, as yee.cuh's: h_half reads E and writes H and its
 // psi, e_half reads H and writes E and its psi, each thread at its own
-// cells, with one psi set read and written by the cell's owner. All three
-// passes share the per-cell arithmetic (h_cell, e_cell, in the tile pass's
-// order), so at f32 storage the halves are bit-identical to the tile pass;
-// at bf16 storage H is rounded to bf16 before E reads it. K4's out-of-place
-// level loop (cpmlk.cu) runs the same halves (h_pass, e_pass) between its
-// buffer sets.
+// cells, with one psi set read and written by the cell's owner. They are
+// yee.cuh's streaming sweeps (V cells a thread, 16-byte loads, the next
+// plane in flight) with this file's cell updates. K4's out-of-place level
+// loop (cpmlk.cu) runs the same two halves a tick between its buffer sets
+// with one cell a thread (h_pass, e_pass). Every pass shares the per-cell
+// arithmetic (h_cell, e_cell, in the tile pass's order), so at f32 storage
+// all of them are bit-identical to the tile pass; at bf16 storage the
+// in-place halves round H to bf16 before E reads it.
 //
 // The extensions (EXT = true: instantiations of K3 and K4 of their own, so
 // the kernels without them compile as they were), each switched on at run
@@ -268,14 +270,15 @@ __device__ __forceinline__ float stretch(const Profiles& P, const SlotPsiT<XPSI,
 // ax0: the aux line's index of lattice plane 0 (FRAME; else 0).
 // T by value, as tile_pass takes it: by reference, ptxas gave K4's core
 // instantiations 44 B more spill stores. HF: the fields (yee::Fields, read
-// at i here) or the cell's held values (yee::HeldFields, K6 and K5); QT: Psi, or
-// their SlotPsiT.
+// at i here) or the cell's held values (yee::HeldFields, K6, K5 and the
+// in-place halves); QT: Psi, or their SlotPsiT; MT: yee::Material, or the
+// cell's index already read (yee::HeldMaterial, the in-place halves).
 template <typename TH, int QS, int QD, bool EXT, typename HF = yee::Fields<const TH>,
-          typename QT = Psi>
+          typename QT = Psi, typename MT = yee::Material>
 __device__ __forceinline__ void h_cell(HF h, long long i, int p, int yy,
                                        int zz, bool store, float dez_y, float dey_z,
                                        float dex_z, float dez_x, float dey_x, float dex_y,
-                                       const yee::Lattice& L, const yee::Material& M,
+                                       const yee::Lattice& L, const MT& M,
                                        const yee::Sources& S, int m_col, const Profiles& P,
                                        const QT& Q, const Tfsf T, const float* aux_e,
                                        const yee::Shared& sh, const Ext& X, const float* ob,
@@ -326,11 +329,11 @@ __device__ __forceinline__ void h_cell(HF h, long long i, int p, int yy,
 // (psi always stored), with the TF/SF E corrections from the NEW aux_h row
 // and the J sources of column j_col (-1: none).
 template <typename TE, int QS, int QD, bool EXT, typename EF = yee::Fields<const TE>,
-          typename QT = Psi>
+          typename QT = Psi, typename MT = yee::Material>
 __device__ __forceinline__ void e_cell(EF e, long long i, int p, int y,
                                        int z, float dhz_y, float dhy_z, float dhx_z,
                                        float dhz_x, float dhy_x, float dhx_y,
-                                       const yee::Lattice& L, const yee::Material& M,
+                                       const yee::Lattice& L, const MT& M,
                                        const yee::Sources& S, int j_col, const Profiles& P,
                                        const QT& Q, const Tfsf T, const float* aux_h,
                                        const yee::Shared& sh, const Ext& X, const float* ob,
@@ -550,23 +553,104 @@ __device__ void e_pass(yee::Fields<const TI> src, yee::Fields<const TH> hn,
   }
 }
 
-// The in-place tick's halves (K4 io_alias): one set, psi set 0.
-template <typename TS, bool EXT>
-__device__ void h_half(yee::Fields<TS> f, const yee::Lattice& L, const yee::Material& M,
-                       const yee::Sources& S, int m_col, const Profiles& P, const Psi& Q,
-                       const Tfsf& T, const float* aux_e, int y0, int z0, int x_lo,
-                       int x_hi, const yee::Shared& sh, const Ext& X, const float* ob) {
-  h_pass<TS, TS, 0, 0, EXT>(yee::as_const(f), f, L, M, S, m_col, P, Q, T, aux_e, y0, z0, x_lo,
-                            x_hi, sh, X, ob);
+// Whether h_cell (HALF 0) or e_cell (HALF 1) at (p, y, z) reduces to the
+// lossless update with the cell's material: no slab stretch on any axis,
+// no TF/SF correction from the row `aux` (null: none), and (EXT) neither
+// the region nor the oblique box of row `ob`. False where unsure.
+template <int HALF, bool EXT>
+__device__ __forceinline__ bool bare(const Profiles& P, const Tfsf& T, const float* aux,
+                                     const Ext& X, const float* ob, int p, int y, int z) {
+  const int c[3] = {p, y, z};
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    if (P.p[HALF][a] != nullptr && (c[a] < P.l1[HALF][a] || c[a] >= P.h0[HALF][a])) return false;
+  if (aux != nullptr) {
+    if (HALF == 0 && (p == T.lo || p == T.hi + 1 || (T.box && (y == T.y0 || y == T.y1 + 1))))
+      return false;
+    if (HALF == 1 && (p == T.lo - 1 || p == T.hi || (T.box && (z == T.z0 - 1 || z == T.z1))))
+      return false;
+  }
+  if constexpr (EXT) {
+    const Dense& D = X.D;
+    if (D.axis >= 0 && p >= D.x0 && p < D.x1 && y >= D.y0 && y < D.y1 && z >= D.z0 && z < D.z1)
+      return false;
+    const Oblique& O = X.O;
+    if (ob != nullptr && p >= O.lo[0] && p < O.hi[0] && y >= O.lo[1] && y < O.hi[1] &&
+        z >= O.lo[2] && z < O.hi[2])
+      return false;
+  }
+  return true;
 }
 
-template <typename TS, bool EXT>
-__device__ void e_half(yee::Fields<TS> f, const yee::Lattice& L, const yee::Material& M,
-                       const yee::Sources& S, int j_col, const Profiles& P, const Psi& Q,
-                       const Tfsf& T, const float* aux_h, int y0, int z0, int x_lo,
-                       int x_hi, const yee::Shared& sh, const Ext& X, const float* ob) {
-  e_pass<TS, TS, TS, 0, 0, EXT>(yee::as_const(f), yee::as_const(f), f, L, M, S, j_col, P, Q,
-                                T, aux_h, y0, z0, x_lo, x_hi, sh, X, ob);
+// The in-place tick's halves (K4 io_alias): yee.cuh's streaming sweeps (V
+// cells a thread, 16-byte loads) with h_cell and e_cell per cell on the
+// held values, psi set 0 read and written by the cell's owner. A cell
+// where they reduce to the lossless update (bare: most of the lattice)
+// takes that update alone, written with the roundings h_cell and e_cell
+// give it (each product and difference rounded apart: a raw difference's
+// product must not fuse into the curl), so the result is the same bit for
+// bit and the stretch's branches and psi index arithmetic run only in the
+// slabs, the TF/SF faces and the region.
+template <typename TS, bool EXT, int V, bool PREFETCH>
+__device__ __forceinline__ void h_half(yee::Fields<TS> f, const yee::Lattice& L,
+                                       const yee::Material& M, const yee::Sources& S, int m_col,
+                                       const Profiles& P, const Psi& Q, const Tfsf& T,
+                                       const float* aux_e, int y0, int z0, int x_lo, int x_hi,
+                                       bool vec, const yee::Shared& sh, const Ext& X,
+                                       const float* ob) {
+  yee::h_sweep<TS, V, PREFETCH>(
+      f, L, M.matid, y0, z0, x_lo, x_hi, vec,
+      [&](int p, int y, int z, long long i, int mat, float dez_y, float dey_z, float dex_z,
+          float dez_x, float dey_x, float dex_y, float ohx, float ohy, float ohz, float& hx,
+          float& hy, float& hz) {
+        if (bare<0, EXT>(P, T, aux_e, X, ob, p, y, z)) {
+          const float d_a = sh.table[mat][2], d_b = sh.table[mat][3];
+          const float ez_y = __fmul_rn(dez_y, L.inv_y), ey_z = __fmul_rn(dey_z, L.inv_z);
+          const float ex_z = __fmul_rn(dex_z, L.inv_z), ez_x = __fmul_rn(dez_x, L.inv_x);
+          const float ey_x = __fmul_rn(dey_x, L.inv_x), ex_y = __fmul_rn(dex_y, L.inv_y);
+          hx = __fmaf_rn(d_a, ohx, -__fmul_rn(d_b, __fsub_rn(ez_y, ey_z)));
+          hy = __fmaf_rn(d_a, ohy, -__fmul_rn(d_b, __fsub_rn(ex_z, ez_x)));
+          hz = __fmaf_rn(d_a, ohz, -__fmul_rn(d_b, __fsub_rn(ey_x, ex_y)));
+          if (m_col >= 0) yee::inject(S, m_col, p, y, z, d_b, hx, hy, hz);
+          return;
+        }
+        const yee::HeldFields old{{0.f}, {0.f}, {0.f}, {ohx}, {ohy}, {ohz}};
+        h_cell<TS, 0, 0, EXT>(old, i, p, y, z, true, dez_y * L.inv_y, dey_z * L.inv_z,
+                              dex_z * L.inv_z, dez_x * L.inv_x, dey_x * L.inv_x,
+                              dex_y * L.inv_y, L, yee::HeldMaterial{mat}, S, m_col, P, Q, T,
+                              aux_e, sh, X, ob, hx, hy, hz);
+      });
+}
+
+template <typename TS, bool EXT, int V, bool PREFETCH>
+__device__ __forceinline__ void e_half(yee::Fields<TS> f, const yee::Lattice& L,
+                                       const yee::Material& M, const yee::Sources& S, int j_col,
+                                       const Profiles& P, const Psi& Q, const Tfsf& T,
+                                       const float* aux_h, int y0, int z0, int x_lo, int x_hi,
+                                       bool vec, const yee::Shared& sh, const Ext& X,
+                                       const float* ob) {
+  yee::e_sweep<TS, V, PREFETCH>(
+      f, L, M.matid, y0, z0, x_lo, x_hi, vec,
+      [&](int p, int y, int z, long long i, int mat, float dhz_y, float dhy_z, float dhx_z,
+          float dhz_x, float dhy_x, float dhx_y, float oex, float oey, float oez, float& ex,
+          float& ey, float& ez) {
+        if (bare<1, EXT>(P, T, aux_h, X, ob, p, y, z)) {
+          const float c_a = sh.table[mat][0], c_b = sh.table[mat][1];
+          const float hz_y = __fmul_rn(dhz_y, L.inv_y), hy_z = __fmul_rn(dhy_z, L.inv_z);
+          const float hx_z = __fmul_rn(dhx_z, L.inv_z), hz_x = __fmul_rn(dhz_x, L.inv_x);
+          const float hy_x = __fmul_rn(dhy_x, L.inv_x), hx_y = __fmul_rn(dhx_y, L.inv_y);
+          ex = __fmaf_rn(c_a, oex, __fmul_rn(c_b, __fsub_rn(hz_y, hy_z)));
+          ey = __fmaf_rn(c_a, oey, __fmul_rn(c_b, __fsub_rn(hx_z, hz_x)));
+          ez = __fmaf_rn(c_a, oez, __fmul_rn(c_b, __fsub_rn(hy_x, hx_y)));
+          if (j_col >= 0) yee::inject(S, j_col, p, y, z, c_b, ex, ey, ez);
+          return;
+        }
+        const yee::HeldFields old{{oex}, {oey}, {oez}, {0.f}, {0.f}, {0.f}};
+        e_cell<TS, 0, 0, EXT>(old, i, p, y, z, dhz_y * L.inv_y, dhy_z * L.inv_z,
+                              dhx_z * L.inv_z, dhz_x * L.inv_x, dhy_x * L.inv_x,
+                              dhx_y * L.inv_y, L, yee::HeldMaterial{mat}, S, j_col, P, Q, T,
+                              aux_h, sh, X, ob, ex, ey, ez);
+      });
 }
 
 // ---- host side: the C arguments into the kernel structs ----

@@ -34,6 +34,8 @@
 // outputs, an f32 work set and two more psi sets beside it.
 #include <cooperative_groups.h>
 
+#include <type_traits>
+
 #include "cpml.cuh"
 #include "cpmlk.cuh"
 
@@ -41,14 +43,54 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using yee::TY;
+using yee::TZ;
+
+// The shape of K4 io_alias's halves (tools/k4_variants.py --variants
+// rebuilds copies with others): z cells a thread (V) and whether a half
+// loads the next plane before this one's stores, per storage type, and how
+// a call runs its 2K half passes (0 one cooperative launch over ONE_WAVE's
+// items with a grid-wide barrier after each half; 1 the same over
+// WHOLE_ROUNDS' items; 2 one ordinary launch per half pass and, with the
+// options, one for the flux rows).
+#define CPMLK_INPLACE_CELLS_F32 2
+#define CPMLK_INPLACE_CELLS_BF16 2
+#define CPMLK_INPLACE_PREFETCH_F32 false
+#define CPMLK_INPLACE_PREFETCH_BF16 true
+#define CPMLK_INPLACE_LAUNCH 2
+
+template <typename T>
+constexpr int V_OF = std::is_same<T, float>::value ? CPMLK_INPLACE_CELLS_F32
+                                                   : CPMLK_INPLACE_CELLS_BF16;
+template <typename T>
+constexpr bool PREFETCH_OF = std::is_same<T, float>::value ? CPMLK_INPLACE_PREFETCH_F32
+                                                           : CPMLK_INPLACE_PREFETCH_BF16;
+
+// The options' epilogue over a work item's cells, tile by 8 x 32 tile (the
+// flux partials' tiles, cpmlk.cuh): the level's fields as the state holds
+// them after the E half, which the block's other threads wrote.
+template <typename T, int V>
+__device__ __forceinline__ void item_epilogue(yee::Fields<T> f, const yee::Lattice& L,
+                                              const cpmlk::Options& A, int lvl, int y0, int z0,
+                                              int x_lo, int x_hi) {
+  __syncthreads();
+  const int n_tz = (L.nz + TZ - 1) / TZ;
+#pragma unroll 1
+  for (int s = 0; s < V && z0 + s * TZ < L.nz; ++s)
+    cpmlk::epilogue<T, T>(yee::as_const(f), f, false, L, A, lvl, y0, z0 + s * TZ, x_lo, x_hi,
+                          (y0 / TY) * n_tz + z0 / TZ + s);
+}
+
 template <typename T, bool OPT, bool EXT>
 __global__ void __launch_bounds__(yee::THREADS)
 cpmlk_inplace_kernel(yee::Fields<T> f, yee::Lattice L, yee::Material M, yee::Sources S,
-                     int k, int with_m, yee::Work w,
+                     int k, int with_m, yee::Work w, int vec,
                      const __grid_constant__ cpml::Profiles P,
                      const __grid_constant__ cpml::Psi Q, cpml::Tfsf tf,
                      const __grid_constant__ cpmlk::Options A,
                      const __grid_constant__ cpml::Ext X) {
+  constexpr int V = V_OF<T>;
+  constexpr bool PF = PREFETCH_OF<T>;
   __shared__ yee::Shared sh;
   yee::load_table(sh, M);
   cg::grid_group grid = cg::this_grid();
@@ -61,24 +103,66 @@ cpmlk_inplace_kernel(yee::Fields<T> f, yee::Lattice L, yee::Material M, yee::Sou
     const float* ob = EXT && X.O.n_box > 0 ? X.O.corr + (lvl - 1) * X.O.level_len : nullptr;
     int y0, z0, x_lo, x_hi;
     for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
-      yee::decode(w, item, L, y0, z0, x_lo, x_hi);
-      cpml::h_half<T, EXT>(f, L, M, S, m_col, P, Q, tf, aux_e, y0, z0, x_lo, x_hi, sh, X,
-                           ob);
+      yee::decode_inplace(w, item, L, TZ * V, y0, z0, x_lo, x_hi);
+      cpml::h_half<T, EXT, V, PF>(f, L, M, S, m_col, P, Q, tf, aux_e, y0, z0, x_lo, x_hi, vec,
+                                  sh, X, ob);
     }
     grid.sync();
     for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
-      yee::decode(w, item, L, y0, z0, x_lo, x_hi);
-      cpml::e_half<T, EXT>(f, L, M, S, j_col, P, Q, tf, aux_h, y0, z0, x_lo, x_hi, sh, X,
-                           ob);
-      // the level's fields at the block's own cells: this thread wrote E
-      // there just now, and H before the barrier
-      if constexpr (OPT)
-        cpmlk::epilogue<T, T>(yee::as_const(f), f, false, L, A, lvl - 1, y0, z0, x_lo,
-                              x_hi, item % A.n_tiles);
+      yee::decode_inplace(w, item, L, TZ * V, y0, z0, x_lo, x_hi);
+      cpml::e_half<T, EXT, V, PF>(f, L, M, S, j_col, P, Q, tf, aux_h, y0, z0, x_lo, x_hi, vec,
+                                  sh, X, ob);
+      if constexpr (OPT) item_epilogue<T, V>(f, L, A, lvl - 1, y0, z0, x_lo, x_hi);
     }
     if (lvl < k || OPT) grid.sync();
   }
   if constexpr (OPT) cpmlk::reduce_flux(A, k, L.nx);
+}
+
+// One half pass as an ordinary launch (CPMLK_INPLACE_LAUNCH 2): the items
+// from blockIdx.x on, by the grid's stride; aux / ob: the level's TF/SF
+// row and oblique row (null: none); the E half runs the options' epilogue
+// of level lvl (0-based).
+template <typename T, bool OPT, bool EXT>
+__global__ void __launch_bounds__(yee::THREADS)
+h_half_kernel(yee::Fields<T> f, yee::Lattice L, yee::Material M, yee::Sources S, int m_col,
+              yee::Work w, int vec, const __grid_constant__ cpml::Profiles P,
+              const __grid_constant__ cpml::Psi Q, cpml::Tfsf tf, const float* aux,
+              const __grid_constant__ cpml::Ext X, const float* ob) {
+  constexpr int V = V_OF<T>;
+  __shared__ yee::Shared sh;
+  yee::load_table(sh, M);
+  for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
+    int y0, z0, x_lo, x_hi;
+    yee::decode_inplace(w, item, L, TZ * V, y0, z0, x_lo, x_hi);
+    cpml::h_half<T, EXT, V, PREFETCH_OF<T>>(f, L, M, S, m_col, P, Q, tf, aux, y0, z0,
+                                                    x_lo, x_hi, vec, sh, X, ob);
+  }
+}
+
+template <typename T, bool OPT, bool EXT>
+__global__ void __launch_bounds__(yee::THREADS)
+e_half_kernel(yee::Fields<T> f, yee::Lattice L, yee::Material M, yee::Sources S, int j_col,
+              yee::Work w, int vec, const __grid_constant__ cpml::Profiles P,
+              const __grid_constant__ cpml::Psi Q, cpml::Tfsf tf, const float* aux,
+              const __grid_constant__ cpml::Ext X, const float* ob,
+              const __grid_constant__ cpmlk::Options A, int lvl) {
+  constexpr int V = V_OF<T>;
+  __shared__ yee::Shared sh;
+  yee::load_table(sh, M);
+  for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
+    int y0, z0, x_lo, x_hi;
+    yee::decode_inplace(w, item, L, TZ * V, y0, z0, x_lo, x_hi);
+    cpml::e_half<T, EXT, V, PREFETCH_OF<T>>(f, L, M, S, j_col, P, Q, tf, aux, y0, z0,
+                                                    x_lo, x_hi, vec, sh, X, ob);
+    if constexpr (OPT) item_epilogue<T, V>(f, L, A, lvl, y0, z0, x_lo, x_hi);
+  }
+}
+
+// The flux rows from the partials, after the last E half.
+__global__ void __launch_bounds__(yee::THREADS)
+reduce_flux_kernel(const __grid_constant__ cpmlk::Options A, int k, int nx) {
+  cpmlk::reduce_flux(A, k, nx);
 }
 
 template <typename T, bool OPT, bool EXT>
@@ -87,27 +171,66 @@ int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q, const cpml::Tf
            int n_src, int row_w, int with_m, int k, int nx, int ny, int nz, float inv_x,
            float inv_y, float inv_z, const cpmlk::Options& A, const cpml::Ext& X,
            cudaStream_t stream) {
+  constexpr int V = V_OF<T>;
   yee::Fields<T> fields{(T*)f[0], (T*)f[1], (T*)f[2], (T*)f[3], (T*)f[4], (T*)f[5]};
   yee::Lattice L{nx, ny, nz, inv_x, inv_y, inv_z};
   yee::Material M{table, n_mat, matid};
   yee::Sources S{rows, n_src, row_w};
-  yee::Work w;
-  int blocks = 0;
-  cudaError_t err = yee::cooperative_plan(cpmlk_inplace_kernel<T, OPT, EXT>, L, w, blocks,
-                                          yee::HALF_CHUNK);
-  if (err != cudaSuccess) return (int)err;
+  int vec = yee::rows_aligned(f, 6, matid, nz, V, V * (int)sizeof(T));
+  // the options' tiles are the package's 8 x 32 (the flux partials)
+  const int tiles = ((ny + TY - 1) / TY) * ((nz + TZ - 1) / TZ);
   cpmlk::Options a = A;
-  if (EXT && a.n_tiles == 0) a.n_tiles = w.n_ty * w.n_tz;  // no accumulator option
-  if (OPT && a.n_tiles != w.n_ty * w.n_tz) return (int)cudaErrorInvalidValue;
+  if (EXT && a.n_tiles == 0) a.n_tiles = tiles;  // no accumulator option
+  if (OPT && a.n_tiles != tiles) return (int)cudaErrorInvalidValue;
   cpml::Profiles p = P;
   cpml::Psi q = Q;
   cpml::Tfsf t = tf;
   cpml::Ext x = X;
-  void* args[] = {&fields, &L, &M, &S, &k, &with_m, &w, &p, &q, &t, &a, &x};
+  const dim3 block(TZ, TY);
+  int resident = 0;
+#if CPMLK_INPLACE_LAUNCH == 2
+  cudaError_t err = yee::resident_blocks(e_half_kernel<T, OPT, EXT>, resident);
+  if (err != cudaSuccess) return (int)err;
+  const yee::Work w = yee::plan_inplace(L, resident, TZ * V, yee::ONE_WAVE);
+  for (int lvl = 1; lvl <= k; ++lvl) {
+    // row layout: [x, y, z, J levels 1..K, M levels 1..K (with_m)]
+    const int j_col = 3 + 3 * (lvl - 1);
+    const int m_col = with_m ? 3 + 3 * k + 3 * (lvl - 1) : -1;
+    const float* aux_e = t.aux ? t.aux + (long long)(2 * (lvl - 1)) * t.len : nullptr;
+    const float* aux_h = t.aux ? aux_e + t.len : nullptr;
+    const float* ob = EXT && x.O.n_box > 0 ? x.O.corr + (lvl - 1) * x.O.level_len : nullptr;
+    h_half_kernel<T, OPT, EXT><<<w.n_items, block, 0, stream>>>(fields, L, M, S, m_col, w, vec,
+                                                                p, q, t, aux_e, x, ob);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    e_half_kernel<T, OPT, EXT><<<w.n_items, block, 0, stream>>>(fields, L, M, S, j_col, w, vec,
+                                                                p, q, t, aux_h, x, ob, a,
+                                                                lvl - 1);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (OPT && a.n_q > 0) {
+    const long long n = (long long)k * nx * a.n_q;
+    const long long need = (n + yee::THREADS - 1) / yee::THREADS;
+    const int blocks = need < resident ? (int)need : resident;
+    reduce_flux_kernel<<<blocks, block, 0, stream>>>(a, k, nx);
+    err = cudaGetLastError();
+  }
+  return (int)err;
+#else
+  int coop = 0;
+  cudaError_t err = yee::resident_blocks(cpmlk_inplace_kernel<T, OPT, EXT>, resident, &coop);
+  if (err != cudaSuccess) return (int)err;
+  if (!coop) return (int)cudaErrorCooperativeLaunchTooLarge;
+  yee::Work w = yee::plan_inplace(L, resident, TZ * V,
+                                  CPMLK_INPLACE_LAUNCH == 1 ? yee::WHOLE_ROUNDS : yee::ONE_WAVE);
+  const int blocks = w.n_items < resident ? w.n_items : resident;
+  void* args[] = {&fields, &L, &M, &S, &k, &with_m, &w, &vec, &p, &q, &t, &a, &x};
   err = cudaLaunchCooperativeKernel((const void*)cpmlk_inplace_kernel<T, OPT, EXT>,
-                                    dim3(blocks), dim3(yee::TZ, yee::TY), args, 0, stream);
+                                    dim3(blocks), block, args, 0, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+#endif
 }
 
 }  // namespace

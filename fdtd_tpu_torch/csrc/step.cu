@@ -50,58 +50,26 @@ step_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(yee::THREADS)
-h_half_kernel(yee::Fields<T> f, yee::Lattice L, yee::Material M,
-              yee::Sources S, int with_m, yee::Work w) {
-  __shared__ yee::Shared sh;
-  yee::load_table(sh, M);
-  int y0, z0, x_lo, x_hi;
-  yee::decode(w, blockIdx.x, L, y0, z0, x_lo, x_hi);
-  yee::h_half<T>(f, L, M, S, with_m ? 6 : -1, y0, z0, x_lo, x_hi, sh);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(yee::THREADS)
-e_half_kernel(yee::Fields<T> f, yee::Lattice L, yee::Material M,
-              yee::Sources S, yee::Work w) {
-  __shared__ yee::Shared sh;
-  yee::load_table(sh, M);
-  int y0, z0, x_lo, x_hi;
-  yee::decode(w, blockIdx.x, L, y0, z0, x_lo, x_hi);
-  yee::e_half<T>(f, L, M, S, 3, y0, z0, x_lo, x_hi, sh);
-}
-
-// The resident blocks of `kernel` on the current device (one wave).
-template <typename K>
-cudaError_t resident_blocks(K kernel, int& blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        yee::THREADS, 0);
-  blocks = sms * (per_sm > 0 ? per_sm : 1);
-  return err;
-}
-
-template <typename T>
 int launch_inplace(void** f, const float* table, int n_mat, const float* rows,
                    int n_src, int row_w, int with_m, int nx, int ny, int nz,
                    float inv_x, float inv_y, float inv_z, cudaStream_t stream) {
+  constexpr int V = INPLACE_BYTES / (int)sizeof(T);
+  constexpr bool PF = INPLACE_PREFETCH;
   yee::Fields<T> fields{(T*)f[0], (T*)f[1], (T*)f[2], (T*)f[3], (T*)f[4], (T*)f[5]};
   yee::Lattice L{nx, ny, nz, inv_x, inv_y, inv_z};
   yee::Material M{table, n_mat, nullptr};
   yee::Sources S{rows, n_src, row_w};
+  const int vec = yee::rows_aligned(f, 6, nullptr, nz, V, V * (int)sizeof(T));
   int target = 0;
-  cudaError_t err = resident_blocks(h_half_kernel<T>, target);
+  cudaError_t err = yee::resident_blocks(yee::h_half_kernel<T, V, PF>, target);
   if (err != cudaSuccess) return (int)err;
-  const yee::Work w = yee::plan_work(L, target, yee::HALF_CHUNK);
+  const yee::Work w = yee::plan_inplace(L, target, yee::TZ * V, yee::ONE_WAVE);
   const dim3 block(yee::TZ, yee::TY);
-  h_half_kernel<T><<<w.n_items, block, 0, stream>>>(fields, L, M, S, with_m, w);
+  yee::h_half_kernel<T, V, PF><<<w.n_items, block, 0, stream>>>(fields, L, M, S,
+                                                                 with_m ? 6 : -1, w, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  e_half_kernel<T><<<w.n_items, block, 0, stream>>>(fields, L, M, S, w);
+  yee::e_half_kernel<T, V, PF><<<w.n_items, block, 0, stream>>>(fields, L, M, S, 3, w, vec);
   return (int)cudaGetLastError();
 }
 
@@ -116,7 +84,7 @@ int launch(void** f, const float* table, int n_mat, const uint8_t* matid,
   yee::Material M{table, n_mat, matid};
   yee::Sources S{rows, n_src, row_w};
   int target = 0;
-  const cudaError_t err = resident_blocks(step_kernel<T>, target);
+  const cudaError_t err = yee::resident_blocks(step_kernel<T>, target);
   if (err != cudaSuccess) return (int)err;
   const yee::Work w = yee::plan_work(L, target);
   step_kernel<T><<<w.n_items, dim3(yee::TZ, yee::TY), 0, stream>>>(

@@ -103,10 +103,17 @@ stepk_edges_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
   k_ticks<T, true>(in, w1, w2, out, L, M, S, k, with_m, w, ed, sh);
 }
 
-template <typename T>
+// How a call runs its 2K half passes (tools/yee_baseline.py --variants
+// rebuilds copies with the others): 0 one cooperative launch over
+// ONE_WAVE's items, a grid-wide barrier after each half; 1 the same over
+// WHOLE_ROUNDS' items; 2 one ordinary launch per half pass.
+#define STEPK_INPLACE_LAUNCH 2
+
+template <typename T, int V>
 __global__ void __launch_bounds__(yee::THREADS)
 stepk_inplace_kernel(yee::Fields<T> f, yee::Lattice L, yee::Material M,
-                     yee::Sources S, int k, int with_m, yee::Work w) {
+                     yee::Sources S, int k, int with_m, yee::Work w, int vec) {
+  constexpr bool PF = INPLACE_PREFETCH;
   __shared__ yee::Shared sh;
   yee::load_table(sh, M);
   cg::grid_group grid = cg::this_grid();
@@ -115,13 +122,13 @@ stepk_inplace_kernel(yee::Fields<T> f, yee::Lattice L, yee::Material M,
     const int m_col = with_m ? 3 + 3 * k + 3 * (lvl - 1) : -1;
     int y0, z0, x_lo, x_hi;
     for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
-      yee::decode(w, item, L, y0, z0, x_lo, x_hi);
-      yee::h_half<T>(f, L, M, S, m_col, y0, z0, x_lo, x_hi, sh);
+      yee::decode_inplace(w, item, L, yee::TZ * V, y0, z0, x_lo, x_hi);
+      yee::h_half<T, V, PF>(f, L, M, S, m_col, y0, z0, x_lo, x_hi, vec, sh);
     }
     grid.sync();
     for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
-      yee::decode(w, item, L, y0, z0, x_lo, x_hi);
-      yee::e_half<T>(f, L, M, S, j_col, y0, z0, x_lo, x_hi, sh);
+      yee::decode_inplace(w, item, L, yee::TZ * V, y0, z0, x_lo, x_hi);
+      yee::e_half<T, V, PF>(f, L, M, S, j_col, y0, z0, x_lo, x_hi, vec, sh);
     }
     if (lvl < k) grid.sync();
   }
@@ -132,21 +139,47 @@ int launch_inplace(void** f, const float* table, int n_mat, const float* rows,
                    int n_src, int row_w, int with_m, int k, int nx, int ny,
                    int nz, float inv_x, float inv_y, float inv_z,
                    cudaStream_t stream) {
+  constexpr int V = INPLACE_BYTES / (int)sizeof(T);
+  constexpr bool PF = INPLACE_PREFETCH;
   yee::Fields<T> fields{(T*)f[0], (T*)f[1], (T*)f[2], (T*)f[3], (T*)f[4], (T*)f[5]};
   yee::Lattice L{nx, ny, nz, inv_x, inv_y, inv_z};
   yee::Material M{table, n_mat, nullptr};
   yee::Sources S{rows, n_src, row_w};
-  yee::Work w;
-  int blocks = 0;
-  cudaError_t err = yee::cooperative_plan(stepk_inplace_kernel<T>, L, w, blocks,
-                                          yee::HALF_CHUNK);
+  int vec = yee::rows_aligned(f, 6, nullptr, nz, V, V * (int)sizeof(T));
+  const dim3 block(yee::TZ, yee::TY);
+  int resident = 0;
+#if STEPK_INPLACE_LAUNCH == 2
+  cudaError_t err = yee::resident_blocks(yee::h_half_kernel<T, V, PF>, resident);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {&fields, &L, &M, &S, &k, &with_m, &w};
-  err = cudaLaunchCooperativeKernel((const void*)stepk_inplace_kernel<T>,
-                                    dim3(blocks), dim3(yee::TZ, yee::TY), args,
-                                    0, stream);
+  const yee::Work w = yee::plan_inplace(L, resident, yee::TZ * V, yee::ONE_WAVE);
+  for (int lvl = 1; lvl <= k; ++lvl) {
+    // row layout: [x, y, z, J levels 1..K, M levels 1..K (with_m)]
+    const int j_col = 3 + 3 * (lvl - 1);
+    const int m_col = with_m ? 3 + 3 * k + 3 * (lvl - 1) : -1;
+    yee::h_half_kernel<T, V, PF><<<w.n_items, block, 0, stream>>>(fields, L, M, S, m_col, w,
+                                                                   vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    yee::e_half_kernel<T, V, PF><<<w.n_items, block, 0, stream>>>(fields, L, M, S, j_col, w,
+                                                                   vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+#else
+  int coop = 0;
+  cudaError_t err = yee::resident_blocks(stepk_inplace_kernel<T, V>, resident, &coop);
+  if (err != cudaSuccess) return (int)err;
+  if (!coop) return (int)cudaErrorCooperativeLaunchTooLarge;
+  yee::Work w = yee::plan_inplace(L, resident, yee::TZ * V,
+                                  STEPK_INPLACE_LAUNCH == 1 ? yee::WHOLE_ROUNDS : yee::ONE_WAVE);
+  const int blocks = w.n_items < resident ? w.n_items : resident;
+  void* args[] = {&fields, &L, &M, &S, &k, &with_m, &w, &vec};
+  err = cudaLaunchCooperativeKernel((const void*)stepk_inplace_kernel<T, V>, dim3(blocks),
+                                    block, args, 0, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+#endif
 }
 
 template <typename T>

@@ -26,10 +26,34 @@
 // passes with every block finished between them (h_half, then e_half):
 // the H half reads E and writes only H, the E half reads H and writes only
 // E, each thread at its own cells, so no block order can mix old and new
-// values. Both halves share the per-cell arithmetic of tile_pass (h_cell,
-// e_cell); at f32 storage E's forward differences read the stored H, the
-// same numbers tile_pass keeps on chip, so the results are bit-identical.
-// At bf16 storage H is rounded to bf16 before E reads it.
+// values. A half moves 9 fields a cell (6 read, 3 written: 72 B/cell a
+// tick at f32, 36 at bf16) and does ~20 flop on them, so it is bound by
+// device memory alone, and what it needs is bytes in flight. The halves
+// (h_sweep, e_sweep) therefore:
+//
+//   - give each thread V consecutive z cells of a row, V = 16 bytes over
+//     the storage size (4 at f32, 8 at bf16), and load and store each
+//     field of them as one 16-byte access (Pack), unpacked to f32 in
+//     registers. The z neighbour beyond a thread's V cells is the adjacent
+//     lane's (__shfl_up_sync / __shfl_down_sync); the lanes at the warp's
+//     edges load it themselves. A row starts on a 16-byte boundary only
+//     when nz % V == 0 and the tensors are aligned (rows_aligned): else
+//     the same code loads and stores value by value (`vec` false), and
+//     cells at or beyond nz are never touched;
+//   - load plane p+1 (p-1 in the E half) before plane p's arithmetic and
+//     stores (PREFETCH). That is legal: in the H half a thread's loads
+//     ahead are E, which the half does not write, and its own cells' old
+//     H, which only it writes; the E half likewise. The fields carry no
+//     __restrict__ and alias by construction, so the compiler cannot hoist
+//     those loads above the stores itself;
+//   - take a tile of TY rows and 32 V columns per work item, x chunks of
+//     at most HALF_CHUNK planes (plan_inplace).
+//
+// The per-cell arithmetic is the tile pass's (h_cell, e_cell, and
+// cpml.cuh's for K4), called per cell on the held values in the same order
+// of operations, so at f32 storage the results are bit-identical to the
+// tile pass and to the parent's one-cell-a-thread halves. At bf16 storage
+// H is rounded to bf16 before E reads it.
 //
 // Compute is f32 for every storage type (f32 or bf16), as on the TPU.
 // Edges are the reference's Neumann(0) closure: a difference that would
@@ -149,6 +173,13 @@ __device__ inline void load_table(Shared& sh, const Material& m) {
 __device__ __forceinline__ int material_at(const Material& m, long long i) {
   return m.matid ? (int)m.matid[i] : 0;
 }
+
+// A cell's material index already read (the in-place halves load it with
+// the cell's fields), handed to code that reads it with material_at.
+struct HeldMaterial {
+  int id;
+};
+__device__ __forceinline__ int material_at(const HeldMaterial& m, long long) { return m.id; }
 
 // Subtract coef * rows[s][col..col+2] from (a, b, c) for every source at
 // (p, y, z). The plane test is uniform across the block.
@@ -315,78 +346,17 @@ __device__ void tile_pass(Fields<const TI> in, Fields<TO> out, const Lattice& L,
   }
 }
 
-// The H half of an in-place tick over tile (y0, z0) and planes
-// [x_lo, x_hi): each thread its own (y, z) column, x ascending, with E at
-// plane p-1 carried in registers. Reads E, writes only H; m_col as in
-// tile_pass.
-template <typename T>
-__device__ void h_half(Fields<T> f, const Lattice& L, const Material& M,
-                       const Sources& S, int m_col, int y0, int z0, int x_lo,
-                       int x_hi, const Shared& sh) {
-  const int y = y0 + (int)threadIdx.y, z = z0 + (int)threadIdx.x;
-  if (y >= L.ny || z >= L.nz) return;
-  const long long plane = (long long)L.ny * L.nz;
-  long long i = (long long)x_lo * plane + (long long)y * L.nz + z;
-  float ey_m = x_lo > 0 ? load(f.ey, i - plane) : 0.f;  // E at plane p-1
-  float ez_m = x_lo > 0 ? load(f.ez, i - plane) : 0.f;
-  for (int p = x_lo; p < x_hi; ++p, i += plane) {
-    const float ex = load(f.ex, i), ey = load(f.ey, i), ez = load(f.ez, i);
-    const float dey_x = p > 0 ? ey - ey_m : 0.f;
-    const float dez_x = p > 0 ? ez - ez_m : 0.f;
-    const float dez_y = y > 0 ? ez - load(f.ez, i - L.nz) : 0.f;
-    const float dex_y = y > 0 ? ex - load(f.ex, i - L.nz) : 0.f;
-    const float dey_z = z > 0 ? ey - load(f.ey, i - 1) : 0.f;
-    const float dex_z = z > 0 ? ex - load(f.ex, i - 1) : 0.f;
-    float hx, hy, hz;
-    const float d_b = h_cell(as_const(f), i, L, M, sh, dey_x, dez_x, dez_y,
-                             dex_y, dey_z, dex_z, hx, hy, hz);
-    if (m_col >= 0) inject(S, m_col, p, y, z, d_b, hx, hy, hz);
-    store(f.hx, i, hx);
-    store(f.hy, i, hy);
-    store(f.hz, i, hz);
-    ey_m = ey;
-    ez_m = ez;
-  }
-}
-
-// The E half of an in-place tick: x descending, with H at plane p+1
-// carried in registers. Reads the stored (new) H, writes only E; j_col as
-// in tile_pass.
-template <typename T>
-__device__ void e_half(Fields<T> f, const Lattice& L, const Material& M,
-                       const Sources& S, int j_col, int y0, int z0, int x_lo,
-                       int x_hi, const Shared& sh) {
-  const int y = y0 + (int)threadIdx.y, z = z0 + (int)threadIdx.x;
-  if (y >= L.ny || z >= L.nz) return;
-  const long long plane = (long long)L.ny * L.nz;
-  long long i = (long long)(x_hi - 1) * plane + (long long)y * L.nz + z;
-  const bool y_in = y < L.ny - 1, z_in = z < L.nz - 1;
-  float top_hy = x_hi < L.nx ? load(f.hy, i + plane) : 0.f;  // H at plane p+1
-  float top_hz = x_hi < L.nx ? load(f.hz, i + plane) : 0.f;
-  for (int p = x_hi - 1; p >= x_lo; --p, i -= plane) {
-    const float hx = load(f.hx, i), hy = load(f.hy, i), hz = load(f.hz, i);
-    const float dhy_x = p < L.nx - 1 ? top_hy - hy : 0.f;
-    const float dhz_x = p < L.nx - 1 ? top_hz - hz : 0.f;
-    const float dhz_y = y_in ? load(f.hz, i + L.nz) - hz : 0.f;
-    const float dhx_y = y_in ? load(f.hx, i + L.nz) - hx : 0.f;
-    const float dhy_z = z_in ? load(f.hy, i + 1) - hy : 0.f;
-    const float dhx_z = z_in ? load(f.hx, i + 1) - hx : 0.f;
-    float ex, ey, ez;
-    const float c_b = e_cell(as_const(f), i, L, M, sh, dhy_x, dhz_x, dhz_y,
-                             dhx_y, dhy_z, dhx_z, ex, ey, ez);
-    if (j_col >= 0) inject(S, j_col, p, y, z, c_b, ex, ey, ez);
-    store(f.ex, i, ex);
-    store(f.ey, i, ey);
-    store(f.ez, i, ez);
-    top_hy = hy;
-    top_hz = hz;
-  }
-}
-
 // The in-place halves' x chunks: a chunk edge costs a half one extra plane
 // read (its carry's seed), so short chunks are cheap, and many equal work
 // items leave the last round of a cooperative grid nearly full.
 constexpr int HALF_CHUNK = 32;
+
+// The shape of the in-place halves (tools/yee_baseline.py --variants
+// rebuilds copies with others): bytes per load (V = INPLACE_BYTES over the
+// storage size), and whether a half loads plane p+1 before plane p's
+// stores.
+#define INPLACE_BYTES 16
+#define INPLACE_PREFETCH false
 
 // Work items: (x chunk, y tile, z tile), z tiles fastest so that blocks in
 // flight together share their ring planes in L2.
@@ -446,6 +416,492 @@ inline cudaError_t cooperative_plan(K kernel, const Lattice& L, Work& w, int& bl
   w = rule(L, resident, max_chunk);
   blocks = w.n_items < resident ? w.n_items : resident;
   return cudaSuccess;
+}
+
+
+// ---- The in-place halves (K1, K2 and K4 io_alias): see the top ----
+
+// A storage value as loaded: f32 as itself, bf16 as its 16 bits, a
+// material index as its byte.
+template <typename T>
+struct Bits {
+  using t = T;
+};
+template <>
+struct Bits<__nv_bfloat16> {
+  using t = unsigned short;
+};
+
+template <int B>
+struct Word;
+template <>
+struct Word<16> {
+  using t = uint4;
+};
+template <>
+struct Word<8> {
+  using t = uint2;
+};
+template <>
+struct Word<4> {
+  using t = unsigned int;
+};
+template <>
+struct Word<2> {
+  using t = unsigned short;
+};
+template <>
+struct Word<1> {
+  using t = unsigned char;
+};
+
+// V consecutive values of one row, moved as one word of V storage values.
+template <typename T, int V>
+struct Pack {
+  using B = typename Bits<T>::t;
+  using W = typename Word<V * (int)sizeof(B)>::t;
+  union {
+    W w;
+    B b[V];
+  };
+};
+
+__device__ __forceinline__ float widen(float b) { return b; }
+__device__ __forceinline__ float widen(unsigned short b) {
+  return __bfloat162float(__ushort_as_bfloat16(b));
+}
+__device__ __forceinline__ int widen(uint8_t b) { return b; }
+
+template <typename T>
+__device__ __forceinline__ typename Bits<T>::t narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ unsigned short narrow<__nv_bfloat16>(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16(v));  // round to nearest even, as store()
+}
+
+// p[i .. i+V), of which the first n exist (0 <= n <= V; the rest read 0):
+// one load of the pack's width when VEC (p + i aligned to it and n either 0
+// or V), else one load per value.
+template <typename T, int V, bool VEC>
+__device__ __forceinline__ Pack<T, V> load_pack(const T* p, long long i, int n) {
+  using P = Pack<T, V>;
+  P r;
+  const typename P::B* q = reinterpret_cast<const typename P::B*>(p) + i;
+  if constexpr (VEC) {
+    r.w = n > 0 ? *reinterpret_cast<const typename P::W*>(q) : typename P::W{};
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) r.b[j] = j < n ? q[j] : typename P::B(0);
+  }
+  return r;
+}
+
+template <typename T, int V, bool VEC>
+__device__ __forceinline__ void store_pack(T* p, long long i, int n, const Pack<T, V>& v) {
+  using P = Pack<T, V>;
+  typename P::B* q = reinterpret_cast<typename P::B*>(p) + i;
+  if constexpr (VEC) {
+    if (n > 0) *reinterpret_cast<typename P::W*>(q) = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (j < n) q[j] = v.b[j];
+  }
+}
+
+// What the H half reads at one plane of a thread's V cells (y, zb .. zb+V):
+// E there and at y-1, the old H, the material index, and (lane 0) E at
+// zb-1; the other lanes take zb-1 from the lane below.
+template <typename T, int V>
+struct HIn {
+  Pack<T, V> ex, ey, ez, ex_ym, ez_ym, hx, hy, hz;
+  Pack<uint8_t, V> mat;
+  float ex_zm, ey_zm;
+};
+
+template <typename T, int V, bool VEC>
+__device__ __forceinline__ void load_h_in(const Fields<T>& f, const uint8_t* matid,
+                                          long long i, long long row, int n, bool ym, bool zm,
+                                          HIn<T, V>& q) {
+  q.ex = load_pack<T, V, VEC>(f.ex, i, n);
+  q.ey = load_pack<T, V, VEC>(f.ey, i, n);
+  q.ez = load_pack<T, V, VEC>(f.ez, i, n);
+  q.ex_ym = load_pack<T, V, VEC>(f.ex, i - row, ym ? n : 0);
+  q.ez_ym = load_pack<T, V, VEC>(f.ez, i - row, ym ? n : 0);
+  q.hx = load_pack<T, V, VEC>(f.hx, i, n);
+  q.hy = load_pack<T, V, VEC>(f.hy, i, n);
+  q.hz = load_pack<T, V, VEC>(f.hz, i, n);
+  q.mat.w = typename Pack<uint8_t, V>::W{};
+  if (matid) q.mat = load_pack<uint8_t, V, VEC>(matid, i, n);
+  q.ex_zm = zm ? load(f.ex, i - 1) : 0.f;
+  q.ey_zm = zm ? load(f.ey, i - 1) : 0.f;
+}
+
+// What the E half reads at one plane: the new H there and at y+1, the old
+// E, the material index, and (lane 31) H at zb+V.
+template <typename T, int V>
+struct EIn {
+  Pack<T, V> hx, hy, hz, hx_yp, hz_yp, ex, ey, ez;
+  Pack<uint8_t, V> mat;
+  float hx_zp, hy_zp;
+};
+
+template <typename T, int V, bool VEC>
+__device__ __forceinline__ void load_e_in(const Fields<T>& f, const uint8_t* matid,
+                                          long long i, long long row, int n, bool yp, bool zp,
+                                          EIn<T, V>& q) {
+  q.hx = load_pack<T, V, VEC>(f.hx, i, n);
+  q.hy = load_pack<T, V, VEC>(f.hy, i, n);
+  q.hz = load_pack<T, V, VEC>(f.hz, i, n);
+  q.hx_yp = load_pack<T, V, VEC>(f.hx, i + row, yp ? n : 0);
+  q.hz_yp = load_pack<T, V, VEC>(f.hz, i + row, yp ? n : 0);
+  q.ex = load_pack<T, V, VEC>(f.ex, i, n);
+  q.ey = load_pack<T, V, VEC>(f.ey, i, n);
+  q.ez = load_pack<T, V, VEC>(f.ez, i, n);
+  q.mat.w = typename Pack<uint8_t, V>::W{};
+  if (matid) q.mat = load_pack<uint8_t, V, VEC>(matid, i, n);
+  q.hx_zp = zp ? load(f.hx, i + V) : 0.f;
+  q.hy_zp = zp ? load(f.hy, i + V) : 0.f;
+}
+
+// The thread's V cells of a work item: the row y = y0 + threadIdx.y, the
+// cells zb = z0 + V threadIdx.x onward, n of them inside the lattice.
+template <int V>
+struct Lane {
+  int lane, y, zb, n;
+  __device__ Lane(const Lattice& L, int y0, int z0)
+      : lane((int)threadIdx.x), y(y0 + (int)threadIdx.y), zb(z0 + V * (int)threadIdx.x) {
+    n = min(max(L.nz - zb, 0), V);
+  }
+};
+
+// The H half of an in-place tick over the tile at (y0, z0), TY rows x 32 V
+// columns, and planes [x_lo, x_hi): x ascending, E at plane p-1 carried in
+// registers. Reads E, writes only H. For each cell inside the lattice,
+// cell(p, y, z, i, material, dez_y, dey_z, dex_z, dez_x, dey_x, dex_y, old
+// hx, hy, hz, new hx, hy, hz) computes the new H from the raw backward
+// differences (zero across the lattice's faces). matid may be null (all
+// 0). vec: every row starts on the pack's alignment (rows_aligned).
+template <typename T, int V, bool PREFETCH, typename Cell>
+__device__ __forceinline__ void h_sweep(Fields<T> f, const Lattice& L, const uint8_t* matid,
+                                        int y0, int z0, int x_lo, int x_hi, bool vec,
+                                        Cell cell) {
+  const Lane<V> t(L, y0, z0);
+  if (t.y >= L.ny) return;  // a warp is one row: it leaves whole
+  const long long row = L.nz, plane = (long long)L.ny * L.nz;
+  const bool ym = t.y > 0, zm = t.lane == 0 && t.zb > 0;
+  long long i = (long long)x_lo * plane + (long long)t.y * row + t.zb;
+  const int n_below = x_lo > 0 ? t.n : 0;
+  Pack<T, V> ey_m, ez_m;  // E at plane p-1
+  HIn<T, V> cur, nxt;
+  if (vec) {
+    ey_m = load_pack<T, V, true>(f.ey, i - plane, n_below);
+    ez_m = load_pack<T, V, true>(f.ez, i - plane, n_below);
+    load_h_in<T, V, true>(f, matid, i, row, t.n, ym, zm, cur);
+  } else {
+    ey_m = load_pack<T, V, false>(f.ey, i - plane, n_below);
+    ez_m = load_pack<T, V, false>(f.ez, i - plane, n_below);
+    load_h_in<T, V, false>(f, matid, i, row, t.n, ym, zm, cur);
+  }
+  for (int p = x_lo; p < x_hi; ++p, i += plane) {
+    const bool more = p + 1 < x_hi;
+    if (PREFETCH && more) {
+      if (vec) load_h_in<T, V, true>(f, matid, i + plane, row, t.n, ym, zm, nxt);
+      else load_h_in<T, V, false>(f, matid, i + plane, row, t.n, ym, zm, nxt);
+    }
+    float ey_zm = __shfl_up_sync(0xffffffffu, widen(cur.ey.b[V - 1]), 1);
+    float ex_zm = __shfl_up_sync(0xffffffffu, widen(cur.ex.b[V - 1]), 1);
+    if (t.lane == 0) {
+      ey_zm = cur.ey_zm;
+      ex_zm = cur.ex_zm;
+    }
+    Pack<T, V> hx, hy, hz;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int z = t.zb + j;
+      const float ex = widen(cur.ex.b[j]), ey = widen(cur.ey.b[j]), ez = widen(cur.ez.b[j]);
+      const float ey_z = j == 0 ? ey_zm : widen(cur.ey.b[j > 0 ? j - 1 : 0]);
+      const float ex_z = j == 0 ? ex_zm : widen(cur.ex.b[j > 0 ? j - 1 : 0]);
+      const float dey_x = p > 0 ? ey - widen(ey_m.b[j]) : 0.f;
+      const float dez_x = p > 0 ? ez - widen(ez_m.b[j]) : 0.f;
+      const float dez_y = ym ? ez - widen(cur.ez_ym.b[j]) : 0.f;
+      const float dex_y = ym ? ex - widen(cur.ex_ym.b[j]) : 0.f;
+      const float dey_z = z > 0 ? ey - ey_z : 0.f;
+      const float dex_z = z > 0 ? ex - ex_z : 0.f;
+      float nhx = 0.f, nhy = 0.f, nhz = 0.f;
+      if (j < t.n)
+        cell(p, t.y, z, i + j, widen(cur.mat.b[j]), dez_y, dey_z, dex_z, dez_x, dey_x, dex_y,
+             widen(cur.hx.b[j]), widen(cur.hy.b[j]), widen(cur.hz.b[j]), nhx, nhy, nhz);
+      hx.b[j] = narrow<T>(nhx);
+      hy.b[j] = narrow<T>(nhy);
+      hz.b[j] = narrow<T>(nhz);
+    }
+    if (vec) {
+      store_pack<T, V, true>(f.hx, i, t.n, hx);
+      store_pack<T, V, true>(f.hy, i, t.n, hy);
+      store_pack<T, V, true>(f.hz, i, t.n, hz);
+    } else {
+      store_pack<T, V, false>(f.hx, i, t.n, hx);
+      store_pack<T, V, false>(f.hy, i, t.n, hy);
+      store_pack<T, V, false>(f.hz, i, t.n, hz);
+    }
+    ey_m = cur.ey;
+    ez_m = cur.ez;
+    if (PREFETCH) {
+      if (more) cur = nxt;
+    } else if (more) {
+      if (vec) load_h_in<T, V, true>(f, matid, i + plane, row, t.n, ym, zm, cur);
+      else load_h_in<T, V, false>(f, matid, i + plane, row, t.n, ym, zm, cur);
+    }
+  }
+}
+
+// The E half of an in-place tick over the same items: x descending, the
+// new H at plane p+1 carried in registers. Reads H, writes only E;
+// cell(p, y, z, i, material, dhz_y, dhy_z, dhx_z, dhz_x, dhy_x, dhx_y, old
+// ex, ey, ez, new ex, ey, ez) from the raw forward differences of the new
+// H (zero across the lattice's faces).
+template <typename T, int V, bool PREFETCH, typename Cell>
+__device__ __forceinline__ void e_sweep(Fields<T> f, const Lattice& L, const uint8_t* matid,
+                                        int y0, int z0, int x_lo, int x_hi, bool vec,
+                                        Cell cell) {
+  const Lane<V> t(L, y0, z0);
+  if (t.y >= L.ny) return;
+  const long long row = L.nz, plane = (long long)L.ny * L.nz;
+  const bool yp = t.y < L.ny - 1, zp = t.lane == 31 && t.zb + V < L.nz;
+  long long i = (long long)(x_hi - 1) * plane + (long long)t.y * row + t.zb;
+  const int n_above = x_hi < L.nx ? t.n : 0;
+  Pack<T, V> top_hy, top_hz;  // H at plane p+1
+  EIn<T, V> cur, nxt;
+  if (vec) {
+    top_hy = load_pack<T, V, true>(f.hy, i + plane, n_above);
+    top_hz = load_pack<T, V, true>(f.hz, i + plane, n_above);
+    load_e_in<T, V, true>(f, matid, i, row, t.n, yp, zp, cur);
+  } else {
+    top_hy = load_pack<T, V, false>(f.hy, i + plane, n_above);
+    top_hz = load_pack<T, V, false>(f.hz, i + plane, n_above);
+    load_e_in<T, V, false>(f, matid, i, row, t.n, yp, zp, cur);
+  }
+  for (int p = x_hi - 1; p >= x_lo; --p, i -= plane) {
+    const bool more = p - 1 >= x_lo;
+    if (PREFETCH && more) {
+      if (vec) load_e_in<T, V, true>(f, matid, i - plane, row, t.n, yp, zp, nxt);
+      else load_e_in<T, V, false>(f, matid, i - plane, row, t.n, yp, zp, nxt);
+    }
+    float hy_zp = __shfl_down_sync(0xffffffffu, widen(cur.hy.b[0]), 1);
+    float hx_zp = __shfl_down_sync(0xffffffffu, widen(cur.hx.b[0]), 1);
+    if (t.lane == 31) {
+      hy_zp = cur.hy_zp;
+      hx_zp = cur.hx_zp;
+    }
+    const bool x_in = p < L.nx - 1;
+    Pack<T, V> ex, ey, ez;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int z = t.zb + j;
+      const bool z_in = z < L.nz - 1;
+      const float hx = widen(cur.hx.b[j]), hy = widen(cur.hy.b[j]), hz = widen(cur.hz.b[j]);
+      const float hy_z = j == V - 1 ? hy_zp : widen(cur.hy.b[j < V - 1 ? j + 1 : 0]);
+      const float hx_z = j == V - 1 ? hx_zp : widen(cur.hx.b[j < V - 1 ? j + 1 : 0]);
+      const float dhz_y = yp ? widen(cur.hz_yp.b[j]) - hz : 0.f;
+      const float dhx_y = yp ? widen(cur.hx_yp.b[j]) - hx : 0.f;
+      const float dhy_z = z_in ? hy_z - hy : 0.f;
+      const float dhx_z = z_in ? hx_z - hx : 0.f;
+      const float dhz_x = x_in ? widen(top_hz.b[j]) - hz : 0.f;
+      const float dhy_x = x_in ? widen(top_hy.b[j]) - hy : 0.f;
+      float nex = 0.f, ney = 0.f, nez = 0.f;
+      if (j < t.n)
+        cell(p, t.y, z, i + j, widen(cur.mat.b[j]), dhz_y, dhy_z, dhx_z, dhz_x, dhy_x, dhx_y,
+             widen(cur.ex.b[j]), widen(cur.ey.b[j]), widen(cur.ez.b[j]), nex, ney, nez);
+      ex.b[j] = narrow<T>(nex);
+      ey.b[j] = narrow<T>(ney);
+      ez.b[j] = narrow<T>(nez);
+    }
+    if (vec) {
+      store_pack<T, V, true>(f.ex, i, t.n, ex);
+      store_pack<T, V, true>(f.ey, i, t.n, ey);
+      store_pack<T, V, true>(f.ez, i, t.n, ez);
+    } else {
+      store_pack<T, V, false>(f.ex, i, t.n, ex);
+      store_pack<T, V, false>(f.ey, i, t.n, ey);
+      store_pack<T, V, false>(f.ez, i, t.n, ez);
+    }
+    top_hy = cur.hy;
+    top_hz = cur.hz;
+    if (PREFETCH) {
+      if (more) cur = nxt;
+    } else if (more) {
+      if (vec) load_e_in<T, V, true>(f, matid, i - plane, row, t.n, yp, zp, cur);
+      else load_e_in<T, V, false>(f, matid, i - plane, row, t.n, yp, zp, cur);
+    }
+  }
+}
+
+// inject with each update one fused multiply-add, as the compiler fuses
+// inject's in the tile pass.
+__device__ __forceinline__ void inject_rn(const Sources& s, int col, int p, int y, int z,
+                                          float coef, float& a, float& b, float& c) {
+  for (int k = 0; k < s.n; ++k) {
+    const float* row = s.rows + (long long)k * s.width;
+    if ((int)row[0] != p) continue;
+    if ((int)row[1] == y && (int)row[2] == z) {
+      a = __fmaf_rn(-coef, row[col], a);
+      b = __fmaf_rn(-coef, row[col + 1], b);
+      c = __fmaf_rn(-coef, row[col + 2], c);
+    }
+  }
+}
+
+// The Yee halves of K1 and K2 io_alias (a uniform medium, table row 0):
+// the sweeps with h_cell's and e_cell's arithmetic and the sources of
+// column m_col / j_col (-1: none). Each product's rounding is written out
+// as the compiler rounds it in the tile pass (tile_pass's SASS: the first
+// product of each curl fused into the difference, d_a h fused in the H
+// update, c_b curl in the E update): left to the compiler in this loop, the
+// E update fused c_a e instead and differed from K1 by an ulp.
+template <typename T, int V, bool PREFETCH>
+__device__ __forceinline__ void h_half(Fields<T> f, const Lattice& L, const Material& M,
+                                       const Sources& S, int m_col, int y0, int z0, int x_lo,
+                                       int x_hi, bool vec, const Shared& sh) {
+  h_sweep<T, V, PREFETCH>(
+      f, L, M.matid, y0, z0, x_lo, x_hi, vec,
+      [&](int p, int y, int z, long long i, int, float dez_y, float dey_z, float dex_z,
+          float dez_x, float dey_x, float dex_y, float ohx, float ohy, float ohz, float& hx,
+          float& hy, float& hz) {
+        const float ce_x = __fmaf_rn(dez_y, L.inv_y, -__fmul_rn(dey_z, L.inv_z));
+        const float ce_y = __fmaf_rn(dex_z, L.inv_z, -__fmul_rn(dez_x, L.inv_x));
+        const float ce_z = __fmaf_rn(dey_x, L.inv_x, -__fmul_rn(dex_y, L.inv_y));
+        const float d_a = sh.table[0][2], d_b = sh.table[0][3];
+        hx = __fmaf_rn(d_a, ohx, -__fmul_rn(d_b, ce_x));
+        hy = __fmaf_rn(d_a, ohy, -__fmul_rn(d_b, ce_y));
+        hz = __fmaf_rn(d_a, ohz, -__fmul_rn(d_b, ce_z));
+        if (m_col >= 0) inject_rn(S, m_col, p, y, z, d_b, hx, hy, hz);
+      });
+}
+
+template <typename T, int V, bool PREFETCH>
+__device__ __forceinline__ void e_half(Fields<T> f, const Lattice& L, const Material& M,
+                                       const Sources& S, int j_col, int y0, int z0, int x_lo,
+                                       int x_hi, bool vec, const Shared& sh) {
+  e_sweep<T, V, PREFETCH>(
+      f, L, M.matid, y0, z0, x_lo, x_hi, vec,
+      [&](int p, int y, int z, long long i, int, float dhz_y, float dhy_z, float dhx_z,
+          float dhz_x, float dhy_x, float dhx_y, float oex, float oey, float oez, float& ex,
+          float& ey, float& ez) {
+        const float ch_x = __fmaf_rn(dhz_y, L.inv_y, -__fmul_rn(dhy_z, L.inv_z));
+        const float ch_y = __fmaf_rn(dhx_z, L.inv_z, -__fmul_rn(dhz_x, L.inv_x));
+        const float ch_z = __fmaf_rn(dhy_x, L.inv_x, -__fmul_rn(dhx_y, L.inv_y));
+        const float c_a = sh.table[0][0], c_b = sh.table[0][1];
+        ex = __fmaf_rn(c_b, ch_x, __fmul_rn(c_a, oex));
+        ey = __fmaf_rn(c_b, ch_y, __fmul_rn(c_a, oey));
+        ez = __fmaf_rn(c_b, ch_z, __fmul_rn(c_a, oez));
+        if (j_col >= 0) inject_rn(S, j_col, p, y, z, c_b, ex, ey, ez);
+      });
+}
+
+// ---- The in-place halves' work (K1, K2 and K4 io_alias) ----
+
+// Whether every row of the (nx, ny, nz) tensors at `ptrs` (and the
+// material index, when given) starts on a `bytes`-wide boundary for
+// packs of v values: the halves' `vec`.
+inline bool rows_aligned(void* const* ptrs, int n_ptrs, const void* matid, int nz, int v,
+                         int bytes) {
+  if (nz % v) return false;
+  for (int k = 0; k < n_ptrs; ++k)
+    if ((uintptr_t)ptrs[k] % bytes) return false;
+  return matid == nullptr || (uintptr_t)matid % v == 0;
+}
+
+// Items over tiles of TY rows x `tz_cells` columns: ONE_WAVE splits x as
+// plan_work does (one wave of `resident` blocks, chunks of at most
+// HALF_CHUNK planes); WHOLE_ROUNDS takes the chunk of at most HALF_CHUNK
+// planes whose items fill whole rounds of the resident blocks at the
+// fewest planes per block, a chunk's edge counted as one plane more.
+enum Rule { ONE_WAVE, WHOLE_ROUNDS };
+
+inline Work plan_inplace(const Lattice& L, int resident, int tz_cells, Rule rule) {
+  Work w;
+  w.n_ty = (L.ny + TY - 1) / TY;
+  w.n_tz = (L.nz + tz_cells - 1) / tz_cells;
+  const long long tiles = (long long)w.n_ty * w.n_tz;
+  if (rule == ONE_WAVE) {
+    long long n_chunks = resident / tiles;
+    const long long short_chunks = (L.nx + HALF_CHUNK - 1) / HALF_CHUNK;
+    if (n_chunks < short_chunks) n_chunks = short_chunks;
+    if (n_chunks < 1) n_chunks = 1;
+    if (n_chunks > L.nx) n_chunks = L.nx;
+    w.chunk = (int)((L.nx + n_chunks - 1) / n_chunks);
+  } else {
+    long long best = -1;
+    for (int chunk = 1; chunk <= L.nx && chunk <= HALF_CHUNK; ++chunk) {
+      const long long items = tiles * ((L.nx + chunk - 1) / chunk);
+      const long long cost = (items + resident - 1) / resident * (chunk + 1);
+      if (best < 0 || cost <= best) {
+        best = cost;
+        w.chunk = chunk;
+      }
+    }
+  }
+  w.n_items = (int)(tiles * ((L.nx + w.chunk - 1) / w.chunk));
+  return w;
+}
+
+__device__ __forceinline__ void decode_inplace(const Work& w, int item, const Lattice& L,
+                                               int tz_cells, int& y0, int& z0, int& x_lo,
+                                               int& x_hi) {
+  const int tz = item % w.n_tz;
+  const int rest = item / w.n_tz;
+  const int ty = rest % w.n_ty;
+  const int c = rest / w.n_ty;
+  y0 = ty * TY;
+  z0 = tz * tz_cells;
+  x_lo = c * w.chunk;
+  x_hi = min(x_lo + w.chunk, L.nx);
+}
+
+// The resident blocks of `kernel` (THREADS threads) on the current device,
+// and whether it takes cooperative launches.
+template <typename K>
+inline cudaError_t resident_blocks(K kernel, int& blocks, int* coop = nullptr) {
+  int dev = 0, sms = 0, per_sm = 0, c = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && coop)
+    err = cudaDeviceGetAttribute(&c, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
+  blocks = sms * (per_sm > 0 ? per_sm : 1);
+  if (coop) *coop = c && per_sm > 0;
+  return err;
+}
+
+// One half pass of K1 or K2 io_alias as an ordinary launch: the items from
+// blockIdx.x on, by the grid's stride.
+template <typename T, int V, bool PREFETCH>
+__global__ void __launch_bounds__(THREADS)
+h_half_kernel(Fields<T> f, Lattice L, Material M, Sources S, int m_col, Work w, int vec) {
+  __shared__ Shared sh;
+  load_table(sh, M);
+  for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
+    int y0, z0, x_lo, x_hi;
+    decode_inplace(w, item, L, TZ * V, y0, z0, x_lo, x_hi);
+    h_half<T, V, PREFETCH>(f, L, M, S, m_col, y0, z0, x_lo, x_hi, vec, sh);
+  }
+}
+
+template <typename T, int V, bool PREFETCH>
+__global__ void __launch_bounds__(THREADS)
+e_half_kernel(Fields<T> f, Lattice L, Material M, Sources S, int j_col, Work w, int vec) {
+  __shared__ Shared sh;
+  load_table(sh, M);
+  for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
+    int y0, z0, x_lo, x_hi;
+    decode_inplace(w, item, L, TZ * V, y0, z0, x_lo, x_hi);
+    e_half<T, V, PREFETCH>(f, L, M, S, j_col, y0, z0, x_lo, x_hi, vec, sh);
+  }
 }
 
 }  // namespace yee

@@ -1460,3 +1460,182 @@ def test_window_call_peak_holds_one_scratch_per_block(cuda_device, kernel):
     peak = torch.cuda.max_memory_allocated() - base
     assert peak <= out_bytes + 4 * step.scratch_floats() + (1 << 20)
     del out
+
+
+# -- The in-place halves' vectors: K1, K2 and K4 io_alias give each thread
+# 4 z cells at f32 and 8 at bf16, loaded 16 bytes at a time where a row
+# starts on that boundary (nz a multiple of the vector), value by value
+# elsewhere. The lattices have nz below the vector, not a multiple of it,
+# and a multiple of both; sources, the CPML z slab edges, a TF/SF face, a
+# region and the options' lines sit on and beside the vectors' edges.
+
+VEC_SHAPES = ((10, 11, 3), (14, 13, 61), (14, 13, 40))
+VEC_ZS = (0, 3, 4, 5, 7, 8, 9, 31, 32)
+
+
+def _vec_sources(shape):
+    """J+M sources on every x plane, at z cells on and beside the vectors'
+    edges and at the lattice's last z."""
+    nx, ny, nz = shape
+    zs = [z for z in VEC_ZS if z < nz] + [nz - 1]
+    return pt.SourceSet.build([
+        pt.PointSource((x, (3 * x) % ny, zs[x % len(zs)]),
+                       pt.GaussianPulse((2 + x % 3) * DT, DT), j=(0.3, -0.2, 0.5),
+                       m=(0.1, 0.4, -0.2))
+        for x in range(nx)], device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", VEC_SHAPES)
+@pytest.mark.parametrize("k", [1, 2, 8])
+def test_inplace_vectors_match_out_of_place(cuda_device, dtype, shape, k):
+    """K1 (k = 1) and K2 io_alias on VEC_SHAPES: one launch, the result in
+    the input tensors; at f32 bit-identical to the out-of-place kernel, at
+    bf16 within 2^-7 of max|field| of the in-place plain version."""
+    rng = np.random.default_rng(29)
+    e, h = rng.standard_normal((3, *shape)), rng.standard_normal((3, *shape))
+    src = _vec_sources(shape)
+    coeffs = pt.CellCoefficients.uniform((0.97, 0.21, 0.99, 0.18), device="cpu")
+    kw = dict(inv_dx=INV_DX, dt=DT, dtype=dtype, with_m=True)
+
+    def build(io_alias):
+        if k == 1:
+            return cuda_step_fn(shape, io_alias=io_alias, **kw)
+        return cuda_stepk_fn(shape, k, io_alias=io_alias, **kw)
+
+    def state(device):
+        return pt.state_from_stacked(e, h, tick=2, dtype=dtype, device=device)
+
+    want = build(True)(state("cpu"), coeffs, src)
+    dc, dsrc = coeffs.to(cuda_device), src.to(cuda_device)
+    ref = build(False)(state(cuda_device), dc, dsrc)
+    ds = state(cuda_device)
+    fields = (*ds.e, *ds.h)
+    mod = cuda_step if k == 1 else cuda_stepk
+    before = mod.launches(io_alias=True)
+    got = build(True)(ds, dc, dsrc)
+    torch.cuda.synchronize()
+    assert mod.launches(io_alias=True) == before + 1
+    assert all(a is b for a, b in zip((*got.e, *got.h), fields))
+    if dtype == torch.float32:
+        for g, r in zip((*got.e, *got.h), (*ref.e, *ref.h)):
+            assert torch.equal(g, r)
+    else:
+        scale = max(float(w.float().abs().max()) for w in (*want.e, *want.h))
+        for g, w in zip((*got.e, *got.h), (*want.e, *want.h)):
+            err = float((g.float().cpu() - w.float()).abs().max())
+            assert err <= 2.0 ** -7 * scale, (err, scale)
+
+
+def _vec_setup(shape, option):
+    """The wrapper's keywords for K4 on ``shape``: CPML on every axis, the z
+    slab ending inside a vector (z = 5) where nz allows, a TF/SF box whose
+    z faces (7 and nz - 9) sit at vectors' edges, or in its place the
+    oblique box; ``dense``: a ball region graded along z over z 3-13;
+    ``options``: flux faces, DFT planes and rows on and beside the vectors'
+    edges. Returns (keywords, the options' keywords)."""
+    from fdtd_tpu_torch.scene import Ball
+
+    nx, ny, nz = shape
+    small = nz < 16
+    cpml = pt.Cpml(thickness=((3, 2), (2, 3), (1, 1) if small else (5, 3)))
+    span_z = (1, 1) if small else (8, nz - 8)
+    kw = dict(inv_dx=INV_DX, dt=DT, constants=pt.REDUCED, cpml=cpml,
+              tfsf=pt.Tfsf(span=(5, nx - 5), waveform=pt.GaussianDerivative(6 * DT, 2 * DT),
+                           span_y=(4, ny - 4), span_z=span_z),
+              with_m=True, n_materials=3)
+    if option == "oblique":
+        kw.update(tfsf=None, oblique=pt.ObliqueTfsf(
+            box=((5, nx - 5), (4, ny - 4), (7, nz - 8)), direction=(1.0, 0.7, -0.4),
+            polarization=(0.0, 0.2, 1.0), waveform=pt.GaussianPulse(6 * DT, 2 * DT)))
+    if option == "dense":
+        box = ((4, 10), (3, 9), (6, 14))
+        ball, ctr = Ball(4.0), np.array([[7.0], [6.0], [10.5]])
+        d_h, d_e = pt.depth_from_contains(lambda p: ball.contains(p - ctr), box, 2, 1)
+        kw["dense"] = pt.dense_pml_from_depth(2, box, d_h, d_e,
+                                              spec=pt.solver.GradedPmlSpec(),
+                                              dx=1.0 / INV_DX[2], dt=DT, constants=pt.REDUCED)
+    opts = {}
+    if option == "options":
+        zl = [z for z in (3, 4, 7, 8) if z < nz] or [nz - 1]
+        opts = dict(flux_faces=(("x",), ("y", 5), *(("z", z) for z in zl)),
+                    dft=(((2, 0), (9, 1)), (0.02, 0.05)),
+                    dft_rows=(("z", zl[-1]), ("y", 4), ("z", 0)))
+    return kw, opts
+
+
+def _vec_engine(dtype, shape, kw, opts):
+    """A random host EngineState on ``shape`` for ``kw`` (fields, psi, the
+    aux line, psi_d, the options' DFT planes), a material index and J+M
+    sources (_vec_sources)."""
+    rng = np.random.default_rng(31)
+    s = pt.init_engine_state(shape, dtype, cpml=kw["cpml"], tfsf=kw.get("tfsf"),
+                             dense=kw.get("dense"), device="cpu")
+
+    def rand(t):
+        return torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)).to(t.dtype)
+
+    s = s.replace(**{f: rand(getattr(s, f)) for f in FIELDS},
+                  psi_h=tuple((rand(a), rand(b)) for a, b in s.psi_h),
+                  psi_e=tuple((rand(a), rand(b)) for a, b in s.psi_e),
+                  psi_d=tuple(rand(p) for p in s.psi_d),
+                  aux_e=rand(s.aux_e), aux_h=rand(s.aux_h), tick=2)
+    if opts:
+        n = 6 * len(opts["dft"][1])
+        s = s.replace(dft=tuple(
+            torch.from_numpy(rng.standard_normal((n, *shape[1:])).astype(np.float32))
+            for _ in opts["dft"][0]))
+    mid = torch.from_numpy(rng.integers(0, 3, shape).astype(np.uint8))
+    return s, mid, _vec_sources(shape)
+
+
+def _to_device(s, device):
+    return s.replace(**{f: getattr(s, f).to(device) for f in (*FIELDS, "aux_e", "aux_h")},
+                     psi_h=tuple((a.to(device), b.to(device)) for a, b in s.psi_h),
+                     psi_e=tuple((a.to(device), b.to(device)) for a, b in s.psi_e),
+                     psi_d=tuple(p.to(device) for p in s.psi_d),
+                     dft=tuple(p.to(device) for p in s.dft))
+
+
+VEC_K4_CASES = [(shape, option) for shape in VEC_SHAPES for option in ("core", "options")] + [
+    (shape, option) for shape in VEC_SHAPES[1:] for option in ("dense", "oblique")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,option", VEC_K4_CASES)
+@pytest.mark.parametrize("k", [2, 3])
+def test_k4_inplace_vectors_match_out_of_place(cuda_device, dtype, shape, option, k):
+    """K4 io_alias on VEC_SHAPES with a material index: one launch, every
+    field, psi slab and region psi of the result its input tensor; at f32
+    every output (fields, psi, psi_d, DFT planes, flux rows, captures)
+    bit-identical to the out-of-place K4's; at bf16 the fields and psi
+    within K4's bf16 bars (2^-7 of their largest value) of the in-place
+    plain version, and so the options."""
+    kw, opts = _vec_setup(shape, option)
+    hs, mid, src = _vec_engine(dtype, shape, kw, opts)
+    tab = torch.tensor(TABLE)
+    hkw = dict(kw, dtype=dtype, matid=mid)
+    dkw = dict(kw, dtype=dtype, matid=mid.to(cuda_device))
+    dtab, dsrc = tab.to(cuda_device), src.to(cuda_device)
+    ref_in, ds = _to_device(hs, cuda_device), _to_device(hs, cuda_device)
+    # the plain in-place version overwrites hs
+    want, w_extra = _outputs(cuda_cpml_stepk_fn(shape, k, io_alias=True, **hkw, **opts)(
+        hs, tab, src))
+    ref, r_extra = _outputs(cuda_cpml_stepk_fn(shape, k, **dkw, **opts)(ref_in, dtab, dsrc))
+    own = [t.data_ptr() for t in _written(ds)]
+    before = cuda_cpml_k.launches(io_alias=True)
+    got, extra = _outputs(cuda_cpml_stepk_fn(shape, k, io_alias=True, **dkw, **opts)(
+        ds, dtab, dsrc))
+    torch.cuda.synchronize()
+    assert cuda_cpml_k.launches(io_alias=True) == before + 1
+    assert [t.data_ptr() for t in _written(got)] == own
+    if dtype == torch.float32:
+        for a, b in zip((*_written(got), *got.dft, *extra),
+                        (*_written(ref), *ref.dft, *r_extra)):
+            assert torch.equal(a, b)
+    else:
+        _check_engine(got, want, dtype, k, 2.0 ** -7)
+        for a, b in zip((*got.dft, *extra), (*want.dft, *w_extra)):
+            assert _scaled_err(a, b) <= 2.0 ** -7

@@ -1,20 +1,36 @@
 #!/usr/bin/env python3
-"""Hold K1 and K2 of this checkout to another version's, on one CUDA card.
+"""Hold K1, K2 and their in-place variants to another version's, on one CUDA card.
 
-    python3 tools/yee_baseline.py --baseline DIR [--calls N]
+    python3 tools/yee_baseline.py --baseline DIR [--calls N] [--variants] [--no-large]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 DIR is another version's ``fdtd_tpu_torch/csrc`` (for example the parent
-commit's, unpacked with ``git archive``), whose ``fdtd_step`` and
-``fdtd_stepk`` take the same arguments. It builds that version's
-``step.cu`` and ``stepk.cu`` (with its own headers) beside this
-checkout's, one nvcc each, all started together, and prints each build's
-ptxas lines per kernel (both build under ``build/yee_baseline/``); runs the out-of-place K1 and K2 (K = 8) of both
-versions on the ragged 37x29x53 case (config 2's material index, J+M
-sources, f32 and bf16) and says whether their fields are bit-identical;
-and times both versions' K1 and K2 (K = 8) at 512^3 free space, f32 and
-bf16, with CUDA events, in turns (baseline, this, this, baseline), ``N``
-calls each (default 20). Prints the card's name and power limit first.
+commit's, unpacked with ``git archive``), whose ``fdtd_step``,
+``fdtd_stepk``, ``fdtd_step_inplace`` and ``fdtd_stepk_inplace`` take the
+same arguments. It builds that version's ``step.cu`` and ``stepk.cu`` (with
+its own headers) beside this checkout's, one nvcc each, all started
+together, under ``build/yee_baseline/``, and prints each build's ptxas
+lines per kernel instantiation (registers, spills). ``--variants`` also
+builds copies of this checkout's sources with the in-place halves' other
+shapes (VARIANTS: 8-byte loads, no prefetch, the cooperative launch over
+one wave's or whole rounds' items), which run every check and the 512^3
+timings beside the shipped build.
+
+Checks, each version against the baseline bit for bit, f32 and bf16: the
+out-of-place K1 and K2 (K = 8) on the ragged 37x29x53 case (config 2's
+material index, J+M sources), and K1 and K2 io_alias (K = 2 and 8) on it
+without the index and on 40x24x64 (nz a multiple of the halves' vectors:
+their 16-byte loads), with J+M sources on and beside the vectors' edges.
+
+Timings, with CUDA events, in turns (baseline, this, this, baseline),
+``N`` calls each (default 20; 4 at 1024^3): K1 and K2 (K = 8) at 512^3
+free space, f32 and bf16, with K1 io_alias and K2 io_alias (K = 8; at
+bf16 also K = 2); then K1 io_alias and K2 io_alias alone at 1024^3 (not
+with ``--no-large``). Each in-place line gives Gcell/s, the share of
+3.35 TB/s of the bytes the halves move (72 B/cell a tick at f32, 36 at
+bf16) and of the call's bound (one read and one write of the state), and
+the peak memory one call allocates beyond the state, beside the
+baseline's. Prints the card's name and power limit first and last.
 """
 
 from __future__ import annotations
@@ -43,6 +59,16 @@ from fdtd_tpu_torch.solver.cuda_stepk import cuda_stepk_fn  # noqa: E402
 ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 OUT = _build.BUILD_DIR.parent / "yee_baseline"
 K = 8
+#: _build's names of the entries of step.cu and stepk.cu
+ENTRIES = ("STEP", "STEPK", "STEP_INPLACE", "STEPK_INPLACE")
+#: name -> {source file: {macro: value}}: the in-place halves' other shapes
+VARIANTS = {
+    "8-byte loads": {"yee.cuh": {"INPLACE_BYTES": "8"}},
+    "prefetch": {"yee.cuh": {"INPLACE_PREFETCH": "true"}},
+    "cooperative, one wave": {"stepk.cu": {"STEPK_INPLACE_LAUNCH": "0"}},
+    "cooperative, whole rounds": {"stepk.cu": {"STEPK_INPLACE_LAUNCH": "1"}},
+}
+ALIGNED_SHAPE = (40, 24, 64)
 
 
 def ptxas_lines(log: str):
@@ -58,15 +84,179 @@ def ptxas_lines(log: str):
     return out
 
 
+def with_macros(csrc: Path, dest: Path, macros: dict) -> Path:
+    """A copy of ``csrc`` at ``dest`` with ``#define NAME value`` replaced
+    per file; each replaced define must exist."""
+    shutil.copytree(csrc, dest)
+    for name, defs in macros.items():
+        path = dest / name
+        text = path.read_text()
+        for macro, value in defs.items():
+            pattern = re.compile(rf"#define {macro} \S+")
+            assert pattern.search(text), f"{macro} not in {name}"
+            text = pattern.sub(f"#define {macro} {value}", text)
+        path.write_text(text)
+    return dest
+
+
+def build_versions(baseline: Path, variants: bool):
+    """{version: {_build name: Kernel}}, every library built and loaded."""
+    shutil.rmtree(OUT, ignore_errors=True)
+    dirs = {"baseline": baseline.resolve(), "this": _build.CSRC}
+    if variants:
+        for i, (name, macros) in enumerate(VARIANTS.items()):
+            dirs[name] = with_macros(_build.CSRC, OUT / f"src{i}", macros)
+    versions = {
+        name: {e: _build.Kernel(f"{getattr(_build, e).name} {name}", getattr(_build, e).source,
+                                getattr(_build, e).entry, getattr(_build, e).argtypes,
+                                csrc=csrc, build_dir=OUT / f"lib_{i}")
+               for e in ENTRIES}
+        for i, (name, csrc) in enumerate(dirs.items())}
+    kernels = [ks[e] for ks in versions.values() for e in ("STEP", "STEPK")]
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        list(pool.map(lambda k: k.build(), kernels))
+    for name, ks in versions.items():
+        for e, k in ks.items():
+            k.function()
+            if e in ("STEP", "STEPK"):
+                cs.log(f"{name} {k.source}: built in {k.build_seconds} s")
+                for entry, lines in ptxas_lines(k.build_log):
+                    cs.log(f"  {entry}: {' | '.join(lines)}")
+    return versions
+
+
 @contextlib.contextmanager
-def using(step, stepk):
-    """Route the K1 and K2 wrappers through these two kernels."""
-    saved = _build.STEP, _build.STEPK
-    _build.STEP, _build.STEPK = step, stepk
+def using(kernels: dict):
+    """Route the K1 and K2 wrappers through ``kernels`` (_build name ->
+    Kernel)."""
+    saved = {e: getattr(_build, e) for e in kernels}
+    for e, k in kernels.items():
+        setattr(_build, e, k)
     try:
         yield
     finally:
-        _build.STEP, _build.STEPK = saved
+        for e, k in saved.items():
+            setattr(_build, e, k)
+
+
+def vector_sources(shape, dt, dev):
+    """J+M sources on every x plane at z cells on and beside the halves'
+    vector edges (4 and 8 cells) and at the last z."""
+    nx, ny, nz = shape
+    zs = [z for z in (0, 3, 4, 7, 8, 31, 32, 63) if z < nz] + [nz - 1]
+    return ft.SourceSet.build([
+        ft.PointSource((x, (5 * x) % ny, zs[x % len(zs)]),
+                       ft.GaussianPulse((2 + x % 3) * dt, dt), j=(0.3, -0.2, 0.5),
+                       m=(0.1, 0.4, -0.2))
+        for x in range(nx)], device=dev)
+
+
+def check(versions, dev):
+    """Every version's K1, K2, K1 io_alias and K2 io_alias against the
+    baseline's, bit for bit."""
+    shape = cs.LADDER_CHECK_SHAPE
+    sim = cs.flagship(ft, shape, torch.float32, dev)
+    mid, tab, src = sim.matid, sim._table_f32, sim.sources
+    inv_dx = tuple(1.0 / d for d in sim.grid.dx)
+    coeffs = ft.CellCoefficients.uniform((0.97, 0.21, 0.99, 0.18), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ok = True
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = []
+        kw = dict(inv_dx=inv_dx, dt=sim.grid.dt, dtype=dtype, with_m=True)
+        mkw = dict(kw, matid=mid, n_materials=tab.shape[0])
+        cases.append(("K1", shape, lambda: cuda_step_fn(shape, **mkw), tab, src))
+        cases.append((f"K2 K={K}", shape, lambda: cuda_stepk_fn(shape, K, **mkw), tab, src))
+        for sh, s in ((shape, src), (ALIGNED_SHAPE, vector_sources(ALIGNED_SHAPE,
+                                                                    sim.grid.dt, dev))):
+            cases.append(("K1 io_alias", sh,
+                          lambda sh=sh: cuda_step_fn(sh, io_alias=True, **kw), coeffs, s))
+            for k in (2, K):
+                cases.append((f"K2 K={k} io_alias", sh,
+                              lambda sh=sh, k=k: cuda_stepk_fn(sh, k, io_alias=True, **kw),
+                              coeffs, s))
+        for name, sh, make, c, s in cases:
+            e, h = (torch.randn((3, *sh), generator=gen, device=dev) for _ in range(2))
+            outs = {}
+            for version, ks in versions.items():
+                state = ft.state_from_stacked(e, h, tick=3, dtype=dtype, device=dev)
+                with using(ks):
+                    outs[version] = make()(state, c, s)
+            torch.cuda.synchronize()
+            base = outs["baseline"]
+            for version, out in outs.items():
+                if version == "baseline":
+                    continue
+                same = all(torch.equal(x, y) for x, y in zip((*out.e, *out.h),
+                                                             (*base.e, *base.h)))
+                ok &= same
+                cs.log(f"check {name} {sh} {str(dtype)[6:]} {version}: bit-identical to the "
+                       f"baseline {same} (max_abs_diff {cs.max_abs_err(out, base):.3e})")
+    return ok
+
+
+def time_group(label, named, state, calls, cells, set_bytes, itemsize):
+    """Time ``named`` [(name, fn, ticks, in place)] in turns and log each."""
+    ms = cs.in_turns(torch, [(n, f, t) for n, f, t, _ in named], state, calls)
+    out = {}
+    for name, fn, ticks, inplace in named:
+        mean = sum(ms[name]) / 2
+        g = cells * ticks / (mean * 1e-3) / 1e9
+        line = (f"{label} {name}: {ms[name][0]:.4f} / {ms[name][1]:.4f} ms per call "
+                f"({ticks} ticks), {g:.3f} Gcell/s")
+        if inplace:
+            run_share = g * 1e9 * 18 * itemsize / cs.HBM_BYTES_PER_S
+            bound_ms = 2 * set_bytes / cs.HBM_BYTES_PER_S * 1e3
+            peak = cs.peak_call_bytes(torch, fn, state)
+            line += (f", {run_share:.1%} of 3.35 TB/s at {18 * itemsize} B/cell/tick, "
+                     f"bound {bound_ms:.4f} ms -> {bound_ms / mean:.1%}, call allocates "
+                     f"{peak} B beyond the state")
+            out[name] = dict(ms=ms[name], gcells=g, bound_ms=bound_ms, peak=peak)
+        else:
+            out[name] = dict(ms=ms[name], gcells=g)
+        cs.log(line)
+    return out
+
+
+def timings(versions, calls, large):
+    dev = torch.device("cuda")
+    res = ft.Resolution.courant(1.0, ft.REDUCED, safety=0.99)
+    coeffs = ft.CellCoefficients.uniform((1.0, res.temporal, 1.0, res.temporal), device=dev)
+    kw_all = dict(inv_dx=(1.0,) * 3, dt=res.temporal)
+    names = ["baseline"] + [v for v in versions if v != "baseline"]
+    # baseline first, then the others: in_turns runs them back again
+    for n in (cs.SCALE_SHAPE[0], 1024) if large else (cs.SCALE_SHAPE[0],):
+        shape = (n, n, n)
+        cells = math.prod(shape)
+        for dtype in (torch.float32, torch.bfloat16):
+            itemsize = 4 if dtype == torch.float32 else 2
+            kw = dict(kw_all, dtype=dtype)
+            top = n == cs.SCALE_SHAPE[0]
+            named = []
+            for version in names if top else ("baseline", "this"):
+                ks = versions[version]
+
+                def via(f, ks=ks):
+                    def call(s):
+                        with using(ks):
+                            return f(s, coeffs, None)
+                    return call
+
+                if top:
+                    named += [(f"K1 {version}", via(cuda_step_fn(shape, **kw)), 1, False),
+                              (f"K2 K={K} {version}", via(cuda_stepk_fn(shape, K, **kw)), K,
+                               False)]
+                named.append((f"K1 io_alias {version}",
+                              via(cuda_step_fn(shape, io_alias=True, **kw)), 1, True))
+                for k in (K, 2) if dtype == torch.bfloat16 else (K,):
+                    named.append((f"K2 K={k} io_alias {version}",
+                                  via(cuda_stepk_fn(shape, k, io_alias=True, **kw)), k, True))
+            state = ft.zero_state(shape, dtype, dev)
+            state = state.replace(ez=torch.ones_like(state.ez))
+            time_group(f"{n}^3 {str(dtype)[6:]}", named, state, calls if top else 4, cells,
+                       6 * cells * itemsize, itemsize)
+            del state, named
+            torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -74,88 +264,24 @@ def main() -> int:
     ap.add_argument("--baseline", type=Path, required=True,
                     help="another version's fdtd_tpu_torch/csrc")
     ap.add_argument("--calls", type=int, default=20)
+    ap.add_argument("--variants", action="store_true",
+                    help="also build and time the in-place halves' other shapes")
+    ap.add_argument("--no-large", action="store_true", help="skip the 1024^3 timings")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip(), flush=True)
-    # both versions build afresh into directories of their own, so that
-    # each build's ptxas lines are printed
-    shutil.rmtree(OUT, ignore_errors=True)
-    versions = {
-        name: tuple(_build.Kernel(f"{k.name} {name}", k.source, k.entry, k.argtypes,
-                                  csrc=csrc, build_dir=OUT / name)
-                    for k in (_build.STEP, _build.STEPK))
-        for name, csrc in (("baseline", args.baseline), ("this", _build.CSRC))
-    }
-    kernels = [k for pair in versions.values() for k in pair]
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        list(pool.map(lambda k: k.build(), kernels))
-    for name, pair in versions.items():
-        for k in pair:
-            k.function()
-            print(f"{name} {k.source}: built in {k.build_seconds} s", flush=True)
-            for entry, lines in ptxas_lines(k.build_log):
-                print(f"  {entry}: {' | '.join(lines)}", flush=True)
-
-    dev = torch.device("cuda")
-    shape = cs.LADDER_CHECK_SHAPE
-    sim = cs.flagship(ft, shape, torch.float32, dev)
-    mid, tab, src = sim.matid, sim._table_f32, sim.sources
-    inv_dx = tuple(1.0 / d for d in sim.grid.dx)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    for dtype in (torch.float32, torch.bfloat16):
-        e, h = (torch.randn((3, *shape), generator=gen, device=dev) for _ in range(2))
-        state = ft.state_from_stacked(e, h, tick=3, dtype=dtype, device=dev)
-        kw = dict(inv_dx=inv_dx, dt=sim.grid.dt, dtype=dtype, with_m=True, matid=mid,
-                  n_materials=tab.shape[0])
-        outs = {}
-        for name, pair in versions.items():
-            with using(*pair):
-                outs[name] = (cuda_step_fn(shape, **kw)(state, tab, src),
-                              cuda_stepk_fn(shape, K, **kw)(state, tab, src))
-        torch.cuda.synchronize()
-        for i, kname in enumerate(("K1", f"K2 K={K}")):
-            a, b = outs["baseline"][i], outs["this"][i]
-            same = all(torch.equal(x, y) for x, y in zip((*a.e, *a.h), (*b.e, *b.h)))
-            print(f"{kname} {shape} {str(dtype)[6:]}: bit-identical to the baseline "
-                  f"{same} (max_abs_diff {cs.max_abs_err(a, b):.3e})", flush=True)
-
-    res = ft.Resolution.courant(1.0, ft.REDUCED, safety=0.99)
-    coeffs = ft.CellCoefficients.uniform((1.0, res.temporal, 1.0, res.temporal),
-                                         device=dev)
-    cells = math.prod(cs.SCALE_SHAPE)
-    for dtype in (torch.float32, torch.bfloat16):
-        kw = dict(inv_dx=(1.0,) * 3, dt=res.temporal, dtype=dtype)
-        named = []
-        for name, pair in versions.items():
-            k1, k2 = cuda_step_fn(cs.SCALE_SHAPE, **kw), cuda_stepk_fn(cs.SCALE_SHAPE, K, **kw)
-
-            def run1(s, pair=pair, f=k1):
-                with using(*pair):
-                    return f(s, coeffs, None)
-
-            def run2(s, pair=pair, f=k2):
-                with using(*pair):
-                    return f(s, coeffs, None)
-
-            named += [(f"K1 {name}", run1, 1), (f"K2 K={K} {name}", run2, K)]
-        state = ft.zero_state(cs.SCALE_SHAPE, dtype, dev)
-        state = state.replace(ez=torch.ones_like(state.ez))
-        # baseline, this, this, baseline
-        order = [n for n in named if n[0].endswith("baseline")] + \
-            [n for n in named if n[0].endswith("this")]
-        ms = cs.in_turns(torch, order, state, args.calls)
-        for name, _, ticks in order:
-            mean = sum(ms[name]) / 2
-            print(f"512^3 {str(dtype)[6:]} {name}: {ms[name][0]:.4f} / {ms[name][1]:.4f} "
-                  f"ms per call ({ticks} ticks), "
-                  f"{cells * ticks / (mean * 1e-3) / 1e9:.3f} Gcell/s", flush=True)
-        del state
-        torch.cuda.empty_cache()
-    return 0
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+    cs.log(card)
+    versions = build_versions(args.baseline, args.variants)
+    ok = check(versions, torch.device("cuda"))
+    timings(versions, args.calls, not args.no_large)
+    cs.log(card)
+    if not ok:
+        cs.log("FAILED: a version differs from the baseline")
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -30,8 +30,8 @@
 // finished between them, as yee.cuh's: h_half reads E and writes H and its
 // psi, e_half reads H and writes E and its psi, each thread at its own
 // cells, with one psi set read and written by the cell's owner. They are
-// yee.cuh's streaming sweeps (V cells a thread, 16-byte loads, the next
-// plane in flight) with this file's cell updates. K4's out-of-place level
+// yee.cuh's streaming sweeps (V cells a thread, one access of V values a
+// field) with this file's cell updates. K4's out-of-place level
 // loop (cpmlk.cu) runs the same two halves a tick between its buffer sets
 // with one cell a thread (h_pass, e_pass). Every pass shares the per-cell
 // arithmetic (h_cell, e_cell, in the tile pass's order), so at f32 storage
@@ -583,22 +583,23 @@ __device__ __forceinline__ bool bare(const Profiles& P, const Tfsf& T, const flo
 }
 
 // The in-place tick's halves (K4 io_alias): yee.cuh's streaming sweeps (V
-// cells a thread, 16-byte loads) with h_cell and e_cell per cell on the
-// held values, psi set 0 read and written by the cell's owner. A cell
+// cells a thread, one access of V values a field) with h_cell and e_cell
+// per cell on the held values, psi set 0 read and written by the cell's
+// owner. A cell
 // where they reduce to the lossless update (bare: most of the lattice)
 // takes that update alone, written with the roundings h_cell and e_cell
 // give it (each product and difference rounded apart: a raw difference's
 // product must not fuse into the curl), so the result is the same bit for
 // bit and the stretch's branches and psi index arithmetic run only in the
 // slabs, the TF/SF faces and the region.
-template <typename TS, bool EXT, int V, bool PREFETCH>
+template <typename TS, bool EXT, int V>
 __device__ __forceinline__ void h_half(yee::Fields<TS> f, const yee::Lattice& L,
                                        const yee::Material& M, const yee::Sources& S, int m_col,
                                        const Profiles& P, const Psi& Q, const Tfsf& T,
                                        const float* aux_e, int y0, int z0, int x_lo, int x_hi,
                                        bool vec, const yee::Shared& sh, const Ext& X,
                                        const float* ob) {
-  yee::h_sweep<TS, V, PREFETCH>(
+  yee::h_sweep<TS, V>(
       f, L, M.matid, y0, z0, x_lo, x_hi, vec,
       [&](int p, int y, int z, long long i, int mat, float dez_y, float dey_z, float dex_z,
           float dez_x, float dey_x, float dex_y, float ohx, float ohy, float ohz, float& hx,
@@ -622,14 +623,14 @@ __device__ __forceinline__ void h_half(yee::Fields<TS> f, const yee::Lattice& L,
       });
 }
 
-template <typename TS, bool EXT, int V, bool PREFETCH>
+template <typename TS, bool EXT, int V>
 __device__ __forceinline__ void e_half(yee::Fields<TS> f, const yee::Lattice& L,
                                        const yee::Material& M, const yee::Sources& S, int j_col,
                                        const Profiles& P, const Psi& Q, const Tfsf& T,
                                        const float* aux_h, int y0, int z0, int x_lo, int x_hi,
                                        bool vec, const yee::Shared& sh, const Ext& X,
                                        const float* ob) {
-  yee::e_sweep<TS, V, PREFETCH>(
+  yee::e_sweep<TS, V>(
       f, L, M.matid, y0, z0, x_lo, x_hi, vec,
       [&](int p, int y, int z, long long i, int mat, float dhz_y, float dhy_z, float dhx_z,
           float dhz_x, float dhy_x, float dhx_y, float oex, float oey, float oez, float& ex,

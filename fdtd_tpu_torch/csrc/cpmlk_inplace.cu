@@ -1,5 +1,4 @@
-// K4 io_alias: K absorbing ticks (K >= 2) in place, in one cooperative
-// launch.
+// K4 io_alias: K absorbing ticks (K >= 2) in place, 2K ordinary launches.
 //
 // Replaces the TPU kernel fdtd_tpu/solver/pallas_cpml_k.py::_make_kernel as
 // its _build_call builds it with _USE_IO_ALIASES (pallas_cpml_k.py:66; the
@@ -11,60 +10,49 @@
 //
 // cpmlk.cu's tile pass cannot write in place: it recomputes new H and its
 // psi on a +1 ring and a seed plane from old E and psi at cells that other
-// blocks own and overwrite. So each tick is cpml.cuh's two half passes with
-// a grid-wide barrier after each, as K2 io_alias (stepk.cu): the H half
-// reads E and writes H and psi_H, the E half reads H and writes E and
-// psi_E, each thread at its own cells (32-plane work items, yee.cuh). Both
-// share the tile pass's per-cell arithmetic (cpml::h_cell, e_cell), so at
-// f32 storage every output is bit-identical to cpmlk.cu's. At bf16 storage
-// there is no f32 work set: H is rounded to bf16 before E reads it, and E
-// every tick (cpmlk.cu and the TPU kernel round once per call).
+// blocks own and overwrite. So each tick is cpml.cuh's two half passes, the
+// H half reading E and writing H and psi_H, the E half reading H and
+// writing E and psi_E, each thread at its own cells. At f32 storage every
+// output is bit-identical to cpmlk.cu's (the same cell arithmetic). At bf16
+// storage there is no f32 work set: H is rounded to bf16 before E reads it,
+// and E every tick (cpmlk.cu and the TPU kernel round once per call).
 //
-// The options' epilogue runs after each level's E half and reads back the
-// block's own cells of the state, so at bf16 the accumulators sample the
-// rounded fields. Flux rows keep cpmlk.cu's per-tile partials and their
-// fixed order; the DFT planes keep their input and output buffers
-// (plane-sized).
+// Bound on the H100: device memory. A call's bound is K3's bytes (each
+// input read once, each output written once); as it runs, a tick moves 18
+// fields (the H half reads 3 E + 3 H and writes 3 H, the E half the
+// reverse: 72 B/cell at f32, 36 at bf16) plus psi in the slabs. The design
+// exists for memory: a call holds the state alone, where cpmlk.cu holds
+// the outputs, an f32 work set and two more psi sets beside it, so only it
+// runs config 3 at 1024^3 f32 and the largest cubes.
 //
-// Bound on the H100: device memory, as K4: a call's bound is K3's bytes
-// (each input read once, each output written once). As it runs, a tick
-// moves 18 fields (the H half reads 3 E + 3 H and writes 3 H, the E half
-// the reverse: 72 B/cell at f32) plus psi in the slabs. What the design
-// buys is memory: a call holds the state alone, where cpmlk.cu holds the
-// outputs, an f32 work set and two more psi sets beside it.
-#include <cooperative_groups.h>
-
-#include <type_traits>
-
+// What it does about the bytes (yee.cuh's streaming sweeps, measured by
+// tools/k4_variants.py against the one-cell-a-thread halves it replaced,
+// PERF.md): each thread holds V = 2 z cells of a row (8-byte loads at f32,
+// 4-byte at bf16), so a warp moves 256 or 128 bytes a field per access; a
+// cell where the update is lossless (no slab, face, region or oblique box:
+// most of the lattice) skips the stretch's branches and index arithmetic
+// (cpml.cuh `bare`); each half is an ordinary launch over x chunks of at
+// most 32 planes, the launch boundary being the barrier. The CPML cell
+// code's registers decide the rest: 16-byte loads (V = 4 at f32, 8 at
+// bf16), loading the next plane before this plane's stores, and one
+// cooperative launch with a grid-wide barrier after each half ran slower.
+//
+// The options' epilogue runs after each E half on the work item's 8 x 32
+// tiles (cpmlk.cuh's) and reads back the state, so at bf16 the
+// accumulators sample the rounded fields. Flux rows keep cpmlk.cu's
+// per-tile partials and their fixed order (one more launch sums them);
+// the DFT planes keep their input and output buffers (plane-sized).
 #include "cpml.cuh"
 #include "cpmlk.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 using yee::TY;
 using yee::TZ;
 
-// The shape of K4 io_alias's halves (tools/k4_variants.py --variants
-// rebuilds copies with others): z cells a thread (V) and whether a half
-// loads the next plane before this one's stores, per storage type, and how
-// a call runs its 2K half passes (0 one cooperative launch over ONE_WAVE's
-// items with a grid-wide barrier after each half; 1 the same over
-// WHOLE_ROUNDS' items; 2 one ordinary launch per half pass and, with the
-// options, one for the flux rows).
-#define CPMLK_INPLACE_CELLS_F32 2
-#define CPMLK_INPLACE_CELLS_BF16 2
-#define CPMLK_INPLACE_PREFETCH_F32 false
-#define CPMLK_INPLACE_PREFETCH_BF16 true
-#define CPMLK_INPLACE_LAUNCH 2
-
-template <typename T>
-constexpr int V_OF = std::is_same<T, float>::value ? CPMLK_INPLACE_CELLS_F32
-                                                   : CPMLK_INPLACE_CELLS_BF16;
-template <typename T>
-constexpr bool PREFETCH_OF = std::is_same<T, float>::value ? CPMLK_INPLACE_PREFETCH_F32
-                                                           : CPMLK_INPLACE_PREFETCH_BF16;
+// The z cells a thread of K4 io_alias's halves, at f32 and bf16 storage
+// alike (tools/k4_variants.py --variants rebuilds copies with 1 and 4).
+#define CPMLK_INPLACE_CELLS 2
 
 // The options' epilogue over a work item's cells, tile by 8 x 32 tile (the
 // flux partials' tiles, cpmlk.cuh): the level's fields as the state holds
@@ -81,62 +69,23 @@ __device__ __forceinline__ void item_epilogue(yee::Fields<T> f, const yee::Latti
                           (y0 / TY) * n_tz + z0 / TZ + s);
 }
 
-template <typename T, bool OPT, bool EXT>
-__global__ void __launch_bounds__(yee::THREADS)
-cpmlk_inplace_kernel(yee::Fields<T> f, yee::Lattice L, yee::Material M, yee::Sources S,
-                     int k, int with_m, yee::Work w, int vec,
-                     const __grid_constant__ cpml::Profiles P,
-                     const __grid_constant__ cpml::Psi Q, cpml::Tfsf tf,
-                     const __grid_constant__ cpmlk::Options A,
-                     const __grid_constant__ cpml::Ext X) {
-  constexpr int V = V_OF<T>;
-  constexpr bool PF = PREFETCH_OF<T>;
-  __shared__ yee::Shared sh;
-  yee::load_table(sh, M);
-  cg::grid_group grid = cg::this_grid();
-  for (int lvl = 1; lvl <= k; ++lvl) {
-    // row layout: [x, y, z, J levels 1..K, M levels 1..K (with_m)]
-    const int j_col = 3 + 3 * (lvl - 1);
-    const int m_col = with_m ? 3 + 3 * k + 3 * (lvl - 1) : -1;
-    const float* aux_e = tf.aux ? tf.aux + (long long)(2 * (lvl - 1)) * tf.len : nullptr;
-    const float* aux_h = tf.aux ? aux_e + tf.len : nullptr;
-    const float* ob = EXT && X.O.n_box > 0 ? X.O.corr + (lvl - 1) * X.O.level_len : nullptr;
-    int y0, z0, x_lo, x_hi;
-    for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
-      yee::decode_inplace(w, item, L, TZ * V, y0, z0, x_lo, x_hi);
-      cpml::h_half<T, EXT, V, PF>(f, L, M, S, m_col, P, Q, tf, aux_e, y0, z0, x_lo, x_hi, vec,
-                                  sh, X, ob);
-    }
-    grid.sync();
-    for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
-      yee::decode_inplace(w, item, L, TZ * V, y0, z0, x_lo, x_hi);
-      cpml::e_half<T, EXT, V, PF>(f, L, M, S, j_col, P, Q, tf, aux_h, y0, z0, x_lo, x_hi, vec,
-                                  sh, X, ob);
-      if constexpr (OPT) item_epilogue<T, V>(f, L, A, lvl - 1, y0, z0, x_lo, x_hi);
-    }
-    if (lvl < k || OPT) grid.sync();
-  }
-  if constexpr (OPT) cpmlk::reduce_flux(A, k, L.nx);
-}
-
-// One half pass as an ordinary launch (CPMLK_INPLACE_LAUNCH 2): the items
-// from blockIdx.x on, by the grid's stride; aux / ob: the level's TF/SF
-// row and oblique row (null: none); the E half runs the options' epilogue
-// of level lvl (0-based).
-template <typename T, bool OPT, bool EXT>
+// One half pass as an ordinary launch: the items from blockIdx.x on, by the
+// grid's stride; aux / ob: the level's TF/SF row and oblique row (null:
+// none); the E half runs the options' epilogue of level lvl (0-based).
+template <typename T, bool EXT>
 __global__ void __launch_bounds__(yee::THREADS)
 h_half_kernel(yee::Fields<T> f, yee::Lattice L, yee::Material M, yee::Sources S, int m_col,
               yee::Work w, int vec, const __grid_constant__ cpml::Profiles P,
               const __grid_constant__ cpml::Psi Q, cpml::Tfsf tf, const float* aux,
               const __grid_constant__ cpml::Ext X, const float* ob) {
-  constexpr int V = V_OF<T>;
+  constexpr int V = CPMLK_INPLACE_CELLS;
   __shared__ yee::Shared sh;
   yee::load_table(sh, M);
   for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
     int y0, z0, x_lo, x_hi;
-    yee::decode_inplace(w, item, L, TZ * V, y0, z0, x_lo, x_hi);
-    cpml::h_half<T, EXT, V, PREFETCH_OF<T>>(f, L, M, S, m_col, P, Q, tf, aux, y0, z0,
-                                                    x_lo, x_hi, vec, sh, X, ob);
+    yee::decode(w, item, L, y0, z0, x_lo, x_hi, TZ * V);
+    cpml::h_half<T, EXT, V>(f, L, M, S, m_col, P, Q, tf, aux, y0, z0, x_lo, x_hi, vec, sh, X,
+                            ob);
   }
 }
 
@@ -147,14 +96,14 @@ e_half_kernel(yee::Fields<T> f, yee::Lattice L, yee::Material M, yee::Sources S,
               const __grid_constant__ cpml::Psi Q, cpml::Tfsf tf, const float* aux,
               const __grid_constant__ cpml::Ext X, const float* ob,
               const __grid_constant__ cpmlk::Options A, int lvl) {
-  constexpr int V = V_OF<T>;
+  constexpr int V = CPMLK_INPLACE_CELLS;
   __shared__ yee::Shared sh;
   yee::load_table(sh, M);
   for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
     int y0, z0, x_lo, x_hi;
-    yee::decode_inplace(w, item, L, TZ * V, y0, z0, x_lo, x_hi);
-    cpml::e_half<T, EXT, V, PREFETCH_OF<T>>(f, L, M, S, j_col, P, Q, tf, aux, y0, z0,
-                                                    x_lo, x_hi, vec, sh, X, ob);
+    yee::decode(w, item, L, y0, z0, x_lo, x_hi, TZ * V);
+    cpml::e_half<T, EXT, V>(f, L, M, S, j_col, P, Q, tf, aux, y0, z0, x_lo, x_hi, vec, sh, X,
+                            ob);
     if constexpr (OPT) item_epilogue<T, V>(f, L, A, lvl, y0, z0, x_lo, x_hi);
   }
 }
@@ -171,12 +120,12 @@ int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q, const cpml::Tf
            int n_src, int row_w, int with_m, int k, int nx, int ny, int nz, float inv_x,
            float inv_y, float inv_z, const cpmlk::Options& A, const cpml::Ext& X,
            cudaStream_t stream) {
-  constexpr int V = V_OF<T>;
+  constexpr int V = CPMLK_INPLACE_CELLS;
   yee::Fields<T> fields{(T*)f[0], (T*)f[1], (T*)f[2], (T*)f[3], (T*)f[4], (T*)f[5]};
   yee::Lattice L{nx, ny, nz, inv_x, inv_y, inv_z};
   yee::Material M{table, n_mat, matid};
   yee::Sources S{rows, n_src, row_w};
-  int vec = yee::rows_aligned(f, 6, matid, nz, V, V * (int)sizeof(T));
+  const int vec = yee::rows_aligned(f, 6, matid, nz, V, V * (int)sizeof(T));
   // the options' tiles are the package's 8 x 32 (the flux partials)
   const int tiles = ((ny + TY - 1) / TY) * ((nz + TZ - 1) / TZ);
   cpmlk::Options a = A;
@@ -188,10 +137,9 @@ int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q, const cpml::Tf
   cpml::Ext x = X;
   const dim3 block(TZ, TY);
   int resident = 0;
-#if CPMLK_INPLACE_LAUNCH == 2
   cudaError_t err = yee::resident_blocks(e_half_kernel<T, OPT, EXT>, resident);
   if (err != cudaSuccess) return (int)err;
-  const yee::Work w = yee::plan_inplace(L, resident, TZ * V, yee::ONE_WAVE);
+  const yee::Work w = yee::plan_work(L, resident, yee::HALF_CHUNK, TZ * V);
   for (int lvl = 1; lvl <= k; ++lvl) {
     // row layout: [x, y, z, J levels 1..K, M levels 1..K (with_m)]
     const int j_col = 3 + 3 * (lvl - 1);
@@ -199,8 +147,8 @@ int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q, const cpml::Tf
     const float* aux_e = t.aux ? t.aux + (long long)(2 * (lvl - 1)) * t.len : nullptr;
     const float* aux_h = t.aux ? aux_e + t.len : nullptr;
     const float* ob = EXT && x.O.n_box > 0 ? x.O.corr + (lvl - 1) * x.O.level_len : nullptr;
-    h_half_kernel<T, OPT, EXT><<<w.n_items, block, 0, stream>>>(fields, L, M, S, m_col, w, vec,
-                                                                p, q, t, aux_e, x, ob);
+    h_half_kernel<T, EXT><<<w.n_items, block, 0, stream>>>(fields, L, M, S, m_col, w, vec, p,
+                                                           q, t, aux_e, x, ob);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     e_half_kernel<T, OPT, EXT><<<w.n_items, block, 0, stream>>>(fields, L, M, S, j_col, w, vec,
@@ -217,20 +165,6 @@ int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q, const cpml::Tf
     err = cudaGetLastError();
   }
   return (int)err;
-#else
-  int coop = 0;
-  cudaError_t err = yee::resident_blocks(cpmlk_inplace_kernel<T, OPT, EXT>, resident, &coop);
-  if (err != cudaSuccess) return (int)err;
-  if (!coop) return (int)cudaErrorCooperativeLaunchTooLarge;
-  yee::Work w = yee::plan_inplace(L, resident, TZ * V,
-                                  CPMLK_INPLACE_LAUNCH == 1 ? yee::WHOLE_ROUNDS : yee::ONE_WAVE);
-  const int blocks = w.n_items < resident ? w.n_items : resident;
-  void* args[] = {&fields, &L, &M, &S, &k, &with_m, &w, &vec, &p, &q, &t, &a, &x};
-  err = cudaLaunchCooperativeKernel((const void*)cpmlk_inplace_kernel<T, OPT, EXT>,
-                                    dim3(blocks), block, args, 0, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-#endif
 }
 
 }  // namespace

@@ -27,11 +27,11 @@
 // set of fields (24 B/cell at f32) instead of two. The fused pass cannot
 // run in place with its blocks in parallel (yee.cuh), so the tick is two
 // ordinary launches on the caller's stream, the H half and then the E
-// half; the launch boundary is the barrier between them. They move ~72
-// B/cell at f32 (36 at bf16) against the fused pass's 48: E is read by
-// both halves and H is written by one and read by the other. At bf16
-// storage E reads H after its rounding to bf16 (the TPU kernel keeps that
-// H in f32 on chip).
+// half (yee.cuh's streaming halves, K2 io_alias's); the launch boundary is
+// the barrier between them. They move ~72 B/cell at f32 (36 at bf16)
+// against the fused pass's 48: E is read by both halves and H is written
+// by one and read by the other. At bf16 storage E reads H after its
+// rounding to bf16 (the TPU kernel keeps that H in f32 on chip).
 #include "yee.cuh"
 
 namespace {
@@ -47,30 +47,6 @@ step_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
   // row layout: [x, y, z, J, M (with_m)]
   yee::tile_pass<T, T>(in, out, L, M, S, 3, with_m ? 6 : -1, y0, z0, x_lo,
                        x_hi, sh);
-}
-
-template <typename T>
-int launch_inplace(void** f, const float* table, int n_mat, const float* rows,
-                   int n_src, int row_w, int with_m, int nx, int ny, int nz,
-                   float inv_x, float inv_y, float inv_z, cudaStream_t stream) {
-  constexpr int V = INPLACE_BYTES / (int)sizeof(T);
-  constexpr bool PF = INPLACE_PREFETCH;
-  yee::Fields<T> fields{(T*)f[0], (T*)f[1], (T*)f[2], (T*)f[3], (T*)f[4], (T*)f[5]};
-  yee::Lattice L{nx, ny, nz, inv_x, inv_y, inv_z};
-  yee::Material M{table, n_mat, nullptr};
-  yee::Sources S{rows, n_src, row_w};
-  const int vec = yee::rows_aligned(f, 6, nullptr, nz, V, V * (int)sizeof(T));
-  int target = 0;
-  cudaError_t err = yee::resident_blocks(yee::h_half_kernel<T, V, PF>, target);
-  if (err != cudaSuccess) return (int)err;
-  const yee::Work w = yee::plan_inplace(L, target, yee::TZ * V, yee::ONE_WAVE);
-  const dim3 block(yee::TZ, yee::TY);
-  yee::h_half_kernel<T, V, PF><<<w.n_items, block, 0, stream>>>(fields, L, M, S,
-                                                                 with_m ? 6 : -1, w, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  yee::e_half_kernel<T, V, PF><<<w.n_items, block, 0, stream>>>(fields, L, M, S, 3, w, vec);
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -127,12 +103,11 @@ int fdtd_step_inplace(int dtype, void** fields, const float* table, int n_mat,
   if (n_mat < 1 || n_mat > yee::MAX_MATERIALS) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_inplace<float>(fields, table, n_mat, rows, n_src, row_w,
-                                 with_m, nx, ny, nz, inv_x, inv_y, inv_z, s);
+    return yee::launch_halves<float>(fields, table, n_mat, rows, n_src, row_w, with_m, 1, nx,
+                                     ny, nz, inv_x, inv_y, inv_z, s);
   if (dtype == 1)
-    return launch_inplace<__nv_bfloat16>(fields, table, n_mat, rows, n_src,
-                                         row_w, with_m, nx, ny, nz, inv_x,
-                                         inv_y, inv_z, s);
+    return yee::launch_halves<__nv_bfloat16>(fields, table, n_mat, rows, n_src, row_w, with_m,
+                                             1, nx, ny, nz, inv_x, inv_y, inv_z, s);
   return (int)cudaErrorInvalidValue;
 }
 

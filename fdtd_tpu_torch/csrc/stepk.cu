@@ -31,11 +31,16 @@
 // In place (fdtd_stepk_inplace, the TPU kernel's io_alias build,
 // pallas_stepk.py:62-68): the outputs are the inputs and there is no work
 // set, so the call holds one set of fields instead of three (f32) or six
-// bf16-set units (bf16 at K >= 3). Each tick is yee.cuh's two half passes
-// with a grid-wide barrier after each: 2K half-ticks in one cooperative
-// launch, ~72 B/cell/tick at f32 (36 at bf16). At bf16 storage every
-// tick's H and E are rounded to bf16 (the TPU kernel carries its
-// intermediate levels in f32 and rounds once per call).
+// bf16-set units (bf16 at K >= 3). Each tick is yee.cuh's two half passes,
+// each an ordinary launch (2K a call; the launch boundary is the barrier
+// between them), ~72 B/cell/tick at f32 (36 at bf16) against a call's
+// bound of one read and one write of the state. The halves stream: 16
+// bytes a thread per field access (4 z cells at f32, 8 at bf16), x chunks
+// of at most 32 planes. One cooperative launch with a grid-wide barrier
+// after each half, over the same or whole rounds' items, ran 10-20 %
+// slower (tools/yee_baseline.py, PERF.md). At bf16 storage every tick's H
+// and E are rounded to bf16 (the TPU kernel carries its intermediate levels
+// in f32 and rounds once per call).
 #include <cooperative_groups.h>
 
 #include "yee.cuh"
@@ -101,85 +106,6 @@ stepk_edges_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
   __shared__ yee::Shared sh;
   yee::load_table(sh, M);
   k_ticks<T, true>(in, w1, w2, out, L, M, S, k, with_m, w, ed, sh);
-}
-
-// How a call runs its 2K half passes (tools/yee_baseline.py --variants
-// rebuilds copies with the others): 0 one cooperative launch over
-// ONE_WAVE's items, a grid-wide barrier after each half; 1 the same over
-// WHOLE_ROUNDS' items; 2 one ordinary launch per half pass.
-#define STEPK_INPLACE_LAUNCH 2
-
-template <typename T, int V>
-__global__ void __launch_bounds__(yee::THREADS)
-stepk_inplace_kernel(yee::Fields<T> f, yee::Lattice L, yee::Material M,
-                     yee::Sources S, int k, int with_m, yee::Work w, int vec) {
-  constexpr bool PF = INPLACE_PREFETCH;
-  __shared__ yee::Shared sh;
-  yee::load_table(sh, M);
-  cg::grid_group grid = cg::this_grid();
-  for (int lvl = 1; lvl <= k; ++lvl) {
-    const int j_col = 3 + 3 * (lvl - 1);
-    const int m_col = with_m ? 3 + 3 * k + 3 * (lvl - 1) : -1;
-    int y0, z0, x_lo, x_hi;
-    for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
-      yee::decode_inplace(w, item, L, yee::TZ * V, y0, z0, x_lo, x_hi);
-      yee::h_half<T, V, PF>(f, L, M, S, m_col, y0, z0, x_lo, x_hi, vec, sh);
-    }
-    grid.sync();
-    for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
-      yee::decode_inplace(w, item, L, yee::TZ * V, y0, z0, x_lo, x_hi);
-      yee::e_half<T, V, PF>(f, L, M, S, j_col, y0, z0, x_lo, x_hi, vec, sh);
-    }
-    if (lvl < k) grid.sync();
-  }
-}
-
-template <typename T>
-int launch_inplace(void** f, const float* table, int n_mat, const float* rows,
-                   int n_src, int row_w, int with_m, int k, int nx, int ny,
-                   int nz, float inv_x, float inv_y, float inv_z,
-                   cudaStream_t stream) {
-  constexpr int V = INPLACE_BYTES / (int)sizeof(T);
-  constexpr bool PF = INPLACE_PREFETCH;
-  yee::Fields<T> fields{(T*)f[0], (T*)f[1], (T*)f[2], (T*)f[3], (T*)f[4], (T*)f[5]};
-  yee::Lattice L{nx, ny, nz, inv_x, inv_y, inv_z};
-  yee::Material M{table, n_mat, nullptr};
-  yee::Sources S{rows, n_src, row_w};
-  int vec = yee::rows_aligned(f, 6, nullptr, nz, V, V * (int)sizeof(T));
-  const dim3 block(yee::TZ, yee::TY);
-  int resident = 0;
-#if STEPK_INPLACE_LAUNCH == 2
-  cudaError_t err = yee::resident_blocks(yee::h_half_kernel<T, V, PF>, resident);
-  if (err != cudaSuccess) return (int)err;
-  const yee::Work w = yee::plan_inplace(L, resident, yee::TZ * V, yee::ONE_WAVE);
-  for (int lvl = 1; lvl <= k; ++lvl) {
-    // row layout: [x, y, z, J levels 1..K, M levels 1..K (with_m)]
-    const int j_col = 3 + 3 * (lvl - 1);
-    const int m_col = with_m ? 3 + 3 * k + 3 * (lvl - 1) : -1;
-    yee::h_half_kernel<T, V, PF><<<w.n_items, block, 0, stream>>>(fields, L, M, S, m_col, w,
-                                                                   vec);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    yee::e_half_kernel<T, V, PF><<<w.n_items, block, 0, stream>>>(fields, L, M, S, j_col, w,
-                                                                   vec);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
-#else
-  int coop = 0;
-  cudaError_t err = yee::resident_blocks(stepk_inplace_kernel<T, V>, resident, &coop);
-  if (err != cudaSuccess) return (int)err;
-  if (!coop) return (int)cudaErrorCooperativeLaunchTooLarge;
-  yee::Work w = yee::plan_inplace(L, resident, yee::TZ * V,
-                                  STEPK_INPLACE_LAUNCH == 1 ? yee::WHOLE_ROUNDS : yee::ONE_WAVE);
-  const int blocks = w.n_items < resident ? w.n_items : resident;
-  void* args[] = {&fields, &L, &M, &S, &k, &with_m, &w, &vec};
-  err = cudaLaunchCooperativeKernel((const void*)stepk_inplace_kernel<T, V>, dim3(blocks),
-                                    block, args, 0, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-#endif
 }
 
 template <typename T>
@@ -270,12 +196,11 @@ int fdtd_stepk_inplace(int dtype, void** fields, const float* table, int n_mat,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_inplace<float>(fields, table, n_mat, rows, n_src, row_w,
-                                 with_m, k, nx, ny, nz, inv_x, inv_y, inv_z, s);
+    return yee::launch_halves<float>(fields, table, n_mat, rows, n_src, row_w, with_m, k, nx,
+                                     ny, nz, inv_x, inv_y, inv_z, s);
   if (dtype == 1)
-    return launch_inplace<__nv_bfloat16>(fields, table, n_mat, rows, n_src,
-                                         row_w, with_m, k, nx, ny, nz, inv_x,
-                                         inv_y, inv_z, s);
+    return yee::launch_halves<__nv_bfloat16>(fields, table, n_mat, rows, n_src, row_w, with_m,
+                                             k, nx, ny, nz, inv_x, inv_y, inv_z, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -29,30 +29,33 @@
 // values. A half moves 9 fields a cell (6 read, 3 written: 72 B/cell a
 // tick at f32, 36 at bf16) and does ~20 flop on them, so it is bound by
 // device memory alone, and what it needs is bytes in flight. The halves
-// (h_sweep, e_sweep) therefore:
+// (h_sweep, e_sweep):
 //
-//   - give each thread V consecutive z cells of a row, V = 16 bytes over
-//     the storage size (4 at f32, 8 at bf16), and load and store each
-//     field of them as one 16-byte access (Pack), unpacked to f32 in
-//     registers. The z neighbour beyond a thread's V cells is the adjacent
-//     lane's (__shfl_up_sync / __shfl_down_sync); the lanes at the warp's
-//     edges load it themselves. A row starts on a 16-byte boundary only
-//     when nz % V == 0 and the tensors are aligned (rows_aligned): else
-//     the same code loads and stores value by value (`vec` false), and
-//     cells at or beyond nz are never touched;
-//   - load plane p+1 (p-1 in the E half) before plane p's arithmetic and
-//     stores (PREFETCH). That is legal: in the H half a thread's loads
-//     ahead are E, which the half does not write, and its own cells' old
-//     H, which only it writes; the E half likewise. The fields carry no
-//     __restrict__ and alias by construction, so the compiler cannot hoist
-//     those loads above the stores itself;
+//   - give each thread V consecutive z cells of a row and load and store
+//     each field of them as one access of V values (Pack), unpacked to f32
+//     in registers: 16 bytes for K1 and K2 (V = 4 at f32, 8 at bf16; one
+//     cell a thread moved 4 or 2, and bf16 reached half of f32's share of
+//     HBM), fewer for K4 (cpmlk_inplace.cu). The z neighbour beyond a
+//     thread's cells is the adjacent lane's (__shfl_up_sync /
+//     __shfl_down_sync); the lanes at the warp's edges load it themselves.
+//     A row starts on the access's boundary only when nz % V == 0 and the
+//     tensors are aligned (rows_aligned): else the same code loads and
+//     stores value by value (`vec` false), and cells at or beyond nz are
+//     never touched;
+//   - load the next plane (p+1 in the H half, p-1 in the E half) after
+//     plane p's stores, in program order: with V values a field in flight
+//     a thread has enough bytes outstanding. Loading it before plane p's
+//     arithmetic and stores is legal (a thread's loads ahead are of fields
+//     the half does not write, or of its own cells), but it doubles the
+//     registers that hold a plane and ran slower in every build measured
+//     (PERF.md);
 //   - take a tile of TY rows and 32 V columns per work item, x chunks of
-//     at most HALF_CHUNK planes (plan_inplace).
+//     at most HALF_CHUNK planes (launch_halves), one ordinary launch a half.
 //
-// The per-cell arithmetic is the tile pass's (h_cell, e_cell, and
-// cpml.cuh's for K4), called per cell on the held values in the same order
-// of operations, so at f32 storage the results are bit-identical to the
-// tile pass and to the parent's one-cell-a-thread halves. At bf16 storage
+// The per-cell arithmetic is the tile pass's, each product's rounding
+// written out where the compiler's contraction would otherwise depend on
+// the code around it (h_half, e_half; cpml.cuh's for K4), so at f32
+// storage the results are bit-identical to the tile pass. At bf16 storage
 // H is rounded to bf16 before E reads it.
 //
 // Compute is f32 for every storage type (f32 or bf16), as on the TPU.
@@ -348,41 +351,41 @@ __device__ void tile_pass(Fields<const TI> in, Fields<TO> out, const Lattice& L,
 
 // The in-place halves' x chunks: a chunk edge costs a half one extra plane
 // read (its carry's seed), so short chunks are cheap, and many equal work
-// items leave the last round of a cooperative grid nearly full.
+// items leave the last wave of a launch nearly full.
 constexpr int HALF_CHUNK = 32;
 
-// The shape of the in-place halves (tools/yee_baseline.py --variants
-// rebuilds copies with others): bytes per load (V = INPLACE_BYTES over the
-// storage size), and whether a half loads plane p+1 before plane p's
-// stores.
+// The bytes of one access of K1's and K2's in-place halves: V =
+// INPLACE_BYTES over the storage size (tools/yee_baseline.py --variants
+// rebuilds a copy with 8).
 #define INPLACE_BYTES 16
-#define INPLACE_PREFETCH false
 
 // Work items: (x chunk, y tile, z tile), z tiles fastest so that blocks in
-// flight together share their ring planes in L2.
+// flight together share their ring planes in L2. Tiles are TY x TZ cells,
+// or TY x 32 V for the in-place halves (tz_cells).
 struct Work {
   int n_ty, n_tz, chunk, n_items;
 };
 
 __device__ __forceinline__ void decode(const Work& w, int item, const Lattice& L,
-                                       int& y0, int& z0, int& x_lo, int& x_hi) {
+                                       int& y0, int& z0, int& x_lo, int& x_hi,
+                                       int tz_cells = TZ) {
   const int tz = item % w.n_tz;
   const int rest = item / w.n_tz;
   const int ty = rest % w.n_ty;
   const int c = rest / w.n_ty;
   y0 = ty * TY;
-  z0 = tz * TZ;
+  z0 = tz * tz_cells;
   x_lo = c * w.chunk;
   x_hi = min(x_lo + w.chunk, L.nx);
 }
 
 // Split x into as many chunks as fit the `target` resident blocks in one
 // wave (a partial second wave would idle most of the card), and into
-// chunks of at most `max_chunk` planes.
-inline Work plan_work(const Lattice& L, int target, int max_chunk = 1 << 30) {
+// chunks of at most `max_chunk` planes; tiles `tz_cells` wide.
+inline Work plan_work(const Lattice& L, int target, int max_chunk, int tz_cells) {
   Work w;
   w.n_ty = (L.ny + TY - 1) / TY;
-  w.n_tz = (L.nz + TZ - 1) / TZ;
+  w.n_tz = (L.nz + tz_cells - 1) / tz_cells;
   const long long tiles = (long long)w.n_ty * w.n_tz;
   long long n_chunks = target / tiles;
   const long long short_chunks = (L.nx + max_chunk - 1) / max_chunk;
@@ -393,6 +396,10 @@ inline Work plan_work(const Lattice& L, int target, int max_chunk = 1 << 30) {
   n_chunks = (L.nx + w.chunk - 1) / w.chunk;
   w.n_items = (int)(tiles * n_chunks);
   return w;
+}
+
+inline Work plan_work(const Lattice& L, int target, int max_chunk = 1 << 30) {
+  return plan_work(L, target, max_chunk, TZ);
 }
 
 // Plan a cooperative launch of `kernel`: every block must be resident at
@@ -584,7 +591,7 @@ struct Lane {
 // hx, hy, hz, new hx, hy, hz) computes the new H from the raw backward
 // differences (zero across the lattice's faces). matid may be null (all
 // 0). vec: every row starts on the pack's alignment (rows_aligned).
-template <typename T, int V, bool PREFETCH, typename Cell>
+template <typename T, int V, typename Cell>
 __device__ __forceinline__ void h_sweep(Fields<T> f, const Lattice& L, const uint8_t* matid,
                                         int y0, int z0, int x_lo, int x_hi, bool vec,
                                         Cell cell) {
@@ -595,7 +602,7 @@ __device__ __forceinline__ void h_sweep(Fields<T> f, const Lattice& L, const uin
   long long i = (long long)x_lo * plane + (long long)t.y * row + t.zb;
   const int n_below = x_lo > 0 ? t.n : 0;
   Pack<T, V> ey_m, ez_m;  // E at plane p-1
-  HIn<T, V> cur, nxt;
+  HIn<T, V> cur;
   if (vec) {
     ey_m = load_pack<T, V, true>(f.ey, i - plane, n_below);
     ez_m = load_pack<T, V, true>(f.ez, i - plane, n_below);
@@ -606,11 +613,6 @@ __device__ __forceinline__ void h_sweep(Fields<T> f, const Lattice& L, const uin
     load_h_in<T, V, false>(f, matid, i, row, t.n, ym, zm, cur);
   }
   for (int p = x_lo; p < x_hi; ++p, i += plane) {
-    const bool more = p + 1 < x_hi;
-    if (PREFETCH && more) {
-      if (vec) load_h_in<T, V, true>(f, matid, i + plane, row, t.n, ym, zm, nxt);
-      else load_h_in<T, V, false>(f, matid, i + plane, row, t.n, ym, zm, nxt);
-    }
     float ey_zm = __shfl_up_sync(0xffffffffu, widen(cur.ey.b[V - 1]), 1);
     float ex_zm = __shfl_up_sync(0xffffffffu, widen(cur.ex.b[V - 1]), 1);
     if (t.lane == 0) {
@@ -649,9 +651,7 @@ __device__ __forceinline__ void h_sweep(Fields<T> f, const Lattice& L, const uin
     }
     ey_m = cur.ey;
     ez_m = cur.ez;
-    if (PREFETCH) {
-      if (more) cur = nxt;
-    } else if (more) {
+    if (p + 1 < x_hi) {
       if (vec) load_h_in<T, V, true>(f, matid, i + plane, row, t.n, ym, zm, cur);
       else load_h_in<T, V, false>(f, matid, i + plane, row, t.n, ym, zm, cur);
     }
@@ -663,7 +663,7 @@ __device__ __forceinline__ void h_sweep(Fields<T> f, const Lattice& L, const uin
 // cell(p, y, z, i, material, dhz_y, dhy_z, dhx_z, dhz_x, dhy_x, dhx_y, old
 // ex, ey, ez, new ex, ey, ez) from the raw forward differences of the new
 // H (zero across the lattice's faces).
-template <typename T, int V, bool PREFETCH, typename Cell>
+template <typename T, int V, typename Cell>
 __device__ __forceinline__ void e_sweep(Fields<T> f, const Lattice& L, const uint8_t* matid,
                                         int y0, int z0, int x_lo, int x_hi, bool vec,
                                         Cell cell) {
@@ -674,7 +674,7 @@ __device__ __forceinline__ void e_sweep(Fields<T> f, const Lattice& L, const uin
   long long i = (long long)(x_hi - 1) * plane + (long long)t.y * row + t.zb;
   const int n_above = x_hi < L.nx ? t.n : 0;
   Pack<T, V> top_hy, top_hz;  // H at plane p+1
-  EIn<T, V> cur, nxt;
+  EIn<T, V> cur;
   if (vec) {
     top_hy = load_pack<T, V, true>(f.hy, i + plane, n_above);
     top_hz = load_pack<T, V, true>(f.hz, i + plane, n_above);
@@ -685,11 +685,6 @@ __device__ __forceinline__ void e_sweep(Fields<T> f, const Lattice& L, const uin
     load_e_in<T, V, false>(f, matid, i, row, t.n, yp, zp, cur);
   }
   for (int p = x_hi - 1; p >= x_lo; --p, i -= plane) {
-    const bool more = p - 1 >= x_lo;
-    if (PREFETCH && more) {
-      if (vec) load_e_in<T, V, true>(f, matid, i - plane, row, t.n, yp, zp, nxt);
-      else load_e_in<T, V, false>(f, matid, i - plane, row, t.n, yp, zp, nxt);
-    }
     float hy_zp = __shfl_down_sync(0xffffffffu, widen(cur.hy.b[0]), 1);
     float hx_zp = __shfl_down_sync(0xffffffffu, widen(cur.hx.b[0]), 1);
     if (t.lane == 31) {
@@ -730,26 +725,9 @@ __device__ __forceinline__ void e_sweep(Fields<T> f, const Lattice& L, const uin
     }
     top_hy = cur.hy;
     top_hz = cur.hz;
-    if (PREFETCH) {
-      if (more) cur = nxt;
-    } else if (more) {
+    if (p > x_lo) {
       if (vec) load_e_in<T, V, true>(f, matid, i - plane, row, t.n, yp, zp, cur);
       else load_e_in<T, V, false>(f, matid, i - plane, row, t.n, yp, zp, cur);
-    }
-  }
-}
-
-// inject with each update one fused multiply-add, as the compiler fuses
-// inject's in the tile pass.
-__device__ __forceinline__ void inject_rn(const Sources& s, int col, int p, int y, int z,
-                                          float coef, float& a, float& b, float& c) {
-  for (int k = 0; k < s.n; ++k) {
-    const float* row = s.rows + (long long)k * s.width;
-    if ((int)row[0] != p) continue;
-    if ((int)row[1] == y && (int)row[2] == z) {
-      a = __fmaf_rn(-coef, row[col], a);
-      b = __fmaf_rn(-coef, row[col + 1], b);
-      c = __fmaf_rn(-coef, row[col + 2], c);
     }
   }
 }
@@ -761,13 +739,13 @@ __device__ __forceinline__ void inject_rn(const Sources& s, int col, int p, int 
 // product of each curl fused into the difference, d_a h fused in the H
 // update, c_b curl in the E update): left to the compiler in this loop, the
 // E update fused c_a e instead and differed from K1 by an ulp.
-template <typename T, int V, bool PREFETCH>
+template <typename T, int V>
 __device__ __forceinline__ void h_half(Fields<T> f, const Lattice& L, const Material& M,
                                        const Sources& S, int m_col, int y0, int z0, int x_lo,
                                        int x_hi, bool vec, const Shared& sh) {
-  h_sweep<T, V, PREFETCH>(
+  h_sweep<T, V>(
       f, L, M.matid, y0, z0, x_lo, x_hi, vec,
-      [&](int p, int y, int z, long long i, int, float dez_y, float dey_z, float dex_z,
+      [&](int p, int y, int z, long long, int, float dez_y, float dey_z, float dex_z,
           float dez_x, float dey_x, float dex_y, float ohx, float ohy, float ohz, float& hx,
           float& hy, float& hz) {
         const float ce_x = __fmaf_rn(dez_y, L.inv_y, -__fmul_rn(dey_z, L.inv_z));
@@ -777,17 +755,17 @@ __device__ __forceinline__ void h_half(Fields<T> f, const Lattice& L, const Mate
         hx = __fmaf_rn(d_a, ohx, -__fmul_rn(d_b, ce_x));
         hy = __fmaf_rn(d_a, ohy, -__fmul_rn(d_b, ce_y));
         hz = __fmaf_rn(d_a, ohz, -__fmul_rn(d_b, ce_z));
-        if (m_col >= 0) inject_rn(S, m_col, p, y, z, d_b, hx, hy, hz);
+        if (m_col >= 0) inject(S, m_col, p, y, z, d_b, hx, hy, hz);
       });
 }
 
-template <typename T, int V, bool PREFETCH>
+template <typename T, int V>
 __device__ __forceinline__ void e_half(Fields<T> f, const Lattice& L, const Material& M,
                                        const Sources& S, int j_col, int y0, int z0, int x_lo,
                                        int x_hi, bool vec, const Shared& sh) {
-  e_sweep<T, V, PREFETCH>(
+  e_sweep<T, V>(
       f, L, M.matid, y0, z0, x_lo, x_hi, vec,
-      [&](int p, int y, int z, long long i, int, float dhz_y, float dhy_z, float dhx_z,
+      [&](int p, int y, int z, long long, int, float dhz_y, float dhy_z, float dhx_z,
           float dhz_x, float dhy_x, float dhx_y, float oex, float oey, float oez, float& ex,
           float& ey, float& ez) {
         const float ch_x = __fmaf_rn(dhz_y, L.inv_y, -__fmul_rn(dhy_z, L.inv_z));
@@ -797,7 +775,7 @@ __device__ __forceinline__ void e_half(Fields<T> f, const Lattice& L, const Mate
         ex = __fmaf_rn(c_b, ch_x, __fmul_rn(c_a, oex));
         ey = __fmaf_rn(c_b, ch_y, __fmul_rn(c_a, oey));
         ez = __fmaf_rn(c_b, ch_z, __fmul_rn(c_a, oez));
-        if (j_col >= 0) inject_rn(S, j_col, p, y, z, c_b, ex, ey, ez);
+        if (j_col >= 0) inject(S, j_col, p, y, z, c_b, ex, ey, ez);
       });
 }
 
@@ -814,94 +792,79 @@ inline bool rows_aligned(void* const* ptrs, int n_ptrs, const void* matid, int n
   return matid == nullptr || (uintptr_t)matid % v == 0;
 }
 
-// Items over tiles of TY rows x `tz_cells` columns: ONE_WAVE splits x as
-// plan_work does (one wave of `resident` blocks, chunks of at most
-// HALF_CHUNK planes); WHOLE_ROUNDS takes the chunk of at most HALF_CHUNK
-// planes whose items fill whole rounds of the resident blocks at the
-// fewest planes per block, a chunk's edge counted as one plane more.
-enum Rule { ONE_WAVE, WHOLE_ROUNDS };
-
-inline Work plan_inplace(const Lattice& L, int resident, int tz_cells, Rule rule) {
-  Work w;
-  w.n_ty = (L.ny + TY - 1) / TY;
-  w.n_tz = (L.nz + tz_cells - 1) / tz_cells;
-  const long long tiles = (long long)w.n_ty * w.n_tz;
-  if (rule == ONE_WAVE) {
-    long long n_chunks = resident / tiles;
-    const long long short_chunks = (L.nx + HALF_CHUNK - 1) / HALF_CHUNK;
-    if (n_chunks < short_chunks) n_chunks = short_chunks;
-    if (n_chunks < 1) n_chunks = 1;
-    if (n_chunks > L.nx) n_chunks = L.nx;
-    w.chunk = (int)((L.nx + n_chunks - 1) / n_chunks);
-  } else {
-    long long best = -1;
-    for (int chunk = 1; chunk <= L.nx && chunk <= HALF_CHUNK; ++chunk) {
-      const long long items = tiles * ((L.nx + chunk - 1) / chunk);
-      const long long cost = (items + resident - 1) / resident * (chunk + 1);
-      if (best < 0 || cost <= best) {
-        best = cost;
-        w.chunk = chunk;
-      }
-    }
-  }
-  w.n_items = (int)(tiles * ((L.nx + w.chunk - 1) / w.chunk));
-  return w;
-}
-
-__device__ __forceinline__ void decode_inplace(const Work& w, int item, const Lattice& L,
-                                               int tz_cells, int& y0, int& z0, int& x_lo,
-                                               int& x_hi) {
-  const int tz = item % w.n_tz;
-  const int rest = item / w.n_tz;
-  const int ty = rest % w.n_ty;
-  const int c = rest / w.n_ty;
-  y0 = ty * TY;
-  z0 = tz * tz_cells;
-  x_lo = c * w.chunk;
-  x_hi = min(x_lo + w.chunk, L.nx);
-}
-
-// The resident blocks of `kernel` (THREADS threads) on the current device,
-// and whether it takes cooperative launches.
+// The resident blocks of `kernel` (THREADS threads) on the current device:
+// one wave.
 template <typename K>
-inline cudaError_t resident_blocks(K kernel, int& blocks, int* coop = nullptr) {
-  int dev = 0, sms = 0, per_sm = 0, c = 0;
+inline cudaError_t resident_blocks(K kernel, int& blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && coop)
-    err = cudaDeviceGetAttribute(&c, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
   blocks = sms * (per_sm > 0 ? per_sm : 1);
-  if (coop) *coop = c && per_sm > 0;
   return err;
 }
 
 // One half pass of K1 or K2 io_alias as an ordinary launch: the items from
 // blockIdx.x on, by the grid's stride.
-template <typename T, int V, bool PREFETCH>
+template <typename T, int V>
 __global__ void __launch_bounds__(THREADS)
 h_half_kernel(Fields<T> f, Lattice L, Material M, Sources S, int m_col, Work w, int vec) {
   __shared__ Shared sh;
   load_table(sh, M);
   for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
     int y0, z0, x_lo, x_hi;
-    decode_inplace(w, item, L, TZ * V, y0, z0, x_lo, x_hi);
-    h_half<T, V, PREFETCH>(f, L, M, S, m_col, y0, z0, x_lo, x_hi, vec, sh);
+    decode(w, item, L, y0, z0, x_lo, x_hi, TZ * V);
+    h_half<T, V>(f, L, M, S, m_col, y0, z0, x_lo, x_hi, vec, sh);
   }
 }
 
-template <typename T, int V, bool PREFETCH>
+template <typename T, int V>
 __global__ void __launch_bounds__(THREADS)
 e_half_kernel(Fields<T> f, Lattice L, Material M, Sources S, int j_col, Work w, int vec) {
   __shared__ Shared sh;
   load_table(sh, M);
   for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
     int y0, z0, x_lo, x_hi;
-    decode_inplace(w, item, L, TZ * V, y0, z0, x_lo, x_hi);
-    e_half<T, V, PREFETCH>(f, L, M, S, j_col, y0, z0, x_lo, x_hi, vec, sh);
+    decode(w, item, L, y0, z0, x_lo, x_hi, TZ * V);
+    e_half<T, V>(f, L, M, S, j_col, y0, z0, x_lo, x_hi, vec, sh);
   }
+}
+
+
+// The in-place call of K1 (k = 1) and K2: 2k ordinary launches of the
+// halves over one plan of items (x chunks of at most HALF_CHUNK planes,
+// as many as one wave of resident blocks takes; later waves fill as
+// earlier blocks finish), the launch boundary the barrier between halves;
+// a uniform medium (table row 0). Source rows: [x, y, z, J levels 1..k,
+// M levels 1..k (with_m)]. Returns a cudaError_t.
+template <typename T>
+inline int launch_halves(void** f, const float* table, int n_mat, const float* rows, int n_src,
+                         int row_w, int with_m, int k, int nx, int ny, int nz, float inv_x,
+                         float inv_y, float inv_z, cudaStream_t stream) {
+  constexpr int V = INPLACE_BYTES / (int)sizeof(T);
+  Fields<T> fields{(T*)f[0], (T*)f[1], (T*)f[2], (T*)f[3], (T*)f[4], (T*)f[5]};
+  Lattice L{nx, ny, nz, inv_x, inv_y, inv_z};
+  Material M{table, n_mat, nullptr};
+  Sources S{rows, n_src, row_w};
+  const int vec = rows_aligned(f, 6, nullptr, nz, V, V * (int)sizeof(T));
+  int resident = 0;
+  cudaError_t err = resident_blocks(h_half_kernel<T, V>, resident);
+  if (err != cudaSuccess) return (int)err;
+  const Work w = plan_work(L, resident, HALF_CHUNK, TZ * V);
+  const dim3 block(TZ, TY);
+  for (int lvl = 1; lvl <= k; ++lvl) {
+    const int j_col = 3 + 3 * (lvl - 1);
+    const int m_col = with_m ? 3 + 3 * k + 3 * (lvl - 1) : -1;
+    h_half_kernel<T, V><<<w.n_items, block, 0, stream>>>(fields, L, M, S, m_col, w, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    e_half_kernel<T, V><<<w.n_items, block, 0, stream>>>(fields, L, M, S, j_col, w, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace yee

@@ -15,8 +15,8 @@ the register cap of ``cpmlk.cu``'s kernels (``CPMLK_BOUNDS``: room for 3
 or 4 resident blocks per SM; the shipped build has none), the tile's rows
 (``yee::TY`` 4 in the copy's own ``yee.cuh``: the kernels without options
 take any tile; the options' flux partials, and K1-K3, keep the package's
-8), or the shape of K4 io_alias's halves (INPLACE_VARIANTS: the next
-plane loaded ahead at f32, not at bf16, 1 or 4 z cells a thread).
+8), or the z cells a thread of K4 io_alias's halves (INPLACE_VARIANTS: 1
+or 4 instead of 2).
 
 Checks: every cpmlk.cu build's K4 against its plain version on a ragged
 lattice (37x29x53, CPML on every axis, a TF/SF box, J+M sources, K = 4,
@@ -72,10 +72,8 @@ TILE_ROWS = re.compile(r"constexpr int TY = \d+;")
 ENTRIES = ("CPMLK", "CPMLK_BLOCKED", "CPMLK_SHARDED")
 #: name -> {macro of cpmlk_inplace.cu: value}: K4 io_alias's other shapes
 INPLACE_VARIANTS = {
-    "in place: f32 prefetch": {"CPMLK_INPLACE_PREFETCH_F32": "true"},
-    "in place: bf16 no prefetch": {"CPMLK_INPLACE_PREFETCH_BF16": "false"},
-    "in place: 1 cell a thread": {"CPMLK_INPLACE_CELLS_F32": "1", "CPMLK_INPLACE_CELLS_BF16": "1"},
-    "in place: 4 cells a thread": {"CPMLK_INPLACE_CELLS_F32": "4", "CPMLK_INPLACE_CELLS_BF16": "4"},
+    "in place: 1 cell a thread": {"CPMLK_INPLACE_CELLS": "1"},
+    "in place: 4 cells a thread": {"CPMLK_INPLACE_CELLS": "4"},
 }
 ALIGNED_SHAPE = (40, 32, 64)
 

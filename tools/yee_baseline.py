@@ -12,8 +12,7 @@ its own headers) beside this checkout's, one nvcc each, all started
 together, under ``build/yee_baseline/``, and prints each build's ptxas
 lines per kernel instantiation (registers, spills). ``--variants`` also
 builds copies of this checkout's sources with the in-place halves' other
-shapes (VARIANTS: 8-byte loads, no prefetch, the cooperative launch over
-one wave's or whole rounds' items), which run every check and the 512^3
+shapes (VARIANTS: 8-byte loads), which run every check and the 512^3
 timings beside the shipped build.
 
 Checks, each version against the baseline bit for bit, f32 and bf16: the
@@ -64,9 +63,6 @@ ENTRIES = ("STEP", "STEPK", "STEP_INPLACE", "STEPK_INPLACE")
 #: name -> {source file: {macro: value}}: the in-place halves' other shapes
 VARIANTS = {
     "8-byte loads": {"yee.cuh": {"INPLACE_BYTES": "8"}},
-    "prefetch": {"yee.cuh": {"INPLACE_PREFETCH": "true"}},
-    "cooperative, one wave": {"stepk.cu": {"STEPK_INPLACE_LAUNCH": "0"}},
-    "cooperative, whole rounds": {"stepk.cu": {"STEPK_INPLACE_LAUNCH": "1"}},
 }
 ALIGNED_SHAPE = (40, 24, 64)
 

@@ -22,6 +22,10 @@ Run from the root of a checkout. In order it
    on the 37x29x53 case (a ball region graded along y whose box crosses
    tile edges, tests/test_oblique_kernel.py's skew frame) and at 256^3 with
    paths A's and B's absorbers, in f32 and bf16, psi and psi_d included;
+   the oblique correction's pack kernel (csrc/oblique.cu) against
+   ObliqueCorrection.pack for the four waveforms of solver/sources.py on
+   the skew frame's shell and on path A's shell (K = 1 and 8), and a
+   waveform of another kind on the torch route, counted apart;
    K1 and K2 (every K of the ladder, and K2 at K = 16 in bf16) in place
    (``io_alias``) on 37x29x53 and at 256^3, uniform, J+M sources, f32 and
    bf16, against their in-place plain versions and against the
@@ -166,7 +170,8 @@ Run from the root of a checkout. In order it
    (direction (cos 20, sin 20, 0), z polarization; the ObliqueTfsf), 1000
    ticks through K4 with its oblique option and flux faces, and through
    the plain engine, sigma within 1e-4; then the same flux accumulator
-   through K3 with a per-tick update (K3's oblique option);
+   through K3 with a per-tick update (K3's oblique option); every call's
+   correction pack from the pack kernel (one launch a call);
 11. path B, an interior absorber: compile_scene on config 3's scene with six
    10-cell edge-slab GradedPml entities (the boundary CPML) and a GradedPml
    cuboid behind the sphere (solver x 200-216 across the whole y-z
@@ -195,7 +200,7 @@ Run from the root of a checkout. In order it
    at K = 8, 4, 2, K4 at K = 8 with each of its options, the plain engine),
    paths A and B at 256^3 (K3 and K4 at K = 8 with and without ``oblique``
    or ``dense``, the oblique corrections' evaluation apart from the kernel,
-   the plain engine), K4 io_alias beside K4 at 256^3 (config 3) and at
+   in torch and by the pack kernel, the plain engine), K4 io_alias beside K4 at 256^3 (config 3) and at
    256^3 and 512^3 with Cpml.uniform(10) (f32 and bf16), K6 at K = 4
    and 3 and K5 at K = 2 and 3 against K4 and K4 io_alias at K = 4 and 8 and
    their plain version at 512^3 with Cpml.uniform(10) (f32 and bf16) with
@@ -512,6 +517,21 @@ def window_psi_cells(b) -> int:
     from fdtd_tpu_torch.solver.engine import psi_bytes
 
     return psi_bytes(b.shape, b.setup.cpml, b.frame) // 4
+
+
+#: f32 operations of the pack kernel a cell and level: per pass 9 waveform
+#: evaluations (a difference, ~5 operations, the incident product and the
+#: masked one), 12 differences and their products, 6 curl differences, 3
+#: masked products and differences
+PACK_FLOP = 2 * (9 * 8 + 30 + 6)
+
+
+def pack_bound(cells, k):
+    """(bound_ms, bound_by) of one pack kernel call: its K levels of 6 f32
+    values a cell written once, against PACK_FLOP a cell and level."""
+    t_bytes = k * 6 * 4 * cells / HBM_BYTES_PER_S
+    t_ops = k * PACK_FLOP * cells / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def bound(cells, ticks, nbytes, psi=0, extra_flop=0):
@@ -1201,6 +1221,72 @@ def ext_self_checks(torch, ft, seed):
                     del got, want
                 del state
     return errs
+
+
+class _Quadratic:
+    """A waveform of another kind than solver/sources.py's (a user's
+    callable): the oblique correction keeps its torch evaluation."""
+
+    def __call__(self, t):
+        return (t - 0.8) * (t - 0.8) * 0.5 - 0.3
+
+
+def pack_self_checks(torch, ft, seed):
+    """The oblique correction's pack kernel (csrc/oblique.cu) against its
+    plain version, ObliqueCorrection.pack on the card, for the four
+    waveforms of solver/sources.py: on the skew frame's shell of the
+    37x29x53 case (ragged_absorbers) and on path A's 256^3 shell, K = 1 and
+    K = 8 from ticks 0 and 37. Bar: 1e-6 of max|corr| (bit for bit is
+    expected: the kernel repeats torch's operations on the card). A
+    waveform of another kind takes the torch route, counted apart, and
+    gives pack()'s values. Returns {"K3 oblique pack": the largest
+    difference at path A's shell}."""
+    import dataclasses
+
+    import numpy as np
+    from fdtd_tpu_torch.solver import cuda_oblique
+    from fdtd_tpu_torch.solver.tfsf_oblique import ObliqueCorrection, shell_boxes
+
+    dev = torch.device("cuda")
+    dt = flagship(ft, LADDER_CHECK_SHAPE, torch.float32, dev).grid.dt
+    skew = ragged_absorbers(ft, dt)[1]
+    path_a = path_a_sim(ft, dev)[0]
+    waves = (ft.GaussianPulse(6 * dt, 2 * dt), ft.ContinuousWave(0.05, 0.3),
+             ft.Ricker(0.05, 10 * dt), ft.GaussianDerivative(6 * dt, 2 * dt))
+    err = 0.0
+    for label, shape, tf, step_dt in (("skew", LADDER_CHECK_SHAPE, skew, dt),
+                                      ("path A", ABSORB_SHAPE, path_a.tfsf, path_a.grid.dt)):
+        for wave in waves:
+            tfw = dataclasses.replace(tf, waveform=wave)
+            corr = ObliqueCorrection(tfw, shape, (1.0, 1.0, 1.0), step_dt, ft.REDUCED,
+                                     torch.float32, dev, boxes=shell_boxes(tfw))
+            require(corr.route == "kernel", f"{type(wave).__name__} did not take the kernel")
+            for tick, k in ((0, 1), (37, 8)):
+                before = cuda_oblique.launches()
+                got = corr.levels(tick, k, step_dt)
+                want = corr.pack(tick, k, step_dt)
+                torch.cuda.synchronize()
+                diff, scale = float((got - want).abs().max()), float(want.abs().max())
+                ulp = diff / float(np.spacing(np.float32(scale)))
+                ok = (cuda_oblique.launches() == before + 1 and got.shape == want.shape
+                      and diff <= 1e-6 * scale and bool(torch.isfinite(got).all()))
+                log(f"selfcheck pack kernel {label} {type(wave).__name__} tick {tick} K={k}: "
+                    f"max_abs_err {diff:.3e} ({ulp:.2f} ulp of max|corr| {scale:.4e}), "
+                    f"bit-identical {torch.equal(got, want)} {'ok' if ok else 'FAIL'}")
+                require(ok, f"the pack kernel disagrees with ObliqueCorrection.pack ({label})")
+                if label == "path A":
+                    err = max(err, diff)
+    other = dataclasses.replace(skew, waveform=_Quadratic())
+    corr = ObliqueCorrection(other, LADDER_CHECK_SHAPE, (1.0, 1.0, 1.0), dt, ft.REDUCED,
+                             torch.float32, dev, boxes=shell_boxes(other))
+    before, torch_before = cuda_oblique.launches(), cuda_oblique.torch_packs()
+    same = torch.equal(corr.levels(3, 2, dt), corr.pack(3, 2, dt))
+    counted = (cuda_oblique.launches() == before
+               and cuda_oblique.torch_packs() == torch_before + 1)
+    log(f"selfcheck pack route: a waveform of another kind takes {corr.route!r}, counted "
+        f"{counted}, pack()'s values {same}")
+    require(corr.route == "torch" and counted and same, "the torch route of the pack")
+    return {"K3 oblique pack": err}
 
 
 # -- K6 ------------------------------------------------------------------------
@@ -4897,10 +4983,12 @@ def launch_counts():
 
 def reset_counts():
     from fdtd_tpu_torch.parallel import cuda_sharded_cpml
-    from fdtd_tpu_torch.solver import _build, cuda_cpml, cuda_cpml_blocked, cuda_cpml_k
+    from fdtd_tpu_torch.solver import (_build, cuda_cpml, cuda_cpml_blocked, cuda_cpml_k,
+                                       cuda_oblique)
 
     for kernel in _build.KERNELS:
         kernel.launches = 0
+    cuda_oblique.reset_launches()
     cuda_cpml.reset_launches()
     cuda_cpml_k.reset_launches()
     cuda_cpml_blocked.reset_launches()
@@ -5074,7 +5162,8 @@ def scattering_path(torch, ft):
     reset_counts()
     res = scattering_cross_section(scene, device=dev, **kw)
     launches = {"K4 io_alias": cuda_cpml_k.launches(io_alias=True),
-                **cuda_cpml_k.option_launches()}
+                **cuda_cpml_k.option_launches(), "pack": cuda_oblique.launches(),
+                "torch packs": cuda_oblique.torch_packs()}
     ref = scattering_cross_section(scene, device=dev, backend="torch", **kw)
     rel = abs(res.sigma_scat - ref.sigma_scat) / abs(ref.sigma_scat)
     log(f"scattering path: grid {res.grid.shape}, sigma_scat {res.sigma_scat:.8e} (plain "
@@ -5118,7 +5207,7 @@ def oblique_path(torch, ft, sigma_x):
     the two results)."""
     from fdtd_tpu_torch.models import scattering_cross_section
     from fdtd_tpu_torch.scene import Scene
-    from fdtd_tpu_torch.solver import cuda_cpml, cuda_cpml_k
+    from fdtd_tpu_torch.solver import cuda_cpml, cuda_cpml_k, cuda_oblique
 
     dev = torch.device("cuda")
     n = ABSORB_SHAPE[0]
@@ -5129,7 +5218,8 @@ def oblique_path(torch, ft, sigma_x):
     reset_counts()
     res = scattering_cross_section(scene, device=dev, **kw)
     launches = {"K4 io_alias": cuda_cpml_k.launches(io_alias=True),
-                **cuda_cpml_k.option_launches()}
+                **cuda_cpml_k.option_launches(), "pack": cuda_oblique.launches(),
+                "torch packs": cuda_oblique.torch_packs()}
     ref = scattering_cross_section(scene, device=dev, backend="torch", **kw)
     rel = abs(res.sigma_scat - ref.sigma_scat) / abs(ref.sigma_scat)
     log(f"path A: {PATH_A_DEGREES} degrees, grid {res.grid.shape}, sigma_scat "
@@ -5138,8 +5228,9 @@ def oblique_path(torch, ft, sigma_x):
         f"launches {launches}; sigma / sigma(+x) {res.sigma_scat / sigma_x:.6f}")
     require(res.grid.shape == ABSORB_SHAPE, f"scene compiled to {res.grid.shape}")
     require(launches["K4 io_alias"] == MAIN_STEPS // 8 == launches["oblique"]
-            == launches["flux_faces"],
-            "path A did not ride K4 in place with its oblique option and flux faces")
+            == launches["flux_faces"] == launches["pack"] and not launches["torch packs"],
+            "path A did not ride K4 in place with its oblique option, flux faces and the "
+            "pack kernel")
     require(math.isfinite(res.sigma_scat) and res.sigma_scat > 0, "sigma")
     require(rel <= 1e-4, f"sigma differs from the plain engine's by {rel:.3e}")
     # the same box with nothing inside: what the oblique TF/SF leaks
@@ -5155,14 +5246,17 @@ def oblique_path(torch, ft, sigma_x):
     state, _, (f_k3,) = sim.run(sim.init(), MAIN_STEPS, accumulators=per_tick)
     energy = float(f_k3) * sim.grid.dt
     wall = time.perf_counter() - t0
-    k3 = {"K3": cuda_cpml.launches(), **cuda_cpml.option_launches()}
+    k3 = {"K3": cuda_cpml.launches(), **cuda_cpml.option_launches(),
+          "pack": cuda_oblique.launches()}
     rel3 = abs(energy - ref.scattered_energy) / abs(ref.scattered_energy)
     log(f"path A through K3 + per-tick update: {wall:.3f} s, scattered energy {energy:.8e} "
         f"(plain engine {ref.scattered_energy:.8e}, rel diff {rel3:.3e}); launches {k3}")
-    require(k3["K3"] == MAIN_STEPS == k3["oblique"], "K3's oblique option did not run")
+    require(k3["K3"] == MAIN_STEPS == k3["oblique"] == k3["pack"],
+            "K3's oblique option did not run on the pack kernel's packs")
     require(bool(torch.isfinite(state.ez).all()) and rel3 <= 1e-4,
             f"K3's scattered energy differs from the plain engine's by {rel3:.3e}")
-    return ({"K4d": launches["oblique"], "K3 oblique": k3["oblique"]},
+    return ({"K4d": launches["oblique"], "K3 oblique": k3["oblique"],
+             "K3 oblique pack": launches["pack"] + k3["pack"]},
             {"sigma": res.sigma_scat, "plain_sigma": ref.sigma_scat, "rel": rel,
              "empty_scene_sigma": leak,
              "gcell_per_s": res.gcell_per_s, "plain_gcell_per_s": ref.gcell_per_s,
@@ -5432,6 +5526,8 @@ class _FixedPack:
     def pack(self, tick, k_steps, dt):
         return self._pack
 
+    levels = pack
+
 
 def ext_timings(torch, ft):
     """ms per call at 256^3 f32, in turns. Path B (config 3's CPML, TF/SF
@@ -5514,6 +5610,9 @@ def ext_timings(torch, ft):
                 (f"corrections K={top}, shell",
                  lambda s: (shell.pack(s.tick, top, dt), s)[1], top),
                 ("corrections K=1, shell", lambda s: (shell.pack(s.tick, 1, dt), s)[1], 1),
+                (f"pack kernel K={top}, shell",
+                 lambda s: (shell.levels(s.tick, top, dt), s)[1], top),
+                ("pack kernel K=1, shell", lambda s: (shell.levels(s.tick, 1, dt), s)[1], 1),
                 (f"corrections K={top}, whole subgrid",
                  lambda s: (full.pack(s.tick, top, dt), s)[1], top),
             ]
@@ -5817,6 +5916,7 @@ def measure(torch, ft, seed):
     errs.update(cpml_self_checks(torch, ft, seed))
     errs.update(option_self_checks(torch, ft, seed))
     errs.update(ext_self_checks(torch, ft, seed))
+    errs.update(pack_self_checks(torch, ft, seed))
     errs["K6"] = gb_self_checks(torch, ft, seed)
     errs["K5"], xz_identical = xz_self_checks(torch, ft, seed)
     errs.update(k7_self_checks(torch, ft, seed))
@@ -5991,6 +6091,12 @@ def measure(torch, ft, seed):
          bound(cells3, top, cpml_bytes(ABSORB_SHAPE, 4, True, cpml3, 0, top)
                + top * 6 * 4 * ob_cells, psi3, top * 6 * 2 * ob_cells)),
     ]
+    # the oblique correction's pack kernel at path A's shell, K = top (its
+    # plain version: ObliqueCorrection.pack, the torch evaluation)
+    rows.append(("K3 oblique correction pack (one launch a call; K3 oblique, K4d, K5, K10)",
+                 "oblique.cu", "fdtd_tpu/solver/pallas_cpml.py:969", "K3 oblique pack", pa,
+                 f"pack kernel K={top}, shell", f"corrections K={top}, shell",
+                 pack_bound(ob_cells, top)))
     # K6 at its K, timed at 512^3 with Cpml.uniform(10) (f32), its bound
     # from gb_timings (each input read once, each output written once)
     g512 = times["gb_512_float32"]

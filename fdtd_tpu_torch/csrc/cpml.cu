@@ -1,4 +1,4 @@
-// K3: one absorbing tick (CPML + TF/SF) per launch.
+// K3: one absorbing tick (CPML + TF/SF) per call.
 //
 // Replaces the TPU kernel fdtd_tpu/solver/pallas_cpml.py::_make_kernel
 // (built by _build_call, driven by pallas_cpml_step_fn): the CPML psi
@@ -24,29 +24,134 @@
 //
 // Bound on the H100: device memory. A tick reads and writes the six fields
 // (48 B/cell at f32) plus the matid byte and, inside the slabs, each psi
-// once in and once out. The schedule is K1's (yee.cuh); see cpml.cuh for
-// what the absorbing terms add to it.
+// once in and once out.
+//
+// What the design does about it, chosen by timing both shapes in turns
+// (tools/k3_baseline.py; PERF.md):
+//
+//   f32 storage: K4's out-of-place half passes (cpml.cuh h_pass, e_pass)
+//     as two ordinary launches, one cell a thread, no barrier and no ring
+//     to recompute. They move 72 B/cell of fields against the fused
+//     tick's 48, but the fused tick, whose absorbing cell code keeps a
+//     block's threads in step at a barrier a plane, ran 1.8x slower. The E
+//     half reads the f32 H the H half stored: the fused tick's result, bit
+//     for bit.
+//   bf16 storage: the halves would round H to bf16 before E reads it, so
+//     the tick stays fused: yee.cuh's streaming pass with cpml.cuh's Cells,
+//     2 z cells a thread (one 4-byte access a field), the +1 ring of new H
+//     computed by lane 31 and a ninth warp, one barrier a plane, registers
+//     for 4 blocks an SM. The lossless cells (no slab, face, region or
+//     oblique box: most of the lattice) take the short update, the others
+//     the whole cell code. With 8 cells a thread and 16-byte accesses the
+//     cell code took 128-167 registers, one block an SM, and ran 1.8x
+//     slower.
+//
+// The macros below select the other shapes (tools/k3_baseline.py
+// --variants).
 #include "cpml.cuh"
 
 namespace {
 
+// The z cells a thread at f32 and at bf16 storage (an access of V values:
+// 16 bytes at 4 and 8), whether the declined cells run in the rolled loop
+// (1) or inline per cell (0), and the blocks an SM the kernel asks
+// registers for (tools/k3_baseline.py --variants builds other values;
+// PERF.md has their times).
+#define CPML_CELLS_F32 1
+#define CPML_CELLS_BF16 2
+#define CPML_ROLLED 0
+#define CPML_MIN_BLOCKS 4
+// 1: the lossless cells take the short update (cpml.cuh Cells' BARE)
+#define CPML_BARE 1
+// 1: at f32 storage the tick is K4's two half passes instead (below)
+#define CPML_F32_HALVES 1
+
+template <typename T>
+__host__ __device__ constexpr int cpml_v() {
+  return sizeof(T) == 4 ? CPML_CELLS_F32 : CPML_CELLS_BF16;
+}
+
 template <typename T, bool EXT>
-__global__ void __launch_bounds__(yee::THREADS)
+__global__ void __launch_bounds__(yee::STREAM_THREADS, CPML_MIN_BLOCKS)
 cpml_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
-            yee::Material M, yee::Sources S, int with_m, yee::Work w,
+            yee::Material M, yee::Sources S, int with_m, yee::Work w, int vec,
             const __grid_constant__ cpml::Profiles P,
             const __grid_constant__ cpml::Psi Q, cpml::Tfsf tf,
             const __grid_constant__ cpml::Ext X) {
-  __shared__ yee::Shared sh;
-  yee::load_table(sh, M);
+  constexpr int V = cpml_v<T>();
+  __shared__ yee::StreamShared<V> sh;
+  yee::load_stream_table(sh, M);
   int y0, z0, x_lo, x_hi;
-  yee::decode(w, blockIdx.x, L, y0, z0, x_lo, x_hi);
+  yee::decode(w, blockIdx.x, L, y0, z0, x_lo, x_hi, 32 * V);
   const float* aux_e = tf.aux;
   const float* aux_h = tf.aux ? tf.aux + tf.len : nullptr;
-  // row layout: [x, y, z, J, M (with_m)]; psi set 0 in, set 1 out
-  cpml::tile_pass<T, T, 0, 1, EXT>(in, out, L, M, S, 3, with_m ? 6 : -1, P, Q, tf,
-                                   aux_e, aux_h, y0, z0, x_lo, x_hi, sh, X,
-                                   EXT && X.O.n_box > 0 ? X.O.corr : nullptr);
+  // row layout: [x, y, z, J, M (with_m)]
+  const cpml::Cells<T, EXT, CPML_BARE != 0> cells{L, &yee::table_of(sh), S, with_m ? 6 : -1, 3, &P, &Q, tf,
+                                  aux_e, aux_h, &X,
+                                  EXT && X.O.n_box > 0 ? X.O.corr : nullptr};
+  yee::stream_pass<T, T, V, false, CPML_ROLLED != 0>(in, out, L, M.matid, y0, z0, x_lo, x_hi,
+                                                     vec, yee::face_bounds(L),
+                                                     yee::Halo<T>{}, sh, cells, cells);
+}
+
+// The tick as K4's out-of-place half passes (cpml.cuh h_pass, e_pass), two
+// ordinary launches: the H half reads E and H from `in` and writes new H
+// and psi_H, the E half reads that H from `out` and E from `in` and writes
+// new E and psi_E, one cell a thread, no barrier, no ring. At f32 storage
+// the E half reads the H the H half stored, so the result is the fused
+// tick's bit for bit; at bf16 it would read H rounded, hence f32 only.
+template <typename T, bool EXT>
+__global__ void __launch_bounds__(yee::THREADS)
+cpml_h_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L, yee::Material M,
+              yee::Sources S, int m_col, yee::Work w, const __grid_constant__ cpml::Profiles P,
+              const __grid_constant__ cpml::Psi Q, cpml::Tfsf tf,
+              const __grid_constant__ cpml::Ext X) {
+  __shared__ yee::Shared sh;
+  yee::load_table(sh, M);
+  const float* ob = EXT && X.O.n_box > 0 ? X.O.corr : nullptr;
+  for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
+    int y0, z0, x_lo, x_hi;
+    yee::decode(w, item, L, y0, z0, x_lo, x_hi);
+    cpml::h_pass<T, T, 0, 1, EXT>(in, out, L, M, S, m_col, P, Q, tf, tf.aux, y0, z0, x_lo,
+                                  x_hi, sh, X, ob);
+  }
+}
+
+template <typename T, bool EXT>
+__global__ void __launch_bounds__(yee::THREADS)
+cpml_e_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L, yee::Material M,
+              yee::Sources S, int j_col, yee::Work w, const __grid_constant__ cpml::Profiles P,
+              const __grid_constant__ cpml::Psi Q, cpml::Tfsf tf,
+              const __grid_constant__ cpml::Ext X) {
+  __shared__ yee::Shared sh;
+  yee::load_table(sh, M);
+  const float* ob = EXT && X.O.n_box > 0 ? X.O.corr : nullptr;
+  const float* aux_h = tf.aux ? tf.aux + tf.len : nullptr;
+  for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
+    int y0, z0, x_lo, x_hi;
+    yee::decode(w, item, L, y0, z0, x_lo, x_hi);
+    cpml::e_pass<T, T, T, 0, 1, EXT>(in, yee::as_const(out), out, L, M, S, j_col, P, Q, tf,
+                                     aux_h, y0, z0, x_lo, x_hi, sh, X, ob);
+  }
+}
+
+template <typename T, bool EXT>
+int launch_halves(const yee::Fields<const T>& in, const yee::Fields<T>& out,
+                  const yee::Lattice& L, const yee::Material& M, const yee::Sources& S,
+                  int with_m, const cpml::Profiles& P, const cpml::Psi& Q, const cpml::Tfsf& tf,
+                  const cpml::Ext& X, cudaStream_t stream) {
+  int resident = 0;
+  cudaError_t err = yee::resident_blocks(cpml_h_kernel<T, EXT>, resident);
+  if (err != cudaSuccess) return (int)err;
+  const yee::Work w = yee::plan_work(L, resident, yee::HALF_CHUNK, yee::TZ);
+  const dim3 block(yee::TZ, yee::TY);
+  // row layout: [x, y, z, J, M (with_m)]
+  cpml_h_kernel<T, EXT><<<w.n_items, block, 0, stream>>>(in, out, L, M, S, with_m ? 6 : -1, w,
+                                                         P, Q, tf, X);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cpml_e_kernel<T, EXT><<<w.n_items, block, 0, stream>>>(in, out, L, M, S, 3, w, P, Q, tf, X);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, bool EXT>
@@ -55,24 +160,24 @@ int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q,
            const uint8_t* matid, const float* rows, int n_src, int row_w,
            int with_m, int nx, int ny, int nz, float inv_x, float inv_y,
            float inv_z, const cpml::Ext& X, cudaStream_t stream) {
+  constexpr int V = cpml_v<T>();
   yee::Fields<const T> in{(const T*)f[0], (const T*)f[1], (const T*)f[2],
                           (const T*)f[3], (const T*)f[4], (const T*)f[5]};
   yee::Fields<T> out{(T*)f[6], (T*)f[7], (T*)f[8], (T*)f[9], (T*)f[10], (T*)f[11]};
   yee::Lattice L{nx, ny, nz, inv_x, inv_y, inv_z};
   yee::Material M{table, n_mat, matid};
   yee::Sources S{rows, n_src, row_w};
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cpml_kernel<T, EXT>,
-                                                        yee::THREADS, 0);
-  if (err != cudaSuccess) return (int)err;
-  const yee::Work w = yee::plan_work(L, sms * (per_sm > 0 ? per_sm : 1));
-  cpml_kernel<T, EXT><<<w.n_items, dim3(yee::TZ, yee::TY), 0, stream>>>(
-      in, out, L, M, S, with_m, w, P, Q, tf, X);
-  return (int)cudaGetLastError();
+  if constexpr (CPML_F32_HALVES != 0 && sizeof(T) == 4) {
+    return launch_halves<T, EXT>(in, out, L, M, S, with_m, P, Q, tf, X, stream);
+  } else {
+    yee::Work w;
+    const cudaError_t err = yee::stream_work<V>(cpml_kernel<T, EXT>, L, w);
+    if (err != cudaSuccess) return (int)err;
+    const int vec = yee::stream_aligned<T, T, V>(f, 6, f + 6, 6, matid, nz);
+    cpml_kernel<T, EXT><<<w.n_items, dim3(32, yee::TY + 1), 0, stream>>>(
+        in, out, L, M, S, with_m, w, vec, P, Q, tf, X);
+    return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace

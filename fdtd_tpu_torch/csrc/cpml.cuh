@@ -1,9 +1,9 @@
 // Shared device code of the CPML kernels (cpml.cu, cpmlk.cu, cpmlk_inplace.cu).
 //
-// The tile pass of yee.cuh (a (y, z) tile of TY x TZ cells marching its x
-// chunk downward, new H of the tile plus its +1 ring in shared memory, the
-// plane above carried in registers, a seed plane above each chunk) with the
-// absorbing terms of solver/engine.py added per cell:
+// The absorbing terms of solver/engine.py per cell, for the fused tick of
+// yee.cuh (stream_pass: a (y, z) tile marching its x chunk downward, the
+// new H of its +1 ring recomputed, the plane above carried in registers, a
+// seed plane above each chunk; K3, through Cells) and the half passes:
 //
 //   CPML: each derivative along an axis with a slab is stretched,
 //           psi_new = b * psi_old + c * dF,   dF~ = ik * dF + psi_new,
@@ -24,7 +24,7 @@
 // the tile, the ring and the seed (h_cell), so E on a tile's edge reads the
 // H its neighbour stores.
 //
-// In place (cpmlk_inplace.cu, K4's io_alias build) the tile pass would
+// In place (cpmlk_inplace.cu, K4's io_alias build) the fused tick would
 // race: its ring and seed read old E and psi at cells that other blocks
 // overwrite. So the in-place tick is two half passes with every block
 // finished between them, as yee.cuh's: h_half reads E and writes H and its
@@ -34,8 +34,8 @@
 // field) with this file's cell updates. K4's out-of-place level
 // loop (cpmlk.cu) runs the same two halves a tick between its buffer sets
 // with one cell a thread (h_pass, e_pass). Every pass shares the per-cell
-// arithmetic (h_cell, e_cell, in the tile pass's order), so at f32 storage
-// all of them are bit-identical to the tile pass; at bf16 storage the
+// arithmetic (h_cell, e_cell, in the fused tick's order), so at f32 storage
+// all of them are bit-identical to the fused tick; at bf16 storage the
 // in-place halves round H to bf16 before E reads it.
 //
 // The extensions (EXT = true: instantiations of K3 and K4 of their own, so
@@ -268,7 +268,7 @@ __device__ __forceinline__ float stretch(const Profiles& P, const SlotPsiT<XPSI,
 // then the oblique correction of row `ob` (EXT), the TF/SF H corrections
 // from the OLD aux_e row, and the M sources of column m_col (-1: none).
 // ax0: the aux line's index of lattice plane 0 (FRAME; else 0).
-// T by value, as tile_pass takes it: by reference, ptxas gave K4's core
+// T by value: by reference, ptxas gave K4's core
 // instantiations 44 B more spill stores. HF: the fields (yee::Fields, read
 // at i here) or the cell's held values (yee::HeldFields, K6, K5 and the
 // in-place halves); QT: Psi, or their SlotPsiT; MT: yee::Material, or the
@@ -378,95 +378,13 @@ __device__ __forceinline__ void e_cell(EF e, long long i, int p, int y,
   if (j_col >= 0) yee::inject(S, j_col, p, y, z, c_b, ex, ey, ez);
 }
 
-// One absorbing tick over tile (y0, z0) and planes [x_lo, x_hi): fields
-// from `in` to `out`, psi from set QS to set QD, TF/SF from the rows
-// aux_e / aux_h (null without TF/SF). j_col / m_col: the source-row column
-// of this tick's J / M, or -1 for none. With EXT: the region of X.D (its
-// psi sets QS/QD too) and the oblique corrections of row `ob` (null: none).
-template <typename TI, typename TO, int QS, int QD, bool EXT = false>
-__device__ void tile_pass(yee::Fields<const TI> in, yee::Fields<TO> out,
-                          const yee::Lattice& L, const yee::Material& M,
-                          const yee::Sources& S, int j_col, int m_col,
-                          const Profiles& P, const Psi& Q,
-                          const Tfsf T, const float* aux_e, const float* aux_h,
-                          int y0, int z0, int x_lo, int x_hi, yee::Shared& sh,
-                          const Ext& X, const float* ob) {
-  const int tz = threadIdx.x, ty = threadIdx.y, tid = ty * TZ + tz;
-  const int y = y0 + ty, z = z0 + tz;
-  const bool own = y < L.ny && z < L.nz;
-  const long long plane = (long long)L.ny * L.nz;
-  float top_hy = 0.f, top_hz = 0.f;  // new H at plane p+1 (this thread's cell)
-  // the differences taken: backward ones above bx, by, bz, forward ones
-  // below fx, fy, fz (the lattice's faces)
-  const int bx = 0, by = 0, bz = 0, fx = L.nx - 1, fy = L.ny - 1, fz = L.nz - 1;
-
-  // x_hi < nx: start one plane above the chunk to seed the carry
-  const int p_start = x_hi < L.nx ? x_hi : x_hi - 1;
-  for (int p = p_start; p >= x_lo; --p) {
-    const bool seed = p == x_hi;
-    const long long base = (long long)p * plane;
-
-    // ---- H over the tile + ring: h = d_a*h - d_b*curl~_b(E) (+TF/SF) [- d_b*M] ----
-    for (int r = tid; r < RY * RZ; r += THREADS) {
-      const int ly = r / RZ, lz = r - ly * RZ;
-      const int yy = y0 + ly, zz = z0 + lz;
-      if (yy >= L.ny || zz >= L.nz) continue;
-      const bool keep = !seed && ly < TY && lz < TZ;  // this block owns the cell
-      const long long i = base + (long long)yy * L.nz + zz;
-      const float ex = yee::load(in.ex, i), ey = yee::load(in.ey, i),
-                  ez = yee::load(in.ez, i);
-      const float dez_y = (yy > by ? ez - yee::load(in.ez, i - L.nz) : 0.f) * L.inv_y;
-      const float dey_z = (zz > bz ? ey - yee::load(in.ey, i - 1) : 0.f) * L.inv_z;
-      const float dex_z = (zz > bz ? ex - yee::load(in.ex, i - 1) : 0.f) * L.inv_z;
-      const float dez_x = (p > bx ? ez - yee::load(in.ez, i - plane) : 0.f) * L.inv_x;
-      const float dey_x = (p > bx ? ey - yee::load(in.ey, i - plane) : 0.f) * L.inv_x;
-      const float dex_y = (yy > by ? ex - yee::load(in.ex, i - L.nz) : 0.f) * L.inv_y;
-      float hx, hy, hz;
-      h_cell<TI, QS, QD, EXT>(in, i, p, yy, zz, keep, dez_y, dey_z, dex_z, dez_x, dey_x,
-                              dex_y, L, M, S, m_col, P, Q, T, aux_e, sh, X, ob, hx, hy, hz);
-      sh.hx[ly][lz] = hx;
-      sh.hy[ly][lz] = hy;
-      sh.hz[ly][lz] = hz;
-      if (keep) {
-        yee::store(out.hx, i, hx);
-        yee::store(out.hy, i, hy);
-        yee::store(out.hz, i, hz);
-      }
-    }
-    __syncthreads();
-
-    // ---- E over the tile: e = c_a*e + c_b*curl~_f(H_new) (+TF/SF) [- c_b*J] ----
-    if (own) {
-      const float hx = sh.hx[ty][tz], hy = sh.hy[ty][tz], hz = sh.hz[ty][tz];
-      if (!seed) {
-        const long long i = base + (long long)y * L.nz + z;
-        const bool y_in = y < fy, z_in = z < fz, x_in = p < fx;
-        const float dhz_y = (y_in ? sh.hz[ty + 1][tz] - hz : 0.f) * L.inv_y;
-        const float dhy_z = (z_in ? sh.hy[ty][tz + 1] - hy : 0.f) * L.inv_z;
-        const float dhx_z = (z_in ? sh.hx[ty][tz + 1] - hx : 0.f) * L.inv_z;
-        const float dhz_x = (x_in ? top_hz - hz : 0.f) * L.inv_x;
-        const float dhy_x = (x_in ? top_hy - hy : 0.f) * L.inv_x;
-        const float dhx_y = (y_in ? sh.hx[ty + 1][tz] - hx : 0.f) * L.inv_y;
-        float ex, ey, ez;
-        e_cell<TI, QS, QD, EXT>(in, i, p, y, z, dhz_y, dhy_z, dhx_z, dhz_x, dhy_x, dhx_y,
-                                L, M, S, j_col, P, Q, T, aux_h, sh, X, ob, ex, ey, ez);
-        yee::store(out.ex, i, ex);
-        yee::store(out.ey, i, ey);
-        yee::store(out.ez, i, ez);
-      }
-      top_hy = hy;
-      top_hz = hz;
-    }
-    __syncthreads();
-  }
-}
-
 // The H half of one tick over tile (y0, z0) and planes [x_lo, x_hi), as
 // yee::h_half: each thread its own (y, z) column, x ascending, E at plane
 // p-1 carried in registers. New H and psi_H (psi set QS to set QD) from E
 // and the old H in `src`, written to `dst` at the thread's own cells (in
 // place: the same set twice). The differences vanish at the lattice's
-// faces, or (FRAME) at the edge planes of *F; arguments as tile_pass's.
+// faces, or (FRAME) at the edge planes of *F; the TF/SF rows, the region
+// and the corrections as h_cell takes them.
 template <typename TI, typename TO, int QS, int QD, bool EXT, bool FRAME = false>
 __device__ void h_pass(yee::Fields<const TI> src, yee::Fields<TO> dst, const yee::Lattice& L,
                        const yee::Material& M, const yee::Sources& S, int m_col,
@@ -653,6 +571,82 @@ __device__ __forceinline__ void e_half(yee::Fields<TS> f, const yee::Lattice& L,
                               aux_h, sh, X, ob, ex, ey, ez);
       });
 }
+
+// The cells of K3's one-tick pass (yee.cuh's stream_pass; cpml.cu): psi
+// from set 0 to set 1, new psi stored by the cell's owner only (`store`:
+// the +1 ring and the seed plane recompute without storing). With BARE, a
+// cell where h_cell or e_cell reduces to the lossless update (bare) takes
+// that update with h_cell's and e_cell's roundings (h<false> / e<false>, as
+// h_half and e_half take it); the others are declined there and take
+// h_cell or e_cell on the held values (h<true> / e<true>), with each raw
+// difference's product rounded apart so that no product fuses into the
+// curl. Without BARE every cell takes h_cell and e_cell.
+template <typename TS, bool EXT, bool BARE = true>
+struct Cells {
+  yee::Lattice L;
+  const yee::Shared* sh;
+  yee::Sources S;
+  int m_col, j_col;
+  const Profiles* P;
+  const Psi* Q;
+  Tfsf T;
+  const float* aux_e;
+  const float* aux_h;
+  const Ext* X;
+  const float* ob;
+
+  template <bool FULL>
+  __device__ __forceinline__ bool h(int p, int y, int z, long long i, int mat, bool store,
+                                    float dez_y, float dey_z, float dex_z, float dez_x,
+                                    float dey_x, float dex_y, float ohx, float ohy, float ohz,
+                                    float& hx, float& hy, float& hz) const {
+    if constexpr (!FULL) {
+      if (!BARE || !bare<0, EXT>(*P, T, aux_e, *X, ob, p, y, z)) return false;
+      const float d_a = sh->table[mat][2], d_b = sh->table[mat][3];
+      const float ez_y = __fmul_rn(dez_y, L.inv_y), ey_z = __fmul_rn(dey_z, L.inv_z);
+      const float ex_z = __fmul_rn(dex_z, L.inv_z), ez_x = __fmul_rn(dez_x, L.inv_x);
+      const float ey_x = __fmul_rn(dey_x, L.inv_x), ex_y = __fmul_rn(dex_y, L.inv_y);
+      hx = __fmaf_rn(d_a, ohx, -__fmul_rn(d_b, __fsub_rn(ez_y, ey_z)));
+      hy = __fmaf_rn(d_a, ohy, -__fmul_rn(d_b, __fsub_rn(ex_z, ez_x)));
+      hz = __fmaf_rn(d_a, ohz, -__fmul_rn(d_b, __fsub_rn(ey_x, ex_y)));
+      if (m_col >= 0) yee::inject(S, m_col, p, y, z, d_b, hx, hy, hz);
+    } else {
+      const yee::HeldFields old{{0.f}, {0.f}, {0.f}, {ohx}, {ohy}, {ohz}};
+      h_cell<TS, 0, 1, EXT>(old, i, p, y, z, store, __fmul_rn(dez_y, L.inv_y),
+                            __fmul_rn(dey_z, L.inv_z), __fmul_rn(dex_z, L.inv_z),
+                            __fmul_rn(dez_x, L.inv_x), __fmul_rn(dey_x, L.inv_x),
+                            __fmul_rn(dex_y, L.inv_y), L, yee::HeldMaterial{mat}, S, m_col, *P,
+                            *Q, T, aux_e, *sh, *X, ob, hx, hy, hz);
+    }
+    return true;
+  }
+
+  template <bool FULL>
+  __device__ __forceinline__ bool e(int p, int y, int z, long long i, int mat, float dhz_y,
+                                    float dhy_z, float dhx_z, float dhz_x, float dhy_x,
+                                    float dhx_y, float oex, float oey, float oez, float& ex,
+                                    float& ey, float& ez) const {
+    if constexpr (!FULL) {
+      if (!BARE || !bare<1, EXT>(*P, T, aux_h, *X, ob, p, y, z)) return false;
+      const float c_a = sh->table[mat][0], c_b = sh->table[mat][1];
+      const float hz_y = __fmul_rn(dhz_y, L.inv_y), hy_z = __fmul_rn(dhy_z, L.inv_z);
+      const float hx_z = __fmul_rn(dhx_z, L.inv_z), hz_x = __fmul_rn(dhz_x, L.inv_x);
+      const float hy_x = __fmul_rn(dhy_x, L.inv_x), hx_y = __fmul_rn(dhx_y, L.inv_y);
+      ex = __fmaf_rn(c_a, oex, __fmul_rn(c_b, __fsub_rn(hz_y, hy_z)));
+      ey = __fmaf_rn(c_a, oey, __fmul_rn(c_b, __fsub_rn(hx_z, hz_x)));
+      ez = __fmaf_rn(c_a, oez, __fmul_rn(c_b, __fsub_rn(hy_x, hx_y)));
+      if (j_col >= 0) yee::inject(S, j_col, p, y, z, c_b, ex, ey, ez);
+    } else {
+      const yee::HeldFields old{{oex}, {oey}, {oez}, {0.f}, {0.f}, {0.f}};
+      e_cell<TS, 0, 1, EXT>(old, i, p, y, z, __fmul_rn(dhz_y, L.inv_y),
+                            __fmul_rn(dhy_z, L.inv_z), __fmul_rn(dhx_z, L.inv_z),
+                            __fmul_rn(dhz_x, L.inv_x), __fmul_rn(dhy_x, L.inv_x),
+                            __fmul_rn(dhx_y, L.inv_y), L, yee::HeldMaterial{mat}, S, j_col, *P,
+                            *Q, T, aux_h, *sh, *X, ob, ex, ey, ez);
+    }
+    return true;
+  }
+};
 
 // ---- host side: the C arguments into the kernel structs ----
 

@@ -11,7 +11,7 @@
 // The global lattice's faces are closed where a neighbour is missing: the
 // first shard has no plane at x = -1, the last none at x = nl.
 //
-// It is K1's pass (yee.cuh, tile_pass with HALO): the shard's planes are
+// It is K1's pass (yee.cuh's streaming pass with HALO): the shard's planes are
 // read from its own tensors and x = -1 and x = nl from the halo planes, so
 // every cell does K1's arithmetic on the same numbers, and a split
 // lattice's tick equals K1's on the whole lattice bit for bit. J rides the
@@ -24,17 +24,15 @@
 
 namespace {
 
-__global__ void __launch_bounds__(yee::THREADS)
+__global__ void STREAM_BOUNDS
 sharded_step_kernel(yee::Fields<const float> in, yee::Fields<float> out,
                     yee::Halo<float> hl, yee::Lattice L, yee::Material M,
-                    yee::Sources S, yee::Work w) {
-  __shared__ yee::Shared sh;
-  yee::load_table(sh, M);
-  int y0, z0, x_lo, x_hi;
-  yee::decode(w, blockIdx.x, L, y0, z0, x_lo, x_hi);
+                    yee::Sources S, yee::Work w, int vec) {
+  __shared__ yee::StreamShared<yee::stream_v<float, float>()> sh;
+  yee::load_stream_table(sh, M);
   // row layout: [x, y, z, J] in the shard's coordinates
-  yee::tile_pass<float, float, false, true>(in, out, L, M, S, 3, -1, y0, z0, x_lo,
-                                            x_hi, sh, yee::Edges{}, hl);
+  yee::yee_tick<float, float, true>(in, out, L, M, S, 3, -1, w, blockIdx.x, vec,
+                                    yee::halo_bounds(L, hl), sh, hl);
 }
 
 }  // namespace
@@ -66,17 +64,20 @@ int fdtd_sharded_step(void** fields, void** halo, int first, int last,
   yee::Lattice L{nx, ny, nz, inv_x, inv_y, inv_z};
   yee::Material M{table, 1, nullptr};
   yee::Sources S{rows, n_src, row_w};
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sharded_step_kernel,
-                                                        yee::THREADS, 0);
+  yee::Work w;
+  const cudaError_t err =
+      yee::stream_work<yee::stream_v<float, float>()>(sharded_step_kernel, L, w);
   if (err != cudaSuccess) return (int)err;
-  const yee::Work w = yee::plan_work(L, sms * (per_sm > 0 ? per_sm : 1));
-  sharded_step_kernel<<<w.n_items, dim3(yee::TZ, yee::TY), 0, (cudaStream_t)stream>>>(
-      in, out, hl, L, M, S, w);
+  // the halo planes are read with the shard's accesses
+  void* planes[7];
+  int n_planes = 0;
+  for (int j = 0; j < 7; ++j)
+    if ((j < 2 && !first) || (j >= 2 && !last)) planes[n_planes++] = halo[j];
+  constexpr int V = yee::stream_v<float, float>();
+  const int vec = yee::stream_aligned<float, float>(fields, 6, fields + 6, 6, nullptr, nz) &&
+                  yee::rows_aligned(planes, n_planes, nullptr, nz, V, 4 * V);
+  sharded_step_kernel<<<w.n_items, dim3(32, yee::TY + 1), 0, (cudaStream_t)stream>>>(
+      in, out, hl, L, M, S, w, vec);
   return (int)cudaGetLastError();
 }
 

@@ -11,11 +11,13 @@
 // the arithmetic (~40 flop/cell) is far below the card's rate.
 //
 // What the design does about it: a single pass (the two-sweep reference
-// moves ~96 B/cell), with the new H plane that E needs kept on chip: the
-// tile's new H sits in shared memory for the E update of the same plane,
-// and the plane above rides in registers (see yee.cuh). The +1 ring of new
-// H and the x-1 E plane are re-read from L1/L2, not from device memory.
-// x is cut into chunks when the (y, z) tiles alone cannot fill 132 SMs.
+// moves ~96 B/cell), yee.cuh's streaming pass: each thread holds 4 z cells
+// (f32) or 8 (bf16) of a row and moves each field of them as one 16-byte
+// access, the new H plane that E needs stays on chip (the thread's own
+// cells in registers, the row above's in shared memory, the plane above
+// carried in registers), and the +1 ring of new H is computed by lane 31
+// and a ninth warp instead of being exchanged. x is cut into chunks when
+// the (y, z) tiles alone cannot fill 132 SMs.
 //
 // Point sources ride the kernel: M is subtracted from the new H before E
 // reads it, J from the new E before it is stored, both in f32 (the TPU
@@ -37,16 +39,14 @@
 namespace {
 
 template <typename T>
-__global__ void __launch_bounds__(yee::THREADS)
+__global__ void STREAM_BOUNDS
 step_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
-            yee::Material M, yee::Sources S, int with_m, yee::Work w) {
-  __shared__ yee::Shared sh;
-  yee::load_table(sh, M);
-  int y0, z0, x_lo, x_hi;
-  yee::decode(w, blockIdx.x, L, y0, z0, x_lo, x_hi);
+            yee::Material M, yee::Sources S, int with_m, yee::Work w, int vec) {
+  __shared__ yee::StreamShared<yee::stream_v<T, T>()> sh;
+  yee::load_stream_table(sh, M);
   // row layout: [x, y, z, J, M (with_m)]
-  yee::tile_pass<T, T>(in, out, L, M, S, 3, with_m ? 6 : -1, y0, z0, x_lo,
-                       x_hi, sh);
+  yee::yee_tick<T, T>(in, out, L, M, S, 3, with_m ? 6 : -1, w, blockIdx.x, vec,
+                      yee::face_bounds(L), sh);
 }
 
 template <typename T>
@@ -59,12 +59,12 @@ int launch(void** f, const float* table, int n_mat, const uint8_t* matid,
   yee::Lattice L{nx, ny, nz, inv_x, inv_y, inv_z};
   yee::Material M{table, n_mat, matid};
   yee::Sources S{rows, n_src, row_w};
-  int target = 0;
-  const cudaError_t err = yee::resident_blocks(step_kernel<T>, target);
+  yee::Work w;
+  const cudaError_t err = yee::stream_work<yee::stream_v<T, T>()>(step_kernel<T>, L, w);
   if (err != cudaSuccess) return (int)err;
-  const yee::Work w = yee::plan_work(L, target);
-  step_kernel<T><<<w.n_items, dim3(yee::TZ, yee::TY), 0, stream>>>(
-      in, out, L, M, S, with_m, w);
+  const int vec = yee::stream_aligned<T, T>(f, 6, f + 6, 6, matid, nz);
+  step_kernel<T><<<w.n_items, dim3(32, yee::TY + 1), 0, stream>>>(in, out, L, M, S, with_m,
+                                                                   w, vec);
   return (int)cudaGetLastError();
 }
 

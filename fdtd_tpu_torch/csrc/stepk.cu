@@ -1,4 +1,4 @@
-// K2: K leapfrog ticks (K >= 2) in one cooperative launch.
+// K2: K leapfrog ticks (K >= 2) a call, one ordinary launch a tick.
 //
 // Replaces the TPU kernel fdtd_tpu/solver/pallas_stepk.py::_kernel (built by
 // _build_call, driven by pallas_stepk_fn): K ticks per call with J and M
@@ -7,26 +7,27 @@
 // K's J after the call, in the storage type; here it rides the kernel like
 // the other levels.)
 //
-// Bound on the H100: device memory. This first version runs each tick as
-// one fused pass (yee.cuh's tile pass, the K1 schedule): 48 B/cell/tick at
-// f32 storage, so the same ~70 Gcell/s ceiling against 3.35 TB/s as K1. It
-// does not yet block in time; the TPU kernel's wavefront, which carries K
-// levels of planes on chip and moves ~(48 + 8)/K B/cell/tick, is later
-// work.
+// Bound on the H100: device memory. Each tick is one fused pass (yee.cuh's
+// streaming pass, K1's): 48 B/cell/tick at f32 storage, so the same ~70
+// Gcell/s ceiling against 3.35 TB/s as K1. It does not block in time; the
+// TPU kernel's wavefront, which carries K levels of planes on chip and
+// moves ~(48 + 8)/K B/cell/tick, is later work.
 //
 // What the design does about the bound: ticks ping-pong between two f32
-// work sets (the output buffer doubles as one when storage is f32), a
-// grid-wide barrier (grid.sync) separates the ticks, and the blocks stay
-// resident across all K ticks, so a call costs one launch and one source
-// upload for K ticks instead of K. The barrier also orders the writes of
-// one tick before the reads of the next across blocks.
+// work sets (the output buffer doubles as one when storage is f32), each
+// tick an ordinary launch on the caller's stream over one wave of work
+// items; the launch boundary orders one tick's writes before the next
+// tick's reads. (One cooperative launch with a grid-wide barrier between
+// the ticks, the first version, kept the blocks resident but ran the
+// ticks as rounds of the slower tile pass; PERF.md compares the two.) At
+// bf16 storage the first tick reads bf16 and the last writes it, so every
+// tick moves 4 z cells a thread, 16 bytes an f32 access.
 //
 // With edge planes (fdtd_stepk_edges, the TPU kernel's runtime edge row,
 // pallas_stepk.py:413-441, which the sharded K-tick kernel K9 runs on
 // halo-extended shards): the Neumann(0) closure moves to the global
 // lattice's edge planes inside the array, and stays at the array's faces
-// (yee.cuh, EDGES); its own instantiations, so that K2's compile as they
-// did.
+// (yee.cuh edge_bounds): the same tick kernels with other bounds.
 //
 // In place (fdtd_stepk_inplace, the TPU kernel's io_alias build,
 // pallas_stepk.py:62-68): the outputs are the inputs and there is no work
@@ -45,67 +46,107 @@
 
 #include "yee.cuh"
 
-namespace cg = cooperative_groups;
+// 1: the ticks of a call in one cooperative launch with a grid-wide
+// barrier between them, the first version's structure, over the same
+// pass (tools/yee_baseline.py --variants times it; the shipped build
+// launches each tick).
+#define STEPK_COOPERATIVE 0
 
 namespace {
 
-// The K ticks of a call, the body of both out-of-place kernels (EDGES:
-// the edge planes of a halo-extended shard, yee.cuh).
-template <typename T, bool EDGES>
-__device__ __forceinline__ void k_ticks(yee::Fields<const T> in, yee::Fields<float> w1,
-                                        yee::Fields<float> w2, yee::Fields<T> out,
-                                        const yee::Lattice& L, const yee::Material& M,
-                                        const yee::Sources& S, int k, int with_m,
-                                        const yee::Work& w, const yee::Edges& ed,
-                                        yee::Shared& sh) {
-  cg::grid_group grid = cg::this_grid();
+// One tick of an out-of-place call: fields from `in` (TI) to `out` (TO),
+// the differences closed at `b` (the lattice's faces, or K2 edge_planes'
+// edge planes and the array's faces).
+template <typename TI, typename TO>
+__global__ void STREAM_BOUNDS
+tick_kernel(yee::Fields<const TI> in, yee::Fields<TO> out, yee::Lattice L, yee::Material M,
+            yee::Sources S, int j_col, int m_col, yee::Work w, int vec, yee::Bounds b) {
+  __shared__ yee::StreamShared<yee::stream_v<TI, TO>()> sh;
+  yee::load_stream_table(sh, M);
+  yee::yee_tick<TI, TO>(in, out, L, M, S, j_col, m_col, w, blockIdx.x, vec, b, sh);
+}
+
+template <typename TI, typename TO>
+cudaError_t tick(yee::Fields<const TI> in, yee::Fields<TO> out, const yee::Lattice& L,
+                 const yee::Material& M, const yee::Sources& S, int j_col, int m_col,
+                 const yee::Bounds& b, cudaStream_t stream) {
+  yee::Work w;
+  cudaError_t err = yee::stream_work<yee::stream_v<TI, TO>()>(tick_kernel<TI, TO>, L, w);
+  if (err != cudaSuccess) return err;
+  void* ip[6] = {(void*)in.ex, (void*)in.ey, (void*)in.ez, (void*)in.hx, (void*)in.hy,
+                 (void*)in.hz};
+  void* op[6] = {out.ex, out.ey, out.ez, out.hx, out.hy, out.hz};
+  const int vec = yee::stream_aligned<TI, TO>(ip, 6, op, 6, M.matid, L.nz);
+  tick_kernel<TI, TO><<<w.n_items, dim3(32, yee::TY + 1), 0, stream>>>(in, out, L, M, S, j_col,
+                                                                       m_col, w, vec, b);
+  return cudaGetLastError();
+}
+
+// The cooperative variant: every tick of a call by the resident blocks, a
+// grid-wide barrier between ticks (K2's ticks all take the cells a thread
+// of an f32 tick, so one plan serves them).
+template <typename T>
+__global__ void STREAM_BOUNDS
+ticks_kernel(yee::Fields<const T> in, yee::Fields<float> w1, yee::Fields<float> w2,
+             yee::Fields<T> out, yee::Lattice L, yee::Material M, yee::Sources S, int k,
+             int with_m, yee::Work w, int vec, yee::Bounds b) {
+  constexpr int V = yee::stream_v<float, float>();
+  static_assert(yee::stream_v<T, float>() == V && yee::stream_v<float, T>() == V, "one plan");
+  __shared__ yee::StreamShared<V> sh;
+  yee::load_stream_table(sh, M);
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   for (int lvl = 1; lvl <= k; ++lvl) {
-    // row layout: [x, y, z, J levels 1..K, M levels 1..K (with_m)]
     const int j_col = 3 + 3 * (lvl - 1);
     const int m_col = with_m ? 3 + 3 * k + 3 * (lvl - 1) : -1;
-    // level l writes w1 when K-l is odd, w2 when even (w2 may alias out)
     const yee::Fields<float> dst = ((k - lvl) & 1) ? w1 : w2;
     const yee::Fields<float> src = ((k - lvl + 1) & 1) ? w1 : w2;
     for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
-      int y0, z0, x_lo, x_hi;
-      yee::decode(w, item, L, y0, z0, x_lo, x_hi);
       if (lvl == 1)
-        yee::tile_pass<T, float, EDGES>(in, dst, L, M, S, j_col, m_col, y0, z0,
-                                        x_lo, x_hi, sh, ed);
+        yee::yee_tick<T, float>(in, dst, L, M, S, j_col, m_col, w, item, vec, b, sh);
       else if (lvl == k)
-        yee::tile_pass<float, T, EDGES>(yee::as_const(src), out, L, M, S, j_col,
-                                        m_col, y0, z0, x_lo, x_hi, sh, ed);
+        yee::yee_tick<float, T>(yee::as_const(src), out, L, M, S, j_col, m_col, w, item, vec, b,
+                                sh);
       else
-        yee::tile_pass<float, float, EDGES>(yee::as_const(src), dst, L, M, S,
-                                            j_col, m_col, y0, z0, x_lo, x_hi, sh,
-                                            ed);
+        yee::yee_tick<float, float>(yee::as_const(src), dst, L, M, S, j_col, m_col, w, item, vec,
+                                    b, sh);
     }
     if (lvl < k) grid.sync();
   }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(yee::THREADS)
-stepk_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
-             yee::Fields<float> w2, yee::Fields<T> out, yee::Lattice L,
-             yee::Material M, yee::Sources S, int k, int with_m, yee::Work w) {
-  __shared__ yee::Shared sh;
-  yee::load_table(sh, M);
-  k_ticks<T, false>(in, w1, w2, out, L, M, S, k, with_m, w, yee::Edges{}, sh);
-}
-
-// K2 with edge planes (the sharded K-tick kernel's, fdtd_tpu/parallel/
-// pallas_sharded_k.py): the Neumann(0) closure at ``ed`` and at the
-// array's faces.
-template <typename T>
-__global__ void __launch_bounds__(yee::THREADS)
-stepk_edges_kernel(yee::Fields<const T> in, yee::Fields<float> w1,
-                   yee::Fields<float> w2, yee::Fields<T> out, yee::Lattice L,
-                   yee::Material M, yee::Sources S, int k, int with_m, yee::Work w,
-                   yee::Edges ed) {
-  __shared__ yee::Shared sh;
-  yee::load_table(sh, M);
-  k_ticks<T, true>(in, w1, w2, out, L, M, S, k, with_m, w, ed, sh);
+int launch_cooperative(void** f, const yee::Lattice& L, const yee::Material& M,
+                       const yee::Sources& S, int with_m, int k, const yee::Bounds& b,
+                       cudaStream_t stream) {
+  yee::Fields<const T> in{(const T*)f[0], (const T*)f[1], (const T*)f[2],
+                          (const T*)f[3], (const T*)f[4], (const T*)f[5]};
+  yee::Fields<T> out{(T*)f[6], (T*)f[7], (T*)f[8], (T*)f[9], (T*)f[10], (T*)f[11]};
+  yee::Fields<float> w1{(float*)f[12], (float*)f[13], (float*)f[14],
+                        (float*)f[15], (float*)f[16], (float*)f[17]};
+  yee::Fields<float> w2{(float*)f[18], (float*)f[19], (float*)f[20],
+                        (float*)f[21], (float*)f[22], (float*)f[23]};
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ticks_kernel<T>,
+                                                        yee::STREAM_THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int resident = sms * per_sm;
+  yee::Work w = yee::plan_work(L, resident, 1 << 30, 32 * yee::stream_v<float, float>());
+  int blocks = w.n_items < resident ? w.n_items : resident;
+  const int vec = yee::stream_aligned<T, float>(f, 6, f + 12, 12, M.matid, L.nz) &&
+                  yee::stream_aligned<float, T>(f + 12, 0, f + 6, 6, nullptr, L.nz);
+  yee::Lattice Lc = L;
+  yee::Material Mc = M;
+  yee::Sources Sc = S;
+  yee::Bounds bc = b;
+  void* args[] = {&in, &w1, &w2, &out, &Lc, &Mc, &Sc, &k, &with_m, &w, (void*)&vec, &bc};
+  err = cudaLaunchCooperativeKernel((const void*)ticks_kernel<T>, dim3(blocks),
+                                    dim3(32, yee::TY + 1), args, 0, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -123,26 +164,29 @@ int launch(void** f, const float* table, int n_mat, const uint8_t* matid,
   yee::Lattice L{nx, ny, nz, inv_x, inv_y, inv_z};
   yee::Material M{table, n_mat, matid};
   yee::Sources S{rows, n_src, row_w};
-  yee::Work w;
-  int blocks = 0;
-  if (edges) {
-    yee::Edges ed{edges[0], edges[1], edges[2], edges[3], edges[4], edges[5]};
-    cudaError_t err = yee::cooperative_plan(stepk_edges_kernel<T>, L, w, blocks);
+  const yee::Bounds b =
+      edges ? yee::edge_bounds(L, yee::Edges{edges[0], edges[1], edges[2], edges[3], edges[4],
+                                             edges[5]})
+            : yee::face_bounds(L);
+  if constexpr (STEPK_COOPERATIVE != 0)
+    return launch_cooperative<T>(f, L, M, S, with_m, k, b, stream);
+  for (int lvl = 1; lvl <= k; ++lvl) {
+    // row layout: [x, y, z, J levels 1..K, M levels 1..K (with_m)]
+    const int j_col = 3 + 3 * (lvl - 1);
+    const int m_col = with_m ? 3 + 3 * k + 3 * (lvl - 1) : -1;
+    // level l writes w1 when K-l is odd, w2 when even (w2 may alias out)
+    const yee::Fields<float> dst = ((k - lvl) & 1) ? w1 : w2;
+    const yee::Fields<float> src = ((k - lvl + 1) & 1) ? w1 : w2;
+    cudaError_t err;
+    if (lvl == 1)
+      err = tick<T, float>(in, dst, L, M, S, j_col, m_col, b, stream);
+    else if (lvl == k)
+      err = tick<float, T>(yee::as_const(src), out, L, M, S, j_col, m_col, b, stream);
+    else
+      err = tick<float, float>(yee::as_const(src), dst, L, M, S, j_col, m_col, b, stream);
     if (err != cudaSuccess) return (int)err;
-    void* args[] = {&in, &w1, &w2, &out, &L, &M, &S, &k, &with_m, &w, &ed};
-    err = cudaLaunchCooperativeKernel((const void*)stepk_edges_kernel<T>,
-                                      dim3(blocks), dim3(yee::TZ, yee::TY), args,
-                                      0, stream);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
   }
-  cudaError_t err = yee::cooperative_plan(stepk_kernel<T>, L, w, blocks);
-  if (err != cudaSuccess) return (int)err;
-  void* args[] = {&in, &w1, &w2, &out, &L, &M, &S, &k, &with_m, &w};
-  err = cudaLaunchCooperativeKernel((const void*)stepk_kernel<T>, dim3(blocks),
-                                    dim3(yee::TZ, yee::TY), args, 0, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }
 
 }  // namespace

@@ -1,18 +1,19 @@
-// Shared device code of the Yee kernels (step.cu, stepk.cu).
+// Shared device code of the Yee kernels (step.cu, stepk.cu, sharded_step.cu;
+// cpml.cu's pass too).
 //
-// One "tile pass" advances the fields by one leapfrog tick over a (y, z)
-// tile of TY x TZ cells and a range of x planes, marching x in DESCENDING
-// order inside the block: the loop takes the place of the TPU kernel's
-// sequential Pallas grid (fdtd_tpu/solver/pallas_step.py). At plane p the
-// block
+// The fused tick (stream_pass, below) advances the fields by one leapfrog
+// tick over a (y, z) tile and a range of x planes, marching x in
+// DESCENDING order inside the block: the loop takes the place of the TPU
+// kernel's sequential Pallas grid (fdtd_tpu/solver/pallas_step.py). At
+// plane p the block
 //
 //   1. computes the new H at plane p over the tile plus its +1 ring in y
-//      and z into shared memory (the E update's forward differences read
-//      new H at y+1 and z+1, which belong to the neighbouring tiles; the
-//      ring is recomputed here instead of exchanged),
-//   2. computes the new E at plane p over the tile from that shared plane
-//      and the new H of plane p+1, which each thread carries in registers
-//      from the previous (higher-x) plane.
+//      and z (the E update's forward differences read new H at y+1 and
+//      z+1, which belong to the neighbouring tiles; the ring is recomputed
+//      here instead of exchanged),
+//   2. computes the new E at plane p over the tile from that new H and the
+//      new H of plane p+1, which each thread carries in registers from the
+//      previous (higher-x) plane.
 //
 // A block that starts below the top of the lattice (an x chunk) first
 // recomputes the new H of the plane just above its chunk to seed that
@@ -52,25 +53,25 @@
 //   - take a tile of TY rows and 32 V columns per work item, x chunks of
 //     at most HALF_CHUNK planes (launch_halves), one ordinary launch a half.
 //
-// The per-cell arithmetic is the tile pass's, each product's rounding
+// The per-cell arithmetic is the fused tick's, each product's rounding
 // written out where the compiler's contraction would otherwise depend on
 // the code around it (h_half, e_half; cpml.cuh's for K4), so at f32
-// storage the results are bit-identical to the tile pass. At bf16 storage
+// storage the results are bit-identical to the fused tick. At bf16 storage
 // H is rounded to bf16 before E reads it.
 //
 // Compute is f32 for every storage type (f32 or bf16), as on the TPU.
 // Edges are the reference's Neumann(0) closure: a difference that would
 // cross the lattice edge is zero. Offsets are 64-bit (1024^3 lattices).
 //
-// Two sharded variants of the tile pass (template flags, so that the
-// plain passes compile as they did): EDGES (K2's edge planes, the sharded
-// K-tick kernel's) closes the lattice at the edge planes of the global
-// lattice inside a halo-extended array, and at the array's faces as well,
-// so that no halo plane reads outside the array; the planes between
-// compute unmasked (halo planes, which the next exchange overwrites).
-// HALO (K8) reads the planes x = -1 and x = nx from halo-plane operands,
-// the neighbouring shards' planes, and seeds the top chunk's carry from
-// x = nx; a missing operand closes that face as the plain pass does.
+// Two sharded variants of the fused tick: K2's edge planes (the sharded
+// K-tick kernel's; edge_bounds) close the lattice at the edge planes of
+// the global lattice inside a halo-extended array, and at the array's
+// faces as well, so that no halo plane reads outside the array; the planes
+// between compute unmasked (halo planes, which the next exchange
+// overwrites). HALO (K8) reads the planes x = -1 and x = nx from
+// halo-plane operands, the neighbouring shards' planes, and seeds the top
+// chunk's carry from x = nx; a missing operand closes that face as the
+// plain pass does.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -200,155 +201,6 @@ __device__ __forceinline__ void inject(const Sources& s, int col, int p, int y,
   }
 }
 
-// New H at cell i: h = d_a*h - d_b*curl_b(E), from the backward
-// differences of E (zero across the lattice edge) and the old H at i in
-// `h`. Returns d_b, the M source's coefficient.
-template <typename T>
-__device__ __forceinline__ float h_cell(Fields<const T> h, long long i,
-                                        const Lattice& L, const Material& M,
-                                        const Shared& sh, float dey_x,
-                                        float dez_x, float dez_y, float dex_y,
-                                        float dey_z, float dex_z, float& hx,
-                                        float& hy, float& hz) {
-  const float ce_x = dez_y * L.inv_y - dey_z * L.inv_z;
-  const float ce_y = dex_z * L.inv_z - dez_x * L.inv_x;
-  const float ce_z = dey_x * L.inv_x - dex_y * L.inv_y;
-  const int mat = material_at(M, i);
-  const float d_a = sh.table[mat][2], d_b = sh.table[mat][3];
-  hx = d_a * load(h.hx, i) - d_b * ce_x;
-  hy = d_a * load(h.hy, i) - d_b * ce_y;
-  hz = d_a * load(h.hz, i) - d_b * ce_z;
-  return d_b;
-}
-
-// New E at cell i: e = c_a*e + c_b*curl_f(H), from the forward
-// differences of the new H (zero across the lattice edge) and the old E at
-// i in `e`. Returns c_b, the J source's coefficient.
-template <typename T>
-__device__ __forceinline__ float e_cell(Fields<const T> e, long long i,
-                                        const Lattice& L, const Material& M,
-                                        const Shared& sh, float dhy_x,
-                                        float dhz_x, float dhz_y, float dhx_y,
-                                        float dhy_z, float dhx_z, float& ex,
-                                        float& ey, float& ez) {
-  const float ch_x = dhz_y * L.inv_y - dhy_z * L.inv_z;
-  const float ch_y = dhx_z * L.inv_z - dhz_x * L.inv_x;
-  const float ch_z = dhy_x * L.inv_x - dhx_y * L.inv_y;
-  const int mat = material_at(M, i);
-  const float c_a = sh.table[mat][0], c_b = sh.table[mat][1];
-  ex = c_a * load(e.ex, i) + c_b * ch_x;
-  ey = c_a * load(e.ey, i) + c_b * ch_y;
-  ez = c_a * load(e.ez, i) + c_b * ch_z;
-  return c_b;
-}
-
-// One tick over tile (y0, z0) and planes [x_lo, x_hi). j_col / m_col: the
-// source-row column of this tick's J / M, or -1 for none. ``ed`` (EDGES)
-// and ``hl`` (HALO): the sharded variants' edge planes and halo planes.
-template <typename TI, typename TO, bool EDGES = false, bool HALO = false>
-__device__ void tile_pass(Fields<const TI> in, Fields<TO> out, const Lattice& L,
-                          const Material& M, const Sources& S, int j_col,
-                          int m_col, int y0, int z0, int x_lo, int x_hi,
-                          Shared& sh, const Edges& ed = Edges{},
-                          const Halo<TI>& hl = Halo<TI>{}) {
-  const int tz = threadIdx.x, ty = threadIdx.y, tid = ty * TZ + tz;
-  const int y = y0 + ty, z = z0 + tz;
-  const bool own = y < L.ny && z < L.nz;
-  const long long plane = (long long)L.ny * L.nz;
-  float top_hy = 0.f, top_hz = 0.f;  // new H at plane p+1 (this thread's cell)
-
-  // the differences taken: backward ones above bx, by, bz, forward ones
-  // below fx, fy, fz (the array's faces unless EDGES or HALO moves them)
-  int bx = 0, by = 0, bz = 0, fx = L.nx - 1, fy = L.ny - 1, fz = L.nz - 1;
-  if constexpr (EDGES) {
-    bx = max(bx, ed.x_lo), by = max(by, ed.y_lo), bz = max(bz, ed.z_lo);
-    fx = min(fx, ed.x_hi), fy = min(fy, ed.y_hi), fz = min(fz, ed.z_hi);
-  }
-  // x_hi < nx (or, with a halo plane at x = nx, <= nx): start one plane
-  // above the chunk to seed the carry
-  int top = L.nx;
-  if constexpr (HALO) {
-    if (hl.lo_ey) bx = -1;
-    if (hl.hi.ey) {
-      fx = L.nx;
-      top = L.nx + 1;
-    }
-  }
-  const int p_start = x_hi < top ? x_hi : x_hi - 1;
-  for (int p = p_start; p >= x_lo; --p) {
-    const bool seed = p == x_hi;
-    const long long base = (long long)p * plane;
-
-    // ---- H over the tile + ring: h = d_a*h - d_b*curl_b(E) [- d_b*M] ----
-    for (int r = tid; r < RY * RZ; r += THREADS) {
-      const int ly = r / RZ, lz = r - ly * RZ;
-      const int yy = y0 + ly, zz = z0 + lz;
-      if (yy >= L.ny || zz >= L.nz) continue;
-      long long i = base + (long long)yy * L.nz + zz;
-      // the plane's fields at i, the plane below's at ip
-      Fields<const TI> cur = in;
-      const TI* below_ey = in.ey;
-      const TI* below_ez = in.ez;
-      long long ip = i - plane;
-      if constexpr (HALO) {
-        if (p == L.nx) {
-          cur = hl.hi;
-          i -= base;
-        } else if (p == 0 && hl.lo_ey) {
-          below_ey = hl.lo_ey;
-          below_ez = hl.lo_ez;
-          ip = i;
-        }
-      }
-      const float ex = load(cur.ex, i), ey = load(cur.ey, i), ez = load(cur.ez, i);
-      const float dey_x = p > bx ? ey - load(below_ey, ip) : 0.f;
-      const float dez_x = p > bx ? ez - load(below_ez, ip) : 0.f;
-      const float dez_y = yy > by ? ez - load(cur.ez, i - L.nz) : 0.f;
-      const float dex_y = yy > by ? ex - load(cur.ex, i - L.nz) : 0.f;
-      const float dey_z = zz > bz ? ey - load(cur.ey, i - 1) : 0.f;
-      const float dex_z = zz > bz ? ex - load(cur.ex, i - 1) : 0.f;
-      float hx, hy, hz;
-      const float d_b = h_cell(cur, i, L, M, sh, dey_x, dez_x, dez_y, dex_y,
-                               dey_z, dex_z, hx, hy, hz);
-      if (m_col >= 0) inject(S, m_col, p, yy, zz, d_b, hx, hy, hz);
-      sh.hx[ly][lz] = hx;
-      sh.hy[ly][lz] = hy;
-      sh.hz[ly][lz] = hz;
-      if (!seed && ly < TY && lz < TZ) {
-        store(out.hx, i, hx);
-        store(out.hy, i, hy);
-        store(out.hz, i, hz);
-      }
-    }
-    __syncthreads();
-
-    // ---- E over the tile: e = c_a*e + c_b*curl_f(H_new) [- c_b*J] ----
-    if (own) {
-      const float hx = sh.hx[ty][tz], hy = sh.hy[ty][tz], hz = sh.hz[ty][tz];
-      if (!seed) {
-        const long long i = base + (long long)y * L.nz + z;
-        const bool y_in = y < fy, z_in = z < fz;
-        const float dhy_x = p < fx ? top_hy - hy : 0.f;
-        const float dhz_x = p < fx ? top_hz - hz : 0.f;
-        const float dhz_y = y_in ? sh.hz[ty + 1][tz] - hz : 0.f;
-        const float dhx_y = y_in ? sh.hx[ty + 1][tz] - hx : 0.f;
-        const float dhy_z = z_in ? sh.hy[ty][tz + 1] - hy : 0.f;
-        const float dhx_z = z_in ? sh.hx[ty][tz + 1] - hx : 0.f;
-        float ex, ey, ez;
-        const float c_b = e_cell(in, i, L, M, sh, dhy_x, dhz_x, dhz_y, dhx_y,
-                                 dhy_z, dhx_z, ex, ey, ez);
-        if (j_col >= 0) inject(S, j_col, p, y, z, c_b, ex, ey, ez);
-        store(out.ex, i, ex);
-        store(out.ey, i, ey);
-        store(out.ez, i, ez);
-      }
-      top_hy = hy;
-      top_hz = hz;
-    }
-    __syncthreads();
-  }
-}
-
 // The in-place halves' x chunks: a chunk edge costs a half one extra plane
 // read (its carry's seed), so short chunks are cheap, and many equal work
 // items leave the last wave of a launch nearly full.
@@ -360,8 +212,8 @@ constexpr int HALF_CHUNK = 32;
 #define INPLACE_BYTES 16
 
 // Work items: (x chunk, y tile, z tile), z tiles fastest so that blocks in
-// flight together share their ring planes in L2. Tiles are TY x TZ cells,
-// or TY x 32 V for the in-place halves (tz_cells).
+// flight together share their ring planes in L2. Tiles are TY x 32 V
+// cells (tz_cells; TY x TZ by default).
 struct Work {
   int n_ty, n_tz, chunk, n_items;
 };
@@ -735,10 +587,11 @@ __device__ __forceinline__ void e_sweep(Fields<T> f, const Lattice& L, const uin
 // The Yee halves of K1 and K2 io_alias (a uniform medium, table row 0):
 // the sweeps with h_cell's and e_cell's arithmetic and the sources of
 // column m_col / j_col (-1: none). Each product's rounding is written out
-// as the compiler rounds it in the tile pass (tile_pass's SASS: the first
-// product of each curl fused into the difference, d_a h fused in the H
-// update, c_b curl in the E update): left to the compiler in this loop, the
-// E update fused c_a e instead and differed from K1 by an ulp.
+// as the compiler rounded it in the first version's tile pass (its SASS:
+// the first product of each curl fused into the difference, d_a h fused in
+// the H update, c_b curl in the E update): left to the compiler in this
+// loop, the E update fused c_a e instead and differed from K1 by an ulp.
+// The fused tick's YeeCells write the same roundings.
 template <typename T, int V>
 __device__ __forceinline__ void h_half(Fields<T> f, const Lattice& L, const Material& M,
                                        const Sources& S, int m_col, int y0, int z0, int x_lo,
@@ -866,5 +719,522 @@ inline int launch_halves(void** f, const float* table, int n_mat, const float* r
   }
   return (int)cudaSuccess;
 }
+
+// ---- The streaming one-tick pass (K1, K2, K2 edge_planes, K8; K3's cells in cpml.cuh) ----
+//
+// The fused tick of the top of this file with the halves' accesses. A block
+// holds a tile of TY rows x 32 V z cells: warp w the row y0 + w, lane l the
+// V cells from z0 + V l, each field of them one access of V values (16
+// bytes: V = 4 when a field of the tick is f32, 8 when both are bf16),
+// unpacked to f32 in registers. Plane p (x descending):
+//
+//   1. each thread computes the new H of its V cells from E at p (the z
+//      neighbour below its first cell from the lane below by shuffle, lane
+//      0 loads it), E at y-1 (read again from L1/L2) and E at p-1, which
+//      it keeps for plane p-1; lane 31 also computes the cell z0 + 32 V,
+//      the +1 ring in z, and a ninth warp computes the row y0 + TY, the +1
+//      ring in y. Threads = 32 (TY + 1): the ring costs no second round.
+//   2. rows 1..TY put their new H_x and H_z into shared memory, one barrier;
+//   3. each thread computes the new E of its V cells: H at z+1 from the
+//      lane above (lane 31: its ring cell), at y+1 from shared memory, at
+//      p+1 from its own registers (the previous plane's new H), the old E
+//      from the loads of step 1.
+//
+// Two buffers of the shared H rows alternate between planes, so one
+// barrier a plane suffices: a buffer is written again two planes later,
+// after every thread has passed the barrier between. A block that starts
+// below the top of the lattice first computes the new H of the plane above
+// its chunk (the seed), as the tile pass did. New H and E are f32 until
+// they are stored (at bf16 storage E reads the unrounded H, as the TPU
+// kernel does). Rows not aligned to V (nz % V != 0, or a tensor off the
+// access's alignment) load and store value by value (`vec` false).
+//
+// Per cell the pass hands a cell object the raw differences (zero across a
+// face: backward at index <= bx, by, bz, forward at >= fx, fy, fz) and the
+// old values; `h<false>`/`e<false>` may decline a cell (K3's absorbing
+// cells), which `h<true>`/`e<true>` then computes: inline per cell, or
+// (ROLLED) in a loop that is not unrolled, one cell's code for all V, its
+// inputs picked from the packs by index.
+
+constexpr int STREAM_THREADS = 32 * (TY + 1);
+
+// 1: a thread loads plane p-1's inputs right after plane p's H phase, so
+// that they are in flight across the barrier and the E phase (0: at the
+// top of each plane; tools/yee_baseline.py --variants builds both).
+#define STREAM_PREFETCH 0
+
+// The blocks an SM that the pass's kernels ask registers for: with 2 the
+// Yee kernels keep their 96 registers and ran 20 % faster than without a
+// bound (PERF.md; tools/yee_baseline.py --variants builds other values).
+#define STREAM_MIN_BLOCKS 2
+#define STREAM_BOUNDS __launch_bounds__(yee::STREAM_THREADS, STREAM_MIN_BLOCKS)
+
+// The bytes of one access of the wider type of a tick (tools/
+// yee_baseline.py --variants builds a copy with 8).
+#define STREAM_BYTES 16
+
+// V of a tick from TI to TO: STREAM_BYTES of the wider type.
+template <typename TI, typename TO>
+__host__ __device__ constexpr int stream_v() {
+  return STREAM_BYTES / (int)(sizeof(TI) > sizeof(TO) ? sizeof(TI) : sizeof(TO));
+}
+
+// The material table first (cpml.cuh's cells read it as Shared's first
+// member), then two buffers of the new H_x and H_z of rows y0+1 .. y0+TY.
+template <int V>
+struct StreamShared {
+  float table[MAX_MATERIALS][4];
+  float h[2][TY][2][V][32];
+};
+
+template <int V>
+__device__ inline void load_stream_table(StreamShared<V>& sh, const Material& m) {
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  float* flat = &sh.table[0][0];
+  for (int r = tid; r < MAX_MATERIALS * 4; r += STREAM_THREADS)
+    flat[r] = r < m.n_mat * 4 ? m.table[r] : 0.f;
+  __syncthreads();
+}
+
+template <int V>
+__device__ __forceinline__ const Shared& table_of(const StreamShared<V>& sh) {
+  return *reinterpret_cast<const Shared*>(&sh);
+}
+
+// Where differences are taken: backward ones at index > bx, by, bz,
+// forward ones at < fx, fy, fz; `top`: the first plane past the lattice's
+// top (nx, or nx + 1 with K8's halo plane there).
+struct Bounds {
+  int bx, by, bz, fx, fy, fz, top;
+};
+
+__host__ __device__ inline Bounds face_bounds(const Lattice& L) {
+  return Bounds{0, 0, 0, L.nx - 1, L.ny - 1, L.nz - 1, L.nx};
+}
+
+// EDGES: the edge planes of a halo-extended array and its faces.
+__host__ __device__ inline Bounds edge_bounds(const Lattice& L, const Edges& ed) {
+  Bounds b = face_bounds(L);
+  b.bx = max(b.bx, ed.x_lo), b.by = max(b.by, ed.y_lo), b.bz = max(b.bz, ed.z_lo);
+  b.fx = min(b.fx, ed.x_hi), b.fy = min(b.fy, ed.y_hi), b.fz = min(b.fz, ed.z_hi);
+  return b;
+}
+
+// HALO: K8's planes x = -1 and x = nx where the operands exist.
+template <typename T>
+__host__ __device__ inline Bounds halo_bounds(const Lattice& L, const Halo<T>& hl) {
+  Bounds b = face_bounds(L);
+  if (hl.lo_ey) b.bx = -1;
+  if (hl.hi.ey) {
+    b.fx = L.nx;
+    b.top = L.nx + 1;
+  }
+  return b;
+}
+
+// Value j of a pack or of a thread's f32 values, j known at run time (a
+// select per value: the values stay in registers).
+template <typename T, int V>
+__device__ __forceinline__ float pick(const Pack<T, V>& p, int j) {
+  float r = widen(p.b[0]);
+#pragma unroll
+  for (int k = 1; k < V; ++k)
+    if (j == k) r = widen(p.b[k]);
+  return r;
+}
+
+template <int V>
+__device__ __forceinline__ float pick(const float (&a)[V], int j) {
+  float r = a[0];
+#pragma unroll
+  for (int k = 1; k < V; ++k)
+    if (j == k) r = a[k];
+  return r;
+}
+
+template <int V>
+__device__ __forceinline__ void place(float (&a)[V], int j, float v) {
+#pragma unroll
+  for (int k = 0; k < V; ++k)
+    if (j == k) a[k] = v;
+}
+
+// The fields of plane p and the offset of its first cell: the input
+// tensors, or (HALO) the halo planes at x = nx and x = -1.
+template <typename T, bool HALO>
+__device__ __forceinline__ Fields<const T> plane_of(const Fields<const T>& in, const Halo<T>& hl,
+                                                    const Lattice& L, int p, long long& base) {
+  base = (long long)p * L.ny * L.nz;
+  if constexpr (HALO) {
+    if (p == L.nx) {
+      base = 0;
+      return hl.hi;
+    }
+    if (p < 0) {
+      base = 0;
+      return Fields<const T>{nullptr, hl.lo_ey, hl.lo_ez, nullptr, nullptr, nullptr};
+    }
+  }
+  return in;
+}
+
+// What the H phase reads at plane p for a thread's V cells besides the
+// carried E_y, E_z at p: E_x at p, E_y and E_z at p-1 (`below`: where a
+// difference or the next plane reads them), E_x and E_z at y-1, the old H,
+// the material index.
+template <typename T, int V>
+struct StreamIn {
+  Pack<T, V> ex, ey_b, ez_b, ex_ym, ez_ym, hx, hy, hz;
+  Pack<uint8_t, V> mat;
+};
+
+template <typename T, int V, bool VEC>
+__device__ __forceinline__ void load_stream_in(const Fields<const T>& f, const Fields<const T>& fb,
+                                               const uint8_t* matid, long long i, long long ib,
+                                               long long row, int n, bool below, bool ym,
+                                               StreamIn<T, V>& q) {
+  q.ex = load_pack<T, V, VEC>(f.ex, i, n);
+  q.ey_b = load_pack<T, V, VEC>(fb.ey, ib, below ? n : 0);
+  q.ez_b = load_pack<T, V, VEC>(fb.ez, ib, below ? n : 0);
+  q.ex_ym = load_pack<T, V, VEC>(f.ex, i - row, ym ? n : 0);
+  q.ez_ym = load_pack<T, V, VEC>(f.ez, i - row, ym ? n : 0);
+  q.hx = load_pack<T, V, VEC>(f.hx, i, n);
+  q.hy = load_pack<T, V, VEC>(f.hy, i, n);
+  q.hz = load_pack<T, V, VEC>(f.hz, i, n);
+  q.mat.w = typename Pack<uint8_t, V>::W{};
+  if (matid) q.mat = load_pack<uint8_t, V, VEC>(matid, i, n);
+}
+
+template <typename T, int V, bool VEC>
+__device__ __forceinline__ void store_stream(long long i, int n, const float (&a)[V],
+                                             const float (&b)[V], const float (&c)[V], T* pa,
+                                             T* pb, T* pc) {
+  Pack<T, V> x, y, z;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    x.b[j] = narrow<T>(a[j]);
+    y.b[j] = narrow<T>(b[j]);
+    z.b[j] = narrow<T>(c[j]);
+  }
+  store_pack<T, V, VEC>(pa, i, n, x);
+  store_pack<T, V, VEC>(pb, i, n, y);
+  store_pack<T, V, VEC>(pc, i, n, z);
+}
+
+// One tick over the tile (y0, z0) of TY rows x 32 V cells and planes
+// [x_lo, x_hi), fields from `in` to `out` (see above). HC / EC: the cell
+// objects; `vec`: every row of in, out and matid on the accesses' alignment.
+template <typename TI, typename TO, int V, bool HALO, bool ROLLED, typename HC, typename EC>
+__device__ __forceinline__ void stream_pass(Fields<const TI> in, Fields<TO> out, const Lattice& L,
+                                            const uint8_t* matid, int y0, int z0, int x_lo,
+                                            int x_hi, bool vec, const Bounds& b,
+                                            const Halo<TI>& hl, StreamShared<V>& sh,
+                                            const HC& hcell, const EC& ecell) {
+  static_assert(V * sizeof(TI) <= 16 && V * sizeof(TO) <= 16, "one access is 16 bytes at most");
+  const int lane = (int)threadIdx.x, warp = (int)threadIdx.y;
+  const bool extra = warp == TY;                  // the +1 ring row
+  const int y = y0 + warp, zb = z0 + V * lane, zr = z0 + 32 * V;
+  const int n = min(max(L.nz - zb, 0), V);
+  const bool live = y < L.ny;                     // uniform across the warp
+  const bool ym = y > b.by, zm = lane == 0 && zb > b.bz, y_in = y < b.fy;
+  const bool ring = !extra && lane == 31 && zr < L.nz;
+  const long long row = L.nz, o = (long long)y * row + zb;
+  float top_hy[V], top_hz[V];                     // new H at plane p+1
+#pragma unroll
+  for (int j = 0; j < V; ++j) top_hy[j] = top_hz[j] = 0.f;
+  Pack<TI, V> ey_c, ez_c;                         // E_y, E_z at plane p
+  const int p_start = x_hi < b.top ? x_hi : x_hi - 1;
+  if (live) {
+    long long base;
+    const Fields<const TI> f = plane_of<TI, HALO>(in, hl, L, p_start, base);
+    if (vec) {
+      ey_c = load_pack<TI, V, true>(f.ey, base + o, n);
+      ez_c = load_pack<TI, V, true>(f.ez, base + o, n);
+    } else {
+      ey_c = load_pack<TI, V, false>(f.ey, base + o, n);
+      ez_c = load_pack<TI, V, false>(f.ez, base + o, n);
+    }
+  }
+  // plane p's inputs; E at p-1 where a difference or plane p-1 reads it
+  auto load_at = [&](int pp, StreamIn<TI, V>& q) {
+    long long bs, bb;
+    const Fields<const TI> f = plane_of<TI, HALO>(in, hl, L, pp, bs);
+    const Fields<const TI> fb = plane_of<TI, HALO>(in, hl, L, pp - 1, bb);
+    const bool below = pp > b.bx || pp > x_lo;
+    if (vec) load_stream_in<TI, V, true>(f, fb, matid, bs + o, bb + o, row, n, below, ym, q);
+    else load_stream_in<TI, V, false>(f, fb, matid, bs + o, bb + o, row, n, below, ym, q);
+  };
+  StreamIn<TI, V> qn{};  // STREAM_PREFETCH: the next plane's inputs
+  if (STREAM_PREFETCH && live) load_at(p_start, qn);
+  int buf = 0;
+  for (int p = p_start; p >= x_lo; --p) {
+    const bool seed = p == x_hi, keep = !seed && !extra;
+    const bool xm = p > b.bx;
+    float nhx[V] = {}, nhy[V] = {}, nhz[V] = {};
+    float rhx = 0.f, rhy = 0.f;                   // lane 31: new H at (y, zr)
+    StreamIn<TI, V> q{};
+    long long i = 0;
+    if (live) {
+      long long base, base_b;
+      const Fields<const TI> f = plane_of<TI, HALO>(in, hl, L, p, base);
+      const Fields<const TI> fb = plane_of<TI, HALO>(in, hl, L, p - 1, base_b);
+      i = base + o;
+      if constexpr (STREAM_PREFETCH) q = qn;
+      else load_at(p, q);
+      float ex_zm = __shfl_up_sync(0xffffffffu, widen(q.ex.b[V - 1]), 1);
+      float ey_zm = __shfl_up_sync(0xffffffffu, widen(ey_c.b[V - 1]), 1);
+      if (lane == 0) {
+        ex_zm = zm ? load(f.ex, i - 1) : 0.f;
+        ey_zm = zm ? load(f.ey, i - 1) : 0.f;
+      }
+      // the raw backward differences and old H of cell j
+      auto h_in = [&](int j, float (&d)[6], float (&h)[3]) {
+        const float ex = pick(q.ex, j), ey = pick(ey_c, j), ez = pick(ez_c, j);
+        const float ey_z = j == 0 ? ey_zm : pick(ey_c, j > 0 ? j - 1 : 0);
+        const float ex_z = j == 0 ? ex_zm : pick(q.ex, j > 0 ? j - 1 : 0);
+        const int z = zb + j;
+        d[0] = ym ? ez - pick(q.ez_ym, j) : 0.f;  // dez_y
+        d[1] = z > b.bz ? ey - ey_z : 0.f;        // dey_z
+        d[2] = z > b.bz ? ex - ex_z : 0.f;        // dex_z
+        d[3] = xm ? ez - pick(q.ez_b, j) : 0.f;   // dez_x
+        d[4] = xm ? ey - pick(q.ey_b, j) : 0.f;   // dey_x
+        d[5] = ym ? ex - pick(q.ex_ym, j) : 0.f;  // dex_y
+        h[0] = pick(q.hx, j), h[1] = pick(q.hy, j), h[2] = pick(q.hz, j);
+      };
+      unsigned slow = 0;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        nhx[j] = nhy[j] = nhz[j] = 0.f;
+        if (j < n) {
+          float d[6], h[3];
+          h_in(j, d, h);
+          const int mat = widen(q.mat.b[j]);
+          if (!hcell.template h<false>(p, y, zb + j, i + j, mat, keep, d[0], d[1], d[2], d[3],
+                                       d[4], d[5], h[0], h[1], h[2], nhx[j], nhy[j], nhz[j])) {
+            if constexpr (ROLLED)
+              slow |= 1u << j;
+            else
+              hcell.template h<true>(p, y, zb + j, i + j, mat, keep, d[0], d[1], d[2], d[3],
+                                     d[4], d[5], h[0], h[1], h[2], nhx[j], nhy[j], nhz[j]);
+          }
+        }
+      }
+      if constexpr (ROLLED) {
+#pragma unroll 1
+        for (int j = 0; j < V; ++j) {
+          if (!((slow >> j) & 1u)) continue;
+          float d[6], h[3], hx, hy, hz;
+          h_in(j, d, h);
+          int mat = q.mat.b[0];
+#pragma unroll
+          for (int k = 1; k < V; ++k)
+            if (j == k) mat = q.mat.b[k];
+          hcell.template h<true>(p, y, zb + j, i + j, mat, keep, d[0], d[1], d[2], d[3], d[4],
+                                 d[5], h[0], h[1], h[2], hx, hy, hz);
+          place(nhx, j, hx);
+          place(nhy, j, hy);
+          place(nhz, j, hz);
+        }
+      }
+      if (ring) {  // the cell (y, zr), which the tile's E at z0 + 32 V - 1 reads
+        const long long ir = i + V, irb = base_b + o + V;
+        const float ex = load(f.ex, ir), ey = load(f.ey, ir), ez = load(f.ez, ir);
+        const float d0 = ym ? ez - load(f.ez, ir - row) : 0.f;
+        const float d1 = zr > b.bz ? ey - widen(ey_c.b[V - 1]) : 0.f;
+        const float d2 = zr > b.bz ? ex - widen(q.ex.b[V - 1]) : 0.f;
+        const float d3 = xm ? ez - load(fb.ez, irb) : 0.f;
+        const float d4 = xm ? ey - load(fb.ey, irb) : 0.f;
+        const float d5 = ym ? ex - load(f.ex, ir - row) : 0.f;
+        const float ohx = load(f.hx, ir), ohy = load(f.hy, ir), ohz = load(f.hz, ir);
+        const int mat = matid ? (int)matid[ir] : 0;
+        float rhz;
+        if (!hcell.template h<false>(p, y, zr, ir, mat, false, d0, d1, d2, d3, d4, d5, ohx, ohy,
+                                     ohz, rhx, rhy, rhz))
+          hcell.template h<true>(p, y, zr, ir, mat, false, d0, d1, d2, d3, d4, d5, ohx, ohy, ohz,
+                                 rhx, rhy, rhz);
+      }
+      if (keep) {
+        const long long io = (long long)p * L.ny * L.nz + o;
+        if (vec) store_stream<TO, V, true>(io, n, nhx, nhy, nhz, out.hx, out.hy, out.hz);
+        else store_stream<TO, V, false>(io, n, nhx, nhy, nhz, out.hx, out.hy, out.hz);
+      }
+      if (STREAM_PREFETCH && p > x_lo) load_at(p - 1, qn);
+    }
+    if (!seed) {  // uniform across the block
+      if (live && warp > 0) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          sh.h[buf][warp - 1][0][j][lane] = nhx[j];
+          sh.h[buf][warp - 1][1][j][lane] = nhz[j];
+        }
+      }
+      __syncthreads();
+      if (live && !extra) {
+        float hy_zp = __shfl_down_sync(0xffffffffu, nhy[0], 1);
+        float hx_zp = __shfl_down_sync(0xffffffffu, nhx[0], 1);
+        if (lane == 31) {
+          hy_zp = rhy;
+          hx_zp = rhx;
+        }
+        const bool x_in = p < b.fx;
+        // the raw forward differences and old E of cell j
+        auto e_in = [&](int j, float (&d)[6], float (&e)[3]) {
+          const float hx = pick(nhx, j), hy = pick(nhy, j), hz = pick(nhz, j);
+          const float hy_z = j == V - 1 ? hy_zp : pick(nhy, j < V - 1 ? j + 1 : 0);
+          const float hx_z = j == V - 1 ? hx_zp : pick(nhx, j < V - 1 ? j + 1 : 0);
+          float hz_y = sh.h[buf][warp][1][0][lane], hx_y = sh.h[buf][warp][0][0][lane];
+#pragma unroll
+          for (int k = 1; k < V; ++k)
+            if (j == k) {
+              hz_y = sh.h[buf][warp][1][k][lane];
+              hx_y = sh.h[buf][warp][0][k][lane];
+            }
+          const bool z_in = zb + j < b.fz;
+          d[0] = y_in ? hz_y - hz : 0.f;                 // dhz_y
+          d[1] = z_in ? hy_z - hy : 0.f;                 // dhy_z
+          d[2] = z_in ? hx_z - hx : 0.f;                 // dhx_z
+          d[3] = x_in ? pick(top_hz, j) - hz : 0.f;      // dhz_x
+          d[4] = x_in ? pick(top_hy, j) - hy : 0.f;      // dhy_x
+          d[5] = y_in ? hx_y - hx : 0.f;                 // dhx_y
+          e[0] = pick(q.ex, j), e[1] = pick(ey_c, j), e[2] = pick(ez_c, j);
+        };
+        float nex[V], ney[V], nez[V];
+        unsigned slow = 0;
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          nex[j] = ney[j] = nez[j] = 0.f;
+          if (j < n) {
+            float d[6], e[3];
+            e_in(j, d, e);
+            const int mat = widen(q.mat.b[j]);
+            if (!ecell.template e<false>(p, y, zb + j, i + j, mat, d[0], d[1], d[2], d[3], d[4],
+                                         d[5], e[0], e[1], e[2], nex[j], ney[j], nez[j])) {
+              if constexpr (ROLLED)
+                slow |= 1u << j;
+              else
+                ecell.template e<true>(p, y, zb + j, i + j, mat, d[0], d[1], d[2], d[3], d[4],
+                                       d[5], e[0], e[1], e[2], nex[j], ney[j], nez[j]);
+            }
+          }
+        }
+        if constexpr (ROLLED) {
+#pragma unroll 1
+          for (int j = 0; j < V; ++j) {
+            if (!((slow >> j) & 1u)) continue;
+            float d[6], e[3], ex, ey, ez;
+            e_in(j, d, e);
+            int mat = q.mat.b[0];
+#pragma unroll
+            for (int k = 1; k < V; ++k)
+              if (j == k) mat = q.mat.b[k];
+            ecell.template e<true>(p, y, zb + j, i + j, mat, d[0], d[1], d[2], d[3], d[4], d[5],
+                                   e[0], e[1], e[2], ex, ey, ez);
+            place(nex, j, ex);
+            place(ney, j, ey);
+            place(nez, j, ez);
+          }
+        }
+        const long long io = (long long)p * L.ny * L.nz + o;
+        if (vec) store_stream<TO, V, true>(io, n, nex, ney, nez, out.ex, out.ey, out.ez);
+        else store_stream<TO, V, false>(io, n, nex, ney, nez, out.ex, out.ey, out.ez);
+      }
+      buf ^= 1;
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      top_hy[j] = nhy[j];
+      top_hz[j] = nhz[j];
+    }
+    ey_c = q.ey_b;
+    ez_c = q.ez_b;
+  }
+}
+
+// The Yee cells of the pass: h_half's and e_half's arithmetic with the
+// cell's material, each rounding written out as the first version's tile
+// pass rounded it (the first product of each curl fused into the
+// difference, d_a h fused in the H update, c_b curl in the E update;
+// bit-identical to it at f32 and bf16), and the sources of column m_col /
+// j_col (-1: none). They never decline a cell.
+struct YeeCells {
+  Lattice L;
+  const Shared* sh;
+  Sources S;
+  int m_col, j_col;
+
+  template <bool FULL>
+  __device__ __forceinline__ bool h(int p, int y, int z, long long, int mat, bool, float dez_y,
+                                    float dey_z, float dex_z, float dez_x, float dey_x,
+                                    float dex_y, float ohx, float ohy, float ohz, float& hx,
+                                    float& hy, float& hz) const {
+    const float ce_x = __fmaf_rn(dez_y, L.inv_y, -__fmul_rn(dey_z, L.inv_z));
+    const float ce_y = __fmaf_rn(dex_z, L.inv_z, -__fmul_rn(dez_x, L.inv_x));
+    const float ce_z = __fmaf_rn(dey_x, L.inv_x, -__fmul_rn(dex_y, L.inv_y));
+    const float d_a = sh->table[mat][2], d_b = sh->table[mat][3];
+    hx = __fmaf_rn(d_a, ohx, -__fmul_rn(d_b, ce_x));
+    hy = __fmaf_rn(d_a, ohy, -__fmul_rn(d_b, ce_y));
+    hz = __fmaf_rn(d_a, ohz, -__fmul_rn(d_b, ce_z));
+    if (m_col >= 0) inject(S, m_col, p, y, z, d_b, hx, hy, hz);
+    return true;
+  }
+
+  template <bool FULL>
+  __device__ __forceinline__ bool e(int p, int y, int z, long long, int mat, float dhz_y,
+                                    float dhy_z, float dhx_z, float dhz_x, float dhy_x,
+                                    float dhx_y, float oex, float oey, float oez, float& ex,
+                                    float& ey, float& ez) const {
+    const float ch_x = __fmaf_rn(dhz_y, L.inv_y, -__fmul_rn(dhy_z, L.inv_z));
+    const float ch_y = __fmaf_rn(dhx_z, L.inv_z, -__fmul_rn(dhz_x, L.inv_x));
+    const float ch_z = __fmaf_rn(dhy_x, L.inv_x, -__fmul_rn(dhx_y, L.inv_y));
+    const float c_a = sh->table[mat][0], c_b = sh->table[mat][1];
+    ex = __fmaf_rn(c_b, ch_x, __fmul_rn(c_a, oex));
+    ey = __fmaf_rn(c_b, ch_y, __fmul_rn(c_a, oey));
+    ez = __fmaf_rn(c_b, ch_z, __fmul_rn(c_a, oez));
+    if (j_col >= 0) inject(S, j_col, p, y, z, c_b, ex, ey, ez);
+    return true;
+  }
+};
+
+// One Yee tick of the pass over one work item (K1, K2, K2 edge_planes, K8).
+template <typename TI, typename TO, bool HALO = false>
+__device__ __forceinline__ void yee_tick(Fields<const TI> in, Fields<TO> out, const Lattice& L,
+                                         const Material& M, const Sources& S, int j_col,
+                                         int m_col, const Work& w, int item, bool vec,
+                                         const Bounds& b,
+                                         StreamShared<stream_v<TI, TO>()>& sh,
+                                         const Halo<TI>& hl = Halo<TI>{}) {
+  constexpr int V = stream_v<TI, TO>();
+  int y0, z0, x_lo, x_hi;
+  decode(w, item, L, y0, z0, x_lo, x_hi, 32 * V);
+  const YeeCells cells{L, &table_of(sh), S, m_col, j_col};
+  stream_pass<TI, TO, V, HALO, false>(in, out, L, M.matid, y0, z0, x_lo, x_hi, vec, b, hl, sh,
+                                      cells, cells);
+}
+
+// The work of a pass of V cells a thread: tiles TY x 32 V, x chunks as in
+// plan_work (one wave of `kernel`'s resident blocks).
+template <int V, typename K>
+inline cudaError_t stream_work(K kernel, const Lattice& L, Work& w) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, STREAM_THREADS, 0);
+  if (err != cudaSuccess) return err;
+  w = plan_work(L, sms * (per_sm > 0 ? per_sm : 1), 1 << 30, 32 * V);
+  return cudaSuccess;
+}
+
+// Whether a pass from TI to TO of V cells a thread over these tensors may
+// use accesses of V values: the fields (n_in inputs, n_out outputs) and
+// matid aligned to them, nz a multiple of V.
+template <typename TI, typename TO, int V = stream_v<TI, TO>()>
+inline bool stream_aligned(void* const* in, int n_in, void* const* out, int n_out,
+                           const void* matid, int nz) {
+  return rows_aligned(in, n_in, matid, nz, V, V * (int)sizeof(TI)) &&
+         rows_aligned(out, n_out, nullptr, nz, V, V * (int)sizeof(TO));
+}
+
 
 }  // namespace yee

@@ -11,7 +11,8 @@ of its own, so that it builds beside K4 and not after it, and so have K6's
 (``cpmlk_gb.cu``) and K5's (``cpmlk_xz.cu``), which share a header. K4e's
 lateral window entry (K7's) and its x-side shard entry (K10's) are a
 second and a third entry point of K4's ``cpmlk.cu``; K6 x-side, K6's shard
-entry (K10 blocks'), a second entry point of ``cpmlk_gb.cu``.
+entry (K10 blocks'), a second entry point of ``cpmlk_gb.cu``. The oblique
+correction's pack kernel (``oblique.cu``) has a source of its own.
 Nothing here runs at import time.
 """
 
@@ -31,7 +32,7 @@ import torch
 
 __all__ = ["Kernel", "STEP", "STEPK", "STEP_INPLACE", "STEPK_INPLACE", "CPML",
            "CPMLK", "CPMLK_INPLACE", "CPMLK_GB", "CPMLK_XZ", "CPMLK_BLOCKED",
-           "CPMLK_SHARDED", "CPMLK_GB_SHARDED", "STEPK_EDGES", "SHARDED_STEP", "KERNELS",
+           "CPMLK_SHARDED", "CPMLK_GB_SHARDED", "STEPK_EDGES", "SHARDED_STEP", "OBLIQUE", "KERNELS",
            "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -268,6 +269,12 @@ STEPK_EDGES = Kernel("K2 edge_planes", "stepk.cu", "fdtd_stepk_edges",
 SHARDED_STEP = Kernel("K8 sharded_step", "sharded_step.cu", "fdtd_sharded_step",
                       [_PP, _PP, _I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P])
 
+# fdtd_oblique_pack(out, k, tick, wave, wpar, geo, frame, boxes, n_box, stream)
+# (the oblique correction's pack, solver/cuda_oblique.py; one launch a
+# pack)
+OBLIQUE = Kernel("K3 oblique pack", "oblique.cu", "fdtd_oblique_pack",
+                 [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P])
+
 KERNELS = (STEP, STEPK, CPML, CPMLK, STEP_INPLACE, STEPK_INPLACE, CPMLK_INPLACE, CPMLK_GB,
            CPMLK_XZ, CPMLK_BLOCKED, CPMLK_SHARDED, CPMLK_GB_SHARDED, STEPK_EDGES,
-           SHARDED_STEP)
+           SHARDED_STEP, OBLIQUE)

@@ -438,7 +438,7 @@ def launch_cpml(kernel: "_build.Kernel", state: EngineState, setup: CpmlSetup,
         d_ptrs = [d_sets[s][t].data_ptr() if setup.dense is not None else None
                   for s in range(len(d_sets)) for t in range(4)]
         if corr is not None:
-            ob_pack = corr.pack(state.tick, k_steps, setup.dt)
+            ob_pack = corr.levels(state.tick, k_steps, setup.dt)
         ptrs = [None if coef is None else coef.data_ptr(), *d_ptrs,
                 None if ob_pack is None else ob_pack.data_ptr()]
         ext_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)

@@ -249,7 +249,7 @@ def launch_xz(state: EngineState, setup: CpmlSetup, plan: XzPlan, launches, dtyp
     ext_ptrs = pack = None
     if setup.oblique is not None:
         _, corr = setup.ext_on(state.device)
-        pack = corr.pack(state.tick, plan.k, setup.dt)
+        pack = corr.levels(state.tick, plan.k, setup.dt)
         # no region (its coefficients and two psi sets), then the pack
         ext_ptrs = (ctypes.c_void_p * 10)(*[None] * 9, pack.data_ptr())
     flat = [v for launch in launches for x0, x1 in launch.segments

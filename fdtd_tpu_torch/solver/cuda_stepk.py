@@ -4,8 +4,8 @@ Counterpart of ``fdtd_tpu.solver.pallas_stepk``: K leapfrog ticks per call
 (K >= 2) with J and (``with_m``) M of every tick injected in-kernel from
 the source rows, and f32 intermediate ticks whatever the storage dtype.
 (The TPU kernel adds the last tick's J after the call, in the storage
-dtype.) The kernel is one cooperative launch that runs the ticks back to
-back with a grid-wide barrier between them (see csrc/stepk.cu).
+dtype.) The C entry runs the ticks as K ordinary launches of one fused
+pass each on the caller's stream (see csrc/stepk.cu).
 
 The plain version (``plain_stepk``) is K applications of the plain step,
 computed as the kernel computes them; CPU states take it, CUDA states

@@ -28,7 +28,10 @@ commutator terms are the same curl of the same values there, or both are
 can differ from zero, and ``ObliqueCorrection`` evaluates them on any list
 of boxes: the subgrid (``build_oblique``, the engine's form and the JAX
 package's) or the shell (the CUDA kernels' wrappers), with the same
-values on the cells both cover.
+values on the cells both cover. The kernels' wrappers take a call's pack
+from ``ObliqueCorrection.levels``: on a CUDA device the pack kernel
+(solver/cuda_oblique.py) for the four waveforms of solver/sources.py,
+``pack`` (the kernel's plain version) otherwise.
 """
 
 from __future__ import annotations
@@ -178,6 +181,10 @@ class ObliqueCorrection:
         dx = np.asarray([1.0 / v for v in inv_dx], np.float64)
         r0 = np.array([(b0 + b1) / 2.0 for (b0, b1) in tfsf.box]) * dx
         self.inv = tuple(float(v) for v in inv_dx)
+        # the incident frame and geometry, which the pack kernel evaluates
+        self.k_hat, self.e_hat, self.h_dir, self.eta = k_hat, e_hat, h_dir, eta
+        self.c, self.dx, self.r0 = c, dx, r0
+        self.offsets = tuple(tuple(offs[c_] for c_ in range(3)) for offs in (_E_OFF, _H_OFF))
 
         def comp_fields(b, offs):
             """(chi, delay), each (3, bx + 2, by + 2, bz + 2) f32: the mask
@@ -225,6 +232,12 @@ class ObliqueCorrection:
                                    device=self.device).reshape(1, 1, 3, 1, 1, 1)
         self._h_dir = torch.tensor([_f32(v / eta) for v in h_dir], dtype=dtype,
                                    device=self.device).reshape(1, 1, 3, 1, 1, 1)
+        from . import cuda_oblique
+
+        # the route of levels(), chosen here from the device, the dtype and
+        # the waveform's type
+        self.route = "kernel" if cuda_oblique.kernel_route(self) else "torch"
+        self.kernel_args = cuda_oblique.pack_args(self) if self.route == "kernel" else None
 
     @property
     def cells(self) -> int:
@@ -294,6 +307,14 @@ class ObliqueCorrection:
         ch, ce = self.corr_h(t), self.corr_e(t + 0.5 * dt)
         return torch.cat([torch.cat([h, e], dim=1).reshape(k_steps, -1)
                           for h, e in zip(ch, ce)], dim=1)
+
+
+    def levels(self, tick: int, k_steps: int, dt: float) -> torch.Tensor:
+        """``pack``'s values by this correction's route: the pack kernel
+        (one launch) where ``route`` is "kernel", else ``pack`` itself."""
+        from . import cuda_oblique
+
+        return cuda_oblique.levels(self, tick, k_steps, dt)
 
 
 def build_oblique(tfsf: ObliqueTfsf, shape, inv_dx, dt, constants,

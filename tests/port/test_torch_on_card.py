@@ -1639,3 +1639,183 @@ def test_k4_inplace_vectors_match_out_of_place(cuda_device, dtype, shape, option
         _check_engine(got, want, dtype, k, 2.0 ** -7)
         for a, b in zip((*got.dft, *extra), (*want.dft, *w_extra)):
             assert _scaled_err(a, b) <= 2.0 ** -7
+
+
+# -- the streaming one-tick pass (K1, K2, K2 edge_planes, K8, K3) and the
+# oblique pack kernel: a ragged lattice and one whose nz is a multiple of
+# the accesses' vectors and crosses the z tiles of 128 (f32) and 256 (bf16)
+# cells, so that lane 31's +1 ring cell, the ninth warp's row, short x
+# chunks (every chunk's seed plane) and J+M sources on and beside the
+# vectors' and tiles' edges all run.
+
+STREAM_SHAPES = ((37, 29, 53), (12, 18, 264))
+STREAM_ZS = (0, 3, 4, 7, 8, 31, 32, 127, 128, 129, 255, 256)
+
+
+def _stream_sources(shape):
+    nx, ny, nz = shape
+    zs = [z for z in STREAM_ZS if z < nz] + [nz - 1]
+    pts = [(x, (8 * x + 7) % ny, zs[x % len(zs)]) for x in range(nx)]
+    pts += [(nx // 2, y, zs[i % len(zs)]) for i, y in enumerate((7, 8, 9, ny - 1))]
+    return pt.SourceSet.build([
+        pt.PointSource(p, pt.GaussianPulse((2 + i % 3) * DT, DT), j=(0.3, -0.2, 0.5),
+                       m=(0.1, 0.4, -0.2))
+        for i, p in enumerate(pts)], device="cpu")
+
+
+def _stream_state(shape, dtype, device, seed=37):
+    rng = np.random.default_rng(seed)
+    e, h = rng.standard_normal((3, *shape)), rng.standard_normal((3, *shape))
+    return pt.state_from_stacked(e, h, tick=2, dtype=dtype, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", STREAM_SHAPES)
+@pytest.mark.parametrize("k", [1, 2, 8])
+def test_stream_pass_matches_plain(cuda_device, dtype, shape, k):
+    """K1 (k = 1) and K2 with a material index, and K2 edge_planes (k > 1)
+    with an edge row inside the array on every axis, against their plain
+    versions; one launch each."""
+    rng = np.random.default_rng(41)
+    mid = torch.from_numpy(rng.integers(0, 3, shape).astype(np.uint8))
+    src, tab = _stream_sources(shape), torch.tensor(TABLE)
+    kw = dict(inv_dx=INV_DX, dt=DT, dtype=dtype, with_m=True, n_materials=3)
+    mod = cuda_step if k == 1 else cuda_stepk
+
+    def build(matid):
+        kwm = dict(kw, matid=matid)
+        return cuda_step_fn(shape, **kwm) if k == 1 else cuda_stepk_fn(shape, k, **kwm)
+
+    want = build(mid)(_stream_state(shape, dtype, "cpu"), tab, src)
+    before = mod.launches()
+    got = build(mid.to(cuda_device))(_stream_state(shape, dtype, cuda_device),
+                                     tab.to(cuda_device), src.to(cuda_device))
+    assert mod.launches() == before + 1
+    _check(got, want, dtype, k)
+    if k > 1:
+        row = (2, shape[0] - 3, 7, shape[1] - 4, 3, shape[2] - 5)
+        coeffs = pt.CellCoefficients.uniform((0.97, 0.21, 0.99, 0.18), device="cpu")
+        ekw = dict(inv_dx=INV_DX, dt=DT, dtype=dtype, with_m=True, edge_planes=row)
+        want = cuda_stepk_fn(shape, k, **ekw)(_stream_state(shape, dtype, "cpu"), coeffs, src)
+        before = cuda_stepk.launches(edges=True)
+        got = cuda_stepk_fn(shape, k, **ekw)(_stream_state(shape, dtype, cuda_device),
+                                             coeffs.to(cuda_device), src.to(cuda_device))
+        assert cuda_stepk.launches(edges=True) == before + 1
+        _check(got, want, dtype, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(40, 18, 264), (40, 29, 53)])
+def test_stream_pass_k8_matches_plain_and_k1(cuda_device, shape):
+    """K8 over 4 shards of STREAM_SHAPES' widths, 2 ticks: its plain version
+    within 2e-6 per tick, K1 bit for bit."""
+    from fdtd_tpu_torch.parallel import (gather, make_cuda_sharded_step, make_mesh,
+                                         plain_sharded_step, shard_state)
+
+    dims, nl = ("x", None, None), shape[0] // 4
+    mesh = make_mesh(4, ("x",), devices=[cuda_device] * 4)
+    state, coeffs, src = _sharded_inputs(shape, torch.float32, cuda_device,
+                                         (range(nl, shape[0], nl), ()), 1, m=False)
+    k8 = make_cuda_sharded_step(mesh, inv_dx=INV_DX, dt=DT)
+    k1 = cuda_step_fn(shape, inv_dx=INV_DX, dt=DT)
+    got = plain = shard_state(state, mesh, dims)
+    ref = state
+    for _ in range(2):
+        got = k8(got, coeffs, src)
+        plain = plain_sharded_step(plain, coeffs, src, mesh=mesh, inv_dx=INV_DX, dt=DT)
+        ref = k1(ref, coeffs, src)
+    g = gather(got, mesh, dims)
+    _check(g, gather(plain, mesh, dims), torch.float32, 2)
+    assert _equal(g, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("option", ["core", "dense", "oblique", "both"])
+def test_stream_pass_k3_matches_plain(cuda_device, dtype, option):
+    """K3 on the wide lattice (z slabs at both ends, the TF/SF box or the
+    oblique box ending inside vectors, a region graded along z) against
+    its plain version: fields, psi and psi_d."""
+    shape = (12, 13, 264)
+    kw, _ = _vec_setup(shape, "oblique" if option in ("oblique", "both") else option)
+    if option == "both":
+        kw["dense"] = _vec_setup(shape, "dense")[0]["dense"]
+    hs, mid, src = _vec_engine(dtype, shape, kw, {})
+    src = _stream_sources(shape)
+    tab = torch.tensor(TABLE)
+    want = cuda_cpml_step_fn(shape, **dict(kw, dtype=dtype, matid=mid))(hs, tab, src)
+    ds = _to_device(hs, cuda_device)
+    before = cuda_cpml.launches()
+    got = cuda_cpml_step_fn(shape, **dict(kw, dtype=dtype, matid=mid.to(cuda_device)))(
+        ds, tab.to(cuda_device), src.to(cuda_device))
+    assert cuda_cpml.launches() == before + 1
+    _check_engine(got, want, dtype, 1)
+
+
+class _Quadratic:
+    """A waveform of another kind than solver/sources.py's."""
+
+    def __call__(self, t):
+        return (t - 0.8) * (t - 0.8) * 0.5 - 0.3
+
+
+PACK_WAVES = (pt.GaussianPulse(6 * DT, 2 * DT), pt.ContinuousWave(0.3, 0.2),
+              pt.Ricker(0.4, 5 * DT), pt.GaussianDerivative(6 * DT, 2 * DT))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wave", range(len(PACK_WAVES)))
+def test_pack_kernel_matches_pack(cuda_device, wave):
+    """The pack kernel on OBLIQUE's shell (K = 1 and 8) against
+    ObliqueCorrection.pack on the card: one launch each, within 1e-6 of
+    max|corr| (bit for bit was measured)."""
+    import dataclasses
+
+    from fdtd_tpu_torch.solver import cuda_oblique
+    from fdtd_tpu_torch.solver.tfsf_oblique import ObliqueCorrection, shell_boxes
+
+    tf = dataclasses.replace(OBLIQUE, waveform=PACK_WAVES[wave])
+    corr = ObliqueCorrection(tf, SHAPE, INV_DX, DT, pt.REDUCED, torch.float32, cuda_device,
+                             boxes=shell_boxes(tf))
+    assert corr.route == "kernel"
+    for tick, k in ((0, 1), (11, 8)):
+        before = cuda_oblique.launches()
+        got = corr.levels(tick, k, DT)
+        want = corr.pack(tick, k, DT)
+        torch.cuda.synchronize()
+        assert cuda_oblique.launches() == before + 1
+        scale = float(want.abs().max())
+        assert scale > 1e-3 and float((got - want).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.cuda
+def test_k3_oblique_pack_routes(cuda_device):
+    """One K3 oblique call on the kernel's pack equals the same call on the
+    torch pack bit for bit; a waveform of another kind takes the torch
+    route, counted apart."""
+    import dataclasses
+
+    from fdtd_tpu_torch.solver import cuda_oblique
+    from fdtd_tpu_torch.solver.tfsf_oblique import ObliqueCorrection, shell_boxes
+
+    (_, _, _, _), (ds, dc, dsrc, dkw) = _ext_inputs(torch.float32, cuda_device, "oblique")
+    step = cuda_cpml_step_fn(SHAPE, **dkw)
+    before = cuda_oblique.launches()
+    a = step(ds, dc, dsrc)
+    assert cuda_oblique.launches() == before + 1
+    corr = next(c.cell_contents for c in step.__closure__
+                if hasattr(c.cell_contents, "ext_on")).ext_on(ds.device)[1]
+    corr.route = "torch"
+    b = step(ds, dc, dsrc)
+    corr.route = "kernel"
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip((*a.e, *a.h), (*b.e, *b.h)))
+    other = dataclasses.replace(OBLIQUE, waveform=_Quadratic())
+    corr = ObliqueCorrection(other, SHAPE, INV_DX, DT, pt.REDUCED, torch.float32, cuda_device,
+                             boxes=shell_boxes(other))
+    before, torch_before = cuda_oblique.launches(), cuda_oblique.torch_packs()
+    assert corr.route == "torch"
+    assert torch.equal(corr.levels(3, 2, DT), corr.pack(3, 2, DT))
+    assert cuda_oblique.launches() == before
+    assert cuda_oblique.torch_packs() == torch_before + 1

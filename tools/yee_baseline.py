@@ -1,31 +1,40 @@
 #!/usr/bin/env python3
-"""Hold K1, K2 and their in-place variants to another version's, on one CUDA card.
+"""Hold K1, K2, K2 edge_planes, K8 and the in-place variants to another version's, on one CUDA card.
 
     python3 tools/yee_baseline.py --baseline DIR [--calls N] [--variants] [--no-large]
+                                  [--checks-only]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 DIR is another version's ``fdtd_tpu_torch/csrc`` (for example the parent
 commit's, unpacked with ``git archive``), whose ``fdtd_step``,
-``fdtd_stepk``, ``fdtd_step_inplace`` and ``fdtd_stepk_inplace`` take the
-same arguments. It builds that version's ``step.cu`` and ``stepk.cu`` (with
-its own headers) beside this checkout's, one nvcc each, all started
+``fdtd_stepk``, ``fdtd_step_inplace``, ``fdtd_stepk_inplace``,
+``fdtd_stepk_edges`` and ``fdtd_sharded_step`` take the same arguments. It
+builds that version's ``step.cu``, ``stepk.cu`` and ``sharded_step.cu``
+(with its own headers) beside this checkout's, one nvcc each, all started
 together, under ``build/yee_baseline/``, and prints each build's ptxas
 lines per kernel instantiation (registers, spills). ``--variants`` also
-builds copies of this checkout's sources with the in-place halves' other
-shapes (VARIANTS: 8-byte loads), which run every check and the 512^3
-timings beside the shipped build.
+builds copies of this checkout's sources with other shapes (VARIANTS:
+K2's ticks in one cooperative launch; the fused pass with the next
+plane's loads issued before the barrier, with 8-byte accesses, or both),
+which run every check and the 512^3 timings beside the shipped build.
 
 Checks, each version against the baseline bit for bit, f32 and bf16: the
-out-of-place K1 and K2 (K = 8) on the ragged 37x29x53 case (config 2's
-material index, J+M sources), and K1 and K2 io_alias (K = 2 and 8) on it
-without the index and on 40x24x64 (nz a multiple of the halves' vectors:
-their 16-byte loads), with J+M sources on and beside the vectors' edges.
+out-of-place K1 and K2 (K = 2, 4, 8) with config 2's material index on the
+ragged 37x29x53 case and on 40x24x64 (nz a multiple of the accesses'
+vectors), J+M sources on and beside the vectors' edges; K1 and K2 io_alias
+(K = 2 and 8) on both without the index; K2 edge_planes (K = 2, 4, 8) on
+both with an edge row inside the array on every axis; K8 (f32, J) over 4
+shards of both (nx 40).
 
 Timings, with CUDA events, in turns (baseline, this, this, baseline),
-``N`` calls each (default 20; 4 at 1024^3): K1 and K2 (K = 8) at 512^3
-free space, f32 and bf16, with K1 io_alias and K2 io_alias (K = 8; at
-bf16 also K = 2); then K1 io_alias and K2 io_alias alone at 1024^3 (not
-with ``--no-large``). Each in-place line gives Gcell/s, the share of
+``N`` calls each (default 20; 4 at 1024^3): K1 and K2 (K = 8 and 2) at
+512^3 free space, f32 and bf16, with K1 io_alias and K2 io_alias (K = 8;
+at bf16 also K = 2); K2 at K = 8 on config 2 at 128^3; K2 edge_planes at K
+= 8 on an interior 144 x 512^2 shard (f32 and bf16); a K8 tick over 4
+shards of 512^3 (4 launches and the exchange); then K1 io_alias and K2
+io_alias alone at 1024^3 (not with ``--no-large``). Each out-of-place line
+gives the share of 3.35 TB/s at 48 B/cell/tick (24 at bf16) and the peak
+memory one call allocates. Each in-place line gives Gcell/s, the share of
 3.35 TB/s of the bytes the halves move (72 B/cell a tick at f32, 36 at
 bf16) and of the call's bound (one read and one write of the state), and
 the peak memory one call allocates beyond the state, beside the
@@ -59,11 +68,18 @@ ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 OUT = _build.BUILD_DIR.parent / "yee_baseline"
 K = 8
 #: _build's names of the entries of step.cu and stepk.cu
-ENTRIES = ("STEP", "STEPK", "STEP_INPLACE", "STEPK_INPLACE")
-#: name -> {source file: {macro: value}}: the in-place halves' other shapes
+ENTRIES = ("STEP", "STEPK", "STEP_INPLACE", "STEPK_INPLACE", "STEPK_EDGES", "SHARDED_STEP")
+#: the entries whose sources are built (the others share their libraries)
+SOURCES = ("STEP", "STEPK", "SHARDED_STEP")
+#: name -> {source file: {macro: value}}: other shapes
 VARIANTS = {
-    "8-byte loads": {"yee.cuh": {"INPLACE_BYTES": "8"}},
+    "K2 cooperative": {"stepk.cu": {"STEPK_COOPERATIVE": "1"}},
+    "prefetch": {"yee.cuh": {"STREAM_PREFETCH": "1"}},
+    "8-byte accesses": {"yee.cuh": {"STREAM_BYTES": "8"}},
+    "8-byte accesses, prefetch": {"yee.cuh": {"STREAM_BYTES": "8", "STREAM_PREFETCH": "1"}},
 }
+#: K2 edge_planes' edge row in the check lattices: inside the array on every axis
+EDGE_ROW = (3, 35, 2, 20, 1, 50)
 ALIGNED_SHAPE = (40, 24, 64)
 
 
@@ -108,13 +124,13 @@ def build_versions(baseline: Path, variants: bool):
                                 csrc=csrc, build_dir=OUT / f"lib_{i}")
                for e in ENTRIES}
         for i, (name, csrc) in enumerate(dirs.items())}
-    kernels = [ks[e] for ks in versions.values() for e in ("STEP", "STEPK")]
+    kernels = [ks[e] for ks in versions.values() for e in SOURCES]
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda k: k.build(), kernels))
     for name, ks in versions.items():
         for e, k in ks.items():
             k.function()
-            if e in ("STEP", "STEPK"):
+            if e in SOURCES:
                 cs.log(f"{name} {k.source}: built in {k.build_seconds} s")
                 for entry, lines in ptxas_lines(k.build_log):
                     cs.log(f"  {entry}: {' | '.join(lines)}")
@@ -147,47 +163,70 @@ def vector_sources(shape, dt, dev):
         for x in range(nx)], device=dev)
 
 
+def compare(versions, label, outs):
+    """Log and return whether every version's output equals the baseline's."""
+    base, ok = outs["baseline"], True
+    for version, out in outs.items():
+        if version == "baseline":
+            continue
+        same = all(torch.equal(x, y) for x, y in zip((*out.e, *out.h), (*base.e, *base.h)))
+        ok &= same
+        cs.log(f"check {label} {version}: bit-identical to the baseline {same} "
+               f"(max_abs_diff {cs.max_abs_err(out, base):.3e})")
+    return ok
+
+
 def check(versions, dev):
-    """Every version's K1, K2, K1 io_alias and K2 io_alias against the
-    baseline's, bit for bit."""
-    shape = cs.LADDER_CHECK_SHAPE
-    sim = cs.flagship(ft, shape, torch.float32, dev)
-    mid, tab, src = sim.matid, sim._table_f32, sim.sources
-    inv_dx = tuple(1.0 / d for d in sim.grid.dx)
+    """Every version's K1, K2, K2 edge_planes, K8, K1 io_alias and K2
+    io_alias against the baseline's, bit for bit."""
+    from fdtd_tpu_torch.parallel import gather, make_cuda_sharded_step, shard_state
+
     coeffs = ft.CellCoefficients.uniform((0.97, 0.21, 0.99, 0.18), device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     ok = True
-    for dtype in (torch.float32, torch.bfloat16):
-        cases = []
-        kw = dict(inv_dx=inv_dx, dt=sim.grid.dt, dtype=dtype, with_m=True)
-        mkw = dict(kw, matid=mid, n_materials=tab.shape[0])
-        cases.append(("K1", shape, lambda: cuda_step_fn(shape, **mkw), tab, src))
-        cases.append((f"K2 K={K}", shape, lambda: cuda_stepk_fn(shape, K, **mkw), tab, src))
-        for sh, s in ((shape, src), (ALIGNED_SHAPE, vector_sources(ALIGNED_SHAPE,
-                                                                    sim.grid.dt, dev))):
-            cases.append(("K1 io_alias", sh,
-                          lambda sh=sh: cuda_step_fn(sh, io_alias=True, **kw), coeffs, s))
-            for k in (2, K):
-                cases.append((f"K2 K={k} io_alias", sh,
-                              lambda sh=sh, k=k: cuda_stepk_fn(sh, k, io_alias=True, **kw),
-                              coeffs, s))
-        for name, sh, make, c, s in cases:
-            e, h = (torch.randn((3, *sh), generator=gen, device=dev) for _ in range(2))
-            outs = {}
-            for version, ks in versions.items():
-                state = ft.state_from_stacked(e, h, tick=3, dtype=dtype, device=dev)
-                with using(ks):
-                    outs[version] = make()(state, c, s)
-            torch.cuda.synchronize()
-            base = outs["baseline"]
-            for version, out in outs.items():
-                if version == "baseline":
-                    continue
-                same = all(torch.equal(x, y) for x, y in zip((*out.e, *out.h),
-                                                             (*base.e, *base.h)))
-                ok &= same
-                cs.log(f"check {name} {sh} {str(dtype)[6:]} {version}: bit-identical to the "
-                       f"baseline {same} (max_abs_diff {cs.max_abs_err(out, base):.3e})")
+    for sh in (cs.LADDER_CHECK_SHAPE, ALIGNED_SHAPE):
+        sim = cs.flagship(ft, sh, torch.float32, dev)
+        mid, tab = sim.matid, sim._table_f32
+        inv_dx = tuple(1.0 / d for d in sim.grid.dx)
+        s = vector_sources(sh, sim.grid.dt, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            cases = []
+            kw = dict(inv_dx=inv_dx, dt=sim.grid.dt, dtype=dtype, with_m=True)
+            mkw = dict(kw, matid=mid, n_materials=tab.shape[0])
+            cases.append(("K1", lambda: cuda_step_fn(sh, **mkw), tab))
+            cases.append(("K1 io_alias", lambda: cuda_step_fn(sh, io_alias=True, **kw), coeffs))
+            for k in (2, 4, K):
+                cases.append((f"K2 K={k}", lambda k=k: cuda_stepk_fn(sh, k, **mkw), tab))
+                cases.append((f"K2 K={k} edge_planes",
+                              lambda k=k: cuda_stepk_fn(sh, k, edge_planes=EDGE_ROW, **kw),
+                              coeffs))
+                if k != 4:
+                    cases.append((f"K2 K={k} io_alias",
+                                  lambda k=k: cuda_stepk_fn(sh, k, io_alias=True, **kw), coeffs))
+            for name, make, c in cases:
+                e, h = (torch.randn((3, *sh), generator=gen, device=dev) for _ in range(2))
+                outs = {}
+                for version, ks in versions.items():
+                    state = ft.state_from_stacked(e, h, tick=3, dtype=dtype, device=dev)
+                    with using(ks):
+                        outs[version] = make()(state, c, s)
+                torch.cuda.synchronize()
+                ok &= compare(versions, f"{name} {sh} {str(dtype)[6:]}", outs)
+        # K8 over 4 shards (f32, J sources; nx 40 splits)
+        sh = (40, *sh[1:])
+        mesh, dims = cs.card_mesh(4, ("x",)), ("x", None, None)
+        nl = sh[0] // 4
+        src = cs.cut_sources(ft, sh, (range(nl, sh[0], nl), ()), 1, sim.grid.dt, dev, m=False)
+        e, h = (torch.randn((3, *sh), generator=gen, device=dev) for _ in range(2))
+        state = ft.state_from_stacked(e, h, tick=3, dtype=torch.float32, device=dev)
+        outs = {}
+        for version, ks in versions.items():
+            k8 = make_cuda_sharded_step(mesh, inv_dx=inv_dx, dt=sim.grid.dt)
+            with using(ks):
+                got = k8(k8(shard_state(state, mesh, dims), coeffs, src), coeffs, src)
+            outs[version] = gather(got, mesh, dims)
+        torch.cuda.synchronize()
+        ok &= compare(versions, f"K8 {sh} over 4 shards, 2 ticks", outs)
     return ok
 
 
@@ -200,18 +239,74 @@ def time_group(label, named, state, calls, cells, set_bytes, itemsize):
         g = cells * ticks / (mean * 1e-3) / 1e9
         line = (f"{label} {name}: {ms[name][0]:.4f} / {ms[name][1]:.4f} ms per call "
                 f"({ticks} ticks), {g:.3f} Gcell/s")
+        peak = cs.peak_call_bytes(torch, fn, state)
+        bound_ms = 2 * set_bytes / cs.HBM_BYTES_PER_S * 1e3
         if inplace:
             run_share = g * 1e9 * 18 * itemsize / cs.HBM_BYTES_PER_S
-            bound_ms = 2 * set_bytes / cs.HBM_BYTES_PER_S * 1e3
-            peak = cs.peak_call_bytes(torch, fn, state)
             line += (f", {run_share:.1%} of 3.35 TB/s at {18 * itemsize} B/cell/tick, "
                      f"bound {bound_ms:.4f} ms -> {bound_ms / mean:.1%}, call allocates "
                      f"{peak} B beyond the state")
-            out[name] = dict(ms=ms[name], gcells=g, bound_ms=bound_ms, peak=peak)
         else:
-            out[name] = dict(ms=ms[name], gcells=g)
+            run_share = g * 1e9 * 12 * itemsize / cs.HBM_BYTES_PER_S
+            line += (f", {run_share:.1%} of 3.35 TB/s at {12 * itemsize} B/cell/tick, "
+                     f"call bound {bound_ms:.4f} ms -> {bound_ms / mean:.1%}, call allocates "
+                     f"{peak} B")
+        out[name] = dict(ms=ms[name], gcells=g, bound_ms=bound_ms, peak=peak)
         cs.log(line)
     return out
+
+
+def via(ks, f, coeffs, src=None):
+    """``f(state, coeffs, src)`` through the kernels ``ks``."""
+    def call(s):
+        with using(ks):
+            return f(s, coeffs, src)
+    return call
+
+
+def shard_timings(versions, calls):
+    """K2 at K = 8 on config 2 at 128^3, K2 edge_planes at K = 8 on an
+    interior 144 x 512^2 shard (f32 and bf16), a K8 tick over 4 shards of
+    512^3, in turns."""
+    from fdtd_tpu_torch.parallel import make_cuda_sharded_step, shard_state
+
+    dev = torch.device("cuda")
+    names = list(versions)
+    sim = cs.flagship(ft, cs.MAIN_SHAPE, torch.float32, dev)
+    kw = dict(inv_dx=tuple(1.0 / d for d in sim.grid.dx), dt=sim.grid.dt,
+              matid=sim.matid, n_materials=sim._table_f32.shape[0])
+    named = [(f"K2 K={K} {v}", via(versions[v], cuda_stepk_fn(cs.MAIN_SHAPE, K, **kw),
+                                   sim._table_f32, sim.sources), K, False) for v in names]
+    cells = math.prod(cs.MAIN_SHAPE)
+    time_group("config 2 128^3", named, sim.init(), calls, cells, 6 * cells * 4, 4)
+    res = ft.Resolution.courant(1.0, ft.REDUCED, safety=0.99)
+    coeffs = ft.CellCoefficients.uniform((1.0, res.temporal, 1.0, res.temporal), device=dev)
+    n = cs.SCALE_SHAPE[0]
+    shape = (n // 4 + 2 * K, n, n)
+    row = (K - 1, shape[0] - K, -1, n, -1, n)  # an interior shard: edges in its halo planes
+    for dtype in (torch.float32, torch.bfloat16):
+        itemsize = 4 if dtype == torch.float32 else 2
+        f = cuda_stepk_fn(shape, K, inv_dx=(1.0,) * 3, dt=res.temporal, dtype=dtype,
+                          edge_planes=row)
+        named = [(f"K2 K={K} edge_planes {v}", via(versions[v], f, coeffs), K, False)
+                 for v in names]
+        state = ft.zero_state(shape, dtype, dev)
+        state = state.replace(ez=torch.ones_like(state.ez))
+        cells = math.prod(shape)
+        time_group(f"{shape[0]}x{n}^2 shard {str(dtype)[6:]}", named, state, calls, cells,
+                   6 * cells * itemsize, itemsize)
+        del state
+    shape = cs.SCALE_SHAPE
+    mesh, dims = cs.card_mesh(4, ("x",)), ("x", None, None)
+    k8 = make_cuda_sharded_step(mesh, inv_dx=(1.0,) * 3, dt=res.temporal)
+    state = ft.zero_state(shape, torch.float32, dev)
+    state = shard_state(state.replace(ez=torch.ones_like(state.ez)), mesh, dims)
+    named = [(f"K8 tick over 4 shards {v}", via(versions[v], k8, coeffs), 1, False)
+             for v in names]
+    cells = math.prod(shape)
+    time_group(f"{n}^3 split", named, state, calls, cells, 6 * cells * 4, 4)
+    del state
+    torch.cuda.empty_cache()
 
 
 def timings(versions, calls, large):
@@ -231,28 +326,27 @@ def timings(versions, calls, large):
             named = []
             for version in names if top else ("baseline", "this"):
                 ks = versions[version]
-
-                def via(f, ks=ks):
-                    def call(s):
-                        with using(ks):
-                            return f(s, coeffs, None)
-                    return call
-
                 if top:
-                    named += [(f"K1 {version}", via(cuda_step_fn(shape, **kw)), 1, False),
-                              (f"K2 K={K} {version}", via(cuda_stepk_fn(shape, K, **kw)), K,
+                    named += [(f"K1 {version}", via(ks, cuda_step_fn(shape, **kw), coeffs), 1,
                                False)]
+                    named += [(f"K2 K={k} {version}",
+                               via(ks, cuda_stepk_fn(shape, k, **kw), coeffs), k, False)
+                              for k in (K, 2)]
                 named.append((f"K1 io_alias {version}",
-                              via(cuda_step_fn(shape, io_alias=True, **kw)), 1, True))
+                              via(ks, cuda_step_fn(shape, io_alias=True, **kw), coeffs), 1,
+                              True))
                 for k in (K, 2) if dtype == torch.bfloat16 else (K,):
                     named.append((f"K2 K={k} io_alias {version}",
-                                  via(cuda_stepk_fn(shape, k, io_alias=True, **kw)), k, True))
+                                  via(ks, cuda_stepk_fn(shape, k, io_alias=True, **kw), coeffs),
+                                  k, True))
             state = ft.zero_state(shape, dtype, dev)
             state = state.replace(ez=torch.ones_like(state.ez))
             time_group(f"{n}^3 {str(dtype)[6:]}", named, state, calls if top else 4, cells,
                        6 * cells * itemsize, itemsize)
             del state, named
             torch.cuda.empty_cache()
+        if n == cs.SCALE_SHAPE[0]:
+            shard_timings(versions, calls)
 
 
 def main() -> int:
@@ -261,8 +355,9 @@ def main() -> int:
                     help="another version's fdtd_tpu_torch/csrc")
     ap.add_argument("--calls", type=int, default=20)
     ap.add_argument("--variants", action="store_true",
-                    help="also build and time the in-place halves' other shapes")
+                    help="also build and time the other shapes (VARIANTS)")
     ap.add_argument("--no-large", action="store_true", help="skip the 1024^3 timings")
+    ap.add_argument("--checks-only", action="store_true", help="skip the timings")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -273,7 +368,8 @@ def main() -> int:
     cs.log(card)
     versions = build_versions(args.baseline, args.variants)
     ok = check(versions, torch.device("cuda"))
-    timings(versions, args.calls, not args.no_large)
+    if not args.checks_only:
+        timings(versions, args.calls, not args.no_large)
     cs.log(card)
     if not ok:
         cs.log("FAILED: a version differs from the baseline")

@@ -2242,7 +2242,7 @@ def xz_oblique_path(torch, ft, seed):
     peak = torch.cuda.max_memory_allocated() - base
     secs = start.elapsed_time(end) / 1e3
     want = {name: 0 for name in counts}
-    want["K5 cpmlk_xz"] = MAIN_STEPS // k
+    want["K5 cpmlk_xz"] = want["K3 oblique pack"] = MAIN_STEPS // k
     require(counts == want, f"{label}: launches {counts}, expected {want}")
     limit = 1.02 * (2 * state_bytes + sim.matid.numel() + 4 * step.scratch_floats()
                     + corr_bytes)
@@ -3589,6 +3589,11 @@ def k10_run(torch, label, sim, ticks, probes, every, want_plan, accumulators=(),
     want["K4e x-side"] = passes * shards
     want["K10"] = passes
     want[K4B] = counts[K4B]
+    if type(getattr(sim, "tfsf", None)).__name__ == "ObliqueTfsf":
+        # one pack a pass on each shard whose array meets the box's shell
+        want["K3 oblique pack"] = counts["K3 oblique pack"]
+        require(passes <= counts["K3 oblique pack"] <= passes * shards,
+                f"{label}: {counts['K3 oblique pack']} pack kernel launches")
     options = cuda_cpml_k.option_launches()
     require(counts == want, f"{label}: launches {counts}, expected {want}")
     n = math.prod(sim.grid.shape)
@@ -5162,8 +5167,7 @@ def scattering_path(torch, ft):
     reset_counts()
     res = scattering_cross_section(scene, device=dev, **kw)
     launches = {"K4 io_alias": cuda_cpml_k.launches(io_alias=True),
-                **cuda_cpml_k.option_launches(), "pack": cuda_oblique.launches(),
-                "torch packs": cuda_oblique.torch_packs()}
+                **cuda_cpml_k.option_launches()}
     ref = scattering_cross_section(scene, device=dev, backend="torch", **kw)
     rel = abs(res.sigma_scat - ref.sigma_scat) / abs(ref.sigma_scat)
     log(f"scattering path: grid {res.grid.shape}, sigma_scat {res.sigma_scat:.8e} (plain "

@@ -45,31 +45,15 @@
 //     the whole cell code. With 8 cells a thread and 16-byte accesses the
 //     cell code took 128-167 registers, one block an SM, and ran 1.8x
 //     slower.
-//
-// The macros below select the other shapes (tools/k3_baseline.py
-// --variants).
 #include "cpml.cuh"
 
 namespace {
 
-// The z cells a thread at f32 and at bf16 storage (an access of V values:
-// 16 bytes at 4 and 8), whether the declined cells run in the rolled loop
-// (1) or inline per cell (0), and the blocks an SM the kernel asks
-// registers for (tools/k3_baseline.py --variants builds other values;
-// PERF.md has their times).
-#define CPML_CELLS_F32 1
+// The fused pass at bf16 storage: its z cells a thread (an access of V
+// values) and the blocks an SM it asks registers for (tools/k3_baseline.py
+// --variants builds other values; PERF.md has their times).
 #define CPML_CELLS_BF16 2
-#define CPML_ROLLED 0
 #define CPML_MIN_BLOCKS 4
-// 1: the lossless cells take the short update (cpml.cuh Cells' BARE)
-#define CPML_BARE 1
-// 1: at f32 storage the tick is K4's two half passes instead (below)
-#define CPML_F32_HALVES 1
-
-template <typename T>
-__host__ __device__ constexpr int cpml_v() {
-  return sizeof(T) == 4 ? CPML_CELLS_F32 : CPML_CELLS_BF16;
-}
 
 template <typename T, bool EXT>
 __global__ void __launch_bounds__(yee::STREAM_THREADS, CPML_MIN_BLOCKS)
@@ -78,7 +62,7 @@ cpml_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
             const __grid_constant__ cpml::Profiles P,
             const __grid_constant__ cpml::Psi Q, cpml::Tfsf tf,
             const __grid_constant__ cpml::Ext X) {
-  constexpr int V = cpml_v<T>();
+  constexpr int V = CPML_CELLS_BF16;
   __shared__ yee::StreamShared<V> sh;
   yee::load_stream_table(sh, M);
   int y0, z0, x_lo, x_hi;
@@ -86,12 +70,11 @@ cpml_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
   const float* aux_e = tf.aux;
   const float* aux_h = tf.aux ? tf.aux + tf.len : nullptr;
   // row layout: [x, y, z, J, M (with_m)]
-  const cpml::Cells<T, EXT, CPML_BARE != 0> cells{L, &yee::table_of(sh), S, with_m ? 6 : -1, 3, &P, &Q, tf,
+  const cpml::Cells<T, EXT> cells{L, &yee::table_of(sh), S, with_m ? 6 : -1, 3, &P, &Q, tf,
                                   aux_e, aux_h, &X,
                                   EXT && X.O.n_box > 0 ? X.O.corr : nullptr};
-  yee::stream_pass<T, T, V, false, CPML_ROLLED != 0>(in, out, L, M.matid, y0, z0, x_lo, x_hi,
-                                                     vec, yee::face_bounds(L),
-                                                     yee::Halo<T>{}, sh, cells, cells);
+  yee::stream_pass<T, T, V, false>(in, out, L, M.matid, y0, z0, x_lo, x_hi, vec,
+                                   yee::face_bounds(L), yee::Halo<T>{}, sh, cells, cells);
 }
 
 // The tick as K4's out-of-place half passes (cpml.cuh h_pass, e_pass), two
@@ -160,16 +143,16 @@ int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q,
            const uint8_t* matid, const float* rows, int n_src, int row_w,
            int with_m, int nx, int ny, int nz, float inv_x, float inv_y,
            float inv_z, const cpml::Ext& X, cudaStream_t stream) {
-  constexpr int V = cpml_v<T>();
   yee::Fields<const T> in{(const T*)f[0], (const T*)f[1], (const T*)f[2],
                           (const T*)f[3], (const T*)f[4], (const T*)f[5]};
   yee::Fields<T> out{(T*)f[6], (T*)f[7], (T*)f[8], (T*)f[9], (T*)f[10], (T*)f[11]};
   yee::Lattice L{nx, ny, nz, inv_x, inv_y, inv_z};
   yee::Material M{table, n_mat, matid};
   yee::Sources S{rows, n_src, row_w};
-  if constexpr (CPML_F32_HALVES != 0 && sizeof(T) == 4) {
+  if constexpr (sizeof(T) == 4) {
     return launch_halves<T, EXT>(in, out, L, M, S, with_m, P, Q, tf, X, stream);
   } else {
+    constexpr int V = CPML_CELLS_BF16;
     yee::Work w;
     const cudaError_t err = yee::stream_work<V>(cpml_kernel<T, EXT>, L, w);
     if (err != cudaSuccess) return (int)err;

@@ -572,16 +572,16 @@ __device__ __forceinline__ void e_half(yee::Fields<TS> f, const yee::Lattice& L,
       });
 }
 
-// The cells of K3's one-tick pass (yee.cuh's stream_pass; cpml.cu): psi
-// from set 0 to set 1, new psi stored by the cell's owner only (`store`:
-// the +1 ring and the seed plane recompute without storing). With BARE, a
-// cell where h_cell or e_cell reduces to the lossless update (bare) takes
+// The cells of K3's one-tick pass at bf16 storage (yee.cuh's stream_pass;
+// cpml.cu): psi from set 0 to set 1, new psi stored by the cell's owner
+// only (`store`: the +1 ring and the seed plane recompute without storing).
+// A cell where h_cell or e_cell reduces to the lossless update (bare) takes
 // that update with h_cell's and e_cell's roundings (h<false> / e<false>, as
 // h_half and e_half take it); the others are declined there and take
 // h_cell or e_cell on the held values (h<true> / e<true>), with each raw
 // difference's product rounded apart so that no product fuses into the
-// curl. Without BARE every cell takes h_cell and e_cell.
-template <typename TS, bool EXT, bool BARE = true>
+// curl.
+template <typename TS, bool EXT>
 struct Cells {
   yee::Lattice L;
   const yee::Shared* sh;
@@ -601,7 +601,7 @@ struct Cells {
                                     float dey_x, float dex_y, float ohx, float ohy, float ohz,
                                     float& hx, float& hy, float& hz) const {
     if constexpr (!FULL) {
-      if (!BARE || !bare<0, EXT>(*P, T, aux_e, *X, ob, p, y, z)) return false;
+      if (!bare<0, EXT>(*P, T, aux_e, *X, ob, p, y, z)) return false;
       const float d_a = sh->table[mat][2], d_b = sh->table[mat][3];
       const float ez_y = __fmul_rn(dez_y, L.inv_y), ey_z = __fmul_rn(dey_z, L.inv_z);
       const float ex_z = __fmul_rn(dex_z, L.inv_z), ez_x = __fmul_rn(dez_x, L.inv_x);
@@ -627,7 +627,7 @@ struct Cells {
                                     float dhx_y, float oex, float oey, float oez, float& ex,
                                     float& ey, float& ez) const {
     if constexpr (!FULL) {
-      if (!BARE || !bare<1, EXT>(*P, T, aux_h, *X, ob, p, y, z)) return false;
+      if (!bare<1, EXT>(*P, T, aux_h, *X, ob, p, y, z)) return false;
       const float c_a = sh->table[mat][0], c_b = sh->table[mat][1];
       const float hz_y = __fmul_rn(dhz_y, L.inv_y), hy_z = __fmul_rn(dhy_z, L.inv_z);
       const float hx_z = __fmul_rn(dhx_z, L.inv_z), hz_x = __fmul_rn(dhz_x, L.inv_x);

@@ -17,11 +17,11 @@
 // work sets (the output buffer doubles as one when storage is f32), each
 // tick an ordinary launch on the caller's stream over one wave of work
 // items; the launch boundary orders one tick's writes before the next
-// tick's reads. (One cooperative launch with a grid-wide barrier between
-// the ticks, the first version, kept the blocks resident but ran the
-// ticks as rounds of the slower tile pass; PERF.md compares the two.) At
-// bf16 storage the first tick reads bf16 and the last writes it, so every
-// tick moves 4 z cells a thread, 16 bytes an f32 access.
+// tick's reads. One cooperative launch with a grid-wide barrier between
+// the ticks (the first version's structure) ran 21-30 % slower over the
+// same pass at K = 8 and 2 (PERF.md; STEPK_COOPERATIVE at commit 6ff7920).
+// At bf16 storage the first tick reads bf16 and the last writes it, so
+// every tick moves 4 z cells a thread, 16 bytes an f32 access.
 //
 // With edge planes (fdtd_stepk_edges, the TPU kernel's runtime edge row,
 // pallas_stepk.py:413-441, which the sharded K-tick kernel K9 runs on
@@ -42,15 +42,7 @@
 // slower (tools/yee_baseline.py, PERF.md). At bf16 storage every tick's H
 // and E are rounded to bf16 (the TPU kernel carries its intermediate levels
 // in f32 and rounds once per call).
-#include <cooperative_groups.h>
-
 #include "yee.cuh"
-
-// 1: the ticks of a call in one cooperative launch with a grid-wide
-// barrier between them, the first version's structure, over the same
-// pass (tools/yee_baseline.py --variants times it; the shipped build
-// launches each tick).
-#define STEPK_COOPERATIVE 0
 
 namespace {
 
@@ -82,73 +74,6 @@ cudaError_t tick(yee::Fields<const TI> in, yee::Fields<TO> out, const yee::Latti
   return cudaGetLastError();
 }
 
-// The cooperative variant: every tick of a call by the resident blocks, a
-// grid-wide barrier between ticks (K2's ticks all take the cells a thread
-// of an f32 tick, so one plan serves them).
-template <typename T>
-__global__ void STREAM_BOUNDS
-ticks_kernel(yee::Fields<const T> in, yee::Fields<float> w1, yee::Fields<float> w2,
-             yee::Fields<T> out, yee::Lattice L, yee::Material M, yee::Sources S, int k,
-             int with_m, yee::Work w, int vec, yee::Bounds b) {
-  constexpr int V = yee::stream_v<float, float>();
-  static_assert(yee::stream_v<T, float>() == V && yee::stream_v<float, T>() == V, "one plan");
-  __shared__ yee::StreamShared<V> sh;
-  yee::load_stream_table(sh, M);
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  for (int lvl = 1; lvl <= k; ++lvl) {
-    const int j_col = 3 + 3 * (lvl - 1);
-    const int m_col = with_m ? 3 + 3 * k + 3 * (lvl - 1) : -1;
-    const yee::Fields<float> dst = ((k - lvl) & 1) ? w1 : w2;
-    const yee::Fields<float> src = ((k - lvl + 1) & 1) ? w1 : w2;
-    for (int item = blockIdx.x; item < w.n_items; item += gridDim.x) {
-      if (lvl == 1)
-        yee::yee_tick<T, float>(in, dst, L, M, S, j_col, m_col, w, item, vec, b, sh);
-      else if (lvl == k)
-        yee::yee_tick<float, T>(yee::as_const(src), out, L, M, S, j_col, m_col, w, item, vec, b,
-                                sh);
-      else
-        yee::yee_tick<float, float>(yee::as_const(src), dst, L, M, S, j_col, m_col, w, item, vec,
-                                    b, sh);
-    }
-    if (lvl < k) grid.sync();
-  }
-}
-
-template <typename T>
-int launch_cooperative(void** f, const yee::Lattice& L, const yee::Material& M,
-                       const yee::Sources& S, int with_m, int k, const yee::Bounds& b,
-                       cudaStream_t stream) {
-  yee::Fields<const T> in{(const T*)f[0], (const T*)f[1], (const T*)f[2],
-                          (const T*)f[3], (const T*)f[4], (const T*)f[5]};
-  yee::Fields<T> out{(T*)f[6], (T*)f[7], (T*)f[8], (T*)f[9], (T*)f[10], (T*)f[11]};
-  yee::Fields<float> w1{(float*)f[12], (float*)f[13], (float*)f[14],
-                        (float*)f[15], (float*)f[16], (float*)f[17]};
-  yee::Fields<float> w2{(float*)f[18], (float*)f[19], (float*)f[20],
-                        (float*)f[21], (float*)f[22], (float*)f[23]};
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ticks_kernel<T>,
-                                                        yee::STREAM_THREADS, 0);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int resident = sms * per_sm;
-  yee::Work w = yee::plan_work(L, resident, 1 << 30, 32 * yee::stream_v<float, float>());
-  int blocks = w.n_items < resident ? w.n_items : resident;
-  const int vec = yee::stream_aligned<T, float>(f, 6, f + 12, 12, M.matid, L.nz) &&
-                  yee::stream_aligned<float, T>(f + 12, 0, f + 6, 6, nullptr, L.nz);
-  yee::Lattice Lc = L;
-  yee::Material Mc = M;
-  yee::Sources Sc = S;
-  yee::Bounds bc = b;
-  void* args[] = {&in, &w1, &w2, &out, &Lc, &Mc, &Sc, &k, &with_m, &w, (void*)&vec, &bc};
-  err = cudaLaunchCooperativeKernel((const void*)ticks_kernel<T>, dim3(blocks),
-                                    dim3(32, yee::TY + 1), args, 0, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 template <typename T>
 int launch(void** f, const float* table, int n_mat, const uint8_t* matid,
            const float* rows, int n_src, int row_w, int with_m, int k, int nx,
@@ -168,8 +93,6 @@ int launch(void** f, const float* table, int n_mat, const uint8_t* matid,
       edges ? yee::edge_bounds(L, yee::Edges{edges[0], edges[1], edges[2], edges[3], edges[4],
                                              edges[5]})
             : yee::face_bounds(L);
-  if constexpr (STEPK_COOPERATIVE != 0)
-    return launch_cooperative<T>(f, L, M, S, with_m, k, b, stream);
   for (int lvl = 1; lvl <= k; ++lvl) {
     // row layout: [x, y, z, J levels 1..K, M levels 1..K (with_m)]
     const int j_col = 3 + 3 * (lvl - 1);

@@ -752,16 +752,12 @@ inline int launch_halves(void** f, const float* table, int n_mat, const float* r
 // Per cell the pass hands a cell object the raw differences (zero across a
 // face: backward at index <= bx, by, bz, forward at >= fx, fy, fz) and the
 // old values; `h<false>`/`e<false>` may decline a cell (K3's absorbing
-// cells), which `h<true>`/`e<true>` then computes: inline per cell, or
-// (ROLLED) in a loop that is not unrolled, one cell's code for all V, its
-// inputs picked from the packs by index.
+// cells), which `h<true>`/`e<true>` then computes. (A loop that is not
+// unrolled for the declined cells, the next plane's loads issued before
+// the barrier, 8-byte accesses and no register bound all ran slower:
+// PERF.md, and the macros of commit 6ff7920.)
 
 constexpr int STREAM_THREADS = 32 * (TY + 1);
-
-// 1: a thread loads plane p-1's inputs right after plane p's H phase, so
-// that they are in flight across the barrier and the E phase (0: at the
-// top of each plane; tools/yee_baseline.py --variants builds both).
-#define STREAM_PREFETCH 0
 
 // The blocks an SM that the pass's kernels ask registers for: with 2 the
 // Yee kernels keep their 96 registers and ran 20 % faster than without a
@@ -832,33 +828,6 @@ __host__ __device__ inline Bounds halo_bounds(const Lattice& L, const Halo<T>& h
   return b;
 }
 
-// Value j of a pack or of a thread's f32 values, j known at run time (a
-// select per value: the values stay in registers).
-template <typename T, int V>
-__device__ __forceinline__ float pick(const Pack<T, V>& p, int j) {
-  float r = widen(p.b[0]);
-#pragma unroll
-  for (int k = 1; k < V; ++k)
-    if (j == k) r = widen(p.b[k]);
-  return r;
-}
-
-template <int V>
-__device__ __forceinline__ float pick(const float (&a)[V], int j) {
-  float r = a[0];
-#pragma unroll
-  for (int k = 1; k < V; ++k)
-    if (j == k) r = a[k];
-  return r;
-}
-
-template <int V>
-__device__ __forceinline__ void place(float (&a)[V], int j, float v) {
-#pragma unroll
-  for (int k = 0; k < V; ++k)
-    if (j == k) a[k] = v;
-}
-
 // The fields of plane p and the offset of its first cell: the input
 // tensors, or (HALO) the halo planes at x = nx and x = -1.
 template <typename T, bool HALO>
@@ -924,7 +893,7 @@ __device__ __forceinline__ void store_stream(long long i, int n, const float (&a
 // One tick over the tile (y0, z0) of TY rows x 32 V cells and planes
 // [x_lo, x_hi), fields from `in` to `out` (see above). HC / EC: the cell
 // objects; `vec`: every row of in, out and matid on the accesses' alignment.
-template <typename TI, typename TO, int V, bool HALO, bool ROLLED, typename HC, typename EC>
+template <typename TI, typename TO, int V, bool HALO, typename HC, typename EC>
 __device__ __forceinline__ void stream_pass(Fields<const TI> in, Fields<TO> out, const Lattice& L,
                                             const uint8_t* matid, int y0, int z0, int x_lo,
                                             int x_hi, bool vec, const Bounds& b,
@@ -955,17 +924,6 @@ __device__ __forceinline__ void stream_pass(Fields<const TI> in, Fields<TO> out,
       ez_c = load_pack<TI, V, false>(f.ez, base + o, n);
     }
   }
-  // plane p's inputs; E at p-1 where a difference or plane p-1 reads it
-  auto load_at = [&](int pp, StreamIn<TI, V>& q) {
-    long long bs, bb;
-    const Fields<const TI> f = plane_of<TI, HALO>(in, hl, L, pp, bs);
-    const Fields<const TI> fb = plane_of<TI, HALO>(in, hl, L, pp - 1, bb);
-    const bool below = pp > b.bx || pp > x_lo;
-    if (vec) load_stream_in<TI, V, true>(f, fb, matid, bs + o, bb + o, row, n, below, ym, q);
-    else load_stream_in<TI, V, false>(f, fb, matid, bs + o, bb + o, row, n, below, ym, q);
-  };
-  StreamIn<TI, V> qn{};  // STREAM_PREFETCH: the next plane's inputs
-  if (STREAM_PREFETCH && live) load_at(p_start, qn);
   int buf = 0;
   for (int p = p_start; p >= x_lo; --p) {
     const bool seed = p == x_hi, keep = !seed && !extra;
@@ -979,62 +937,35 @@ __device__ __forceinline__ void stream_pass(Fields<const TI> in, Fields<TO> out,
       const Fields<const TI> f = plane_of<TI, HALO>(in, hl, L, p, base);
       const Fields<const TI> fb = plane_of<TI, HALO>(in, hl, L, p - 1, base_b);
       i = base + o;
-      if constexpr (STREAM_PREFETCH) q = qn;
-      else load_at(p, q);
+      // E at p-1: for this plane's differences and as the next plane's own
+      const bool below = xm || p > x_lo;
+      if (vec) load_stream_in<TI, V, true>(f, fb, matid, i, base_b + o, row, n, below, ym, q);
+      else load_stream_in<TI, V, false>(f, fb, matid, i, base_b + o, row, n, below, ym, q);
       float ex_zm = __shfl_up_sync(0xffffffffu, widen(q.ex.b[V - 1]), 1);
       float ey_zm = __shfl_up_sync(0xffffffffu, widen(ey_c.b[V - 1]), 1);
       if (lane == 0) {
         ex_zm = zm ? load(f.ex, i - 1) : 0.f;
         ey_zm = zm ? load(f.ey, i - 1) : 0.f;
       }
-      // the raw backward differences and old H of cell j
-      auto h_in = [&](int j, float (&d)[6], float (&h)[3]) {
-        const float ex = pick(q.ex, j), ey = pick(ey_c, j), ez = pick(ez_c, j);
-        const float ey_z = j == 0 ? ey_zm : pick(ey_c, j > 0 ? j - 1 : 0);
-        const float ex_z = j == 0 ? ex_zm : pick(q.ex, j > 0 ? j - 1 : 0);
-        const int z = zb + j;
-        d[0] = ym ? ez - pick(q.ez_ym, j) : 0.f;  // dez_y
-        d[1] = z > b.bz ? ey - ey_z : 0.f;        // dey_z
-        d[2] = z > b.bz ? ex - ex_z : 0.f;        // dex_z
-        d[3] = xm ? ez - pick(q.ez_b, j) : 0.f;   // dez_x
-        d[4] = xm ? ey - pick(q.ey_b, j) : 0.f;   // dey_x
-        d[5] = ym ? ex - pick(q.ex_ym, j) : 0.f;  // dex_y
-        h[0] = pick(q.hx, j), h[1] = pick(q.hy, j), h[2] = pick(q.hz, j);
-      };
-      unsigned slow = 0;
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        nhx[j] = nhy[j] = nhz[j] = 0.f;
-        if (j < n) {
-          float d[6], h[3];
-          h_in(j, d, h);
-          const int mat = widen(q.mat.b[j]);
-          if (!hcell.template h<false>(p, y, zb + j, i + j, mat, keep, d[0], d[1], d[2], d[3],
-                                       d[4], d[5], h[0], h[1], h[2], nhx[j], nhy[j], nhz[j])) {
-            if constexpr (ROLLED)
-              slow |= 1u << j;
-            else
-              hcell.template h<true>(p, y, zb + j, i + j, mat, keep, d[0], d[1], d[2], d[3],
-                                     d[4], d[5], h[0], h[1], h[2], nhx[j], nhy[j], nhz[j]);
-          }
-        }
-      }
-      if constexpr (ROLLED) {
-#pragma unroll 1
-        for (int j = 0; j < V; ++j) {
-          if (!((slow >> j) & 1u)) continue;
-          float d[6], h[3], hx, hy, hz;
-          h_in(j, d, h);
-          int mat = q.mat.b[0];
-#pragma unroll
-          for (int k = 1; k < V; ++k)
-            if (j == k) mat = q.mat.b[k];
-          hcell.template h<true>(p, y, zb + j, i + j, mat, keep, d[0], d[1], d[2], d[3], d[4],
-                                 d[5], h[0], h[1], h[2], hx, hy, hz);
-          place(nhx, j, hx);
-          place(nhy, j, hy);
-          place(nhz, j, hz);
-        }
+        if (j >= n) continue;
+        // the raw backward differences and old H of cell j
+        const float ex = widen(q.ex.b[j]), ey = widen(ey_c.b[j]), ez = widen(ez_c.b[j]);
+        const float ey_z = j == 0 ? ey_zm : widen(ey_c.b[j > 0 ? j - 1 : 0]);
+        const float ex_z = j == 0 ? ex_zm : widen(q.ex.b[j > 0 ? j - 1 : 0]);
+        const int z = zb + j, mat = widen(q.mat.b[j]);
+        const float dez_y = ym ? ez - widen(q.ez_ym.b[j]) : 0.f;
+        const float dey_z = z > b.bz ? ey - ey_z : 0.f;
+        const float dex_z = z > b.bz ? ex - ex_z : 0.f;
+        const float dez_x = xm ? ez - widen(q.ez_b.b[j]) : 0.f;
+        const float dey_x = xm ? ey - widen(q.ey_b.b[j]) : 0.f;
+        const float dex_y = ym ? ex - widen(q.ex_ym.b[j]) : 0.f;
+        const float ohx = widen(q.hx.b[j]), ohy = widen(q.hy.b[j]), ohz = widen(q.hz.b[j]);
+        if (!hcell.template h<false>(p, y, z, i + j, mat, keep, dez_y, dey_z, dex_z, dez_x,
+                                     dey_x, dex_y, ohx, ohy, ohz, nhx[j], nhy[j], nhz[j]))
+          hcell.template h<true>(p, y, z, i + j, mat, keep, dez_y, dey_z, dex_z, dez_x, dey_x,
+                                 dex_y, ohx, ohy, ohz, nhx[j], nhy[j], nhz[j]);
       }
       if (ring) {  // the cell (y, zr), which the tile's E at z0 + 32 V - 1 reads
         const long long ir = i + V, irb = base_b + o + V;
@@ -1058,7 +989,6 @@ __device__ __forceinline__ void stream_pass(Fields<const TI> in, Fields<TO> out,
         if (vec) store_stream<TO, V, true>(io, n, nhx, nhy, nhz, out.hx, out.hy, out.hz);
         else store_stream<TO, V, false>(io, n, nhx, nhy, nhz, out.hx, out.hy, out.hz);
       }
-      if (STREAM_PREFETCH && p > x_lo) load_at(p - 1, qn);
     }
     if (!seed) {  // uniform across the block
       if (live && warp > 0) {
@@ -1077,62 +1007,27 @@ __device__ __forceinline__ void stream_pass(Fields<const TI> in, Fields<TO> out,
           hx_zp = rhx;
         }
         const bool x_in = p < b.fx;
-        // the raw forward differences and old E of cell j
-        auto e_in = [&](int j, float (&d)[6], float (&e)[3]) {
-          const float hx = pick(nhx, j), hy = pick(nhy, j), hz = pick(nhz, j);
-          const float hy_z = j == V - 1 ? hy_zp : pick(nhy, j < V - 1 ? j + 1 : 0);
-          const float hx_z = j == V - 1 ? hx_zp : pick(nhx, j < V - 1 ? j + 1 : 0);
-          float hz_y = sh.h[buf][warp][1][0][lane], hx_y = sh.h[buf][warp][0][0][lane];
-#pragma unroll
-          for (int k = 1; k < V; ++k)
-            if (j == k) {
-              hz_y = sh.h[buf][warp][1][k][lane];
-              hx_y = sh.h[buf][warp][0][k][lane];
-            }
-          const bool z_in = zb + j < b.fz;
-          d[0] = y_in ? hz_y - hz : 0.f;                 // dhz_y
-          d[1] = z_in ? hy_z - hy : 0.f;                 // dhy_z
-          d[2] = z_in ? hx_z - hx : 0.f;                 // dhx_z
-          d[3] = x_in ? pick(top_hz, j) - hz : 0.f;      // dhz_x
-          d[4] = x_in ? pick(top_hy, j) - hy : 0.f;      // dhy_x
-          d[5] = y_in ? hx_y - hx : 0.f;                 // dhx_y
-          e[0] = pick(q.ex, j), e[1] = pick(ey_c, j), e[2] = pick(ez_c, j);
-        };
-        float nex[V], ney[V], nez[V];
-        unsigned slow = 0;
+        float nex[V] = {}, ney[V] = {}, nez[V] = {};
 #pragma unroll
         for (int j = 0; j < V; ++j) {
-          nex[j] = ney[j] = nez[j] = 0.f;
-          if (j < n) {
-            float d[6], e[3];
-            e_in(j, d, e);
-            const int mat = widen(q.mat.b[j]);
-            if (!ecell.template e<false>(p, y, zb + j, i + j, mat, d[0], d[1], d[2], d[3], d[4],
-                                         d[5], e[0], e[1], e[2], nex[j], ney[j], nez[j])) {
-              if constexpr (ROLLED)
-                slow |= 1u << j;
-              else
-                ecell.template e<true>(p, y, zb + j, i + j, mat, d[0], d[1], d[2], d[3], d[4],
-                                       d[5], e[0], e[1], e[2], nex[j], ney[j], nez[j]);
-            }
-          }
-        }
-        if constexpr (ROLLED) {
-#pragma unroll 1
-          for (int j = 0; j < V; ++j) {
-            if (!((slow >> j) & 1u)) continue;
-            float d[6], e[3], ex, ey, ez;
-            e_in(j, d, e);
-            int mat = q.mat.b[0];
-#pragma unroll
-            for (int k = 1; k < V; ++k)
-              if (j == k) mat = q.mat.b[k];
-            ecell.template e<true>(p, y, zb + j, i + j, mat, d[0], d[1], d[2], d[3], d[4], d[5],
-                                   e[0], e[1], e[2], ex, ey, ez);
-            place(nex, j, ex);
-            place(ney, j, ey);
-            place(nez, j, ez);
-          }
+          if (j >= n) continue;
+          // the raw forward differences and old E of cell j
+          const float hx = nhx[j], hy = nhy[j], hz = nhz[j];
+          const float hy_z = j == V - 1 ? hy_zp : nhy[j < V - 1 ? j + 1 : 0];
+          const float hx_z = j == V - 1 ? hx_zp : nhx[j < V - 1 ? j + 1 : 0];
+          const int z = zb + j, mat = widen(q.mat.b[j]);
+          const bool z_in = z < b.fz;
+          const float dhz_y = y_in ? sh.h[buf][warp][1][j][lane] - hz : 0.f;
+          const float dhy_z = z_in ? hy_z - hy : 0.f;
+          const float dhx_z = z_in ? hx_z - hx : 0.f;
+          const float dhz_x = x_in ? top_hz[j] - hz : 0.f;
+          const float dhy_x = x_in ? top_hy[j] - hy : 0.f;
+          const float dhx_y = y_in ? sh.h[buf][warp][0][j][lane] - hx : 0.f;
+          const float oex = widen(q.ex.b[j]), oey = widen(ey_c.b[j]), oez = widen(ez_c.b[j]);
+          if (!ecell.template e<false>(p, y, z, i + j, mat, dhz_y, dhy_z, dhx_z, dhz_x, dhy_x,
+                                       dhx_y, oex, oey, oez, nex[j], ney[j], nez[j]))
+            ecell.template e<true>(p, y, z, i + j, mat, dhz_y, dhy_z, dhx_z, dhz_x, dhy_x, dhx_y,
+                                   oex, oey, oez, nex[j], ney[j], nez[j]);
         }
         const long long io = (long long)p * L.ny * L.nz + o;
         if (vec) store_stream<TO, V, true>(io, n, nex, ney, nez, out.ex, out.ey, out.ez);
@@ -1207,8 +1102,8 @@ __device__ __forceinline__ void yee_tick(Fields<const TI> in, Fields<TO> out, co
   int y0, z0, x_lo, x_hi;
   decode(w, item, L, y0, z0, x_lo, x_hi, 32 * V);
   const YeeCells cells{L, &table_of(sh), S, m_col, j_col};
-  stream_pass<TI, TO, V, HALO, false>(in, out, L, M.matid, y0, z0, x_lo, x_hi, vec, b, hl, sh,
-                                      cells, cells);
+  stream_pass<TI, TO, V, HALO>(in, out, L, M.matid, y0, z0, x_lo, x_hi, vec, b, hl, sh, cells,
+                               cells);
 }
 
 // The work of a pass of V cells a thread: tiles TY x 32 V, x chunks as in

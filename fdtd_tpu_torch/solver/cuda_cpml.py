@@ -17,9 +17,10 @@ when ``with_m``). Source and TF/SF times are f32 ``tick * dt``.
 The TPU kernel's options ``dense`` (a DensePml region: its coefficient
 volumes and the state's four ``psi_d`` tensors, read from one set and
 written to another like the slab psi) and ``oblique`` (an ObliqueTfsf: the
-wrapper evaluates the analytic correction in f32 at the tick, and at half a
-tick later for the E pass, on the disjoint boxes of its shell, and the
-kernel adds it after each curl update) run in the kernel's extension
+analytic correction in f32 at the tick, and at half a tick later for the E
+pass, on the disjoint boxes of its shell, written each call by the pack
+kernel, ``ObliqueCorrection.levels`` (solver/cuda_oblique.py), and added by
+the kernel after each curl update) run in the kernel's extension
 instantiation. The TPU kernel takes the correction on the whole commutator
 subgrid; off the shell it is exactly zero (solver/tfsf_oblique.py).
 

@@ -35,7 +35,8 @@ The region and oblique options, as K3's (solver/cuda_cpml.py):
 * K4c ``dense``: a DensePml region's stretch at every level, its psi
   carried level to level through an f32 work set like the slab psi;
 * K4d ``oblique``: the ObliqueTfsf correction of every level, a (K,
-  level_len) f32 pack that the wrapper evaluates per call, corr_h at
+  level_len) f32 pack that the pack kernel writes per call
+  (``ObliqueCorrection.levels``, solver/cuda_oblique.py), corr_h at
   (tick + l) dt and corr_e half a tick later (pallas_cpml_k.py:1936-1947),
   on the shell's disjoint boxes.
 

@@ -8,8 +8,8 @@ DIR is another version's ``fdtd_tpu_torch/csrc`` (the parent commit's,
 unpacked with ``git archive HEAD fdtd_tpu_torch/csrc | tar -x -C
 build/parent``), whose ``fdtd_cpml`` takes the same arguments. It builds
 that version's ``cpml.cu`` beside this checkout's (and, with
-``--variants``, copies of this checkout's with other shapes of the pass:
-VARIANTS), one nvcc each, all started together, under
+``--variants``, copies of this checkout's with other shapes of the bf16
+fused pass: VARIANTS), one nvcc each, all started together, under
 ``build/k3_baseline/``, and this checkout's ``oblique.cu``, and prints each
 build's ptxas lines per instantiation (registers, spills).
 
@@ -66,12 +66,8 @@ from yee_baseline import ptxas_lines, using, vector_sources, with_macros  # noqa
 OUT = _build.BUILD_DIR.parent / "k3_baseline"
 #: name -> {source file: {macro: value}}: other shapes of K3's pass
 VARIANTS = {
-    "f32 fused V 1, 3 blocks": {"cpml.cu": {"CPML_F32_HALVES": "0", "CPML_MIN_BLOCKS": "3"}},
+    "bf16 V 4": {"cpml.cu": {"CPML_CELLS_BF16": "4"}},
     "bf16 V 2, 3 blocks": {"cpml.cu": {"CPML_MIN_BLOCKS": "3"}},
-    "bf16 V 2, 5 blocks": {"cpml.cu": {"CPML_MIN_BLOCKS": "5"}},
-    "bf16 V 4, 4 blocks": {"cpml.cu": {"CPML_CELLS_BF16": "4"}},
-    "bf16 V 8 rolled, 2 blocks": {"cpml.cu": {"CPML_CELLS_BF16": "8", "CPML_ROLLED": "1",
-                                              "CPML_MIN_BLOCKS": "2"}},
 }
 ALIGNED_SHAPE = (40, 32, 64)
 K4D_K = 8

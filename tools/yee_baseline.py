@@ -13,10 +13,9 @@ builds that version's ``step.cu``, ``stepk.cu`` and ``sharded_step.cu``
 (with its own headers) beside this checkout's, one nvcc each, all started
 together, under ``build/yee_baseline/``, and prints each build's ptxas
 lines per kernel instantiation (registers, spills). ``--variants`` also
-builds copies of this checkout's sources with other shapes (VARIANTS:
-K2's ticks in one cooperative launch; the fused pass with the next
-plane's loads issued before the barrier, with 8-byte accesses, or both),
-which run every check and the 512^3 timings beside the shipped build.
+builds copies of this checkout's sources with other shapes of the fused
+pass (VARIANTS: 8-byte accesses; no register bound), which run every
+check and the 512^3 timings beside the shipped build.
 
 Checks, each version against the baseline bit for bit, f32 and bf16: the
 out-of-place K1 and K2 (K = 2, 4, 8) with config 2's material index on the
@@ -73,10 +72,8 @@ ENTRIES = ("STEP", "STEPK", "STEP_INPLACE", "STEPK_INPLACE", "STEPK_EDGES", "SHA
 SOURCES = ("STEP", "STEPK", "SHARDED_STEP")
 #: name -> {source file: {macro: value}}: other shapes
 VARIANTS = {
-    "K2 cooperative": {"stepk.cu": {"STEPK_COOPERATIVE": "1"}},
-    "prefetch": {"yee.cuh": {"STREAM_PREFETCH": "1"}},
     "8-byte accesses": {"yee.cuh": {"STREAM_BYTES": "8"}},
-    "8-byte accesses, prefetch": {"yee.cuh": {"STREAM_BYTES": "8", "STREAM_PREFETCH": "1"}},
+    "1 block an SM": {"yee.cuh": {"STREAM_MIN_BLOCKS": "1"}},
 }
 #: K2 edge_planes' edge row in the check lattices: inside the array on every axis
 EDGE_ROW = (3, 35, 2, 20, 1, 50)

@@ -15,7 +15,7 @@ launch the kernel or raise.
 written into the state's own tensors with no work set, so a call holds one
 set of fields instead of three (f32). The state passed in is consumed; the
 returned state holds the same tensors, K ticks later. The kernel runs 2K
-half passes with a grid-wide barrier after each (csrc/stepk.cu): at f32
+half passes, each an ordinary launch (csrc/stepk.cu): at f32
 storage it is bit-identical to the out-of-place kernel; at bf16 storage
 every tick's H and E are rounded to bf16 (``plain_stepk_inplace``), where
 the out-of-place kernel and the TPU kernel round once per call. As in JAX,
@@ -31,9 +31,9 @@ a sentinel beyond the array leaves that face closed). The kernel also
 closes the array's own faces, so that no halo plane reads outside it:
 where the TPU kernel's rolls wrap at an interior shard's array ends, the
 port's read no neighbour; both are halo planes that the next exchange
-overwrites. It runs K2's pass with the edges (``_build.STEPK_EDGES``,
-csrc/stepk.cu ``fdtd_stepk_edges``); without ``edge_planes`` K2 is built
-as it was. Out of place only.
+overwrites. It runs K2's ticks with the edges as their bounds
+(``_build.STEPK_EDGES``, csrc/stepk.cu ``fdtd_stepk_edges``). Out of place
+only.
 """
 
 from __future__ import annotations

@@ -50,19 +50,19 @@
 namespace {
 
 // The fused pass at bf16 storage: its z cells a thread (an access of V
-// values) and the blocks an SM it asks registers for (tools/k3_baseline.py
-// --variants builds other values; PERF.md has their times).
-#define CPML_CELLS_BF16 2
-#define CPML_MIN_BLOCKS 4
+// values) and the blocks an SM it asks registers for (4 cells a thread, or
+// 3 blocks an SM, ran slower: PERF.md).
+constexpr int CELLS_BF16 = 2;
+constexpr int MIN_BLOCKS = 4;
 
 template <typename T, bool EXT>
-__global__ void __launch_bounds__(yee::STREAM_THREADS, CPML_MIN_BLOCKS)
+__global__ void __launch_bounds__(yee::STREAM_THREADS, MIN_BLOCKS)
 cpml_kernel(yee::Fields<const T> in, yee::Fields<T> out, yee::Lattice L,
             yee::Material M, yee::Sources S, int with_m, yee::Work w, int vec,
             const __grid_constant__ cpml::Profiles P,
             const __grid_constant__ cpml::Psi Q, cpml::Tfsf tf,
             const __grid_constant__ cpml::Ext X) {
-  constexpr int V = CPML_CELLS_BF16;
+  constexpr int V = CELLS_BF16;
   __shared__ yee::StreamShared<V> sh;
   yee::load_stream_table(sh, M);
   int y0, z0, x_lo, x_hi;
@@ -152,7 +152,7 @@ int launch(void** f, const cpml::Profiles& P, const cpml::Psi& Q,
   if constexpr (sizeof(T) == 4) {
     return launch_halves<T, EXT>(in, out, L, M, S, with_m, P, Q, tf, X, stream);
   } else {
-    constexpr int V = CPML_CELLS_BF16;
+    constexpr int V = CELLS_BF16;
     yee::Work w;
     const cudaError_t err = yee::stream_work<V>(cpml_kernel<T, EXT>, L, w);
     if (err != cudaSuccess) return (int)err;

@@ -65,8 +65,6 @@
 
 namespace cpml {
 
-using yee::RY;
-using yee::RZ;
 using yee::THREADS;
 using yee::TY;
 using yee::TZ;
@@ -576,10 +574,9 @@ __device__ __forceinline__ void e_half(yee::Fields<TS> f, const yee::Lattice& L,
 // cpml.cu): psi from set 0 to set 1, new psi stored by the cell's owner
 // only (`store`: the +1 ring and the seed plane recompute without storing).
 // A cell where h_cell or e_cell reduces to the lossless update (bare) takes
-// that update with h_cell's and e_cell's roundings (h<false> / e<false>, as
-// h_half and e_half take it); the others are declined there and take
-// h_cell or e_cell on the held values (h<true> / e<true>), with each raw
-// difference's product rounded apart so that no product fuses into the
+// that update with h_cell's and e_cell's roundings, as h_half and e_half
+// take it; the others take h_cell or e_cell on the held values, with each
+// raw difference's product rounded apart so that no product fuses into the
 // curl.
 template <typename TS, bool EXT>
 struct Cells {
@@ -595,13 +592,11 @@ struct Cells {
   const Ext* X;
   const float* ob;
 
-  template <bool FULL>
-  __device__ __forceinline__ bool h(int p, int y, int z, long long i, int mat, bool store,
+  __device__ __forceinline__ void h(int p, int y, int z, long long i, int mat, bool store,
                                     float dez_y, float dey_z, float dex_z, float dez_x,
                                     float dey_x, float dex_y, float ohx, float ohy, float ohz,
                                     float& hx, float& hy, float& hz) const {
-    if constexpr (!FULL) {
-      if (!bare<0, EXT>(*P, T, aux_e, *X, ob, p, y, z)) return false;
+    if (bare<0, EXT>(*P, T, aux_e, *X, ob, p, y, z)) {
       const float d_a = sh->table[mat][2], d_b = sh->table[mat][3];
       const float ez_y = __fmul_rn(dez_y, L.inv_y), ey_z = __fmul_rn(dey_z, L.inv_z);
       const float ex_z = __fmul_rn(dex_z, L.inv_z), ez_x = __fmul_rn(dez_x, L.inv_x);
@@ -618,16 +613,13 @@ struct Cells {
                             __fmul_rn(dex_y, L.inv_y), L, yee::HeldMaterial{mat}, S, m_col, *P,
                             *Q, T, aux_e, *sh, *X, ob, hx, hy, hz);
     }
-    return true;
   }
 
-  template <bool FULL>
-  __device__ __forceinline__ bool e(int p, int y, int z, long long i, int mat, float dhz_y,
+  __device__ __forceinline__ void e(int p, int y, int z, long long i, int mat, float dhz_y,
                                     float dhy_z, float dhx_z, float dhz_x, float dhy_x,
                                     float dhx_y, float oex, float oey, float oez, float& ex,
                                     float& ey, float& ez) const {
-    if constexpr (!FULL) {
-      if (!bare<1, EXT>(*P, T, aux_h, *X, ob, p, y, z)) return false;
+    if (bare<1, EXT>(*P, T, aux_h, *X, ob, p, y, z)) {
       const float c_a = sh->table[mat][0], c_b = sh->table[mat][1];
       const float hz_y = __fmul_rn(dhz_y, L.inv_y), hy_z = __fmul_rn(dhy_z, L.inv_z);
       const float hx_z = __fmul_rn(dhx_z, L.inv_z), hz_x = __fmul_rn(dhz_x, L.inv_x);
@@ -644,7 +636,6 @@ struct Cells {
                             __fmul_rn(dhx_y, L.inv_y), L, yee::HeldMaterial{mat}, S, j_col, *P,
                             *Q, T, aux_h, *sh, *X, ob, ex, ey, ez);
     }
-    return true;
   }
 };
 

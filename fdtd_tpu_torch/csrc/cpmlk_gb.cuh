@@ -197,9 +197,7 @@ __device__ __forceinline__ void wavefront(yee::Fields<const T> in, yee::Fields<T
   // the material table, then the window's planes: hn, the current level's
   // new H (two sets in turn, when they fit); ep, E of levels 1..K-1 from the
   // step before; hp, H of levels 1..K from the step before; 3 planes each.
-  // cpml::h_cell and e_cell read the table as yee::Shared's first member,
-  // and nothing beyond it: yee::Shared's H plane would cost the second
-  // block an SM at K = 4.
+  // cpml::h_cell and e_cell read the table as yee::Shared.
   load_window_table(smem, M);
   const yee::Shared& sh = *reinterpret_cast<const yee::Shared*>(smem);
   float* const hn0 = smem + TABLE;

@@ -82,8 +82,6 @@ namespace yee {
 
 constexpr int TY = 8;                   // tile rows (y) per block
 constexpr int TZ = 32;                  // tile columns (z), one warp wide
-constexpr int RY = TY + 1;              // tile + the +1 ring of new H
-constexpr int RZ = TZ + 1;
 constexpr int THREADS = TY * TZ;
 constexpr int MAX_MATERIALS = 256;      // uint8 material index
 
@@ -161,9 +159,6 @@ struct Sources {
 
 struct Shared {
   float table[MAX_MATERIALS][4];  // ids >= n_mat read zeros, as the TPU's one-hot select gives
-  float hx[RY][RZ];
-  float hy[RY][RZ];
-  float hz[RY][RZ];
 };
 
 __device__ inline void load_table(Shared& sh, const Material& m) {
@@ -751,11 +746,10 @@ inline int launch_halves(void** f, const float* table, int n_mat, const float* r
 //
 // Per cell the pass hands a cell object the raw differences (zero across a
 // face: backward at index <= bx, by, bz, forward at >= fx, fy, fz) and the
-// old values; `h<false>`/`e<false>` may decline a cell (K3's absorbing
-// cells), which `h<true>`/`e<true>` then computes. (A loop that is not
-// unrolled for the declined cells, the next plane's loads issued before
-// the barrier, 8-byte accesses and no register bound all ran slower:
-// PERF.md, and the macros of commit 6ff7920.)
+// old values, and the cell object's `h`/`e` returns the new ones. (The
+// next plane's loads issued before the barrier, 8-byte accesses and no
+// register bound all ran slower: PERF.md, and the macros of commit
+// 6ff7920.)
 
 constexpr int STREAM_THREADS = 32 * (TY + 1);
 
@@ -962,10 +956,8 @@ __device__ __forceinline__ void stream_pass(Fields<const TI> in, Fields<TO> out,
         const float dey_x = xm ? ey - widen(q.ey_b.b[j]) : 0.f;
         const float dex_y = ym ? ex - widen(q.ex_ym.b[j]) : 0.f;
         const float ohx = widen(q.hx.b[j]), ohy = widen(q.hy.b[j]), ohz = widen(q.hz.b[j]);
-        if (!hcell.template h<false>(p, y, z, i + j, mat, keep, dez_y, dey_z, dex_z, dez_x,
-                                     dey_x, dex_y, ohx, ohy, ohz, nhx[j], nhy[j], nhz[j]))
-          hcell.template h<true>(p, y, z, i + j, mat, keep, dez_y, dey_z, dex_z, dez_x, dey_x,
-                                 dex_y, ohx, ohy, ohz, nhx[j], nhy[j], nhz[j]);
+        hcell.h(p, y, z, i + j, mat, keep, dez_y, dey_z, dex_z, dez_x, dey_x, dex_y, ohx, ohy,
+                ohz, nhx[j], nhy[j], nhz[j]);
       }
       if (ring) {  // the cell (y, zr), which the tile's E at z0 + 32 V - 1 reads
         const long long ir = i + V, irb = base_b + o + V;
@@ -979,10 +971,7 @@ __device__ __forceinline__ void stream_pass(Fields<const TI> in, Fields<TO> out,
         const float ohx = load(f.hx, ir), ohy = load(f.hy, ir), ohz = load(f.hz, ir);
         const int mat = matid ? (int)matid[ir] : 0;
         float rhz;
-        if (!hcell.template h<false>(p, y, zr, ir, mat, false, d0, d1, d2, d3, d4, d5, ohx, ohy,
-                                     ohz, rhx, rhy, rhz))
-          hcell.template h<true>(p, y, zr, ir, mat, false, d0, d1, d2, d3, d4, d5, ohx, ohy, ohz,
-                                 rhx, rhy, rhz);
+        hcell.h(p, y, zr, ir, mat, false, d0, d1, d2, d3, d4, d5, ohx, ohy, ohz, rhx, rhy, rhz);
       }
       if (keep) {
         const long long io = (long long)p * L.ny * L.nz + o;
@@ -1024,10 +1013,8 @@ __device__ __forceinline__ void stream_pass(Fields<const TI> in, Fields<TO> out,
           const float dhy_x = x_in ? top_hy[j] - hy : 0.f;
           const float dhx_y = y_in ? sh.h[buf][warp][0][j][lane] - hx : 0.f;
           const float oex = widen(q.ex.b[j]), oey = widen(ey_c.b[j]), oez = widen(ez_c.b[j]);
-          if (!ecell.template e<false>(p, y, z, i + j, mat, dhz_y, dhy_z, dhx_z, dhz_x, dhy_x,
-                                       dhx_y, oex, oey, oez, nex[j], ney[j], nez[j]))
-            ecell.template e<true>(p, y, z, i + j, mat, dhz_y, dhy_z, dhx_z, dhz_x, dhy_x, dhx_y,
-                                   oex, oey, oez, nex[j], ney[j], nez[j]);
+          ecell.e(p, y, z, i + j, mat, dhz_y, dhy_z, dhx_z, dhz_x, dhy_x, dhx_y, oex, oey, oez,
+                  nex[j], ney[j], nez[j]);
         }
         const long long io = (long long)p * L.ny * L.nz + o;
         if (vec) store_stream<TO, V, true>(io, n, nex, ney, nez, out.ex, out.ey, out.ez);
@@ -1050,15 +1037,14 @@ __device__ __forceinline__ void stream_pass(Fields<const TI> in, Fields<TO> out,
 // pass rounded it (the first product of each curl fused into the
 // difference, d_a h fused in the H update, c_b curl in the E update;
 // bit-identical to it at f32 and bf16), and the sources of column m_col /
-// j_col (-1: none). They never decline a cell.
+// j_col (-1: none).
 struct YeeCells {
   Lattice L;
   const Shared* sh;
   Sources S;
   int m_col, j_col;
 
-  template <bool FULL>
-  __device__ __forceinline__ bool h(int p, int y, int z, long long, int mat, bool, float dez_y,
+  __device__ __forceinline__ void h(int p, int y, int z, long long, int mat, bool, float dez_y,
                                     float dey_z, float dex_z, float dez_x, float dey_x,
                                     float dex_y, float ohx, float ohy, float ohz, float& hx,
                                     float& hy, float& hz) const {
@@ -1070,11 +1056,9 @@ struct YeeCells {
     hy = __fmaf_rn(d_a, ohy, -__fmul_rn(d_b, ce_y));
     hz = __fmaf_rn(d_a, ohz, -__fmul_rn(d_b, ce_z));
     if (m_col >= 0) inject(S, m_col, p, y, z, d_b, hx, hy, hz);
-    return true;
   }
 
-  template <bool FULL>
-  __device__ __forceinline__ bool e(int p, int y, int z, long long, int mat, float dhz_y,
+  __device__ __forceinline__ void e(int p, int y, int z, long long, int mat, float dhz_y,
                                     float dhy_z, float dhx_z, float dhz_x, float dhy_x,
                                     float dhx_y, float oex, float oey, float oez, float& ex,
                                     float& ey, float& ez) const {
@@ -1086,7 +1070,6 @@ struct YeeCells {
     ey = __fmaf_rn(c_b, ch_y, __fmul_rn(c_a, oey));
     ez = __fmaf_rn(c_b, ch_z, __fmul_rn(c_a, oez));
     if (j_col >= 0) inject(S, j_col, p, y, z, c_b, ex, ey, ez);
-    return true;
   }
 };
 

@@ -1,15 +1,14 @@
 #!/usr/bin/env python3
 """Hold K3 and the oblique pack kernel to another version's, on one CUDA card.
 
-    python3 tools/k3_baseline.py --baseline DIR [--calls N] [--variants] [--checks-only]
+    python3 tools/k3_baseline.py --baseline DIR [--calls N] [--checks-only]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 DIR is another version's ``fdtd_tpu_torch/csrc`` (the parent commit's,
 unpacked with ``git archive HEAD fdtd_tpu_torch/csrc | tar -x -C
 build/parent``), whose ``fdtd_cpml`` takes the same arguments. It builds
-that version's ``cpml.cu`` beside this checkout's (and, with
-``--variants``, copies of this checkout's with other shapes of the bf16
-fused pass: VARIANTS), one nvcc each, all started together, under
+that version's ``cpml.cu`` beside this checkout's, one nvcc each, all
+started together, under
 ``build/k3_baseline/``, and this checkout's ``oblique.cu``, and prints each
 build's ptxas lines per instantiation (registers, spills).
 
@@ -25,11 +24,11 @@ the four waveforms on the skew frame's shell and on path A's 256^3 shell
 one K3 oblique call on the kernel's pack against the same call on the
 torch pack.
 
-Timings, with CUDA events, in turns (baseline, this, this, baseline; the
-variants after this), ``N`` calls each (default 20): K3 at 512^3 with
-Cpml.uniform(10), f32 and bf16, beside K4 at K = 2 out of place and in
-place (the half passes: the one-tick alternative); config 3 at 256^3 (f32); path B's K3 dense
-at 256^3; path A's K3 oblique at 256^3, a tick with its correction (the
+Timings, with CUDA events, in turns (baseline, this, this, baseline),
+``N`` calls each (default 20): K3 at 512^3 with Cpml.uniform(10), f32
+and bf16, beside K4 at K = 2 out of place and in place (the half passes:
+the one-tick alternative); config 3 at 256^3 (f32); path B's K3 dense at
+256^3; path A's K3 oblique at 256^3, a tick with its correction (the
 baseline's on the torch pack, as its wrapper evaluates it; this one on the
 kernel's); K4d on path A in place at K = 8 (the torch pack against the
 kernel's); the pack kernel alone and ObliqueCorrection.pack alone at K = 1
@@ -61,14 +60,9 @@ from fdtd_tpu_torch.solver import _build, cuda_oblique  # noqa: E402
 from fdtd_tpu_torch.solver.cuda_cpml import cuda_cpml_step_fn, psi_tensors  # noqa: E402
 from fdtd_tpu_torch.solver.cuda_cpml_k import cuda_cpml_stepk_fn  # noqa: E402
 from fdtd_tpu_torch.solver.tfsf_oblique import ObliqueCorrection, shell_boxes  # noqa: E402
-from yee_baseline import ptxas_lines, using, vector_sources, with_macros  # noqa: E402
+from yee_baseline import ptxas_lines, using, vector_sources  # noqa: E402
 
 OUT = _build.BUILD_DIR.parent / "k3_baseline"
-#: name -> {source file: {macro: value}}: other shapes of K3's pass
-VARIANTS = {
-    "bf16 V 4": {"cpml.cu": {"CPML_CELLS_BF16": "4"}},
-    "bf16 V 2, 3 blocks": {"cpml.cu": {"CPML_MIN_BLOCKS": "3"}},
-}
 ALIGNED_SHAPE = (40, 32, 64)
 K4D_K = 8
 
@@ -79,16 +73,13 @@ def card() -> str:
                           check=True).stdout.strip()
 
 
-def build_versions(baseline: Path, variants: bool):
+def build_versions(baseline: Path):
     """{version: K3 Kernel} (baseline first), built and loaded, and this
     checkout's pack kernel."""
     import shutil
 
     shutil.rmtree(OUT, ignore_errors=True)
     dirs = {"baseline": baseline.resolve(), "this": _build.CSRC}
-    if variants:
-        for i, (name, macros) in enumerate(VARIANTS.items()):
-            dirs[name] = with_macros(_build.CSRC, OUT / f"src{i}", macros)
     versions = {name: _build.Kernel(f"K3 {name}", "cpml.cu", "fdtd_cpml", _build.CPML.argtypes,
                                     csrc=csrc, build_dir=OUT / f"lib_{i}")
                 for i, (name, csrc) in enumerate(dirs.items())}
@@ -333,8 +324,6 @@ def main() -> int:
     ap.add_argument("--baseline", type=Path, required=True,
                     help="another version's fdtd_tpu_torch/csrc")
     ap.add_argument("--calls", type=int, default=20)
-    ap.add_argument("--variants", action="store_true",
-                    help="also build and time K3's other pass shapes")
     ap.add_argument("--checks-only", action="store_true", help="skip the timings")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -343,7 +332,7 @@ def main() -> int:
     name = card()
     cs.log(name)
     dev = torch.device("cuda")
-    versions = build_versions(args.baseline, args.variants)
+    versions = build_versions(args.baseline)
     ok = check_k3(versions, dev, torch.Generator(device=dev).manual_seed(0))
     worst, same = check_pack(dev)
     cs.log(f"pack kernel: largest difference {worst:.2f} ulp of max|corr|")
